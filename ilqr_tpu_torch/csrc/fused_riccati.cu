@@ -1,0 +1,518 @@
+// Fused Riccati backward pass: elements, suffix scan, closure and gains.
+//
+// Replaces: ilqr_tpu/ops/pallas_riccati.py::_fused_kernel (launcher
+// _fused_backward_packed, entry backward_pass_pallas_fused).
+//
+// Math (see ilqr_tpu_torch/ops/parallel_riccati.py): step k of the LQ
+// subproblem is the element e_k = (A, b, C, eta, J) and the terminal cost
+// the element (0, 0, 0, -v_x, v_xx).  The suffix products
+// e_k (x) ... (x) e_N under the associative, non-commutative combine carry
+// the cost-to-go V(k) = (J, -eta); the gains at k come from V(k+1).
+//
+// What bounds it on an H100: arithmetic and registers.  One combine is a
+// 4x4 inverse and about ten 4x4 products (~1.3 kflop at n_x = 4) on an
+// element of F = 3 n_x^2 + 2 n_x = 56 floats, and a recursive-doubling
+// scan does log2(block) of them per step; the expansion read and the gains
+// written are ~100 bytes a step.  With each element in one thread's
+// registers, the register file (not shared memory or DRAM) caps how many
+// threads an SM holds.
+//
+// Design.  The TPU kernel walks its blocks right to left on a sequential
+// grid and carries the combined suffix of the later blocks in SMEM.  Blocks
+// of a CUDA grid run in no order, so the cross-block carry is its own pass:
+//   1. scan_blocks_kernel: one thread per step builds its element from the
+//      expansion (R = l_uu + reg I inverted in closed form), then a
+//      Hillis-Steele suffix scan over kBlockSteps elements in shared memory
+//      (field-major, conflict-free).  At distance d each element joins the
+//      adjacent window that starts d later, so the windows never overlap:
+//      the combine is neither commutative nor idempotent.  Writes every
+//      block-local suffix element.
+//   2. boundary_kernel: one thread walks the blocks right to left and
+//      applies each block's aggregate (its local suffix at the block start)
+//      to the running value (eta, J).  Only (eta, J) of the later operand
+//      enter the (eta, J) of a combine, so the carry is a value function,
+//      not a whole element.  Writes the value at each block's right edge.
+//   3. gains_kernel: one thread per step t closes the local suffix at t+1
+//      with the value at its block's right edge, which gives V(t+1) without
+//      a shift across blocks, then forms the Q-expansion, the gains and the
+//      per-step dV, and reduces dV and a non-finite count per block.
+// No TPU packing is reproduced: the expansion tensors are read as they are.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kBlockSteps = 256;  // steps per scan block (pass 1 threads)
+constexpr int kGainThreads = 128;  // threads per block of pass 3
+
+template <int NX>
+struct Elem {
+  static constexpr int NN = NX * NX;
+  static constexpr int A = 0;
+  static constexpr int B = NN;
+  static constexpr int C = NN + NX;
+  static constexpr int ETA = 2 * NN + NX;
+  static constexpr int J = 2 * NN + 2 * NX;
+  static constexpr int F = 3 * NN + 2 * NX;
+};
+
+// ---- Small dense matrices: row-major, fully unrolled. ----
+
+// c (N x P) = a (N x M) b (M x P)
+template <int N, int M, int P>
+__device__ __forceinline__ void mm(const float* a, const float* b, float* c) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < M; ++k) s += a[i * M + k] * b[k * P + j];
+      c[i * P + j] = s;
+    }
+}
+
+// c (N x P) = a' b, a (M x N), b (M x P)
+template <int N, int M, int P>
+__device__ __forceinline__ void mtm(const float* a, const float* b, float* c) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < M; ++k) s += a[k * N + i] * b[k * P + j];
+      c[i * P + j] = s;
+    }
+}
+
+// c (N x P) = a b', a (N x M), b (P x M)
+template <int N, int M, int P>
+__device__ __forceinline__ void mmt(const float* a, const float* b, float* c) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < M; ++k) s += a[i * M + k] * b[j * M + k];
+      c[i * P + j] = s;
+    }
+}
+
+// y (N) = a x, a (N x M)
+template <int N, int M>
+__device__ __forceinline__ void mv(const float* a, const float* x, float* y) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < M; ++k) s += a[i * M + k] * x[k];
+    y[i] = s;
+  }
+}
+
+// y (N) = a' x, a (M x N)
+template <int N, int M>
+__device__ __forceinline__ void mtv(const float* a, const float* x, float* y) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < M; ++k) s += a[k * N + i] * x[k];
+    y[i] = s;
+  }
+}
+
+// o = 0.5 (m + m')
+template <int N>
+__device__ __forceinline__ void sym(const float* m, float* o) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) o[i * N + j] = 0.5f * (m[i * N + j] + m[j * N + i]);
+}
+
+// Closed-form inverses: adjugate up to 3x3, 2x2-block Schur at 4x4 (the
+// forms of ilqr_tpu/ops/pallas_riccati.py::_minv).
+template <int N>
+__device__ __forceinline__ void inv(const float* a, float* r) {
+  if constexpr (N == 1) {
+    r[0] = 1.0f / a[0];
+  } else if constexpr (N == 2) {
+    const float idet = 1.0f / (a[0] * a[3] - a[1] * a[2]);
+    r[0] = a[3] * idet;
+    r[1] = -a[1] * idet;
+    r[2] = -a[2] * idet;
+    r[3] = a[0] * idet;
+  } else if constexpr (N == 3) {
+    const float c00 = a[4] * a[8] - a[5] * a[7];
+    const float c01 = a[5] * a[6] - a[3] * a[8];
+    const float c02 = a[3] * a[7] - a[4] * a[6];
+    const float c10 = a[2] * a[7] - a[1] * a[8];
+    const float c11 = a[0] * a[8] - a[2] * a[6];
+    const float c12 = a[1] * a[6] - a[0] * a[7];
+    const float c20 = a[1] * a[5] - a[2] * a[4];
+    const float c21 = a[2] * a[3] - a[0] * a[5];
+    const float c22 = a[0] * a[4] - a[1] * a[3];
+    const float idet = 1.0f / (a[0] * c00 + a[1] * c01 + a[2] * c02);
+    r[0] = c00 * idet; r[1] = c10 * idet; r[2] = c20 * idet;
+    r[3] = c01 * idet; r[4] = c11 * idet; r[5] = c21 * idet;
+    r[6] = c02 * idet; r[7] = c12 * idet; r[8] = c22 * idet;
+  } else {
+    static_assert(N == 4, "closed-form inverses cover n <= 4");
+    const float P[4] = {a[0], a[1], a[4], a[5]};
+    const float Q[4] = {a[2], a[3], a[6], a[7]};
+    const float R[4] = {a[8], a[9], a[12], a[13]};
+    const float S[4] = {a[10], a[11], a[14], a[15]};
+    float Pi[4], RPi[4], RPiQ[4], Sig[4], Sigi[4], PiQ[4], PiQSigi[4],
+        tl[4], SigiRPi[4];
+    inv<2>(P, Pi);
+    mm<2, 2, 2>(R, Pi, RPi);
+    mm<2, 2, 2>(RPi, Q, RPiQ);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Sig[i] = S[i] - RPiQ[i];
+    inv<2>(Sig, Sigi);
+    mm<2, 2, 2>(Pi, Q, PiQ);
+    mm<2, 2, 2>(PiQ, Sigi, PiQSigi);
+    mm<2, 2, 2>(PiQSigi, RPi, tl);
+    mm<2, 2, 2>(Sigi, RPi, SigiRPi);
+    r[0] = Pi[0] + tl[0];  r[1] = Pi[1] + tl[1];
+    r[4] = Pi[2] + tl[2];  r[5] = Pi[3] + tl[3];
+    r[2] = -PiQSigi[0];    r[3] = -PiQSigi[1];
+    r[6] = -PiQSigi[2];    r[7] = -PiQSigi[3];
+    r[8] = -SigiRPi[0];    r[9] = -SigiRPi[1];
+    r[12] = -SigiRPi[2];   r[13] = -SigiRPi[3];
+    r[10] = Sigi[0];       r[11] = Sigi[1];
+    r[14] = Sigi[2];       r[15] = Sigi[3];
+  }
+}
+
+// (eta, J) of e (x) e' where e' has value (eta_j, J_j):
+//   eta = A' L^-T (eta_j - J_j b) + eta_e,  J = sym(A' L^-T J_j A + J_e),
+//   L = I + C J_j.   `Li` returns L^-1 for callers that need the rest.
+template <int NX>
+__device__ __forceinline__ void apply_value(const float* e, const float* eta_j,
+                                            const float* J_j, float* eta,
+                                            float* J, float* Li) {
+  using E = Elem<NX>;
+  constexpr int NN = E::NN;
+  float L[NN];
+  mm<NX, NX, NX>(e + E::C, J_j, L);
+#pragma unroll
+  for (int d = 0; d < NX; ++d) L[d * NX + d] += 1.0f;
+  inv<NX>(L, Li);
+  float v[NX], w[NX];
+  mv<NX, NX>(J_j, e + E::B, v);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) v[i] = eta_j[i] - v[i];
+  mtv<NX, NX>(Li, v, w);
+  mtv<NX, NX>(e + E::A, w, eta);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) eta[i] += e[E::ETA + i];
+  float T[NN], T2[NN];
+  mtm<NX, NX, NX>(Li, J_j, T);
+  mm<NX, NX, NX>(T, e + E::A, T2);
+  mtm<NX, NX, NX>(e + E::A, T2, T);
+#pragma unroll
+  for (int i = 0; i < NN; ++i) T[i] += e[E::J + i];
+  sym<NX>(T, J);
+}
+
+// o = ei (x) ej: ei the earlier element, ej the later.  o must not alias.
+template <int NX>
+__device__ __forceinline__ void combine(const float* ei, const float* ej,
+                                        float* o) {
+  using E = Elem<NX>;
+  constexpr int NN = E::NN;
+  const float* Aj = ej + E::A;
+  float Li[NN];
+  apply_value<NX>(ei, ej + E::ETA, ej + E::J, o + E::ETA, o + E::J, Li);
+  float T[NN], T2[NN];
+  // A = Aj L^-1 Ai
+  mm<NX, NX, NX>(Li, ei + E::A, T);
+  mm<NX, NX, NX>(Aj, T, o + E::A);
+  // b = Aj L^-1 (bi + Ci eta_j) + bj
+  float v[NX], w[NX];
+  mv<NX, NX>(ei + E::C, ej + E::ETA, v);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) v[i] += ei[E::B + i];
+  mv<NX, NX>(Li, v, w);
+  mv<NX, NX>(Aj, w, o + E::B);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) o[E::B + i] += ej[E::B + i];
+  // C = sym(Aj L^-1 Ci Aj' + Cj)
+  mm<NX, NX, NX>(Li, ei + E::C, T);
+  mm<NX, NX, NX>(Aj, T, T2);
+  mmt<NX, NX, NX>(T2, Aj, T);
+#pragma unroll
+  for (int i = 0; i < NN; ++i) T[i] += ej[E::C + i];
+  sym<NX>(T, o + E::C);
+}
+
+struct Expansion {
+  const float* f_x;   // (N, NX, NX)
+  const float* f_u;   // (N, NX, NU)
+  const float* l_x;   // (N, NX)
+  const float* l_u;   // (N, NU)
+  const float* l_xx;  // (N, NX, NX)
+  const float* l_ux;  // (N, NU, NX)
+  const float* l_uu;  // (N, NU, NU)
+  const float* v_x;   // (NX,)
+  const float* v_xx;  // (NX, NX)
+};
+
+template <int N>
+__device__ __forceinline__ void load(const float* src, float* dst) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) dst[i] = src[i];
+}
+
+// Element k: a stage leaf for k < N, the terminal element at k = N, the
+// combine identity (A = I, rest 0) beyond.
+template <int NX, int NU>
+__device__ __forceinline__ void build_element(int k, int N,
+                                              const Expansion& ex, float reg,
+                                              float* e) {
+  using E = Elem<NX>;
+  constexpr int NN = E::NN;
+#pragma unroll
+  for (int i = 0; i < E::F; ++i) e[i] = 0.0f;
+  if (k < N) {
+    float f_x[NN], f_u[NX * NU], l_x[NX], l_u[NU], l_xx[NN], l_ux[NU * NX],
+        R[NU * NU];
+    load<NN>(ex.f_x + (size_t)k * NN, f_x);
+    load<NX * NU>(ex.f_u + (size_t)k * NX * NU, f_u);
+    load<NX>(ex.l_x + (size_t)k * NX, l_x);
+    load<NU>(ex.l_u + (size_t)k * NU, l_u);
+    load<NN>(ex.l_xx + (size_t)k * NN, l_xx);
+    load<NU * NX>(ex.l_ux + (size_t)k * NU * NX, l_ux);
+    load<NU * NU>(ex.l_uu + (size_t)k * NU * NU, R);
+#pragma unroll
+    for (int d = 0; d < NU; ++d) R[d * NU + d] += reg;
+    float Ri[NU * NU], RiM[NU * NX], RiBt[NU * NX], Rir[NU];
+    inv<NU>(R, Ri);
+    mm<NU, NU, NX>(Ri, l_ux, RiM);
+    mmt<NU, NU, NX>(Ri, f_u, RiBt);
+    mv<NU, NU>(Ri, l_u, Rir);
+    float T[NN], v[NX];
+    // A = f_x - f_u R^-1 M
+    mm<NX, NU, NX>(f_u, RiM, T);
+#pragma unroll
+    for (int i = 0; i < NN; ++i) e[E::A + i] = f_x[i] - T[i];
+    // b = -f_u R^-1 r
+    mv<NX, NU>(f_u, Rir, v);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) e[E::B + i] = -v[i];
+    // C = sym(f_u R^-1 f_u')
+    mm<NX, NU, NX>(f_u, RiBt, T);
+    sym<NX>(T, e + E::C);
+    // J = sym(l_xx - M' R^-1 M)
+    mtm<NX, NU, NX>(l_ux, RiM, T);
+#pragma unroll
+    for (int i = 0; i < NN; ++i) T[i] = l_xx[i] - T[i];
+    sym<NX>(T, e + E::J);
+    // eta = -(l_x - M' R^-1 r)
+    mtv<NX, NU>(l_ux, Rir, v);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) e[E::ETA + i] = -(l_x[i] - v[i]);
+  } else if (k == N) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) e[E::ETA + i] = -ex.v_x[i];
+    load<NN>(ex.v_xx, e + E::J);
+  } else {
+#pragma unroll
+    for (int d = 0; d < NX; ++d) e[E::A + d * NX + d] = 1.0f;
+  }
+}
+
+// Pass 1: elements and the block-local inclusive suffix scan.
+template <int NX, int NU>
+__global__ void __launch_bounds__(kBlockSteps)
+scan_blocks_kernel(Expansion ex, int N, float reg, float* __restrict__ local) {
+  using E = Elem<NX>;
+  extern __shared__ float smem[];  // E::F x kBlockSteps, field-major
+  const int tid = threadIdx.x;
+  const int k = blockIdx.x * kBlockSteps + tid;
+  float e[E::F];
+  build_element<NX, NU>(k, N, ex, reg, e);
+  for (int d = 1; d < kBlockSteps; d <<= 1) {
+#pragma unroll
+    for (int f = 0; f < E::F; ++f) smem[f * kBlockSteps + tid] = e[f];
+    __syncthreads();
+    // A partner past the terminal element is the identity: skip it.
+    if (tid + d < kBlockSteps && k + d <= N) {
+      float p[E::F], o[E::F];
+#pragma unroll
+      for (int f = 0; f < E::F; ++f) p[f] = smem[f * kBlockSteps + tid + d];
+      combine<NX>(e, p, o);
+#pragma unroll
+      for (int f = 0; f < E::F; ++f) e[f] = o[f];
+    }
+    __syncthreads();
+  }
+  if (k <= N) {
+#pragma unroll
+    for (int f = 0; f < E::F; ++f) local[(size_t)k * E::F + f] = e[f];
+  }
+}
+
+// Pass 2: the value (eta, J) at the right edge of every block, i.e. the
+// suffix of all later blocks; the last block's is zero (identity).
+template <int NX>
+__global__ void boundary_kernel(const float* __restrict__ local, int n_blocks,
+                                float* __restrict__ edge) {
+  using E = Elem<NX>;
+  constexpr int NN = E::NN;
+  if (threadIdx.x != 0) return;
+  float eta[NX], J[NN], eta2[NX], J2[NN], Li[NN], e[E::F];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) eta[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NN; ++i) J[i] = 0.0f;
+  for (int b = n_blocks - 1; b >= 0; --b) {
+    float* out = edge + (size_t)b * (NX + NN);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) out[i] = eta[i];
+#pragma unroll
+    for (int i = 0; i < NN; ++i) out[NX + i] = J[i];
+    load<E::F>(local + (size_t)b * kBlockSteps * E::F, e);
+    apply_value<NX>(e, eta, J, eta2, J2, Li);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) eta[i] = eta2[i];
+#pragma unroll
+    for (int i = 0; i < NN; ++i) J[i] = J2[i];
+  }
+}
+
+// Pass 3: V(t+1) by closure, then the gains and dV at step t.
+template <int NX, int NU>
+__global__ void __launch_bounds__(kGainThreads)
+gains_kernel(Expansion ex, int N, float reg, const float* __restrict__ local,
+             const float* __restrict__ edge, float* __restrict__ u_ff_out,
+             float* __restrict__ K_out, float* __restrict__ partials) {
+  using E = Elem<NX>;
+  constexpr int NN = E::NN;
+  extern __shared__ float smem[];  // 3 x kGainThreads
+  const int tid = threadIdx.x;
+  const int t = blockIdx.x * kGainThreads + tid;
+  float dv1 = 0.0f, dv2 = 0.0f, bad = 0.0f;
+  if (t < N) {
+    const int j = t + 1;
+    float e[E::F], eta_n[NX], J_n[NN], Li[NN];
+    load<E::F>(local + (size_t)j * E::F, e);
+    const float* V = edge + (size_t)(j / kBlockSteps) * (NX + NN);
+    apply_value<NX>(e, V, V + NX, eta_n, J_n, Li);
+
+    float f_x[NN], f_u[NX * NU], l_u[NU], Q_ux[NU * NX], Q_uu[NU * NU];
+    load<NN>(ex.f_x + (size_t)t * NN, f_x);
+    load<NX * NU>(ex.f_u + (size_t)t * NX * NU, f_u);
+    load<NU>(ex.l_u + (size_t)t * NU, l_u);
+    float v_x[NX], fuT_Vxx[NU * NX], Q_u[NU], T[NU * NU];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) v_x[i] = -eta_n[i];
+    mtm<NU, NX, NX>(f_u, J_n, fuT_Vxx);
+    mtv<NU, NX>(f_u, v_x, Q_u);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) Q_u[i] += l_u[i];
+    mm<NU, NX, NX>(fuT_Vxx, f_x, Q_ux);
+#pragma unroll
+    for (int i = 0; i < NU * NX; ++i) Q_ux[i] += ex.l_ux[(size_t)t * NU * NX + i];
+    mm<NU, NX, NU>(fuT_Vxx, f_u, T);
+#pragma unroll
+    for (int i = 0; i < NU * NU; ++i) T[i] += ex.l_uu[(size_t)t * NU * NU + i];
+#pragma unroll
+    for (int d = 0; d < NU; ++d) T[d * NU + d] += reg;
+    sym<NU>(T, Q_uu);
+    float Qi[NU * NU], K[NU * NX], u_ff[NU], q[NU];
+    inv<NU>(Q_uu, Qi);
+    mm<NU, NU, NX>(Qi, Q_ux, K);
+    mv<NU, NU>(Qi, Q_u, u_ff);
+#pragma unroll
+    for (int i = 0; i < NU * NX; ++i) {
+      K[i] = -K[i];
+      K_out[(size_t)t * NU * NX + i] = K[i];
+      if (!isfinite(K[i])) bad = 1.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      u_ff[i] = -u_ff[i];
+      u_ff_out[(size_t)t * NU + i] = u_ff[i];
+      if (!isfinite(u_ff[i])) bad = 1.0f;
+    }
+    mv<NU, NU>(Q_uu, u_ff, q);
+    float uu = 0.0f, uQu = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      dv1 += u_ff[i] * Q_u[i];
+      uQu += u_ff[i] * q[i];
+      uu += u_ff[i] * u_ff[i];
+    }
+    dv2 = 0.5f * (uQu - reg * uu);
+  }
+  smem[tid] = dv1;
+  smem[kGainThreads + tid] = dv2;
+  smem[2 * kGainThreads + tid] = bad;
+  __syncthreads();
+  for (int s = kGainThreads / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      smem[tid] += smem[tid + s];
+      smem[kGainThreads + tid] += smem[kGainThreads + tid + s];
+      smem[2 * kGainThreads + tid] += smem[2 * kGainThreads + tid + s];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    partials[blockIdx.x * 3 + 0] = smem[0];
+    partials[blockIdx.x * 3 + 1] = smem[kGainThreads];
+    partials[blockIdx.x * 3 + 2] = smem[2 * kGainThreads];
+  }
+}
+
+template <int NX, int NU>
+int run(int N, float reg, const Expansion& ex, float* local, float* edge,
+        float* u_ff, float* K, float* partials, cudaStream_t stream) {
+  using E = Elem<NX>;
+  const int n_blocks = (N + 1 + kBlockSteps - 1) / kBlockSteps;
+  const int scan_smem = static_cast<int>(sizeof(float) * E::F * kBlockSteps);
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_blocks_kernel<NX, NU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scan_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_blocks_kernel<NX, NU><<<n_blocks, kBlockSteps, scan_smem, stream>>>(
+      ex, N, reg, local);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  boundary_kernel<NX><<<1, 32, 0, stream>>>(local, n_blocks, edge);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int gain_blocks = (N + kGainThreads - 1) / kGainThreads;
+  gains_kernel<NX, NU><<<gain_blocks, kGainThreads,
+                         3 * kGainThreads * sizeof(float), stream>>>(
+      ex, N, reg, local, edge, u_ff, K, partials);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int ilqr_riccati_block_steps() { return kBlockSteps; }
+extern "C" int ilqr_riccati_gain_threads() { return kGainThreads; }
+
+// Scratch: local (N+1, F), edge (n_blocks, n_x + n_x^2); outputs u_ff
+// (N, n_u), K (N, n_u, n_x), partials (gain_blocks, 3) = per-block sums of
+// dV1, dV2 and the count of non-finite gains.
+extern "C" int ilqr_fused_riccati(
+    int n_x, int n_u, int N, float reg, const float* f_x, const float* f_u,
+    const float* l_x, const float* l_u, const float* l_xx, const float* l_ux,
+    const float* l_uu, const float* v_x, const float* v_xx, float* local,
+    float* edge, float* u_ff, float* K, float* partials, void* stream) {
+  const Expansion ex{f_x, f_u, l_x, l_u, l_xx, l_ux, l_uu, v_x, v_xx};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_x == 2 && n_u == 1)
+    return run<2, 1>(N, reg, ex, local, edge, u_ff, K, partials, s);
+  if (n_x == 4 && n_u == 1)
+    return run<4, 1>(N, reg, ex, local, edge, u_ff, K, partials, s);
+  if (n_x == 4 && n_u == 2)
+    return run<4, 2>(N, reg, ex, local, edge, u_ff, K, partials, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,184 @@
+// Sequential closed-loop rollout kernels (line-search costs and trajectory).
+//
+// Replaces: ilqr_tpu/ops/pallas_rollout.py::_ls_cost_kernel (entry
+// linesearch_costs_pallas) and ::_traj_kernel (entry
+// closed_loop_rollout_pallas).
+//
+// What bounds it on an H100: latency.  The recursion
+//   u_t = u_old_t + a*u_ff_t + K_t (x_t - x_old_t),  x_{t+1} = step(x_t, u_t)
+// is a chain of N dependent steps of a few hundred flops on a handful of
+// floats; no amount of bandwidth or SM count shortens it.  What the chain
+// must not do is wait on device memory once per step.
+//
+// Design: one thread per alpha candidate (a block of 32 holds the whole
+// schedule), state and cost in registers, the model, integrator and
+// quadratic costs inlined from models.cuh.  Every candidate reads the same
+// step inputs, so the block stages the next kChunk steps of X_old, U_old,
+// u_ff and K in shared memory with coalesced loads, and the chain then
+// reads shared memory only.  The parameter buffer is staged once.  The
+// costs kernel stores no trajectory; the trajectory kernel (TRAJ) runs one
+// alpha and writes X, U and the final state.  Unlike the TPU kernel, the
+// time loop is exactly N steps: no chunk padding, alpha padding or masking.
+#include <cuda_runtime.h>
+
+#include "models.cuh"
+
+namespace {
+
+using namespace ilqr;
+
+constexpr int kCandidates = 32;  // threads per block, one per alpha
+constexpr int kChunk = 64;       // steps staged in shared memory per pass
+
+template <class Model, int NX, int NU, int INTEG, bool TRAJ>
+__global__ void __launch_bounds__(kCandidates)
+rollout_kernel(const float* __restrict__ params, int n_params,
+               const float* __restrict__ x0,
+               const float* __restrict__ alphas, float alpha, int n_alpha,
+               const float* __restrict__ X_old, const float* __restrict__ U_old,
+               const float* __restrict__ u_ff, const float* __restrict__ K,
+               int N, float* __restrict__ costs, float* __restrict__ X_out,
+               float* __restrict__ U_out) {
+  extern __shared__ float smem[];
+  float* sp = smem;                        // parameter buffer
+  float* sX = sp + n_params;               // kChunk x NX
+  float* sU = sX + kChunk * NX;            // kChunk x NU
+  float* sF = sU + kChunk * NU;            // kChunk x NU
+  float* sK = sF + kChunk * NU;            // kChunk x NU x NX
+
+  const int tid = threadIdx.x;
+  const int a = blockIdx.x * blockDim.x + tid;
+  const bool active = a < n_alpha;
+  const float al = (active && alphas != nullptr) ? alphas[a] : alpha;
+
+  for (int i = tid; i < n_params; i += blockDim.x) sp[i] = params[i];
+  float x[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = x0[i];
+  float cost = 0.0f;
+
+  for (int t0 = 0; t0 < N; t0 += kChunk) {
+    const int T = min(kChunk, N - t0);
+    __syncthreads();  // the previous chunk is no longer read
+    for (int i = tid; i < T * NX; i += blockDim.x) sX[i] = X_old[t0 * NX + i];
+    for (int i = tid; i < T * NU; i += blockDim.x) {
+      sU[i] = U_old[t0 * NU + i];
+      sF[i] = u_ff[t0 * NU + i];
+    }
+    for (int i = tid; i < T * NU * NX; i += blockDim.x)
+      sK[i] = K[t0 * NU * NX + i];
+    __syncthreads();
+    if (!active) continue;
+    for (int s = 0; s < T; ++s) {
+      float u[NU];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        float acc = sU[s * NU + i] + al * sF[s * NU + i];
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+          acc += sK[(s * NU + i) * NX + j] * (x[j] - sX[s * NX + j]);
+        u[i] = acc;
+      }
+      if constexpr (TRAJ) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) X_out[(t0 + s) * NX + i] = x[i];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) U_out[(t0 + s) * NU + i] = u[i];
+      }
+      cost += stage_cost<NX, NU>(sp, x, u);
+      float xn[NX];
+      step<Model, NX, NU, INTEG>(sp, x, u, xn);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+    }
+  }
+  if (!active) return;
+  cost += terminal_cost<NX, NU>(sp, x);
+  costs[a] = cost;
+  if constexpr (TRAJ) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) X_out[N * NX + i] = x[i];
+  }
+}
+
+struct RolloutArgs {
+  const float* params;
+  int n_params;
+  const float* x0;
+  const float* alphas;
+  float alpha;
+  int n_alpha;
+  const float* X_old;
+  const float* U_old;
+  const float* u_ff;
+  const float* K;
+  int N;
+  float* costs;
+  float* X_out;
+  float* U_out;
+  cudaStream_t stream;
+};
+
+template <class Model, int NX, int NU, int INTEG, bool TRAJ>
+int launch(const RolloutArgs& r) {
+  const int blocks = (r.n_alpha + kCandidates - 1) / kCandidates;
+  const size_t smem =
+      sizeof(float) * (r.n_params + kChunk * (NX + 2 * NU + NU * NX));
+  rollout_kernel<Model, NX, NU, INTEG, TRAJ>
+      <<<blocks, kCandidates, smem, r.stream>>>(
+          r.params, r.n_params, r.x0, r.alphas, r.alpha, r.n_alpha, r.X_old,
+          r.U_old, r.u_ff, r.K, r.N, r.costs, r.X_out, r.U_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Model, int NX, int NU, bool TRAJ>
+int by_integrator(int integrator, const RolloutArgs& r) {
+  switch (integrator) {
+    case kEuler: return launch<Model, NX, NU, kEuler, TRAJ>(r);
+    case kMidpoint: return launch<Model, NX, NU, kMidpoint, TRAJ>(r);
+    case kRk4: return launch<Model, NX, NU, kRk4, TRAJ>(r);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// model: 0 = pendulum (n_x 2, n_u 1), 1 = double pendulum (n_x 4, n_u 1|2).
+template <bool TRAJ>
+int dispatch(int model, int integrator, int n_x, int n_u,
+             const RolloutArgs& r) {
+  if (model == 0 && n_x == 2 && n_u == 1)
+    return by_integrator<Pendulum, 2, 1, TRAJ>(integrator, r);
+  if (model == 1 && n_x == 4 && n_u == 1)
+    return by_integrator<DoublePendulum, 4, 1, TRAJ>(integrator, r);
+  if (model == 1 && n_x == 4 && n_u == 2)
+    return by_integrator<DoublePendulum, 4, 2, TRAJ>(integrator, r);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Candidate costs (n_alpha,) of every alpha in one sequential pass.
+extern "C" int ilqr_linesearch_costs(
+    int model, int integrator, int n_x, int n_u, const float* params,
+    int n_params, const float* x0, const float* alphas, int n_alpha,
+    const float* X_old, const float* U_old, const float* u_ff, const float* K,
+    int N, float* costs, void* stream) {
+  RolloutArgs r{params, n_params, x0, alphas, 0.0f, n_alpha, X_old, U_old,
+                u_ff, K, N, costs, nullptr, nullptr,
+                static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(model, integrator, n_x, n_u, r);
+}
+
+// Trajectory of one alpha: X (N+1, n_x), U (N, n_u) and its cost (1,).
+extern "C" int ilqr_closed_loop_rollout(
+    int model, int integrator, int n_x, int n_u, const float* params,
+    int n_params, const float* x0, float alpha, const float* X_old,
+    const float* U_old, const float* u_ff, const float* K, int N, float* cost,
+    float* X_out, float* U_out, void* stream) {
+  RolloutArgs r{params, n_params, x0, nullptr, alpha, 1, X_old, U_old, u_ff,
+                K, N, cost, X_out, U_out, static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(model, integrator, n_x, n_u, r);
+}
+
+extern "C" const char* ilqr_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

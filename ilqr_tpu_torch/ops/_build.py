@@ -1,0 +1,152 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources in ``ilqr_tpu_torch/csrc`` are compiled at first use by
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
+into one shared library with a plain C interface, loaded with `ctypes`.
+Building takes seconds because no PyTorch header is included.  The library
+lands in ``ilqr_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
+and flags, so a fresh checkout builds it once and an edit rebuilds it.  The
+build writes to a temporary file and renames it, so processes that build at
+once do not see a partial library.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on machines without nvcc or a GPU.
+
+Every C entry returns ``cudaGetLastError()`` after its launches; `check`
+turns a non-zero code into an exception.  Each kernel wrapper adds one to
+its entry in the launch counts where it launches its kernel, and nowhere
+else, so a run can show which kernels its main path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+LIB_NAME = "libilqr_tpu_torch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every C entry: c_void_p for each pointer and the stream.
+SIGNATURES = {
+    "ilqr_fused_riccati": [_I, _I, _I, _F] + [_P] * 9 + [_P] * 5 + [_P],
+    "ilqr_riccati_block_steps": [],
+    "ilqr_riccati_gain_threads": [],
+    "ilqr_linesearch_costs": [_I, _I, _I, _I, _P, _I, _P, _P, _I,
+                              _P, _P, _P, _P, _I, _P, _P],
+    "ilqr_closed_loop_rollout": [_I, _I, _I, _I, _P, _I, _P, _F,
+                                 _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "ilqr_cuda_error_string": [_I],
+}
+
+# Kernel name -> launches since the last reset (plain integers).
+_LAUNCHES: Dict[str, int] = {}
+
+
+def count_launch(kernel: str) -> None:
+    _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.clear()
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernels:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float   # 0.0 when the library was already built
+    ptxas_log: str         # nvcc -Xptxas -v report of that build
+
+
+def sources() -> list[Path]:
+    """The translation units; headers enter the build through them."""
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(var)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare argtypes/restype of every entry of a kernel library."""
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.ilqr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.ilqr_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def _compile(out: Path) -> tuple[float, str]:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              cwd=CSRC_DIR)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        log = proc.stdout + proc.stderr
+        (out.parent / "ptxas.log").write_text(log)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return time.perf_counter() - t0, log
+
+
+@functools.cache
+def load() -> Kernels:
+    """The kernel library, built from the checkout's sources at first use."""
+    path = BUILD_DIR / source_hash() / LIB_NAME
+    seconds, log = 0.0, ""
+    if not path.exists():
+        seconds, log = _compile(path)
+    elif (path.parent / "ptxas.log").exists():
+        log = (path.parent / "ptxas.log").read_text()
+    return Kernels(bind(ctypes.CDLL(str(path))), path, seconds, log)

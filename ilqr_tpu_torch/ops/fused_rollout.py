@@ -1,0 +1,166 @@
+"""Fused rollouts: the line-search costs and the accepted trajectory in CUDA.
+
+PyTorch counterpart of `ilqr_tpu/ops/pallas_rollout.py`
+(`linesearch_costs_pallas` / `_ls_cost_kernel` and
+`closed_loop_rollout_pallas` / `_traj_kernel`).  The kernels,
+`csrc/fused_rollout.cu`, run the closed-loop recursion
+u = u_old + α·u_ff + K(x − x_old) for every α at once with the model, the
+integrator and the quadratic costs inlined from `csrc/models.cuh`.
+
+Dispatch follows the tensor: on the CPU the wrappers run their plain
+versions (`rollout.linesearch_rollouts(...)[2]` and
+`rollout.closed_loop_rollout`); on a CUDA tensor they launch the kernel or
+raise.  A hand-written kernel cannot trace a model's Python the way Pallas
+traces JAX, so the CUDA path covers the models with a device function —
+the pendulum and the double pendulum under the quadratic costs — and the
+explicit integrators euler, midpoint and rk4.  Anything else raises
+`NotImplementedError` on CUDA (ROADMAP item B2m).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ilqr_tpu_torch.models import double_pendulum, pendulum
+from ilqr_tpu_torch.models.base import (
+    System,
+    quadratic_stage_cost,
+    quadratic_terminal_cost,
+)
+from ilqr_tpu_torch.ops import _build
+from ilqr_tpu_torch.ops.rollout import closed_loop_rollout, linesearch_rollouts
+
+KERNEL_COSTS = "linesearch_costs"
+KERNEL_TRAJECTORY = "closed_loop_rollout"
+
+# f_cont -> model id of csrc/fused_rollout.cu, with its device model block.
+_MODELS = {
+    pendulum.f_cont: (0, ("g", "l", "d")),
+    double_pendulum.f_cont: (1, ("m1", "m2", "l1", "l2", "g", "d1", "d2",
+                                 "theta1", "theta2", "S")),
+}
+_INTEGRATORS = {"euler": 0, "midpoint": 1, "rk4": 2}
+
+
+def device_model(system: System) -> Tuple[int, int]:
+    """(model id, integrator id) of the system's device functions."""
+    if (system.f_cont not in _MODELS
+            or system.stage_cost is not quadratic_stage_cost
+            or system.terminal_cost is not quadratic_terminal_cost):
+        raise NotImplementedError(
+            "the CUDA rollout kernels have device functions for the pendulum "
+            "and double pendulum with quadratic costs only: ROADMAP item B2m")
+    if system.integrator not in _INTEGRATORS:
+        raise NotImplementedError(
+            f"the CUDA rollout kernels run euler, midpoint and rk4, not "
+            f"{system.integrator!r}: ROADMAP item B2m")
+    return _MODELS[system.f_cont][0], _INTEGRATORS[system.integrator]
+
+
+def params_buffer(system: System) -> torch.Tensor:
+    """The flat float32 parameter buffer that `csrc/models.cuh` reads:
+
+        [dt, x_target (n_x), Q (n_x²), R (n_u²), Q_f (n_x²), model block]
+
+    matrices row-major; the pendulum's model block is [g, l, d], the double
+    pendulum's [m1, m2, l1, l2, g, d1, d2, theta1, theta2, S (2 × n_u)].
+    """
+    p = system.params
+    names = ("dt", "x_target", "Q", "R", "Q_f") + _MODELS[system.f_cont][1]
+    return torch.cat([p[n].reshape(-1) for n in names]).to(torch.float32)
+
+
+def _params_on(system: System, device) -> torch.Tensor:
+    params = params_buffer(system)
+    if params.device != device:
+        raise ValueError(f"the system's parameters are on {params.device}, "
+                         f"the trajectory on {device}")
+    return params
+
+
+def _check(system, x0, X_old, U_old, u_ff, K) -> int:
+    N = U_old.shape[0]
+    n_x, n_u = system.n_x, system.n_u
+    shapes = dict(x0=(n_x,), X_old=(N + 1, n_x), U_old=(N, n_u),
+                  u_ff=(N, n_u), K=(N, n_u, n_x))
+    for name, t in zip(shapes, (x0, X_old, U_old, u_ff, K)):
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA rollouts take float32, {name} is {t.dtype}")
+        if t.device != x0.device:
+            raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return N
+
+
+def launch_costs(lib, system, x0, alphas, X_old, U_old, u_ff, K, stream):
+    """Candidate costs (A,); inputs must already have passed `_check`."""
+    model, integ = device_model(system)
+    N = U_old.shape[0]
+    params = _params_on(system, x0.device)
+    costs = torch.empty(alphas.shape, dtype=torch.float32, device=x0.device)
+    code = lib.ilqr_linesearch_costs(
+        model, integ, system.n_x, system.n_u, params.data_ptr(),
+        params.numel(), x0.data_ptr(), alphas.data_ptr(), alphas.numel(),
+        X_old.data_ptr(), U_old.data_ptr(), u_ff.data_ptr(), K.data_ptr(), N,
+        costs.data_ptr(), stream)
+    _build.check(lib, code, "line-search costs kernel")
+    return costs
+
+
+def launch_trajectory(lib, system, x0, alpha: float, X_old, U_old, u_ff, K,
+                      stream):
+    """(X, U, cost) of one α; inputs must already have passed `_check`."""
+    model, integ = device_model(system)
+    N = U_old.shape[0]
+    params = _params_on(system, x0.device)
+    opts = dict(dtype=torch.float32, device=x0.device)
+    X = torch.empty((N + 1, system.n_x), **opts)
+    U = torch.empty((N, system.n_u), **opts)
+    cost = torch.empty((1,), **opts)
+    code = lib.ilqr_closed_loop_rollout(
+        model, integ, system.n_x, system.n_u, params.data_ptr(),
+        params.numel(), x0.data_ptr(), alpha, X_old.data_ptr(),
+        U_old.data_ptr(), u_ff.data_ptr(), K.data_ptr(), N, cost.data_ptr(),
+        X.data_ptr(), U.data_ptr(), stream)
+    _build.check(lib, code, "closed-loop rollout kernel")
+    return X, U, cost[0]
+
+
+def linesearch_costs_fused(system: System, x0, alphas, X_old, U_old, u_ff, K):
+    """Cost of the closed-loop rollout of every α in ``alphas`` (A,)."""
+    alphas = torch.as_tensor(alphas, dtype=x0.dtype, device=x0.device)
+    if x0.device.type == "cpu":
+        return linesearch_rollouts(system, x0, alphas, X_old, U_old, u_ff,
+                                   K)[2]
+    if x0.device.type != "cuda":
+        raise ValueError(f"no rollout kernel for device {x0.device}")
+    _check(system, x0, X_old, U_old, u_ff, K)
+    with torch.cuda.device(x0.device):
+        lib = _build.load().lib
+        costs = launch_costs(lib, system, x0, alphas.contiguous(), X_old,
+                             U_old, u_ff, K,
+                             torch.cuda.current_stream(x0.device).cuda_stream)
+    _build.count_launch(KERNEL_COSTS)
+    return costs
+
+
+def closed_loop_rollout_fused(system: System, x0, alpha: float, X_old, U_old,
+                              u_ff, K):
+    """The closed-loop rollout of one α: (X (N+1, n_x), U (N, n_u), cost)."""
+    if x0.device.type == "cpu":
+        return closed_loop_rollout(system, x0, alpha, X_old, U_old, u_ff, K)
+    if x0.device.type != "cuda":
+        raise ValueError(f"no rollout kernel for device {x0.device}")
+    _check(system, x0, X_old, U_old, u_ff, K)
+    with torch.cuda.device(x0.device):
+        lib = _build.load().lib
+        out = launch_trajectory(
+            lib, system, x0, float(alpha), X_old, U_old, u_ff, K,
+            torch.cuda.current_stream(x0.device).cuda_stream)
+    _build.count_launch(KERNEL_TRAJECTORY)
+    return out

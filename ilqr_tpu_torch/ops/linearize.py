@@ -1,0 +1,82 @@
+"""Trajectory-wide dynamics linearization and cost quadratization.
+
+PyTorch counterpart of `ilqr_tpu/ops/linearize.py`: the whole derivative
+surface along (X, U) in one `torch.func.vmap` over time of
+`jacfwd`/`grad`/`hessian`, leaving only the Riccati algebra sequential.
+
+Layout (time-major, as in JAX):
+    X: (N+1, n_x)    U: (N, n_u)
+All stacked derivative tensors lead with the time axis.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ilqr_tpu_torch.models.base import System, full_f32_matmuls
+from ilqr_tpu_torch.ops.integrators import step
+
+
+@dataclasses.dataclass(frozen=True)
+class TrajectoryExpansion:
+    """Stacked first/second-order expansion of dynamics and cost along (X, U).
+
+    Shapes (N = horizon length):
+        f_x:  (N, n_x, n_x)    f_u:  (N, n_x, n_u)
+        l_x:  (N, n_x)         l_u:  (N, n_u)
+        l_xx: (N, n_x, n_x)    l_ux: (N, n_u, n_x)   l_uu: (N, n_u, n_u)
+        v_x:  (n_x,)           v_xx: (n_x, n_x)      (terminal cost expansion)
+    """
+
+    f_x: torch.Tensor
+    f_u: torch.Tensor
+    l_x: torch.Tensor
+    l_u: torch.Tensor
+    l_xx: torch.Tensor
+    l_ux: torch.Tensor
+    l_uu: torch.Tensor
+    v_x: torch.Tensor
+    v_xx: torch.Tensor
+
+
+def _stage_expansion(system: System, x, u):
+    """All seven per-step derivative blocks of one (x, u) point.
+
+    The cost's second derivatives come from one Hessian over z = (x, u):
+    l_xx, l_ux and l_uu are its blocks.
+    """
+    n_x = system.n_x
+
+    def f(xx, uu):
+        return step(system, xx, uu)
+
+    def l_z(z):
+        return system.stage_cost(system.params, z[:n_x], z[n_x:])
+
+    f_x, f_u = torch.func.jacfwd(f, argnums=(0, 1))(x, u)
+    z = torch.cat([x, u])
+    g = torch.func.grad(l_z)(z)
+    H = torch.func.hessian(l_z)(z)
+    return (f_x, f_u, g[:n_x], g[n_x:],
+            H[:n_x, :n_x], H[n_x:, :n_x], H[n_x:, n_x:])
+
+
+@full_f32_matmuls()
+def linearize_trajectory(system: System, X: torch.Tensor,
+                         U: torch.Tensor) -> TrajectoryExpansion:
+    """Expand dynamics/cost along a nominal trajectory, vmapped over time.
+
+    X: (N+1, n_x), U: (N, n_u).
+    """
+    f_x, f_u, l_x, l_u, l_xx, l_ux, l_uu = torch.func.vmap(
+        lambda x, u: _stage_expansion(system, x, u))(X[:-1], U)
+
+    def lf(xx):
+        return system.terminal_cost(system.params, xx)
+
+    v_x = torch.func.grad(lf)(X[-1])
+    v_xx = torch.func.hessian(lf)(X[-1])
+    # Contiguous, as the CUDA backward pass reads the tensors as they are.
+    return TrajectoryExpansion(*(t.contiguous() for t in (
+        f_x, f_u, l_x, l_u, l_xx, l_ux, l_uu, v_x, v_xx)))

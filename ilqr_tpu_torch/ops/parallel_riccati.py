@@ -1,0 +1,142 @@
+"""Parallel Riccati backward pass by an associative suffix scan.
+
+PyTorch counterpart of `ilqr_tpu/ops/parallel_riccati.py`.  Each step k of
+the δ-LQ subproblem is the element e = (A̅, b, C, η, J) of the conditional
+value function
+
+    V(x, z) = ½ x'J x − η'x + ½ (z − A̅x − b)' C⁻¹ (z − A̅x − b),
+
+    A̅ = A − B R⁻¹ M        b = −B R⁻¹ r        C = B R⁻¹ B'
+    J = Q − M' R⁻¹ M        η = −(q − M' R⁻¹ r)
+
+with the terminal element (0, 0, 0, −l_f_x, l_f_xx).  The combine of an
+earlier element e_i with a later e_j (L = I + C_i J_j)
+
+    A̅ = A̅_j L⁻¹ A̅_i                 b = A̅_j L⁻¹ (b_i + C_i η_j) + b_j
+    C = A̅_j L⁻¹ C_i A̅_j' + C_j      η = A̅_i' L⁻ᵀ (η_j − J_j b_i) + η_i
+    J = A̅_i' L⁻ᵀ J_j A̅_i + J_i
+
+is associative (not commutative), so the suffix products e_k ⊗ … ⊗ e_N —
+whose (J, η) are V_xx(k) and −V_x(k) — come from ⌈log₂(N+1)⌉ sweeps of
+recursive doubling.  This module is the plain version of the fused CUDA
+backward pass (`ilqr_tpu_torch.ops.fused_riccati`) and the engine of
+``backward='pscan'``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ilqr_tpu_torch.models.base import full_f32_matmuls
+from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
+from ilqr_tpu_torch.ops.riccati import all_finite
+
+
+class RiccatiElement(NamedTuple):
+    A: torch.Tensor    # (..., n_x, n_x)
+    b: torch.Tensor    # (..., n_x)
+    C: torch.Tensor    # (..., n_x, n_x)
+    eta: torch.Tensor  # (..., n_x)
+    J: torch.Tensor    # (..., n_x, n_x)
+
+
+def _sym(M):
+    return 0.5 * (M + M.transpose(-1, -2))
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def make_elements(exp: TrajectoryExpansion, reg, defects=None) -> RiccatiElement:
+    """The N+1 stacked scan elements (N stage leaves + terminal)."""
+    if defects is not None:
+        raise NotImplementedError(
+            "multiple-shooting defects are ROADMAP item A13")
+    n_u = exp.l_u.shape[-1]
+    n_x = exp.v_x.shape[0]
+    eye_u = torch.eye(n_u, dtype=exp.l_u.dtype, device=exp.l_u.device)
+    R = exp.l_uu + reg * eye_u
+    # One factorization for all three R-solves.
+    rhs = torch.cat([exp.l_ux, exp.f_u.transpose(-1, -2), exp.l_u[..., None]],
+                    dim=-1)
+    sol = torch.linalg.solve(R, rhs)
+    Rinv_M, Rinv_Bt, Rinv_r = sol[..., :n_x], sol[..., n_x:-1], sol[..., -1]
+    MT = exp.l_ux.transpose(-1, -2)
+    leaves = RiccatiElement(
+        A=exp.f_x - exp.f_u @ Rinv_M,
+        b=-_mv(exp.f_u, Rinv_r),
+        C=_sym(exp.f_u @ Rinv_Bt),
+        eta=-(exp.l_x - _mv(MT, Rinv_r)),
+        J=_sym(exp.l_xx - MT @ Rinv_M),
+    )
+    zero_m = torch.zeros((1, n_x, n_x), dtype=exp.v_x.dtype,
+                         device=exp.v_x.device)
+    zero_v = torch.zeros((1, n_x), dtype=exp.v_x.dtype, device=exp.v_x.device)
+    term = RiccatiElement(zero_m, zero_v, zero_m, -exp.v_x[None],
+                          exp.v_xx[None])
+    return RiccatiElement(*(torch.cat([a, t]) for a, t in zip(leaves, term)))
+
+
+def combine(ei: RiccatiElement, ej: RiccatiElement) -> RiccatiElement:
+    """Associative combine of an earlier element ``ei`` with a later ``ej``,
+    batched over leading axes."""
+    n_x = ei.A.shape[-1]
+    eye = torch.eye(n_x, dtype=ei.A.dtype, device=ei.A.device)
+    Li = torch.linalg.inv(eye + ei.C @ ej.J)
+    Lti = Li.transpose(-1, -2)
+    AiT = ei.A.transpose(-1, -2)
+    AjT = ej.A.transpose(-1, -2)
+    return RiccatiElement(
+        A=ej.A @ (Li @ ei.A),
+        b=_mv(ej.A, _mv(Li, ei.b + _mv(ei.C, ej.eta))) + ej.b,
+        C=_sym(ej.A @ (Li @ ei.C) @ AjT + ej.C),
+        eta=_mv(AiT, _mv(Lti, ej.eta - _mv(ej.J, ei.b))) + ei.eta,
+        J=_sym(AiT @ (Lti @ ej.J) @ ei.A + ei.J),
+    )
+
+
+def suffix_scan(elems: RiccatiElement) -> RiccatiElement:
+    """suffix[k] = e_k ⊗ e_{k+1} ⊗ … ⊗ e_{M-1} for all k, by recursive
+    doubling: at distance d, E[k] ← E[k] ⊗ E[k+d] wherever k+d exists.  The
+    windows joined at each sweep are adjacent and disjoint, as the
+    non-idempotent combine requires."""
+    M = elems.A.shape[0]
+    E = elems
+    d = 1
+    while d < M:
+        head = combine(RiccatiElement(*(a[:M - d] for a in E)),
+                       RiccatiElement(*(a[d:] for a in E)))
+        E = RiccatiElement(*(torch.cat([h, a[M - d:]])
+                             for h, a in zip(head, E)))
+        d *= 2
+    return E
+
+
+def gains_from_value(exp: TrajectoryExpansion, V_x, V_xx, reg):
+    """Per-step gains from the cost-to-go at k+1, parallel over time."""
+    n_u = exp.l_u.shape[-1]
+    eye_u = torch.eye(n_u, dtype=exp.l_u.dtype, device=exp.l_u.device)
+    fuT = exp.f_u.transpose(-1, -2)
+    fuT_Vxx = fuT @ V_xx
+    Q_u = exp.l_u + _mv(fuT, V_x)
+    Q_ux = exp.l_ux + fuT_Vxx @ exp.f_x
+    Q_uu = exp.l_uu + fuT_Vxx @ exp.f_u
+    rhs = torch.cat([Q_ux, Q_u[..., None]], dim=-1)
+    sol = -torch.linalg.solve(Q_uu + reg * eye_u, rhs)
+    K, u_ff = sol[..., :-1], sol[..., -1]
+    dV = torch.stack([(u_ff * Q_u).sum(-1),
+                      0.5 * (u_ff * _mv(Q_uu, u_ff)).sum(-1)], dim=-1)
+    return u_ff, K, dV
+
+
+@full_f32_matmuls()
+def backward_pass_associative(
+    exp: TrajectoryExpansion, reg: float = 0.0, defects=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Drop-in replacement for `ilqr_tpu_torch.ops.riccati.backward_pass`."""
+    suffix = suffix_scan(make_elements(exp, reg, defects=defects))
+    # Cost-to-go at k+1 drives the gains at k.
+    u_ff, K, dVs = gains_from_value(exp, -suffix.eta[1:], suffix.J[1:], reg)
+    return u_ff, K, dVs.sum(0), all_finite(u_ff, K)

@@ -1,0 +1,203 @@
+"""The port's rollouts against ilqr_tpu's.
+
+On CPU tensors the fused rollout wrappers run their plain versions
+(`linesearch_rollouts` and `closed_loop_rollout`); the CUDA kernels are
+checked against those on the GPU by chip_smoke.py.  Here the CPU paths are
+held against the JAX Pallas line-search kernel in interpret mode and the
+JAX scan rollouts, in f32 and in f64 (JAX under `enable_x64_oracle`).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ilqr_tpu as it
+from ilqr_tpu.ops.pallas_rollout import (
+    closed_loop_rollout_pallas,
+    linesearch_costs_pallas,
+)
+from ilqr_tpu.ops.rollout import closed_loop_rollout as jax_closed_loop
+from ilqr_tpu.ops.rollout import linesearch_rollouts as jax_linesearch
+from ilqr_tpu.ops.rollout import rollout as jax_rollout
+from ilqr_tpu.utils.x64 import enable_x64_oracle
+
+import ilqr_tpu_torch as itt
+from ilqr_tpu_torch.convert import system_from_numpy
+from ilqr_tpu_torch.ops import fused_rollout
+
+torch.set_num_threads(1)
+
+ALPHAS = tuple(0.5 ** i for i in range(10))
+# f32: the same recursion in other operation orders over N steps of a
+# closed loop; a few ulp of the largest value per step, not amplified by the
+# feedback.  f64: agreement to rounding.
+RTOL = {torch.float32: 2e-5, torch.float64: 1e-11}
+
+
+def _jax_system(name, integrator):
+    if name == "pendulum":
+        return it.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                                Q_f=10.0 * np.eye(2), d=0.0,
+                                integrator=integrator)
+    return it.make_double_pendulum(
+        0.01, [np.pi, 0.0, 0.0, 0.0], Q=np.diag([10.0, 10.0, 0.1, 0.1]),
+        R=np.diag([0.1] if name == "ua_dp" else [0.1, 0.1]),
+        Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]), d1=0.1, d2=0.1,
+        theta1=1 / 12, theta2=1 / 12, underactuated=name == "ua_dp",
+        integrator=integrator)
+
+
+def _inputs(jsys, N, seed):
+    """x0, U_old, u_ff, K: a random nominal and small random gains."""
+    rng = np.random.default_rng(seed)
+    x0 = 0.3 * rng.normal(size=jsys.n_x)
+    U_old = 0.5 * rng.normal(size=(N, jsys.n_u))
+    u_ff = 0.2 * rng.normal(size=(N, jsys.n_u))
+    K = 0.1 * rng.normal(size=(N, jsys.n_u, jsys.n_x))
+    return x0, U_old, u_ff, K
+
+
+def _port(jsys, name, dtype):
+    params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
+    return system_from_numpy(
+        "pendulum" if name == "pendulum" else "double_pendulum", params,
+        jsys.n_x, jsys.n_u, jsys.dt, jsys.integrator, dtype=dtype)
+
+
+def _jax_refs(jsys, x0, U_old, u_ff, K, x64):
+    """JAX nominal rollout, then the line-search batch and one α."""
+    def run(jsys, dt):
+        x0j = jnp.asarray(x0, dt)
+        U = jnp.asarray(U_old, dt)
+        X, _ = jax.jit(jax_rollout)(jsys, x0j, U)
+        Xs, Us, cs = jax.jit(jax_linesearch)(
+            jsys, x0j, jnp.asarray(ALPHAS, dt), X, U, jnp.asarray(u_ff, dt),
+            jnp.asarray(K, dt))
+        return tuple(np.asarray(a) for a in (X, Xs, Us, cs))
+
+    if x64:
+        with enable_x64_oracle():
+            return run(jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, jnp.float64), jsys), jnp.float64)
+    return run(jsys, jnp.float32)
+
+
+def _close(got, ref, rtol, what):
+    np.testing.assert_allclose(got.numpy(), ref,
+                               atol=rtol * (np.abs(ref).max() + 1.0),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,integrator,N", [
+    ("pendulum", "backward_euler", 30),
+    ("dp", "euler", 60),
+    ("ua_dp", "rk4", 40),
+])
+def test_rollouts_match_jax(name, integrator, N, dtype):
+    jsys = _jax_system(name, integrator)
+    x0, U_old, u_ff, K = _inputs(jsys, N, seed=N)
+    X_ref, Xs_ref, Us_ref, cs_ref = _jax_refs(jsys, x0, U_old, u_ff, K,
+                                              dtype == torch.float64)
+    sys_ = _port(jsys, name, dtype)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    rtol = RTOL[dtype]
+
+    X, cost = itt.rollout(sys_, t(x0), t(U_old))
+    _close(X, X_ref, rtol, "rollout X")
+    args = (t(x0), t(ALPHAS), X, t(U_old), t(u_ff), t(K))
+    Xs, Us, cs = itt.linesearch_rollouts(sys_, *args)
+    _close(Xs, Xs_ref, rtol, "X candidates")
+    _close(Us, Us_ref, rtol, "U candidates")
+    _close(cs, cs_ref, rtol, "costs")
+    # The fused wrappers' CPU paths.
+    _close(itt.linesearch_costs_fused(sys_, *args), cs_ref, rtol,
+           "linesearch_costs_fused")
+    X1, U1, c1 = itt.closed_loop_rollout_fused(
+        sys_, t(x0), ALPHAS[2], X, t(U_old), t(u_ff), t(K))
+    _close(X1, Xs_ref[2], rtol, "closed_loop_rollout_fused X")
+    _close(U1, Us_ref[2], rtol, "closed_loop_rollout_fused U")
+    _close(c1, cs_ref[2], rtol, "closed_loop_rollout_fused cost")
+
+
+def test_rollout_wrappers_match_jax_pallas_kernels_interpret():
+    """The CPU paths of both wrappers against the Pallas kernels they
+    replace, run by the JAX package's interpret mode (f32), and against the
+    JAX scan rollout."""
+    jsys = _jax_system("dp", "euler")
+    x0, U_old, u_ff, K = _inputs(jsys, 70, seed=7)
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    X, _ = jax.jit(jax_rollout)(jsys, f(x0), f(U_old))
+    ref = linesearch_costs_pallas(jsys, f(x0), f(ALPHAS), X, f(U_old),
+                                  f(u_ff), f(K), interpret=True)
+    ref_one = jax_closed_loop(jsys, f(x0), 0.5, X, f(U_old), f(u_ff), f(K))
+    ref_kernel = closed_loop_rollout_pallas(jsys, f(x0), 0.5, X, f(U_old),
+                                            f(u_ff), f(K), interpret=True)
+    sys_ = _port(jsys, "dp", torch.float32)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    got = itt.linesearch_costs_fused(sys_, t(x0), t(ALPHAS), t(X), t(U_old),
+                                     t(u_ff), t(K))
+    _close(got, np.asarray(ref), RTOL[torch.float32], "costs")
+    X1, U1, c1 = itt.closed_loop_rollout_fused(sys_, t(x0), 0.5, t(X),
+                                               t(U_old), t(u_ff), t(K))
+    for ref in (ref_one, ref_kernel):
+        for what, g, r in (("X", X1, ref[0]), ("U", U1, ref[1]),
+                           ("cost", c1, ref[2])):
+            _close(g, np.asarray(r), RTOL[torch.float32], what)
+
+
+def test_params_buffer_layout():
+    """The buffer order that csrc/models.cuh reads."""
+    dp = itt.make_double_pendulum(
+        0.02, [1.0, 2.0, 3.0, 4.0], Q=np.diag([1.0, 2.0, 3.0, 4.0]),
+        R=np.diag([5.0]), Q_f=np.diag([6.0, 7.0, 8.0, 9.0]), g=9.5, m1=1.5,
+        m2=2.5, l1=0.7, l2=0.9, d1=0.11, d2=0.22, theta1=0.3, theta2=0.4,
+        underactuated=True)
+    buf = fused_rollout.params_buffer(dp).numpy()
+    n_x, n_u = 4, 1
+    assert buf.shape == (1 + n_x + 2 * n_x * n_x + n_u * n_u + 9 + 2 * n_u,)
+    np.testing.assert_allclose(buf[:5], [0.02, 1.0, 2.0, 3.0, 4.0])
+    np.testing.assert_allclose(buf[5:21], np.diag([1.0, 2.0, 3.0, 4.0]).ravel())
+    np.testing.assert_allclose(buf[21], 5.0)
+    np.testing.assert_allclose(buf[22:38], np.diag([6.0, 7.0, 8.0, 9.0]).ravel())
+    np.testing.assert_allclose(
+        buf[38:], [1.5, 2.5, 0.7, 0.9, 9.5, 0.11, 0.22, 0.3, 0.4, 1.0, 0.0],
+        rtol=1e-6)
+    pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                             Q_f=np.eye(2), g=9.0, l=2.0, d=0.5)
+    np.testing.assert_allclose(fused_rollout.params_buffer(pend).numpy()[-3:],
+                               [9.0, 2.0, 0.5])
+
+
+def test_device_model_covers_the_kernels_and_refuses_the_rest():
+    pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                             Q_f=np.eye(2), integrator="midpoint")
+    assert fused_rollout.device_model(pend) == (0, 1)
+    dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
+                                  R=np.eye(2), Q_f=np.eye(4),
+                                  integrator="rk4")
+    assert fused_rollout.device_model(dp) == (1, 2)
+    for integ in ("backward_euler", "trapezoidal", "discrete"):
+        with pytest.raises(NotImplementedError, match="B2m"):
+            fused_rollout.device_model(dp.with_integrator(integ))
+    with pytest.raises(NotImplementedError, match="B2m"):
+        fused_rollout.device_model(dp.replace(
+            stage_cost=lambda p, x, u: (x * x).sum()))
+
+
+def test_kernel_input_checks_refuse_what_the_kernel_does_not_take():
+    dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
+                                  R=np.eye(2), Q_f=np.eye(4),
+                                  integrator="euler")
+    N = 5
+    good = dict(x0=torch.zeros(4), X_old=torch.zeros(N + 1, 4),
+                U_old=torch.zeros(N, 2), u_ff=torch.zeros(N, 2),
+                K=torch.zeros(N, 2, 4))
+    assert fused_rollout._check(dp, **good) == N
+    for key, value in (("x0", torch.zeros(4, dtype=torch.float64)),
+                       ("X_old", torch.zeros(N, 4)),
+                       ("K", torch.zeros(N, 4, 2).transpose(1, 2)),
+                       ("u_ff", torch.zeros(N, 1))):
+        with pytest.raises((TypeError, ValueError)):
+            fused_rollout._check(dp, **{**good, key: value})
