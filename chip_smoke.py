@@ -23,7 +23,28 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    then the pendulum golden (backward_euler, N = 400) with
    backward='pallas', rollout='scan';
 5. times each kernel and its plain version with CUDA events, and the
-   double-pendulum solve per iteration with kernels against plain engines.
+   double-pendulum solve per iteration with kernels against plain engines;
+6. checks the affine prefix scan (B3) against its plain version on seeded
+   random chains at N = 500, 1411 (crosses 5 blocks, ends mid-block) and
+   100000, with 1 and 10 candidates and n = 2 and 4, and on the DP
+   closed-loop transition f_x + f_u K along the solved trajectory;
+7. checks the backward pass with multiple-shooting defects (B1d) against
+   its plain version on the DP and pendulum expansions with seeded gaps at
+   N = 500 (400), 1411 and 131072;
+8. solves the DP swing-up through the parallel-in-time path
+   (backward='pallas', init_rollout='defect', defect_engine='pallas',
+   rollout='defect' and then 'chunked') under phase 4's gates;
+9. solves the pendulum golden by multiple shooting (backward='pallas',
+   update_engine='pallas'): cost within 1e-3 of 23.435774, defect < 1e-5;
+10. runs the DP line search and the open-loop rollout by defect sweeps at
+   N = 100000 (the bench's size) with the kernel against the plain scan;
+11. runs the multiple-shooting pendulum solve at N = 100000 (rk4, maxiter
+   60, tol 1e-5, init_rollout='defect') with the kernels and with the plain
+   engines and holds the two to each other;
+12. times B3 and B1d against their plain versions and the stages of the
+   parallel-in-time solves.
+Each solve phase resets the launch counts just before it and reads them
+just after.
 
 Any failed check raises, and the script exits non-zero.  Without a CUDA
 device it exits non-zero before printing any result.  The last line is
@@ -63,6 +84,17 @@ F32_FLOOR = 4.0
 # sum); near a solved trajectory the feedback keeps that rounding from
 # growing along the horizon.
 RTOL_B2 = 1e-4
+# B3 tolerance: max|kernel - plain| <= max(RTOL_B3 * max|plain|,
+# F32_FLOOR * max|plain - plain in f64|).  The kernel scans 256-step
+# blocks and carries a state across them, the plain version doubles over
+# the whole horizon: the same f32 products, associated differently.
+RTOL_B3 = 1e-5
+# Phase 10/11: candidate costs of one line search, and final costs of one
+# MS solve, between the kernel and the plain engines (f32 sums over 1e5
+# steps in other orders, Newton iterates at their f32 floor).
+RTOL_LS = 1e-4
+RTOL_MS = 1e-4
+BENCH_N = 100_000
 
 
 def nvidia_smi() -> str:
@@ -128,7 +160,12 @@ def main() -> int:
         return 1
 
     import ilqr_tpu_torch as itt
-    from ilqr_tpu_torch.ops import _build, fused_riccati
+    from ilqr_tpu_torch.ops import _build, affine_scan, fused_riccati
+    from ilqr_tpu_torch.ops.parallel_rollout import (
+        linesearch_defect_rollouts,
+        open_loop_defect_rollout,
+        trajectory_cost,
+    )
 
     dev = torch.device("cuda", 0)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -173,16 +210,20 @@ def main() -> int:
         return X, U, itt.linearize_trajectory(system, X, U)
 
     errors: dict[str, float] = {"fused_riccati": 0.0, "linesearch_costs": 0.0,
-                                "closed_loop_rollout": 0.0}
+                                "closed_loop_rollout": 0.0,
+                                "fused_riccati_defects": 0.0,
+                                "affine_prefix_scan": 0.0}
 
-    def check_b1(label, exp, reg=0.0):
+    def check_b1(label, exp, reg=0.0, defects=None, key="fused_riccati"):
         torch.cuda.synchronize()
-        u_k, K_k, dV_k, ok_k = itt.backward_pass_fused(exp, reg)
-        u_p, K_p, dV_p, ok_p = itt.backward_pass_associative(exp, reg)
+        u_k, K_k, dV_k, ok_k = itt.backward_pass_fused(exp, reg, defects)
+        u_p, K_p, dV_p, ok_p = itt.backward_pass_associative(exp, reg,
+                                                             defects)
         exp64 = dataclasses.replace(exp, **{
             f.name: getattr(exp, f.name).double()
             for f in dataclasses.fields(exp)})
-        ref64 = itt.backward_pass_associative(exp64, reg)
+        ref64 = itt.backward_pass_associative(
+            exp64, reg, None if defects is None else defects.double())
         torch.cuda.synchronize()
         notes = []
         for name, got, ref, r64 in (("u_ff", u_k, u_p, ref64[0]),
@@ -191,7 +232,7 @@ def main() -> int:
             err, rel = rel_err(got, ref)
             floor = rel_err(ref, r64)[0]
             limit = max(RTOL_B1 * float(ref.abs().max()), F32_FLOOR * floor)
-            errors["fused_riccati"] = max(errors["fused_riccati"], err)
+            errors[key] = max(errors[key], err)
             notes.append(f"{name} {err:.2e} (rel {rel:.1e}, limit {limit:.2e};"
                          f" kernel vs f64 {rel_err(got, r64)[0]:.2e},"
                          f" plain vs f64 {floor:.2e})")
@@ -252,6 +293,44 @@ def main() -> int:
     u0, K0, _, _ = itt.backward_pass_fused(exp_dp0, 0.0)
     check_b2("DP first iteration", X_dp0, U_dp0, u0, K0, alpha=0.5)
 
+    def dp_gates(sol, label, launches, kernels):
+        trace = sol.cost_trace[:sol.iterations].cpu().numpy()
+        cost = float(sol.cost)
+        # Status gate.  tol = 1e-6 is below the f32 resolution of a cost
+        # near 37 (one ulp is 3.8e-6), so a solve at its f32 floor stops
+        # either by an exactly repeated cost (CONVERGED) or by a line search
+        # in which no candidate beats the current cost by rounding
+        # (LINESEARCH_FAILED).  The latter counts only when the last
+        # accepted step moved the cost by at most 8 ulp.
+        last_step = (abs(float(trace[-1] - trace[-2])) if len(trace) > 1
+                     else np.inf)
+        at_floor = last_step <= 8 * float(np.spacing(np.float32(cost)))
+        if not (sol.status in (itt.CONVERGED, itt.MAXITER)
+                or (sol.status == itt.LINESEARCH_FAILED and at_floor)):
+            raise AssertionError(f"{label} ended with status {sol.status}, "
+                                 f"last accepted step {last_step:.3e}")
+        if not np.all(np.diff(trace) <= 0):
+            raise AssertionError(f"{label}: cost trace increased")
+        if not cost <= 1.02 * DP_GOLDEN_COST:
+            raise AssertionError(
+                f"{label}: cost {cost} above 1.02 x {DP_GOLDEN_COST}")
+        ang_err = (sol.X[-1, :2]
+                   - torch.tensor([np.pi, 0.0], **f32)).abs().max()
+        if not float(ang_err) <= 0.2:
+            raise AssertionError(f"{label}: final angles "
+                                 f"{sol.X[-1, :2].tolist()} not within 0.2 "
+                                 f"of the target")
+        if not (torch.isfinite(sol.X).all() and torch.isfinite(sol.U).all()
+                and sol.X.shape == (501, 4) and sol.U.shape == (500, 2)):
+            raise AssertionError(f"{label}: solution not finite or of the "
+                                 f"wrong shape")
+        for kernel in kernels:
+            if launches.get(kernel, 0) < 1:
+                raise AssertionError(f"{label} never launched {kernel}")
+        print(f"{label} gates passed: cost {cost:.4f} <= "
+              f"{1.02 * DP_GOLDEN_COST:.4f}, final angle error "
+              f"{float(ang_err):.2e}, trace non-increasing")
+
     # ---- 4. the slice: the DP swing-up through both kernels -------------
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -260,39 +339,11 @@ def main() -> int:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = _build.launch_counts()
-    trace = sol.cost_trace[:sol.iterations].cpu().numpy()
-    cost = float(sol.cost)
     print(f"DP solve (pallas/pallas): status {sol.status}, "
-          f"{sol.iterations} iterations, cost {cost:.6f}, {solve_s:.3f} s, "
-          f"launches {launches}")
-    # Status gate.  tol = 1e-6 is below the f32 resolution of a cost near
-    # 37 (one ulp is 3.8e-6), so a solve at its f32 floor stops either by
-    # an exactly repeated cost (CONVERGED) or by a line search in which no
-    # candidate beats the current cost by rounding (LINESEARCH_FAILED).
-    # The latter counts only when the last accepted step moved the cost by
-    # at most 8 ulp.
-    last_step = abs(float(trace[-1] - trace[-2])) if len(trace) > 1 else np.inf
-    at_floor = last_step <= 8 * float(np.spacing(np.float32(cost)))
-    if not (sol.status in (itt.CONVERGED, itt.MAXITER)
-            or (sol.status == itt.LINESEARCH_FAILED and at_floor)):
-        raise AssertionError(f"DP solve ended with status {sol.status}, "
-                             f"last accepted step {last_step:.3e}")
-    if not np.all(np.diff(trace) <= 0):
-        raise AssertionError("DP cost trace increased")
-    if not cost <= 1.02 * DP_GOLDEN_COST:
-        raise AssertionError(f"DP cost {cost} above 1.02 x {DP_GOLDEN_COST}")
-    ang_err = (sol.X[-1, :2] - torch.tensor([np.pi, 0.0], **f32)).abs().max()
-    if not float(ang_err) <= 0.2:
-        raise AssertionError(f"DP final angles {sol.X[-1, :2].tolist()} "
-                             f"not within 0.2 of the target")
-    if not (torch.isfinite(sol.X).all() and torch.isfinite(sol.U).all()
-            and sol.X.shape == (501, 4) and sol.U.shape == (500, 2)):
-        raise AssertionError("DP solution not finite or of the wrong shape")
-    for kernel in ("fused_riccati", "linesearch_costs", "closed_loop_rollout"):
-        if launches.get(kernel, 0) < 1:
-            raise AssertionError(f"the DP solve never launched {kernel}")
-    print(f"DP gates passed: cost {cost:.4f} <= {1.02 * DP_GOLDEN_COST:.4f}, "
-          f"final angle error {float(ang_err):.2e}, trace non-increasing")
+          f"{sol.iterations} iterations, cost {float(sol.cost):.6f}, "
+          f"{solve_s:.3f} s, launches {launches}")
+    dp_gates(sol, "DP solve", launches,
+             ("fused_riccati", "linesearch_costs", "closed_loop_rollout"))
 
     # B1 and B2 again, along the solved trajectory.
     X_s, U_s = sol.X.contiguous(), sol.U.contiguous()
@@ -350,7 +401,7 @@ def main() -> int:
     print(f"  linearize_trajectory N=500: {t_lin:.3f}; initial rollout "
           f"(host loop) N=500: {t_init:.2f}")
 
-    def solve_ms(backward, rollout, maxiter):
+    def timed_solve(backward, rollout, maxiter):
         c = itt.IlqrConfig(maxiter=maxiter, tol=1e-6, backward=backward,
                            rollout=rollout)
         torch.cuda.synchronize()
@@ -363,10 +414,374 @@ def main() -> int:
     runs = [("pallas", "pallas", 200), ("scan", "scan", 3),
             ("scan", "scan", 3), ("pallas", "pallas", 200)]
     for backward, rollout_engine, maxiter in runs:
-        total, iters, per_iter = solve_ms(backward, rollout_engine, maxiter)
+        total, iters, per_iter = timed_solve(backward, rollout_engine,
+                                             maxiter)
         print(f"  DP solve backward={backward} rollout={rollout_engine}: "
               f"{total:.1f} ms total, {iters} iterations, {per_iter:.2f} ms "
               f"per iteration after the initial rollout")
+
+    def launched(label, kernels):
+        counts = _build.launch_counts()
+        for kernel in kernels:
+            if counts.get(kernel, 0) < 1:
+                raise AssertionError(f"{label} never launched {kernel}")
+        return counts
+
+    # ---- 6. B3 against its plain version ----------------------------------
+    block3 = affine_scan.block_steps(kernels.lib)
+    mid_n3 = 5 * block3 + block3 // 2 + 3   # crosses 5 block edges
+    print(f"B3 tolerance: max|kernel - plain| <= max({RTOL_B3} * max|plain|, "
+          f"{F32_FLOOR} * max|plain - plain in f64|); scan block {block3} "
+          f"steps")
+
+    def check_b3(label, P, q, d0):
+        torch.cuda.synchronize()
+        got = itt.affine_prefix_scan_multi(P, q, d0, engine="pallas")
+        plain = itt.affine_prefix_scan_multi(P, q, d0, engine="xla")
+        ref64 = itt.affine_prefix_scan_multi(P.double(), q.double(),
+                                             d0.double(), engine="xla")
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B3 {label}: non-finite output")
+        err, rel = rel_err(got, plain)
+        floor = rel_err(plain, ref64)[0]
+        limit = max(RTOL_B3 * float(plain.abs().max()), F32_FLOOR * floor)
+        errors["affine_prefix_scan"] = max(errors["affine_prefix_scan"], err)
+        note = (f"N={P.shape[0]} n={P.shape[-1]} A={q.shape[0]}: max abs "
+                f"error {err:.2e} (rel {rel:.1e}, limit {limit:.2e}; kernel "
+                f"vs f64 {rel_err(got, ref64)[0]:.2e}, plain vs f64 "
+                f"{floor:.2e})")
+        if not err <= limit:
+            raise AssertionError(f"B3 {label}: {note}")
+        print(f"B3 {label}: {note}")
+
+    def random_chain(N, n, A, seed):
+        """A seeded contractive chain P ~ 0.9 I + 0.05 N(0, 1), drives and
+        initial states ~ N(0, 1)."""
+        rng = np.random.default_rng(seed)
+        P = 0.9 * np.eye(n) + 0.05 * rng.standard_normal((N, n, n))
+        return (torch.tensor(P, **f32),
+                torch.tensor(rng.standard_normal((A, N, n)), **f32),
+                torch.tensor(rng.standard_normal((A, n)), **f32))
+
+    for N in (500, mid_n3, BENCH_N):
+        for n in (2, 4):
+            for A in (1, 10):
+                check_b3("random chain", *random_chain(N, n, A, N + 10 * n + A))
+    A_cl_s = (exp_dps.f_x + exp_dps.f_u @ K_s).contiguous()
+    _, q_s, d0_s = random_chain(500, 4, 10, 7)
+    check_b3("DP closed loop f_x + f_u K, solved trajectory", A_cl_s, q_s, d0_s)
+
+    # ---- 7. B1d against its plain version ---------------------------------
+    rng = np.random.default_rng(17)
+
+    def gaps(N, n_x):
+        return torch.tensor(0.01 * rng.standard_normal((N, n_x)), **f32)
+
+    for N in (500, mid_n, LONG_N):
+        check_b1("DP first trajectory, defects", tile_expansion(exp_dp0, N),
+                 defects=gaps(N, 4), key="fused_riccati_defects")
+    for N in (400, mid_n, LONG_N):
+        check_b1("pendulum, defects", tile_expansion(exp_pend, N),
+                 defects=gaps(N, 2), key="fused_riccati_defects")
+
+    # ---- 8. the DP swing-up through the parallel-in-time path -------------
+    par_launches = {}
+    for rollout_engine in ("defect", "chunked"):
+        cfg_par = itt.IlqrConfig(maxiter=200, tol=1e-6, backward="pallas",
+                                 rollout=rollout_engine, init_rollout="defect",
+                                 defect_engine="pallas")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        sol_par = itt.solve(dp, x0_dp, torch.zeros((500, 2), **f32), cfg_par)
+        torch.cuda.synchronize()
+        par_s = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        par_launches[rollout_engine] = counts
+        print(f"DP solve (pallas/{rollout_engine}, defect init): status "
+              f"{sol_par.status}, {sol_par.iterations} iterations, cost "
+              f"{float(sol_par.cost):.6f}, latch {sol_par.defect_latch}, "
+              f"{par_s:.3f} s, launches {counts}, alphas "
+              f"{sol_par.alpha_trace[:sol_par.iterations].tolist()}")
+        # The chunked search scans its C chunk boundaries with the plain
+        # version (as in JAX), so only the defect search must launch B3.
+        dp_gates(sol_par, f"DP solve ({rollout_engine})", counts,
+                 ("fused_riccati", "affine_prefix_scan")
+                 if rollout_engine == "defect" else ("fused_riccati",))
+
+    # ---- 9. multiple shooting: the pendulum golden ------------------------
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    sol_g = itt.solve_ms(pend, x0_pend, torch.zeros((400, 1), **f32),
+                         config=itt.IlqrConfig(maxiter=100, tol=1e-5,
+                                               backward="pallas"),
+                         ms=itt.MsConfig(update_engine="pallas"))
+    torch.cuda.synchronize()
+    ms_golden_s = time.perf_counter() - t0
+    counts = launched("MS pendulum golden",
+                      ("fused_riccati", "affine_prefix_scan"))
+    print(f"MS pendulum golden (pallas/pallas): status {sol_g.status}, "
+          f"{sol_g.iterations} iterations, cost {float(sol_g.cost):.6f}, "
+          f"defect {float(sol_g.defect):.2e}, {ms_golden_s:.3f} s, "
+          f"launches {counts}")
+    if not (sol_g.status == itt.CONVERGED
+            and abs(float(sol_g.cost) - PENDULUM_GOLDEN_COST) < 1e-3
+            and float(sol_g.defect) < 1e-5):
+        raise AssertionError("MS pendulum golden: not CONVERGED within 1e-3 "
+                             "of the golden cost with defect < 1e-5")
+
+    # ---- 10. defect sweeps at the bench's size (DP, N = 100000) -----------
+    # bench.py's cell: the nominal is the rest state under zero controls
+    # (built by the defect rollout, which certifies it without a sweep),
+    # the gains come from B1, and all 10 alphas are swept 8 times.
+    U_b = torch.zeros((BENCH_N, 2), **f32)
+    X_b, _, d_b = open_loop_defect_rollout(dp, x0_dp, U_b, iters=8,
+                                           engine="pallas")
+    exp_b = itt.linearize_trajectory(dp, X_b, U_b)
+    u_b, K_b, _, _ = itt.backward_pass_fused(exp_b, 0.0)
+    cert_b = 1e-3 * (1.0 + float(X_b.abs().max()))
+    ls = {}
+    for engine in ("pallas", "xla"):
+        _build.reset_launch_counts()
+        ls[engine] = linesearch_defect_rollouts(dp, x0_dp, alphas, X_b, U_b,
+                                                u_b, K_b, exp_b, iters=8,
+                                                engine=engine)
+        torch.cuda.synchronize()
+        if engine == "pallas":
+            launched("bench-size line search", ("affine_prefix_scan",))
+    n_alpha_b = alphas.numel()
+    costs_k, defects_k = (t.cpu().numpy() for t in ls["pallas"][2:])
+    costs_p, defects_p = (t.cpu().numpy() for t in ls["xla"][2:])
+    cert_k, cert_p = defects_k < cert_b, defects_p < cert_b
+    print(f"DP line search N={BENCH_N}, 10 alphas, 8 sweeps: costs kernel "
+          f"{np.array2string(costs_k, precision=6)}, plain "
+          f"{np.array2string(costs_p, precision=6)}; defects kernel "
+          f"{np.array2string(defects_k, precision=2)}, plain "
+          f"{np.array2string(defects_p, precision=2)} (certified below "
+          f"{cert_b:.1e})")
+    if not (cert_k == cert_p).all() or not cert_k.any():
+        raise AssertionError("bench-size line search: the kernel and plain "
+                             "scans certify different candidates, or none")
+    ls_rel = float(np.max(np.abs(costs_k - costs_p)[cert_k]
+                          / np.abs(costs_p)[cert_k]))
+    if not ls_rel <= RTOL_LS:
+        raise AssertionError(f"bench-size line search: certified costs differ "
+                             f"by {ls_rel:.2e} (limit {RTOL_LS})")
+    # The open-loop rollout of the smallest alpha's controls (the DP stays
+    # near rest) from the constant guess at x0, over the first half of the
+    # horizon and over all of it.  Over the first half it must certify, find
+    # that candidate's trajectory and agree between kernel and plain scan.
+    # Over all 100000 Euler steps the f32 sweeps diverge with either scan
+    # (the same sweeps in f64 certify in 4): there both must report it.
+    i_ol = n_alpha_b - 1
+    X_cand = ls["pallas"][0][i_ol]
+    ol = {}
+    for n_ol in (BENCH_N // 2, BENCH_N):
+        U_ol = ls["pallas"][1][i_ol, :n_ol].contiguous()
+        for engine in ("pallas", "xla"):
+            _build.reset_launch_counts()
+            ol[engine] = open_loop_defect_rollout(dp, x0_dp, U_ol, iters=8,
+                                                  engine=engine)
+            torch.cuda.synchronize()
+            if engine == "pallas":
+                launched("bench-size open-loop rollout",
+                         ("affine_prefix_scan",))
+        c_k, c_p = float(ol["pallas"][1]), float(ol["xla"][1])
+        d_k, d_p = float(ol["pallas"][2]), float(ol["xla"][2])
+        ol_dx = float((ol["pallas"][0] - X_cand[:n_ol + 1]).abs().max())
+        print(f"DP open-loop defect rollout N={n_ol}, alpha "
+              f"{float(alphas[i_ol])} controls, constant guess: cost kernel "
+              f"{c_k:.6f}, plain {c_p:.6f}; defect kernel {d_k:.2e}, plain "
+              f"{d_p:.2e}; max |X - candidate X| {ol_dx:.2e}")
+        if (d_k < cert_b) != (d_p < cert_b):
+            raise AssertionError("bench-size open-loop rollout: the kernel and "
+                                 "plain scans certify differently")
+        if n_ol < BENCH_N and not (d_k < cert_b and abs(c_k - c_p)
+                                   <= RTOL_LS * abs(c_p)):
+            raise AssertionError("bench-size open-loop rollout: not certified, "
+                                 "or the kernel and plain costs disagree")
+
+    # ---- 11. multiple shooting at the bench's size (pendulum, rk4) --------
+    p_rk4 = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                              Q_f=np.zeros((2, 2)), d=0.0, integrator="rk4",
+                              **f32)
+    engines = {"kernels": (dict(backward="pallas", defect_engine="pallas"),
+                           "pallas"),
+               "plain": (dict(backward="pscan", defect_engine="xla"), "xla")}
+
+    def ms_bench(name, X_init=None):
+        kw, update_engine = engines[name]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        out = itt.solve_ms(p_rk4, x0_pend, torch.zeros((BENCH_N, 1), **f32),
+                           X_init=X_init,
+                           config=itt.IlqrConfig(maxiter=60, tol=1e-5,
+                                                 init_rollout="defect", **kw),
+                           ms=itt.MsConfig(update_engine=update_engine))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = _build.launch_counts()
+        print(f"MS solve N={BENCH_N} ({name}, "
+              f"{'defect init' if X_init is None else 'X_init = x0'}): status "
+              f"{out.status}, {out.iterations} iterations, cost "
+              f"{float(out.cost):.6f}, defect {float(out.defect):.2e}, "
+              f"{ms:.1f} ms, {ms / max(out.iterations, 1):.2f} ms per "
+              f"iteration, launches {counts}")
+        return out, ms, counts
+
+    def ms_agree(label, a, b, converged):
+        if a.status != b.status:
+            raise AssertionError(f"{label}: statuses differ ({a.status}, "
+                                 f"{b.status})")
+        ca, cb = float(a.cost), float(b.cost)
+        if np.isfinite(cb) and not abs(ca - cb) <= RTOL_MS * abs(cb):
+            raise AssertionError(f"{label}: costs {ca} and {cb} differ by "
+                                 f"more than {RTOL_MS}")
+        if converged and not (a.status == itt.CONVERGED
+                              and max(float(a.defect), float(b.defect))
+                              <= itt.MsConfig().dtol):
+            raise AssertionError(f"{label}: not CONVERGED with defect <= dtol")
+
+    ms_k, ms_k_ms, ms_launches = ms_bench("kernels")
+    if ms_launches.get("fused_riccati", 0) < 1:
+        raise AssertionError("the MS bench solve never launched fused_riccati")
+    ms_p, ms_p_ms, _ = ms_bench("plain")
+    ms_agree("MS bench solve", ms_k, ms_p, ms_k.status == itt.CONVERGED)
+    if ms_k.status != itt.CONVERGED:
+        # As in the JAX package (N = 10000, CPU): the open-loop sweeps from
+        # the constant guess diverge to finite but useless nodes.  The
+        # package's fallback for non-finite nodes is the constant x0
+        # trajectory: solve from there and hold both engines to convergence.
+        X_c = x0_pend.expand(BENCH_N + 1, 2)
+        ms_k, ms_k_ms, ms_launches = ms_bench("kernels", X_c)
+        ms_p, ms_p_ms, _ = ms_bench("plain", X_c)
+        ms_agree("MS bench solve from x0", ms_k, ms_p, True)
+    for kernel in ("fused_riccati", "affine_prefix_scan"):
+        if ms_launches.get(kernel, 0) < 1:
+            raise AssertionError(f"the MS bench solve never launched {kernel}")
+
+    # ---- 12. timing of B3 and B1d, and the parallel-in-time stages --------
+    P5, q5, d5 = random_chain(500, 4, 10, 5)
+    P1, q1, d1 = random_chain(500, 4, 1, 6)
+    Pb = (exp_b.f_x + exp_b.f_u @ K_b).contiguous()
+    _, qb, db = random_chain(BENCH_N, 4, 10, 8)
+    scan = itt.affine_prefix_scan_multi
+    t_b3 = {}
+    for label, (P_, q_, d_) in (("N=500 A=1", (P1, q1, d1)),
+                                ("N=500 A=10", (P5, q5, d5)),
+                                (f"N={BENCH_N} A=10", (Pb, qb, db))):
+        t_b3[label] = (cuda_ms(lambda: scan(P_, q_, d_, engine="pallas"), 50, 5),
+                       cuda_ms(lambda: scan(P_, q_, d_, engine="xla"), 10, 2))
+    exp_pl = tile_expansion(exp_pend, BENCH_N)
+    d_pl = gaps(BENCH_N, 2)
+    t_b1d = cuda_ms(lambda: itt.backward_pass_fused(exp_pl, 0.0, d_pl), 20, 3)
+    t_b1dp = cuda_ms(lambda: itt.backward_pass_associative(exp_pl, 0.0, d_pl),
+                     5, 1)
+    exp_d500 = tile_expansion(exp_dp0, 500)
+    d_d500 = gaps(500, 4)
+    t_b1d5 = cuda_ms(lambda: itt.backward_pass_fused(exp_d500, 0.0, d_d500),
+                     50, 5)
+    t_b1d5p = cuda_ms(lambda: itt.backward_pass_associative(
+        exp_d500, 0.0, d_d500), 10, 2)
+    t_lsk = cuda_ms(lambda: linesearch_defect_rollouts(
+        dp, x0_dp, alphas, X_b, U_b, u_b, K_b, exp_b, iters=8,
+        engine="pallas"), 2, 1)
+    t_lsp = cuda_ms(lambda: linesearch_defect_rollouts(
+        dp, x0_dp, alphas, X_b, U_b, u_b, K_b, exp_b, iters=8,
+        engine="xla"), 2, 1)
+    U_half = ls["pallas"][1][i_ol, :BENCH_N // 2].contiguous()
+    t_olk = cuda_ms(lambda: open_loop_defect_rollout(
+        dp, x0_dp, U_half, iters=8, engine="pallas"), 2, 1)
+    t_olp = cuda_ms(lambda: open_loop_defect_rollout(
+        dp, x0_dp, U_half, iters=8, engine="xla"), 2, 1)
+    t_ol0 = cuda_ms(lambda: open_loop_defect_rollout(
+        dp, x0_dp, U_b, iters=8, engine="pallas"), 2, 1)
+    # Stages of one MS iteration at the bench's size, along the solution.
+    from ilqr_tpu_torch import shooting as ms_mod
+    X_m, U_m = ms_k.X.contiguous(), ms_k.U.contiguous()
+    d_m = ms_mod._node_defects(p_rk4, X_m, U_m)
+    exp_m = itt.linearize_trajectory(p_rk4, X_m, U_m)
+    u_m, K_m, _, _ = itt.backward_pass_fused(exp_m, 0.0, d_m)
+    ms_alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    stages = {
+        "node defects + cost": lambda: (ms_mod._node_defects(p_rk4, X_m, U_m),
+                                        trajectory_cost(p_rk4, X_m, U_m)),
+        "linearize_trajectory": lambda: itt.linearize_trajectory(p_rk4, X_m,
+                                                                 U_m),
+        "B1d backward (kernel)": lambda: itt.backward_pass_fused(exp_m, 0.0,
+                                                                 d_m),
+        "backward (plain, pscan)": lambda: itt.backward_pass_associative(
+            exp_m, 0.0, d_m),
+        "update pass, 10 alphas (B3)": lambda: ms_mod._update_pass_multi(
+            ms_alphas, exp_m, d_m, u_m, K_m, "pallas"),
+        "update pass, 10 alphas (plain)": lambda: ms_mod._update_pass_multi(
+            ms_alphas, exp_m, d_m, u_m, K_m, "xla"),
+        "score 10 candidates": lambda: (
+            trajectory_cost(p_rk4, X_m.expand(10, -1, -1),
+                            U_m.expand(10, -1, -1)),
+            ms_mod._node_defects(p_rk4, X_m.expand(10, -1, -1),
+                                 U_m.expand(10, -1, -1))),
+    }
+    t_stage = {k: cuda_ms(f, 3, 1) for k, f in stages.items()}
+    X_di, _, d_di = open_loop_defect_rollout(p_rk4, x0_pend,
+                                             torch.zeros((BENCH_N, 1), **f32),
+                                             iters=8, engine="pallas")
+    # Stages of the DP line searches at the first iteration (the largest
+    # step of the solve), with the solver's exit tolerance.
+    from ilqr_tpu_torch.ops import chunked_rollout as chunked
+    from ilqr_tpu_torch.ops.parallel_rollout import defect_rollout
+    A_cl0 = exp_dp0.f_x + exp_dp0.f_u @ K0
+    exit0 = 1e-6 * (1.0 + float(X_dp0.abs().max()))
+    ls_args = (dp, x0_dp)
+    t_ls = {
+        "defect phase 1 (alpha 1)": lambda: defect_rollout(
+            *ls_args, 1.0, X_dp0, U_dp0, u0, K0, A_cl0, iters=8,
+            engine="pallas", exit_tol=exit0),
+        "defect phase 2 (10 alphas)": lambda: linesearch_defect_rollouts(
+            *ls_args, alphas, X_dp0, U_dp0, u0, K0, exp_dp0, iters=8,
+            engine="pallas", exit_tol=exit0),
+        "chunked phase 1 (alpha 1)": lambda: chunked.chunked_rollout(
+            *ls_args, 1.0, X_dp0, U_dp0, u0, K0, A_cl0, sweeps=8,
+            exit_tol=exit0),
+        "chunked phase 2 (10 alphas)": lambda: (
+            chunked.linesearch_chunked_rollouts(
+                *ls_args, alphas, X_dp0, U_dp0, u0, K0, A_cl0, sweeps=8,
+                chunk_len=chunked.coarse_chunk_len(500), exit_tol=exit0)),
+        "exact fallback (host loop)": lambda: itt.linesearch_rollouts(
+            *ls_args, alphas, X_dp0, U_dp0, u0, K0),
+        "defect initial rollout (rest)": lambda: open_loop_defect_rollout(
+            dp, x0_dp, U_dp0, iters=8, engine="pallas", exit_tol=1e-6),
+    }
+    t_ls = {k: cuda_ms(f, 2, 1) for k, f in t_ls.items()}
+    print(f"timing on {smi} (CUDA events, ms per call):")
+    for label, (tk, tp) in t_b3.items():
+        print(f"  B3 affine_prefix_scan {label} n=4: kernel {tk:.4f}, plain "
+              f"{tp:.4f}")
+    print(f"  B1d fused_riccati (defects) DP N=500: kernel {t_b1d5:.4f}, "
+          f"plain (associative) {t_b1d5p:.4f}")
+    print(f"  B1d fused_riccati (defects) pendulum N={BENCH_N}: kernel "
+          f"{t_b1d:.4f}, plain (associative) {t_b1dp:.4f}")
+    print(f"  DP line search N={BENCH_N}, 10 alphas, 8 sweeps: kernel scan "
+          f"{t_lsk:.2f}, plain scan {t_lsp:.2f}")
+    print(f"  DP open-loop defect rollout N={BENCH_N // 2}, smallest "
+          f"alpha's controls, up to 8 sweeps: kernel scan "
+          f"{t_olk:.2f}, plain scan {t_olp:.2f}; bench cell N={BENCH_N} "
+          f"(zero controls, no sweep needed) {t_ol0:.2f}")
+    print(f"  DP line-search stages N=500, first iteration:")
+    for k, v in t_ls.items():
+        print(f"    {k}: {v:.2f}")
+    print(f"  MS defect initial rollout N={BENCH_N} (pendulum rk4, zero "
+          f"controls, 8 sweeps from x0): defect {float(d_di):.2e}, finite "
+          f"{bool(torch.isfinite(X_di).all())}")
+    print(f"  MS iteration stages N={BENCH_N} (pendulum rk4):")
+    for k, v in t_stage.items():
+        print(f"    {k}: {v:.3f}")
+    print(f"  MS solve N={BENCH_N}: kernels {ms_k_ms:.1f} ms "
+          f"({ms_k.iterations} iterations), plain {ms_p_ms:.1f} ms "
+          f"({ms_p.iterations} iterations)")
 
     kernels_json = [
         dict(name="fused_riccati", route="cuda",
@@ -385,6 +800,19 @@ def main() -> int:
              launches=launches.get("closed_loop_rollout", 0),
              max_abs_err=errors["closed_loop_rollout"], ms=t_t,
              plain_ms=t_tp),
+        dict(name="affine_prefix_scan", route="cuda",
+             source="ilqr_tpu_torch/csrc/affine_scan.cu",
+             replaces="ilqr_tpu/ops/pallas_affine.py:137",
+             launches=par_launches["defect"].get("affine_prefix_scan", 0),
+             max_abs_err=errors["affine_prefix_scan"],
+             ms=t_b3[f"N={BENCH_N} A=10"][0],
+             plain_ms=t_b3[f"N={BENCH_N} A=10"][1]),
+        dict(name="fused_riccati_defects", route="cuda",
+             source="ilqr_tpu_torch/csrc/fused_riccati.cu",
+             replaces="ilqr_tpu/ops/pallas_riccati.py:774",
+             launches=ms_launches.get("fused_riccati", 0),
+             max_abs_err=errors["fused_riccati_defects"], ms=t_b1d,
+             plain_ms=t_b1dp),
     ]
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {

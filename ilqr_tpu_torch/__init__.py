@@ -3,13 +3,16 @@
 Counterpart of `ilqr_tpu/__init__.py`.  The JAX package `ilqr_tpu` is the
 reference; this package carries its main path to PyTorch: the pendulum and
 double-pendulum models, the integrators, trajectory linearization, the
-sequential and associative Riccati backward passes, the rollouts and the
-iLQR `solve`.  Its two kernel engines are CUDA
-C++ written for Hopper (sm_90a): the fused backward pass
-(``backward='pallas'``, `ops/fused_riccati.py`) and the line-search rollout
-kernels (``rollout='pallas'``, `ops/fused_rollout.py`), built with nvcc at
-first use.  On CPU tensors every kernel wrapper runs its plain PyTorch
-version.  Nothing here imports JAX.
+sequential and associative Riccati backward passes, the rollouts, the
+parallel-in-time (defect and chunked) rollouts, the iLQR `solve` and the
+multiple-shooting `solve_ms`.  Its kernel engines are CUDA C++ written for
+Hopper (sm_90a), built with nvcc at first use: the fused backward pass
+(``backward='pallas'``, `ops/fused_riccati.py`, with GNMS defects), the
+line-search rollout kernels (``rollout='pallas'``, `ops/fused_rollout.py`)
+and the multi-candidate affine prefix scan (``defect_engine`` and
+``MsConfig.update_engine`` 'pallas', `ops/affine_scan.py`).  On CPU
+tensors every kernel wrapper runs its plain PyTorch version.  Nothing here
+imports JAX.
 """
 from ilqr_tpu_torch.models.base import (
     INTEGRATORS,
@@ -21,6 +24,7 @@ from ilqr_tpu_torch.models.base import (
 )
 from ilqr_tpu_torch.models.double_pendulum import make_double_pendulum
 from ilqr_tpu_torch.models.pendulum import make_pendulum
+from ilqr_tpu_torch.ops.affine_scan import affine_prefix_scan_multi
 from ilqr_tpu_torch.ops.fused_riccati import backward_pass_fused
 from ilqr_tpu_torch.ops.fused_rollout import (
     closed_loop_rollout_fused,
@@ -43,6 +47,12 @@ from ilqr_tpu_torch.solver import (
     IlqrSolution,
     solve,
 )
+from ilqr_tpu_torch.shooting import (
+    MsConfig,
+    MsSolution,
+    interpolate_states,
+    solve_ms,
+)
 
 __version__ = "0.1.0"
 
@@ -54,6 +64,8 @@ __all__ = [
     "backward_pass", "backward_pass_associative", "backward_pass_fused",
     "rollout", "closed_loop_rollout", "linesearch_rollouts",
     "linesearch_costs_fused", "closed_loop_rollout_fused",
+    "affine_prefix_scan_multi",
     "solve", "IlqrConfig", "IlqrSolution",
     "CONVERGED", "LINESEARCH_FAILED", "MAXITER",
+    "solve_ms", "MsConfig", "MsSolution", "interpolate_states",
 ]

@@ -37,6 +37,12 @@
 //      a shift across blocks, then forms the Q-expansion, the gains and the
 //      per-step dV, and reduces dV and a non-finite count per block.
 // No TPU packing is reproduced: the expansion tensors are read as they are.
+//
+// GNMS defects (multiple shooting, B1d; the with_defects variant of the TPU
+// kernel): with gaps d_k the local dynamics are affine, dx+ = f_x dx +
+// f_u du + d_k, which adds d_k to the stage element's b (pass 1) and shifts
+// the gains' linear terms by V_x(t+1) += V_xx(t+1) d_t (pass 3).  A null
+// defects pointer is the plain backward pass.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -260,6 +266,7 @@ struct Expansion {
   const float* l_uu;  // (N, NU, NU)
   const float* v_x;   // (NX,)
   const float* v_xx;  // (NX, NX)
+  const float* d;     // (N, NX) GNMS defects, or nullptr
 };
 
 template <int N>
@@ -304,6 +311,10 @@ __device__ __forceinline__ void build_element(int k, int N,
     mv<NX, NU>(f_u, Rir, v);
 #pragma unroll
     for (int i = 0; i < NX; ++i) e[E::B + i] = -v[i];
+    if (ex.d != nullptr) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) e[E::B + i] += ex.d[(size_t)k * NX + i];
+    }
     // C = sym(f_u R^-1 f_u')
     mm<NX, NU, NX>(f_u, RiBt, T);
     sym<NX>(T, e + E::C);
@@ -411,6 +422,13 @@ gains_kernel(Expansion ex, int N, float reg, const float* __restrict__ local,
     float v_x[NX], fuT_Vxx[NU * NX], Q_u[NU], T[NU * NU];
 #pragma unroll
     for (int i = 0; i < NX; ++i) v_x[i] = -eta_n[i];
+    if (ex.d != nullptr) {
+      float d_t[NX], Jd[NX];
+      load<NX>(ex.d + (size_t)t * NX, d_t);
+      mv<NX, NX>(J_n, d_t, Jd);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) v_x[i] += Jd[i];
+    }
     mtm<NU, NX, NX>(f_u, J_n, fuT_Vxx);
     mtv<NU, NX>(f_u, v_x, Q_u);
 #pragma unroll
@@ -498,15 +516,18 @@ int run(int N, float reg, const Expansion& ex, float* local, float* edge,
 extern "C" int ilqr_riccati_block_steps() { return kBlockSteps; }
 extern "C" int ilqr_riccati_gain_threads() { return kGainThreads; }
 
-// Scratch: local (N+1, F), edge (n_blocks, n_x + n_x^2); outputs u_ff
+// defects: (N, n_x) or null.  Scratch: local (N+1, F), edge
+// (n_blocks, n_x + n_x^2); outputs u_ff
 // (N, n_u), K (N, n_u, n_x), partials (gain_blocks, 3) = per-block sums of
 // dV1, dV2 and the count of non-finite gains.
 extern "C" int ilqr_fused_riccati(
     int n_x, int n_u, int N, float reg, const float* f_x, const float* f_u,
     const float* l_x, const float* l_u, const float* l_xx, const float* l_ux,
-    const float* l_uu, const float* v_x, const float* v_xx, float* local,
-    float* edge, float* u_ff, float* K, float* partials, void* stream) {
-  const Expansion ex{f_x, f_u, l_x, l_u, l_xx, l_ux, l_uu, v_x, v_xx};
+    const float* l_uu, const float* v_x, const float* v_xx,
+    const float* defects, float* local, float* edge, float* u_ff, float* K,
+    float* partials, void* stream) {
+  const Expansion ex{f_x, f_u, l_x, l_u, l_xx, l_ux, l_uu, v_x, v_xx,
+                     defects};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_x == 2 && n_u == 1)
     return run<2, 1>(N, reg, ex, local, edge, u_ff, K, partials, s);

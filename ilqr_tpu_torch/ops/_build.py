@@ -1,13 +1,14 @@
 """Build, load and count the port's CUDA kernels.
 
-The sources in ``ilqr_tpu_torch/csrc`` are compiled at first use by
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-into one shared library with a plain C interface, loaded with `ctypes`.
-Building takes seconds because no PyTorch header is included.  The library
-lands in ``ilqr_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
-and flags, so a fresh checkout builds it once and an edit rebuilds it.  The
-build writes to a temporary file and renames it, so processes that build at
-once do not see a partial library.
+The sources in ``ilqr_tpu_torch/csrc`` are compiled at first use, one
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c`` per source, all
+started together, and linked into one shared library with a plain C
+interface, loaded with `ctypes`.  Building takes seconds because no PyTorch
+header is included.  The library lands in
+``ilqr_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
+flags, so a fresh checkout builds it once and an edit rebuilds it.  The
+build works in a temporary directory and renames the library into place, so
+processes that build at once do not see a partial library.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without nvcc or a GPU.
@@ -35,19 +36,22 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libilqr_tpu_torch_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry: c_void_p for each pointer and the stream.
 SIGNATURES = {
-    "ilqr_fused_riccati": [_I, _I, _I, _F] + [_P] * 9 + [_P] * 5 + [_P],
+    "ilqr_fused_riccati": [_I, _I, _I, _F] + [_P] * 10 + [_P] * 5 + [_P],
     "ilqr_riccati_block_steps": [],
     "ilqr_riccati_gain_threads": [],
     "ilqr_linesearch_costs": [_I, _I, _I, _I, _P, _I, _P, _P, _I,
                               _P, _P, _P, _P, _I, _P, _P],
     "ilqr_closed_loop_rollout": [_I, _I, _I, _I, _P, _I, _P, _F,
                                  _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "ilqr_affine_prefix_scan": [_I, _I, _I] + [_P] * 6 + [_P],
+    "ilqr_affine_block_steps": [],
     "ilqr_cuda_error_string": [_I],
 }
 
@@ -81,7 +85,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -119,24 +123,39 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def _compile(out: Path) -> tuple[float, str]:
+    """One nvcc per source, all started together, then one link."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    work = Path(tempfile.mkdtemp(dir=out.parent))
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
+        objs = [work / f"{src.stem}.o" for src in sources()]
+        jobs = []
+        for src, obj in zip(sources(), objs):
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=CSRC_DIR)))
+        # Wait for every compile before raising, so none is left running.
+        results = [(cmd, *proc.communicate(), proc.returncode)
+                   for cmd, proc in jobs]
+        link = [nvcc, *LINK_FLAGS, "-o", str(work / LIB_NAME), *map(str, objs)]
+        for cmd, stdout, stderr, code in results:
+            if code != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({code}):\n{' '.join(cmd)}\n"
+                    f"{stdout[-4000:]}{stderr[-4000:]}")
+        proc = subprocess.run(link, capture_output=True, text=True,
                               cwd=CSRC_DIR)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
                 f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
-        log = proc.stdout + proc.stderr
+        log = "".join(o + e for _, o, e, _ in results)
         (out.parent / "ptxas.log").write_text(log)
-        os.replace(tmp, out)
+        os.replace(work / LIB_NAME, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return time.perf_counter() - t0, log
 
 

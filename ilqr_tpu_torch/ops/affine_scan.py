@@ -1,0 +1,127 @@
+"""Multi-candidate affine prefix scan: δ_{k+1} = P_k δ_k + q_k^(a).
+
+PyTorch counterpart of `ilqr_tpu/ops/pallas_affine.py`
+(`affine_prefix_scan_multi`, kernel `_prefix_kernel_sub`).  The transition
+chain P is shared by all A candidates; only the drives q^(a) differ.  The
+elements (P_k, q_k^(1..A)) combine associatively,
+
+    (P, q^a) ∘ (P', q'^a) = (P'P, P'q^a + q'^a)        (earlier ∘ later),
+
+so the inclusive prefixes give every δ_{k+1} = (P_k⋯P_0) δ_0 + (q prefix)_k
+in ⌈log₂ N⌉ sweeps.  The plain version, `prefix_scan`, doubles over the
+whole horizon with torch ops; the CUDA kernel, `csrc/affine_scan.cu`, scans
+256-step blocks in shared memory and carries a state across blocks.
+
+Dispatch: ``engine='xla'`` runs the plain version on any device.
+``'pallas'`` and ``'auto'`` run the plain version on CPU tensors and launch
+the kernel on CUDA tensors, or raise: the kernel is instantiated for
+n ∈ `STATES` (the slice's models) and at most `MAX_CANDIDATES` candidates
+(ROADMAP item B3w).  As in JAX, n > 16 runs the plain version everywhere.
+"""
+from __future__ import annotations
+
+import torch
+
+from ilqr_tpu_torch.models.base import full_f32_matmuls
+from ilqr_tpu_torch.ops import _build
+
+KERNEL = "affine_prefix_scan"
+STATES = (2, 4)
+MAX_CANDIDATES = 16
+ENGINES = ("auto", "pallas", "xla")
+
+
+def combine(earlier, later):
+    """(P, q) ∘ (P', q') = (P'P, P'q + q'), batched; q carries the
+    candidate axis first: P (..., n, n), q (A, ..., n)."""
+    P1, q1 = earlier
+    P2, q2 = later
+    return P2 @ P1, torch.einsum("...ij,a...j->a...i", P2, q1) + q2
+
+
+def prefix_scan(P: torch.Tensor, q: torch.Tensor):
+    """Inclusive prefixes of (P (N, n, n), q (A, N, n)) by recursive
+    doubling: at distance d, E[k] ← E[k−d] ∘ E[k] wherever k ≥ d."""
+    N = P.shape[0]
+    d = 1
+    while d < N:
+        P_new, q_new = combine((P[:N - d], q[:, :N - d]), (P[d:], q[:, d:]))
+        P = torch.cat([P[:d], P_new])
+        q = torch.cat([q[:, :d], q_new], dim=1)
+        d *= 2
+    return P, q
+
+
+def _check(P, q, delta0) -> None:
+    N, n = P.shape[0], P.shape[-1]
+    A = q.shape[0]
+    shapes = dict(P=(N, n, n), q=(A, N, n), delta0=(A, n))
+    for name, t in zip(shapes, (P, q, delta0)):
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA affine scan takes float32, "
+                            f"{name} is {t.dtype}")
+        if t.device != P.device:
+            raise ValueError(f"{name} is on {t.device}, P on {P.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if N < 1:
+        raise ValueError("the CUDA affine scan needs a horizon N >= 1")
+
+
+def block_steps(lib) -> int:
+    """Steps per scan block of the kernel (its cross-block carry period)."""
+    return lib.ilqr_affine_block_steps()
+
+
+def launch(lib, P, q, delta0, stream) -> torch.Tensor:
+    """Allocate δ and the block scratch and run the kernel on ``stream``;
+    inputs must already have passed `_check`."""
+    N, n = P.shape[0], P.shape[-1]
+    A = q.shape[0]
+    n_blocks = -(-N // block_steps(lib))
+    opts = dict(dtype=torch.float32, device=P.device)
+    out = torch.empty((A, N + 1, n), **opts)
+    agg = torch.empty((n_blocks, n * n + A * n), **opts)
+    carry = torch.empty((n_blocks, A, n), **opts)
+    code = lib.ilqr_affine_prefix_scan(
+        n, A, N, P.data_ptr(), q.data_ptr(), delta0.data_ptr(),
+        agg.data_ptr(), carry.data_ptr(), out.data_ptr(), stream)
+    _build.check(lib, code, "affine prefix scan kernel")
+    return out
+
+
+@full_f32_matmuls()
+def affine_prefix_scan_multi(P: torch.Tensor, q: torch.Tensor,
+                             delta0: torch.Tensor,
+                             engine: str = "auto") -> torch.Tensor:
+    """Solve δ_{k+1} = P_k δ_k + q_k^(a) for all candidates a at once.
+
+    P: (N, n, n) shared transition chain; q: (A, N, n) per-candidate drives;
+    delta0: (A, n).  Returns δ: (A, N+1, n) with δ[:, 0] = δ0.
+    """
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be 'auto'|'pallas'|'xla', got {engine!r}")
+    n, A = P.shape[-1], q.shape[0]
+    device = P.device
+    if engine == "xla" or n > 16 or device.type == "cpu":
+        Ps, qs = prefix_scan(P, q)
+        deltas = torch.einsum("kij,aj->aki", Ps, delta0) + qs
+        return torch.cat([delta0[:, None], deltas], dim=1)
+    if n not in STATES or A > MAX_CANDIDATES:
+        raise NotImplementedError(
+            f"the CUDA affine scan is instantiated for n in {STATES} and at "
+            f"most {MAX_CANDIDATES} candidates, got n={n}, A={A}: "
+            f"ROADMAP item B3w")
+    if device.type != "cuda":
+        raise ValueError(f"no affine scan kernel for device {device}")
+    P, q, delta0 = P.contiguous(), q.contiguous(), delta0.contiguous()
+    _check(P, q, delta0)
+    with torch.cuda.device(device):
+        lib = _build.load().lib
+        out = launch(lib, P, q, delta0,
+                     torch.cuda.current_stream(device).cuda_stream)
+    _build.count_launch(KERNEL)
+    return out

@@ -4,14 +4,17 @@ PyTorch counterpart of the fused path of `ilqr_tpu/ops/pallas_riccati.py`
 (`backward_pass_pallas_fused`, kernel `_fused_kernel`).  The kernel,
 `csrc/fused_riccati.cu`, builds the Riccati elements, runs the blocked
 suffix scan, closes it across blocks and forms the gains and dV; its note
-says how the TPU design was rethought for a GPU.
+says how the TPU design was rethought for a GPU.  With GNMS ``defects``
+(multiple shooting, `ilqr_tpu_torch.shooting`) the kernel adds d_k to each
+stage element's offset b and V_xx(k+1)·d_k to V_x(k+1) in the gains, as the
+TPU kernel's ``with_defects`` variant does.
 
 Dispatch follows the tensor: on the CPU `backward_pass_fused` runs its
 plain version, `parallel_riccati.backward_pass_associative` (the same
-function); on a CUDA tensor it launches the kernel or raises.  As in JAX,
-n_x > 16 or n_u > 6 go to `backward_pass_associative` on every device.  The
-kernel is instantiated for (n_x, n_u) in `SHAPES`, the slice's three
-models; other shapes raise on CUDA (ROADMAP item B1w).
+function, defects included); on a CUDA tensor it launches the kernel or
+raises.  As in JAX, n_x > 16 or n_u > 6 go to `backward_pass_associative`
+on every device.  The kernel is instantiated for (n_x, n_u) in `SHAPES`,
+the slice's three models; other shapes raise on CUDA (ROADMAP item B1w).
 """
 from __future__ import annotations
 
@@ -34,16 +37,19 @@ def block_steps(lib) -> int:
     return lib.ilqr_riccati_block_steps()
 
 
-def _check(exp: TrajectoryExpansion) -> None:
+def _check(exp: TrajectoryExpansion, defects=None) -> None:
     N, n_x = exp.f_x.shape[0], exp.f_x.shape[-1]
     n_u = exp.l_u.shape[-1]
     if N < 1:
         raise ValueError("the CUDA backward pass needs a horizon N >= 1")
     shapes = dict(f_x=(N, n_x, n_x), f_u=(N, n_x, n_u), l_x=(N, n_x),
                   l_u=(N, n_u), l_xx=(N, n_x, n_x), l_ux=(N, n_u, n_x),
-                  l_uu=(N, n_u, n_u), v_x=(n_x,), v_xx=(n_x, n_x))
-    for name in _FIELDS:
-        t = getattr(exp, name)
+                  l_uu=(N, n_u, n_u), v_x=(n_x,), v_xx=(n_x, n_x),
+                  defects=(N, n_x))
+    tensors = {name: getattr(exp, name) for name in _FIELDS}
+    if defects is not None:
+        tensors["defects"] = defects
+    for name, t in tensors.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shapes[name]}")
@@ -56,11 +62,12 @@ def _check(exp: TrajectoryExpansion) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch(lib, exp: TrajectoryExpansion, reg: float, stream):
+def launch(lib, exp: TrajectoryExpansion, reg: float, stream, defects=None):
     """Allocate outputs and scratch and run the kernel on ``stream``.
 
     Takes the library handle so that any build of the sources can be run;
-    inputs must already have passed `_check`.
+    inputs must already have passed `_check`.  ``defects=None`` passes a
+    null pointer: the plain backward pass.
     """
     N, n_x = exp.f_x.shape[0], exp.f_x.shape[-1]
     n_u = exp.l_u.shape[-1]
@@ -75,8 +82,9 @@ def launch(lib, exp: TrajectoryExpansion, reg: float, stream):
     partials = torch.empty((gain_blocks, 3), **opts)
     code = lib.ilqr_fused_riccati(
         n_x, n_u, N, reg, *(getattr(exp, f).data_ptr() for f in _FIELDS),
-        local.data_ptr(), edge.data_ptr(), u_ff.data_ptr(), K.data_ptr(),
-        partials.data_ptr(), stream)
+        None if defects is None else defects.data_ptr(), local.data_ptr(),
+        edge.data_ptr(), u_ff.data_ptr(), K.data_ptr(), partials.data_ptr(),
+        stream)
     _build.check(lib, code, "fused Riccati kernel")
     sums = partials.sum(0)
     return u_ff, K, sums[:2], sums[2] == 0
@@ -87,24 +95,22 @@ def backward_pass_fused(
     exp: TrajectoryExpansion, reg: float = 0.0, defects=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused backward pass; the contract of `riccati.backward_pass`:
-    returns (u_ff (N, n_u), K (N, n_u, n_x), dV (2,), ok)."""
-    if defects is not None:
-        raise NotImplementedError(
-            "multiple-shooting defects are ROADMAP item A13 (kernel: B1d)")
+    returns (u_ff (N, n_u), K (N, n_u, n_x), dV (2,), ok).  ``defects``
+    ((N, n_x) multiple-shooting gaps) gives the GNMS variant."""
     n_x, n_u = exp.f_x.shape[-1], exp.l_u.shape[-1]
     device = exp.f_x.device
     if n_x > 16 or n_u > 6 or device.type == "cpu":
-        return backward_pass_associative(exp, reg)
+        return backward_pass_associative(exp, reg, defects=defects)
     if device.type != "cuda":
         raise ValueError(f"no backward pass kernel for device {device}")
     if (n_x, n_u) not in SHAPES:
         raise NotImplementedError(
             f"the CUDA backward pass is instantiated for (n_x, n_u) in "
             f"{SHAPES}, got {(n_x, n_u)}: ROADMAP item B1w")
-    _check(exp)
+    _check(exp, defects)
     with torch.cuda.device(device):
         lib = _build.load().lib
         out = launch(lib, exp, float(reg),
-                     torch.cuda.current_stream(device).cuda_stream)
+                     torch.cuda.current_stream(device).cuda_stream, defects)
     _build.count_launch(KERNEL)
     return out

@@ -9,8 +9,11 @@ value function
     A̅ = A − B R⁻¹ M        b = −B R⁻¹ r        C = B R⁻¹ B'
     J = Q − M' R⁻¹ M        η = −(q − M' R⁻¹ r)
 
-with the terminal element (0, 0, 0, −l_f_x, l_f_xx).  The combine of an
-earlier element e_i with a later e_j (L = I + C_i J_j)
+with the terminal element (0, 0, 0, −l_f_x, l_f_xx).  Multiple-shooting
+gaps d_k (GNMS, `ilqr_tpu_torch.shooting`) make the step affine,
+δx⁺ = A δx + B δu + d_k, which adds d_k to b; the gains then read
+V_x(k+1) + V_xx(k+1)·d_k.  The combine of an earlier element e_i with a
+later e_j (L = I + C_i J_j)
 
     A̅ = A̅_j L⁻¹ A̅_i                 b = A̅_j L⁻¹ (b_i + C_i η_j) + b_j
     C = A̅_j L⁻¹ C_i A̅_j' + C_j      η = A̅_i' L⁻ᵀ (η_j − J_j b_i) + η_i
@@ -50,10 +53,8 @@ def _mv(M, v):
 
 
 def make_elements(exp: TrajectoryExpansion, reg, defects=None) -> RiccatiElement:
-    """The N+1 stacked scan elements (N stage leaves + terminal)."""
-    if defects is not None:
-        raise NotImplementedError(
-            "multiple-shooting defects are ROADMAP item A13")
+    """The N+1 stacked scan elements (N stage leaves + terminal);
+    ``defects`` (N, n_x) enter the leaves' affine offsets, b ← b + d."""
     n_u = exp.l_u.shape[-1]
     n_x = exp.v_x.shape[0]
     eye_u = torch.eye(n_u, dtype=exp.l_u.dtype, device=exp.l_u.device)
@@ -64,9 +65,10 @@ def make_elements(exp: TrajectoryExpansion, reg, defects=None) -> RiccatiElement
     sol = torch.linalg.solve(R, rhs)
     Rinv_M, Rinv_Bt, Rinv_r = sol[..., :n_x], sol[..., n_x:-1], sol[..., -1]
     MT = exp.l_ux.transpose(-1, -2)
+    b = -_mv(exp.f_u, Rinv_r)
     leaves = RiccatiElement(
         A=exp.f_x - exp.f_u @ Rinv_M,
-        b=-_mv(exp.f_u, Rinv_r),
+        b=b if defects is None else b + defects,
         C=_sym(exp.f_u @ Rinv_Bt),
         eta=-(exp.l_x - _mv(MT, Rinv_r)),
         J=_sym(exp.l_xx - MT @ Rinv_M),
@@ -135,8 +137,12 @@ def gains_from_value(exp: TrajectoryExpansion, V_x, V_xx, reg):
 def backward_pass_associative(
     exp: TrajectoryExpansion, reg: float = 0.0, defects=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Drop-in replacement for `ilqr_tpu_torch.ops.riccati.backward_pass`."""
+    """Drop-in replacement for `ilqr_tpu_torch.ops.riccati.backward_pass`,
+    ``defects`` included (the GNMS variant)."""
     suffix = suffix_scan(make_elements(exp, reg, defects=defects))
     # Cost-to-go at k+1 drives the gains at k.
-    u_ff, K, dVs = gains_from_value(exp, -suffix.eta[1:], suffix.J[1:], reg)
+    V_x, V_xx = -suffix.eta[1:], suffix.J[1:]
+    if defects is not None:
+        V_x = V_x + _mv(V_xx, defects)
+    u_ff, K, dVs = gains_from_value(exp, V_x, V_xx, reg)
     return u_ff, K, dVs.sum(0), all_finite(u_ff, K)

@@ -4,7 +4,9 @@ PyTorch counterpart of `ilqr_tpu/ops/riccati.py::backward_pass`: the same
 Q-expansion and gain solves, walked backward over time in a host loop, with
 the full symmetric value update, regularization on the gain solve only, the
 expected-improvement terms dV and the ``ok`` flag.  The (n_u × n_u) gain
-systems go to `torch.linalg.solve`.
+systems go to `torch.linalg.solve`.  With multiple-shooting ``defects``
+(the GNMS backward pass of `ilqr_tpu_torch.shooting`) the linear Q-terms
+use V_x + V_xx·d_k in place of V_x.
 """
 from __future__ import annotations
 
@@ -31,6 +33,10 @@ def backward_pass(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the Riccati recursion.
 
+    ``defects`` ((N, n_x) gaps d_k = f(x_k, u_k) − x_{k+1}) make the local
+    dynamics affine, δx⁺ = f_x δx + f_u δu + d_k; ``None`` (or zeros) is the
+    plain recursion.
+
     Returns:
         u_ff: (N, n_u) feedforward controls
         K:    (N, n_u, n_x) feedback gains
@@ -40,18 +46,17 @@ def backward_pass(
     if hess is not None or noise is not None:
         raise NotImplementedError(
             "second-order (DDP) and iLQG noise terms are ROADMAP item A15")
-    if defects is not None:
-        raise NotImplementedError(
-            "multiple-shooting defects are ROADMAP item A13")
     N, n_u = exp.l_u.shape
     eye_u = torch.eye(n_u, dtype=exp.l_u.dtype, device=exp.l_u.device)
     V_x, V_xx = exp.v_x, exp.v_xx
     u_ffs, Ks, dVs = [None] * N, [None] * N, [None] * N
     for k in range(N - 1, -1, -1):
         f_x, f_u = exp.f_x[k], exp.f_u[k]
+        # A shooting gap folds the affine term into the linear Q-terms.
+        W = V_x if defects is None else V_x + V_xx @ defects[k]
         fuT_Vxx = f_u.T @ V_xx
-        Q_x = exp.l_x[k] + f_x.T @ V_x
-        Q_u = exp.l_u[k] + f_u.T @ V_x
+        Q_x = exp.l_x[k] + f_x.T @ W
+        Q_u = exp.l_u[k] + f_u.T @ W
         Q_xx = exp.l_xx[k] + f_x.T @ V_xx @ f_x
         Q_ux = exp.l_ux[k] + fuT_Vxx @ f_x
         Q_uu = exp.l_uu[k] + fuT_Vxx @ f_u

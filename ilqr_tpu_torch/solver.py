@@ -6,7 +6,8 @@ per iteration (the candidate costs, the ``ok`` flag and max |u_ff| come back
 together).  The accept rules are the JAX ones:
 
 * the whole α schedule is rolled out at once and the first α whose cost
-  does not exceed the current cost is accepted;
+  does not exceed the current cost is accepted (the parallel-in-time
+  engines first try the first α alone, see `_parallel_linesearch`);
 * the solve stops when no α is accepted (LINESEARCH_FAILED);
 * convergence, |Δcost| ≤ tol, is tested at the top of every iteration but
   the first;
@@ -15,10 +16,15 @@ together).  The accept rules are the JAX ones:
 Engines: ``backward`` is 'scan' (sequential Riccati), 'pscan' (associative
 scan) or 'pallas' (the hand-written CUDA backward pass of
 `ops/fused_riccati.py`); ``rollout`` is 'scan' (the host-loop rollout
-batch) or 'pallas' (the CUDA rollout kernels of `ops/fused_rollout.py`:
-candidate costs first, then only the accepted α is materialized).  'auto'
-resolves to 'scan' on every device until end-to-end GPU measurements set a
-rule.  The engine names are the JAX ones, so a JAX config carries over.
+batch), 'pallas' (the CUDA rollout kernels of `ops/fused_rollout.py`:
+candidate costs first, then only the accepted α is materialized), 'defect'
+(parallel-in-time Newton sweeps, `ops/parallel_rollout.py`) or 'chunked'
+(multiple-shooting chunks, `ops/chunked_rollout.py`); ``init_rollout`` is
+'scan' or 'defect'; ``defect_engine`` picks the sweeps' affine prefix scan
+('pallas'/'auto': the CUDA kernel of `ops/affine_scan.py` on CUDA tensors;
+'xla': its plain version).  'auto' resolves to 'scan' on every device
+until end-to-end GPU measurements set a rule.  The engine names are the
+JAX ones, so a JAX config carries over.
 """
 from __future__ import annotations
 
@@ -29,6 +35,11 @@ import numpy as np
 import torch
 
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
+from ilqr_tpu_torch.ops.chunked_rollout import (
+    chunked_rollout,
+    coarse_chunk_len,
+    linesearch_chunked_rollouts,
+)
 from ilqr_tpu_torch.ops.fused_riccati import backward_pass_fused
 from ilqr_tpu_torch.ops.fused_rollout import (
     closed_loop_rollout_fused,
@@ -36,6 +47,11 @@ from ilqr_tpu_torch.ops.fused_rollout import (
 )
 from ilqr_tpu_torch.ops.linearize import linearize_trajectory
 from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
+from ilqr_tpu_torch.ops.parallel_rollout import (
+    defect_rollout,
+    linesearch_defect_rollouts,
+    open_loop_defect_rollout,
+)
 from ilqr_tpu_torch.ops.riccati import backward_pass
 from ilqr_tpu_torch.ops.rollout import linesearch_rollouts, rollout
 
@@ -49,9 +65,8 @@ class IlqrConfig:
     validation of `ilqr_tpu.solver.IlqrConfig`.
 
     `solve` raises `NotImplementedError` (naming the ROADMAP item) for the
-    options this port does not run yet: rollout 'defect'/'chunked',
-    init_rollout 'defect', a non-'auto' defect_engine, control limits,
-    ddp, noise and adaptive_reg.
+    options this port does not run yet: control limits, ddp, noise and
+    adaptive_reg.
     """
 
     maxiter: int = 100
@@ -144,19 +159,15 @@ class IlqrSolution:
     cost_trace: torch.Tensor   # (maxiter,) cost after each iteration
     alpha_trace: torch.Tensor  # (maxiter,) accepted α per iteration
     grad_trace: torch.Tensor   # (maxiter,) max |u_ff| per iteration
-    # State of the parallel line-search latch; always False until the
-    # parallel line searches land (ROADMAP A11).
+    # Final state of the parallel line-search latch: True while the
+    # 'defect'/'chunked' line search was still certifying when the solve
+    # ended.  Feed it back as `solve(..., defect_latch=...)` to warm-start a
+    # related solve; always False for the other line-search engines.
     defect_latch: bool = False
 
 
-def _unsupported(config: IlqrConfig, defect_latch) -> str | None:
+def _unsupported(config: IlqrConfig) -> str | None:
     """The ROADMAP item of the first option set that this port lacks."""
-    if config.resolved_rollout() in ("defect", "chunked"):
-        return f"rollout={config.rollout!r} is ROADMAP item A11"
-    if config.resolved_init_rollout() == "defect":
-        return "init_rollout='defect' is ROADMAP item A11"
-    if config.defect_engine != "auto" or defect_latch is not None:
-        return "the defect engine and its latch are ROADMAP item A11"
     if config.u_min is not None:
         return "control limits (u_min/u_max) are ROADMAP item A14"
     if config.ddp or config.noise is not None:
@@ -175,6 +186,78 @@ def _backward(exp, reg: float, config: IlqrConfig):
     return backward_pass(exp, reg)
 
 
+def _initial_rollout(system: System, x0, U, config: IlqrConfig):
+    """(X, cost) of U from x0.  init_rollout='defect' runs the parallel
+    Newton sweeps and falls back to the sequential rollout unless their
+    defect certifies below defect_tol."""
+    if config.resolved_init_rollout() == "defect":
+        X, cost, defect = open_loop_defect_rollout(
+            system, x0, U, iters=config.defect_iters,
+            engine=config.defect_engine, exit_tol=1e-3 * config.defect_tol)
+        if float(defect) < config.defect_tol:
+            return X, cost
+    return rollout(system, x0, U)
+
+
+def _parallel_linesearch(system: System, x0, alphas, X, U, cost, u_ff, K,
+                         exp, config: IlqrConfig):
+    """The two-phase line search of rollout='defect'|'chunked'.
+
+    Returns (X_c, U_c, costs, certified, par_success): candidate
+    trajectories (leading α axis), their costs (tensor), which of them the
+    accept rule may take (numpy bool), and whether the parallel path
+    answered (False: the exact sequential rollouts did).
+
+    Phase 1 sweeps the first α alone and ends the search if it certifies
+    and improves.  Phase 2 sweeps the whole schedule with one shared scan;
+    its answer stands only if some certified candidate improves and no
+    uncertified candidate comes before the first of them (accepting the
+    first improving α needs every earlier cost).  Otherwise the exact
+    rollouts decide.  Tolerances scale with the trajectory: defects are
+    certified below defect_tol·(1 + max|X|), sweeps exit at 1e-3 of that.
+    """
+    n_alpha = alphas.shape[0]
+    cert_tol = config.defect_tol * (1.0 + float(X.abs().max()))
+    exit_tol = 1e-3 * cert_tol
+    A_cl = exp.f_x + exp.f_u @ K
+    if config.resolved_rollout() == "chunked":
+        X1, U1, c1, d1 = chunked_rollout(
+            system, x0, alphas[0], X, U, u_ff, K, A_cl,
+            sweeps=config.defect_iters, chunk_len=config.chunk_len,
+            exit_tol=exit_tol)
+    else:
+        X1, U1, c1, d1 = defect_rollout(
+            system, x0, alphas[0], X, U, u_ff, K, A_cl,
+            iters=config.defect_iters, engine=config.defect_engine,
+            exit_tol=exit_tol)
+    c1_h, d1_h = torch.stack([c1, d1]).cpu().numpy()
+    if d1_h < cert_tol and np.isfinite(c1_h) and c1_h <= cost:
+        costs = torch.full((n_alpha,), torch.inf, dtype=c1.dtype,
+                           device=c1.device)
+        costs[0] = c1
+        certified = np.arange(n_alpha) == 0
+        return X1[None], U1[None], costs, certified, True
+
+    if config.resolved_rollout() == "chunked":
+        X_c, U_c, costs, defects = linesearch_chunked_rollouts(
+            system, x0, alphas, X, U, u_ff, K, A_cl,
+            sweeps=config.defect_iters,
+            chunk_len=config.chunk_len or coarse_chunk_len(U.shape[0]),
+            exit_tol=exit_tol)
+    else:
+        X_c, U_c, costs, defects = linesearch_defect_rollouts(
+            system, x0, alphas, X, U, u_ff, K, exp,
+            iters=config.defect_iters, engine=config.defect_engine,
+            exit_tol=exit_tol)
+    costs_h, defects_h = torch.stack([costs, defects]).cpu().numpy()
+    certified = defects_h < cert_tol
+    acc = (costs_h <= cost) & np.isfinite(costs_h) & certified
+    if acc.any() and certified[:int(np.argmax(acc))].all():
+        return X_c, U_c, costs, certified, True
+    X_c, U_c, costs = linesearch_rollouts(system, x0, alphas, X, U, u_ff, K)
+    return X_c, U_c, costs, np.ones(n_alpha, bool), False
+
+
 @full_f32_matmuls()
 def solve(
     system: System,
@@ -187,6 +270,12 @@ def solve(
 
     Time-major layout: U_init (N, n_u); returns X (N+1, n_x).  ``x0`` and
     ``U_init`` set the device and dtype of the solve.
+
+    ``defect_latch`` (a bool) warm-starts the parallel line-search latch
+    from a related solve's `IlqrSolution.defect_latch`; ``None`` starts it
+    set whenever the line search is 'defect' or 'chunked'.  Once the
+    parallel path fails to certify and the exact rollouts decide, the latch
+    drops and later iterations run the exact line search directly.
     """
     if U_init.ndim != 2 or U_init.shape[1] != system.n_u:
         raise ValueError(
@@ -194,7 +283,7 @@ def solve(
         )
     if tuple(x0.shape) != (system.n_x,):
         raise ValueError(f"x0 must have shape ({system.n_x},), got {tuple(x0.shape)}")
-    missing = _unsupported(config, defect_latch)
+    missing = _unsupported(config)
     if missing is not None:
         raise NotImplementedError(missing)
 
@@ -207,8 +296,10 @@ def solve(
     n_x = x0.shape[0]
     reg = config.reg_init
     pallas_rollout = config.resolved_rollout() == "pallas"
+    parallel = config.resolved_rollout() in ("defect", "chunked")
+    use_defect = parallel and (defect_latch is None or bool(defect_latch))
 
-    X, cost_t = rollout(system, x0, U_init)
+    X, cost_t = _initial_rollout(system, x0, U_init, config)
     U = U_init
     u_ff = torch.zeros((N, n_u), dtype=dtype, device=device)
     K = torch.zeros((N, n_u, n_x), dtype=dtype, device=device)
@@ -224,17 +315,22 @@ def solve(
             break
         exp = linearize_trajectory(system, X, U)
         u_ff_k, K_k, _, ok = _backward(exp, reg, config)
+        certified, par_success = np.ones(n_alpha, bool), not parallel
         if pallas_rollout:
             costs = linesearch_costs_fused(system, x0, alphas, X, U, u_ff_k,
                                            K_k)
+        elif use_defect:
+            X_c, U_c, costs, certified, par_success = _parallel_linesearch(
+                system, x0, alphas, X, U, cost, u_ff_k, K_k, exp, config)
         else:
             X_c, U_c, costs = linesearch_rollouts(system, x0, alphas, X, U,
                                                   u_ff_k, K_k)
-        # The iteration's one host sync.
+        # The accept decision's one host sync.
         host = torch.cat([costs, ok.to(dtype)[None],
                           u_ff_k.abs().max()[None]]).cpu().numpy()
         costs_h = host[:n_alpha]
-        accept = (costs_h <= cost) & np.isfinite(costs_h) & (host[n_alpha] != 0)
+        accept = ((costs_h <= cost) & np.isfinite(costs_h)
+                  & (host[n_alpha] != 0) & certified)
         if not accept.any():
             status = LINESEARCH_FAILED
             break
@@ -246,6 +342,7 @@ def solve(
         else:
             X, U = X_c[idx], U_c[idx]
         u_ff, K = u_ff_k, K_k
+        use_defect = use_defect and par_success
         prev_cost, cost = cost, costs_h[idx]
         traces[:, k] = (cost, alpha_list[idx], host[n_alpha + 1])
         k += 1
@@ -256,5 +353,5 @@ def solve(
     return IlqrSolution(
         X=X, U=U, cost=torch.as_tensor(cost, device=device), iterations=k,
         status=status, u_ff=u_ff, K=K, cost_trace=trace[0],
-        alpha_trace=trace[1], grad_trace=trace[2],
+        alpha_trace=trace[1], grad_trace=trace[2], defect_latch=use_defect,
     )

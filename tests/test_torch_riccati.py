@@ -153,10 +153,8 @@ def test_unported_terms_raise():
     exp = expansion_from_numpy(jexp)
     with pytest.raises(NotImplementedError, match="A15"):
         itt.backward_pass(exp, hess=object())
-    with pytest.raises(NotImplementedError, match="A13"):
-        itt.backward_pass(exp, defects=torch.zeros(4, 2))
-    with pytest.raises(NotImplementedError, match="A13"):
-        itt.backward_pass_fused(exp, defects=torch.zeros(4, 2))
+    with pytest.raises(NotImplementedError, match="A15"):
+        itt.backward_pass(exp, noise=(None, None, None))
 
 
 def test_fused_dispatch_sends_wide_systems_to_the_associative_pass():

@@ -9,7 +9,11 @@ reference goldens.
   slice's engines (backward='pallas', rollout='pallas', whose CPU paths are
   the plain versions); the JAX side runs 'scan' so that no interpret-mode
   Pallas loop is compiled.  f32 double-pendulum swing-ups jump between
-  basins when summation order changes, so trajectories are compared in f64.
+  basins when summation order changes, so trajectories are compared in f64;
+* the parallel-in-time line searches (rollout='defect'|'chunked') with the
+  defect initial rollout, against `ilqr_tpu.solve`'s traces and its
+  certification latch (`defect_latch`), which a failed certification drops
+  and a caller can set.
 """
 import dataclasses
 import os
@@ -159,19 +163,115 @@ def test_config_matches_jax_validation_and_schedule():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(rollout="defect"), "A11"), (dict(rollout="chunked"), "A11"),
-    (dict(init_rollout="defect"), "A11"), (dict(defect_engine="xla"), "A11"),
+    (dict(rollout="defect", u_min=-1.0, u_max=1.0), "A14"),
+    (dict(rollout="chunked", ddp=True), "A15"),
+    (dict(init_rollout="defect", adaptive_reg=True), "A6b"),
+    (dict(defect_engine="xla", noise=lambda x, u: x), "A15"),
     (dict(u_min=-1.0, u_max=1.0), "A14"), (dict(ddp=True), "A15"),
     (dict(noise=lambda x, u: x), "A15"), (dict(adaptive_reg=True), "A6b"),
 ])
 def test_unported_options_raise(kw, item):
+    """Control limits, ddp/noise and adaptive_reg raise, alone and beside
+    the parallel-in-time options, whatever the latch."""
     sys_ = _port(_jax_pendulum(), "pendulum", torch.float32)
-    with pytest.raises(NotImplementedError, match=item):
-        itt.solve(sys_, torch.zeros(2), torch.zeros((5, 1)),
-                  itt.IlqrConfig(**kw))
-    with pytest.raises(NotImplementedError, match="A11"):
-        itt.solve(sys_, torch.zeros(2), torch.zeros((5, 1)),
-                  defect_latch=True)
+    for latch in (None, True):
+        with pytest.raises(NotImplementedError, match=item):
+            itt.solve(sys_, torch.zeros(2), torch.zeros((5, 1)),
+                      itt.IlqrConfig(**kw), defect_latch=latch)
+
+
+def _traces_equal(sol, ref, rtol):
+    assert (sol.iterations, sol.status) == (int(ref.iterations),
+                                            int(ref.status))
+    assert sol.defect_latch == bool(ref.defect_latch)
+    np.testing.assert_array_equal(sol.alpha_trace.numpy(),
+                                  np.asarray(ref.alpha_trace))
+    np.testing.assert_allclose(sol.cost_trace.numpy(),
+                               np.asarray(ref.cost_trace), rtol=rtol)
+
+
+@pytest.mark.parametrize("rollout", ["defect", "chunked"])
+def test_parallel_linesearch_pendulum_golden_matches_jax(rollout):
+    """The pendulum golden through the parallel-in-time line search and the
+    defect initial rollout: the golden cost in f32, and JAX's iterations,
+    α and cost traces and latch in f64 (in f32 the last step, taken at the
+    f32 floor of the cost, is decided by rounding).  defect_engine
+    'pallas' runs the plain scan on CPU tensors, as JAX's 'auto' does off
+    the TPU."""
+    cfg = dict(PENDULUM_CFG, rollout=rollout, init_rollout="defect")
+    sol = itt.solve(_port(_jax_pendulum(), "pendulum", torch.float32),
+                    torch.tensor([1.0, 0.0]), torch.zeros((400, 1)),
+                    itt.IlqrConfig(defect_engine="pallas", **cfg))
+    assert sol.status == itt.CONVERGED and sol.defect_latch
+    np.testing.assert_allclose(float(sol.cost), 23.435774, rtol=1e-3)
+    jsys = _jax_pendulum()  # f32 parameters, as the port's
+    with enable_x64_oracle():
+        j64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                     jsys)
+        ref = jax.jit(it.solve, static_argnums=3)(
+            j64, jnp.asarray([1.0, 0.0]), jnp.zeros((400, 1)),
+            it.IlqrConfig(**cfg))
+        ref = jax.tree_util.tree_map(np.asarray, ref)
+    f64 = dict(dtype=torch.float64)
+    sol = itt.solve(_port(jsys, "pendulum", torch.float64),
+                    torch.tensor([1.0, 0.0], **f64), torch.zeros((400, 1), **f64),
+                    itt.IlqrConfig(defect_engine="pallas", **cfg))
+    _traces_equal(sol, ref, rtol=1e-8)
+    np.testing.assert_allclose(sol.X.numpy(), ref.X, atol=1e-7)
+
+
+@pytest.mark.parametrize("rollout", ["defect", "chunked"])
+def test_parallel_linesearch_double_pendulum_matches_jax_f64(rollout):
+    """The reduced DP swing-up (as above) through the parallel line search,
+    f64 on both sides; the port runs the kernel engines' CPU paths."""
+    jsys = _jax_dp(False)
+    N, maxiter = 120, 25
+    kw = dict(maxiter=maxiter, tol=1e-10, rollout=rollout,
+              init_rollout="defect")
+    with enable_x64_oracle():
+        j64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                     jsys)
+        ref = jax.jit(it.solve, static_argnums=3)(
+            j64, jnp.zeros(4), jnp.zeros((N, 2)),
+            it.IlqrConfig(backward="scan", **kw))
+        ref = jax.tree_util.tree_map(np.asarray, ref)
+    sys_ = _port(jsys, "double_pendulum", torch.float64)
+    sol = itt.solve(sys_, torch.zeros(4, dtype=torch.float64),
+                    torch.zeros((N, 2), dtype=torch.float64),
+                    itt.IlqrConfig(backward="pallas", defect_engine="pallas",
+                                   **kw))
+    assert sol.iterations >= 5
+    _traces_equal(sol, ref, rtol=1e-8)
+    np.testing.assert_allclose(sol.X.numpy(), ref.X, atol=1e-7)
+    np.testing.assert_allclose(sol.U.numpy(), ref.U, atol=1e-6)
+
+
+def test_defect_latch_drops_on_failed_certification_and_is_honoured():
+    """One sweep cannot certify at defect_tol 1e-9: the exact rollouts
+    decide and the latch drops, as in JAX, and the solve then equals the
+    sequential line search's.  A caller's latch is honoured both ways."""
+    jsys = _jax_pendulum()
+    sys_ = _port(jsys, "pendulum", torch.float32)
+    x0, U0 = torch.tensor([1.0, 0.0]), torch.zeros((400, 1))
+    strict = dict(PENDULUM_CFG, rollout="defect", defect_iters=1,
+                  defect_tol=1e-9)
+    ref = jax.jit(it.solve, static_argnums=3)(
+        jsys, jnp.array([1.0, 0.0]), jnp.zeros((400, 1)),
+        it.IlqrConfig(**strict))
+    sol = itt.solve(sys_, x0, U0, itt.IlqrConfig(**strict))
+    assert not sol.defect_latch
+    _traces_equal(sol, ref, rtol=2e-6)
+    plain = itt.solve(sys_, x0, U0, itt.IlqrConfig(**PENDULUM_CFG))
+    np.testing.assert_array_equal(sol.alpha_trace.numpy(),
+                                  plain.alpha_trace.numpy())
+    # latch False: the parallel path is never tried; True: it is.
+    cfg = itt.IlqrConfig(rollout="defect", **PENDULUM_CFG)
+    off = itt.solve(sys_, x0, U0, cfg, defect_latch=False)
+    assert not off.defect_latch
+    np.testing.assert_array_equal(off.cost_trace.numpy(),
+                                  plain.cost_trace.numpy())
+    assert itt.solve(sys_, x0, U0, cfg, defect_latch=True).defect_latch
+    assert not plain.defect_latch
 
 
 def test_solve_validates_shapes_and_stops_on_linesearch_failure():
