@@ -42,7 +42,27 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    60, tol 1e-5, init_rollout='defect') with the kernels and with the plain
    engines and holds the two to each other;
 12. times B3 and B1d against their plain versions and the stages of the
-   parallel-in-time solves.
+   parallel-in-time solves;
+13. checks the batched backward pass (B4) against its plain version on
+   double-pendulum expansions along seeded random-control rollouts from
+   bench.py's batched initial states, at B = 1024, 1000 and 1 (N = 128),
+   with a scalar and a per-instance reg, and on pendulum and
+   under-actuated double-pendulum expansions at B = 1024;
+14. checks the batched rollouts (B5: line-search costs with the 10-alpha
+   schedule, trajectories at seeded per-instance alphas, the open loop)
+   against their plain versions at B = 1024 and 1000;
+15. runs bench.py's batched-solve cell at full size (B = 1024, N = 128,
+   maxiter 10) with rollout='scan' and 'pallas', gates the costs, traces
+   and launch counts (B4 once per iteration), holds eight sampled
+   instances (cost, X and U) to single-instance solves with the plain
+   engines, and times the stages of an iteration against the plain
+   versions of B4 and B5;
+16. runs bench.py's batched-MPC cell at full size (B = 512, H = 64, 50
+   steps) with rollout='pallas', and cut to 10 steps with rollout='auto',
+   and holds two sampled instances to single-instance run_mpc over every
+   step of each run;
+17. runs run_mpc on the double pendulum through B1 and B2 and run_mpc_ms
+   on the pendulum through B1d and B3.
 Each solve phase resets the launch counts just before it and reads them
 just after.
 
@@ -95,6 +115,47 @@ RTOL_B3 = 1e-5
 RTOL_LS = 1e-4
 RTOL_MS = 1e-4
 BENCH_N = 100_000
+# B4 tolerance: max|kernel - plain| <= max(RTOL_B4 * max|plain|,
+# F32_FLOOR * max|plain - plain in f64|).  Both run the same sequential
+# recursion in f32 with other operation orders (closed-form inverse against
+# an LU solve, fused multiply-adds); the double pendulum's recursion
+# (Q_f / R = 1e4) amplifies that rounding as much as it amplifies the plain
+# version's own error against f64 (up to 2.4e-4 of max|plain| on
+# random-control DP expansions, host build of the kernel).
+RTOL_B4 = 5e-4
+# B5 tolerance: B2's (the same recursion per instance).
+RTOL_B5 = RTOL_B2
+# Phases 15-16: the sizes of bench.py's batched cells (bench.py:700-723).
+BATCH_B, BATCH_N, BATCH_MAXITER = 1024, 128, 10
+MPC_B, MPC_H, MPC_SIM = 512, 64, 50
+RAGGED_B = 1000   # phases 13-14: a batch that does not fill its last block
+# Phase 16 runs the batched-MPC cell with rollout='auto' (the plain batched
+# rollouts) for MPC_SIM_AUTO of its MPC_SIM steps: its single-instance
+# references take ~0.85 s a step with the plain engines on an H100, against
+# ~0.3 s with B2.  The rollout='pallas' run keeps all MPC_SIM steps.
+MPC_SIM_AUTO = 10
+# Phase 15: eight sampled instances of the batched solve against the same
+# problems solved one at a time with the plain engines (B4 against the
+# plain sequential pass, batched against single rollouts: f32 in other
+# operation orders, carried over 10 iterations).  Readings on an H100: sound
+# runs at most 6.2e-7 (cost), 3.1e-5 (X), 1.4e-4 (U); with the materialized
+# trajectory rounded to f16, 1.2e-5 / 1.8e-2 / 2.3e-1; at α·(1 − 1e-3),
+# 1.0e-6 / 9.1e-4 / 1.3e-3; with B4's gains rounded to bf16, 6.2e-7 /
+# 2.8e-4 / 2.8e-3.  Near an optimum the cost is flat, so X and U carry the
+# gate.  Gains rounded to f16 (7.2e-7 / 6.2e-5 / 3.6e-4) stay within the
+# sound scatter here; phase 13 holds B4 itself to its plain version.
+RTOL_BATCH = 2e-6
+ATOL_BATCH_X = 1e-4
+ATOL_BATCH_U = 5e-4
+# Phase 16: every closed-loop state of two sampled instances, batched loop
+# against the single-instance loop, within ATOL_MPC (rad, rad/s).  With tol
+# 1e-4 below the f32 resolution of the costs, rounding decides some
+# iteration counts, and one solve's extra iteration moves the applied
+# control.  Readings on an H100: sound runs up to 5.6e-3 (1.6e-3 over all
+# 50 steps of four instances); with the materialized trajectory rounded to
+# f16 1.9e-2, at α·(1 − 1e-3) 1.2e-2, with B4's gains rounded to bf16
+# 4.5e-2.  Gains rounded to f16 (2.8e-3) stay within the sound scatter.
+ATOL_MPC = 1e-2
 
 
 def nvidia_smi() -> str:
@@ -141,6 +202,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def dp_system(itt, f32, underactuated=False, integrator="euler"):
+    """The double pendulum of the reference's flagship (fully actuated; also
+    bench.py's system) or of its under-actuated swing-up."""
+    if underactuated:
+        return itt.make_double_pendulum(
+            0.01, [np.pi, 0, 0, 0], Q=np.diag([1.0, 1.0, 0.1, 0.1]),
+            R=np.diag([1.0]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
+            d1=0.1, d2=0.1, theta1=1 / 12, theta2=1 / 12,
+            underactuated=True, integrator=integrator, **f32)
+    return itt.make_double_pendulum(
+        0.01, [np.pi, 0, 0, 0], Q=np.diag([10.0, 10.0, 0.1, 0.1]),
+        R=np.diag([0.1, 0.1]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
+        d1=0.1, d2=0.1, theta1=1 / 12, theta2=1 / 12,
+        integrator=integrator, **f32)
+
+
 def tile_expansion(exp, N: int):
     """``exp`` repeated along time and cut to N steps (terminal unchanged)."""
     reps = -(-N // exp.f_x.shape[0])
@@ -151,6 +228,379 @@ def tile_expansion(exp, N: int):
     return dataclasses.replace(
         exp, **{f: tile(getattr(exp, f)) for f in
                 ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu")})
+
+
+def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
+                   B_mpc=MPC_B, H=MPC_H, n_sim=MPC_SIM,
+                   n_sim_auto=MPC_SIM_AUTO, n_sim_ms=20, samples=(8, 2)):
+    """Phases 13-17: batched solving and MPC through B4 and B5, and the
+    single-instance MPC loops.  Returns the kernels line's entries of B4
+    and B5."""
+    from ilqr_tpu_torch.ops import _build, batched
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    dp = dp_system(itt, f32)
+    ua = dp_system(itt, f32, underactuated=True)
+    pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                             Q_f=np.zeros((2, 2)), d=0.0, integrator="rk4",
+                             **f32)
+    rng = np.random.default_rng(23)
+    names = ("batched_riccati", "linesearch_costs_batched",
+             "closed_loop_rollout_batched", "open_loop_rollout_batched")
+    errors = dict.fromkeys(names, 0.0)
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    t_start = t_lap = time.perf_counter()
+
+    def lap(phase: int) -> None:
+        """Print the wall time of a phase (these phases aim at ~90 s)."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_lap:.1f} s")
+        t_lap = now
+
+    def bench_x0s(n, column, lo, hi):
+        """bench.py's batched initial states: rest, with one coordinate
+        spread evenly over [lo, hi]."""
+        x = torch.zeros((n, 4), **f32)
+        x[:, column] += torch.linspace(lo, hi, n, **f32)
+        return x
+
+    def random_expansion(system, x0s, n):
+        U = torch.tensor(0.5 * rng.standard_normal((x0s.shape[0], n,
+                                                    system.n_u)), **f32)
+        X, _ = itt.rollout(system, x0s, U)
+        return itt.linearize_trajectory_batched(system, X, U)
+
+    def as64(exp):
+        return dataclasses.replace(exp, **{
+            f.name: getattr(exp, f.name).double()
+            for f in dataclasses.fields(exp)})
+
+    # ---- 13. B4 against its plain version --------------------------------
+    print(f"B4 tolerance: max|kernel - plain| <= max({RTOL_B4} * max|plain|,"
+          f" {F32_FLOOR} * max|plain - plain in f64|)")
+
+    def check_b4(label, exp, reg):
+        torch.cuda.synchronize()
+        got = itt.backward_pass_batched(exp, reg)
+        plain = batched.vmap_backward(itt.backward_pass, exp, reg)
+        ref64 = batched.vmap_backward(
+            itt.backward_pass, as64(exp),
+            reg.double() if torch.is_tensor(reg) else reg)
+        torch.cuda.synchronize()
+        notes = []
+        for name, g, p, r in zip(("u_ff", "K", "dV"), got, plain, ref64):
+            err, rel = rel_err(g, p)
+            floor = rel_err(p, r)[0]
+            limit = max(RTOL_B4 * float(p.abs().max()), F32_FLOOR * floor)
+            errors["batched_riccati"] = max(errors["batched_riccati"], err)
+            notes.append(f"{name} {err:.2e} (rel {rel:.1e}, limit "
+                         f"{limit:.2e}; plain vs f64 {floor:.2e})")
+            if not err <= limit:
+                raise AssertionError(f"B4 {label}: {notes[-1]}")
+        if not (torch.equal(got[3], plain[3]) and bool(got[3].all())):
+            raise AssertionError(f"B4 {label}: ok flags differ from the "
+                                 f"plain version's or gains not finite")
+        print(f"B4 {label}: B={exp.f_x.shape[0]} N={exp.f_x.shape[1]} max "
+              f"abs error " + "; ".join(notes))
+
+    exp_dp = random_expansion(dp, bench_x0s(B, 0, 0.0, 0.5), N)
+    check_b4("DP, random controls, reg 0", exp_dp, 0.0)
+    check_b4("DP, random controls, per-instance reg",
+             exp_dp, torch.linspace(0.0, 0.2, B, **f32))
+    for n in (ragged, 1):
+        check_b4("DP, random controls, reg 0.1",
+                 random_expansion(dp, bench_x0s(n, 0, 0.0, 0.5), N), 0.1)
+    check_b4("pendulum rk4, random controls",
+             random_expansion(pend, bench_x0s(B, 0, 0.0, 0.5)[:, :2], N), 0.0)
+    check_b4("UA-DP, random controls",
+             random_expansion(ua, bench_x0s(B, 0, 0.0, 0.5), N), 0.0)
+
+    lap(13)
+
+    # ---- 14. B5 against its plain versions --------------------------------
+    print(f"B5 tolerance: max|kernel - plain| <= {RTOL_B5} * max|plain| "
+          f"(B2's recursion per instance)")
+
+    def check_b5_pair(kernel, label, got, ref):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B5 {label}: non-finite kernel output")
+        err, rel = rel_err(got, ref)
+        errors[kernel] = max(errors[kernel], err)
+        if not rel <= RTOL_B5:
+            raise AssertionError(f"B5 {label}: max error {err:.3e} is "
+                                 f"{rel:.3e} of max |plain|")
+        return rel
+
+    def first_iteration(n):
+        """The first iteration of the batched-solve cell: the rest
+        trajectories under zero controls and their B4 gains."""
+        x0s = bench_x0s(n, 0, 0.0, 0.5)
+        U0 = torch.zeros((n, N, 2), **f32)
+        X0, _ = itt.rollout(dp, x0s, U0)
+        u0, K0, _, _ = itt.backward_pass_batched(
+            itt.linearize_trajectory_batched(dp, X0, U0), 0.0)
+        return x0s, X0, U0, u0, K0
+
+    def check_b5(n):
+        x0s, X0, U0, u0, K0 = first_iteration(n)
+        alpha_b = alphas[torch.tensor(rng.integers(0, alphas.numel(), n),
+                                      device=dev)]
+        torch.cuda.synchronize()
+        worst = 0.0
+        costs = itt.linesearch_costs_batched(dp, x0s, alphas, X0, U0, u0, K0)
+        ref = itt.linesearch_rollouts(dp, x0s, alphas, X0, U0, u0, K0)[2]
+        worst = max(worst, check_b5_pair("linesearch_costs_batched",
+                                         "costs", costs, ref))
+        got = itt.closed_loop_rollout_batched(dp, x0s, alpha_b, X0, U0, u0,
+                                              K0)
+        ref = itt.linesearch_rollouts(dp, x0s, alpha_b[:, None], X0, U0, u0,
+                                      K0)
+        for name, g, r in zip(("X", "U", "cost"), got, ref):
+            worst = max(worst, check_b5_pair(
+                "closed_loop_rollout_batched", name, g, r[:, 0]))
+        U_rand = torch.tensor(0.5 * rng.standard_normal((n, N, 2)), **f32)
+        got = itt.open_loop_rollout_batched(dp, x0s, U_rand)
+        ref = itt.rollout(dp, x0s, U_rand)
+        for name, g, r in zip(("open-loop X", "open-loop cost"), got, ref):
+            worst = max(worst, check_b5_pair("open_loop_rollout_batched",
+                                             name, g, r))
+        print(f"B5 DP first iteration: B={n} N={N}, {alphas.numel()} alphas, "
+              f"per-instance alphas, open loop of random controls: max rel "
+              f"error {worst:.3e}")
+
+    check_b5(B)
+    check_b5(ragged)
+
+    lap(14)
+
+    # ---- 15. the batched-solve cell (bench.py:700-709) ---------------------
+    x0s = bench_x0s(B, 0, 0.0, 0.5)
+    U0 = torch.zeros((N, 2), **f32)
+    _, cost0 = itt.rollout(dp, x0s, U0.expand(B, N, 2))
+    sols, counts15 = {}, {}
+    for rollout in ("scan", "pallas"):
+        cfg = itt.IlqrConfig(maxiter=BATCH_MAXITER, tol=1e-5,
+                             backward="scan", rollout=rollout)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        sol = itt.solve_batched(dp, x0s, U0, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        loops = int((sol.iterations
+                     + (sol.status == itt.LINESEARCH_FAILED)).max())
+        status = {int(k): int(v) for k, v in zip(
+            *torch.unique(sol.status, return_counts=True))}
+        print(f"batched solve B={B} N={N} (backward=scan, rollout={rollout}):"
+              f" {wall:.3f} s, {B / wall:.1f} solves/s, {loops} iterations, "
+              f"{wall * 1e3 / max(loops, 1):.1f} ms per iteration, statuses "
+              f"{status}, cost mean {float(sol.cost.mean()):.4f}, launches "
+              f"{counts}")
+        want = {"batched_riccati": loops}
+        if rollout == "pallas":
+            want.update(linesearch_costs_batched=loops,
+                        closed_loop_rollout_batched=loops,
+                        open_loop_rollout_batched=1)
+        for kernel, n in want.items():
+            if counts.get(kernel, 0) != n:
+                raise AssertionError(f"batched solve ({rollout}): {kernel} "
+                                     f"launched {counts.get(kernel, 0)} "
+                                     f"times, expected {n}")
+        costs = sol.cost
+        if not (bool(torch.isfinite(costs).all())
+                and bool((costs <= cost0).all())):
+            raise AssertionError(f"batched solve ({rollout}): a cost is not "
+                                 f"finite or above its initial cost")
+        trace = torch.cat([cost0[:, None], sol.cost_trace], dim=1)
+        steps = trace[:, 1:] - trace[:, :-1]
+        if bool((steps > 0).any()):
+            raise AssertionError(f"batched solve ({rollout}): a cost trace "
+                                 f"increased")
+        sols[rollout], counts15[rollout] = sol, counts
+
+    picks = np.sort(rng.choice(B, samples[0], replace=False))
+    plain_cfg = itt.IlqrConfig(maxiter=BATCH_MAXITER, tol=1e-5,
+                               backward="scan", rollout="scan")
+    limits = {"cost": RTOL_BATCH, "X": ATOL_BATCH_X, "U": ATOL_BATCH_U}
+    worst = {r: dict.fromkeys(limits, 0.0) for r in sols}
+    for i in picks:
+        one = itt.solve(dp, x0s[i], U0, plain_cfg)
+        for rollout, sol in sols.items():
+            c1, cb = float(one.cost), float(sol.cost[i])
+            diffs = {"cost": abs(cb - c1) / abs(c1),
+                     "X": float((sol.X[i] - one.X).abs().max()),
+                     "U": float((sol.U[i] - one.U).abs().max())}
+            for key, d in diffs.items():
+                worst[rollout][key] = max(worst[rollout][key], d)
+                if not d <= limits[key]:
+                    raise AssertionError(
+                        f"batched solve ({rollout}) instance {i}: {key} "
+                        f"differs from the instance solved alone (plain "
+                        f"engines) by {d:.2e}, limit {limits[key]}")
+    for rollout, w in worst.items():
+        print(f"batched solve ({rollout}): {samples[0]} sampled instances "
+              f"{picks.tolist()} agree with solves alone (plain engines): "
+              f"cost rel {w['cost']:.2e}, X {w['X']:.2e}, U {w['U']:.2e} "
+              f"(limits {RTOL_BATCH}, {ATOL_BATCH_X}, {ATOL_BATCH_U})")
+
+    # Stages of one iteration at the solved trajectories, and the plain
+    # versions of B4 and B5 at the same shapes.
+    sol = sols["pallas"]
+    X_s, U_s = sol.X, sol.U
+    exp_s = itt.linearize_trajectory_batched(dp, X_s, U_s)
+    u_s, K_s, _, _ = itt.backward_pass_batched(exp_s, 0.0)
+    alpha_b = torch.full((B,), 0.5, **f32)
+    t = {
+        "linearize_trajectory_batched": cuda_ms(
+            lambda: itt.linearize_trajectory_batched(dp, X_s, U_s), 3, 1),
+        "B4 batched_riccati": cuda_ms(
+            lambda: itt.backward_pass_batched(exp_s, 0.0), 20, 3),
+        "B4 plain (vmap of the sequential pass)": cuda_ms(
+            lambda: batched.vmap_backward(itt.backward_pass, exp_s, 0.0),
+            2, 1),
+        "B5 linesearch_costs_batched, 10 alphas": cuda_ms(
+            lambda: itt.linesearch_costs_batched(dp, x0s, alphas, X_s, U_s,
+                                                 u_s, K_s), 20, 3),
+        "B5 plain costs (batched host loop)": cuda_ms(
+            lambda: itt.linesearch_rollouts(dp, x0s, alphas, X_s, U_s, u_s,
+                                            K_s), 2, 1),
+        "B5 closed_loop_rollout_batched (materialize)": cuda_ms(
+            lambda: itt.closed_loop_rollout_batched(dp, x0s, alpha_b, X_s,
+                                                    U_s, u_s, K_s), 20, 3),
+        "B5 plain materialize": cuda_ms(
+            lambda: itt.linesearch_rollouts(dp, x0s, alpha_b[:, None], X_s,
+                                            U_s, u_s, K_s), 2, 1),
+        "B5 open_loop_rollout_batched": cuda_ms(
+            lambda: itt.open_loop_rollout_batched(dp, x0s, U_s), 20, 3),
+        "B5 plain open loop": cuda_ms(
+            lambda: itt.rollout(dp, x0s, U_s), 2, 1),
+    }
+    print(f"timing on {smi} (CUDA events, ms per call), batched-solve cell "
+          f"B={B} N={N}, at the solved trajectories:")
+    for k, v in t.items():
+        print(f"  {k}: {v:.4f}")
+
+    lap(15)
+
+    # ---- 16. the batched-MPC cell (bench.py:711-723) -----------------------
+    x0m = bench_x0s(B_mpc, 1, -0.3, 0.3)
+    Um = torch.zeros((H, 2), **f32)
+    refs = np.sort(rng.choice(B_mpc, samples[1], replace=False))
+    print(f"batched MPC: rollout='auto' cut to {n_sim_auto} of {n_sim} "
+          f"steps; instances {refs.tolist()} re-run alone over every step")
+    for rollout, steps in (("auto", n_sim_auto), ("pallas", n_sim)):
+        cfg = itt.IlqrConfig(maxiter=5, tol=1e-4, rollout=rollout)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = itt.run_mpc_batched(dp, dp, x0m, Um, steps, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        print(f"batched MPC B={B_mpc} H={H} n_sim={steps} (rollout={rollout})"
+              f": {wall:.3f} s, {B_mpc * steps / wall:.1f} step-solves/s, "
+              f"{float(res.solve_iters.float().mean()):.2f} iterations per "
+              f"solve, closed-loop cost mean {float(res.cost.mean()):.4f}, "
+              f"launches {counts}")
+        kernels = ["batched_riccati"]
+        if rollout == "pallas":
+            kernels += ["linesearch_costs_batched",
+                        "closed_loop_rollout_batched",
+                        "open_loop_rollout_batched"]
+        for kernel in kernels:
+            if counts.get(kernel, 0) < steps:
+                raise AssertionError(f"batched MPC ({rollout}): {kernel} "
+                                     f"launched {counts.get(kernel, 0)} "
+                                     f"times in {steps} steps")
+        if not (bool(torch.isfinite(res.cost).all())
+                and bool(torch.isfinite(res.X).all())
+                and res.X.shape == (B_mpc, steps + 1, 4)):
+            raise AssertionError(f"batched MPC ({rollout}): closed loop not "
+                                 f"finite or of the wrong shape")
+        dx_worst, dc_worst, flips = 0.0, 0.0, 0
+        for i in refs:
+            one = itt.run_mpc(dp, dp, x0m[i], Um, steps, cfg)
+            dx = float((res.X[i] - one.X).abs().max())
+            dx_worst = max(dx_worst, dx)
+            dc_worst = max(dc_worst, abs(float(res.cost[i] - one.cost))
+                           / abs(float(one.cost)))
+            flips += int((res.solve_iters[i] != one.solve_iters).sum())
+            if not dx <= ATOL_MPC:
+                raise AssertionError(
+                    f"batched MPC ({rollout}) instance {i}: closed loop "
+                    f"differs from the single-instance loop by {dx:.2e}")
+        print(f"batched MPC ({rollout}): instances {refs.tolist()} agree with "
+              f"single-instance run_mpc over all {steps} steps to "
+              f"{dx_worst:.2e} (limit {ATOL_MPC}); closed-loop cost rel "
+              f"{dc_worst:.2e}; {flips} of {len(refs) * steps} solves ended "
+              f"at another iteration count")
+
+    lap(16)
+
+    # ---- 17. single-instance MPC through B1/B2 and B1d/B3 ------------------
+    cfg = itt.IlqrConfig(maxiter=5, tol=1e-4, backward="pallas",
+                         rollout="pallas")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = itt.run_mpc(dp, dp, torch.zeros(4, **f32), Um, n_sim, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    print(f"run_mpc DP H={H} n_sim={n_sim} (pallas/pallas): {wall:.3f} s, "
+          f"{wall * 1e3 / n_sim:.1f} ms per step, cost {float(res.cost):.4f},"
+          f" launches {counts}")
+    for kernel in ("fused_riccati", "linesearch_costs", "closed_loop_rollout"):
+        if counts.get(kernel, 0) < 1:
+            raise AssertionError(f"run_mpc never launched {kernel}")
+    if not bool(torch.isfinite(res.cost)):
+        raise AssertionError("run_mpc: closed-loop cost not finite")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = itt.run_mpc_ms(pend, pend, torch.tensor([1.0, 0.0], **f32),
+                         torch.zeros((H, 1), **f32), n_sim_ms,
+                         itt.IlqrConfig(maxiter=3, tol=1e-5,
+                                        backward="pallas"),
+                         ms=itt.MsConfig(update_engine="pallas"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    print(f"run_mpc_ms pendulum rk4 H={H} n_sim={n_sim_ms} (B1d, B3): "
+          f"{wall:.3f} s, cost {float(res.cost):.4f}, launches {counts}")
+    for kernel in ("fused_riccati", "affine_prefix_scan"):
+        if counts.get(kernel, 0) < 1:
+            raise AssertionError(f"run_mpc_ms never launched {kernel}")
+    if not bool(torch.isfinite(res.cost)):
+        raise AssertionError("run_mpc_ms: closed-loop cost not finite")
+
+    lap(17)
+    print(f"phases 13-17: {time.perf_counter() - t_start:.1f} s")
+
+    replaces = "ilqr_tpu/ops/pallas_batched.py:"
+    pairs = {
+        "batched_riccati": (
+            "batched_riccati.cu", "114", counts15["scan"],
+            "B4 batched_riccati", "B4 plain (vmap of the sequential pass)"),
+        "linesearch_costs_batched": (
+            "fused_rollout.cu", "377", counts15["pallas"],
+            "B5 linesearch_costs_batched, 10 alphas",
+            "B5 plain costs (batched host loop)"),
+        "closed_loop_rollout_batched": (
+            "fused_rollout.cu", "377", counts15["pallas"],
+            "B5 closed_loop_rollout_batched (materialize)",
+            "B5 plain materialize"),
+        "open_loop_rollout_batched": (
+            "fused_rollout.cu", "377", counts15["pallas"],
+            "B5 open_loop_rollout_batched", "B5 plain open loop"),
+    }
+    return [dict(name=name, route="cuda",
+                 source=f"ilqr_tpu_torch/csrc/{src}",
+                 replaces=replaces + line, launches=counts.get(name, 0),
+                 max_abs_err=errors[name], ms=t[tk], plain_ms=t[tp])
+            for name, (src, line, counts, tk, tp) in pairs.items()]
 
 
 def main() -> int:
@@ -183,24 +633,11 @@ def main() -> int:
         print(line)
     block = fused_riccati.block_steps(kernels.lib)
 
-    def dp_system(underactuated=False, integrator="euler"):
-        if underactuated:
-            return itt.make_double_pendulum(
-                0.01, [np.pi, 0, 0, 0], Q=np.diag([1.0, 1.0, 0.1, 0.1]),
-                R=np.diag([1.0]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
-                d1=0.1, d2=0.1, theta1=1 / 12, theta2=1 / 12,
-                underactuated=True, integrator=integrator, **f32)
-        return itt.make_double_pendulum(
-            0.01, [np.pi, 0, 0, 0], Q=np.diag([10.0, 10.0, 0.1, 0.1]),
-            R=np.diag([0.1, 0.1]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
-            d1=0.1, d2=0.1, theta1=1 / 12, theta2=1 / 12,
-            integrator=integrator, **f32)
-
     pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
                              Q_f=np.zeros((2, 2)), d=0.0,
                              integrator="backward_euler", **f32)
-    dp = dp_system()
-    ua = dp_system(underactuated=True, integrator="backward_euler")
+    dp = dp_system(itt, f32)
+    ua = dp_system(itt, f32, underactuated=True, integrator="backward_euler")
     x0_dp = torch.zeros(4, **f32)
     x0_pend = torch.tensor([1.0, 0.0], **f32)
 
@@ -814,6 +1251,7 @@ def main() -> int:
              max_abs_err=errors["fused_riccati_defects"], ms=t_b1d,
              plain_ms=t_b1dp),
     ]
+    kernels_json += batched_phases(itt, dev, smi)
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,14 +5,18 @@ reference; this package carries its main path to PyTorch: the pendulum and
 double-pendulum models, the integrators, trajectory linearization, the
 sequential and associative Riccati backward passes, the rollouts, the
 parallel-in-time (defect and chunked) rollouts, the iLQR `solve` and the
-multiple-shooting `solve_ms`.  Its kernel engines are CUDA C++ written for
-Hopper (sm_90a), built with nvcc at first use: the fused backward pass
-(``backward='pallas'``, `ops/fused_riccati.py`, with GNMS defects), the
-line-search rollout kernels (``rollout='pallas'``, `ops/fused_rollout.py`)
-and the multi-candidate affine prefix scan (``defect_engine`` and
-``MsConfig.update_engine`` 'pallas', `ops/affine_scan.py`).  On CPU
-tensors every kernel wrapper runs its plain PyTorch version.  Nothing here
-imports JAX.
+multiple-shooting `solve_ms`, batched solving (`solve_batch`,
+`parallel.solve_batched`, `parallel.solve_multistart`) and MPC (`mpc`:
+`run_mpc`, `run_mpc_rti`, `run_mpc_batched`, `run_mpc_ms`).  Its kernel
+engines are CUDA C++ written for Hopper (sm_90a), built with nvcc at first
+use: the fused backward pass (``backward='pallas'``,
+`ops/fused_riccati.py`, with GNMS defects), the line-search rollout
+kernels (``rollout='pallas'``, `ops/fused_rollout.py`), the
+multi-candidate affine prefix scan (``defect_engine`` and
+``MsConfig.update_engine`` 'pallas', `ops/affine_scan.py`), and the
+batched backward pass and rollouts of batched solves (`ops/batched.py`).
+On CPU tensors every kernel wrapper runs its plain PyTorch version.
+Nothing here imports JAX.
 """
 from ilqr_tpu_torch.models.base import (
     INTEGRATORS,
@@ -25,13 +29,23 @@ from ilqr_tpu_torch.models.base import (
 from ilqr_tpu_torch.models.double_pendulum import make_double_pendulum
 from ilqr_tpu_torch.models.pendulum import make_pendulum
 from ilqr_tpu_torch.ops.affine_scan import affine_prefix_scan_multi
+from ilqr_tpu_torch.ops.batched import (
+    backward_pass_batched,
+    closed_loop_rollout_batched,
+    linesearch_costs_batched,
+    open_loop_rollout_batched,
+)
 from ilqr_tpu_torch.ops.fused_riccati import backward_pass_fused
 from ilqr_tpu_torch.ops.fused_rollout import (
     closed_loop_rollout_fused,
     linesearch_costs_fused,
 )
 from ilqr_tpu_torch.ops.integrators import step
-from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion, linearize_trajectory
+from ilqr_tpu_torch.ops.linearize import (
+    TrajectoryExpansion,
+    linearize_trajectory,
+    linearize_trajectory_batched,
+)
 from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
 from ilqr_tpu_torch.ops.riccati import backward_pass
 from ilqr_tpu_torch.ops.rollout import (
@@ -46,12 +60,25 @@ from ilqr_tpu_torch.solver import (
     IlqrConfig,
     IlqrSolution,
     solve,
+    solve_batch,
 )
 from ilqr_tpu_torch.shooting import (
     MsConfig,
     MsSolution,
     interpolate_states,
     solve_ms,
+)
+from ilqr_tpu_torch.mpc import (
+    MpcResult,
+    run_mpc,
+    run_mpc_batched,
+    run_mpc_ms,
+    run_mpc_rti,
+)
+from ilqr_tpu_torch.parallel import (
+    run_mpc_sharded,
+    solve_batched,
+    solve_multistart,
 )
 
 __version__ = "0.1.0"
@@ -61,11 +88,17 @@ __all__ = [
     "quadratic_stage_cost", "quadratic_terminal_cost",
     "make_pendulum", "make_double_pendulum", "step",
     "TrajectoryExpansion", "linearize_trajectory",
+    "linearize_trajectory_batched",
     "backward_pass", "backward_pass_associative", "backward_pass_fused",
+    "backward_pass_batched",
     "rollout", "closed_loop_rollout", "linesearch_rollouts",
     "linesearch_costs_fused", "closed_loop_rollout_fused",
+    "linesearch_costs_batched", "closed_loop_rollout_batched",
+    "open_loop_rollout_batched",
     "affine_prefix_scan_multi",
-    "solve", "IlqrConfig", "IlqrSolution",
+    "solve", "solve_batch", "IlqrConfig", "IlqrSolution",
     "CONVERGED", "LINESEARCH_FAILED", "MAXITER",
     "solve_ms", "MsConfig", "MsSolution", "interpolate_states",
+    "MpcResult", "run_mpc", "run_mpc_rti", "run_mpc_batched", "run_mpc_ms",
+    "solve_batched", "solve_multistart", "run_mpc_sharded",
 ]

@@ -1,8 +1,12 @@
-// Sequential closed-loop rollout kernels (line-search costs and trajectory).
+// Sequential closed-loop rollout kernels: line-search costs and trajectories,
+// for one instance (B2) or a batch of instances (B5).
 //
 // Replaces: ilqr_tpu/ops/pallas_rollout.py::_ls_cost_kernel (entry
 // linesearch_costs_pallas) and ::_traj_kernel (entry
-// closed_loop_rollout_pallas).
+// closed_loop_rollout_pallas), B2; ilqr_tpu/ops/pallas_batched.py::
+// _rollout_kernel (launcher _rollout_batched_call; entries
+// linesearch_costs_batched, closed_loop_rollout_batched and
+// open_loop_rollout_batched), B5.
 //
 // What bounds it on an H100: latency.  The recursion
 //   u_t = u_old_t + a*u_ff_t + K_t (x_t - x_old_t),  x_{t+1} = step(x_t, u_t)
@@ -19,6 +23,16 @@
 // costs kernel stores no trajectory; the trajectory kernel (TRAJ) runs one
 // alpha and writes X, U and the final state.  Unlike the TPU kernel, the
 // time loop is exactly N steps: no chunk padding, alpha padding or masking.
+//
+// Batches (B5): grid dimension x is the instance.  Each block offsets its
+// pointers to its instance's rows of the (B, ...) inputs and outputs, so B
+// instances run as B independent blocks spread over the SMs; B2's entries
+// are the case B = 1.  The TPU kernel put the batch on the vector lanes and
+// walked the candidates on an outer sequential grid axis; here candidates
+// are threads and instances are blocks, and nothing is padded to tiles.
+// The trajectory kernel takes one alpha per instance (alpha_b), and null
+// X_old/u_ff/K pointers drop the feedback terms: the open-loop rollout
+// u = U_old (where the TPU entry fed zeros through the closed loop).
 #include <cuda_runtime.h>
 
 #include "models.cuh"
@@ -34,12 +48,28 @@ template <class Model, int NX, int NU, int INTEG, bool TRAJ>
 __global__ void __launch_bounds__(kCandidates)
 rollout_kernel(const float* __restrict__ params, int n_params,
                const float* __restrict__ x0,
-               const float* __restrict__ alphas, float alpha, int n_alpha,
+               const float* __restrict__ alphas,
+               const float* __restrict__ alpha_b, float alpha, int n_alpha,
                const float* __restrict__ X_old, const float* __restrict__ U_old,
                const float* __restrict__ u_ff, const float* __restrict__ K,
                int N, float* __restrict__ costs, float* __restrict__ X_out,
                float* __restrict__ U_out) {
   extern __shared__ float smem[];
+  // This block's instance: its rows of every (B, ...) argument.
+  const size_t inst = blockIdx.x;
+  const bool feedback = u_ff != nullptr;
+  x0 += inst * NX;
+  U_old += inst * N * NU;
+  if (feedback) {
+    X_old += inst * (N + 1) * NX;
+    u_ff += inst * N * NU;
+    K += inst * N * NU * NX;
+  }
+  costs += inst * n_alpha;
+  if constexpr (TRAJ) {
+    X_out += inst * (N + 1) * NX;
+    U_out += inst * N * NU;
+  }
   float* sp = smem;                        // parameter buffer
   float* sX = sp + n_params;               // kChunk x NX
   float* sU = sX + kChunk * NX;            // kChunk x NU
@@ -47,9 +77,11 @@ rollout_kernel(const float* __restrict__ params, int n_params,
   float* sK = sF + kChunk * NU;            // kChunk x NU x NX
 
   const int tid = threadIdx.x;
-  const int a = blockIdx.x * blockDim.x + tid;
+  const int a = blockIdx.y * blockDim.x + tid;
   const bool active = a < n_alpha;
-  const float al = (active && alphas != nullptr) ? alphas[a] : alpha;
+  float al = alpha;
+  if (active && alphas != nullptr) al = alphas[a];
+  if (alpha_b != nullptr) al = alpha_b[inst];
 
   for (int i = tid; i < n_params; i += blockDim.x) sp[i] = params[i];
   float x[NX];
@@ -60,23 +92,27 @@ rollout_kernel(const float* __restrict__ params, int n_params,
   for (int t0 = 0; t0 < N; t0 += kChunk) {
     const int T = min(kChunk, N - t0);
     __syncthreads();  // the previous chunk is no longer read
-    for (int i = tid; i < T * NX; i += blockDim.x) sX[i] = X_old[t0 * NX + i];
-    for (int i = tid; i < T * NU; i += blockDim.x) {
-      sU[i] = U_old[t0 * NU + i];
-      sF[i] = u_ff[t0 * NU + i];
+    for (int i = tid; i < T * NU; i += blockDim.x) sU[i] = U_old[t0 * NU + i];
+    if (feedback) {
+      for (int i = tid; i < T * NX; i += blockDim.x)
+        sX[i] = X_old[t0 * NX + i];
+      for (int i = tid; i < T * NU; i += blockDim.x) sF[i] = u_ff[t0 * NU + i];
+      for (int i = tid; i < T * NU * NX; i += blockDim.x)
+        sK[i] = K[t0 * NU * NX + i];
     }
-    for (int i = tid; i < T * NU * NX; i += blockDim.x)
-      sK[i] = K[t0 * NU * NX + i];
     __syncthreads();
     if (!active) continue;
     for (int s = 0; s < T; ++s) {
       float u[NU];
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
-        float acc = sU[s * NU + i] + al * sF[s * NU + i];
+        float acc = sU[s * NU + i];
+        if (feedback) {
+          acc += al * sF[s * NU + i];
 #pragma unroll
-        for (int j = 0; j < NX; ++j)
-          acc += sK[(s * NU + i) * NX + j] * (x[j] - sX[s * NX + j]);
+          for (int j = 0; j < NX; ++j)
+            acc += sK[(s * NU + i) * NX + j] * (x[j] - sX[s * NX + j]);
+        }
         u[i] = acc;
       }
       if constexpr (TRAJ) {
@@ -104,8 +140,10 @@ rollout_kernel(const float* __restrict__ params, int n_params,
 struct RolloutArgs {
   const float* params;
   int n_params;
+  int B;
   const float* x0;
   const float* alphas;
+  const float* alpha_b;
   float alpha;
   int n_alpha;
   const float* X_old;
@@ -121,13 +159,14 @@ struct RolloutArgs {
 
 template <class Model, int NX, int NU, int INTEG, bool TRAJ>
 int launch(const RolloutArgs& r) {
-  const int blocks = (r.n_alpha + kCandidates - 1) / kCandidates;
+  const dim3 grid(r.B, (r.n_alpha + kCandidates - 1) / kCandidates);
   const size_t smem =
       sizeof(float) * (r.n_params + kChunk * (NX + 2 * NU + NU * NX));
   rollout_kernel<Model, NX, NU, INTEG, TRAJ>
-      <<<blocks, kCandidates, smem, r.stream>>>(
-          r.params, r.n_params, r.x0, r.alphas, r.alpha, r.n_alpha, r.X_old,
-          r.U_old, r.u_ff, r.K, r.N, r.costs, r.X_out, r.U_out);
+      <<<grid, kCandidates, smem, r.stream>>>(
+          r.params, r.n_params, r.x0, r.alphas, r.alpha_b, r.alpha,
+          r.n_alpha, r.X_old, r.U_old, r.u_ff, r.K, r.N, r.costs, r.X_out,
+          r.U_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -162,8 +201,8 @@ extern "C" int ilqr_linesearch_costs(
     int n_params, const float* x0, const float* alphas, int n_alpha,
     const float* X_old, const float* U_old, const float* u_ff, const float* K,
     int N, float* costs, void* stream) {
-  RolloutArgs r{params, n_params, x0, alphas, 0.0f, n_alpha, X_old, U_old,
-                u_ff, K, N, costs, nullptr, nullptr,
+  RolloutArgs r{params, n_params, 1, x0, alphas, nullptr, 0.0f, n_alpha,
+                X_old, U_old, u_ff, K, N, costs, nullptr, nullptr,
                 static_cast<cudaStream_t>(stream)};
   return dispatch<false>(model, integrator, n_x, n_u, r);
 }
@@ -174,8 +213,49 @@ extern "C" int ilqr_closed_loop_rollout(
     int n_params, const float* x0, float alpha, const float* X_old,
     const float* U_old, const float* u_ff, const float* K, int N, float* cost,
     float* X_out, float* U_out, void* stream) {
-  RolloutArgs r{params, n_params, x0, nullptr, alpha, 1, X_old, U_old, u_ff,
-                K, N, cost, X_out, U_out, static_cast<cudaStream_t>(stream)};
+  RolloutArgs r{params, n_params, 1, x0, nullptr, nullptr, alpha, 1, X_old,
+                U_old, u_ff, K, N, cost, X_out, U_out,
+                static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(model, integrator, n_x, n_u, r);
+}
+
+// B5.  Batched candidate costs (B, n_alpha): instance b rolls out from
+// x0s[b] along its own X_old[b], U_old[b], u_ff[b], K[b] (all (B, ...),
+// contiguous) for every alpha of the shared schedule.
+extern "C" int ilqr_linesearch_costs_batched(
+    int model, int integrator, int n_x, int n_u, const float* params,
+    int n_params, int B, const float* x0s, const float* alphas, int n_alpha,
+    const float* X_old, const float* U_old, const float* u_ff, const float* K,
+    int N, float* costs, void* stream) {
+  RolloutArgs r{params, n_params, B, x0s, alphas, nullptr, 0.0f, n_alpha,
+                X_old, U_old, u_ff, K, N, costs, nullptr, nullptr,
+                static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(model, integrator, n_x, n_u, r);
+}
+
+// B5.  Batched trajectories at one alpha per instance, alpha_b (B,):
+// X (B, N+1, n_x), U (B, N, n_u) and cost (B,).  Null u_ff and K (X_old
+// unused) give the open-loop rollout of U_old.
+extern "C" int ilqr_closed_loop_rollout_batched(
+    int model, int integrator, int n_x, int n_u, const float* params,
+    int n_params, int B, const float* x0s, const float* alpha_b,
+    const float* X_old, const float* U_old, const float* u_ff, const float* K,
+    int N, float* cost, float* X_out, float* U_out, void* stream) {
+  RolloutArgs r{params, n_params, B, x0s, nullptr, alpha_b, 0.0f, 1, X_old,
+                U_old, u_ff, K, N, cost, X_out, U_out,
+                static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(model, integrator, n_x, n_u, r);
+}
+
+// B5.  Batched open-loop rollouts of U (B, N, n_u) from x0s (B, n_x):
+// X (B, N+1, n_x) and cost (B,); U_out receives a copy of U.
+extern "C" int ilqr_open_loop_rollout_batched(
+    int model, int integrator, int n_x, int n_u, const float* params,
+    int n_params, int B, const float* x0s, const float* U, int N, float* cost,
+    float* X_out, float* U_out, void* stream) {
+  RolloutArgs r{params, n_params, B, x0s, nullptr, nullptr, 0.0f, 1, nullptr,
+                U, nullptr, nullptr, N, cost, X_out, U_out,
+                static_cast<cudaStream_t>(stream)};
   return dispatch<true>(model, integrator, n_x, n_u, r);
 }
 

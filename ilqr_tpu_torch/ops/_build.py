@@ -52,6 +52,13 @@ SIGNATURES = {
                                  _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "ilqr_affine_prefix_scan": [_I, _I, _I] + [_P] * 6 + [_P],
     "ilqr_affine_block_steps": [],
+    "ilqr_batched_riccati": [_I, _I, _I, _I] + [_P] * 10 + [_P] * 3 + [_P],
+    "ilqr_linesearch_costs_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
+                                      _P, _P, _P, _P, _I, _P, _P],
+    "ilqr_closed_loop_rollout_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P,
+                                         _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "ilqr_open_loop_rollout_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P,
+                                       _I, _P, _P, _P, _P],
     "ilqr_cuda_error_string": [_I],
 }
 

@@ -80,3 +80,27 @@ def linearize_trajectory(system: System, X: torch.Tensor,
     # Contiguous, as the CUDA backward pass reads the tensors as they are.
     return TrajectoryExpansion(*(t.contiguous() for t in (
         f_x, f_u, l_x, l_u, l_xx, l_ux, l_uu, v_x, v_xx)))
+
+
+@full_f32_matmuls()
+def linearize_trajectory_batched(system: System, X: torch.Tensor,
+                                 U: torch.Tensor) -> TrajectoryExpansion:
+    """The expansions of B trajectories: X (B, N+1, n_x), U (B, N, n_u).
+
+    The B·N stage points go through one vmap, as the JAX batched expansion
+    flattens them; the terminal expansion is vmapped over B.  Every field
+    leads with B and is contiguous (the batched CUDA backward pass reads
+    the (B, N, …) layout as it is).
+    """
+    B, N = U.shape[:2]
+    stages = torch.func.vmap(lambda x, u: _stage_expansion(system, x, u))(
+        X[:, :-1].reshape(B * N, -1), U.reshape(B * N, -1))
+
+    def lf(xx):
+        return system.terminal_cost(system.params, xx)
+
+    v_x = torch.func.vmap(torch.func.grad(lf))(X[:, -1])
+    v_xx = torch.func.vmap(torch.func.hessian(lf))(X[:, -1])
+    return TrajectoryExpansion(*(
+        [t.reshape((B, N) + t.shape[1:]).contiguous() for t in stages]
+        + [v_x.contiguous(), v_xx.contiguous()]))

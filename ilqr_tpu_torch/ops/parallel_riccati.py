@@ -145,4 +145,6 @@ def backward_pass_associative(
     if defects is not None:
         V_x = V_x + _mv(V_xx, defects)
     u_ff, K, dVs = gains_from_value(exp, V_x, V_xx, reg)
+    # Contiguous, as the CUDA rollout kernels read the gains as they are.
+    u_ff, K = u_ff.contiguous(), K.contiguous()
     return u_ff, K, dVs.sum(0), all_finite(u_ff, K)

@@ -6,8 +6,11 @@ PyTorch counterpart of `ilqr_tpu/ops/rollout.py`:
 
 The loop over time runs on the host.  `linesearch_rollouts` advances every
 α of the schedule together along a leading axis (the models accept batched
-states), so the whole schedule costs one pass.  These are the plain versions
-of the rollout kernels in `ilqr_tpu_torch.ops.fused_rollout`.
+states), so the whole schedule costs one pass.  Leading axes of the inputs
+batch independent instances (B of them: states (B, A, n_x)), still in one
+host loop over time.  These are the plain versions of the rollout kernels
+in `ilqr_tpu_torch.ops.fused_rollout` (one instance) and
+`ilqr_tpu_torch.ops.batched` (a batch).
 """
 from __future__ import annotations
 
@@ -21,39 +24,44 @@ from ilqr_tpu_torch.ops.integrators import step
 
 @full_f32_matmuls()
 def rollout(system: System, x0: torch.Tensor, U: torch.Tensor):
-    """Open-loop rollout of a control sequence. Returns X: (N+1, n_x), cost."""
+    """Open-loop rollout of a control sequence: x0 (..., n_x), U
+    (..., N, n_u).  Returns X (..., N+1, n_x) and the cost (...)."""
     x = x0
-    cost = torch.zeros((), dtype=x0.dtype, device=x0.device)
+    cost = torch.zeros(x0.shape[:-1], dtype=x0.dtype, device=x0.device)
     xs = [x0]
-    for u in U:
+    for u in U.unbind(-2):
         cost = cost + system.stage_cost(system.params, x, u)
         x = step(system, x, u)
         xs.append(x)
     cost = cost + system.terminal_cost(system.params, x)
-    return torch.stack(xs), cost
+    return torch.stack(xs, dim=-2), cost
 
 
 @full_f32_matmuls()
 def linesearch_rollouts(system: System, x0, alphas, X_old, U_old, u_ff, K):
-    """Roll out every α of ``alphas`` (A,) at once.
+    """Roll out every α of ``alphas`` at once.
 
-    Time-major inputs: X_old (N+1, n_x), U_old (N, n_u), u_ff (N, n_u),
-    K (N, n_u, n_x).  Returns (X (A, N+1, n_x), U (A, N, n_u), costs (A,)).
+    Time-major inputs: x0 (..., n_x), X_old (..., N+1, n_x), U_old and
+    u_ff (..., N, n_u), K (..., N, n_u, n_x), whose leading axes batch
+    instances; ``alphas`` is (A,), shared, or (..., A), per instance.
+    Returns (X (..., A, N+1, n_x), U (..., A, N, n_u), costs (..., A)).
     """
     alphas = torch.as_tensor(alphas, dtype=x0.dtype, device=x0.device)
-    al = alphas[:, None]
-    x = x0.expand(alphas.shape[0], x0.shape[0])
-    cost = torch.zeros(alphas.shape, dtype=x0.dtype, device=x0.device)
+    al = alphas[..., None]
+    batch = x0.shape[:-1]
+    x = x0[..., None, :].expand(batch + (alphas.shape[-1], x0.shape[-1]))
+    cost = torch.zeros(batch + alphas.shape[-1:], dtype=x0.dtype,
+                       device=x0.device)
     xs, us = [x], []
-    for t in range(U_old.shape[0]):
-        u = (U_old[t] + al * u_ff[t]
-             + ((x - X_old[t]) @ K[t].T))
+    for t in range(U_old.shape[-2]):
+        u = (U_old[..., t, None, :] + al * u_ff[..., t, None, :]
+             + ((x - X_old[..., t, None, :]) @ K[..., t, :, :].mT))
         cost = cost + system.stage_cost(system.params, x, u)
         x = step(system, x, u)
         xs.append(x)
         us.append(u)
     cost = cost + system.terminal_cost(system.params, x)
-    return torch.stack(xs, dim=1), torch.stack(us, dim=1), cost
+    return torch.stack(xs, dim=-2), torch.stack(us, dim=-2), cost
 
 
 def closed_loop_rollout(

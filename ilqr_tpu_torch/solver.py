@@ -25,6 +25,9 @@ candidate costs first, then only the accepted α is materialized), 'defect'
 'xla': its plain version).  'auto' resolves to 'scan' on every device
 until end-to-end GPU measurements set a rule.  The engine names are the
 JAX ones, so a JAX config carries over.
+
+`solve_batch` is the port's ``jax.vmap(solve)``: B independent problems in
+one host loop, with per-instance masks (see its docstring).
 """
 from __future__ import annotations
 
@@ -35,6 +38,13 @@ import numpy as np
 import torch
 
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
+from ilqr_tpu_torch.ops.batched import (
+    backward_pass_batched,
+    closed_loop_rollout_batched,
+    linesearch_costs_batched,
+    open_loop_rollout_batched,
+    vmap_backward,
+)
 from ilqr_tpu_torch.ops.chunked_rollout import (
     chunked_rollout,
     coarse_chunk_len,
@@ -45,7 +55,10 @@ from ilqr_tpu_torch.ops.fused_rollout import (
     closed_loop_rollout_fused,
     linesearch_costs_fused,
 )
-from ilqr_tpu_torch.ops.linearize import linearize_trajectory
+from ilqr_tpu_torch.ops.linearize import (
+    linearize_trajectory,
+    linearize_trajectory_batched,
+)
 from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
 from ilqr_tpu_torch.ops.parallel_rollout import (
     defect_rollout,
@@ -149,6 +162,10 @@ class IlqrConfig:
 
 @dataclasses.dataclass(frozen=True)
 class IlqrSolution:
+    """A solve's result.  From `solve_batch` every field gains a leading
+    batch axis B, and ``iterations``, ``status`` and ``defect_latch`` are
+    (B,) tensors (int64, int64, bool) instead of Python scalars."""
+
     X: torch.Tensor            # (N+1, n_x) optimal state trajectory
     U: torch.Tensor            # (N, n_u) optimal controls
     cost: torch.Tensor         # 0-d converged cost
@@ -354,4 +371,145 @@ def solve(
         X=X, U=U, cost=torch.as_tensor(cost, device=device), iterations=k,
         status=status, u_ff=u_ff, K=K, cost_trace=trace[0],
         alpha_trace=trace[1], grad_trace=trace[2], defect_latch=use_defect,
+    )
+
+
+def _backward_batch(exp, reg: float, config: IlqrConfig):
+    """'scan', 'pallas' and 'auto' run the batched sequential recursion
+    (kernel B4 on CUDA tensors); 'pscan' the associative scan per
+    instance."""
+    if config.resolved_backward() == "pscan":
+        return vmap_backward(backward_pass_associative, exp, reg)
+    return backward_pass_batched(exp, reg)
+
+
+def _initial_rollout_batch(system: System, x0s, U, config: IlqrConfig):
+    """(X, cost) of every instance: B5's open-loop entry under
+    rollout='pallas', the plain batched rollout otherwise (init_rollout=
+    'defect' included, as JAX's batched rule does)."""
+    if (config.resolved_rollout() == "pallas"
+            and config.resolved_init_rollout() != "defect"):
+        return open_loop_rollout_batched(system, x0s, U)
+    return rollout(system, x0s, U)
+
+
+@full_f32_matmuls()
+def solve_batch(
+    system: System,
+    x0s: torch.Tensor,
+    U_init: torch.Tensor,
+    config: IlqrConfig = IlqrConfig(),
+) -> IlqrSolution:
+    """Solve B independent problems at once: what ``jax.vmap(solve)``
+    returns, per instance.
+
+    x0s (B, n_x); U_init (B, N, n_u), or (N, n_u) shared by every instance.
+    One host loop runs the iterations of all instances, with per-instance
+    masks in place of JAX's batched ``while_loop``:
+
+    * each instance tests |Δcost| ≤ tol at the top of every iteration but
+      its first, accepts the first α whose cost is finite and not above its
+      own, stops with LINESEARCH_FAILED when none is (or its gains are not
+      finite) and with MAXITER after ``maxiter`` accepted iterations;
+    * a stopped instance's X, U, cost, gains and traces never change again
+      (the loop still computes them; `torch.where` keeps the old values);
+    * every running instance has accepted every iteration so far, so one
+      iteration counter serves them all.
+
+    The accept decision stays on the device; the one host read per
+    iteration is whether any instance still runs.  Engines: ``backward``
+    'scan'/'pallas'/'auto' → `ops.batched.backward_pass_batched` (B4),
+    'pscan' → the associative scan per instance; ``rollout`` 'pallas' → B5
+    (costs of every (instance, α), then one trajectory at each instance's
+    α, and the open-loop initial rollout), 'scan'/'auto' → the plain
+    batched rollouts.  The parallel-in-time line searches ('defect',
+    'chunked') raise: ROADMAP item A12b.
+    """
+    if x0s.ndim != 2 or x0s.shape[1] != system.n_x:
+        raise ValueError(f"x0s must have shape (B, n_x={system.n_x}), "
+                         f"got {tuple(x0s.shape)}")
+    B = x0s.shape[0]
+    if U_init.ndim == 2:
+        U_init = U_init.expand((B,) + tuple(U_init.shape))
+    if U_init.ndim != 3 or U_init.shape[0] != B or U_init.shape[2] != system.n_u:
+        raise ValueError(
+            f"U_init must have shape ({B}, N, n_u={system.n_u}) or "
+            f"(N, {system.n_u}), got {tuple(U_init.shape)}")
+    missing = _unsupported(config)
+    if missing is not None:
+        raise NotImplementedError(missing)
+    if config.resolved_rollout() in ("defect", "chunked"):
+        raise NotImplementedError(
+            f"the batched rollout={config.rollout!r} line search is ROADMAP "
+            f"item A12b")
+
+    x0s, U = x0s.contiguous(), U_init.contiguous()
+    device, dtype = U.device, U.dtype
+    alpha_list = config.alpha_schedule()
+    alphas = torch.tensor(alpha_list, dtype=dtype, device=device)
+    _, N, n_u = U.shape
+    n_x = system.n_x
+    reg = config.reg_init
+    pallas_rollout = config.resolved_rollout() == "pallas"
+    rows = torch.arange(B, device=device)
+
+    X, cost = _initial_rollout_batch(system, x0s, U, config)
+    u_ff = U.new_zeros((B, N, n_u))
+    K = U.new_zeros((B, N, n_u, n_x))
+    prev_cost = torch.full((B,), torch.inf, dtype=dtype, device=device)
+    status = torch.full((B,), RUNNING, dtype=torch.int64, device=device)
+    iterations = torch.zeros((B,), dtype=torch.int64, device=device)
+    traces = torch.full((3, B, config.maxiter), torch.nan, dtype=dtype,
+                        device=device)
+
+    for k in range(config.maxiter):
+        running = status == RUNNING
+        # Convergence test at the top of the iteration, skipped on the
+        # first: every running instance has accepted all k iterations.
+        if k > 0:
+            converged = running & ((cost - prev_cost).abs() <= config.tol)
+            status = torch.where(converged, CONVERGED, status)
+            running = running & ~converged
+        if not bool(running.any()):  # the iteration's one host read
+            break
+        exp = linearize_trajectory_batched(system, X, U)
+        u_ff_k, K_k, _, ok = _backward_batch(exp, reg, config)
+        if pallas_rollout:
+            costs = linesearch_costs_batched(system, x0s, alphas, X, U,
+                                             u_ff_k, K_k)
+        else:
+            X_c, U_c, costs = linesearch_rollouts(system, x0s, alphas, X, U,
+                                                  u_ff_k, K_k)
+        accept = (costs <= cost[:, None]) & torch.isfinite(costs) & ok[:, None]
+        found = accept.any(dim=1)
+        status = torch.where(running & ~found, LINESEARCH_FAILED, status)
+        take = running & found
+        idx = accept.to(torch.uint8).argmax(dim=1)  # the first accepted α
+        alpha_b = alphas[idx]
+        if pallas_rollout:
+            # Materialize only each instance's accepted α.
+            X_new, U_new, _ = closed_loop_rollout_batched(
+                system, x0s, alpha_b, X, U, u_ff_k, K_k)
+        else:
+            X_new, U_new = X_c[rows, idx], U_c[rows, idx]
+        new_cost = costs[rows, idx]
+        t3, t4 = take[:, None, None], take[:, None, None, None]
+        X = torch.where(t3, X_new, X)
+        U = torch.where(t3, U_new, U)
+        u_ff = torch.where(t3, u_ff_k, u_ff)
+        K = torch.where(t4, K_k, K)
+        prev_cost = torch.where(take, cost, prev_cost)
+        cost = torch.where(take, new_cost, cost)
+        traces[:, :, k] = torch.where(
+            take, torch.stack([new_cost, alpha_b,
+                               u_ff_k.abs().amax(dim=(1, 2))]),
+            traces[:, :, k])
+        iterations = iterations + take.to(torch.int64)
+
+    status = torch.where(status == RUNNING, MAXITER, status)
+    return IlqrSolution(
+        X=X, U=U, cost=cost, iterations=iterations, status=status, u_ff=u_ff,
+        K=K, cost_trace=traces[0], alpha_trace=traces[1],
+        grad_trace=traces[2],
+        defect_latch=torch.zeros((B,), dtype=torch.bool, device=device),
     )
