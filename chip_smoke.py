@@ -62,9 +62,33 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    and holds two sampled instances to single-instance run_mpc over every
    step of each run;
 17. runs run_mpc on the double pendulum through B1 and B2 and run_mpc_ms
-   on the pendulum through B1d and B3.
+   on the pendulum through B1d and B3;
+18. checks the standalone suffix scan, B6 (layout 'sub') and B7 ('lane'),
+   against its plain version in all five fields, on the Riccati elements of
+   the pendulum and double-pendulum expansions of bench.py's limited cell
+   (tiled to M = 1411, 32769 and 131073), with and without the terminal
+   element, and times both against the plain scan;
+19. runs bench.py's limited-backward cell at full size (pendulum rk4,
+   N = 32768, U = clip(2.5 sin, +-2)) through backward_pass_limited_parallel
+   with the kernel engine and the plain one, prints their sweep counts and
+   clamped controls (none: the cell's optimal step stays inside +-2), and
+   holds both to the sequential box-QP pass at N = 1024; then the same
+   expansion under +-1, where about a quarter of the controls clamp, both
+   engines field by field with the same clamped set, and the sequential
+   pass with about half its controls clamped (+-0.5) against f64;
+20. runs the limited-DDP cell (the same with the dynamics Hessians, at +-2
+   and +-1) and the unconstrained DDP parallel pass with both engines;
+21. solves through solve(..., backward='pallas'): the torque-limited
+   pendulum (N = 300, +-2; then with rollout='defect', B6 and B3), the
+   limited-DDP double-pendulum swing-up (N = 150, +-12, adaptive_reg;
+   against the sequential solve's golden cost) and the DDP pendulum
+   (4 sweeps), the two pendulums against backward='scan', and the
+   backward pass through B7 (backward_pass_suffix_scan(layout='lane')).
 Each solve phase resets the launch counts just before it and reads them
-just after.
+just after.  The kernels line gives every kernel's time, its plain
+version's, and its bound: the larger of the bytes it must move over the
+H100's memory rate and the operations of the sequential recursion over its
+f32 rate.
 
 Any failed check raises, and the script exits non-zero.  Without a CUDA
 device it exits non-zero before printing any result.  The last line is
@@ -580,6 +604,24 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
     print(f"phases 13-17: {time.perf_counter() - t_start:.1f} s")
 
     replaces = "ilqr_tpu/ops/pallas_batched.py:"
+    n_x, n_u, A = 4, 2, alphas.numel()
+    step_ops = rollout_step_ops("double_pendulum", "euler", n_x, n_u)
+    traj_in = B * ((N + 1) * n_x + 2 * N * n_u + N * n_u * n_x + n_x)
+    traj_out = B * ((N + 1) * n_x + N * n_u + 1)
+    p_in = params_floats(n_x, n_u)
+    bounds = {
+        "batched_riccati": bound(
+            4 * B * (expansion_floats(N, n_x, n_u) + N * (n_u + n_u * n_x)
+                     + 3), B * N * riccati_step_ops(n_x)),
+        "linesearch_costs_batched": bound(
+            4 * (traj_in + A + p_in + B * A), B * A * N * step_ops),
+        "closed_loop_rollout_batched": bound(
+            4 * (traj_in + B + p_in + traj_out), B * N * step_ops),
+        "open_loop_rollout_batched": bound(
+            4 * (B * (n_x + N * n_u) + p_in + B * ((N + 1) * n_x + 1)),
+            B * N * rollout_step_ops("double_pendulum", "euler", n_x, n_u,
+                                     feedback=False)),
+    }
     pairs = {
         "batched_riccati": (
             "batched_riccati.cu", "114", counts15["scan"],
@@ -599,8 +641,546 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
     return [dict(name=name, route="cuda",
                  source=f"ilqr_tpu_torch/csrc/{src}",
                  replaces=replaces + line, launches=counts.get(name, 0),
-                 max_abs_err=errors[name], ms=t[tk], plain_ms=t[tp])
+                 max_abs_err=errors[name], ms=t[tk], plain_ms=t[tp],
+                 bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                 library_ms=None)
             for name, (src, line, counts, tk, tp) in pairs.items()]
+
+
+# ---- bounds: the least time the card could take for a kernel's work ------
+# NVIDIA's H100 SXM data sheet, at the 700 W power limit: 3.35 TB/s of HBM3
+# and 67 TFLOP/s in float32 outside the tensor cores.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+
+
+def bound(n_bytes: float, ops: float) -> tuple[float, str]:
+    """(bound ms, what binds): the larger of bytes over the memory rate
+    and operations over the f32 rate."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def riccati_step_ops(n_x: int) -> int:
+    """One step of the sequential Riccati recursion, JAX's estimate for its
+    batched kernel (ilqr_tpu/ops/pallas_batched.py:214)."""
+    return 30 * n_x ** 3
+
+
+def combine_ops(n_x: int) -> int:
+    """One combine of two Riccati elements, JAX's estimate
+    (ilqr_tpu/ops/pallas_riccati.py:549)."""
+    return 40 * n_x ** 3
+
+
+# Operations of one continuous-dynamics evaluation, counted from
+# csrc/models.cuh (a sine or cosine counts as one), and the evaluations
+# and state updates of one integrator step.
+FCONT_OPS = {"pendulum": 8, "double_pendulum": 70}
+INTEGRATOR_EVALS = {"euler": (1, 2), "midpoint": (2, 5), "rk4": (4, 14)}
+
+
+def rollout_step_ops(model: str, integrator: str, n_x: int, n_u: int,
+                     feedback: bool = True) -> int:
+    """One closed-loop (or open-loop) rollout step: the control law
+    u = u_old + a u_ff + K (x - x_old), the dynamics step and the quadratic
+    stage cost."""
+    evals, axpy = INTEGRATOR_EVALS[integrator]
+    control = 2 * n_u * n_x + 3 * n_u + n_x if feedback else 0
+    cost = 3 * (n_x * n_x + n_u * n_u) + n_x + 4
+    return control + evals * FCONT_OPS[model] + axpy * n_x + cost
+
+
+def expansion_floats(N: int, n_x: int, n_u: int) -> int:
+    """Floats of a TrajectoryExpansion (the seven stage blocks and the
+    terminal v_x, v_xx)."""
+    stage = 2 * n_x * n_x + 2 * n_x * n_u + n_x + n_u + n_u * n_u
+    return N * stage + n_x + n_x * n_x
+
+
+def params_floats(n_x: int, n_u: int) -> int:
+    """Floats of the rollout kernels' parameter buffer (an upper bound of
+    its model block)."""
+    return 1 + n_x + 2 * n_x * n_x + n_u * n_u + 9 + 2 * n_u
+
+
+# Phases 18-21: the standalone suffix scan (B6, B7) and the limited, DDP and
+# iLQG paths.
+# B6/B7 tolerance: B1's, field by field: max|kernel - plain| <=
+# max(RTOL_B6 * max|plain|, F32_FLOOR * max|plain - plain in f64|).  Both
+# are f32 suffix scans of the same elements in other association orders
+# (blocks of 256 or 128 with a carried element against doubling over the
+# whole horizon).
+RTOL_B6 = 5e-4
+LIMITED_N = 32768            # bench.py:620-642, the limited-backward cell
+SCAN_MS = (1411, 32769, 131073)
+# The sequential limited pass is a host loop of N box QPs (8 projected-Newton
+# iterations each): it runs at this cut horizon.
+SEQ_CUT_N = 1024
+# Phase 19/20: the limited passes' outputs, kernel engine against the plain
+# engine, field by field within max(RTOL_LIMITED * max|plain|, F32_FLOOR *
+# max|plain - plain in f64|): the same sweeps on f32 scans in other orders;
+# a control whose set membership flips at a bound moves its own entries, so
+# the engines must also end with the same clamped set.
+RTOL_LIMITED = 5e-4
+# Phases 19/20: the bench cell clamps nothing within ±2; under ±1 on the
+# same expansion (the nominal clipped to them) about a quarter of the 32768
+# controls end clamped, the same ones in f32 and f64 (CPU, torch).
+TIGHT_LIMIT = 1.0
+# Phase 19: the sequential box-QP pass against the parallel pass's fixed
+# point at the cut horizon (the same KKT point; f32 in other orders), and
+# the sequential pass in f32 against f64 under ±0.5, where about half of
+# the cut's controls clamp (its first 1024 steps barely reach ±1).
+RTOL_SEQ = 1e-3
+SEQ_TIGHT_LIMIT = 0.5
+# Phase 21: the limited-DDP double-pendulum swing-up with backward='scan'
+# (the sequential box-QP/DDP recursion, a host loop of 150 box QPs an
+# iteration) reached CONVERGED at this cost in 86 iterations and 66 s on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W), and after 40 iterations still cost
+# 202.6: too slow to run here, it is held as a golden value, as
+# DP_GOLDEN_COST is.  The torque-limited swing-up has neighbouring basins
+# (45.6 and 57.3, tests/test_limited_parallel.py:153-161); a stall costs
+# more than 200.
+DP_LIMITED_SEQ_COST = 45.607353
+
+
+def limited_cell(itt, f32, N, model="pendulum"):
+    """bench.py's limited-backward cell at horizon N: the pendulum (rk4,
+    dt 0.01, Q = I, R = I, Q_f = 0, d = 0) along
+    U = clip(2.5 sin(linspace(0, 40, N)), -2, 2), or the double pendulum
+    (euler) along the same controls on both joints.  The nominal comes from
+    B5's open-loop rollout.  Returns (system, X, U, expansion)."""
+    if model == "pendulum":
+        system = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2),
+                                   R=np.eye(1), Q_f=np.zeros((2, 2)), d=0.0,
+                                   integrator="rk4", **f32)
+    else:
+        system = dp_system(itt, f32)
+    U = torch.clamp(2.5 * torch.sin(torch.linspace(0.0, 40.0, N, **f32)),
+                    -2.0, 2.0)[:, None].expand(N, system.n_u).contiguous()
+    X = itt.open_loop_rollout_batched(
+        system, torch.zeros((1, system.n_x), **f32), U[None])[0][0]
+    return system, X.contiguous(), U, itt.linearize_trajectory(system, X, U)
+
+
+def as_f64(obj):
+    """A dataclass or NamedTuple of tensors in float64."""
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).double()
+            for f in dataclasses.fields(obj)})
+    return type(obj)(*(t.double() for t in obj))
+
+
+def clamped_set(U_old, out, u_lo, u_hi):
+    """The controls a limited backward pass (u_ff, K, ...) left clamped: the
+    new control at a bound and the feedback row zero."""
+    u_ff, K = out[0], out[1]
+    u_new = U_old + u_ff
+    at = lambda b: (u_new - b).abs() <= 1e-5 * (1.0 + abs(b))  # noqa: E731
+    return (at(u_lo) | at(u_hi)) & (K.abs().amax(-1) == 0)
+
+
+def check_fields(label, got, plain, ref64, rtol, errors=None, key=None):
+    """Field-by-field gate of a kernel's outputs (a RiccatiElement, or the
+    (u_ff, K, dV) of a backward pass): max|got - plain| <= max(rtol *
+    max|plain|, F32_FLOOR * max|plain - ref64|).  Records the largest error
+    in errors[key]; returns one note per field."""
+    notes = []
+    names = getattr(got, "_fields", ("u_ff", "K", "dV"))
+    for name, g, p, r in zip(names, got, plain, ref64):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: {name} not finite")
+        err, rel = rel_err(g, p)
+        floor = rel_err(p, r)[0]
+        limit = max(rtol * float(p.abs().max()), F32_FLOOR * floor)
+        if errors is not None:
+            errors[key] = max(errors[key], err)
+        notes.append(f"{name} {err:.2e} (rel {rel:.1e}, limit {limit:.2e}; "
+                     f"plain vs f64 {floor:.2e})")
+        if not err <= limit:
+            raise AssertionError(f"{label}: {notes[-1]}")
+    return notes
+
+
+def scan_phase(itt, f32, smi, N_lim, Ms, errors):
+    """Phase 18: B6 and B7 against the plain scan on the elements of real
+    expansions (the limited cell's pendulum and double pendulum, tiled
+    along time to M), with and without the terminal element, all five
+    fields; the largest errors go to ``errors``.  Returns the cells and
+    the CUDA-event times {(model, M): (B6, B7, plain)}."""
+    from ilqr_tpu_torch.ops import parallel_riccati
+    from ilqr_tpu_torch.ops.parallel_riccati import RiccatiElement
+
+    print(f"B6/B7 tolerance: field by field, max|kernel - plain| <= "
+          f"max({RTOL_B6} * max|plain|, {F32_FLOOR} * max|plain - plain in "
+          f"f64|)")
+    cells = {name: limited_cell(itt, f32, N_lim, name)
+             for name in ("pendulum", "double_pendulum")}
+    t_scan = {}
+    for name, (_, _, _, exp) in cells.items():
+        for M in Ms:
+            # With the terminal element every suffix has A = b = C = 0 (the
+            # terminal's), as on the path; the stage elements alone give
+            # windowed products in all five fields.
+            for kind, n_steps, cut in (("with terminal", M - 1, M),
+                                       ("stages only", M, M)):
+                elems = parallel_riccati.make_elements(
+                    tile_expansion(exp, n_steps), 0.0)
+                elems = RiccatiElement(*(t[:cut].contiguous() for t in elems))
+                plain = parallel_riccati.suffix_scan(elems)
+                ref64 = parallel_riccati.suffix_scan(as_f64(elems))
+                for layout, key in (("sub", "suffix_scan"),
+                                    ("lane", "suffix_scan_lane")):
+                    torch.cuda.synchronize()
+                    got = itt.suffix_scan_fused(elems, layout)
+                    torch.cuda.synchronize()
+                    notes = check_fields(
+                        f"B6/B7 {name} M={M} {kind} {layout}", got, plain,
+                        ref64, RTOL_B6, errors, key)
+                    print(f"{'B6' if layout == 'sub' else 'B7'} {name} "
+                          f"M={M} {kind}: " + "; ".join(notes))
+                if kind == "with terminal" and (name == "pendulum"
+                                                or M == Ms[-1]):
+                    t_scan[(name, M)] = (
+                        cuda_ms(lambda: itt.suffix_scan_fused(elems, "sub"),
+                                20, 3),
+                        cuda_ms(lambda: itt.suffix_scan_fused(elems, "lane"),
+                                20, 3),
+                        cuda_ms(lambda: parallel_riccati.suffix_scan(elems),
+                                3, 1))
+    print(f"timing on {smi} (CUDA events, ms per call):")
+    for (name, M), (ts, tl, tp) in t_scan.items():
+        print(f"  suffix scan {name} M={M}: B6 (sub) {ts:.4f}, B7 (lane) "
+              f"{tl:.4f}, plain {tp:.4f}")
+    return cells, t_scan
+
+
+def suffix_phases(itt, dev, smi, N_lim=LIMITED_N, Ms=SCAN_MS,
+                  seq_cut=SEQ_CUT_N, solve_scale=1.0):
+    """Phases 18-21: B6 and B7 against the plain scan, the bench's limited
+    and limited-DDP backward cells at full size, and solves through
+    ``solve(..., backward='pallas')`` with limits, DDP and adaptive_reg.
+    ``solve_scale`` scales the solves' iteration budgets (1 on the GPU).
+    Returns the kernels line's entries of B6 and B7."""
+    from ilqr_tpu_torch.ops import _build, limited_parallel
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    errors = {"suffix_scan": 0.0, "suffix_scan_lane": 0.0}
+    t_start = t_lap = time.perf_counter()
+
+    def lap(phase: int) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_lap:.1f} s")
+        t_lap = now
+
+    # ---- 18. B6 and B7 against the plain scan ------------------------------
+    cells, t_scan = scan_phase(itt, f32, smi, N_lim, Ms, errors)
+    lap(18)
+
+    # ---- 19. the limited-backward cell at full size (bench.py:620-642) -----
+    pend, X_l, U_l, exp_l = cells["pendulum"]
+    lo, hi = -2.0, 2.0
+
+    def sweeps_of(fn):
+        """fn() and the number of suffix scans it ran (one per sweep, plus
+        the seed of a second-order run)."""
+        calls = [0]
+        plain_values = limited_parallel._suffix_values
+
+        def counted(*args, **kw):
+            calls[0] += 1
+            return plain_values(*args, **kw)
+
+        limited_parallel._suffix_values = counted
+        try:
+            out = fn()
+        finally:
+            limited_parallel._suffix_values = plain_values
+        return out, calls[0]
+
+    def limited_engines(label, U_old, u_lo, u_hi, hess=None, min_clamped=0):
+        """Both engines of the parallel limited pass on the limited cell's
+        expansion, field by field against each other (f64 floor), with the
+        same clamped set; fails if fewer than ``min_clamped`` controls
+        end clamped."""
+        out, sweeps, sets = {}, {}, {}
+        for engine in ("pallas", "xla"):
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            out[engine], sweeps[engine] = sweeps_of(
+                lambda: itt.backward_pass_limited_parallel(
+                    exp_l, U_old, u_lo, u_hi, 0.0, engine=engine, hess=hess))
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            if (engine == "pallas"
+                    and counts.get("suffix_scan", 0) != sweeps[engine]):
+                raise AssertionError(f"{label} (pallas): suffix_scan launched "
+                                     f"{counts.get('suffix_scan', 0)} times "
+                                     f"in {sweeps[engine]} scans")
+            sets[engine] = clamped_set(U_old, out[engine], u_lo, u_hi)
+        exp64 = as_f64(exp_l)
+        ref64, sweeps64 = sweeps_of(
+            lambda: itt.backward_pass_limited_parallel(
+                exp64, U_old.double(), u_lo, u_hi, 0.0, engine="xla",
+                hess=None if hess is None else as_f64(hess)))
+        set64 = clamped_set(U_old.double(), ref64, u_lo, u_hi)
+        n_clamped = {e: int(s.sum()) for e, s in sets.items()}
+        n_clamped["f64"] = int(set64.sum())
+        if not bool(torch.equal(sets["pallas"], sets["xla"])):
+            raise AssertionError(f"{label}: the engines' clamped sets differ "
+                                 f"({n_clamped})")
+        if n_clamped["pallas"] < min_clamped:
+            raise AssertionError(f"{label}: {n_clamped['pallas']} controls "
+                                 f"clamped, fewer than {min_clamped}")
+        # A control whose set differs in f64 moves the values of every step
+        # before it, not rounding: then the limit is RTOL_LIMITED alone.
+        same_set = bool(torch.equal(sets["xla"], set64))
+        floor_ref = (ref64[:3] if same_set
+                     else tuple(t.double() for t in out["xla"][:3]))
+        notes = check_fields(label, out["pallas"][:3], out["xla"][:3],
+                             floor_ref, RTOL_LIMITED)
+        if not same_set:
+            notes.append(f"the f64 set differs, so each limit is "
+                         f"{RTOL_LIMITED} * max|plain| alone")
+        if not bool(out["pallas"][3]):
+            raise AssertionError(f"{label}: non-finite gains")
+        t = {e: cuda_ms(lambda: itt.backward_pass_limited_parallel(
+            exp_l, U_old, u_lo, u_hi, 0.0, engine=e, hess=hess), 2, 1)
+            for e in ("pallas", "xla")}
+        print(f"{label} N={N_lim}, limits [{u_lo}, {u_hi}]: controls clamped "
+              f"{n_clamped}; scans kernel {sweeps['pallas']}, plain "
+              f"{sweeps['xla']}, f64 {sweeps64}; {t['pallas']:.2f} ms with "
+              f"B6, {t['xla']:.2f} ms plain; kernel vs plain "
+              + "; ".join(notes))
+        return out
+
+    # The bench cell clamps nothing: its nominal's optimal step pulls every
+    # control inside ±2, so its one sweep is the unconstrained masked pass.
+    limited_engines("limited backward", U_l, lo, hi)
+    # The same expansion under tighter limits, the nominal clipped to them:
+    # a mixed active set, clamp deltas and set updates over several sweeps.
+    U_t = U_l.clamp(-TIGHT_LIMIT, TIGHT_LIMIT).contiguous()
+    limited_engines("limited backward (tight)", U_t, -TIGHT_LIMIT,
+                    TIGHT_LIMIT, min_clamped=N_lim // 10)
+    # The sequential box-QP pass at a cut horizon, against both engines'
+    # fixed points on the same expansion (nothing clamps there).
+    exp_c = dataclasses.replace(exp_l, **{
+        f: getattr(exp_l, f)[:seq_cut].contiguous() for f in
+        ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu")})
+    exp_c = dataclasses.replace(exp_c, v_x=torch.zeros(2, **f32),
+                                v_xx=torch.zeros((2, 2), **f32))
+    U_c = U_l[:seq_cut].contiguous()
+    t0 = time.perf_counter()
+    seq = itt.backward_pass_limited(exp_c, U_c, lo, hi, 0.0)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    n_seq = int(clamped_set(U_c, seq, lo, hi).sum())
+    for engine in ("pallas", "xla"):
+        par = itt.backward_pass_limited_parallel(exp_c, U_c, lo, hi, 0.0,
+                                                 engine=engine)
+        for name, a, b in zip(("u_ff", "K", "dV"), par, seq):
+            err, rel = rel_err(a, b)
+            if not rel <= RTOL_SEQ:
+                raise AssertionError(
+                    f"limited backward N={seq_cut}: {engine} {name} differs "
+                    f"from the sequential pass by {err:.2e} ({rel:.1e} of "
+                    f"max|sequential|, limit {RTOL_SEQ})")
+        print(f"limited backward cut to N={seq_cut}: the {engine} engine "
+              f"agrees with the sequential box-QP pass ({seq_s:.2f} s, "
+              f"{n_seq} controls clamped) to rel {RTOL_SEQ}")
+    # The sequential pass with an active set: the parallel pass's fixed point
+    # is not the box QPs' there (the JAX package's too: their sets differ by
+    # a few percent), so the card's f32 pass is held to the f64 pass.
+    U_s = U_c.clamp(-SEQ_TIGHT_LIMIT, SEQ_TIGHT_LIMIT).contiguous()
+    seq = itt.backward_pass_limited(exp_c, U_s, -SEQ_TIGHT_LIMIT,
+                                    SEQ_TIGHT_LIMIT, 0.0)
+    seq64 = itt.backward_pass_limited(as_f64(exp_c), U_s.double(),
+                                      -SEQ_TIGHT_LIMIT, SEQ_TIGHT_LIMIT, 0.0)
+    sets = [clamped_set(u, out, -SEQ_TIGHT_LIMIT, SEQ_TIGHT_LIMIT)
+            for u, out in ((U_s, seq), (U_s.double(), seq64))]
+    n_seq = int(sets[0].sum())
+    if not (torch.equal(*sets) and n_seq >= seq_cut // 10):
+        raise AssertionError(f"sequential limited pass N={seq_cut}, limits "
+                             f"±{SEQ_TIGHT_LIMIT}: {n_seq} controls clamped "
+                             f"in f32, {int(sets[1].sum())} in f64")
+    for name, a, b in zip(("u_ff", "K", "dV"), seq, seq64):
+        err, rel = rel_err(a, b)
+        if not rel <= RTOL_SEQ:
+            raise AssertionError(
+                f"sequential limited pass N={seq_cut}, limits "
+                f"±{SEQ_TIGHT_LIMIT}: {name} differs from f64 by {err:.2e} "
+                f"({rel:.1e} of max|f64|, limit {RTOL_SEQ})")
+    print(f"sequential limited pass N={seq_cut}, limits ±{SEQ_TIGHT_LIMIT}: "
+          f"{n_seq} controls clamped, as in f64; f32 agrees with f64 to rel "
+          f"{RTOL_SEQ}")
+    lap(19)
+
+    # ---- 20. the limited-DDP cell at full size (bench.py:644-666) ----------
+    hess = itt.dynamics_hessians(pend, X_l, U_l)
+    limited_engines("limited DDP backward", U_l, lo, hi, hess=hess)
+    limited_engines("limited DDP backward (tight)", U_t, -TIGHT_LIMIT,
+                    TIGHT_LIMIT, hess=hess, min_clamped=N_lim // 10)
+    out = {}
+    for engine in ("pallas", "xla"):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out[engine] = itt.backward_pass_ddp_parallel(exp_l, 0.0, hess=hess,
+                                                     engine=engine)
+        torch.cuda.synchronize()
+        if (engine == "pallas"
+                and _build.launch_counts().get("suffix_scan", 0) != 4):
+            raise AssertionError("DDP parallel backward: suffix_scan not "
+                                 "launched once per sweep (4)")
+    ref64 = itt.backward_pass_ddp_parallel(as_f64(exp_l), 0.0,
+                                           hess=as_f64(hess), engine="xla")
+    notes = check_fields("DDP parallel backward", out["pallas"][:3],
+                   out["xla"][:3], ref64[:3], RTOL_LIMITED)
+    t = {e: cuda_ms(lambda: itt.backward_pass_ddp_parallel(
+        exp_l, 0.0, hess=hess, engine=e), 2, 1) for e in ("pallas", "xla")}
+    print(f"DDP parallel backward N={N_lim} (3 sweeps): {t['pallas']:.2f} ms "
+          f"with B6, {t['xla']:.2f} ms plain; kernel vs plain "
+          + "; ".join(notes))
+    lap(20)
+
+    # ---- 21. solves through solve(..., backward='pallas') ------------------
+    def timed_solve(system, x0, N, cfg, kernels=()):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        sol = itt.solve(system, x0, torch.zeros((N, system.n_u), **f32), cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        for kernel in kernels:
+            if counts.get(kernel, 0) < 1:
+                raise AssertionError(f"solve ({cfg.backward}, {cfg.rollout})"
+                                     f" never launched {kernel}")
+        return sol, wall, counts
+
+    def report(label, sol, wall, counts):
+        print(f"{label}: status {sol.status}, {sol.iterations} iterations, "
+              f"cost {float(sol.cost):.6f}, max|U| "
+              f"{float(sol.U.abs().max()):.6f}, {wall:.2f} s, launches "
+              f"{counts}")
+
+    def iters(n):
+        return max(1, int(n * solve_scale))
+
+    # The torque-limited pendulum (tests/test_limited_parallel.py:66-79).
+    tl_pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2),
+                                R=0.1 * np.eye(1), Q_f=100.0 * np.eye(2),
+                                d=0.0, integrator="rk4", **f32)
+    base = dict(maxiter=iters(200), tol=1e-7, u_min=-2.0, u_max=2.0)
+    x0 = torch.zeros(2, **f32)
+    seq, seq_wall, counts = timed_solve(tl_pend, x0, 300,
+                                        itt.IlqrConfig(backward="scan",
+                                                       **base))
+    report("limited pendulum N=300 (scan: sequential box QPs)", seq,
+           seq_wall, counts)
+    limited_launches = None
+    for rollout, kernels in (("scan", ("suffix_scan",)),
+                             ("defect", ("suffix_scan",
+                                         "affine_prefix_scan"))):
+        sol, wall, counts = timed_solve(
+            tl_pend, x0, 300, itt.IlqrConfig(backward="pallas",
+                                             rollout=rollout, **base),
+            kernels)
+        report(f"limited pendulum N=300 (pallas/{rollout})", sol, wall,
+               counts)
+        if limited_launches is None:
+            limited_launches = counts
+        if not (float(sol.U.abs().max()) <= 2.0 + 1e-5
+                and float(sol.cost) <= 1.01 * float(seq.cost)):
+            raise AssertionError(f"limited pendulum (pallas/{rollout}): cost "
+                                 f"above 1.01 x sequential or |U| > 2")
+    # The limited-DDP double-pendulum swing-up (:132-161), the full-width
+    # system of this slice.
+    dp2 = itt.make_double_pendulum(
+        0.02, [np.pi, 0, 0, 0], Q=np.diag([10.0, 10.0, 0.1, 0.1]),
+        R=np.diag([0.1, 0.1]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
+        d1=0.1, d2=0.1, theta1=1 / 12, theta2=1 / 12, integrator="euler",
+        **f32)
+    base = dict(maxiter=iters(200), tol=1e-7, u_min=-12.0, u_max=12.0,
+                ddp=True, adaptive_reg=True)
+    x0 = torch.zeros(4, **f32)
+    sol, wall, counts = timed_solve(dp2, x0, 150,
+                                    itt.IlqrConfig(backward="pallas", **base),
+                                    ("suffix_scan",))
+    report("limited DDP DP N=150 (pallas)", sol, wall, counts)
+    print(f"limited DDP DP: final angles {sol.X[-1, :2].tolist()}; the "
+          f"sequential solve's cost {DP_LIMITED_SEQ_COST} is a golden value "
+          f"(not run here)")
+    if not (sol.status == itt.CONVERGED
+            and float(sol.U.abs().max()) <= 12.0 + 1e-4
+            and float(sol.cost) <= 1.5 * DP_LIMITED_SEQ_COST):
+        raise AssertionError(f"limited DDP DP (pallas): not CONVERGED, |U| > "
+                             f"12 or cost above 1.5 x {DP_LIMITED_SEQ_COST}")
+    # DDP on the pendulum with the parallel backward (tests/test_ddp.py:
+    # 138-150).
+    ddp_pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2),
+                                 R=np.eye(1), Q_f=100.0 * np.eye(2), d=0.1,
+                                 integrator="rk4", **f32)
+    base = dict(maxiter=iters(150), tol=1e-8, ddp=True, adaptive_reg=True,
+                reg_init=1e-6)
+    x0 = torch.zeros(2, **f32)
+    seq, seq_wall, counts = timed_solve(ddp_pend, x0, 300,
+                                        itt.IlqrConfig(backward="scan",
+                                                       **base))
+    report("DDP pendulum N=300 (scan: sequential)", seq, seq_wall, counts)
+    sol, wall, counts = timed_solve(
+        ddp_pend, x0, 300, itt.IlqrConfig(backward="pallas", ddp_sweeps=4,
+                                          **base), ("suffix_scan",))
+    report("DDP pendulum N=300 (pallas, 4 sweeps)", sol, wall, counts)
+    rel = abs(float(sol.cost) - float(seq.cost)) / abs(float(seq.cost))
+    if not (sol.status == itt.CONVERGED and rel <= 1e-4):
+        raise AssertionError(f"DDP pendulum (pallas): not CONVERGED or cost "
+                             f"{rel:.2e} from sequential (limit 1e-4)")
+    # B7's path: the backward pass through the lane-layout scan
+    # (`backward_pass_suffix_scan(layout='lane')`, JAX's
+    # backward_pass_pallas(layout='lane')) on the limited cell's expansion.
+    plain = itt.backward_pass_associative(exp_l, 0.0)
+    ref64 = itt.backward_pass_associative(as_f64(exp_l), 0.0)
+    lane_launches = None
+    for layout, kernel in (("lane", "suffix_scan_lane"),
+                           ("sub", "suffix_scan")):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = itt.backward_pass_suffix_scan(exp_l, 0.0, layout=layout)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        if counts.get(kernel, 0) != 1:
+            raise AssertionError(f"backward_pass_suffix_scan({layout}) "
+                                 f"launched {counts}")
+        if layout == "lane":
+            lane_launches = counts
+        notes = check_fields(f"backward through the {layout} scan", got[:3],
+                       plain[:3], ref64[:3], RTOL_B6)
+        print(f"backward_pass_suffix_scan(layout={layout!r}) N={N_lim}: "
+              f"launches {counts}; against the plain pass "
+              + "; ".join(notes))
+    lap(21)
+    print(f"phases 18-21: {time.perf_counter() - t_start:.1f} s")
+
+    M_main = N_lim + 1
+    F = 3 * 2 * 2 + 2 * 2
+    b_ms, b_by = bound(2 * M_main * F * 4, M_main * combine_ops(2))
+    ts, tl, tp = t_scan[("pendulum", M_main)]
+    common = dict(route="cuda", source="ilqr_tpu_torch/csrc/suffix_scan.cu",
+                  bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return [
+        dict(name="suffix_scan_sub",
+             replaces="ilqr_tpu/ops/pallas_riccati.py:515",
+             launches=limited_launches.get("suffix_scan", 0),
+             max_abs_err=errors["suffix_scan"], ms=ts, plain_ms=tp, **common),
+        dict(name="suffix_scan_lane",
+             replaces="ilqr_tpu/ops/pallas_riccati.py:271",
+             launches=lane_launches.get("suffix_scan_lane", 0),
+             max_abs_err=errors["suffix_scan_lane"], ms=tl, plain_ms=tp,
+             **common),
+    ]
 
 
 def main() -> int:
@@ -1220,38 +1800,54 @@ def main() -> int:
           f"({ms_k.iterations} iterations), plain {ms_p_ms:.1f} ms "
           f"({ms_p.iterations} iterations)")
 
+    # Bounds at the timed shapes (bytes: inputs read once, outputs written
+    # once; operations: the sequential recursion's work).
+    nx, nu, N5 = 4, 2, 500
+    A10 = alphas.numel()
+    ls_ops = rollout_step_ops("double_pendulum", "euler", nx, nu)
+    traj_in = (N5 + 1) * nx + 2 * N5 * nu + N5 * nu * nx + params_floats(nx,
+                                                                         nu)
+    b_b1 = bound(4 * (expansion_floats(N5, nx, nu) + N5 * (nu + nu * nx) + 2),
+                 N5 * riccati_step_ops(nx))
+    b_ls = bound(4 * (traj_in + nx + A10 + A10), A10 * N5 * ls_ops)
+    b_tr = bound(4 * (traj_in + nx + 1 + (N5 + 1) * nx + N5 * nu + 1),
+                 N5 * ls_ops)
+    b_b3 = bound(4 * (BENCH_N * 16 + 10 * BENCH_N * 4 + 10 * 4
+                      + 10 * (BENCH_N + 1) * 4), 10 * BENCH_N * 2 * 16)
+    b_b1d = bound(4 * (expansion_floats(BENCH_N, 2, 1) + BENCH_N * 2
+                       + BENCH_N * (1 + 2) + 2), BENCH_N * riccati_step_ops(2))
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, b):
+        return dict(name=name, route="cuda",
+                    source=f"ilqr_tpu_torch/csrc/{source}",
+                    replaces=f"ilqr_tpu/ops/{replaces}", launches=launches,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                    bound_by=b[1], library_ms=None)
+
     kernels_json = [
-        dict(name="fused_riccati", route="cuda",
-             source="ilqr_tpu_torch/csrc/fused_riccati.cu",
-             replaces="ilqr_tpu/ops/pallas_riccati.py:774",
-             launches=launches.get("fused_riccati", 0),
-             max_abs_err=errors["fused_riccati"], ms=t_b1, plain_ms=t_b1p),
-        dict(name="linesearch_costs", route="cuda",
-             source="ilqr_tpu_torch/csrc/fused_rollout.cu",
-             replaces="ilqr_tpu/ops/pallas_rollout.py:92",
-             launches=launches.get("linesearch_costs", 0),
-             max_abs_err=errors["linesearch_costs"], ms=t_c, plain_ms=t_cp),
-        dict(name="closed_loop_rollout", route="cuda",
-             source="ilqr_tpu_torch/csrc/fused_rollout.cu",
-             replaces="ilqr_tpu/ops/pallas_rollout.py:132",
-             launches=launches.get("closed_loop_rollout", 0),
-             max_abs_err=errors["closed_loop_rollout"], ms=t_t,
-             plain_ms=t_tp),
-        dict(name="affine_prefix_scan", route="cuda",
-             source="ilqr_tpu_torch/csrc/affine_scan.cu",
-             replaces="ilqr_tpu/ops/pallas_affine.py:137",
-             launches=par_launches["defect"].get("affine_prefix_scan", 0),
-             max_abs_err=errors["affine_prefix_scan"],
-             ms=t_b3[f"N={BENCH_N} A=10"][0],
-             plain_ms=t_b3[f"N={BENCH_N} A=10"][1]),
-        dict(name="fused_riccati_defects", route="cuda",
-             source="ilqr_tpu_torch/csrc/fused_riccati.cu",
-             replaces="ilqr_tpu/ops/pallas_riccati.py:774",
-             launches=ms_launches.get("fused_riccati", 0),
-             max_abs_err=errors["fused_riccati_defects"], ms=t_b1d,
-             plain_ms=t_b1dp),
+        entry("fused_riccati", "fused_riccati.cu", "pallas_riccati.py:774",
+              launches.get("fused_riccati", 0), errors["fused_riccati"],
+              t_b1, t_b1p, b_b1),
+        entry("linesearch_costs", "fused_rollout.cu", "pallas_rollout.py:92",
+              launches.get("linesearch_costs", 0),
+              errors["linesearch_costs"], t_c, t_cp, b_ls),
+        entry("closed_loop_rollout", "fused_rollout.cu",
+              "pallas_rollout.py:132", launches.get("closed_loop_rollout", 0),
+              errors["closed_loop_rollout"], t_t, t_tp, b_tr),
+        entry("affine_prefix_scan", "affine_scan.cu", "pallas_affine.py:137",
+              par_launches["defect"].get("affine_prefix_scan", 0),
+              errors["affine_prefix_scan"], t_b3[f"N={BENCH_N} A=10"][0],
+              t_b3[f"N={BENCH_N} A=10"][1], b_b3),
+        entry("fused_riccati_defects", "fused_riccati.cu",
+              "pallas_riccati.py:774", ms_launches.get("fused_riccati", 0),
+              errors["fused_riccati_defects"], t_b1d, t_b1dp, b_b1d),
     ]
     kernels_json += batched_phases(itt, dev, smi)
+    kernels_json += suffix_phases(itt, dev, smi)
+    for k in kernels_json:
+        print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
+              f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "
+              f"{k['plain_ms']:.4f} ms, {k['launches']} launches")
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,15 +7,20 @@ sequential and associative Riccati backward passes, the rollouts, the
 parallel-in-time (defect and chunked) rollouts, the iLQR `solve` and the
 multiple-shooting `solve_ms`, batched solving (`solve_batch`,
 `parallel.solve_batched`, `parallel.solve_multistart`) and MPC (`mpc`:
-`run_mpc`, `run_mpc_rti`, `run_mpc_batched`, `run_mpc_ms`).  Its kernel
+`run_mpc`, `run_mpc_rti`, `run_mpc_batched`, `run_mpc_ms`), control
+limits (`ops/boxqp.py`, the sequential and parallel limited backward
+passes), full DDP (`dynamics_hessians`) and iLQG (`ilqg`).  Its kernel
 engines are CUDA C++ written for Hopper (sm_90a), built with nvcc at first
 use: the fused backward pass (``backward='pallas'``,
 `ops/fused_riccati.py`, with GNMS defects), the line-search rollout
 kernels (``rollout='pallas'``, `ops/fused_rollout.py`), the
 multi-candidate affine prefix scan (``defect_engine`` and
-``MsConfig.update_engine`` 'pallas', `ops/affine_scan.py`), and the
-batched backward pass and rollouts of batched solves (`ops/batched.py`).
-On CPU tensors every kernel wrapper runs its plain PyTorch version.
+``MsConfig.update_engine`` 'pallas', `ops/affine_scan.py`), the batched
+backward pass and rollouts of batched solves (`ops/batched.py`), and the
+standalone Riccati suffix scan of the limited, DDP and iLQG parallel
+passes (`ops/suffix_scan.py`).  On CPU tensors every kernel wrapper runs
+its plain PyTorch version.  Systems are built on the GPU unless the caller
+names another device, and the entry points run on the system's device.
 Nothing here imports JAX.
 """
 from ilqr_tpu_torch.models.base import (
@@ -28,6 +33,13 @@ from ilqr_tpu_torch.models.base import (
 )
 from ilqr_tpu_torch.models.double_pendulum import make_double_pendulum
 from ilqr_tpu_torch.models.pendulum import make_pendulum
+from ilqr_tpu_torch.ilqg import (
+    NoiseExpansion,
+    additive_noise,
+    control_multiplicative_noise,
+    noise_expansion,
+    simulate_closed_loop,
+)
 from ilqr_tpu_torch.ops.affine_scan import affine_prefix_scan_multi
 from ilqr_tpu_torch.ops.batched import (
     backward_pass_batched,
@@ -35,23 +47,34 @@ from ilqr_tpu_torch.ops.batched import (
     linesearch_costs_batched,
     open_loop_rollout_batched,
 )
+from ilqr_tpu_torch.ops.boxqp import boxqp, boxqp_with_gains
 from ilqr_tpu_torch.ops.fused_riccati import backward_pass_fused
 from ilqr_tpu_torch.ops.fused_rollout import (
     closed_loop_rollout_fused,
     linesearch_costs_fused,
 )
 from ilqr_tpu_torch.ops.integrators import step
+from ilqr_tpu_torch.ops.limited_parallel import backward_pass_limited_parallel
 from ilqr_tpu_torch.ops.linearize import (
+    DynamicsHessians,
     TrajectoryExpansion,
+    dynamics_hessians,
     linearize_trajectory,
     linearize_trajectory_batched,
 )
-from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
-from ilqr_tpu_torch.ops.riccati import backward_pass
+from ilqr_tpu_torch.ops.parallel_riccati import (
+    backward_pass_associative,
+    backward_pass_ddp_parallel,
+)
+from ilqr_tpu_torch.ops.riccati import backward_pass, backward_pass_limited
 from ilqr_tpu_torch.ops.rollout import (
     closed_loop_rollout,
     linesearch_rollouts,
     rollout,
+)
+from ilqr_tpu_torch.ops.suffix_scan import (
+    backward_pass_suffix_scan,
+    suffix_scan_fused,
 )
 from ilqr_tpu_torch.solver import (
     CONVERGED,
@@ -90,7 +113,12 @@ __all__ = [
     "TrajectoryExpansion", "linearize_trajectory",
     "linearize_trajectory_batched",
     "backward_pass", "backward_pass_associative", "backward_pass_fused",
-    "backward_pass_batched",
+    "backward_pass_batched", "backward_pass_limited",
+    "backward_pass_limited_parallel", "backward_pass_ddp_parallel",
+    "backward_pass_suffix_scan", "suffix_scan_fused",
+    "boxqp", "boxqp_with_gains", "DynamicsHessians", "dynamics_hessians",
+    "NoiseExpansion", "noise_expansion", "simulate_closed_loop",
+    "additive_noise", "control_multiplicative_noise",
     "rollout", "closed_loop_rollout", "linesearch_rollouts",
     "linesearch_costs_fused", "closed_loop_rollout_fused",
     "linesearch_costs_batched", "closed_loop_rollout_batched",

@@ -14,6 +14,12 @@ state (n_x,) or a batch (..., n_x) alike; `torch.func` derives the rest
 `full_f32_matmuls` is the counterpart of `f32_matmuls`: on the GPU it keeps
 float32 matrix products and convolutions out of TF32, under which long
 Riccati recursions lose the digits they need.
+
+Systems are built on `DEFAULT_DEVICE`, the GPU, unless the caller names
+another device (the CPU tests pass ``device="cpu"``); without CUDA such a
+build fails as torch fails.  The entry points (`solve`, the MPC loops, ...)
+run on the device of the system's parameters and move their inputs there
+with `System.inputs`.
 """
 from __future__ import annotations
 
@@ -22,6 +28,9 @@ import dataclasses
 from typing import Callable, Dict
 
 import torch
+
+# Where the model factories and `convert.py` put parameters by default.
+DEFAULT_DEVICE = "cuda"
 
 
 @contextlib.contextmanager
@@ -40,6 +49,19 @@ def full_f32_matmuls():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
+
+
+def lin_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A⁻¹B, batched, without the singularity check of `torch.linalg.solve`:
+    a singular A gives non-finite entries, which the callers' ``ok`` flags
+    and accept rules see (JAX's small solves behave so), and on the GPU no
+    host sync waits for the check."""
+    return torch.linalg.solve_ex(A, B)[0]
+
+
+def lin_inv(A: torch.Tensor) -> torch.Tensor:
+    """A⁻¹, batched, without the singularity check (see `lin_solve`)."""
+    return torch.linalg.inv_ex(A)[0]
 
 
 # Integrator names accepted framework-wide (same set as the JAX package).
@@ -66,6 +88,29 @@ class System:
     # Fixed quasi-Newton iteration count of the implicit integrators.
     newton_iters: int = 10
 
+    @property
+    def device(self) -> torch.device:
+        """The one device of the parameters; raises if they span devices."""
+        devices = {t.device for t in self.params.values()}
+        if len(devices) != 1:
+            raise ValueError(f"the system's parameters span devices "
+                             f"{sorted(map(str, devices))}")
+        return devices.pop()
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The floating dtype of the parameters."""
+        return next(t.dtype for t in self.params.values()
+                    if t.is_floating_point())
+
+    def inputs(self, *arrays):
+        """``arrays`` (numpy arrays, sequences, or tensors on any device) as
+        tensors on the system's device and dtype; None stays None."""
+        device, dtype = self.device, self.dtype
+        out = tuple(None if a is None else as_tensor(a, device, dtype)
+                    for a in arrays)
+        return out[0] if len(out) == 1 else out
+
     def replace(self, **kw) -> "System":
         return dataclasses.replace(self, **kw)
 
@@ -82,7 +127,7 @@ def as_tensor(v, device, dtype) -> torch.Tensor:
     return torch.as_tensor(v, dtype=dtype, device=device)
 
 
-def quadratic_cost_params(x_target, Q, R, Q_f, *, device=None,
+def quadratic_cost_params(x_target, Q, R, Q_f, *, device=DEFAULT_DEVICE,
                           dtype=torch.float32) -> dict:
     """Quadratic tracking-cost parameter block shared by all models.
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ilqr_tpu_torch.models.base import (
+    DEFAULT_DEVICE,
     System,
     as_tensor,
     quadratic_cost_params,
@@ -72,7 +73,7 @@ def make_double_pendulum(
     underactuated: bool = False,
     integrator: str = "rk4",
     *,
-    device=None,
+    device=DEFAULT_DEVICE,
     dtype=torch.float32,
 ) -> System:
     """Build the double pendulum. ``underactuated=True`` drives joint 1 only

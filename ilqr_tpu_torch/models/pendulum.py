@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ilqr_tpu_torch.models.base import (
+    DEFAULT_DEVICE,
     System,
     as_tensor,
     quadratic_cost_params,
@@ -41,7 +42,7 @@ def make_pendulum(
     d: float = 0.01,
     integrator: str = "rk4",
     *,
-    device=None,
+    device=DEFAULT_DEVICE,
     dtype=torch.float32,
 ) -> System:
     params = quadratic_cost_params(x_target, Q, R, Q_f, device=device,

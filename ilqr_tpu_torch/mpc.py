@@ -20,6 +20,8 @@ The JAX loops resolve 'auto' engines to parallel-in-time ones on a TPU
 (``auto_parallel``, from TPU timings); the port has no such rule, so
 'auto' means the sequential engines here.  The constrained and barrier
 loops (`run_mpc_constrained`, `run_mpc_barrier`) wait for ROADMAP item A16.
+Every loop runs on the solver system's device and dtype; x0 and U_init
+(tensors on any device, or numpy arrays) move there.
 """
 from __future__ import annotations
 
@@ -90,6 +92,7 @@ def run_mpc(
     config: IlqrConfig = IlqrConfig(maxiter=10),
 ) -> MpcResult:
     """Closed-loop MPC from x0 with the first warm start U_init (N, n_u)."""
+    x0, U_init = solver_system.inputs(x0, U_init)
     x, U_warm, cooldown = x0, U_init, 0
     xs, us, costs, iters, status = [], [], [], [], []
     for _ in range(n_sim):
@@ -118,13 +121,17 @@ def run_mpc_rti(
     resolve_every: int = 1,
 ) -> MpcResult:
     """Real-time-iteration MPC: solve every ``resolve_every`` steps and
-    track the plan in between with its gains, ``u = U[j] + K[j] (x − X[j])``;
-    the warm start shifts by the block length.  ``n_sim`` must be divisible
-    by ``resolve_every``; the solve records have n_sim / resolve_every
+    track the plan in between with its gains, ``u = U[j] + K[j] (x − X[j])``,
+    clipped to the control limits when the config has them; the warm start
+    shifts by the block length.  ``n_sim`` must be divisible by
+    ``resolve_every``; the solve records have n_sim / resolve_every
     entries."""
     if n_sim % resolve_every != 0:
         raise ValueError(
             f"n_sim={n_sim} not divisible by resolve_every={resolve_every}")
+    x0, U_init = solver_system.inputs(x0, U_init)
+    limits = config.limit_arrays(U_init.shape[-1], U_init.dtype,
+                                 U_init.device)
     x, U_warm, cooldown = x0, U_init, 0
     xs, us, costs, iters, status = [], [], [], [], []
     for _ in range(n_sim // resolve_every):
@@ -132,6 +139,8 @@ def run_mpc_rti(
                     defect_latch=cooldown == 0)
         for j in range(resolve_every):
             u = sol.U[j] + sol.K[j] @ (x - sol.X[j])
+            if limits is not None:
+                u = torch.clamp(u, *limits)
             xs.append(x)
             us.append(u)
             costs.append(plant_system.stage_cost(plant_system.params, x, u))
@@ -158,6 +167,7 @@ def run_mpc_batched(
 
     Each simulated step is one `solve_batch` of all B problems; the batched
     solve has no parallel line search or latch."""
+    x0_batch, U_init = solver_system.inputs(x0_batch, U_init)
     x = x0_batch
     U_warm = U_init.expand((x.shape[0],) + tuple(U_init.shape[-2:]))
     xs, us, costs, iters, status = [], [], [], [], []
@@ -192,6 +202,7 @@ def run_mpc_ms(
     ``config.maxiter=1`` this is one Gauss-Newton iteration per step."""
     if ms is None:
         ms = MsConfig()
+    x0, U_init = solver_system.inputs(x0, U_init)
     X_warm, _ = rollout(solver_system, x0, U_init)
     x, U_warm = x0, U_init
     xs, us, costs, iters, status = [], [], [], [], []

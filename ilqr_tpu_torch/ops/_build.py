@@ -59,6 +59,8 @@ SIGNATURES = {
                                          _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "ilqr_open_loop_rollout_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P,
                                        _I, _P, _P, _P, _P],
+    "ilqr_suffix_scan": [_I, _I, _I] + [_P] * 5 + [_P] * 2 + [_P] * 5 + [_P],
+    "ilqr_suffix_block_steps": [_I],
     "ilqr_cuda_error_string": [_I],
 }
 

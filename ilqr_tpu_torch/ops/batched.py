@@ -14,8 +14,8 @@ serve batched solving and batched MPC (`solver.solve_batch`):
 
 Dispatch follows the tensor, as in `ops/fused_rollout.py`: on the CPU each
 wrapper runs its plain version — the single-instance function with a
-leading batch axis (`torch.func.vmap` of `riccati.backward_pass`, so
-`torch.linalg.solve` runs on (B, n_u, n_u); `rollout.linesearch_rollouts`
+leading batch axis (`torch.func.vmap` of `riccati.backward_pass`, so its
+small solves run on (B, n_u, n_u); `rollout.linesearch_rollouts`
 and `rollout.rollout`, whose host loop over time carries (B, A, n_x)
 states) — and on a CUDA tensor it launches the kernel or raises.  The
 kernels take float32 and the (n_x, n_u) of `SHAPES`; the rollouts take the

@@ -57,7 +57,7 @@ def chunk_transition_products(A: torch.Tensor, L: int) -> torch.Tensor:
 @full_f32_matmuls()
 def linesearch_chunked_rollouts(
     system: System, x0, alphas, X_old, U_old, u_ff, K, A_cl, sweeps: int = 3,
-    chunk_len: int = 0, exit_tol: float = 0.0,
+    chunk_len: int = 0, exit_tol: float = 0.0, u_limits=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every α candidate by chunked multiple-shooting rollouts.
 
@@ -66,6 +66,7 @@ def linesearch_chunked_rollouts(
     the defect being the largest boundary gap of the assembled trajectory.
     ``A_cl`` = f_x + f_u K serves the boundary correction only; ``sweeps``
     bounds the corrections, which stop once every defect is ≤ exit_tol.
+    ``u_limits`` = (lo, hi) clips every applied control.
     """
     alphas = torch.as_tensor(alphas, dtype=x0.dtype, device=x0.device)
     N, n_u = U_old.shape
@@ -101,6 +102,8 @@ def linesearch_chunked_rollouts(
         for l in range(L):
             u = (Uo_c[l] + alphas[:, None, None] * uf_c[l]
                  + torch.einsum("cij,acj->aci", K_c[l], x - Xo_c[l]))
+            if u_limits is not None:
+                u = torch.clamp(u, *u_limits)
             m = mask_c[l]
             acc = acc + torch.where(m, system.stage_cost(p, x, u), 0.0)
             Xs.append(x)
@@ -133,10 +136,11 @@ def linesearch_chunked_rollouts(
 
 def chunked_rollout(system, x0, alpha, X_old, U_old, u_ff, K, A_cl,
                     sweeps: int = 3, chunk_len: int = 0,
-                    exit_tol: float = 0.0):
+                    exit_tol: float = 0.0, u_limits=None):
     """Single-candidate chunked rollout: (X, U, cost, defect)."""
     alphas = torch.as_tensor(alpha, dtype=x0.dtype, device=x0.device)
     X, U, costs, defects = linesearch_chunked_rollouts(
         system, x0, alphas.reshape(1), X_old, U_old, u_ff, K, A_cl,
-        sweeps=sweeps, chunk_len=chunk_len, exit_tol=exit_tol)
+        sweeps=sweeps, chunk_len=chunk_len, exit_tol=exit_tol,
+        u_limits=u_limits)
     return X[0], U[0], costs[0], defects[0]

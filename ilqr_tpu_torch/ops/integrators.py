@@ -12,7 +12,10 @@ implicit-function theorem at the converged point: each rule is a
 ``generate_vmap_rule=True``, so `torch.func.jacfwd` under `torch.func.vmap`
 gives the exact IFT Jacobian rather than differentiating the Newton loop.
 Tangents with respect to the parameters are not carried (the differentiable
-solve of ROADMAP A18 needs them).
+solve of ROADMAP A18 needs them).  Nested forward mode does not reach
+through the tangent rule (torch gives zero second derivatives there), so
+second derivatives come from `newton_polish`: exact Newton steps on the
+rule's residual from the converged point.
 
 Every rule accepts a single state (n_x,) or a batch (..., n_x).
 """
@@ -153,6 +156,37 @@ class _Trapezoidal(torch.autograd.Function):
         d_f0 = torch.func.jvp(f, (x, u), (dx, du))[1]
         d_f1 = _u_tangent(f, x1, u, du)
         return torch.linalg.solve(A, dx + 0.5 * dt * (d_f0 + d_f1))
+
+
+IMPLICIT = ("backward_euler", "trapezoidal")
+
+
+def _residual(system: System, x1, x, u):
+    """The implicit rule's residual G(x1; x, u), zero at the step's x1."""
+    p, dt = system.params, system.dt
+    if system.integrator == "backward_euler":
+        return x1 - x - dt * system.f_cont(p, x1, u)
+    return x1 - x - 0.5 * dt * (system.f_cont(p, x, u)
+                                + system.f_cont(p, x1, u))
+
+
+def newton_polish(system: System, x1, x, u):
+    """Two exact Newton steps on an implicit rule's residual from x1, one
+    point (x (n_x,), u (n_u,)).
+
+    From the converged x1 = step(x, u), held constant, one step reproduces
+    the implicit solution to first order in (x, u) only; the second, by
+    Newton's quadratic convergence, to third order, so the first and second
+    derivatives of the result are those of the implicit step.  Exactly two
+    are needed: `linearize.dynamics_hessians` differentiates this twice
+    where nested forward mode cannot reach through the tangent rule.
+    """
+    for _ in range(2):
+        G_y = torch.func.jacfwd(lambda y: _residual(system, y, x, u))(x1)
+        # inv, not linalg.solve: under vmap of nested jacfwd, solve gives
+        # wrong tangents at every other batch entry (torch 2.13).
+        x1 = x1 - _matvec(torch.linalg.inv(G_y), _residual(system, x1, x, u))
+    return x1
 
 
 def step(system: System, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ surface along (X, U) in one `torch.func.vmap` over time of
 
 Layout (time-major, as in JAX):
     X: (N+1, n_x)    U: (N, n_u)
-All stacked derivative tensors lead with the time axis.
+All stacked derivative tensors lead with the time axis.  `dynamics_hessians`
+gives the second derivatives of the step for full DDP.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import dataclasses
 import torch
 
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
-from ilqr_tpu_torch.ops.integrators import step
+from ilqr_tpu_torch.ops.integrators import IMPLICIT, newton_polish, step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,45 @@ class TrajectoryExpansion:
     l_uu: torch.Tensor
     v_x: torch.Tensor
     v_xx: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DynamicsHessians:
+    """Second-order dynamics terms for full DDP.
+
+    Index convention (JAX's): ``f_xx[k, i, a, b] = ∂²f_i/∂x_a∂x_b`` at step
+    k, ``f_ux[k, i, u, x] = ∂²f_i/∂u∂x``.  Shapes: f_xx (N, n_x, n_x, n_x),
+    f_ux (N, n_x, n_u, n_x), f_uu (N, n_x, n_u, n_u).
+    """
+
+    f_xx: torch.Tensor
+    f_ux: torch.Tensor
+    f_uu: torch.Tensor
+
+
+@full_f32_matmuls()
+def dynamics_hessians(system: System, X: torch.Tensor,
+                      U: torch.Tensor) -> DynamicsHessians:
+    """Second derivatives of the discrete step along (X, U): forward over
+    forward mode, vmapped over time.  For the implicit integrators the
+    differentiated map is `integrators.newton_polish` from the converged
+    step (JAX differentiates its custom_jvp tangent rule instead; both give
+    the second derivatives of the implicit solution)."""
+    implicit = system.integrator in IMPLICIT
+    X1 = step(system, X[:-1], U) if implicit else U
+
+    def f(x, u, x1):
+        if implicit:
+            return newton_polish(system, x1, x, u)
+        return step(system, x, u)
+
+    def stage(x, u, x1):
+        (f_xx, _), (f_ux, f_uu) = torch.func.jacfwd(
+            torch.func.jacfwd(f, argnums=(0, 1)), argnums=(0, 1))(x, u, x1)
+        return f_xx, f_ux, f_uu
+
+    return DynamicsHessians(*(t.contiguous() for t in
+                              torch.func.vmap(stage)(X[:-1], U, X1)))
 
 
 def _stage_expansion(system: System, x, u):

@@ -27,13 +27,14 @@ backward pass (`ilqr_tpu_torch.ops.fused_riccati`) and the engine of
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
 
-from ilqr_tpu_torch.models.base import full_f32_matmuls
+from ilqr_tpu_torch.models.base import full_f32_matmuls, lin_inv, lin_solve
 from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
-from ilqr_tpu_torch.ops.riccati import all_finite
+from ilqr_tpu_torch.ops.riccati import _noise_q_terms, all_finite
 
 
 class RiccatiElement(NamedTuple):
@@ -62,7 +63,7 @@ def make_elements(exp: TrajectoryExpansion, reg, defects=None) -> RiccatiElement
     # One factorization for all three R-solves.
     rhs = torch.cat([exp.l_ux, exp.f_u.transpose(-1, -2), exp.l_u[..., None]],
                     dim=-1)
-    sol = torch.linalg.solve(R, rhs)
+    sol = lin_solve(R, rhs)
     Rinv_M, Rinv_Bt, Rinv_r = sol[..., :n_x], sol[..., n_x:-1], sol[..., -1]
     MT = exp.l_ux.transpose(-1, -2)
     b = -_mv(exp.f_u, Rinv_r)
@@ -86,7 +87,7 @@ def combine(ei: RiccatiElement, ej: RiccatiElement) -> RiccatiElement:
     batched over leading axes."""
     n_x = ei.A.shape[-1]
     eye = torch.eye(n_x, dtype=ei.A.dtype, device=ei.A.device)
-    Li = torch.linalg.inv(eye + ei.C @ ej.J)
+    Li = lin_inv(eye + ei.C @ ej.J)
     Lti = Li.transpose(-1, -2)
     AiT = ei.A.transpose(-1, -2)
     AjT = ej.A.transpose(-1, -2)
@@ -126,11 +127,71 @@ def gains_from_value(exp: TrajectoryExpansion, V_x, V_xx, reg):
     Q_ux = exp.l_ux + fuT_Vxx @ exp.f_x
     Q_uu = exp.l_uu + fuT_Vxx @ exp.f_u
     rhs = torch.cat([Q_ux, Q_u[..., None]], dim=-1)
-    sol = -torch.linalg.solve(Q_uu + reg * eye_u, rhs)
+    sol = -lin_solve(Q_uu + reg * eye_u, rhs)
     K, u_ff = sol[..., :-1], sol[..., -1]
     dV = torch.stack([(u_ff * Q_u).sum(-1),
                       0.5 * (u_ff * _mv(Q_uu, u_ff)).sum(-1)], dim=-1)
     return u_ff, K, dV
+
+
+def fold_second_order(exp: TrajectoryExpansion, V_x_next, V_xx_next,
+                      hess=None, noise=None) -> TrajectoryExpansion:
+    """``exp`` with the second-order terms folded into its stage costs at a
+    frozen value trace (V_x, V_xx at k+1, (N, n_x) and (N, n_x, n_x)):
+    the DDP terms V_x·f_xx, V_x·f_ux, V_x·f_uu of ``hess`` (a
+    `DynamicsHessians`, summed by broadcasting as JAX does) into l_xx,
+    l_ux, l_uu, and the iLQG terms of ``noise`` ((C, C_x, C_u)) into all
+    five.  With neither, ``exp`` itself."""
+    e = exp
+    if hess is not None:
+        vx = V_x_next[:, :, None, None]
+        e = dataclasses.replace(
+            e, l_xx=e.l_xx + (vx * hess.f_xx).sum(1),
+            l_ux=e.l_ux + (vx * hess.f_ux).sum(1),
+            l_uu=e.l_uu + (vx * hess.f_uu).sum(1))
+    if noise is not None:
+        q_x, q_u, q_xx, q_ux, q_uu = _noise_q_terms(V_xx_next, *noise)
+        e = dataclasses.replace(
+            e, l_x=e.l_x + q_x, l_u=e.l_u + q_u, l_xx=e.l_xx + q_xx,
+            l_ux=e.l_ux + q_ux, l_uu=e.l_uu + q_uu)
+    return e
+
+
+@full_f32_matmuls()
+def backward_pass_ddp_parallel(
+    exp: TrajectoryExpansion, reg: float = 0.0, hess=None, noise=None,
+    sweeps: int = 3, engine: str = "xla",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-DDP / iLQG backward pass in O(sweeps·log N) depth.
+
+    The DDP terms couple each step to the downstream value gradient and the
+    iLQG terms to its Hessian, so the exact recursions are sequential; for a
+    frozen value trace they are stage-cost modifications and one sweep is
+    again a suffix scan.  The trace starts from the Gauss-Newton scan and is
+    refreshed ``sweeps`` times from the expansion folded with the last one;
+    its fixed point is the sequential recursion.  The gains come from the
+    expansion folded with the same trace that drives them.  ``engine``
+    'pallas' scans through `suffix_scan_fused` (kernel B6 on CUDA tensors),
+    'xla' through the plain `suffix_scan`.
+    """
+    if engine == "pallas":
+        from ilqr_tpu_torch.ops.suffix_scan import suffix_scan_fused as scan
+    elif engine == "xla":
+        scan = suffix_scan
+    else:
+        raise ValueError(f"engine must be 'pallas'|'xla', got {engine!r}")
+
+    def traces(e):
+        suffix = scan(make_elements(e, reg))
+        return -suffix.eta[1:], suffix.J[1:]
+
+    V_x, V_xx = traces(exp)
+    for _ in range(sweeps):
+        V_x, V_xx = traces(fold_second_order(exp, V_x, V_xx, hess, noise))
+    u_ff, K, dVs = gains_from_value(
+        fold_second_order(exp, V_x, V_xx, hess, noise), V_x, V_xx, reg)
+    u_ff, K = u_ff.contiguous(), K.contiguous()
+    return u_ff, K, dVs.sum(0), all_finite(u_ff, K)
 
 
 @full_f32_matmuls()

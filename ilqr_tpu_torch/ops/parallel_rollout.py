@@ -58,17 +58,21 @@ def trajectory_cost(system: System, X: torch.Tensor, U: torch.Tensor):
 @full_f32_matmuls()
 def defect_rollout(
     system: System, x0, alpha, X_old, U_old, u_ff, K, A_cl, iters: int = 6,
-    engine: str = "auto", exit_tol: float = 0.0,
+    engine: str = "auto", exit_tol: float = 0.0, u_limits=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Closed-loop line-search rollout by parallel defect correction.
 
     The contract of `ops.rollout.closed_loop_rollout` plus the final max
     defect ‖f(x_k, u_k) − x_{k+1}‖∞: returns (X, U, cost, defect).
     ``A_cl`` is the closed-loop transition f_x + f_u K, (N, n_x, n_x).
+    ``u_limits`` = (lo, hi) clips the controls: the limited backward passes
+    zero the feedback rows of clamped controls, so A_cl stays the sweep's
+    Jacobian for the frozen set, and the defect certifies the rest.
     """
     def controls(X):
-        return U_old + alpha * u_ff + ((X[:-1] - X_old[:-1])[:, None]
-                                       @ K.transpose(-1, -2))[:, 0]
+        u = U_old + alpha * u_ff + ((X[:-1] - X_old[:-1])[:, None]
+                                    @ K.transpose(-1, -2))[:, 0]
+        return u if u_limits is None else torch.clamp(u, *u_limits)
 
     X, U = X_old, controls(X_old)
     F = step(system, X[:-1], U)
@@ -119,19 +123,22 @@ def open_loop_defect_rollout(
 @full_f32_matmuls()
 def linesearch_defect_rollouts(system: System, x0, alphas, X_old, U_old,
                                u_ff, K, exp, iters: int = 6,
-                               engine: str = "auto", exit_tol: float = 0.0):
+                               engine: str = "auto", exit_tol: float = 0.0,
+                               u_limits=None):
     """Every α of ``alphas`` (A,) by defect-correction sweeps that share one
     scan: A_cl = f_x + f_u K does not depend on α, so each sweep runs one
     multi-candidate affine prefix scan.  Sweeps stop once every
-    candidate's defect is ≤ exit_tol.  Returns (X (A, N+1, n_x),
+    candidate's defect is ≤ exit_tol; ``u_limits`` = (lo, hi) clips the
+    controls as in `defect_rollout`.  Returns (X (A, N+1, n_x),
     U (A, N, n_u), costs (A,), defects (A,))."""
     alphas = torch.as_tensor(alphas, dtype=x0.dtype, device=x0.device)
     A_cl = exp.f_x + exp.f_u @ K
 
     def controls(X):
         dx = X[:, :-1] - X_old[None, :-1]
-        return (U_old[None] + alphas[:, None, None] * u_ff[None]
-                + torch.einsum("kij,akj->aki", K, dx))
+        u = (U_old[None] + alphas[:, None, None] * u_ff[None]
+             + torch.einsum("kij,akj->aki", K, dx))
+        return u if u_limits is None else torch.clamp(u, *u_limits)
 
     X = X_old.expand((alphas.shape[0],) + X_old.shape)
     U = controls(X)

@@ -38,12 +38,14 @@ def rollout(system: System, x0: torch.Tensor, U: torch.Tensor):
 
 
 @full_f32_matmuls()
-def linesearch_rollouts(system: System, x0, alphas, X_old, U_old, u_ff, K):
+def linesearch_rollouts(system: System, x0, alphas, X_old, U_old, u_ff, K,
+                        u_limits=None):
     """Roll out every α of ``alphas`` at once.
 
     Time-major inputs: x0 (..., n_x), X_old (..., N+1, n_x), U_old and
     u_ff (..., N, n_u), K (..., N, n_u, n_x), whose leading axes batch
     instances; ``alphas`` is (A,), shared, or (..., A), per instance.
+    ``u_limits`` = (lo, hi) clips each applied control to box limits.
     Returns (X (..., A, N+1, n_x), U (..., A, N, n_u), costs (..., A)).
     """
     alphas = torch.as_tensor(alphas, dtype=x0.dtype, device=x0.device)
@@ -56,6 +58,8 @@ def linesearch_rollouts(system: System, x0, alphas, X_old, U_old, u_ff, K):
     for t in range(U_old.shape[-2]):
         u = (U_old[..., t, None, :] + al * u_ff[..., t, None, :]
              + ((x - X_old[..., t, None, :]) @ K[..., t, :, :].mT))
+        if u_limits is not None:
+            u = torch.clamp(u, *u_limits)
         cost = cost + system.stage_cost(system.params, x, u)
         x = step(system, x, u)
         xs.append(x)
@@ -65,10 +69,11 @@ def linesearch_rollouts(system: System, x0, alphas, X_old, U_old, u_ff, K):
 
 
 def closed_loop_rollout(
-    system: System, x0, alpha, X_old, U_old, u_ff, K,
+    system: System, x0, alpha, X_old, U_old, u_ff, K, u_limits=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Closed-loop rollout for one α. Returns (X_new, U_new, cost)."""
+    """Closed-loop rollout for one α, each control clipped to ``u_limits``
+    = (lo, hi) when given.  Returns (X_new, U_new, cost)."""
     alphas = torch.as_tensor(alpha, dtype=x0.dtype, device=x0.device)
     X, U, cost = linesearch_rollouts(system, x0, alphas.reshape(1), X_old,
-                                     U_old, u_ff, K)
+                                     U_old, u_ff, K, u_limits)
     return X[0], U[0], cost[0]

@@ -1,0 +1,129 @@
+"""Standalone Riccati suffix scan: hand-written CUDA kernels B6 and B7.
+
+PyTorch counterpart of `ilqr_tpu/ops/pallas_riccati.py::suffix_scan_pallas`
+(kernels `_suffix_kernel_sub`, layout 'sub', and `_suffix_kernel`, layout
+'lane') and of `backward_pass_pallas`, the backward pass built on it.  The
+kernel, `csrc/suffix_scan.cu`, returns every suffix product
+e_k ⊗ … ⊗ e_{M−1} of prebuilt Riccati elements, all five fields; its note
+says how the TPU design was rethought for a GPU.  The limited
+(`ops/limited_parallel.py`) and DDP/iLQG (`parallel_riccati.
+backward_pass_ddp_parallel`) parallel passes scan their elements through it,
+and so does the solver's ``backward='pallas'`` when n_u > 6.
+
+Dispatch follows the tensor: on the CPU `suffix_scan_fused` runs its plain
+version, `parallel_riccati.suffix_scan`; on a CUDA tensor it launches the
+kernel or raises.  As in JAX, n_x > 16 runs the plain scan on every device.
+The kernel is instantiated for n_x in `NX` (the slice's systems); other
+n_x ≤ 16 raise on CUDA (ROADMAP item B6w).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ilqr_tpu_torch.models.base import full_f32_matmuls
+from ilqr_tpu_torch.ops import _build
+from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
+from ilqr_tpu_torch.ops.parallel_riccati import (
+    RiccatiElement,
+    gains_from_value,
+    make_elements,
+    suffix_scan,
+)
+from ilqr_tpu_torch.ops.riccati import all_finite
+
+# Launch-counter name of each layout's kernel.
+KERNEL = {"sub": "suffix_scan", "lane": "suffix_scan_lane"}
+NX = (2, 4)
+
+
+def block_steps(lib, layout: str = "sub") -> int:
+    """Elements per scan block of a layout's kernel."""
+    return lib.ilqr_suffix_block_steps(int(layout == "lane"))
+
+
+def _check(elems: RiccatiElement) -> None:
+    M, n_x = elems.A.shape[0], elems.A.shape[-1]
+    if M < 1:
+        raise ValueError("the CUDA suffix scan needs at least one element")
+    for name, t in zip(RiccatiElement._fields, elems):
+        want = (M, n_x) if name in ("b", "eta") else (M, n_x, n_x)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {want}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA suffix scan takes float32, {name} is "
+                            f"{t.dtype}")
+        if t.device != elems.A.device:
+            raise ValueError(f"{name} is on {t.device}, A on {elems.A.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def launch(lib, elems: RiccatiElement, layout: str,
+           stream) -> RiccatiElement:
+    """Allocate outputs and scratch and run the kernel on ``stream``.
+
+    Takes the library handle so that any build of the sources can be run;
+    inputs must already have passed `_check`.
+    """
+    M, n_x = elems.A.shape[0], elems.A.shape[-1]
+    F = 3 * n_x * n_x + 2 * n_x
+    n_blocks = -(-M // block_steps(lib, layout))
+    opts = dict(dtype=torch.float32, device=elems.A.device)
+    local = torch.empty((M, F), **opts)
+    edge = torch.empty((n_blocks, F), **opts)
+    out = RiccatiElement(*(torch.empty_like(t) for t in elems))
+    code = lib.ilqr_suffix_scan(
+        int(layout == "lane"), n_x, M, *(t.data_ptr() for t in elems),
+        local.data_ptr(), edge.data_ptr(), *(t.data_ptr() for t in out),
+        stream)
+    _build.check(lib, code, "suffix scan kernel")
+    return out
+
+
+def suffix_scan_fused(elems: RiccatiElement,
+                      layout: str = "sub") -> RiccatiElement:
+    """suffix[k] = e_k ⊗ … ⊗ e_{M−1} for all k, every field: the contract
+    of `parallel_riccati.suffix_scan`.  ``layout`` picks the kernel: 'sub'
+    (B6) or 'lane' (B7); both compute the same function."""
+    if layout not in KERNEL:
+        raise ValueError(f"layout must be 'sub' or 'lane', got {layout!r}")
+    n_x = elems.A.shape[-1]
+    device = elems.A.device
+    if n_x > 16 or device.type == "cpu":
+        return suffix_scan(elems)
+    if device.type != "cuda":
+        raise ValueError(f"no suffix scan kernel for device {device}")
+    if n_x not in NX:
+        raise NotImplementedError(
+            f"the CUDA suffix scan is instantiated for n_x in {NX}, got "
+            f"{n_x}: ROADMAP item B6w")
+    _check(elems)
+    with torch.cuda.device(device):
+        lib = _build.load().lib
+        out = launch(lib, elems, layout,
+                     torch.cuda.current_stream(device).cuda_stream)
+    _build.count_launch(KERNEL[layout])
+    return out
+
+
+@full_f32_matmuls()
+def backward_pass_suffix_scan(
+    exp: TrajectoryExpansion, reg: float = 0.0, layout: str = "sub",
+    defects=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward pass through the standalone suffix scan (JAX's
+    `backward_pass_pallas`): elements, `suffix_scan_fused`, then the gains
+    from V(k+1), ``defects`` included.  The contract of
+    `riccati.backward_pass`."""
+    suffix = suffix_scan_fused(make_elements(exp, reg, defects=defects),
+                               layout)
+    V_x, V_xx = -suffix.eta[1:], suffix.J[1:]
+    if defects is not None:
+        V_x = V_x + (V_xx @ defects[..., None])[..., 0]
+    u_ff, K, dVs = gains_from_value(exp, V_x, V_xx, reg)
+    # Contiguous, as the CUDA rollout kernels read the gains as they are.
+    u_ff, K = u_ff.contiguous(), K.contiguous()
+    return u_ff, K, dVs.sum(0), all_finite(u_ff, K)

@@ -56,6 +56,7 @@ def solve_multistart(
     the S axis, ``iterations``/``status`` as Python ints) and the batched
     solutions of all starts."""
     _no_mesh(mesh)
+    x0, U_inits = system.inputs(x0, U_inits)
     x0_batch = x0.expand((U_inits.shape[0],) + tuple(x0.shape))
     sols = solve_batch(system, x0_batch, U_inits, config)
     bad = sols.status == LINESEARCH_FAILED

@@ -41,6 +41,7 @@ from ilqr_tpu_torch.ops.parallel_rollout import (
 )
 from ilqr_tpu_torch.ops.riccati import backward_pass
 from ilqr_tpu_torch.ops.rollout import rollout
+from ilqr_tpu_torch.ops.suffix_scan import backward_pass_suffix_scan
 from ilqr_tpu_torch.solver import (
     CONVERGED,
     LINESEARCH_FAILED,
@@ -150,13 +151,15 @@ def _update_pass_multi(alphas, exp, d, u_ff, K, engine: str):
 def _backward_ms(exp, d, reg: float, config: IlqrConfig):
     """The defect-aware backward pass under `config.backward`: 'scan'
     (and 'auto') sequential, 'pscan' associative, 'pallas' the fused CUDA
-    kernel with defects (JAX sends n_u > 4 to its element-scan kernel, B6;
-    here the fused kernel's own limits apply)."""
+    kernel with defects for n_u <= 6 (B1's reach; JAX's own threshold, 4,
+    is its kernel's) and the suffix-scan kernel B6 beyond."""
     backward = config.resolved_backward()
     if backward == "pscan":
         return backward_pass_associative(exp, reg, defects=d)
     if backward == "pallas":
-        return backward_pass_fused(exp, reg, defects=d)
+        if exp.l_u.shape[-1] <= 6:
+            return backward_pass_fused(exp, reg, defects=d)
+        return backward_pass_suffix_scan(exp, reg, defects=d)
     return backward_pass(exp, reg, defects=d)
 
 
@@ -188,8 +191,10 @@ def solve_ms(
 
     X_init: optional (N+1, n_x) state warm start, which may be dynamically
     infeasible; row 0 is replaced by x0.  By default the rollout of U_init
-    (then iteration 1 matches single-shooting iLQR, d ≡ 0).
+    (then iteration 1 matches single-shooting iLQR, d ≡ 0).  The solve runs
+    on the system's device and dtype; x0, U_init and X_init move there.
     """
+    x0, U_init, X_init = system.inputs(x0, U_init, X_init)
     if U_init.ndim != 2 or U_init.shape[1] != system.n_u:
         raise ValueError(
             f"U_init must have shape (N, n_u={system.n_u}), "

@@ -15,7 +15,8 @@ together).  The accept rules are the JAX ones:
 
 Engines: ``backward`` is 'scan' (sequential Riccati), 'pscan' (associative
 scan) or 'pallas' (the hand-written CUDA backward pass of
-`ops/fused_riccati.py`); ``rollout`` is 'scan' (the host-loop rollout
+`ops/fused_riccati.py`, or for n_u > 6 the suffix-scan kernel of
+`ops/suffix_scan.py`); ``rollout`` is 'scan' (the host-loop rollout
 batch), 'pallas' (the CUDA rollout kernels of `ops/fused_rollout.py`:
 candidate costs first, then only the accepted α is materialized), 'defect'
 (parallel-in-time Newton sweeps, `ops/parallel_rollout.py`) or 'chunked'
@@ -25,6 +26,15 @@ candidate costs first, then only the accepted α is materialized), 'defect'
 'xla': its plain version).  'auto' resolves to 'scan' on every device
 until end-to-end GPU measurements set a rule.  The engine names are the
 JAX ones, so a JAX config carries over.
+
+Control limits (``u_min``/``u_max``), full DDP (``ddp``) and iLQG
+(``noise``) change the backward pass: 'scan'/'auto' run the sequential
+box-QP (`riccati.backward_pass_limited`) and second-order recursions,
+'pscan'/'pallas' their parallel forms (`ops/limited_parallel.py`,
+`parallel_riccati.backward_pass_ddp_parallel`), whose suffix scans go
+through kernel B6 under 'pallas'.  Limits also clip every rollout.
+``adaptive_reg`` divides the regularization by ``reg_factor`` after an
+accepted step and, after a failed line search, multiplies it and retries.
 
 `solve_batch` is the port's ``jax.vmap(solve)``: B independent problems in
 one host loop, with per-instance masks (see its docstring).
@@ -37,6 +47,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
+from ilqr_tpu_torch.ilqg import noise_expansion
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops.batched import (
     backward_pass_batched,
@@ -55,18 +66,24 @@ from ilqr_tpu_torch.ops.fused_rollout import (
     closed_loop_rollout_fused,
     linesearch_costs_fused,
 )
+from ilqr_tpu_torch.ops.limited_parallel import backward_pass_limited_parallel
 from ilqr_tpu_torch.ops.linearize import (
+    dynamics_hessians,
     linearize_trajectory,
     linearize_trajectory_batched,
 )
-from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
+from ilqr_tpu_torch.ops.parallel_riccati import (
+    backward_pass_associative,
+    backward_pass_ddp_parallel,
+)
 from ilqr_tpu_torch.ops.parallel_rollout import (
     defect_rollout,
     linesearch_defect_rollouts,
     open_loop_defect_rollout,
 )
-from ilqr_tpu_torch.ops.riccati import backward_pass
+from ilqr_tpu_torch.ops.riccati import backward_pass, backward_pass_limited
 from ilqr_tpu_torch.ops.rollout import linesearch_rollouts, rollout
+from ilqr_tpu_torch.ops.suffix_scan import backward_pass_suffix_scan
 
 # Solve status codes (returned in IlqrSolution.status).
 RUNNING, CONVERGED, LINESEARCH_FAILED, MAXITER = 0, 1, 2, 3
@@ -77,9 +94,8 @@ class IlqrConfig:
     """Solver configuration: the fields, defaults, accepted strings and
     validation of `ilqr_tpu.solver.IlqrConfig`.
 
-    `solve` raises `NotImplementedError` (naming the ROADMAP item) for the
-    options this port does not run yet: control limits, ddp, noise and
-    adaptive_reg.
+    `solve_batch` raises `NotImplementedError` (ROADMAP item A12c) for
+    control limits, ddp, noise and adaptive_reg, which `solve` runs.
     """
 
     maxiter: int = 100
@@ -149,6 +165,13 @@ class IlqrConfig:
     def resolved_init_rollout(self) -> str:
         return "scan" if self.init_rollout == "auto" else self.init_rollout
 
+    def limit_arrays(self, n_u: int, dtype, device=None):
+        """(lo, hi) broadcast to (n_u,), or None if unconstrained."""
+        if self.u_min is None:
+            return None
+        return tuple(torch.as_tensor(v, dtype=dtype, device=device)
+                     .broadcast_to((n_u,)) for v in (self.u_min, self.u_max))
+
     def alpha_schedule(self) -> Tuple[float, ...]:
         """The backtracking schedule (α0, α0·γ, …), truncated at min_alpha."""
         out, a = [], self.alpha0
@@ -183,23 +206,47 @@ class IlqrSolution:
     defect_latch: bool = False
 
 
-def _unsupported(config: IlqrConfig) -> str | None:
-    """The ROADMAP item of the first option set that this port lacks."""
-    if config.u_min is not None:
-        return "control limits (u_min/u_max) are ROADMAP item A14"
-    if config.ddp or config.noise is not None:
-        return "ddp and noise are ROADMAP item A15"
-    if config.adaptive_reg:
-        return "adaptive_reg is ROADMAP item A6b"
+def _batch_unsupported(config: IlqrConfig) -> str | None:
+    """Why `solve_batch` refuses ``config``, or None."""
+    if (config.u_min is not None or config.ddp or config.noise is not None
+            or config.adaptive_reg):
+        return ("control limits, ddp, noise and adaptive_reg run in `solve`; "
+                "in `solve_batch` they are ROADMAP item A12c")
+    if config.resolved_rollout() in ("defect", "chunked"):
+        return (f"the batched rollout={config.rollout!r} line search is "
+                f"ROADMAP item A12b")
     return None
 
 
-def _backward(exp, reg: float, config: IlqrConfig):
+def _backward(exp, U, reg: float, config: IlqrConfig, limits=None,
+              hess=None, noise=None):
+    """The backward pass under ``config.backward`` for the problem's
+    options: box limits, DDP Hessians, iLQG noise terms."""
     backward = config.resolved_backward()
+    parallel = backward in ("pscan", "pallas")
+    engine = "pallas" if backward == "pallas" else "xla"
+    if limits is not None:
+        if parallel:
+            return backward_pass_limited_parallel(
+                exp, U, *limits, reg, sweeps=config.active_set_sweeps,
+                engine=engine, hess=hess, noise=noise)
+        return backward_pass_limited(exp, U, *limits, reg,
+                                     qp_iters=config.boxqp_iters, hess=hess,
+                                     noise=noise)
+    if hess is not None or noise is not None:
+        if parallel:
+            return backward_pass_ddp_parallel(
+                exp, reg, hess=hess, noise=noise, sweeps=config.ddp_sweeps,
+                engine=engine)
+        return backward_pass(exp, reg, hess=hess, noise=noise)
     if backward == "pscan":
         return backward_pass_associative(exp, reg)
     if backward == "pallas":
-        return backward_pass_fused(exp, reg)
+        # B1 takes n_u <= 6, as JAX's fused kernel; wider controls scan
+        # prebuilt elements through B6.
+        if exp.l_u.shape[-1] <= 6:
+            return backward_pass_fused(exp, reg)
+        return backward_pass_suffix_scan(exp, reg)
     return backward_pass(exp, reg)
 
 
@@ -217,7 +264,7 @@ def _initial_rollout(system: System, x0, U, config: IlqrConfig):
 
 
 def _parallel_linesearch(system: System, x0, alphas, X, U, cost, u_ff, K,
-                         exp, config: IlqrConfig):
+                         exp, config: IlqrConfig, limits=None):
     """The two-phase line search of rollout='defect'|'chunked'.
 
     Returns (X_c, U_c, costs, certified, par_success): candidate
@@ -241,12 +288,12 @@ def _parallel_linesearch(system: System, x0, alphas, X, U, cost, u_ff, K,
         X1, U1, c1, d1 = chunked_rollout(
             system, x0, alphas[0], X, U, u_ff, K, A_cl,
             sweeps=config.defect_iters, chunk_len=config.chunk_len,
-            exit_tol=exit_tol)
+            exit_tol=exit_tol, u_limits=limits)
     else:
         X1, U1, c1, d1 = defect_rollout(
             system, x0, alphas[0], X, U, u_ff, K, A_cl,
             iters=config.defect_iters, engine=config.defect_engine,
-            exit_tol=exit_tol)
+            exit_tol=exit_tol, u_limits=limits)
     c1_h, d1_h = torch.stack([c1, d1]).cpu().numpy()
     if d1_h < cert_tol and np.isfinite(c1_h) and c1_h <= cost:
         costs = torch.full((n_alpha,), torch.inf, dtype=c1.dtype,
@@ -260,18 +307,19 @@ def _parallel_linesearch(system: System, x0, alphas, X, U, cost, u_ff, K,
             system, x0, alphas, X, U, u_ff, K, A_cl,
             sweeps=config.defect_iters,
             chunk_len=config.chunk_len or coarse_chunk_len(U.shape[0]),
-            exit_tol=exit_tol)
+            exit_tol=exit_tol, u_limits=limits)
     else:
         X_c, U_c, costs, defects = linesearch_defect_rollouts(
             system, x0, alphas, X, U, u_ff, K, exp,
             iters=config.defect_iters, engine=config.defect_engine,
-            exit_tol=exit_tol)
+            exit_tol=exit_tol, u_limits=limits)
     costs_h, defects_h = torch.stack([costs, defects]).cpu().numpy()
     certified = defects_h < cert_tol
     acc = (costs_h <= cost) & np.isfinite(costs_h) & certified
     if acc.any() and certified[:int(np.argmax(acc))].all():
         return X_c, U_c, costs, certified, True
-    X_c, U_c, costs = linesearch_rollouts(system, x0, alphas, X, U, u_ff, K)
+    X_c, U_c, costs = linesearch_rollouts(system, x0, alphas, X, U, u_ff, K,
+                                          limits)
     return X_c, U_c, costs, np.ones(n_alpha, bool), False
 
 
@@ -285,8 +333,10 @@ def solve(
 ) -> IlqrSolution:
     """Solve the trajectory-optimization problem.
 
-    Time-major layout: U_init (N, n_u); returns X (N+1, n_x).  ``x0`` and
-    ``U_init`` set the device and dtype of the solve.
+    Time-major layout: U_init (N, n_u); returns X (N+1, n_x).  The solve
+    runs on the device and in the dtype of the system's parameters; ``x0``
+    and ``U_init`` (tensors on any device, or numpy arrays) move there.
+    With control limits U_init is clipped to them first.
 
     ``defect_latch`` (a bool) warm-starts the parallel line-search latch
     from a related solve's `IlqrSolution.defect_latch`; ``None`` starts it
@@ -294,15 +344,13 @@ def solve(
     parallel path fails to certify and the exact rollouts decide, the latch
     drops and later iterations run the exact line search directly.
     """
+    x0, U_init = system.inputs(x0, U_init)
     if U_init.ndim != 2 or U_init.shape[1] != system.n_u:
         raise ValueError(
             f"U_init must have shape (N, n_u={system.n_u}), got {tuple(U_init.shape)}"
         )
     if tuple(x0.shape) != (system.n_x,):
         raise ValueError(f"x0 must have shape ({system.n_x},), got {tuple(x0.shape)}")
-    missing = _unsupported(config)
-    if missing is not None:
-        raise NotImplementedError(missing)
 
     device, dtype = U_init.device, U_init.dtype
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
@@ -315,6 +363,10 @@ def solve(
     pallas_rollout = config.resolved_rollout() == "pallas"
     parallel = config.resolved_rollout() in ("defect", "chunked")
     use_defect = parallel and (defect_latch is None or bool(defect_latch))
+    limits = config.limit_arrays(n_u, dtype, device)
+    if limits is not None:
+        # A feasible initial guess: the initial rollout applies it as is.
+        U_init = torch.clamp(U_init, *limits)
 
     X, cost_t = _initial_rollout(system, x0, U_init, config)
     U = U_init
@@ -331,17 +383,22 @@ def solve(
             status = CONVERGED
             break
         exp = linearize_trajectory(system, X, U)
-        u_ff_k, K_k, _, ok = _backward(exp, reg, config)
+        hess = dynamics_hessians(system, X, U) if config.ddp else None
+        noise = (None if config.noise is None
+                 else tuple(noise_expansion(config.noise, X, U)))
+        u_ff_k, K_k, _, ok = _backward(exp, U, reg, config, limits, hess,
+                                       noise)
         certified, par_success = np.ones(n_alpha, bool), not parallel
         if pallas_rollout:
             costs = linesearch_costs_fused(system, x0, alphas, X, U, u_ff_k,
                                            K_k)
         elif use_defect:
             X_c, U_c, costs, certified, par_success = _parallel_linesearch(
-                system, x0, alphas, X, U, cost, u_ff_k, K_k, exp, config)
+                system, x0, alphas, X, U, cost, u_ff_k, K_k, exp, config,
+                limits)
         else:
             X_c, U_c, costs = linesearch_rollouts(system, x0, alphas, X, U,
-                                                  u_ff_k, K_k)
+                                                  u_ff_k, K_k, limits)
         # The accept decision's one host sync.
         host = torch.cat([costs, ok.to(dtype)[None],
                           u_ff_k.abs().max()[None]]).cpu().numpy()
@@ -349,8 +406,19 @@ def solve(
         accept = ((costs_h <= cost) & np.isfinite(costs_h)
                   & (host[n_alpha] != 0) & certified)
         if not accept.any():
-            status = LINESEARCH_FAILED
-            break
+            if not config.adaptive_reg:
+                status = LINESEARCH_FAILED
+                break
+            # Escalate the regularization and retry; the retry consumes an
+            # iteration, and prev_cost = inf keeps it from reading as
+            # convergence.  Past reg_max the solve gives up.
+            reg = max(reg, 1e-6) * config.reg_factor
+            if reg > config.reg_max:
+                status = LINESEARCH_FAILED
+            prev_cost = np.asarray(np.inf, dtype=np_dtype)
+            use_defect = use_defect and par_success
+            k += 1
+            continue
         idx = int(np.argmax(accept))
         if pallas_rollout:
             # Materialize only the accepted α's trajectory.
@@ -360,6 +428,8 @@ def solve(
             X, U = X_c[idx], U_c[idx]
         u_ff, K = u_ff_k, K_k
         use_defect = use_defect and par_success
+        if config.adaptive_reg:
+            reg = max(reg / config.reg_factor, 0.0)
         prev_cost, cost = cost, costs_h[idx]
         traces[:, k] = (cost, alpha_list[idx], host[n_alpha + 1])
         k += 1
@@ -423,8 +493,11 @@ def solve_batch(
     (costs of every (instance, α), then one trajectory at each instance's
     α, and the open-loop initial rollout), 'scan'/'auto' → the plain
     batched rollouts.  The parallel-in-time line searches ('defect',
-    'chunked') raise: ROADMAP item A12b.
+    'chunked') raise (ROADMAP item A12b), and so do control limits, ddp,
+    noise and adaptive_reg (A12c).  x0s and U_init move to the system's
+    device and dtype.
     """
+    x0s, U_init = system.inputs(x0s, U_init)
     if x0s.ndim != 2 or x0s.shape[1] != system.n_x:
         raise ValueError(f"x0s must have shape (B, n_x={system.n_x}), "
                          f"got {tuple(x0s.shape)}")
@@ -435,13 +508,9 @@ def solve_batch(
         raise ValueError(
             f"U_init must have shape ({B}, N, n_u={system.n_u}) or "
             f"(N, {system.n_u}), got {tuple(U_init.shape)}")
-    missing = _unsupported(config)
+    missing = _batch_unsupported(config)
     if missing is not None:
         raise NotImplementedError(missing)
-    if config.resolved_rollout() in ("defect", "chunked"):
-        raise NotImplementedError(
-            f"the batched rollout={config.rollout!r} line search is ROADMAP "
-            f"item A12b")
 
     x0s, U = x0s.contiguous(), U_init.contiguous()
     device, dtype = U.device, U.dtype

@@ -68,7 +68,8 @@ def _port(jsys, dtype):
     kind = "pendulum" if jsys.n_x == 2 else "double_pendulum"
     params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
     return system_from_numpy(kind, params, jsys.n_x, jsys.n_u, jsys.dt,
-                             jsys.integrator, jsys.newton_iters, dtype=dtype)
+                             jsys.integrator, jsys.newton_iters, dtype=dtype,
+                             device="cpu")
 
 
 def _f64(jsys):
@@ -115,7 +116,7 @@ def test_b4_plain_matches_jax_batched_kernel_and_vmapped_scan(B, N, reg):
     else:
         ref_vmap = jax.vmap(lambda e: jax_backward(e, reg_j))(exp)
     reg_t = torch.tensor(np.asarray(reg), dtype=torch.float32)
-    got = itt.backward_pass_batched(expansion_from_numpy(exp),
+    got = itt.backward_pass_batched(expansion_from_numpy(exp, device="cpu"),
                                     reg_t if reg_j.ndim else reg)
     assert got[0].shape == (B, N, 2) and got[1].shape == (B, N, 2, 4)
     assert got[2].shape == (B, 2) and got[3].shape == (B,)
@@ -132,7 +133,7 @@ def test_b4_plain_flags_non_finite_instances_only():
     flag and leaves the others' gains as they were."""
     jsys = _jax_dp()
     _, exp = _jax_batched_expansion(jsys, *_random_batch(jsys, 3, 6, seed=3))
-    exp_t = expansion_from_numpy(exp)
+    exp_t = expansion_from_numpy(exp, device="cpu")
     clean = itt.backward_pass_batched(exp_t, 0.0)
     l_uu = exp_t.l_uu.clone()
     l_uu[1, 2] = torch.nan
@@ -395,9 +396,10 @@ def test_mesh_and_batched_parallel_linesearches_raise():
     for rollout in ("defect", "chunked"):
         with pytest.raises(NotImplementedError, match="A12b"):
             itt.solve_batch(sys_, x0s, U0, itt.IlqrConfig(rollout=rollout))
-    for kw, item in ((dict(u_min=-1.0, u_max=1.0), "A14"),
-                     (dict(ddp=True), "A15"), (dict(adaptive_reg=True), "A6b")):
-        with pytest.raises(NotImplementedError, match=item):
+    # Limits, ddp, noise and adaptive_reg run in `solve`, not yet batched.
+    for kw in (dict(u_min=-1.0, u_max=1.0), dict(ddp=True),
+               dict(noise=lambda x, u: x[:, None]), dict(adaptive_reg=True)):
+        with pytest.raises(NotImplementedError, match="A12c"):
             itt.solve_batch(sys_, x0s, U0, itt.IlqrConfig(**kw))
     with pytest.raises(ValueError, match="x0s"):
         itt.solve_batch(sys_, torch.zeros(2), U0)

@@ -51,7 +51,7 @@ def _both(kind, integrator, dtype, N=24, seed=0):
     params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
     sys_ = system_from_numpy(
         "pendulum" if kind == "pendulum" else "double_pendulum", params,
-        jsys.n_x, jsys.n_u, jsys.dt, integrator, dtype=dtype)
+        jsys.n_x, jsys.n_u, jsys.dt, integrator, dtype=dtype, device="cpu")
     exp = itt.linearize_trajectory(sys_, torch.tensor(Xn, dtype=dtype),
                                    torch.tensor(Un, dtype=dtype))
     if dtype == torch.float64:
@@ -92,7 +92,7 @@ def test_backward_euler_jacobian_is_the_ift_solution():
     sys_ = itt.make_double_pendulum(
         0.01, [np.pi, 0, 0, 0], Q=np.eye(4), R=np.eye(1), Q_f=np.eye(4),
         underactuated=True, integrator="backward_euler",
-        dtype=torch.float64).replace(newton_iters=30)
+        dtype=torch.float64, device="cpu").replace(newton_iters=30)
     rng = np.random.default_rng(3)
     x = torch.tensor(rng.normal(size=4))
     u = torch.tensor(rng.normal(size=1))

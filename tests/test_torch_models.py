@@ -54,7 +54,8 @@ def _jax_pendulum(integrator):
 def _port(jsys, kind, dtype):
     params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
     return system_from_numpy(kind, params, jsys.n_x, jsys.n_u, jsys.dt,
-                             jsys.integrator, jsys.newton_iters, dtype=dtype)
+                             jsys.integrator, jsys.newton_iters, dtype=dtype,
+                             device="cpu")
 
 
 CASES = [
@@ -156,14 +157,14 @@ def test_constructors_match_jax_parameters():
         (_jax_pendulum("rk4"),
          itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
                            Q_f=10.0 * np.eye(2), d=0.05,
-                           dtype=torch.float64)),
+                           dtype=torch.float64, device="cpu")),
         (_jax_dp("euler", underactuated=True),
          itt.make_double_pendulum(
              0.01, [np.pi, 0.0, 0.0, 0.0], Q=np.diag([10.0, 10.0, 0.1, 0.1]),
              R=np.diag([0.1]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
              m2=1.3, l2=0.8, d1=0.1, d2=0.2, theta1=1.0 / 12.0,
              theta2=1.3 * 0.8**2 / 12.0, underactuated=True,
-             integrator="euler", dtype=torch.float64)),
+             integrator="euler", dtype=torch.float64, device="cpu")),
     ):
         assert (port.n_x, port.n_u, port.dt) == (jsys.n_x, jsys.n_u, jsys.dt)
         assert sorted(port.params) == sorted(jsys.params)
@@ -174,7 +175,7 @@ def test_constructors_match_jax_parameters():
 
 def test_system_replace_and_integrator_validation():
     sys_ = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
-                             Q_f=np.eye(2))
+                             Q_f=np.eye(2), device="cpu")
     assert sys_.with_integrator("midpoint").integrator == "midpoint"
     assert sys_.replace(dt=0.02).dt == 0.02
     with pytest.raises(ValueError, match="Unknown integrator"):
@@ -197,6 +198,49 @@ def test_full_f32_matmuls_scopes_and_restores_tf32():
 
 def test_params_from_numpy_device_and_dtype():
     p = params_from_numpy({"a": np.arange(3.0), "b": np.float32(2.0)},
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     assert p["a"].dtype == torch.float64 and p["b"].shape == ()
     assert p["a"].device.type == "cpu"
+
+
+def test_factories_default_to_the_gpu_and_entry_points_follow_the_system():
+    """The model factories and `convert.py` build on 'cuda' unless told
+    otherwise (without CUDA such a build fails as torch fails, never on the
+    CPU by itself); `solve`, `solve_batch` and `run_mpc` run on the system's
+    device and dtype whatever their inputs are (numpy arrays here), and a
+    system whose parameters span devices raises."""
+    import inspect
+
+    from ilqr_tpu_torch import convert
+
+    for fn in (itt.make_pendulum, itt.make_double_pendulum,
+               itt.quadratic_cost_params, convert.params_from_numpy,
+               convert.system_from_numpy, convert.expansion_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                              Q_f=np.eye(2))
+    sys_ = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                             Q_f=np.eye(2), dtype=torch.float64, device="cpu")
+    assert sys_.device == torch.device("cpu") and sys_.dtype == torch.float64
+    cfg = itt.IlqrConfig(maxiter=3)
+    sol = itt.solve(sys_, np.array([1.0, 0.0]), np.zeros((20, 1)), cfg)
+    ref = itt.solve(sys_, torch.tensor([1.0, 0.0], dtype=torch.float64),
+                    torch.zeros((20, 1), dtype=torch.float64), cfg)
+    for t in (sol.X, sol.U, sol.K, sol.cost_trace):
+        assert t.device == sys_.device and t.dtype == torch.float64
+    assert torch.equal(sol.U, ref.U)
+    # f32 tensors move to the system's dtype as well.
+    sol32 = itt.solve(sys_, torch.tensor([1.0, 0.0]), torch.zeros((20, 1)),
+                      cfg)
+    assert torch.equal(sol32.U, ref.U)
+    batch = itt.solve_batch(sys_, np.zeros((2, 2)), np.zeros((20, 1)), cfg)
+    assert batch.X.dtype == torch.float64 and batch.X.shape == (2, 21, 2)
+    mpc = itt.run_mpc(sys_, sys_, np.array([1.0, 0.0]), np.zeros((10, 1)), 2,
+                      itt.IlqrConfig(maxiter=2))
+    assert mpc.X.device == sys_.device and mpc.X.dtype == torch.float64
+    mixed = sys_.replace(params={**sys_.params,
+                                 "g": sys_.params["g"].to("meta")})
+    with pytest.raises(ValueError, match="span devices"):
+        itt.solve(mixed, np.zeros(2), np.zeros((5, 1)), cfg)

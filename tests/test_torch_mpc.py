@@ -43,7 +43,7 @@ def _port(jsys):
     params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
     return system_from_numpy("pendulum", params, jsys.n_x, jsys.n_u, jsys.dt,
                              jsys.integrator, jsys.newton_iters,
-                             dtype=torch.float64)
+                             dtype=torch.float64, device="cpu")
 
 
 def _jax_f64(run):

@@ -74,7 +74,7 @@ def _case(name, dtype, N=250):
     params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
     sys_ = system_from_numpy(name if name == "pendulum" else "double_pendulum",
                              params, jsys.n_x, jsys.n_u, jsys.dt,
-                             jsys.integrator, dtype=dtype)
+                             jsys.integrator, dtype=dtype, device="cpu")
     return jsys, sys_, dict(x0=x0, X=X, U=U, u_ff=u_ff, K=K, exp=exp)
 
 
@@ -114,7 +114,7 @@ CASES = [("pendulum", torch.float32), ("pendulum", torch.float64),
 def test_defect_rollouts_match_jax(name, dtype):
     jsys, sys_, c = _case(name, dtype)
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
-    exp = expansion_from_numpy(c["exp"], dtype=dtype)
+    exp = expansion_from_numpy(c["exp"], dtype=dtype, device="cpu")
     A_cl = exp.f_x + exp.f_u @ t(c["K"])
     args = (c["x0"], c["X"], c["U"], c["u_ff"], c["K"])
     targs = tuple(map(t, args))
@@ -172,7 +172,7 @@ def test_open_loop_defect_rollout_matches_jax(name, dtype):
 def test_chunked_rollouts_match_jax(name, dtype):
     jsys, sys_, c = _case(name, dtype)
     t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
-    exp = expansion_from_numpy(c["exp"], dtype=dtype)
+    exp = expansion_from_numpy(c["exp"], dtype=dtype, device="cpu")
     A_cl = (exp.f_x + exp.f_u @ t(c["K"])).numpy()
     args = (c["x0"], c["X"], c["U"], c["u_ff"], c["K"], A_cl)
     targs = tuple(map(t, args))

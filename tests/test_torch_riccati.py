@@ -95,7 +95,7 @@ def test_backward_passes_match_jax(name, N, reg, dtype):
         jexp = _jax_expansion(name, N, seed=N, x64=False)
         ref_seq = jax.jit(jax_backward)(jexp, reg)
         ref_par = jax.jit(jax_associative)(jexp, reg)
-    exp = expansion_from_numpy(jexp, dtype=dtype)
+    exp = expansion_from_numpy(jexp, dtype=dtype, device="cpu")
     rtol = RTOL[dtype]
     # reg enters the sequential pass on the gain solve only and the
     # associative pass in R as well (as in JAX): each port engine is held
@@ -116,7 +116,7 @@ def test_fused_cpu_path_matches_jax_fused_kernel_interpret():
     mode is slow to compile)."""
     jexp = _jax_expansion("dp", 48, seed=5, x64=False)
     ref = backward_pass_pallas_fused(jexp, 0.05, interpret=True)
-    exp = expansion_from_numpy(jexp, dtype=torch.float32)
+    exp = expansion_from_numpy(jexp, dtype=torch.float32, device="cpu")
     u_ff, K, dV, ok = itt.backward_pass_fused(exp, 0.05)
     assert bool(ok) and bool(ref[3])
     for what, got, want in (("u_ff", u_ff, ref[0]), ("K", K, ref[1]),
@@ -129,7 +129,7 @@ def test_suffix_scan_is_the_sequential_value_function():
     recursion's value function (f64, reg = 0)."""
     with enable_x64_oracle():
         jexp = _jax_expansion("ua_dp", 33, seed=1, x64=True)
-    exp = expansion_from_numpy(jexp, dtype=torch.float64)
+    exp = expansion_from_numpy(jexp, dtype=torch.float64, device="cpu")
     suffix = parallel_riccati.suffix_scan(
         parallel_riccati.make_elements(exp, 0.0))
     # V(0) by the plain recursion, step by step.
@@ -149,11 +149,25 @@ def test_suffix_scan_is_the_sequential_value_function():
 
 
 def test_unported_terms_raise():
+    """The second-order terms are ported: zero DDP Hessians and zero noise
+    give the plain recursion, and malformed terms raise."""
     jexp = _jax_expansion("pendulum", 4, seed=0, x64=False)
-    exp = expansion_from_numpy(jexp)
-    with pytest.raises(NotImplementedError, match="A15"):
+    exp = expansion_from_numpy(jexp, device="cpu")
+    N, n_x, n_u = 4, 2, 1
+    hess = itt.DynamicsHessians(torch.zeros(N, n_x, n_x, n_x),
+                                torch.zeros(N, n_x, n_u, n_x),
+                                torch.zeros(N, n_x, n_u, n_u))
+    noise = (torch.zeros(N, n_x, 3), torch.zeros(N, n_x, 3, n_x),
+             torch.zeros(N, n_x, 3, n_u))
+    plain = itt.backward_pass(exp)
+    for got in (itt.backward_pass(exp, hess=hess, noise=noise),
+                itt.backward_pass_ddp_parallel(exp, hess=hess, noise=noise)):
+        for g, p in zip(got[:3], plain[:3]):
+            np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+    with pytest.raises(AttributeError):
         itt.backward_pass(exp, hess=object())
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError):
         itt.backward_pass(exp, noise=(None, None, None))
 
 
@@ -182,7 +196,7 @@ def test_kernel_input_checks_refuse_what_the_kernel_does_not_take():
     """The checks the CUDA wrapper runs before a launch (the kernel reads
     float32, contiguous tensors of the expansion's shapes)."""
     jexp = _jax_expansion("dp", 6, seed=0, x64=False)
-    exp = expansion_from_numpy(jexp, dtype=torch.float32)
+    exp = expansion_from_numpy(jexp, dtype=torch.float32, device="cpu")
     fused_riccati._check(exp)
     import dataclasses
 
@@ -197,3 +211,26 @@ def test_kernel_input_checks_refuse_what_the_kernel_does_not_take():
     for what, e in bad.items():
         with pytest.raises((TypeError, ValueError)):
             fused_riccati._check(e)
+
+
+def test_singular_gain_systems_flag_instead_of_raising():
+    """A singular Q_uu (here l_uu = 0 and f_u = 0 at one step) gives
+    non-finite gains and ok = False in the unconstrained backward passes,
+    as JAX's small solves do, instead of torch's singular-matrix error (the
+    solver's accept rule and adaptive_reg then take over); the box-QP
+    passes clip the infinite step to the box, as JAX's clip does."""
+    jexp = _jax_expansion("pendulum", 6, seed=0, x64=False)
+    exp = expansion_from_numpy(jexp, device="cpu")
+    l_uu, f_u = exp.l_uu.clone(), exp.f_u.clone()
+    l_uu[3], f_u[3] = 0.0, 0.0
+    import dataclasses
+    bad = dataclasses.replace(exp, l_uu=l_uu, f_u=f_u)
+    U = torch.zeros(6, 1)
+    for out in (itt.backward_pass(bad), itt.backward_pass_associative(bad),
+                itt.backward_pass_suffix_scan(bad),
+                itt.backward_pass_ddp_parallel(bad)):
+        assert not bool(out[3])
+        assert not bool(torch.isfinite(out[0]).all())
+    for out in (itt.backward_pass_limited(bad, U, -1.0, 1.0),
+                itt.backward_pass_limited_parallel(bad, U, -1.0, 1.0)):
+        assert float(out[0].abs().max()) <= 1.0

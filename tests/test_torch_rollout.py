@@ -62,7 +62,8 @@ def _port(jsys, name, dtype):
     params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
     return system_from_numpy(
         "pendulum" if name == "pendulum" else "double_pendulum", params,
-        jsys.n_x, jsys.n_u, jsys.dt, jsys.integrator, dtype=dtype)
+        jsys.n_x, jsys.n_u, jsys.dt, jsys.integrator, dtype=dtype,
+        device="cpu")
 
 
 def _jax_refs(jsys, x0, U_old, u_ff, K, x64):
@@ -153,7 +154,7 @@ def test_params_buffer_layout():
         0.02, [1.0, 2.0, 3.0, 4.0], Q=np.diag([1.0, 2.0, 3.0, 4.0]),
         R=np.diag([5.0]), Q_f=np.diag([6.0, 7.0, 8.0, 9.0]), g=9.5, m1=1.5,
         m2=2.5, l1=0.7, l2=0.9, d1=0.11, d2=0.22, theta1=0.3, theta2=0.4,
-        underactuated=True)
+        underactuated=True, device="cpu")
     buf = fused_rollout.params_buffer(dp).numpy()
     n_x, n_u = 4, 1
     assert buf.shape == (1 + n_x + 2 * n_x * n_x + n_u * n_u + 9 + 2 * n_u,)
@@ -165,18 +166,19 @@ def test_params_buffer_layout():
         buf[38:], [1.5, 2.5, 0.7, 0.9, 9.5, 0.11, 0.22, 0.3, 0.4, 1.0, 0.0],
         rtol=1e-6)
     pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
-                             Q_f=np.eye(2), g=9.0, l=2.0, d=0.5)
+                             Q_f=np.eye(2), g=9.0, l=2.0, d=0.5, device="cpu")
     np.testing.assert_allclose(fused_rollout.params_buffer(pend).numpy()[-3:],
                                [9.0, 2.0, 0.5])
 
 
 def test_device_model_covers_the_kernels_and_refuses_the_rest():
     pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
-                             Q_f=np.eye(2), integrator="midpoint")
+                             Q_f=np.eye(2), integrator="midpoint",
+                             device="cpu")
     assert fused_rollout.device_model(pend) == (0, 1)
     dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
                                   R=np.eye(2), Q_f=np.eye(4),
-                                  integrator="rk4")
+                                  integrator="rk4", device="cpu")
     assert fused_rollout.device_model(dp) == (1, 2)
     for integ in ("backward_euler", "trapezoidal", "discrete"):
         with pytest.raises(NotImplementedError, match="B2m"):
@@ -189,7 +191,7 @@ def test_device_model_covers_the_kernels_and_refuses_the_rest():
 def test_kernel_input_checks_refuse_what_the_kernel_does_not_take():
     dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
                                   R=np.eye(2), Q_f=np.eye(4),
-                                  integrator="euler")
+                                  integrator="euler", device="cpu")
     N = 5
     good = dict(x0=torch.zeros(4), X_old=torch.zeros(N + 1, 4),
                 U_old=torch.zeros(N, 2), u_ff=torch.zeros(N, 2),

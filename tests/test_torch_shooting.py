@@ -59,7 +59,8 @@ def _port(jsys, dtype=torch.float32):
     params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
     kind = "pendulum" if jsys.n_x == 2 else "double_pendulum"
     return system_from_numpy(kind, params, jsys.n_x, jsys.n_u, jsys.dt,
-                             jsys.integrator, jsys.newton_iters, dtype=dtype)
+                             jsys.integrator, jsys.newton_iters, dtype=dtype,
+                             device="cpu")
 
 
 def _expansion(name, N, seed, dtype):
@@ -98,7 +99,7 @@ def test_defect_backward_passes_match_jax(name, N, reg, dtype):
             jexp, d, ref_seq, ref_par = refs()
     else:
         jexp, d, ref_seq, ref_par = refs()
-    exp = expansion_from_numpy(jexp, dtype=dtype)
+    exp = expansion_from_numpy(jexp, dtype=dtype, device="cpu")
     d = torch.tensor(d, dtype=dtype)
     for engine, ref in ((itt.backward_pass, ref_seq),
                         (itt.backward_pass_associative, ref_par),
@@ -113,7 +114,7 @@ def test_defect_backward_passes_match_jax(name, N, reg, dtype):
 def test_zero_defects_are_the_plain_backward_pass():
     with enable_x64_oracle():
         jexp, _, _, _ = _expansion("dp", 30, seed=2, dtype=torch.float64)
-    exp = expansion_from_numpy(jexp, dtype=torch.float64)
+    exp = expansion_from_numpy(jexp, dtype=torch.float64, device="cpu")
     zero = torch.zeros(30, 4, dtype=torch.float64)
     for engine in (itt.backward_pass, itt.backward_pass_associative,
                    itt.backward_pass_fused):
@@ -143,7 +144,7 @@ def test_update_pass_engines_match_jax(dtype):
             jexp, d, u_ff, K, ref, ref_one = refs()
     else:
         jexp, d, u_ff, K, ref, ref_one = refs()
-    exp = expansion_from_numpy(jexp, dtype=dtype)
+    exp = expansion_from_numpy(jexp, dtype=dtype, device="cpu")
     t = lambda a: torch.tensor(a, dtype=dtype)
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     for engine in ("auto", "seq", "xla", "pallas"):

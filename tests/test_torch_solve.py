@@ -48,7 +48,8 @@ def _jax_pendulum():
 def _port(jsys, kind, dtype):
     params = {k: np.asarray(v, np.float64) for k, v in jsys.params.items()}
     return system_from_numpy(kind, params, jsys.n_x, jsys.n_u, jsys.dt,
-                             jsys.integrator, jsys.newton_iters, dtype=dtype)
+                             jsys.integrator, jsys.newton_iters, dtype=dtype,
+                             device="cpu")
 
 
 PENDULUM_CFG = dict(maxiter=100, tol=1e-5)
@@ -166,18 +167,30 @@ def test_config_matches_jax_validation_and_schedule():
     (dict(rollout="defect", u_min=-1.0, u_max=1.0), "A14"),
     (dict(rollout="chunked", ddp=True), "A15"),
     (dict(init_rollout="defect", adaptive_reg=True), "A6b"),
-    (dict(defect_engine="xla", noise=lambda x, u: x), "A15"),
+    (dict(defect_engine="xla", noise=lambda x, u: 0.1 * x[:, None]), "A15"),
     (dict(u_min=-1.0, u_max=1.0), "A14"), (dict(ddp=True), "A15"),
-    (dict(noise=lambda x, u: x), "A15"), (dict(adaptive_reg=True), "A6b"),
+    (dict(noise=lambda x, u: 0.1 * x[:, None]), "A15"),
+    (dict(adaptive_reg=True), "A6b"),
 ])
 def test_unported_options_raise(kw, item):
-    """Control limits, ddp/noise and adaptive_reg raise, alone and beside
-    the parallel-in-time options, whatever the latch."""
+    """The options of ROADMAP ``item`` (control limits, ddp/noise,
+    adaptive_reg), alone and beside the parallel-in-time options, run in
+    `solve` whatever the latch; `solve_batch` still refuses them (A12c).
+    The name and ids are kept from when `solve` refused them too, so the
+    cases stay comparable across runs; ``item`` labels each failure."""
     sys_ = _port(_jax_pendulum(), "pendulum", torch.float32)
+    cfg = itt.IlqrConfig(maxiter=3, **kw)
     for latch in (None, True):
-        with pytest.raises(NotImplementedError, match=item):
-            itt.solve(sys_, torch.zeros(2), torch.zeros((5, 1)),
-                      itt.IlqrConfig(**kw), defect_latch=latch)
+        sol = itt.solve(sys_, torch.tensor([1.0, 0.0]), torch.zeros((5, 1)),
+                        cfg, defect_latch=latch)
+        assert sol.status in (itt.CONVERGED, itt.MAXITER,
+                              itt.LINESEARCH_FAILED), item
+        assert np.isfinite(float(sol.cost))
+        if cfg.u_min is not None:
+            assert float(sol.U.abs().max()) <= 1.0
+    with pytest.raises(NotImplementedError, match="A12c"):
+        itt.solve_batch(sys_, torch.zeros((2, 2)), torch.zeros((5, 1)),
+                        dataclasses.replace(cfg, rollout="scan"))
 
 
 def _traces_equal(sol, ref, rtol):
