@@ -10,20 +10,33 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
 (sm_90a), then:
 
 1. prints the GPU's name and power limit, the torch and CUDA versions and
-   the kernel build time (with each kernel's registers and spills);
+   the kernel build time (with each kernel's registers and spills), and the
+   loops of the DP flagship's rollout kernels in SASS (instructions, loads
+   from shared, global, constant and local memory) where the toolkit has
+   cuobjdump;
 2. checks the fused backward pass (B1) against its plain version on the
    double-pendulum, pendulum and under-actuated double-pendulum expansions,
    at N = 500, at a horizon that crosses several scan blocks and ends
    mid-block, and at N = 131072 (the N = 500 expansion tiled along time);
-3. checks the rollout kernels (B2) against their plain versions on the
-   double pendulum at N = 500 with the 10-α schedule;
+3. checks the B = 1 rollout kernels (B2a costs, B2b trajectory and its
+   open-loop mode, csrc/chain_rollout.cu) against their plain versions on
+   the double pendulum at N = 500 with the 10-α schedule, then in all nine
+   instantiations (pendulum, under-actuated and full DP; euler, midpoint,
+   rk4) at N = 1, a ring chunk less and plus one, an N that wraps the ring
+   twice and ends mid-chunk, and 500, with 1, 10 and 33 alphas, and at
+   N = 100000 against the old design (B5's entries at B = 1) on a damped
+   pendulum (rk4);
 4. solves the double-pendulum swing-up (N = 500, maxiter 200, tol 1e-6,
    euler) with backward='pallas' and rollout='pallas', with the launch
-   counts reset just before and read just after, and gates the result;
-   then the pendulum golden (backward_euler, N = 400) with
-   backward='pallas', rollout='scan';
-5. times each kernel and its plain version with CUDA events, and the
-   double-pendulum solve per iteration with kernels against plain engines;
+   counts reset just before and read just after, and gates the result
+   (the initial rollout launches open_loop_rollout once); then the
+   pendulum golden (backward_euler, N = 400) with backward='pallas',
+   rollout='scan';
+5. times each kernel and its plain version with CUDA events, the initial
+   rollout by kernel and by host loop, the double-pendulum solve per
+   iteration with kernels against plain engines, and the B2 kernels
+   against the old design in turns on the bench's DP line-search cell at
+   N = 500 and 100000 (ns per step and fixed µs beside the bound);
 6. checks the affine prefix scan (B3) against its plain version on seeded
    random chains at N = 500, 1411 (crosses 5 blocks, ends mid-block) and
    100000, with 1 and 10 candidates and n = 2 and 4, and on the DP
@@ -101,6 +114,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -705,6 +719,327 @@ def params_floats(n_x: int, n_u: int) -> int:
     return 1 + n_x + 2 * n_x * n_x + n_u * n_u + 9 + 2 * n_u
 
 
+def chain_bounds(n_x: int, n_u: int, N: int, A: int, model="double_pendulum",
+                 integrator="euler"):
+    """Bounds of the B = 1 chain kernels at horizon N: the costs of A
+    alphas, the trajectory of one, and the open loop."""
+    ops = rollout_step_ops(model, integrator, n_x, n_u)
+    traj_in = ((N + 1) * n_x + 2 * N * n_u + N * n_u * n_x
+               + params_floats(n_x, n_u) + n_x)
+    return {
+        "linesearch_costs": bound(4 * (traj_in + 2 * A), A * N * ops),
+        "closed_loop_rollout": bound(
+            4 * (traj_in + 1 + (N + 1) * n_x + N * n_u + 1), N * ops),
+        "open_loop_rollout": bound(
+            4 * (n_x + N * n_u + params_floats(n_x, n_u) + (N + 1) * n_x + 1),
+            N * rollout_step_ops(model, integrator, n_x, n_u, feedback=False)),
+    }
+
+
+# ---- Phases 3 and 5: the B = 1 chain kernels (B2a, B2b, open loop) --------
+# Phase 3's alpha counts: one lane, the solver's schedule, and more
+# candidates than one warp holds (grid.y = 2).
+CHAIN_ALPHA_COUNTS = (1, 10, 33)
+CHAIN_INTEGRATORS = ("euler", "midpoint", "rk4")
+CHAIN_REG = 1.0   # the regularization of phase 3's B1 gains
+# The SASS report's instantiations: the DP flagship's (double pendulum,
+# n_u = 2, euler) in the new design and the old one (B5's kernel), by
+# demangled or mangled name.
+SASS_KERNELS = {
+    "chain_kernel DP (4,2) euler": (
+        "chain_kernel<ilqr::DoublePendulumRegs<2>, 4, 2, 0,",
+        "chain_kernelIN4ilqr18DoublePendulumRegsILi2EEELi4ELi2ELi0E"),
+    "rollout_kernel DP (4,2) euler (old design)": (
+        "rollout_kernel<ilqr::DoublePendulum, 4, 2, 0,",
+        "rollout_kernelIN4ilqr14DoublePendulumELi4ELi2ELi0E"),
+}
+
+
+def chain_systems(itt, f32, integrator):
+    """The chain kernels' three models under one integrator: the pendulum
+    (n_x 2, n_u 1), the under-actuated (4, 1) and the fully actuated (4, 2)
+    double pendulum."""
+    return {
+        "pendulum": itt.make_pendulum(
+            0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+            Q_f=10.0 * np.eye(2), d=0.1, integrator=integrator, **f32),
+        "UA-DP": dp_system(itt, f32, underactuated=True,
+                           integrator=integrator),
+        "DP": dp_system(itt, f32, integrator=integrator),
+    }
+
+
+def old_chain(itt, system, x0):
+    """The old design on one instance: B5's entries (rollout_kernel of
+    csrc/fused_rollout.cu) at B = 1, as (costs, trajectory, open loop)
+    with the B2 wrappers' arguments and results."""
+    def costs(alphas, X, U, u_ff, K):
+        return itt.linesearch_costs_batched(system, x0[None], alphas, X[None],
+                                            U[None], u_ff[None], K[None])[0]
+
+    def trajectory(alpha, X, U, u_ff, K):
+        a = torch.full((1,), alpha, dtype=torch.float32, device=x0.device)
+        out = itt.closed_loop_rollout_batched(system, x0[None], a, X[None],
+                                              U[None], u_ff[None], K[None])
+        return tuple(t[0] for t in out)
+
+    def open_loop(U):
+        return tuple(t[0] for t in itt.open_loop_rollout_batched(
+            system, x0[None], U[None]))
+
+    return costs, trajectory, open_loop
+
+
+def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
+    """Phase 3: B2a, B2b and its open-loop mode against their plain versions
+    in all nine instantiations (three models, euler/midpoint/rk4), at N =
+    1, a chunk less one and plus one, an N that wraps the ring twice and
+    ends mid-chunk, and 500, with 1, 10 and 33 alphas; then, at N = long_n,
+    against the old design at B = 1 on the pendulum (rk4, zero nominal,
+    gains from B1).  Inputs: a seeded random nominal near rest and its B1
+    gains at reg CHAIN_REG, a closed loop in which f32 rounding does not
+    grow (its plain f32 costs within 1e-6 of f64 on the CPU; at reg 0 the
+    under-actuated DP's terminal weight gives gains near 70 and 5e-5).
+    Records the largest kernel-against-plain errors in ``errors``."""
+    from ilqr_tpu_torch.ops import _build, fused_rollout
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    chunk = fused_rollout.chunk_steps(lib)
+    stages = fused_rollout.ring_stages(lib)
+    if Ns is None:
+        Ns = (1, chunk - 1, chunk + 1, 2 * stages * chunk + chunk // 2 + 3,
+              500)
+    n_max = max(Ns)
+    alphas = torch.tensor([0.5 ** i for i in range(max(CHAIN_ALPHA_COUNTS))],
+                          **f32)
+    i_traj = 3
+    rng = np.random.default_rng(seed)
+    print(f"B2 chain kernels: a ring of {stages} stages of {chunk} steps; "
+          f"N in {Ns}, alpha counts {CHAIN_ALPHA_COUNTS}; tolerance "
+          f"max|kernel - plain| <= {RTOL_B2} * max|plain|")
+
+    def gate(kernel, label, got, ref, key=True):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B2 {label}: non-finite kernel output")
+        err, rel = rel_err(got, ref)
+        if key:
+            errors[kernel] = max(errors[kernel], err)
+        if not rel <= RTOL_B2:
+            raise AssertionError(f"B2 {label}: max error {err:.3e} is "
+                                 f"{rel:.3e} of max |reference| (limit "
+                                 f"{RTOL_B2})")
+        return rel
+
+    for integ in CHAIN_INTEGRATORS:
+        for name, system in chain_systems(itt, f32, integ).items():
+            x0 = torch.tensor(0.3 * rng.standard_normal(system.n_x), **f32)
+            U_n = torch.tensor(0.5 * rng.standard_normal((n_max, system.n_u)),
+                               **f32)
+            X_n, _ = itt.rollout(system, x0, U_n)
+            u_n, K_n, _, _ = itt.backward_pass_fused(
+                itt.linearize_trajectory(system, X_n, U_n), CHAIN_REG)
+            worst = 0.0
+            for N in Ns:
+                label = f"{name} {integ} N={N}"
+                X, U, u_ff, K = X_n[:N + 1], U_n[:N], u_n[:N], K_n[:N]
+                X_p, U_p, c_p = itt.linesearch_rollouts(system, x0, alphas, X,
+                                                        U, u_ff, K)
+                for A in CHAIN_ALPHA_COUNTS:
+                    c_k = itt.linesearch_costs_fused(system, x0, alphas[:A], X,
+                                                     U, u_ff, K)
+                    worst = max(worst, gate("linesearch_costs",
+                                            f"{label} costs, {A} alphas", c_k,
+                                            c_p[:A]))
+                got = itt.closed_loop_rollout_fused(
+                    system, x0, float(alphas[i_traj]), X, U, u_ff, K)
+                for what, g, r in zip(("X", "U", "cost"), got,
+                                      (X_p[i_traj], U_p[i_traj], c_p[i_traj])):
+                    worst = max(worst, gate("closed_loop_rollout",
+                                            f"{label} trajectory {what}", g, r))
+                got = itt.open_loop_rollout_fused(system, x0, U)
+                for what, g, r in zip(("X", "cost"), got,
+                                      itt.rollout(system, x0, U)):
+                    worst = max(worst, gate("open_loop_rollout",
+                                            f"{label} open loop {what}", g, r))
+            print(f"B2 {name} {integ}: costs, trajectory and open loop at N "
+                  f"{Ns}: max rel error {worst:.2e}")
+
+    # At the bench's length: the new design against the old one, B = 1.
+    # Damped, so that the open loop settles: an undamped pendulum's phase
+    # drifts by f32 rounding (3.8e-5 of max|X| against f64 at N = 20000 on
+    # the CPU), and two designs that round differently would drift apart.
+    pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                             Q_f=np.zeros((2, 2)), d=0.1, integrator="rk4",
+                             **f32)
+    x0 = torch.tensor([1.0, 0.0], **f32)
+    old_costs, old_traj, old_open = old_chain(itt, pend, x0)
+    U = torch.zeros((long_n, 1), **f32)
+    X, cost = old_open(U)
+    u_ff, K, _, _ = itt.backward_pass_fused(
+        itt.linearize_trajectory(pend, X, U), 0.0)
+    a10 = alphas[:10].contiguous()
+    pairs = [("costs", itt.linesearch_costs_fused(pend, x0, a10, X, U, u_ff,
+                                                  K),
+              old_costs(a10, X, U, u_ff, K))]
+    pairs += [(f"trajectory {w}", g, r) for w, g, r in zip(
+        ("X", "U", "cost"),
+        itt.closed_loop_rollout_fused(pend, x0, 0.5, X, U, u_ff, K),
+        old_traj(0.5, X, U, u_ff, K))]
+    pairs += [(f"open loop {w}", g, r) for w, g, r in zip(
+        ("X", "cost"), itt.open_loop_rollout_fused(pend, x0, U), (X, cost))]
+    notes = [f"{what} {gate(None, f'pendulum rk4 N={long_n} {what}', g, r, key=False):.1e}"
+             for what, g, r in pairs]
+    print(f"B2 new against old design, damped pendulum rk4 N={long_n} (zero "
+          f"nominal from x0 = [1, 0], B1 gains, 10 alphas, trajectory alpha "
+          f"0.5): max rel " + ", ".join(notes))
+    return Ns
+
+
+def chain_timing(itt, dev, smi, n_short=500, n_long=BENCH_N):
+    """Phase 5 for the chain kernels: the new design against the old one
+    (B5's entries at B = 1), in turns (old, new, new, old), on bench.py's
+    DP line-search cell (bench.py:596-605: DP euler, the rest nominal
+    under zero controls, gains from its expansion by B1, alpha = 0.5^i,
+    i < 10) at N = n_short and n_long; the trajectory at alpha = 1 and the
+    open loop of the zero controls.  Prints each kernel's time at both N,
+    its ns per step (the slope) and fixed µs (the intercept) beside its
+    bound's."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    dp = dp_system(itt, f32)
+    x0 = torch.zeros(4, **f32)
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    U = torch.zeros((n_long, 2), **f32)
+    X = torch.zeros((n_long + 1, 4), **f32)   # the DP rests exactly
+    u_ff, K, _, _ = itt.backward_pass_fused(
+        itt.linearize_trajectory(dp, X, U), 0.0)
+    old_costs, old_traj, old_open = old_chain(itt, dp, x0)
+
+    def cut(n):
+        return X[:n + 1], U[:n], u_ff[:n], K[:n]
+
+    kernels = {
+        "linesearch_costs": (
+            lambda n: itt.linesearch_costs_fused(dp, x0, alphas, *cut(n)),
+            lambda n: old_costs(alphas, *cut(n))),
+        "closed_loop_rollout": (
+            lambda n: itt.closed_loop_rollout_fused(dp, x0, 1.0, *cut(n)),
+            lambda n: old_traj(1.0, *cut(n))),
+        "open_loop_rollout": (
+            lambda n: itt.open_loop_rollout_fused(dp, x0, U[:n]),
+            lambda n: old_open(U[:n])),
+    }
+    t = {}
+    for n, reps in ((n_short, 50), (n_long, 3)):
+        for name, (new, old) in kernels.items():
+            runs = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                fn = new if which == "new" else old
+                runs[which].append(cuda_ms(lambda: fn(n), reps, 1))
+            t[name, n] = runs
+    bounds = {n: chain_bounds(4, 2, n, alphas.numel()) for n in (n_short,
+                                                                n_long)}
+    print(f"timing on {smi} (CUDA events, ms per call), B = 1 chain kernels "
+          f"on the DP line-search cell, in turns (old, new, new, old):")
+    for name in kernels:
+        b_s, b_l = bounds[n_short][name][0], bounds[n_long][name][0]
+        b_slope = (b_l - b_s) / (n_long - n_short) * 1e6
+        parts = []
+        for design in ("new", "old"):
+            ts = np.mean(t[name, n_short][design])
+            tl = np.mean(t[name, n_long][design])
+            slope = (tl - ts) / (n_long - n_short)
+            parts.append(
+                f"{design}: N={n_short} {ts:.4f} "
+                f"({'/'.join(f'{v:.4f}' for v in t[name, n_short][design])}),"
+                f" N={n_long} {tl:.3f} "
+                f"({'/'.join(f'{v:.3f}' for v in t[name, n_long][design])}),"
+                f" {slope * 1e6:.1f} ns per step, "
+                f"{(ts - slope * n_short) * 1e3:.2f} µs fixed")
+        print(f"  {name}: " + "; ".join(parts) + f"; bound {b_s:.2e} / "
+              f"{b_l:.2e} ms ({bounds[n_long][name][1]}), {b_slope:.3f} ns "
+              f"per step")
+    return t
+
+
+def sass_report(lib_path) -> None:
+    """Print the step loop of the SASS_KERNELS instantiations from
+    `cuobjdump -sass`: its static instruction count and its loads from
+    shared (LDS), global (LDG), constant (LDC) and local (LDL) memory,
+    local stores (STL), calls, special-function (MUFU) and barrier (SYNCS,
+    BAR) instructions.  The count includes the sines' large-argument
+    reductions, which run only past |angle| ~ 1e5 (their LDG read a table).
+    Never fails the script."""
+    import re
+    import shutil
+    try:
+        tool = (shutil.which("cuobjdump")
+                or next((p for p in ("/usr/local/cuda/bin/cuobjdump",)
+                         if Path(p).exists()), None))
+        if tool is None:
+            print("SASS: cuobjdump not found")
+            return
+        out = subprocess.run([tool, "-sass", str(lib_path)],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+        bodies = re.split(r"\n\s*Function : ", out)[1:]
+        names = [b.split("\n", 1)[0].strip() for b in bodies]
+        filt = shutil.which("cu++filt") or shutil.which("c++filt")
+        if filt:
+            demangled = subprocess.run(
+                [filt], input="\n".join(names), capture_output=True,
+                text=True, timeout=60).stdout.splitlines()
+            names = [f"{m} {d}" for m, d in zip(names, demangled)]
+        for label, pats in SASS_KERNELS.items():
+            for name, body in zip(names, bodies):
+                hit = [p for p in pats if p in name]
+                if not hit:
+                    continue
+                # The mode: costs 0/false, trajectory 1/true, open loop 2.
+                kind = name.split(hit[0], 1)[1][:8]
+                instrs, at, branches = [], {}, []
+                for line in body.splitlines():
+                    m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+                    if not m:
+                        continue
+                    at[int(m.group(1), 16)] = len(instrs)
+                    instrs.append(m.group(2))
+                    b = re.search(r"\bBRA\b.*?\b0x([0-9a-f]+)\b",
+                                  m.group(2))
+                    if b:
+                        branches.append((len(instrs) - 1,
+                                         int(b.group(1), 16)))
+
+                def ops(lo, hi):
+                    counts = {}
+                    for ins in instrs[lo:hi + 1]:
+                        tok = ins.split()
+                        op = tok[1] if tok[0].startswith("@") else tok[0]
+                        base = op.split(".")[0]
+                        counts[base] = counts.get(base, 0) + 1
+                    return counts
+
+                # The step loop: the innermost backward branch around the
+                # dynamics' MUFU (the reciprocal of det).
+                loops = [(at[t], i) for i, t in branches
+                         if t in at and at[t] < i
+                         and ops(at[t], i).get("MUFU", 0)]
+                inner = [(lo, hi) for lo, hi in loops
+                         if not any(lo <= a < b <= hi and (a, b) != (lo, hi)
+                                    for a, b in loops)]
+                desc = []
+                for lo, hi in sorted(inner):
+                    c = ops(lo, hi)
+                    desc.append(f"[{lo}-{hi}] {hi - lo + 1} instructions, "
+                                + ", ".join(f"{k} {c.get(k, 0)}" for k in (
+                                    "LDS", "LDG", "LDC", "LDL", "STL", "CALL",
+                                    "MUFU", "SYNCS", "BAR")))
+                print(f"SASS {label} ({kind}...): {len(instrs)} instructions;"
+                      f" step loop " + ("; ".join(desc) or "not found"))
+    except Exception as exc:  # the report is informative only
+        print(f"SASS: report failed ({type(exc).__name__}: {exc})")
+
+
 # Phases 18-21: the standalone suffix scan (B6, B7) and the limited, DDP and
 # iLQG paths.
 # B6/B7 tolerance: B1's, field by field: max|kernel - plain| <=
@@ -1211,6 +1546,13 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds:.2f} s)")
     for line in ptxas_summary(kernels.ptxas_log):
         print(line)
+    spilled = [line for line in ptxas_summary(kernels.ptxas_log)
+               if "chain_kernel" in line
+               and " 0 bytes spill stores" not in line]
+    if spilled:
+        raise AssertionError("the chain kernels spill registers:\n"
+                             + "\n".join(spilled))
+    sass_report(kernels.path)
     block = fused_riccati.block_steps(kernels.lib)
 
     pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
@@ -1228,6 +1570,7 @@ def main() -> int:
 
     errors: dict[str, float] = {"fused_riccati": 0.0, "linesearch_costs": 0.0,
                                 "closed_loop_rollout": 0.0,
+                                "open_loop_rollout": 0.0,
                                 "fused_riccati_defects": 0.0,
                                 "affine_prefix_scan": 0.0}
 
@@ -1309,6 +1652,9 @@ def main() -> int:
 
     u0, K0, _, _ = itt.backward_pass_fused(exp_dp0, 0.0)
     check_b2("DP first iteration", X_dp0, U_dp0, u0, K0, alpha=0.5)
+    t0 = time.perf_counter()
+    chain_checks(itt, dev, errors)
+    print(f"phase 3 chain checks: {time.perf_counter() - t0:.1f} s")
 
     def dp_gates(sol, label, launches, kernels):
         trace = sol.cost_trace[:sol.iterations].cpu().numpy()
@@ -1361,6 +1707,10 @@ def main() -> int:
           f"{solve_s:.3f} s, launches {launches}")
     dp_gates(sol, "DP solve", launches,
              ("fused_riccati", "linesearch_costs", "closed_loop_rollout"))
+    if launches.get("open_loop_rollout", 0) != 1:
+        raise AssertionError(f"DP solve launched open_loop_rollout "
+                             f"{launches.get('open_loop_rollout', 0)} times, "
+                             f"expected once (the initial rollout)")
 
     # B1 and B2 again, along the solved trajectory.
     X_s, U_s = sol.X.contiguous(), sol.U.contiguous()
@@ -1407,6 +1757,8 @@ def main() -> int:
         dp, x0_dp, 1.0, X_s, U_s, u_s, K_s), 2, 1)
     t_lin = cuda_ms(lambda: itt.linearize_trajectory(dp, X_s, U_s), 10, 2)
     t_init = cuda_ms(lambda: itt.rollout(dp, x0_dp, U_dp0), 2, 1)
+    t_init_k = cuda_ms(lambda: itt.open_loop_rollout_fused(dp, x0_dp, U_dp0),
+                       50, 5)
     print(f"timing on {smi} (CUDA events, ms per call):")
     print(f"  B1 fused_riccati N=500: kernel {t_b1:.4f}, plain (associative) "
           f"{t_b1p:.4f}, sequential scan {t_b1s:.2f}")
@@ -1416,7 +1768,8 @@ def main() -> int:
           f"{t_c:.4f}, plain {t_cp:.2f}")
     print(f"  B2 closed_loop_rollout N=500: kernel {t_t:.4f}, plain {t_tp:.2f}")
     print(f"  linearize_trajectory N=500: {t_lin:.3f}; initial rollout "
-          f"(host loop) N=500: {t_init:.2f}")
+          f"N=500: kernel (open_loop_rollout) {t_init_k:.4f}, plain (host "
+          f"loop) {t_init:.2f}")
 
     def timed_solve(backward, rollout, maxiter):
         c = itt.IlqrConfig(maxiter=maxiter, tol=1e-6, backward=backward,
@@ -1426,7 +1779,8 @@ def main() -> int:
         s = itt.solve(dp, x0_dp, torch.zeros((500, 2), **f32), c)
         torch.cuda.synchronize()
         total = (time.perf_counter() - t) * 1e3
-        return total, s.iterations, (total - t_init) / max(s.iterations, 1)
+        init = t_init_k if rollout == "pallas" else t_init
+        return total, s.iterations, (total - init) / max(s.iterations, 1)
 
     runs = [("pallas", "pallas", 200), ("scan", "scan", 3),
             ("scan", "scan", 3), ("pallas", "pallas", 200)]
@@ -1436,6 +1790,7 @@ def main() -> int:
         print(f"  DP solve backward={backward} rollout={rollout_engine}: "
               f"{total:.1f} ms total, {iters} iterations, {per_iter:.2f} ms "
               f"per iteration after the initial rollout")
+    chain_timing(itt, dev, smi)
 
     def launched(label, kernels):
         counts = _build.launch_counts()
@@ -1812,6 +2167,7 @@ def main() -> int:
     b_ls = bound(4 * (traj_in + nx + A10 + A10), A10 * N5 * ls_ops)
     b_tr = bound(4 * (traj_in + nx + 1 + (N5 + 1) * nx + N5 * nu + 1),
                  N5 * ls_ops)
+    b_ol = chain_bounds(nx, nu, N5, A10)["open_loop_rollout"]
     b_b3 = bound(4 * (BENCH_N * 16 + 10 * BENCH_N * 4 + 10 * 4
                       + 10 * (BENCH_N + 1) * 4), 10 * BENCH_N * 2 * 16)
     b_b1d = bound(4 * (expansion_floats(BENCH_N, 2, 1) + BENCH_N * 2
@@ -1828,12 +2184,15 @@ def main() -> int:
         entry("fused_riccati", "fused_riccati.cu", "pallas_riccati.py:774",
               launches.get("fused_riccati", 0), errors["fused_riccati"],
               t_b1, t_b1p, b_b1),
-        entry("linesearch_costs", "fused_rollout.cu", "pallas_rollout.py:92",
+        entry("linesearch_costs", "chain_rollout.cu", "pallas_rollout.py:92",
               launches.get("linesearch_costs", 0),
               errors["linesearch_costs"], t_c, t_cp, b_ls),
-        entry("closed_loop_rollout", "fused_rollout.cu",
+        entry("closed_loop_rollout", "chain_rollout.cu",
               "pallas_rollout.py:132", launches.get("closed_loop_rollout", 0),
               errors["closed_loop_rollout"], t_t, t_tp, b_tr),
+        entry("open_loop_rollout", "chain_rollout.cu",
+              "pallas_rollout.py:132", launches.get("open_loop_rollout", 0),
+              errors["open_loop_rollout"], t_init_k, t_init, b_ol),
         entry("affine_prefix_scan", "affine_scan.cu", "pallas_affine.py:137",
               par_launches["defect"].get("affine_prefix_scan", 0),
               errors["affine_prefix_scan"], t_b3[f"N={BENCH_N} A=10"][0],

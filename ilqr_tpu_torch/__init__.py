@@ -12,8 +12,9 @@ limits (`ops/boxqp.py`, the sequential and parallel limited backward
 passes), full DDP (`dynamics_hessians`) and iLQG (`ilqg`).  Its kernel
 engines are CUDA C++ written for Hopper (sm_90a), built with nvcc at first
 use: the fused backward pass (``backward='pallas'``,
-`ops/fused_riccati.py`, with GNMS defects), the line-search rollout
-kernels (``rollout='pallas'``, `ops/fused_rollout.py`), the
+`ops/fused_riccati.py`, with GNMS defects), the rollout kernels of the
+line search and the initial rollout (``rollout='pallas'``,
+`ops/fused_rollout.py`), the
 multi-candidate affine prefix scan (``defect_engine`` and
 ``MsConfig.update_engine`` 'pallas', `ops/affine_scan.py`), the batched
 backward pass and rollouts of batched solves (`ops/batched.py`), and the
@@ -52,6 +53,7 @@ from ilqr_tpu_torch.ops.fused_riccati import backward_pass_fused
 from ilqr_tpu_torch.ops.fused_rollout import (
     closed_loop_rollout_fused,
     linesearch_costs_fused,
+    open_loop_rollout_fused,
 )
 from ilqr_tpu_torch.ops.integrators import step
 from ilqr_tpu_torch.ops.limited_parallel import backward_pass_limited_parallel
@@ -121,6 +123,7 @@ __all__ = [
     "additive_noise", "control_multiplicative_noise",
     "rollout", "closed_loop_rollout", "linesearch_rollouts",
     "linesearch_costs_fused", "closed_loop_rollout_fused",
+    "open_loop_rollout_fused",
     "linesearch_costs_batched", "closed_loop_rollout_batched",
     "open_loop_rollout_batched",
     "affine_prefix_scan_multi",

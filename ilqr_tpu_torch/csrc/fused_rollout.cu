@@ -1,12 +1,10 @@
-// Sequential closed-loop rollout kernels: line-search costs and trajectories,
-// for one instance (B2) or a batch of instances (B5).
+// Sequential closed-loop rollout kernels for a batch of instances (B5):
+// line-search costs, trajectories at one alpha per instance, open loop.
 //
-// Replaces: ilqr_tpu/ops/pallas_rollout.py::_ls_cost_kernel (entry
-// linesearch_costs_pallas) and ::_traj_kernel (entry
-// closed_loop_rollout_pallas), B2; ilqr_tpu/ops/pallas_batched.py::
-// _rollout_kernel (launcher _rollout_batched_call; entries
-// linesearch_costs_batched, closed_loop_rollout_batched and
-// open_loop_rollout_batched), B5.
+// Replaces: ilqr_tpu/ops/pallas_batched.py::_rollout_kernel (launcher
+// _rollout_batched_call; entries linesearch_costs_batched,
+// closed_loop_rollout_batched and open_loop_rollout_batched), B5.  The
+// single-instance kernels (B2) are chain_rollout.cu.
 //
 // What bounds it on an H100: latency.  The recursion
 //   u_t = u_old_t + a*u_ff_t + K_t (x_t - x_old_t),  x_{t+1} = step(x_t, u_t)
@@ -24,15 +22,16 @@
 // alpha and writes X, U and the final state.  Unlike the TPU kernel, the
 // time loop is exactly N steps: no chunk padding, alpha padding or masking.
 //
-// Batches (B5): grid dimension x is the instance.  Each block offsets its
-// pointers to its instance's rows of the (B, ...) inputs and outputs, so B
-// instances run as B independent blocks spread over the SMs; B2's entries
-// are the case B = 1.  The TPU kernel put the batch on the vector lanes and
-// walked the candidates on an outer sequential grid axis; here candidates
-// are threads and instances are blocks, and nothing is padded to tiles.
-// The trajectory kernel takes one alpha per instance (alpha_b), and null
-// X_old/u_ff/K pointers drop the feedback terms: the open-loop rollout
-// u = U_old (where the TPU entry fed zeros through the closed loop).
+// Grid dimension x is the instance.  Each block offsets its pointers to its
+// instance's rows of the (B, ...) inputs and outputs, so B instances run as
+// B independent blocks spread over the SMs.  The TPU kernel put the batch
+// on the vector lanes and walked the candidates on an outer sequential grid
+// axis; here candidates are threads and instances are blocks, and nothing
+// is padded to tiles.  The trajectory kernel takes one alpha per instance
+// (alpha_b), and null X_old/u_ff/K pointers drop the feedback terms: the
+// open-loop rollout u = U_old (where the TPU entry fed zeros through the
+// closed loop).  chain_rollout.cu's warp-specialised ring could serve this
+// kernel too (ROADMAP B5).
 #include <cuda_runtime.h>
 
 #include "models.cuh"
@@ -49,7 +48,7 @@ __global__ void __launch_bounds__(kCandidates)
 rollout_kernel(const float* __restrict__ params, int n_params,
                const float* __restrict__ x0,
                const float* __restrict__ alphas,
-               const float* __restrict__ alpha_b, float alpha, int n_alpha,
+               const float* __restrict__ alpha_b, int n_alpha,
                const float* __restrict__ X_old, const float* __restrict__ U_old,
                const float* __restrict__ u_ff, const float* __restrict__ K,
                int N, float* __restrict__ costs, float* __restrict__ X_out,
@@ -79,7 +78,7 @@ rollout_kernel(const float* __restrict__ params, int n_params,
   const int tid = threadIdx.x;
   const int a = blockIdx.y * blockDim.x + tid;
   const bool active = a < n_alpha;
-  float al = alpha;
+  float al = 0.0f;  // the open loop has no feedback terms
   if (active && alphas != nullptr) al = alphas[a];
   if (alpha_b != nullptr) al = alpha_b[inst];
 
@@ -144,7 +143,6 @@ struct RolloutArgs {
   const float* x0;
   const float* alphas;
   const float* alpha_b;
-  float alpha;
   int n_alpha;
   const float* X_old;
   const float* U_old;
@@ -164,9 +162,8 @@ int launch(const RolloutArgs& r) {
       sizeof(float) * (r.n_params + kChunk * (NX + 2 * NU + NU * NX));
   rollout_kernel<Model, NX, NU, INTEG, TRAJ>
       <<<grid, kCandidates, smem, r.stream>>>(
-          r.params, r.n_params, r.x0, r.alphas, r.alpha_b, r.alpha,
-          r.n_alpha, r.X_old, r.U_old, r.u_ff, r.K, r.N, r.costs, r.X_out,
-          r.U_out);
+          r.params, r.n_params, r.x0, r.alphas, r.alpha_b, r.n_alpha,
+          r.X_old, r.U_old, r.u_ff, r.K, r.N, r.costs, r.X_out, r.U_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -195,30 +192,6 @@ int dispatch(int model, int integrator, int n_x, int n_u,
 
 }  // namespace
 
-// Candidate costs (n_alpha,) of every alpha in one sequential pass.
-extern "C" int ilqr_linesearch_costs(
-    int model, int integrator, int n_x, int n_u, const float* params,
-    int n_params, const float* x0, const float* alphas, int n_alpha,
-    const float* X_old, const float* U_old, const float* u_ff, const float* K,
-    int N, float* costs, void* stream) {
-  RolloutArgs r{params, n_params, 1, x0, alphas, nullptr, 0.0f, n_alpha,
-                X_old, U_old, u_ff, K, N, costs, nullptr, nullptr,
-                static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(model, integrator, n_x, n_u, r);
-}
-
-// Trajectory of one alpha: X (N+1, n_x), U (N, n_u) and its cost (1,).
-extern "C" int ilqr_closed_loop_rollout(
-    int model, int integrator, int n_x, int n_u, const float* params,
-    int n_params, const float* x0, float alpha, const float* X_old,
-    const float* U_old, const float* u_ff, const float* K, int N, float* cost,
-    float* X_out, float* U_out, void* stream) {
-  RolloutArgs r{params, n_params, 1, x0, nullptr, nullptr, alpha, 1, X_old,
-                U_old, u_ff, K, N, cost, X_out, U_out,
-                static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(model, integrator, n_x, n_u, r);
-}
-
 // B5.  Batched candidate costs (B, n_alpha): instance b rolls out from
 // x0s[b] along its own X_old[b], U_old[b], u_ff[b], K[b] (all (B, ...),
 // contiguous) for every alpha of the shared schedule.
@@ -227,7 +200,7 @@ extern "C" int ilqr_linesearch_costs_batched(
     int n_params, int B, const float* x0s, const float* alphas, int n_alpha,
     const float* X_old, const float* U_old, const float* u_ff, const float* K,
     int N, float* costs, void* stream) {
-  RolloutArgs r{params, n_params, B, x0s, alphas, nullptr, 0.0f, n_alpha,
+  RolloutArgs r{params, n_params, B, x0s, alphas, nullptr, n_alpha,
                 X_old, U_old, u_ff, K, N, costs, nullptr, nullptr,
                 static_cast<cudaStream_t>(stream)};
   return dispatch<false>(model, integrator, n_x, n_u, r);
@@ -241,7 +214,7 @@ extern "C" int ilqr_closed_loop_rollout_batched(
     int n_params, int B, const float* x0s, const float* alpha_b,
     const float* X_old, const float* U_old, const float* u_ff, const float* K,
     int N, float* cost, float* X_out, float* U_out, void* stream) {
-  RolloutArgs r{params, n_params, B, x0s, nullptr, alpha_b, 0.0f, 1, X_old,
+  RolloutArgs r{params, n_params, B, x0s, nullptr, alpha_b, 1, X_old,
                 U_old, u_ff, K, N, cost, X_out, U_out,
                 static_cast<cudaStream_t>(stream)};
   return dispatch<true>(model, integrator, n_x, n_u, r);
@@ -253,7 +226,7 @@ extern "C" int ilqr_open_loop_rollout_batched(
     int model, int integrator, int n_x, int n_u, const float* params,
     int n_params, int B, const float* x0s, const float* U, int N, float* cost,
     float* X_out, float* U_out, void* stream) {
-  RolloutArgs r{params, n_params, B, x0s, nullptr, nullptr, 0.0f, 1, nullptr,
+  RolloutArgs r{params, n_params, B, x0s, nullptr, nullptr, 1, nullptr,
                 U, nullptr, nullptr, N, cost, X_out, U_out,
                 static_cast<cudaStream_t>(stream)};
   return dispatch<true>(model, integrator, n_x, n_u, r);

@@ -50,6 +50,10 @@ SIGNATURES = {
                               _P, _P, _P, _P, _I, _P, _P],
     "ilqr_closed_loop_rollout": [_I, _I, _I, _I, _P, _I, _P, _F,
                                  _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "ilqr_open_loop_rollout": [_I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P,
+                               _P],
+    "ilqr_chain_chunk_steps": [],
+    "ilqr_chain_ring_stages": [],
     "ilqr_affine_prefix_scan": [_I, _I, _I] + [_P] * 6 + [_P],
     "ilqr_affine_block_steps": [],
     "ilqr_batched_riccati": [_I, _I, _I, _I] + [_P] * 10 + [_P] * 3 + [_P],

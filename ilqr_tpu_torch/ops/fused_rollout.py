@@ -1,20 +1,24 @@
-"""Fused rollouts: the line-search costs and the accepted trajectory in CUDA.
+"""Fused rollouts: the line-search costs, the accepted trajectory and the
+open-loop rollout of one instance in CUDA.
 
 PyTorch counterpart of `ilqr_tpu/ops/pallas_rollout.py`
 (`linesearch_costs_pallas` / `_ls_cost_kernel` and
 `closed_loop_rollout_pallas` / `_traj_kernel`).  The kernels,
-`csrc/fused_rollout.cu`, run the closed-loop recursion
+`csrc/chain_rollout.cu`, run the closed-loop recursion
 u = u_old + α·u_ff + K(x − x_old) for every α at once with the model, the
-integrator and the quadratic costs inlined from `csrc/models.cuh`.
+integrator and the quadratic costs inlined from `csrc/models.cuh`; the
+open-loop entry runs u = U_old (the solver's initial rollout under
+``rollout='pallas'``).  A producer warp feeds the chain with bulk copies,
+which need every array 16-byte aligned: `_check` refuses one that is not.
 
 Dispatch follows the tensor: on the CPU the wrappers run their plain
-versions (`rollout.linesearch_rollouts(...)[2]` and
-`rollout.closed_loop_rollout`); on a CUDA tensor they launch the kernel or
-raise.  A hand-written kernel cannot trace a model's Python the way Pallas
-traces JAX, so the CUDA path covers the models with a device function —
-the pendulum and the double pendulum under the quadratic costs — and the
-explicit integrators euler, midpoint and rk4.  Anything else raises
-`NotImplementedError` on CUDA (ROADMAP item B2m).
+versions (`rollout.linesearch_rollouts(...)[2]`,
+`rollout.closed_loop_rollout` and `rollout.rollout`); on a CUDA tensor they
+launch the kernel or raise.  A hand-written kernel cannot trace a model's
+Python the way Pallas traces JAX, so the CUDA path covers the models with
+a device function — the pendulum and the double pendulum under the
+quadratic costs — and the explicit integrators euler, midpoint and rk4.
+Anything else raises `NotImplementedError` on CUDA (ROADMAP item B2m).
 """
 from __future__ import annotations
 
@@ -29,12 +33,20 @@ from ilqr_tpu_torch.models.base import (
     quadratic_terminal_cost,
 )
 from ilqr_tpu_torch.ops import _build
-from ilqr_tpu_torch.ops.rollout import closed_loop_rollout, linesearch_rollouts
+from ilqr_tpu_torch.ops.rollout import (
+    closed_loop_rollout,
+    linesearch_rollouts,
+    rollout,
+)
 
 KERNEL_COSTS = "linesearch_costs"
 KERNEL_TRAJECTORY = "closed_loop_rollout"
+KERNEL_OPEN_LOOP = "open_loop_rollout"
+# Bulk copies move 16-byte aligned blocks.
+ALIGN_BYTES = 16
 
-# f_cont -> model id of csrc/fused_rollout.cu, with its device model block.
+# f_cont -> model id of the rollout kernels (csrc/chain_rollout.cu,
+# csrc/fused_rollout.cu), with its device model block.
 _MODELS = {
     pendulum.f_cont: (0, ("g", "l", "d")),
     double_pendulum.f_cont: (1, ("m1", "m2", "l1", "l2", "g", "d1", "d2",
@@ -80,11 +92,17 @@ def _params_on(system: System, device) -> torch.Tensor:
 
 
 def _check(system, x0, X_old, U_old, u_ff, K) -> int:
+    """N, after checking what the B = 1 kernels take: float32, contiguous
+    tensors of the expected shapes on x0's device, every one but x0 (read
+    by plain loads) 16-byte aligned.  The open-loop rollout passes None for
+    X_old, u_ff and K."""
     N = U_old.shape[0]
     n_x, n_u = system.n_x, system.n_u
     shapes = dict(x0=(n_x,), X_old=(N + 1, n_x), U_old=(N, n_u),
                   u_ff=(N, n_u), K=(N, n_u, n_x))
     for name, t in zip(shapes, (x0, X_old, U_old, u_ff, K)):
+        if t is None:
+            continue
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shapes[name]}")
@@ -94,7 +112,20 @@ def _check(system, x0, X_old, U_old, u_ff, K) -> int:
             raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name != "x0" and t.data_ptr() % ALIGN_BYTES:
+            raise ValueError(f"{name} must start on a {ALIGN_BYTES}-byte "
+                             f"boundary (the kernels copy it in bulk)")
     return N
+
+
+def chunk_steps(lib) -> int:
+    """Steps per stage of the chain kernels' shared-memory ring."""
+    return lib.ilqr_chain_chunk_steps()
+
+
+def ring_stages(lib) -> int:
+    """Stages in the chain kernels' ring."""
+    return lib.ilqr_chain_ring_stages()
 
 
 def launch_costs(lib, system, x0, alphas, X_old, U_old, u_ff, K, stream):
@@ -131,6 +162,22 @@ def launch_trajectory(lib, system, x0, alpha: float, X_old, U_old, u_ff, K,
     return X, U, cost[0]
 
 
+def launch_open_loop(lib, system, x0, U, stream):
+    """(X, cost) of U from x0; inputs must already have passed `_check`."""
+    model, integ = device_model(system)
+    N = U.shape[0]
+    params = _params_on(system, x0.device)
+    opts = dict(dtype=torch.float32, device=x0.device)
+    X = torch.empty((N + 1, system.n_x), **opts)
+    cost = torch.empty((1,), **opts)
+    code = lib.ilqr_open_loop_rollout(
+        model, integ, system.n_x, system.n_u, params.data_ptr(),
+        params.numel(), x0.data_ptr(), U.data_ptr(), N, cost.data_ptr(),
+        X.data_ptr(), stream)
+    _build.check(lib, code, "open-loop rollout kernel")
+    return X, cost[0]
+
+
 def linesearch_costs_fused(system: System, x0, alphas, X_old, U_old, u_ff, K):
     """Cost of the closed-loop rollout of every α in ``alphas`` (A,)."""
     alphas = torch.as_tensor(alphas, dtype=x0.dtype, device=x0.device)
@@ -163,4 +210,20 @@ def closed_loop_rollout_fused(system: System, x0, alpha: float, X_old, U_old,
             lib, system, x0, float(alpha), X_old, U_old, u_ff, K,
             torch.cuda.current_stream(x0.device).cuda_stream)
     _build.count_launch(KERNEL_TRAJECTORY)
+    return out
+
+
+def open_loop_rollout_fused(system: System, x0, U):
+    """`rollout.rollout` of one instance: x0 (n_x,), U (N, n_u).  Returns
+    (X (N+1, n_x), cost)."""
+    if x0.device.type == "cpu":
+        return rollout(system, x0, U)
+    if x0.device.type != "cuda":
+        raise ValueError(f"no rollout kernel for device {x0.device}")
+    _check(system, x0, None, U, None, None)
+    with torch.cuda.device(x0.device):
+        lib = _build.load().lib
+        out = launch_open_loop(
+            lib, system, x0, U, torch.cuda.current_stream(x0.device).cuda_stream)
+    _build.count_launch(KERNEL_OPEN_LOOP)
     return out

@@ -18,7 +18,8 @@ scan) or 'pallas' (the hand-written CUDA backward pass of
 `ops/fused_riccati.py`, or for n_u > 6 the suffix-scan kernel of
 `ops/suffix_scan.py`); ``rollout`` is 'scan' (the host-loop rollout
 batch), 'pallas' (the CUDA rollout kernels of `ops/fused_rollout.py`:
-candidate costs first, then only the accepted α is materialized), 'defect'
+candidate costs first, then only the accepted α is materialized; the
+initial rollout too, open loop), 'defect'
 (parallel-in-time Newton sweeps, `ops/parallel_rollout.py`) or 'chunked'
 (multiple-shooting chunks, `ops/chunked_rollout.py`); ``init_rollout`` is
 'scan' or 'defect'; ``defect_engine`` picks the sweeps' affine prefix scan
@@ -65,6 +66,7 @@ from ilqr_tpu_torch.ops.fused_riccati import backward_pass_fused
 from ilqr_tpu_torch.ops.fused_rollout import (
     closed_loop_rollout_fused,
     linesearch_costs_fused,
+    open_loop_rollout_fused,
 )
 from ilqr_tpu_torch.ops.limited_parallel import backward_pass_limited_parallel
 from ilqr_tpu_torch.ops.linearize import (
@@ -253,13 +255,17 @@ def _backward(exp, U, reg: float, config: IlqrConfig, limits=None,
 def _initial_rollout(system: System, x0, U, config: IlqrConfig):
     """(X, cost) of U from x0.  init_rollout='defect' runs the parallel
     Newton sweeps and falls back to the sequential rollout unless their
-    defect certifies below defect_tol."""
+    defect certifies below defect_tol; otherwise rollout='pallas' runs the
+    open-loop entry of the B2 kernels (as JAX's solver runs the chain as
+    one device program), and the rest the plain rollout."""
     if config.resolved_init_rollout() == "defect":
         X, cost, defect = open_loop_defect_rollout(
             system, x0, U, iters=config.defect_iters,
             engine=config.defect_engine, exit_tol=1e-3 * config.defect_tol)
         if float(defect) < config.defect_tol:
             return X, cost
+    elif config.resolved_rollout() == "pallas":
+        return open_loop_rollout_fused(system, x0, U)
     return rollout(system, x0, U)
 
 

@@ -1,10 +1,11 @@
 """The port's rollouts against ilqr_tpu's.
 
 On CPU tensors the fused rollout wrappers run their plain versions
-(`linesearch_rollouts` and `closed_loop_rollout`); the CUDA kernels are
-checked against those on the GPU by chip_smoke.py.  Here the CPU paths are
-held against the JAX Pallas line-search kernel in interpret mode and the
-JAX scan rollouts, in f32 and in f64 (JAX under `enable_x64_oracle`).
+(`linesearch_rollouts`, `closed_loop_rollout` and `rollout`); the CUDA
+kernels are checked against those on the GPU by chip_smoke.py.  Here the
+CPU paths are held against the JAX Pallas kernels in interpret mode (the
+line search, and the batched open loop at B = 1) and the JAX scan
+rollouts, in f32 and in f64 (JAX under `enable_x64_oracle`).
 """
 import jax
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 import ilqr_tpu as it
+from ilqr_tpu.ops.pallas_batched import open_loop_rollout_batched
 from ilqr_tpu.ops.pallas_rollout import (
     closed_loop_rollout_pallas,
     linesearch_costs_pallas,
@@ -148,6 +150,50 @@ def test_rollout_wrappers_match_jax_pallas_kernels_interpret():
             _close(g, np.asarray(r), RTOL[torch.float32], what)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,integrator,N", [
+    ("pendulum", "rk4", 30),
+    ("dp", "euler", 60),
+    ("ua_dp", "midpoint", 40),
+])
+def test_open_loop_rollout_fused_matches_jax(name, integrator, N, dtype):
+    """The open-loop wrapper's CPU path against JAX's scan rollout."""
+    jsys = _jax_system(name, integrator)
+    x0, U, _, _ = _inputs(jsys, N, seed=N + 1)
+    X_ref = _jax_refs(jsys, x0, U, np.zeros_like(U),
+                      np.zeros((N, jsys.n_u, jsys.n_x)),
+                      dtype == torch.float64)[0]
+    if dtype == torch.float64:
+        with enable_x64_oracle():
+            j64 = jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, jnp.float64), jsys)
+            c_ref = jax.jit(jax_rollout)(j64, jnp.asarray(x0, jnp.float64),
+                                         jnp.asarray(U, jnp.float64))[1]
+    else:
+        c_ref = jax.jit(jax_rollout)(jsys, jnp.asarray(x0, jnp.float32),
+                                     jnp.asarray(U, jnp.float32))[1]
+    sys_ = _port(jsys, name, dtype)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    X, cost = itt.open_loop_rollout_fused(sys_, t(x0), t(U))
+    _close(X, X_ref, RTOL[dtype], "open-loop X")
+    _close(cost, np.asarray(c_ref), RTOL[dtype], "open-loop cost")
+
+
+def test_open_loop_rollout_fused_matches_jax_batched_kernel_interpret():
+    """The open-loop wrapper's CPU path against the JAX batched open-loop
+    kernel at B = 1, run by the JAX package's interpret mode (f32)."""
+    jsys = _jax_system("dp", "euler")
+    x0, U, _, _ = _inputs(jsys, 70, seed=11)
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    X_ref, c_ref = open_loop_rollout_batched(jsys, f(x0)[None], f(U)[None],
+                                             interpret=True)
+    sys_ = _port(jsys, "dp", torch.float32)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    X, cost = itt.open_loop_rollout_fused(sys_, t(x0), t(U))
+    _close(X, np.asarray(X_ref)[0], RTOL[torch.float32], "open-loop X")
+    _close(cost, np.asarray(c_ref)[0], RTOL[torch.float32], "open-loop cost")
+
+
 def test_params_buffer_layout():
     """The buffer order that csrc/models.cuh reads."""
     dp = itt.make_double_pendulum(
@@ -203,3 +249,32 @@ def test_kernel_input_checks_refuse_what_the_kernel_does_not_take():
                        ("u_ff", torch.zeros(N, 1))):
         with pytest.raises((TypeError, ValueError)):
             fused_rollout._check(dp, **{**good, key: value})
+
+
+def test_kernel_input_checks_refuse_unaligned_arrays():
+    """The kernels copy X_old, U_old, u_ff and K in 16-byte blocks: a view
+    at an odd storage offset is refused, x0 (read by plain loads) is not,
+    and the open loop checks U alone."""
+    dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
+                                  R=np.eye(2), Q_f=np.eye(4),
+                                  integrator="euler", device="cpu")
+    N = 5
+    good = dict(x0=torch.zeros(4), X_old=torch.zeros(N + 1, 4),
+                U_old=torch.zeros(N, 2), u_ff=torch.zeros(N, 2),
+                K=torch.zeros(N, 2, 4))
+    shifted = dict(X_old=torch.zeros((N + 1) * 4 + 1)[1:].view(N + 1, 4),
+                   U_old=torch.zeros(N * 2 + 1)[1:].view(N, 2),
+                   u_ff=torch.zeros(N * 2 + 3)[3:].view(N, 2),
+                   K=torch.zeros(N * 8 + 2)[2:].view(N, 2, 4))
+    for key, value in shifted.items():
+        assert value.is_contiguous() and value.data_ptr() % 16 != 0
+        with pytest.raises(ValueError, match="16-byte"):
+            fused_rollout._check(dp, **{**good, key: value})
+    x0 = torch.zeros(5)[1:]
+    assert fused_rollout._check(dp, **{**good, "x0": x0}) == N
+    assert fused_rollout._check(dp, good["x0"], None, good["U_old"], None,
+                                None) == N
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_rollout._check(dp, good["x0"], None, shifted["U_old"], None,
+                             None)
+

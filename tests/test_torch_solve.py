@@ -96,6 +96,62 @@ def test_pendulum_traces_equal_jax(pendulum_port):
     assert np.isnan(sol.cost_trace.numpy()[sol.iterations:]).all()
 
 
+@pytest.fixture(scope="module")
+def jax_pendulum_ref():
+    return jax.jit(it.solve, static_argnums=3)(
+        _jax_pendulum(), jnp.array([1.0, 0.0]), jnp.zeros((400, 1)),
+        it.IlqrConfig(**PENDULUM_CFG))
+
+
+def _spy_open_loop(monkeypatch):
+    """Count the solver's calls of the open-loop rollout wrapper."""
+    from ilqr_tpu_torch import solver
+
+    calls = []
+    real = solver.open_loop_rollout_fused
+
+    def spy(*args, **kw):
+        calls.append(args[2].shape)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(solver, "open_loop_rollout_fused", spy)
+    return calls
+
+
+def test_pallas_rollout_initial_rollout_runs_the_open_loop_kernel(
+        monkeypatch, jax_pendulum_ref):
+    """rollout='pallas' sends the initial rollout through the open-loop
+    wrapper (the kernel on CUDA, its plain version here), once per solve,
+    and the traces still equal JAX's (as test_pendulum_traces_equal_jax)."""
+    calls = _spy_open_loop(monkeypatch)
+    sys_ = _port(_jax_pendulum(), "pendulum", torch.float32)
+    sol = itt.solve(sys_, torch.tensor([1.0, 0.0]), torch.zeros((400, 1)),
+                    itt.IlqrConfig(rollout="pallas", **PENDULUM_CFG))
+    assert calls == [(400, 1)]
+    ref = jax_pendulum_ref
+    assert sol.iterations == int(ref.iterations)
+    assert sol.status == int(ref.status)
+    np.testing.assert_array_equal(sol.alpha_trace.numpy(),
+                                  np.asarray(ref.alpha_trace))
+    np.testing.assert_allclose(sol.cost_trace.numpy(),
+                               np.asarray(ref.cost_trace), rtol=2e-6)
+    np.testing.assert_allclose(float(sol.cost), 23.4358, rtol=1e-3)
+
+
+@pytest.mark.parametrize("rollout,init_rollout,calls", [
+    ("pallas", "scan", 1), ("pallas", "defect", 0), ("scan", "auto", 0),
+    ("defect", "auto", 0)])
+def test_initial_rollout_routing(monkeypatch, rollout, init_rollout, calls):
+    """Only rollout='pallas' without init_rollout='defect' runs the
+    open-loop kernel, as JAX's solver routes it (solver.py:378-395)."""
+    spy = _spy_open_loop(monkeypatch)
+    sys_ = _port(_jax_pendulum(), "pendulum", torch.float32)
+    itt.solve(sys_, torch.tensor([1.0, 0.0]), torch.zeros((40, 1)),
+              itt.IlqrConfig(maxiter=1, rollout=rollout,
+                             init_rollout=init_rollout))
+    assert len(spy) == calls
+
+
 def _jax_dp(underactuated):
     if underactuated:
         # Reference config: run_iLQR_OL_UA_Pendulum.py.
