@@ -14,29 +14,46 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    loops of the DP flagship's rollout kernels in SASS (instructions, loads
    from shared, global, constant and local memory) where the toolkit has
    cuobjdump;
-2. checks the fused backward pass (B1) against its plain version on the
-   double-pendulum, pendulum and under-actuated double-pendulum expansions,
-   at N = 500, at a horizon that crosses several scan blocks and ends
-   mid-block, and at N = 131072 (the N = 500 expansion tiled along time);
+2. checks the fused backward pass (B1, one launch) against its plain
+   version on the double-pendulum, pendulum and under-actuated
+   double-pendulum expansions, at N = 500, at the tile edges (N + 1 = T - 1,
+   T, T + 1 for the kernel's T-step tiles) and N = 1, at a horizon that
+   crosses several tiles and ends mid-tile, at T + 2 tiles (more tiles
+   than one look-back poll round covers; whether a second round runs
+   depends on the order the blocks start in, so the case does not prove
+   it ran), and at N = 131072 (the N = 500 expansion tiled
+   along time), each twice with equal bits required (the fixed-order
+   reductions and the look-back's fixed carry order);
 3. checks the B = 1 rollout kernels (B2a costs, B2b trajectory and its
    open-loop mode, csrc/chain_rollout.cu) against their plain versions on
-   the double pendulum at N = 500 with the 10-α schedule, then in all nine
+   the double pendulum at N = 500 with the 10-α schedule, then in all 15
    instantiations (pendulum, under-actuated and full DP; euler, midpoint,
-   rk4) at N = 1, a ring chunk less and plus one, an N that wraps the ring
-   twice and ends mid-chunk, and 500, with 1, 10 and 33 alphas, and at
-   N = 100000 against the old design (B5's entries at B = 1) on a damped
-   pendulum (rk4);
+   rk4, backward_euler, trapezoidal) at N = 1, a ring chunk less and plus
+   one, an N that wraps the ring twice and ends mid-chunk, and 500, with 1,
+   10 and 33 alphas, the implicit ones also at newton_iters 1 and 10, and
+   at N = 100000 against the old design (B5's entries at B = 1) on a
+   damped pendulum (rk4);
 4. solves the double-pendulum swing-up (N = 500, maxiter 200, tol 1e-6,
    euler) with backward='pallas' and rollout='pallas', with the launch
    counts reset just before and read just after, and gates the result
    (the initial rollout launches open_loop_rollout once); then the
-   pendulum golden (backward_euler, N = 400) with backward='pallas',
+   pendulum golden (backward_euler, N = 400) with rollout='pallas' (every
+   B2 kernel, the open loop once) and with rollout='scan'; the
+   under-actuated double-pendulum golden (backward_euler, N = 800, maxiter
+   700) through the kernels under tests/test_solver.py's gate; a solve
+   whose U_init is a misaligned row view; and the pendulum MPC example
+   (backward-Euler solver, midpoint plant, H = 200, cut to MPC_STEPS
+   steps) through the kernels, its first steps held to the same loop with
    rollout='scan';
-5. times each kernel and its plain version with CUDA events, the initial
-   rollout by kernel and by host loop, the double-pendulum solve per
-   iteration with kernels against plain engines, and the B2 kernels
-   against the old design in turns on the bench's DP line-search cell at
-   N = 500 and 100000 (ns per step and fixed µs beside the bound);
+5. times B1 against its first (three-launch) design in turns, device time
+   per launch (torch.profiler) and the wrapper's host time per call, at
+   N = 500, 1411 and 131072 and with defects at 100000; each kernel and its
+   plain version with CUDA events; the initial rollout by kernel and by
+   host loop; the double-pendulum solve per iteration with kernels against
+   plain engines and B1's share of it; the B2 kernels against the old
+   design in turns on the bench's DP line-search cell at N = 500 and 100000
+   (ns per step and fixed µs beside the bound); and the implicit
+   instantiations' ns per step on the pendulum and UA-DP goldens;
 6. checks the affine prefix scan (B3) against its plain version on seeded
    random chains at N = 500, 1411 (crosses 5 blocks, ends mid-block) and
    100000, with 1 and 10 candidates and n = 2 and 4, and on the DP
@@ -114,6 +131,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -124,6 +142,17 @@ import torch
 DP_GOLDEN_COST = 214.310
 # The reference's pendulum swing-up cost (tests/golden/pendulum_ol.npz).
 PENDULUM_GOLDEN_COST = 23.435774
+# The reference's under-actuated swing-up (tests/golden/
+# ua_double_pendulum_ol.npz, read at run time), gated as
+# tests/test_solver.py:96-101 gates it: cost <= 1.05x, final angles 0.2.
+UA_GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / \
+    "ua_double_pendulum_ol.npz"
+# Phase 4's pendulum MPC (examples/pendulum_mpc.py, H = 200, 400 steps in
+# the example) is cut to MPC_STEPS steps; its first MPC_REF_STEPS are held
+# to the same loop with rollout='scan' (backward-Euler host loops, ~1 s an
+# iteration on an H100) within ATOL_MPC.
+MPC_STEPS = 20
+MPC_REF_STEPS = 3
 LONG_N = 131072
 
 # B1 tolerance: max|kernel - plain| <= max(RTOL_B1 * max|plain|,
@@ -240,17 +269,153 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def dp_system(itt, f32, underactuated=False, integrator="euler"):
+def kernel_name(key: str) -> str:
+    """A profiler kernel key cut to its function name and template."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(")[0][:56]
+
+
+def device_us(fn, reps: int) -> dict:
+    """{kernel name: (device µs per call, launches per call)} of the kernels
+    fn launches, from torch.profiler's CUDA activity over reps calls after
+    one warm-up call.  Raises when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():   # "Profiler clears events ..."
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            out[e.key] = (t / reps, e.count / reps)
+    if not out:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return out
+
+
+def host_us(fn, reps: int) -> float:
+    """Host time per call (µs): the wall clock over reps calls with no
+    synchronisation between them, the queue drained before and after.  A
+    kernel's wrapper returns once its launches are queued, so this is the
+    wrapper's own cost unless the queue fills."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def b1_timing(itt, smi, cases) -> dict:
+    """Phase 5 for B1: the kernel (one launch) against its first design
+    (three launches, a sum and a compare: fused_riccati.launch_blocked
+    behind the same checks) in turns (old, new, new, old, three times), on
+    each case {label: (exp, defects)}: device µs per call by kernel, the
+    wrapper's host µs per call, and CUDA-event ms per call over 50
+    back-to-back calls (what earlier PRs reported).  Returns, per label and
+    design, the medians."""
+    from ilqr_tpu_torch.ops import _build, fused_riccati
+
+    def old(exp, d):
+        fused_riccati._check(exp, d)
+        with _build.on_device(exp.f_x.device):
+            return fused_riccati.launch_blocked(
+                _build.load().lib, exp, 0.0,
+                _build.current_stream(exp.f_x.device), d)
+
+    designs = {"new": lambda exp, d: itt.backward_pass_fused(exp, 0.0, d),
+               "old": old}
+    out = {}
+    print(f"B1 timing on {smi}, in turns (old, new, new, old) x 3: device "
+          f"µs per call (torch.profiler, by kernel), wrapper host µs per "
+          f"call, CUDA-event ms per call:")
+    for label, (exp, d) in cases.items():
+        turns = {"new": [], "old": []}
+        for which in ("old", "new", "new", "old") * 3:
+            fn = lambda: designs[which](exp, d)
+            dev = device_us(fn, 10)
+            turns[which].append((sum(v[0] for v in dev.values()),
+                                 sum(v[1] for v in dev.values()), dev,
+                                 host_us(fn, 100), cuda_ms(fn, 50, 2)))
+        out[label] = {}
+        for which in ("new", "old"):
+            runs = turns[which]
+            med = [float(np.median([r[i] for r in runs])) for i in (0, 3, 4)]
+            out[label][which] = dict(device_us=med[0], host_us=med[1],
+                                     event_ms=med[2],
+                                     launches=runs[0][1])
+            kinds = "; ".join(f"{kernel_name(k)} {v[0]:.1f} µs x {v[1]:g}"
+                              for k, v in runs[0][2].items())
+            print(f"  B1 {label} {which}: device {med[0]:.1f} µs "
+                  f"({'/'.join(f'{r[0]:.1f}' for r in runs)}) in "
+                  f"{runs[0][1]:g} launches [{kinds}]; "
+                  f"host {med[1]:.1f} µs "
+                  f"({'/'.join(f'{r[3]:.1f}' for r in runs)}); events "
+                  f"{med[2]:.4f} ms ({'/'.join(f'{r[4]:.4f}' for r in runs)})")
+    return out
+
+
+def implicit_timing(itt, dev, smi, runs) -> dict:
+    """Phase 5 for the implicit instantiations: B2a (10 alphas), B2b and
+    the open loop along each solved golden runs[label] = (system, x0, sol)
+    at its horizon N and at N/2 (prefixes of the same trajectory): ms per
+    call by CUDA events, ns per step (the slope) and fixed µs."""
+    out = {}
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(),
+                          dtype=torch.float32, device=dev)
+    print(f"implicit instantiations on {smi} (CUDA events, ms per call):")
+    for label, (system, x0, sol) in runs.items():
+        X, U = sol.X.contiguous(), sol.U.contiguous()
+        u_ff, K = sol.u_ff.contiguous(), sol.K.contiguous()
+        N = U.shape[0]
+
+        def cut(n):
+            return X[:n + 1], U[:n], u_ff[:n], K[:n]
+
+        kernels = {
+            "linesearch_costs": lambda n: itt.linesearch_costs_fused(
+                system, x0, alphas, *cut(n)),
+            "closed_loop_rollout": lambda n: itt.closed_loop_rollout_fused(
+                system, x0, 1.0, *cut(n)),
+            "open_loop_rollout": lambda n: itt.open_loop_rollout_fused(
+                system, x0, U[:n]),
+        }
+        for name, fn in kernels.items():
+            t_n = cuda_ms(lambda: fn(N), 10, 1)
+            t_h = cuda_ms(lambda: fn(N // 2), 10, 1)
+            slope = (t_n - t_h) / (N - N // 2)
+            out[label, name] = dict(ms=t_n, ns_per_step=slope * 1e6,
+                                    fixed_us=(t_n - slope * N) * 1e3)
+            print(f"  {label} {system.integrator} {name} N={N}: {t_n:.4f} "
+                  f"(N={N // 2}: {t_h:.4f}), {slope * 1e6:.1f} ns per step, "
+                  f"{(t_n - slope * N) * 1e3:.2f} µs fixed")
+    return out
+
+
+def dp_system(itt, f32, underactuated=False, integrator="euler", dt=0.01):
     """The double pendulum of the reference's flagship (fully actuated; also
     bench.py's system) or of its under-actuated swing-up."""
     if underactuated:
         return itt.make_double_pendulum(
-            0.01, [np.pi, 0, 0, 0], Q=np.diag([1.0, 1.0, 0.1, 0.1]),
+            dt, [np.pi, 0, 0, 0], Q=np.diag([1.0, 1.0, 0.1, 0.1]),
             R=np.diag([1.0]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
             d1=0.1, d2=0.1, theta1=1 / 12, theta2=1 / 12,
             underactuated=True, integrator=integrator, **f32)
     return itt.make_double_pendulum(
-        0.01, [np.pi, 0, 0, 0], Q=np.diag([10.0, 10.0, 0.1, 0.1]),
+        dt, [np.pi, 0, 0, 0], Q=np.diag([10.0, 10.0, 0.1, 0.1]),
         R=np.diag([0.1, 0.1]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
         d1=0.1, d2=0.1, theta1=1 / 12, theta2=1 / 12,
         integrator=integrator, **f32)
@@ -688,11 +853,44 @@ def combine_ops(n_x: int) -> int:
     return 40 * n_x ** 3
 
 
-# Operations of one continuous-dynamics evaluation, counted from
-# csrc/models.cuh (a sine or cosine counts as one), and the evaluations
-# and state updates of one integrator step.
-FCONT_OPS = {"pendulum": 8, "double_pendulum": 70}
+# Operations of one evaluation of the register models' f (csrc/models.cuh,
+# whose constants are loaded once), the least the step needs: an add or a
+# multiply counts as one, a sine, cosine or reciprocal as one (sincosf as
+# two), a negation as none.  [0] over float, [1] over Dual<n_x> (df/dx
+# beside f), where a sum, difference or scaling adds n_x tangent
+# operations, a product of two duals 3 n_x, and sin, cos or the reciprocal
+# the other of sincosf's outputs (or r r) and n_x products.  The double
+# pendulum's torque S u adds 4 n_u to both.
+FCONT_OPS = {"pendulum": (5, 16), "double_pendulum": (46, 302)}
+# The evaluations and state updates of one explicit integrator step.
 INTEGRATOR_EVALS = {"euler": (1, 2), "midpoint": (2, 5), "rk4": (4, 14)}
+# smallmat.cuh's inv<n>: at n = 2 the determinant (3), its reciprocal and
+# four products; at n = 4 two of those, six 2 x 2 products (12 each) and
+# eight sums.
+INV_OPS = {2: 8, 4: 2 * 8 + 6 * 12 + 8}
+NEWTON_ITERS = 10   # System.newton_iters, the implicit rules' corrections
+
+
+def fcont_ops(model: str, n_u: int, dual: bool = False) -> int:
+    torque = 4 * n_u if model == "double_pendulum" else 0
+    return FCONT_OPS[model][dual] + torque
+
+
+def integrator_ops(model: str, integrator: str, n_x: int, n_u: int) -> int:
+    """One integrator step.  The implicit rules (models.cuh, integrate):
+    the predictor (one evaluation and 2 n_x), df/dx by one dual evaluation,
+    I - h df/dx (2 n_x^2) and its closed-form inverse, and NEWTON_ITERS
+    corrections of one evaluation, the residual (3 n_x for backward Euler,
+    4 n_x for trapezoidal), a matrix-vector product (2 n_x^2) and the
+    update (n_x) each."""
+    f = fcont_ops(model, n_u)
+    if integrator in INTEGRATOR_EVALS:
+        evals, axpy = INTEGRATOR_EVALS[integrator]
+        return evals * f + axpy * n_x
+    residual = 4 * n_x if integrator == "trapezoidal" else 3 * n_x
+    return (f + 2 * n_x + fcont_ops(model, n_u, dual=True) + 2 * n_x * n_x
+            + INV_OPS[n_x]
+            + NEWTON_ITERS * (f + residual + 2 * n_x * n_x + n_x))
 
 
 def rollout_step_ops(model: str, integrator: str, n_x: int, n_u: int,
@@ -700,10 +898,9 @@ def rollout_step_ops(model: str, integrator: str, n_x: int, n_u: int,
     """One closed-loop (or open-loop) rollout step: the control law
     u = u_old + a u_ff + K (x - x_old), the dynamics step and the quadratic
     stage cost."""
-    evals, axpy = INTEGRATOR_EVALS[integrator]
     control = 2 * n_u * n_x + 3 * n_u + n_x if feedback else 0
     cost = 3 * (n_x * n_x + n_u * n_u) + n_x + 4
-    return control + evals * FCONT_OPS[model] + axpy * n_x + cost
+    return control + integrator_ops(model, integrator, n_x, n_u) + cost
 
 
 def expansion_floats(N: int, n_x: int, n_u: int) -> int:
@@ -740,7 +937,8 @@ def chain_bounds(n_x: int, n_u: int, N: int, A: int, model="double_pendulum",
 # Phase 3's alpha counts: one lane, the solver's schedule, and more
 # candidates than one warp holds (grid.y = 2).
 CHAIN_ALPHA_COUNTS = (1, 10, 33)
-CHAIN_INTEGRATORS = ("euler", "midpoint", "rk4")
+CHAIN_INTEGRATORS = ("euler", "midpoint", "rk4", "backward_euler",
+                     "trapezoidal")
 CHAIN_REG = 1.0   # the regularization of phase 3's B1 gains
 # The SASS report's instantiations: the DP flagship's (double pendulum,
 # n_u = 2, euler) in the new design and the old one (B5's kernel), by
@@ -792,9 +990,13 @@ def old_chain(itt, system, x0):
 
 def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
     """Phase 3: B2a, B2b and its open-loop mode against their plain versions
-    in all nine instantiations (three models, euler/midpoint/rk4), at N =
+    (run once at the longest N, their prefixes at the others)
+    in all 15 instantiations (three models, CHAIN_INTEGRATORS), at N =
     1, a chunk less one and plus one, an N that wraps the ring twice and
-    ends mid-chunk, and 500, with 1, 10 and 33 alphas; then, at N = long_n,
+    ends mid-chunk, and 500, with 1, 10 and 33 alphas; the open loop of
+    the UA-DP under backward Euler at newton_iters 1 and 10, where the two
+    differ by ~1e-2 of max|X| (dt 0.05), so that an ignored argument shows;
+    then, at N = long_n,
     against the old design at B = 1 on the pendulum (rk4, zero nominal,
     gains from B1).  Inputs: a seeded random nominal near rest and its B1
     gains at reg CHAIN_REG, a closed loop in which f32 rounding does not
@@ -824,7 +1026,7 @@ def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
             raise AssertionError(f"B2 {label}: non-finite kernel output")
         err, rel = rel_err(got, ref)
         if key:
-            errors[kernel] = max(errors[kernel], err)
+            errors[kernel] = max(errors.get(kernel, 0.0), err)
         if not rel <= RTOL_B2:
             raise AssertionError(f"B2 {label}: max error {err:.3e} is "
                                  f"{rel:.3e} of max |reference| (limit "
@@ -832,6 +1034,11 @@ def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
         return rel
 
     for integ in CHAIN_INTEGRATORS:
+        # The explicit instantiations' errors under the kernel's name, the
+        # implicit ones' under kernel_integrator (the kernels line's rows).
+        def ek(kernel):
+            return kernel if integ in INTEGRATOR_EVALS else f"{kernel}_{integ}"
+
         for name, system in chain_systems(itt, f32, integ).items():
             x0 = torch.tensor(0.3 * rng.standard_normal(system.n_x), **f32)
             U_n = torch.tensor(0.5 * rng.standard_normal((n_max, system.n_u)),
@@ -839,31 +1046,69 @@ def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
             X_n, _ = itt.rollout(system, x0, U_n)
             u_n, K_n, _, _ = itt.backward_pass_fused(
                 itt.linearize_trajectory(system, X_n, U_n), CHAIN_REG)
+            # The plain rollouts once, at the longest N; at each N their
+            # prefixes (the recursion is causal: step t reads row t of the
+            # nominal and gains) with the prefix's cost.  X_n is the open
+            # loop's.
+            X_P, U_P, _ = itt.linesearch_rollouts(system, x0, alphas, X_n, U_n,
+                                                  u_n, K_n)
+
+            def prefix_cost(X, U):
+                p = system.params
+                return (system.stage_cost(p, X[..., :-1, :], U).sum(-1)
+                        + system.terminal_cost(p, X[..., -1, :]))
+
             worst = 0.0
             for N in Ns:
                 label = f"{name} {integ} N={N}"
                 X, U, u_ff, K = X_n[:N + 1], U_n[:N], u_n[:N], K_n[:N]
-                X_p, U_p, c_p = itt.linesearch_rollouts(system, x0, alphas, X,
-                                                        U, u_ff, K)
+                X_p, U_p = X_P[:, :N + 1], U_P[:, :N]
+                c_p = prefix_cost(X_p, U_p)
                 for A in CHAIN_ALPHA_COUNTS:
                     c_k = itt.linesearch_costs_fused(system, x0, alphas[:A], X,
                                                      U, u_ff, K)
-                    worst = max(worst, gate("linesearch_costs",
+                    worst = max(worst, gate(ek("linesearch_costs"),
                                             f"{label} costs, {A} alphas", c_k,
                                             c_p[:A]))
                 got = itt.closed_loop_rollout_fused(
                     system, x0, float(alphas[i_traj]), X, U, u_ff, K)
                 for what, g, r in zip(("X", "U", "cost"), got,
                                       (X_p[i_traj], U_p[i_traj], c_p[i_traj])):
-                    worst = max(worst, gate("closed_loop_rollout",
+                    worst = max(worst, gate(ek("closed_loop_rollout"),
                                             f"{label} trajectory {what}", g, r))
                 got = itt.open_loop_rollout_fused(system, x0, U)
                 for what, g, r in zip(("X", "cost"), got,
-                                      itt.rollout(system, x0, U)):
-                    worst = max(worst, gate("open_loop_rollout",
+                                      (X, prefix_cost(X, U))):
+                    worst = max(worst, gate(ek("open_loop_rollout"),
                                             f"{label} open loop {what}", g, r))
             print(f"B2 {name} {integ}: costs, trajectory and open loop at N "
                   f"{Ns}: max rel error {worst:.2e}")
+
+    # newton_iters reaches the kernels: 1 and 10 corrections, each against
+    # the plain rollout at the same count.
+    ua = dp_system(itt, f32, underactuated=True, integrator="backward_euler",
+                   dt=0.05)
+    x0 = torch.tensor([2.0, 0.0, 0.0, 0.0], **f32)
+    U = torch.tensor(0.5 * rng.standard_normal((500, 1)), **f32)
+    runs = {}
+    for iters in (1, 10):
+        sys_i = ua.replace(newton_iters=iters)
+        X_k, c_k = itt.open_loop_rollout_fused(sys_i, x0, U)
+        X_p, c_p = itt.rollout(sys_i, x0, U)
+        rel = max(gate("open_loop_rollout_backward_euler",
+                       f"UA-DP backward_euler dt 0.05 "
+                       f"newton_iters {iters} open loop {w}", g, r)
+                  for w, g, r in (("X", X_k, X_p), ("cost", c_k, c_p)))
+        runs[iters] = (X_k, X_p, rel)
+    apart_k = rel_err(runs[1][0], runs[10][0])[1]
+    apart_p = rel_err(runs[1][1], runs[10][1])[1]
+    print(f"B2 UA-DP backward_euler dt 0.05 open loop N=500: newton_iters 1 "
+          f"and 10 each within {max(runs[1][2], runs[10][2]):.2e} of the "
+          f"plain rollout; 1 against 10: kernel {apart_k:.2e}, plain "
+          f"{apart_p:.2e} of max|X|")
+    if not apart_k > 10 * RTOL_B2:
+        raise AssertionError("B2: newton_iters 1 and 10 give the same open "
+                             "loop: the kernel ignores newton_iters")
 
     # At the bench's length: the new design against the old one, B = 1.
     # Damped, so that the open loop settles: an undamped pendulum's phase
@@ -1553,7 +1798,7 @@ def main() -> int:
         raise AssertionError("the chain kernels spill registers:\n"
                              + "\n".join(spilled))
     sass_report(kernels.path)
-    block = fused_riccati.block_steps(kernels.lib)
+    tile = fused_riccati.tile_steps(kernels.lib)
 
     pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
                              Q_f=np.zeros((2, 2)), d=0.0,
@@ -1577,6 +1822,11 @@ def main() -> int:
     def check_b1(label, exp, reg=0.0, defects=None, key="fused_riccati"):
         torch.cuda.synchronize()
         u_k, K_k, dV_k, ok_k = itt.backward_pass_fused(exp, reg, defects)
+        again = itt.backward_pass_fused(exp, reg, defects)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((u_k, K_k, dV_k, ok_k), again)):
+            raise AssertionError(f"B1 {label} N={exp.f_x.shape[0]}: a "
+                                 f"repeated call gave other bits")
         u_p, K_p, dV_p, ok_p = itt.backward_pass_associative(exp, reg,
                                                              defects)
         exp64 = dataclasses.replace(exp, **{
@@ -1600,18 +1850,25 @@ def main() -> int:
                 raise AssertionError(f"B1 {label}: {notes[-1]}")
         if not (bool(ok_k) and bool(ok_p)):
             raise AssertionError(f"B1 {label}: non-finite gains")
-        print(f"B1 {label}: N={exp.f_x.shape[0]} max abs error " + "; ".join(notes))
+        print(f"B1 {label}: N={exp.f_x.shape[0]} max abs error "
+              + "; ".join(notes) + "; repeated call bit-identical")
 
     # ---- 2. B1 against its plain version --------------------------------
-    mid_n = 5 * block + block // 2 + 3   # crosses 5 block edges, ends mid-block
+    mid_n = 5 * tile + tile // 2 + 3   # crosses 5 tile edges, ends mid-tile
+    # N + 1 = T - 1, T, T + 1 steps and elements; N = 1; T + 2 tiles, more
+    # than one look-back poll round covers (all resident at once on the
+    # card, so a tile usually finds an inclusive value in its first round:
+    # this does not show that the later rounds ran).
+    edge_ns = (1, tile - 2, tile - 1, tile, tile * (tile + 1))
     print(f"B1 tolerance: max|kernel - plain| <= {RTOL_B1} * max|plain| "
-          f"(f32 scans in two association orders); scan block {block} steps")
+          f"(f32 scans in two association orders); tile {tile} steps; "
+          f"tile-edge horizons {edge_ns}")
     X_dp0, U_dp0, exp_dp0 = expansion(dp, x0_dp, 500)
-    for N in (500, mid_n, LONG_N):
+    for N in (500, mid_n, LONG_N) + edge_ns:
         check_b1("DP first trajectory", tile_expansion(exp_dp0, N))
     check_b1("DP first trajectory, reg 0.1", exp_dp0, reg=0.1)
     _, _, exp_pend = expansion(pend, x0_pend, 400)
-    for N in (400, mid_n):
+    for N in (400, mid_n, tile - 1, tile):
         check_b1("pendulum", tile_expansion(exp_pend, N))
     _, _, exp_ua = expansion(ua, x0_dp, 800)
     for N in (800, mid_n):
@@ -1720,31 +1977,145 @@ def main() -> int:
     u_s, K_s, _, _ = itt.backward_pass_fused(exp_dps, 0.0)
     check_b2("DP solved trajectory", X_s, U_s, u_s, K_s, alpha=1.0)
 
-    # The pendulum golden on the GPU: kernel backward pass, plain rollouts
-    # (backward Euler has no device function yet).
+    # The pendulum golden (backward Euler) through B1, B2a, B2b and the
+    # open-loop entry, then with the plain host-loop rollouts for their time.
+    b2_kernels = ("linesearch_costs", "closed_loop_rollout",
+                  "open_loop_rollout")
+    pend_runs = {}
+    for rollout_engine in ("pallas", "scan"):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        sol_p = itt.solve(pend, x0_pend, torch.zeros((400, 1), **f32),
+                          itt.IlqrConfig(maxiter=100, tol=1e-5,
+                                         backward="pallas",
+                                         rollout=rollout_engine))
+        torch.cuda.synchronize()
+        pend_s = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        err = abs(float(sol_p.cost) - PENDULUM_GOLDEN_COST)
+        print(f"pendulum golden (pallas/{rollout_engine}): status "
+              f"{sol_p.status}, {sol_p.iterations} iterations, cost "
+              f"{float(sol_p.cost):.6f}, |cost - {PENDULUM_GOLDEN_COST}| "
+              f"{err:.2e}, {pend_s:.3f} s, launches {counts}")
+        if not (sol_p.status == itt.CONVERGED and err <= 1e-3):
+            raise AssertionError(f"pendulum golden ({rollout_engine}): not "
+                                 f"CONVERGED within 1e-3 of the golden cost")
+        needed = ("fused_riccati",) + (b2_kernels if rollout_engine == "pallas"
+                                       else ())
+        for kernel in needed:
+            if counts.get(kernel, 0) < 1:
+                raise AssertionError(f"the pendulum golden ({rollout_engine})"
+                                     f" never launched {kernel}")
+        if rollout_engine == "pallas" and counts["open_loop_rollout"] != 1:
+            raise AssertionError("the pendulum golden launched "
+                                 "open_loop_rollout more than once")
+        pend_runs[rollout_engine] = (sol_p, pend_s, counts)
+
+    # The under-actuated golden (tests/test_solver.py:42-55, 96-101) through
+    # the kernels, f32.
+    gold = np.load(UA_GOLDEN)
+    ua_cost_ref = float(gold["cost"])
+    ua_angles_ref = torch.tensor(gold["X"][:2, -1], **f32)  # (dim, time)
+    torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    sol_p = itt.solve(pend, x0_pend, torch.zeros((400, 1), **f32),
-                      itt.IlqrConfig(maxiter=100, tol=1e-5, backward="pallas",
-                                     rollout="scan"))
+    sol_ua = itt.solve(ua, x0_dp, torch.zeros((800, 1), **f32),
+                       itt.IlqrConfig(maxiter=700, tol=1e-5, backward="pallas",
+                                      rollout="pallas"))
     torch.cuda.synchronize()
-    pend_s = time.perf_counter() - t0
-    rel = abs(float(sol_p.cost) - PENDULUM_GOLDEN_COST) / PENDULUM_GOLDEN_COST
-    print(f"pendulum solve (pallas/scan): status {sol_p.status}, "
-          f"{sol_p.iterations} iterations, cost {float(sol_p.cost):.6f}, "
-          f"rel. error {rel:.2e} vs {PENDULUM_GOLDEN_COST}, {pend_s:.3f} s, "
-          f"launches {_build.launch_counts()}")
-    if not rel <= 1e-3:
-        raise AssertionError("pendulum golden cost not reproduced to 1e-3")
-    if _build.launch_counts().get("fused_riccati", 0) < 1:
-        raise AssertionError("the pendulum solve never launched fused_riccati")
+    ua_s = time.perf_counter() - t0
+    ua_counts = _build.launch_counts()
+    ua_ang = float((sol_ua.X[-1, :2] - ua_angles_ref).abs().max())
+    print(f"UA-DP golden (pallas/pallas): status {sol_ua.status}, "
+          f"{sol_ua.iterations} iterations, cost {float(sol_ua.cost):.6f} "
+          f"(reference {ua_cost_ref:.6f}, limit 1.05x), final angles "
+          f"{sol_ua.X[-1, :2].tolist()} ({ua_ang:.2e} from the reference's, "
+          f"limit 0.2), {ua_s:.3f} s, launches {ua_counts}")
+    if not (float(sol_ua.cost) <= 1.05 * ua_cost_ref and ua_ang <= 0.2
+            and bool(torch.isfinite(sol_ua.X).all())):
+        raise AssertionError("UA-DP golden: cost above 1.05x the reference's "
+                             "or final angles not within 0.2 of its")
+    for kernel in ("fused_riccati",) + b2_kernels:
+        if ua_counts.get(kernel, 0) < 1:
+            raise AssertionError(f"the UA-DP golden never launched {kernel}")
+
+    # A U_init that is a row view 8 bytes into its storage solves through
+    # the kernels, as a contiguous copy of it does (the wrappers align it).
+    U_prev = torch.zeros((501, 2), **f32)
+    U_view = U_prev[1:]
+    if U_view.data_ptr() % 16 == 0:
+        raise AssertionError("the C1 view is aligned: the check shows nothing")
+    cfg_c1 = itt.IlqrConfig(maxiter=5, tol=1e-6, backward="pallas",
+                            rollout="pallas")
+    _build.reset_launch_counts()
+    sol_v = itt.solve(dp, x0_dp, U_view, cfg_c1)
+    counts_v = _build.launch_counts()
+    sol_c = itt.solve(dp, x0_dp, U_view.clone(), cfg_c1)
+    torch.cuda.synchronize()
+    same = (torch.equal(sol_v.X, sol_c.X) and torch.equal(sol_v.U, sol_c.U)
+            and float(sol_v.cost) == float(sol_c.cost))
+    print(f"C1: solve from U_prev[1:] (offset {U_view.data_ptr() % 16} bytes "
+          f"mod 16): status {sol_v.status}, {sol_v.iterations} iterations, "
+          f"cost {float(sol_v.cost):.6f}, launches {counts_v}; equal to the "
+          f"solve from a copy: {same}")
+    if not same or counts_v.get("open_loop_rollout", 0) != 1:
+        raise AssertionError("C1: the view's solve differs from the copy's "
+                             "or did not run through the kernels")
+
+    # The pendulum MPC example (examples/pendulum_mpc.py: backward-Euler
+    # solver, midpoint plant, H = 200, maxiter 10), cut to MPC_STEPS steps.
+    def mpc_pendulum(integrator):
+        return itt.make_pendulum(
+            0.01, [np.pi, 0.0], Q=np.diag([10.0, 1.0]), R=np.eye(1),
+            Q_f=np.diag([10.0, 10.0]), d=0.0, integrator=integrator, **f32)
+
+    mpc_solver, mpc_plant = (mpc_pendulum("backward_euler"),
+                             mpc_pendulum("midpoint"))
+    mpc_runs = {}
+    for rollout_engine, n_sim in (("pallas", MPC_STEPS),
+                                  ("scan", MPC_REF_STEPS)):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = itt.run_mpc(mpc_solver, mpc_plant, torch.zeros(2, **f32),
+                          torch.zeros((200, 1), **f32), n_sim,
+                          itt.IlqrConfig(maxiter=10, tol=1e-5,
+                                         backward="pallas",
+                                         rollout=rollout_engine))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        print(f"pendulum MPC H=200 (cut to {n_sim} of the example's 400 "
+              f"steps; pallas/{rollout_engine}): {wall:.3f} s, "
+              f"{wall * 1e3 / n_sim:.1f} ms per step, cost "
+              f"{float(res.cost):.4f}, final x {res.X[-1].tolist()}, "
+              f"launches {counts}")
+        if not bool(torch.isfinite(res.X).all()):
+            raise AssertionError("pendulum MPC: closed loop not finite")
+        mpc_runs[rollout_engine] = (res, counts)
+    for kernel in ("fused_riccati",) + b2_kernels:
+        if mpc_runs["pallas"][1].get(kernel, 0) < 1:
+            raise AssertionError(f"pendulum MPC never launched {kernel}")
+    mpc_dx = float((mpc_runs["pallas"][0].X[:MPC_REF_STEPS + 1]
+                    - mpc_runs["scan"][0].X).abs().max())
+    print(f"pendulum MPC: the first {MPC_REF_STEPS} steps through the kernels "
+          f"agree with rollout='scan' to {mpc_dx:.2e} (limit {ATOL_MPC})")
+    if not mpc_dx <= ATOL_MPC:
+        raise AssertionError("pendulum MPC: kernels and scan rollouts differ")
 
     # ---- 5. timing --------------------------------------------------------
     reg0 = 0.0
-    t_b1 = cuda_ms(lambda: itt.backward_pass_fused(exp_dps, reg0), 50, 5)
-    t_b1p = cuda_ms(lambda: itt.backward_pass_associative(exp_dps, reg0), 10, 2)
     exp_long = tile_expansion(exp_dps, LONG_N)
-    t_b1l = cuda_ms(lambda: itt.backward_pass_fused(exp_long, reg0), 10, 2)
+    exp_1411 = tile_expansion(exp_dps, 1411)
+    exp_pb = tile_expansion(exp_pend, BENCH_N)
+    d_pb = torch.tensor(
+        0.01 * np.random.default_rng(5).standard_normal((BENCH_N, 2)), **f32)
+    b1_t = b1_timing(itt, smi, {
+        "DP N=500": (exp_dps, None), "DP N=1411": (exp_1411, None),
+        f"DP N={LONG_N}": (exp_long, None),
+        f"pendulum N={BENCH_N}, defects": (exp_pb, d_pb)})
+    t_b1p = cuda_ms(lambda: itt.backward_pass_associative(exp_dps, reg0), 10, 2)
     t_b1lp = cuda_ms(lambda: itt.backward_pass_associative(exp_long, reg0), 3, 1)
     t_b1s = cuda_ms(lambda: itt.backward_pass(exp_dps, reg0), 2, 1)
     t_c = cuda_ms(lambda: itt.linesearch_costs_fused(
@@ -1760,9 +2131,11 @@ def main() -> int:
     t_init_k = cuda_ms(lambda: itt.open_loop_rollout_fused(dp, x0_dp, U_dp0),
                        50, 5)
     print(f"timing on {smi} (CUDA events, ms per call):")
-    print(f"  B1 fused_riccati N=500: kernel {t_b1:.4f}, plain (associative) "
-          f"{t_b1p:.4f}, sequential scan {t_b1s:.2f}")
-    print(f"  B1 fused_riccati N={LONG_N}: kernel {t_b1l:.4f}, plain "
+    print(f"  B1 fused_riccati N=500: kernel (device) "
+          f"{b1_t['DP N=500']['new']['device_us'] * 1e-3:.4f}, plain "
+          f"(associative) {t_b1p:.4f}, sequential scan {t_b1s:.2f}")
+    print(f"  B1 fused_riccati N={LONG_N}: kernel (device) "
+          f"{b1_t[f'DP N={LONG_N}']['new']['device_us'] * 1e-3:.4f}, plain "
           f"(associative) {t_b1lp:.4f}")
     print(f"  B2 linesearch_costs N=500, {alphas.numel()} alphas: kernel "
           f"{t_c:.4f}, plain {t_cp:.2f}")
@@ -1784,13 +2157,34 @@ def main() -> int:
 
     runs = [("pallas", "pallas", 200), ("scan", "scan", 3),
             ("scan", "scan", 3), ("pallas", "pallas", 200)]
+    b1_dev_ms = b1_t["DP N=500"]["new"]["device_us"] * 1e-3
     for backward, rollout_engine, maxiter in runs:
         total, iters, per_iter = timed_solve(backward, rollout_engine,
                                              maxiter)
+        share = (f"; B1 {iters} launches x {b1_dev_ms:.4f} ms device = "
+                 f"{iters * b1_dev_ms:.3f} ms "
+                 f"({100 * iters * b1_dev_ms / total:.2f} % of the solve)"
+                 if backward == "pallas" else "")
         print(f"  DP solve backward={backward} rollout={rollout_engine}: "
               f"{total:.1f} ms total, {iters} iterations, {per_iter:.2f} ms "
-              f"per iteration after the initial rollout")
+              f"per iteration after the initial rollout{share}")
     chain_timing(itt, dev, smi)
+    imp_t = implicit_timing(itt, dev, smi, {
+        "pendulum": (pend, x0_pend, pend_runs["pallas"][0]),
+        "UA-DP": (ua, x0_dp, sol_ua)})
+    sol_pk = pend_runs["pallas"][0]
+    X_pk, U_pk = sol_pk.X.contiguous(), sol_pk.U.contiguous()
+    u_pk, K_pk = sol_pk.u_ff.contiguous(), sol_pk.K.contiguous()
+    imp_plain = {
+        "linesearch_costs": cuda_ms(lambda: itt.linesearch_rollouts(
+            pend, x0_pend, alphas, X_pk, U_pk, u_pk, K_pk), 1, 0),
+        "closed_loop_rollout": cuda_ms(lambda: itt.closed_loop_rollout(
+            pend, x0_pend, 1.0, X_pk, U_pk, u_pk, K_pk), 1, 0),
+        "open_loop_rollout": cuda_ms(lambda: itt.rollout(pend, x0_pend, U_pk),
+                                     1, 0),
+    }
+    print(f"  pendulum backward_euler N=400 plain (host loops): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in imp_plain.items()))
 
     def launched(label, kernels):
         counts = _build.launch_counts()
@@ -1850,7 +2244,7 @@ def main() -> int:
     def gaps(N, n_x):
         return torch.tensor(0.01 * rng.standard_normal((N, n_x)), **f32)
 
-    for N in (500, mid_n, LONG_N):
+    for N in (500, mid_n, LONG_N) + edge_ns:
         check_b1("DP first trajectory, defects", tile_expansion(exp_dp0, N),
                  defects=gaps(N, 4), key="fused_riccati_defects")
     for N in (400, mid_n, LONG_N):
@@ -2173,17 +2567,36 @@ def main() -> int:
     b_b1d = bound(4 * (expansion_floats(BENCH_N, 2, 1) + BENCH_N * 2
                        + BENCH_N * (1 + 2) + 2), BENCH_N * riccati_step_ops(2))
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, b):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, b, **more):
         return dict(name=name, route="cuda",
                     source=f"ilqr_tpu_torch/csrc/{source}",
                     replaces=f"ilqr_tpu/ops/{replaces}", launches=launches,
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                    bound_by=b[1], library_ms=None)
+                    bound_by=b[1], library_ms=None, **more)
 
+    def b1_times(label):
+        """B1's ms (CUDA events over back-to-back calls, as every row) and
+        its other timings, new and old design."""
+        new, old = b1_t[label]["new"], b1_t[label]["old"]
+        return new["event_ms"], dict(
+            device_ms=new["device_us"] * 1e-3,
+            wrapper_host_ms=new["host_us"] * 1e-3,
+            launches_per_call=new["launches"],
+            old_ms=old["event_ms"], old_device_ms=old["device_us"] * 1e-3,
+            old_wrapper_host_ms=old["host_us"] * 1e-3,
+            old_launches_per_call=old["launches"])
+
+    b1_ms, b1_more = b1_times("DP N=500")
+    b1d_ms, b1d_more = b1_times(f"pendulum N={BENCH_N}, defects")
+    b_imp = chain_bounds(2, 1, 400, A10, model="pendulum",
+                         integrator="backward_euler")
+    imp_source = {"linesearch_costs": "pallas_rollout.py:92",
+                  "closed_loop_rollout": "pallas_rollout.py:132",
+                  "open_loop_rollout": "pallas_rollout.py:132"}
     kernels_json = [
         entry("fused_riccati", "fused_riccati.cu", "pallas_riccati.py:774",
               launches.get("fused_riccati", 0), errors["fused_riccati"],
-              t_b1, t_b1p, b_b1),
+              b1_ms, t_b1p, b_b1, **b1_more),
         entry("linesearch_costs", "chain_rollout.cu", "pallas_rollout.py:92",
               launches.get("linesearch_costs", 0),
               errors["linesearch_costs"], t_c, t_cp, b_ls),
@@ -2199,8 +2612,20 @@ def main() -> int:
               t_b3[f"N={BENCH_N} A=10"][1], b_b3),
         entry("fused_riccati_defects", "fused_riccati.cu",
               "pallas_riccati.py:774", ms_launches.get("fused_riccati", 0),
-              errors["fused_riccati_defects"], t_b1d, t_b1dp, b_b1d),
+              errors["fused_riccati_defects"], b1d_ms, t_b1dp, b_b1d,
+              **b1d_more),
     ]
+    # The implicit instantiations (backward Euler) at the pendulum golden's
+    # shape, with the launches of its solve; per step there and on the
+    # UA-DP golden.
+    kernels_json += [
+        entry(f"{name}_backward_euler", "chain_rollout.cu", imp_source[name],
+              pend_runs["pallas"][2].get(name, 0),
+              errors[f"{name}_backward_euler"],
+              imp_t["pendulum", name]["ms"], imp_plain[name], b_imp[name],
+              ns_per_step=imp_t["pendulum", name]["ns_per_step"],
+              ua_dp_ns_per_step=imp_t["UA-DP", name]["ns_per_step"])
+        for name in imp_source]
     kernels_json += batched_phases(itt, dev, smi)
     kernels_json += suffix_phases(itt, dev, smi)
     for k in kernels_json:

@@ -14,7 +14,10 @@
 // bandwidth nor SM count shortens it.  A step costs the latency of its
 // longest dependent path (control law, the model's sines, the mass-matrix
 // reciprocal, the integrator update) times the instructions issued on it,
-// by one warp on one SM.
+// by one warp on one SM.  The implicit integrators (backward Euler,
+// trapezoidal) make a step longer: the predictor, df/dx at it by one dual
+// evaluation of the model, a closed-form inverse, then newton_iters
+// corrections of one model evaluation each (models.cuh, integrate).
 //
 // Design, for that latency:
 // - Warp-specialised block of two warps.  Warp 0 is the chain: one lane
@@ -162,8 +165,8 @@ chain_kernel(const float* __restrict__ params, const float* __restrict__ x0,
              const float* __restrict__ alphas, float alpha, int n_alpha,
              const float* __restrict__ X_old, const float* __restrict__ U_old,
              const float* __restrict__ u_ff, const float* __restrict__ K,
-             int N, float* __restrict__ costs, float* __restrict__ X_out,
-             float* __restrict__ U_out) {
+             int N, int newton_iters, float* __restrict__ costs,
+             float* __restrict__ X_out, float* __restrict__ U_out) {
   using R = Ring<NX, NU, MODE>;
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
@@ -247,8 +250,8 @@ chain_kernel(const float* __restrict__ params, const float* __restrict__ x0,
       cost += running_cost(x, u);
       float xn[NX];
       integrate<NX, INTEG>(
-          [&](const float* xs, float* xdot) { model.f(xs, u, xdot); }, dt, x,
-          xn);
+          [&](const auto* xs, auto* xdot) { model.f(xs, u, xdot); }, dt, x,
+          xn, newton_iters);
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = xn[i];
     }
@@ -280,6 +283,7 @@ struct ChainArgs {
   const float* u_ff;
   const float* K;
   int N;
+  int newton_iters;
   float* costs;
   float* X_out;
   float* U_out;
@@ -295,7 +299,7 @@ int launch(const ChainArgs& r) {
   const dim3 grid(1, (r.n_alpha + kLanes - 1) / kLanes);
   chain_kernel<Model, NX, NU, INTEG, MODE><<<grid, kThreads, R::kBytes, r.stream>>>(
       r.params, r.x0, r.alphas, r.alpha, r.n_alpha, r.X_old, r.U_old, r.u_ff,
-      r.K, r.N, r.costs, r.X_out, r.U_out);
+      r.K, r.N, r.newton_iters, r.costs, r.X_out, r.U_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,6 +309,9 @@ int by_integrator(int integrator, const ChainArgs& r) {
     case kEuler: return launch<Model, NX, NU, kEuler, MODE>(r);
     case kMidpoint: return launch<Model, NX, NU, kMidpoint, MODE>(r);
     case kRk4: return launch<Model, NX, NU, kRk4, MODE>(r);
+    case kBackwardEuler:
+      return launch<Model, NX, NU, kBackwardEuler, MODE>(r);
+    case kTrapezoidal: return launch<Model, NX, NU, kTrapezoidal, MODE>(r);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -327,37 +334,41 @@ int dispatch(int model, int integrator, int n_x, int n_u, const ChainArgs& r) {
 extern "C" int ilqr_chain_chunk_steps() { return kChunk; }
 extern "C" int ilqr_chain_ring_stages() { return kStages; }
 
+// integrator: models.cuh's Integrator; newton_iters: the implicit rules'
+// fixed count of corrections (ignored by the explicit ones).
+//
 // B2a.  Candidate costs (n_alpha,) of every alpha in one sequential pass.
 extern "C" int ilqr_linesearch_costs(
-    int model, int integrator, int n_x, int n_u, const float* params,
-    int n_params, const float* x0, const float* alphas, int n_alpha,
-    const float* X_old, const float* U_old, const float* u_ff, const float* K,
-    int N, float* costs, void* stream) {
+    int model, int integrator, int newton_iters, int n_x, int n_u,
+    const float* params, int n_params, const float* x0, const float* alphas,
+    int n_alpha, const float* X_old, const float* U_old, const float* u_ff,
+    const float* K, int N, float* costs, void* stream) {
   ChainArgs r{params, n_params, x0, alphas, 0.0f, n_alpha, X_old, U_old,
-              u_ff, K, N, costs, nullptr, nullptr,
+              u_ff, K, N, newton_iters, costs, nullptr, nullptr,
               static_cast<cudaStream_t>(stream)};
   return dispatch<kCosts>(model, integrator, n_x, n_u, r);
 }
 
 // B2b.  Trajectory of one alpha: X (N+1, n_x), U (N, n_u) and its cost (1,).
 extern "C" int ilqr_closed_loop_rollout(
-    int model, int integrator, int n_x, int n_u, const float* params,
-    int n_params, const float* x0, float alpha, const float* X_old,
-    const float* U_old, const float* u_ff, const float* K, int N, float* cost,
-    float* X_out, float* U_out, void* stream) {
+    int model, int integrator, int newton_iters, int n_x, int n_u,
+    const float* params, int n_params, const float* x0, float alpha,
+    const float* X_old, const float* U_old, const float* u_ff, const float* K,
+    int N, float* cost, float* X_out, float* U_out, void* stream) {
   ChainArgs r{params, n_params, x0, nullptr, alpha, 1, X_old, U_old, u_ff, K,
-              N, cost, X_out, U_out, static_cast<cudaStream_t>(stream)};
+              N, newton_iters, cost, X_out, U_out,
+              static_cast<cudaStream_t>(stream)};
   return dispatch<kTrajectory>(model, integrator, n_x, n_u, r);
 }
 
 // B2b without feedback: the open-loop rollout of U (N, n_u) from x0,
 // X (N+1, n_x) and its cost (1,).
 extern "C" int ilqr_open_loop_rollout(
-    int model, int integrator, int n_x, int n_u, const float* params,
-    int n_params, const float* x0, const float* U, int N, float* cost,
-    float* X_out, void* stream) {
+    int model, int integrator, int newton_iters, int n_x, int n_u,
+    const float* params, int n_params, const float* x0, const float* U, int N,
+    float* cost, float* X_out, void* stream) {
   ChainArgs r{params, n_params, x0, nullptr, 0.0f, 1, nullptr, U, nullptr,
-              nullptr, N, cost, X_out, nullptr,
+              nullptr, N, newton_iters, cost, X_out, nullptr,
               static_cast<cudaStream_t>(stream)};
   return dispatch<kOpenLoop>(model, integrator, n_x, n_u, r);
 }

@@ -20,6 +20,7 @@ else, so a run can show which kernels its main path went through.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -32,6 +33,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -43,15 +46,20 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry: c_void_p for each pointer and the stream.
 SIGNATURES = {
-    "ilqr_fused_riccati": [_I, _I, _I, _F] + [_P] * 10 + [_P] * 5 + [_P],
+    "ilqr_fused_riccati": [_I, _I, _I, _F] + [_P] * 10 + [_P] * 6 + [_P],
+    "ilqr_fused_riccati_counters": [_I],
+    "ilqr_fused_riccati_scratch": [_I, _I],
+    "ilqr_riccati_tile_steps": [],
+    "ilqr_fused_riccati_blocked": [_I, _I, _I, _F] + [_P] * 10 + [_P] * 5
+                                  + [_P],
     "ilqr_riccati_block_steps": [],
     "ilqr_riccati_gain_threads": [],
-    "ilqr_linesearch_costs": [_I, _I, _I, _I, _P, _I, _P, _P, _I,
+    "ilqr_linesearch_costs": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _I,
                               _P, _P, _P, _P, _I, _P, _P],
-    "ilqr_closed_loop_rollout": [_I, _I, _I, _I, _P, _I, _P, _F,
+    "ilqr_closed_loop_rollout": [_I, _I, _I, _I, _I, _P, _I, _P, _F,
                                  _P, _P, _P, _P, _I, _P, _P, _P, _P],
-    "ilqr_open_loop_rollout": [_I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P,
-                               _P],
+    "ilqr_open_loop_rollout": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P,
+                               _P, _P],
     "ilqr_chain_chunk_steps": [],
     "ilqr_chain_ring_stages": [],
     "ilqr_affine_prefix_scan": [_I, _I, _I] + [_P] * 6 + [_P],
@@ -70,6 +78,22 @@ SIGNATURES = {
 
 # Kernel name -> launches since the last reset (plain integers).
 _LAUNCHES: Dict[str, int] = {}
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a launch.
+    torch's own getter (`torch._C._cuda_getCurrentRawStream`, which Triton
+    launches with too) skips building a `torch.cuda.Stream` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device: torch.device):
+    """A guard that makes ``device`` the current CUDA device for a launch,
+    or a no-op when it already is (the common case costs no device switch
+    and back)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def count_launch(kernel: str) -> None:

@@ -119,9 +119,9 @@ def affine_prefix_scan_multi(P: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"no affine scan kernel for device {device}")
     P, q, delta0 = P.contiguous(), q.contiguous(), delta0.contiguous()
     _check(P, q, delta0)
-    with torch.cuda.device(device):
+    with _build.on_device(device):
         lib = _build.load().lib
         out = launch(lib, P, q, delta0,
-                     torch.cuda.current_stream(device).cuda_stream)
+                     _build.current_stream(device))
     _build.count_launch(KERNEL)
     return out

@@ -19,9 +19,11 @@ small solves run on (B, n_u, n_u); `rollout.linesearch_rollouts`
 and `rollout.rollout`, whose host loop over time carries (B, A, n_x)
 states) — and on a CUDA tensor it launches the kernel or raises.  The
 kernels take float32 and the (n_x, n_u) of `SHAPES`; the rollouts take the
-systems with a device function (`fused_rollout.device_model`).  Anything
-else raises on CUDA (ROADMAP items B4w and B2m), where JAX falls back to
-the vmapped scan.  JAX swaps these kernels in under `jax.vmap(solve)` by
+systems with a device function (`fused_rollout.device_model`) under the
+explicit integrators, which B5 instantiates (JAX, too, sends implicit
+integrators away from its batched kernel).  Anything else raises on CUDA
+(ROADMAP items B4w, B2m and B5i), where JAX falls back to the vmapped
+scan.  JAX swaps these kernels in under `jax.vmap(solve)` by
 `custom_vmap` rules; the port calls them from its explicitly batched solve.
 """
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.fused_riccati import SHAPES
 from ilqr_tpu_torch.ops.fused_rollout import _params_on, device_model
+from ilqr_tpu_torch.ops.integrators import IMPLICIT
 from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
 from ilqr_tpu_torch.ops.riccati import backward_pass
 from ilqr_tpu_torch.ops.rollout import linesearch_rollouts, rollout
@@ -132,10 +135,10 @@ def backward_pass_batched(
             f"in {SHAPES}, got {(n_x, n_u)}: ROADMAP item B4w")
     _check_expansion(exp)
     reg_b = _reg_vector(reg, exp.f_x.shape[0], exp.f_x)
-    with torch.cuda.device(device):
+    with _build.on_device(device):
         lib = _build.load().lib
         out = launch_riccati(lib, exp, reg_b,
-                             torch.cuda.current_stream(device).cuda_stream)
+                             _build.current_stream(device))
     _build.count_launch(KERNEL_RICCATI)
     return out
 
@@ -170,10 +173,21 @@ def _check_rollout(system: System, x0s, U_old, X_old=None, u_ff=None,
     return B, N
 
 
+def _batched_model(system: System):
+    """(model id, integrator id) of B5: `device_model`'s, explicit
+    integrators only."""
+    if system.integrator in IMPLICIT:
+        raise NotImplementedError(
+            f"the batched CUDA rollouts run euler, midpoint and rk4, not "
+            f"{system.integrator!r}: ROADMAP item B5i (B5's implicit "
+            f"integrators, with its move to the chain design)")
+    return device_model(system)
+
+
 def launch_costs(lib, system, x0s, alphas, X_old, U_old, u_ff, K, stream):
     """Candidate costs (B, A); inputs must already have passed
     `_check_rollout`, ``alphas`` is (A,) float32 and contiguous."""
-    model, integ = device_model(system)
+    model, integ = _batched_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     costs = torch.empty((B, alphas.numel()), dtype=torch.float32,
@@ -192,7 +206,7 @@ def launch_trajectory(lib, system, x0s, alpha_b, X_old, U_old, u_ff, K,
     """(X, U, cost) at one α per instance, or the open-loop rollout of
     U_old when X_old, u_ff and K are None; inputs must already have passed
     `_check_rollout`, ``alpha_b`` is (B,) float32 (ignored open loop)."""
-    model, integ = device_model(system)
+    model, integ = _batched_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     opts = dict(dtype=torch.float32, device=x0s.device)
@@ -218,7 +232,7 @@ def launch_trajectory(lib, system, x0s, alpha_b, X_old, U_old, u_ff, K,
 def _cuda(x0s, what: str):
     if x0s.device.type != "cuda":
         raise ValueError(f"no {what} kernel for device {x0s.device}")
-    return torch.cuda.current_stream(x0s.device).cuda_stream
+    return _build.current_stream(x0s.device)
 
 
 def linesearch_costs_batched(system: System, x0s, alphas, X_old, U_old,
@@ -232,7 +246,7 @@ def linesearch_costs_batched(system: System, x0s, alphas, X_old, U_old,
                                    K)[2]
     stream = _cuda(x0s, "batched rollout")
     _check_rollout(system, x0s, U_old, X_old, u_ff, K)
-    with torch.cuda.device(x0s.device):
+    with _build.on_device(x0s.device):
         lib = _build.load().lib
         costs = launch_costs(lib, system, x0s, alphas.contiguous(), X_old,
                              U_old, u_ff, K, stream)
@@ -254,7 +268,7 @@ def closed_loop_rollout_batched(system: System, x0s, alpha_b, X_old, U_old,
     if tuple(alpha_b.shape) != (B,):
         raise ValueError(f"alpha_b has shape {tuple(alpha_b.shape)}, "
                          f"expected ({B},)")
-    with torch.cuda.device(x0s.device):
+    with _build.on_device(x0s.device):
         lib = _build.load().lib
         out = launch_trajectory(lib, system, x0s, alpha_b.contiguous(), X_old,
                                 U_old, u_ff, K, stream)
@@ -269,7 +283,7 @@ def open_loop_rollout_batched(system: System, x0s, U):
         return rollout(system, x0s, U)
     stream = _cuda(x0s, "batched rollout")
     _check_rollout(system, x0s, U)
-    with torch.cuda.device(x0s.device):
+    with _build.on_device(x0s.device):
         lib = _build.load().lib
         X, _, cost = launch_trajectory(lib, system, x0s, None, None, U, None,
                                        None, stream)

@@ -1,13 +1,14 @@
-"""Fused backward pass: one hand-written CUDA pipeline from expansion to gains.
+"""Fused backward pass: one hand-written CUDA kernel from expansion to gains.
 
 PyTorch counterpart of the fused path of `ilqr_tpu/ops/pallas_riccati.py`
 (`backward_pass_pallas_fused`, kernel `_fused_kernel`).  The kernel,
-`csrc/fused_riccati.cu`, builds the Riccati elements, runs the blocked
-suffix scan, closes it across blocks and forms the gains and dV; its note
-says how the TPU design was rethought for a GPU.  With GNMS ``defects``
-(multiple shooting, `ilqr_tpu_torch.shooting`) the kernel adds d_k to each
-stage element's offset b and V_xx(k+1)·d_k to V_x(k+1) in the gains, as the
-TPU kernel's ``with_defects`` variant does.
+`csrc/fused_riccati.cu`, builds the Riccati elements, scans them in tiles,
+carries the cost-to-go across tiles by decoupled look-back and forms the
+gains, dV and the all-finite flag, in one launch; its note says how the TPU
+design was rethought for a GPU.  With GNMS ``defects`` (multiple shooting,
+`ilqr_tpu_torch.shooting`) the kernel adds d_k to each stage element's
+offset b and V_xx(k+1)·d_k to V_x(k+1) in the gains, as the TPU kernel's
+``with_defects`` variant does.
 
 Dispatch follows the tensor: on the CPU `backward_pass_fused` runs its
 plain version, `parallel_riccati.backward_pass_associative` (the same
@@ -15,6 +16,12 @@ function, defects included); on a CUDA tensor it launches the kernel or
 raises.  As in JAX, n_x > 16 or n_u > 6 go to `backward_pass_associative`
 on every device.  The kernel is instantiated for (n_x, n_u) in `SHAPES`,
 the slice's three models; other shapes raise on CUDA (ROADMAP item B1w).
+
+The kernel's scratch (tile status words, aggregates, carried values and
+partial sums) is allocated once per device, stream and shape and reused:
+the kernel leaves its counters zeroed.  `launch_blocked` runs the first,
+three-launch design of the same function; only `chip_smoke.py` calls it,
+to time the two in turns.
 """
 from __future__ import annotations
 
@@ -22,7 +29,6 @@ from typing import Tuple
 
 import torch
 
-from ilqr_tpu_torch.models.base import full_f32_matmuls
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
 from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
@@ -30,45 +36,100 @@ from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
 KERNEL = "fused_riccati"
 SHAPES = ((2, 1), (4, 1), (4, 2))
 _FIELDS = ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu", "v_x", "v_xx")
+# (device, stream, N, n_x) -> (counters int32, scratch float32) of the kernel.
+_SCRATCH: dict = {}
+
+
+def tile_steps(lib) -> int:
+    """Steps per tile of the kernel (its cross-tile carry period)."""
+    return lib.ilqr_riccati_tile_steps()
 
 
 def block_steps(lib) -> int:
-    """Steps per scan block of the kernel (its cross-block carry period)."""
+    """Steps per scan block of the blocked design."""
     return lib.ilqr_riccati_block_steps()
 
 
 def _check(exp: TrajectoryExpansion, defects=None) -> None:
-    N, n_x = exp.f_x.shape[0], exp.f_x.shape[-1]
+    """Raise on what the kernel does not take: the (N, n_x, n_u) shapes
+    of every field, float32, contiguous, all on f_x's device.  The common
+    case passes in a few aggregate tests; a failure names its field."""
+    f_x = exp.f_x
+    N, n_x = f_x.shape[0], f_x.shape[-1]
     n_u = exp.l_u.shape[-1]
     if N < 1:
         raise ValueError("the CUDA backward pass needs a horizon N >= 1")
-    shapes = dict(f_x=(N, n_x, n_x), f_u=(N, n_x, n_u), l_x=(N, n_x),
-                  l_u=(N, n_u), l_xx=(N, n_x, n_x), l_ux=(N, n_u, n_x),
-                  l_uu=(N, n_u, n_u), v_x=(n_x,), v_xx=(n_x, n_x),
-                  defects=(N, n_x))
-    tensors = {name: getattr(exp, name) for name in _FIELDS}
+    tensors = (f_x, exp.f_u, exp.l_x, exp.l_u, exp.l_xx, exp.l_ux, exp.l_uu,
+               exp.v_x, exp.v_xx)
+    shapes = [(N, n_x, n_x), (N, n_x, n_u), (N, n_x), (N, n_u),
+              (N, n_x, n_x), (N, n_u, n_x), (N, n_u, n_u), (n_x,),
+              (n_x, n_x)]
     if defects is not None:
-        tensors["defects"] = defects
-    for name, t in tensors.items():
-        if tuple(t.shape) != shapes[name]:
+        tensors += (defects,)
+        shapes.append((N, n_x))
+    device = f_x.device
+    if ([t.shape for t in tensors] == shapes
+            and all(t.dtype is torch.float32 and t.is_contiguous()
+                    and t.device == device for t in tensors)):
+        return
+    for name, t, shape in zip(_FIELDS + ("defects",), tensors, shapes):
+        if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shapes[name]}")
+                             f"expected {shape}")
         if t.dtype != torch.float32:
             raise TypeError(f"the CUDA backward pass takes float32, "
                             f"{name} is {t.dtype}")
-        if t.device != exp.f_x.device:
-            raise ValueError(f"{name} is on {t.device}, f_x on {exp.f_x.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, f_x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
+def _scratch(lib, device, stream, N: int, n_x: int):
+    """The kernel's reusable scratch for this device, stream and shape:
+    counters (zeroed here once; every call leaves them zeroed) and floats."""
+    key = (device, stream, N, n_x)
+    out = _SCRATCH.get(key)
+    if out is None:
+        out = (torch.zeros(lib.ilqr_fused_riccati_counters(N),
+                           dtype=torch.int32, device=device),
+               torch.empty(lib.ilqr_fused_riccati_scratch(n_x, N),
+                           dtype=torch.float32, device=device))
+        _SCRATCH[key] = out
+    return out
+
+
 def launch(lib, exp: TrajectoryExpansion, reg: float, stream, defects=None):
-    """Allocate outputs and scratch and run the kernel on ``stream``.
+    """Allocate the outputs and run the kernel on ``stream``: one launch.
 
     Takes the library handle so that any build of the sources can be run;
     inputs must already have passed `_check`.  ``defects=None`` passes a
     null pointer: the plain backward pass.
     """
+    f_x = exp.f_x
+    N, n_x = f_x.shape[0], f_x.shape[-1]
+    n_u = exp.l_u.shape[-1]
+    device = f_x.device
+    counters, scratch = _scratch(lib, device, stream, N, n_x)
+    u_ff = torch.empty((N, n_u), dtype=torch.float32, device=device)
+    K = torch.empty((N, n_u, n_x), dtype=torch.float32, device=device)
+    dV = torch.empty((2,), dtype=torch.float32, device=device)
+    ok = torch.empty((), dtype=torch.bool, device=device)
+    code = lib.ilqr_fused_riccati(
+        n_x, n_u, N, reg, f_x.data_ptr(), exp.f_u.data_ptr(),
+        exp.l_x.data_ptr(), exp.l_u.data_ptr(), exp.l_xx.data_ptr(),
+        exp.l_ux.data_ptr(), exp.l_uu.data_ptr(), exp.v_x.data_ptr(),
+        exp.v_xx.data_ptr(), None if defects is None else defects.data_ptr(),
+        counters.data_ptr(), scratch.data_ptr(), u_ff.data_ptr(),
+        K.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
+    _build.check(lib, code, "fused Riccati kernel")
+    return u_ff, K, dV, ok
+
+
+def launch_blocked(lib, exp: TrajectoryExpansion, reg: float, stream,
+                   defects=None):
+    """The blocked design (three launches, then a sum and a compare), for
+    comparison with `launch`; inputs must already have passed `_check`."""
     N, n_x = exp.f_x.shape[0], exp.f_x.shape[-1]
     n_u = exp.l_u.shape[-1]
     F = 3 * n_x * n_x + 2 * n_x
@@ -80,17 +141,16 @@ def launch(lib, exp: TrajectoryExpansion, reg: float, stream, defects=None):
     u_ff = torch.empty((N, n_u), **opts)
     K = torch.empty((N, n_u, n_x), **opts)
     partials = torch.empty((gain_blocks, 3), **opts)
-    code = lib.ilqr_fused_riccati(
+    code = lib.ilqr_fused_riccati_blocked(
         n_x, n_u, N, reg, *(getattr(exp, f).data_ptr() for f in _FIELDS),
         None if defects is None else defects.data_ptr(), local.data_ptr(),
         edge.data_ptr(), u_ff.data_ptr(), K.data_ptr(), partials.data_ptr(),
         stream)
-    _build.check(lib, code, "fused Riccati kernel")
+    _build.check(lib, code, "fused Riccati kernel (blocked)")
     sums = partials.sum(0)
     return u_ff, K, sums[:2], sums[2] == 0
 
 
-@full_f32_matmuls()
 def backward_pass_fused(
     exp: TrajectoryExpansion, reg: float = 0.0, defects=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -108,9 +168,8 @@ def backward_pass_fused(
             f"the CUDA backward pass is instantiated for (n_x, n_u) in "
             f"{SHAPES}, got {(n_x, n_u)}: ROADMAP item B1w")
     _check(exp, defects)
-    with torch.cuda.device(device):
-        lib = _build.load().lib
-        out = launch(lib, exp, float(reg),
-                     torch.cuda.current_stream(device).cuda_stream, defects)
+    with _build.on_device(device):
+        out = launch(_build.load().lib, exp, float(reg),
+                     _build.current_stream(device), defects)
     _build.count_launch(KERNEL)
     return out

@@ -9,7 +9,10 @@ u = u_old + α·u_ff + K(x − x_old) for every α at once with the model, the
 integrator and the quadratic costs inlined from `csrc/models.cuh`; the
 open-loop entry runs u = U_old (the solver's initial rollout under
 ``rollout='pallas'``).  A producer warp feeds the chain with bulk copies,
-which need every array 16-byte aligned: `_check` refuses one that is not.
+which need every array 16-byte aligned: `_check` refuses one that is not,
+and the wrappers hand the kernels `aligned` copies of views that start
+elsewhere (a row slice such as ``U_prev[1:]``), as JAX's entries take any
+array.
 
 Dispatch follows the tensor: on the CPU the wrappers run their plain
 versions (`rollout.linesearch_rollouts(...)[2]`,
@@ -17,7 +20,8 @@ versions (`rollout.linesearch_rollouts(...)[2]`,
 launch the kernel or raise.  A hand-written kernel cannot trace a model's
 Python the way Pallas traces JAX, so the CUDA path covers the models with
 a device function — the pendulum and the double pendulum under the
-quadratic costs — and the explicit integrators euler, midpoint and rk4.
+quadratic costs — and the integrators euler, midpoint, rk4, backward_euler
+and trapezoidal (the implicit ones with the system's ``newton_iters``).
 Anything else raises `NotImplementedError` on CUDA (ROADMAP item B2m).
 """
 from __future__ import annotations
@@ -52,7 +56,9 @@ _MODELS = {
     double_pendulum.f_cont: (1, ("m1", "m2", "l1", "l2", "g", "d1", "d2",
                                  "theta1", "theta2", "S")),
 }
-_INTEGRATORS = {"euler": 0, "midpoint": 1, "rk4": 2}
+# integrator -> id of csrc/models.cuh's Integrator.
+_INTEGRATORS = {"euler": 0, "midpoint": 1, "rk4": 2, "backward_euler": 3,
+                "trapezoidal": 4}
 
 
 def device_model(system: System) -> Tuple[int, int]:
@@ -65,7 +71,7 @@ def device_model(system: System) -> Tuple[int, int]:
             "and double pendulum with quadratic costs only: ROADMAP item B2m")
     if system.integrator not in _INTEGRATORS:
         raise NotImplementedError(
-            f"the CUDA rollout kernels run euler, midpoint and rk4, not "
+            f"the CUDA rollout kernels run {', '.join(_INTEGRATORS)}, not "
             f"{system.integrator!r}: ROADMAP item B2m")
     return _MODELS[system.f_cont][0], _INTEGRATORS[system.integrator]
 
@@ -89,6 +95,16 @@ def _params_on(system: System, device) -> torch.Tensor:
         raise ValueError(f"the system's parameters are on {params.device}, "
                          f"the trajectory on {device}")
     return params
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is contiguous and starts on an ALIGN_BYTES
+    boundary, else a fresh contiguous copy (the allocator aligns it).
+    `Tensor.contiguous` alone returns a contiguous view at a misaligned
+    offset as it is."""
+    if t.is_contiguous() and t.data_ptr() % ALIGN_BYTES == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check(system, x0, X_old, U_old, u_ff, K) -> int:
@@ -135,7 +151,8 @@ def launch_costs(lib, system, x0, alphas, X_old, U_old, u_ff, K, stream):
     params = _params_on(system, x0.device)
     costs = torch.empty(alphas.shape, dtype=torch.float32, device=x0.device)
     code = lib.ilqr_linesearch_costs(
-        model, integ, system.n_x, system.n_u, params.data_ptr(),
+        model, integ, system.newton_iters, system.n_x, system.n_u,
+        params.data_ptr(),
         params.numel(), x0.data_ptr(), alphas.data_ptr(), alphas.numel(),
         X_old.data_ptr(), U_old.data_ptr(), u_ff.data_ptr(), K.data_ptr(), N,
         costs.data_ptr(), stream)
@@ -154,7 +171,8 @@ def launch_trajectory(lib, system, x0, alpha: float, X_old, U_old, u_ff, K,
     U = torch.empty((N, system.n_u), **opts)
     cost = torch.empty((1,), **opts)
     code = lib.ilqr_closed_loop_rollout(
-        model, integ, system.n_x, system.n_u, params.data_ptr(),
+        model, integ, system.newton_iters, system.n_x, system.n_u,
+        params.data_ptr(),
         params.numel(), x0.data_ptr(), alpha, X_old.data_ptr(),
         U_old.data_ptr(), u_ff.data_ptr(), K.data_ptr(), N, cost.data_ptr(),
         X.data_ptr(), U.data_ptr(), stream)
@@ -171,7 +189,8 @@ def launch_open_loop(lib, system, x0, U, stream):
     X = torch.empty((N + 1, system.n_x), **opts)
     cost = torch.empty((1,), **opts)
     code = lib.ilqr_open_loop_rollout(
-        model, integ, system.n_x, system.n_u, params.data_ptr(),
+        model, integ, system.newton_iters, system.n_x, system.n_u,
+        params.data_ptr(),
         params.numel(), x0.data_ptr(), U.data_ptr(), N, cost.data_ptr(),
         X.data_ptr(), stream)
     _build.check(lib, code, "open-loop rollout kernel")
@@ -186,12 +205,13 @@ def linesearch_costs_fused(system: System, x0, alphas, X_old, U_old, u_ff, K):
                                    K)[2]
     if x0.device.type != "cuda":
         raise ValueError(f"no rollout kernel for device {x0.device}")
+    X_old, U_old, u_ff, K = map(aligned, (X_old, U_old, u_ff, K))
     _check(system, x0, X_old, U_old, u_ff, K)
-    with torch.cuda.device(x0.device):
+    with _build.on_device(x0.device):
         lib = _build.load().lib
         costs = launch_costs(lib, system, x0, alphas.contiguous(), X_old,
                              U_old, u_ff, K,
-                             torch.cuda.current_stream(x0.device).cuda_stream)
+                             _build.current_stream(x0.device))
     _build.count_launch(KERNEL_COSTS)
     return costs
 
@@ -203,12 +223,13 @@ def closed_loop_rollout_fused(system: System, x0, alpha: float, X_old, U_old,
         return closed_loop_rollout(system, x0, alpha, X_old, U_old, u_ff, K)
     if x0.device.type != "cuda":
         raise ValueError(f"no rollout kernel for device {x0.device}")
+    X_old, U_old, u_ff, K = map(aligned, (X_old, U_old, u_ff, K))
     _check(system, x0, X_old, U_old, u_ff, K)
-    with torch.cuda.device(x0.device):
+    with _build.on_device(x0.device):
         lib = _build.load().lib
         out = launch_trajectory(
             lib, system, x0, float(alpha), X_old, U_old, u_ff, K,
-            torch.cuda.current_stream(x0.device).cuda_stream)
+            _build.current_stream(x0.device))
     _build.count_launch(KERNEL_TRAJECTORY)
     return out
 
@@ -220,10 +241,11 @@ def open_loop_rollout_fused(system: System, x0, U):
         return rollout(system, x0, U)
     if x0.device.type != "cuda":
         raise ValueError(f"no rollout kernel for device {x0.device}")
+    U = aligned(U)
     _check(system, x0, None, U, None, None)
-    with torch.cuda.device(x0.device):
+    with _build.on_device(x0.device):
         lib = _build.load().lib
         out = launch_open_loop(
-            lib, system, x0, U, torch.cuda.current_stream(x0.device).cuda_stream)
+            lib, system, x0, U, _build.current_stream(x0.device))
     _build.count_launch(KERNEL_OPEN_LOOP)
     return out

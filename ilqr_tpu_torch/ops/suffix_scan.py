@@ -101,10 +101,10 @@ def suffix_scan_fused(elems: RiccatiElement,
             f"the CUDA suffix scan is instantiated for n_x in {NX}, got "
             f"{n_x}: ROADMAP item B6w")
     _check(elems)
-    with torch.cuda.device(device):
+    with _build.on_device(device):
         lib = _build.load().lib
         out = launch(lib, elems, layout,
-                     torch.cuda.current_stream(device).cuda_stream)
+                     _build.current_stream(device))
     _build.count_launch(KERNEL[layout])
     return out
 

@@ -4,8 +4,9 @@ On CPU tensors the fused rollout wrappers run their plain versions
 (`linesearch_rollouts`, `closed_loop_rollout` and `rollout`); the CUDA
 kernels are checked against those on the GPU by chip_smoke.py.  Here the
 CPU paths are held against the JAX Pallas kernels in interpret mode (the
-line search, and the batched open loop at B = 1) and the JAX scan
-rollouts, in f32 and in f64 (JAX under `enable_x64_oracle`).
+line search under explicit and implicit integrators, and the batched open
+loop at B = 1) and the JAX scan rollouts, in f32 and in f64 (JAX under
+`enable_x64_oracle`).
 """
 import jax
 import jax.numpy as jnp
@@ -26,7 +27,7 @@ from ilqr_tpu.utils.x64 import enable_x64_oracle
 
 import ilqr_tpu_torch as itt
 from ilqr_tpu_torch.convert import system_from_numpy
-from ilqr_tpu_torch.ops import fused_rollout
+from ilqr_tpu_torch.ops import batched, fused_rollout
 
 torch.set_num_threads(1)
 
@@ -217,6 +218,48 @@ def test_params_buffer_layout():
                                [9.0, 2.0, 0.5])
 
 
+@pytest.mark.parametrize("name,integrator,N", [
+    ("pendulum", "backward_euler", 50),
+    ("pendulum", "trapezoidal", 50),
+    ("ua_dp", "backward_euler", 40),
+    ("ua_dp", "trapezoidal", 40),
+])
+def test_rollout_wrappers_match_jax_pallas_kernels_implicit_interpret(
+        name, integrator, N):
+    """The CPU paths of the three wrappers under the implicit integrators
+    against the Pallas kernels that trace them, run by the JAX package's
+    interpret mode (f32): the line-search costs and one α's trajectory, and
+    the open loop as the trajectory kernel with zero gains (u = U_old).
+    These are the functions the kernels' implicit instantiations compute."""
+    jsys = _jax_system(name, integrator)
+    x0, U_old, u_ff, K = _inputs(jsys, N, seed=3 * N)
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    X, _ = jax.jit(jax_rollout)(jsys, f(x0), f(U_old))
+    ref_costs = linesearch_costs_pallas(jsys, f(x0), f(ALPHAS), X, f(U_old),
+                                        f(u_ff), f(K), interpret=True)
+    ref_traj = closed_loop_rollout_pallas(jsys, f(x0), 0.5, X, f(U_old),
+                                          f(u_ff), f(K), interpret=True)
+    ref_open = closed_loop_rollout_pallas(
+        jsys, f(x0), 0.0, X, f(U_old), jnp.zeros_like(f(u_ff)),
+        jnp.zeros_like(f(K)), interpret=True)
+    sys_ = _port(jsys, name, torch.float32)
+    assert fused_rollout.device_model(sys_)[1] == (
+        3 if integrator == "backward_euler" else 4)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    rtol = RTOL[torch.float32]
+    _close(itt.linesearch_costs_fused(sys_, t(x0), t(ALPHAS), t(X), t(U_old),
+                                      t(u_ff), t(K)),
+           np.asarray(ref_costs), rtol, "costs")
+    X1, U1, c1 = itt.closed_loop_rollout_fused(sys_, t(x0), 0.5, t(X),
+                                               t(U_old), t(u_ff), t(K))
+    for what, g, r in (("X", X1, ref_traj[0]), ("U", U1, ref_traj[1]),
+                       ("cost", c1, ref_traj[2])):
+        _close(g, np.asarray(r), rtol, f"trajectory {what}")
+    X0, c0 = itt.open_loop_rollout_fused(sys_, t(x0), t(U_old))
+    _close(X0, np.asarray(ref_open[0]), rtol, "open-loop X")
+    _close(c0, np.asarray(ref_open[2]), rtol, "open-loop cost")
+
+
 def test_device_model_covers_the_kernels_and_refuses_the_rest():
     pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
                              Q_f=np.eye(2), integrator="midpoint",
@@ -226,12 +269,67 @@ def test_device_model_covers_the_kernels_and_refuses_the_rest():
                                   R=np.eye(2), Q_f=np.eye(4),
                                   integrator="rk4", device="cpu")
     assert fused_rollout.device_model(dp) == (1, 2)
-    for integ in ("backward_euler", "trapezoidal", "discrete"):
-        with pytest.raises(NotImplementedError, match="B2m"):
-            fused_rollout.device_model(dp.with_integrator(integ))
+    assert fused_rollout.device_model(
+        dp.with_integrator("backward_euler")) == (1, 3)
+    assert fused_rollout.device_model(
+        pend.with_integrator("trapezoidal")) == (0, 4)
+    with pytest.raises(NotImplementedError, match="B2m"):
+        fused_rollout.device_model(dp.with_integrator("discrete"))
     with pytest.raises(NotImplementedError, match="B2m"):
         fused_rollout.device_model(dp.replace(
             stage_cost=lambda p, x, u: (x * x).sum()))
+
+
+def test_batched_rollout_entries_refuse_implicit_integrators():
+    """B5 (the batched entries) stays explicit-only, as JAX's batched
+    kernel does: its launchers refuse the implicit integrators by name,
+    before touching the library, and keep B2m's refusals."""
+    N, B = 4, 2
+    x0s, U = torch.zeros(B, 4), torch.zeros(B, N, 2)
+    X, u_ff, K = torch.zeros(B, N + 1, 4), torch.zeros(B, N, 2), torch.zeros(
+        B, N, 2, 4)
+    for integ in ("backward_euler", "trapezoidal"):
+        dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
+                                      R=np.eye(2), Q_f=np.eye(4),
+                                      integrator=integ, device="cpu")
+        with pytest.raises(NotImplementedError, match="B5i"):
+            batched.launch_costs(None, dp, x0s, torch.ones(1), X, U, u_ff, K,
+                                 None)
+        with pytest.raises(NotImplementedError, match="B5i"):
+            batched.launch_trajectory(None, dp, x0s, None, None, U, None,
+                                      None, None)
+    with pytest.raises(NotImplementedError, match="B2m"):
+        batched.launch_costs(None, dp.with_integrator("discrete"), x0s,
+                             torch.ones(1), X, U, u_ff, K, None)
+
+
+@pytest.mark.parametrize("offset_floats", [1, 2])
+def test_aligned_copies_misaligned_views_and_keeps_aligned_tensors(
+        offset_floats):
+    """`aligned` (what the wrappers hand the kernels): a row view at a 4-
+    or 8-byte offset, such as U_prev[1:] of an (N, 1) or (N, 2) tensor, is
+    contiguous but misaligned; it comes back as an equal, aligned copy.  An
+    aligned contiguous tensor comes back as itself, and a non-contiguous
+    one as a contiguous copy."""
+    n_u = offset_floats
+    U_prev = torch.arange(501.0 * n_u).reshape(501, n_u)
+    view = U_prev[1:]
+    assert view.is_contiguous()
+    assert view.data_ptr() % fused_rollout.ALIGN_BYTES == 4 * offset_floats
+    got = fused_rollout.aligned(view)
+    assert got.data_ptr() % fused_rollout.ALIGN_BYTES == 0
+    assert got.is_contiguous() and torch.equal(got, view)
+    assert fused_rollout.aligned(U_prev) is U_prev
+    strided = torch.zeros(6, 4)[:, ::2]
+    out = fused_rollout.aligned(strided)
+    assert out.is_contiguous() and torch.equal(out, strided)
+    dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
+                                  R=np.eye(2), Q_f=np.eye(4),
+                                  integrator="euler", device="cpu")
+    assert fused_rollout._check(dp, torch.zeros(4), None,
+                                fused_rollout.aligned(
+                                    torch.zeros(2 * 9 + 1)[1:].view(9, 2)),
+                                None, None) == 9
 
 
 def test_kernel_input_checks_refuse_what_the_kernel_does_not_take():
