@@ -10,10 +10,13 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
 (sm_90a), then:
 
 1. prints the GPU's name and power limit, the torch and CUDA versions and
-   the kernel build time (with each kernel's registers and spills), and the
-   loops of the DP flagship's rollout kernels in SASS (instructions, loads
-   from shared, global, constant and local memory) where the toolkit has
-   cuobjdump;
+   the kernel build time (with each kernel's registers and spills; the
+   chain and look-back kernels must not spill), and the loops of the DP
+   flagship's rollout kernels in SASS (instructions, loads from shared,
+   global, constant and local memory) where the toolkit has cuobjdump;
+   and counts by torch.profiler the kernels a call launches: one for B1,
+   B1d, B3, B6 and B7, three for the first designs of B3, B6 and B7
+   (the kernels line's launches per call);
 2. checks the fused backward pass (B1, one launch) against its plain
    version on the double-pendulum, pendulum and under-actuated
    double-pendulum expansions, at N = 500, at the tile edges (N + 1 = T - 1,
@@ -45,19 +48,24 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    (backward-Euler solver, midpoint plant, H = 200, cut to MPC_STEPS
    steps) through the kernels, its first steps held to the same loop with
    rollout='scan';
-5. times B1 against its first (three-launch) design in turns, device time
-   per launch (torch.profiler) and the wrapper's host time per call, at
-   N = 500, 1411 and 131072 and with defects at 100000; each kernel and its
+5. times B1 (device time per call by CUDA events around calls queued
+   behind a spin kernel, the wrapper's host time per call, CUDA events
+   over back-to-back calls) at N = 500, 1411 and 131072 and with defects
+   at 100000; each kernel and its
    plain version with CUDA events; the initial rollout by kernel and by
    host loop; the double-pendulum solve per iteration with kernels against
    plain engines and B1's share of it; the B2 kernels against the old
    design in turns on the bench's DP line-search cell at N = 500 and 100000
    (ns per step and fixed µs beside the bound); and the implicit
    instantiations' ns per step on the pendulum and UA-DP goldens;
-6. checks the affine prefix scan (B3) against its plain version on seeded
-   random chains at N = 500, 1411 (crosses 5 blocks, ends mid-block) and
-   100000, with 1 and 10 candidates and n = 2 and 4, and on the DP
-   closed-loop transition f_x + f_u K along the solved trajectory;
+6. checks the affine prefix scan (B3, one launch) against its plain
+   version on seeded random chains at N = 1, T - 1, T, T + 1 for its
+   T-step tiles, 5T + T/2 + 3 (crosses 5 tile edges, ends mid-tile),
+   T (T + 1) + 1 (T + 2 tiles), more tiles than are resident at once (from
+   the occupancy the CUDA runtime reports, printed), 500 and 100000, with
+   1 and 10 candidates and n = 2 and 4, and on the DP closed-loop
+   transition f_x + f_u K along the solved trajectory, each call twice
+   with equal bits required;
 7. checks the backward pass with multiple-shooting defects (B1d) against
    its plain version on the DP and pendulum expansions with seeded gaps at
    N = 500 (400), 1411 and 131072;
@@ -71,8 +79,10 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
 11. runs the multiple-shooting pendulum solve at N = 100000 (rk4, maxiter
    60, tol 1e-5, init_rollout='defect') with the kernels and with the plain
    engines and holds the two to each other;
-12. times B3 and B1d against their plain versions and the stages of the
-   parallel-in-time solves;
+12. times B3 against its first (three-launch) design in turns (device µs,
+   host µs, events, as B1 in phase 5) at the DP defect solve's shape (N = 500,
+   10 candidates) and at N = 100000, B3 and B1d against their plain
+   versions, and the stages of the parallel-in-time solves;
 13. checks the batched backward pass (B4) against its plain version on
    double-pendulum expansions along seeded random-control rollouts from
    bench.py's batched initial states, at B = 1024, 1000 and 1 (N = 128),
@@ -94,10 +104,15 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
 17. runs run_mpc on the double pendulum through B1 and B2 and run_mpc_ms
    on the pendulum through B1d and B3;
 18. checks the standalone suffix scan, B6 (layout 'sub') and B7 ('lane'),
-   against its plain version in all five fields, on the Riccati elements of
-   the pendulum and double-pendulum expansions of bench.py's limited cell
-   (tiled to M = 1411, 32769 and 131073), with and without the terminal
-   element, and times both against the plain scan;
+   one launch each, against its plain version in all five fields, on the
+   Riccati elements of the pendulum and double-pendulum expansions of
+   bench.py's limited cell, at each layout's tile edges (M = 1, T - 1, T,
+   T + 1), 5T + T/2 + 3, T (T + 1) + 1 and more tiles than are resident,
+   and tiled to M = 1411, 32769 and 131073 with and without the terminal
+   element, each call twice with equal bits required; and times both
+   against their first (three-launch) designs in turns at M = 301 (the
+   limited pendulum solve's), the DP's 151 (the limited-DDP swing-up's),
+   32769 and the DP's 131073;
 19. runs bench.py's limited-backward cell at full size (pendulum rk4,
    N = 32768, U = clip(2.5 sin, +-2)) through backward_pass_limited_parallel
    with the kernel engine and the plain one, prints their sweep counts and
@@ -278,7 +293,11 @@ def kernel_name(key: str) -> str:
 def device_us(fn, reps: int) -> dict:
     """{kernel name: (device µs per call, launches per call)} of the kernels
     fn launches, from torch.profiler's CUDA activity over reps calls after
-    one warm-up call.  Raises when the profiler records no device time."""
+    one warm-up call, the calls padded by 20 ms of host time on each side
+    inside the profiled window.  Raises when the profiler recorded no
+    device time.  Late in a long run it can lose kernel records (a
+    fractional launch count shows it), so only phase 1 uses it, to count
+    launches; `queued_us` times the device without it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -287,9 +306,11 @@ def device_us(fn, reps: int) -> dict:
         warnings.simplefilter("ignore")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.02)
     out = {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -300,8 +321,40 @@ def device_us(fn, reps: int) -> dict:
         if t > 0:
             out[e.key] = (t / reps, e.count / reps)
     if not out:
-        raise RuntimeError("torch.profiler recorded no device time")
+        raise AssertionError("torch.profiler recorded no device time")
     return out
+
+
+# Cycles of the spin kernel that `queued_us` queues its calls behind:
+# ~11 ms at the H100's 1.755 GHz boost clock, longer than the host takes
+# to queue 20 calls of any wrapper timed here.  A turn whose queueing
+# outlasts the spin is taken again behind a 4x and a 16x longer spin.
+SPIN_CYCLES = 20_000_000
+
+
+def queued_us(fn, reps: int = 20) -> float | None:
+    """Device µs per call by CUDA events around reps back-to-back calls
+    queued behind a spin kernel (torch.cuda._sleep), so that the device
+    runs them without waiting for the host: a call's device time, launch
+    gaps included, without CUPTI.  None when the host's queueing outlasted
+    even the longest spin (the window would then hold host time)."""
+    fn()
+    torch.cuda.synchronize()
+    for cycles in (SPIN_CYCLES, 4 * SPIN_CYCLES, 16 * SPIN_CYCLES):
+        spin, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        queued = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if queued < spin.elapsed_time(start):
+            return start.elapsed_time(end) * 1e3 / reps
+    return None
 
 
 def host_us(fn, reps: int) -> float:
@@ -319,53 +372,82 @@ def host_us(fn, reps: int) -> float:
     return host
 
 
-def b1_timing(itt, smi, cases) -> dict:
-    """Phase 5 for B1: the kernel (one launch) against its first design
-    (three launches, a sum and a compare: fused_riccati.launch_blocked
-    behind the same checks) in turns (old, new, new, old, three times), on
-    each case {label: (exp, defects)}: device µs per call by kernel, the
-    wrapper's host µs per call, and CUDA-event ms per call over 50
+def ms_text(us: float | None) -> str:
+    """A device time in µs as ms for a printed line, or "not measured"."""
+    return "not measured" if us is None else f"{us * 1e-3:.4f}"
+
+
+def design_timing(smi, kernel: str, cases) -> dict:
+    """A kernel's designs timed in turns, on each case {label: {design:
+    fn}}: with a first design ("old") beside the new one, (old, new, new,
+    old) x 3, else six turns of the new.  Each turn gives device µs per call
+    by CUDA events around calls queued behind a spin kernel (`queued_us`),
+    the wrapper's host µs per call, and CUDA-event ms per call over 50
     back-to-back calls (what earlier PRs reported).  Returns, per label and
-    design, the medians."""
-    from ilqr_tpu_torch.ops import _build, fused_riccati
-
-    def old(exp, d):
-        fused_riccati._check(exp, d)
-        with _build.on_device(exp.f_x.device):
-            return fused_riccati.launch_blocked(
-                _build.load().lib, exp, 0.0,
-                _build.current_stream(exp.f_x.device), d)
-
-    designs = {"new": lambda exp, d: itt.backward_pass_fused(exp, 0.0, d),
-               "old": old}
+    design, the medians; the device time is None when a turn could not
+    measure it.  Launches per call are counted in phase 1."""
     out = {}
-    print(f"B1 timing on {smi}, in turns (old, new, new, old) x 3: device "
-          f"µs per call (torch.profiler, by kernel), wrapper host µs per "
-          f"call, CUDA-event ms per call:")
-    for label, (exp, d) in cases.items():
-        turns = {"new": [], "old": []}
-        for which in ("old", "new", "new", "old") * 3:
-            fn = lambda: designs[which](exp, d)
-            dev = device_us(fn, 10)
-            turns[which].append((sum(v[0] for v in dev.values()),
-                                 sum(v[1] for v in dev.values()), dev,
-                                 host_us(fn, 100), cuda_ms(fn, 50, 2)))
+    print(f"{kernel} timing on {smi}, in turns: device µs per call (CUDA "
+          f"events behind a spin kernel), wrapper host µs per call, "
+          f"CUDA-event ms per call:")
+    for label, designs in cases.items():
+        order = (("old", "new", "new", "old") * 3 if "old" in designs
+                 else ("new",) * 6)
+        turns = {which: [] for which in designs}
+        for which in order:
+            fn = designs[which]
+            turns[which].append((queued_us(fn), host_us(fn, 100),
+                                 cuda_ms(fn, 50, 2)))
         out[label] = {}
-        for which in ("new", "old"):
-            runs = turns[which]
-            med = [float(np.median([r[i] for r in runs])) for i in (0, 3, 4)]
-            out[label][which] = dict(device_us=med[0], host_us=med[1],
-                                     event_ms=med[2],
-                                     launches=runs[0][1])
-            kinds = "; ".join(f"{kernel_name(k)} {v[0]:.1f} µs x {v[1]:g}"
-                              for k, v in runs[0][2].items())
-            print(f"  B1 {label} {which}: device {med[0]:.1f} µs "
-                  f"({'/'.join(f'{r[0]:.1f}' for r in runs)}) in "
-                  f"{runs[0][1]:g} launches [{kinds}]; "
-                  f"host {med[1]:.1f} µs "
-                  f"({'/'.join(f'{r[3]:.1f}' for r in runs)}); events "
-                  f"{med[2]:.4f} ms ({'/'.join(f'{r[4]:.4f}' for r in runs)})")
+        for which, runs in turns.items():
+            queued = [r[0] for r in runs]
+            device = (None if None in queued
+                      else float(np.median(queued)))
+            host, event = (float(np.median([r[i] for r in runs]))
+                           for i in (1, 2))
+            out[label][which] = dict(device_us=device, host_us=host,
+                                     event_ms=event)
+            print(f"  {kernel} {label} {which}: device "
+                  f"{'not measured' if device is None else f'{device:.1f} µs'}"
+                  f" by queued events ("
+                  f"{'/'.join('-' if q is None else f'{q:.1f}' for q in queued)}"
+                  f"); host {host:.1f} µs "
+                  f"({'/'.join(f'{r[1]:.1f}' for r in runs)}); events "
+                  f"{event:.4f} ms ({'/'.join(f'{r[2]:.4f}' for r in runs)})")
     return out
+
+
+def timing_columns(t: dict, launches: dict | None = None
+                   ) -> tuple[float, dict]:
+    """A kernels-line row's ms (CUDA events over back-to-back calls, as
+    every row) and its other timings, of the new design and, where it was
+    timed, of the first one, from one `design_timing` case: device ms by
+    queued events (null where not measured), the wrapper's host ms, and
+    the launches per call that phase 1 counted ({design: launches})."""
+    cols = {}
+    for which, prefix in (("new", ""), ("old", "old_")):
+        if which not in t:
+            continue
+        d = t[which]
+        dev_us = d["device_us"]
+        cols.update({f"{prefix}device_ms": (None if dev_us is None
+                                            else dev_us * 1e-3),
+                     f"{prefix}wrapper_host_ms": d["host_us"] * 1e-3})
+        if launches is not None and which in launches:
+            cols[f"{prefix}launches_per_call"] = launches[which]
+        if which == "old":
+            cols["old_ms"] = d["event_ms"]
+    return t["new"]["event_ms"], cols
+
+
+def first_design(launch_blocked, device, *args):
+    """A call of a kernel's first design (a wrapper's ``launch_blocked``,
+    on inputs that passed the new design's checks); only this script calls
+    the first designs, to time them against the new ones."""
+    from ilqr_tpu_torch.ops import _build
+    with _build.on_device(device):
+        return launch_blocked(_build.load().lib, *args,
+                              _build.current_stream(device))
 
 
 def implicit_timing(itt, dev, smi, runs) -> dict:
@@ -841,6 +923,13 @@ def bound(n_bytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def b3_bound(N: int, n: int, A: int) -> tuple[float, str]:
+    """B3's bound: P, q and delta_0 read and delta written once; the
+    sequential recursion's A N matrix-vector products (2 n^2 each)."""
+    return bound(4 * (N * n * n + A * N * n + A * n + A * (N + 1) * n),
+                 A * N * 2 * n * n)
+
+
 def riccati_step_ops(n_x: int) -> int:
     """One step of the sequential Riccati recursion, JAX's estimate for its
     batched kernel (ilqr_tpu/ops/pallas_batched.py:214)."""
@@ -1285,6 +1374,142 @@ def sass_report(lib_path) -> None:
         print(f"SASS: report failed ({type(exc).__name__}: {exc})")
 
 
+# ---- Phase 6: the affine prefix scan (B3) -------------------------------
+def random_chain(N, n, A, seed, f32):
+    """A seeded contractive chain P ~ 0.9 I + 0.05 N(0, 1), drives and
+    initial states ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    P = 0.9 * np.eye(n) + 0.05 * rng.standard_normal((N, n, n))
+    return (torch.tensor(P, **f32),
+            torch.tensor(rng.standard_normal((A, N, n)), **f32),
+            torch.tensor(rng.standard_normal((A, n)), **f32))
+
+
+def check_b3(itt, label, P, q, d0, errors):
+    """B3 against its plain version, max|kernel - plain| <= max(RTOL_B3 *
+    max|plain|, F32_FLOOR * max|plain - plain in f64|), called twice with
+    equal bits required."""
+    torch.cuda.synchronize()
+    got = itt.affine_prefix_scan_multi(P, q, d0, engine="pallas")
+    again = itt.affine_prefix_scan_multi(P, q, d0, engine="pallas")
+    plain = itt.affine_prefix_scan_multi(P, q, d0, engine="xla")
+    ref64 = itt.affine_prefix_scan_multi(P.double(), q.double(), d0.double(),
+                                         engine="xla")
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"B3 {label} N={P.shape[0]}: a repeated call "
+                             f"gave other bits")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"B3 {label}: non-finite output")
+    err, rel = rel_err(got, plain)
+    floor = rel_err(plain, ref64)[0]
+    limit = max(RTOL_B3 * float(plain.abs().max()), F32_FLOOR * floor)
+    errors["affine_prefix_scan"] = max(errors["affine_prefix_scan"], err)
+    note = (f"N={P.shape[0]} n={P.shape[-1]} A={q.shape[0]}: max abs "
+            f"error {err:.2e} (rel {rel:.1e}, limit {limit:.2e}; kernel "
+            f"vs f64 {rel_err(got, ref64)[0]:.2e}, plain vs f64 "
+            f"{floor:.2e}); repeated call bit-identical")
+    if not err <= limit:
+        raise AssertionError(f"B3 {label}: {note}")
+    print(f"B3 {label}: {note}")
+
+
+def resident_tiles(occupancy: int, label: str) -> int:
+    """Tiles resident at once on the card: blocks per SM (the CUDA
+    occupancy calculator's, for the kernel as built) times the SMs."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if occupancy < 1:
+        raise AssertionError(f"{label}: occupancy query failed ({occupancy})")
+    print(f"{label}: {occupancy} blocks per SM (cudaOccupancyMaxActiveBlocks"
+          f"PerMultiprocessor) x {sms} SMs = {occupancy * sms} tiles resident")
+    return occupancy * sms
+
+
+def b3_checks(itt, lib, f32, errors, long_n=BENCH_N):
+    """Phase 6: B3 on seeded random chains, n = 2 and 4, 1 and 10
+    candidates, at N = 1, T - 1, T, T + 1 for its T-step tiles, across 5
+    tile edges ending mid-tile, at T (T + 1) + 1 (T + 2 tiles: the last
+    tile's predecessors take two poll rounds of T unless the first finds
+    an inclusive state), at more tiles than are resident at once, at the
+    DP flagship's N = 500 and at long_n."""
+    from ilqr_tpu_torch.ops import affine_scan
+    tile = affine_scan.tile_steps(lib)
+    resident = max(resident_tiles(lib.ilqr_affine_prefix_scan_occupancy(n, A),
+                                  f"B3 n={n} A={A}")
+                   for n in (2, 4) for A in (1, 10))
+    sizes = (1, tile - 1, tile, tile + 1, 5 * tile + tile // 2 + 3,
+             tile * (tile + 1) + 1, (resident + 3) * tile + tile // 2, 500,
+             long_n)
+    print(f"B3 tolerance: max|kernel - plain| <= max({RTOL_B3} * max|plain|, "
+          f"{F32_FLOOR} * max|plain - plain in f64|); tile {tile} steps; "
+          f"horizons {sizes}")
+    for N in sizes:
+        for n in (2, 4):
+            for A in (1, 10):
+                check_b3(itt, "random chain",
+                         *random_chain(N, n, A, N + 10 * n + A, f32), errors)
+
+
+def one_launch_check(itt, f32) -> dict:
+    """Phase 1: B1, B1d, B3, B6 and B7 each launch one kernel a call, by
+    torch.profiler over five calls at N = M = 600 (a seeded expansion
+    with n_x = 4, n_u = 2, and 10 candidates), early in the run, and the
+    first designs of B3, B6 and B7 their three.  Returns the launches per
+    call, {kernel: {design: launches}}, for the kernels line."""
+    from ilqr_tpu_torch.ops import affine_scan, parallel_riccati, suffix_scan
+    rng = np.random.default_rng(3)
+    N, n_x, n_u = 600, 4, 2
+    W = rng.standard_normal((N, n_u, n_u))
+
+    def t(a):
+        return torch.tensor(a, **f32)
+
+    exp = itt.TrajectoryExpansion(
+        f_x=t(np.eye(n_x) + 0.05 * rng.standard_normal((N, n_x, n_x))),
+        f_u=t(0.3 * rng.standard_normal((N, n_x, n_u))),
+        l_x=t(rng.standard_normal((N, n_x))),
+        l_u=t(rng.standard_normal((N, n_u))),
+        l_xx=t(np.broadcast_to(np.eye(n_x), (N, n_x, n_x)).copy()),
+        l_ux=t(0.1 * rng.standard_normal((N, n_u, n_x))),
+        l_uu=t(W @ W.transpose(0, 2, 1) / n_u + np.eye(n_u)),
+        v_x=t(rng.standard_normal(n_x)), v_xx=t(10.0 * np.eye(n_x)))
+    gaps = t(0.01 * rng.standard_normal((N, n_x)))
+    elems = parallel_riccati.make_elements(exp, 0.0)
+    P, q, d0 = random_chain(N, n_x, 10, 3, f32)
+    dev = P.device
+    cases = {
+        ("fused_riccati", "new"): lambda: itt.backward_pass_fused(exp, 0.0),
+        ("fused_riccati_defects", "new"): lambda: itt.backward_pass_fused(
+            exp, 0.0, gaps),
+        ("affine_prefix_scan", "new"): lambda: itt.affine_prefix_scan_multi(
+            P, q, d0, engine="pallas"),
+        ("affine_prefix_scan", "old"): lambda: first_design(
+            affine_scan.launch_blocked, dev, P, q, d0),
+        ("suffix_scan", "new"): lambda: itt.suffix_scan_fused(elems, "sub"),
+        ("suffix_scan", "old"): lambda: first_design(
+            suffix_scan.launch_blocked, dev, elems, "sub"),
+        ("suffix_scan_lane", "new"): lambda: itt.suffix_scan_fused(elems,
+                                                                   "lane"),
+        ("suffix_scan_lane", "old"): lambda: first_design(
+            suffix_scan.launch_blocked, dev, elems, "lane"),
+    }
+    out = {}
+    for (name, which), fn in cases.items():
+        rec = device_us(fn, 5)
+        launches = sum(v[1] for v in rec.values())
+        kinds = "; ".join(f"{kernel_name(k)} x {v[1]:g}"
+                          for k, v in rec.items())
+        design = "first design" if which == "old" else "kernel"
+        print(f"{name} ({design}): {launches:g} launches a call "
+              f"(torch.profiler) [{kinds}]")
+        expected = 3 if which == "old" else 1
+        if launches != expected:
+            raise AssertionError(f"{name} ({design}): {launches:g} launches "
+                                 f"a call, expected {expected}")
+        out.setdefault(name, {})[which] = launches
+    return out
+
+
 # Phases 18-21: the standalone suffix scan (B6, B7) and the limited, DDP and
 # iLQG paths.
 # B6/B7 tolerance: B1's, field by field: max|kernel - plain| <=
@@ -1384,13 +1609,22 @@ def check_fields(label, got, plain, ref64, rtol, errors=None, key=None):
     return notes
 
 
-def scan_phase(itt, f32, smi, N_lim, Ms, errors):
+def scan_phase(itt, lib, f32, smi, N_lim, Ms, errors):
     """Phase 18: B6 and B7 against the plain scan on the elements of real
     expansions (the limited cell's pendulum and double pendulum, tiled
-    along time to M), with and without the terminal element, all five
-    fields; the largest errors go to ``errors``.  Returns the cells and
-    the CUDA-event times {(model, M): (B6, B7, plain)}."""
-    from ilqr_tpu_torch.ops import parallel_riccati
+    along time), all five fields, every call made twice with equal bits
+    required: at each layout's tile edges (M = 1, T - 1, T, T + 1), across
+    5 tile edges ending mid-tile, at T (T + 1) + 1 elements (T + 2 tiles:
+    two poll rounds unless the first finds an inclusive element) and at
+    more tiles than are resident at once, without the terminal element
+    (windowed products in every field); then at Ms with and without it.
+    The largest errors go to ``errors``.  Then each layout's new design
+    against its first in turns, at the limited pendulum solve's M = 301,
+    the limited-DDP double-pendulum solve's M = 151, the limited cell's
+    N_lim + 1 and the double pendulum's Ms[-1].
+    Returns the cells, the timings {layout: {label: design_timing case}}
+    and the plain scan's CUDA-event ms {label: ms}."""
+    from ilqr_tpu_torch.ops import parallel_riccati, suffix_scan
     from ilqr_tpu_torch.ops.parallel_riccati import RiccatiElement
 
     print(f"B6/B7 tolerance: field by field, max|kernel - plain| <= "
@@ -1398,51 +1632,94 @@ def scan_phase(itt, f32, smi, N_lim, Ms, errors):
           f"f64|)")
     cells = {name: limited_cell(itt, f32, N_lim, name)
              for name in ("pendulum", "double_pendulum")}
-    t_scan = {}
+
+    def elements(exp, M, terminal):
+        # With the terminal element every suffix has A = b = C = 0 (the
+        # terminal's), as on the path; the stage elements alone give
+        # windowed products in all five fields.
+        elems = parallel_riccati.make_elements(
+            tile_expansion(exp, M - 1 if terminal else M), 0.0)
+        return RiccatiElement(*(t[:M].contiguous() for t in elems))
+
+    def check(label, elems, layouts):
+        plain = parallel_riccati.suffix_scan(elems)
+        ref64 = parallel_riccati.suffix_scan(as_f64(elems))
+        for layout in layouts:
+            key = "suffix_scan_lane" if layout == "lane" else "suffix_scan"
+            torch.cuda.synchronize()
+            got = itt.suffix_scan_fused(elems, layout)
+            again = itt.suffix_scan_fused(elems, layout)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"B6/B7 {label} {layout}: a repeated "
+                                     f"call gave other bits")
+            notes = check_fields(f"B6/B7 {label} {layout}", got, plain,
+                                 ref64, RTOL_B6, errors, key)
+            print(f"{'B6' if layout == 'sub' else 'B7'} {label}: "
+                  + "; ".join(notes) + "; repeated call bit-identical")
+
+    for layout in ("sub", "lane"):
+        lane = int(layout == "lane")
+        T = suffix_scan.tile_steps(lib, layout)
+        resident = max(resident_tiles(lib.ilqr_suffix_scan_occupancy(lane, n),
+                                      f"{'B7' if lane else 'B6'} n_x={n}")
+                       for n in (2, 4))
+        sizes = (1, T - 1, T, T + 1, 5 * T + T // 2 + 3, T * (T + 1) + 1,
+                 (resident + 3) * T + T // 2)
+        print(f"{'B7' if lane else 'B6'} ({layout}): tile {T} elements; "
+              f"M {sizes}")
+        for name, (_, _, _, exp) in cells.items():
+            for M in sizes:
+                check(f"{name} M={M} stages only", elements(exp, M, False),
+                      (layout,))
     for name, (_, _, _, exp) in cells.items():
         for M in Ms:
-            # With the terminal element every suffix has A = b = C = 0 (the
-            # terminal's), as on the path; the stage elements alone give
-            # windowed products in all five fields.
-            for kind, n_steps, cut in (("with terminal", M - 1, M),
-                                       ("stages only", M, M)):
-                elems = parallel_riccati.make_elements(
-                    tile_expansion(exp, n_steps), 0.0)
-                elems = RiccatiElement(*(t[:cut].contiguous() for t in elems))
-                plain = parallel_riccati.suffix_scan(elems)
-                ref64 = parallel_riccati.suffix_scan(as_f64(elems))
-                for layout, key in (("sub", "suffix_scan"),
-                                    ("lane", "suffix_scan_lane")):
-                    torch.cuda.synchronize()
-                    got = itt.suffix_scan_fused(elems, layout)
-                    torch.cuda.synchronize()
-                    notes = check_fields(
-                        f"B6/B7 {name} M={M} {kind} {layout}", got, plain,
-                        ref64, RTOL_B6, errors, key)
-                    print(f"{'B6' if layout == 'sub' else 'B7'} {name} "
-                          f"M={M} {kind}: " + "; ".join(notes))
-                if kind == "with terminal" and (name == "pendulum"
-                                                or M == Ms[-1]):
-                    t_scan[(name, M)] = (
-                        cuda_ms(lambda: itt.suffix_scan_fused(elems, "sub"),
-                                20, 3),
-                        cuda_ms(lambda: itt.suffix_scan_fused(elems, "lane"),
-                                20, 3),
-                        cuda_ms(lambda: parallel_riccati.suffix_scan(elems),
-                                3, 1))
+            for kind, terminal in (("with terminal", True),
+                                   ("stages only", False)):
+                check(f"{name} M={M} {kind}", elements(exp, M, terminal),
+                      ("sub", "lane"))
+
+    timed = {"pendulum M=301": elements(cells["pendulum"][3], 301, True),
+             "DP M=151": elements(cells["double_pendulum"][3], 151, True),
+             f"pendulum M={N_lim + 1}": elements(cells["pendulum"][3],
+                                                  N_lim + 1, True),
+             f"DP M={Ms[-1]}": elements(cells["double_pendulum"][3], Ms[-1],
+                                        True)}
+
+    def old(el, layout):
+        suffix_scan._check(el)
+        return first_design(suffix_scan.launch_blocked, el.A.device, el,
+                            layout)
+
+    timings = {
+        layout: design_timing(smi, kernel, {
+            label: {"new": lambda el=el, ly=layout: itt.suffix_scan_fused(el,
+                                                                          ly),
+                    "old": lambda el=el, ly=layout: old(el, ly)}
+            for label, el in timed.items()})
+        for layout, kernel in (("sub", "B6"), ("lane", "B7"))}
+    t_plain = {label: cuda_ms(lambda el=el: parallel_riccati.suffix_scan(el),
+                              3, 1) for label, el in timed.items()}
     print(f"timing on {smi} (CUDA events, ms per call):")
-    for (name, M), (ts, tl, tp) in t_scan.items():
-        print(f"  suffix scan {name} M={M}: B6 (sub) {ts:.4f}, B7 (lane) "
-              f"{tl:.4f}, plain {tp:.4f}")
-    return cells, t_scan
+    for label, tp in t_plain.items():
+        print(f"  suffix scan {label}: "
+              + ", ".join(f"{k} {timings[ly][label]['new']['event_ms']:.4f} "
+                          f"(device "
+                          f"{ms_text(timings[ly][label]['new']['device_us'])}; "
+                          f"first design "
+                          f"{ms_text(timings[ly][label]['old']['device_us'])})"
+                          for ly, k in (("sub", "B6"), ("lane", "B7")))
+              + f", plain {tp:.4f}")
+    return cells, timings, t_plain
 
 
-def suffix_phases(itt, dev, smi, N_lim=LIMITED_N, Ms=SCAN_MS,
-                  seq_cut=SEQ_CUT_N, solve_scale=1.0):
+def suffix_phases(itt, dev, smi, launches_per_call, N_lim=LIMITED_N,
+                  Ms=SCAN_MS, seq_cut=SEQ_CUT_N, solve_scale=1.0):
     """Phases 18-21: B6 and B7 against the plain scan, the bench's limited
     and limited-DDP backward cells at full size, and solves through
     ``solve(..., backward='pallas')`` with limits, DDP and adaptive_reg.
     ``solve_scale`` scales the solves' iteration budgets (1 on the GPU).
+    ``launches_per_call`` is phase 1's count, {kernel: {design: launches}}.
     Returns the kernels line's entries of B6 and B7."""
     from ilqr_tpu_torch.ops import _build, limited_parallel
 
@@ -1457,7 +1734,8 @@ def suffix_phases(itt, dev, smi, N_lim=LIMITED_N, Ms=SCAN_MS,
         t_lap = now
 
     # ---- 18. B6 and B7 against the plain scan ------------------------------
-    cells, t_scan = scan_phase(itt, f32, smi, N_lim, Ms, errors)
+    cells, t_scan, t_plain = scan_phase(itt, _build.load().lib, f32, smi,
+                                        N_lim, Ms, errors)
     lap(18)
 
     # ---- 19. the limited-backward cell at full size (bench.py:620-642) -----
@@ -1481,6 +1759,8 @@ def suffix_phases(itt, dev, smi, N_lim=LIMITED_N, Ms=SCAN_MS,
             limited_parallel._suffix_values = plain_values
         return out, calls[0]
 
+    engine_counts = {}
+
     def limited_engines(label, U_old, u_lo, u_hi, hess=None, min_clamped=0):
         """Both engines of the parallel limited pass on the limited cell's
         expansion, field by field against each other (f64 floor), with the
@@ -1495,6 +1775,8 @@ def suffix_phases(itt, dev, smi, N_lim=LIMITED_N, Ms=SCAN_MS,
                     exp_l, U_old, u_lo, u_hi, 0.0, engine=engine, hess=hess))
             torch.cuda.synchronize()
             counts = _build.launch_counts()
+            if engine == "pallas":
+                engine_counts[label] = counts
             if (engine == "pallas"
                     and counts.get("suffix_scan", 0) != sweeps[engine]):
                 raise AssertionError(f"{label} (pallas): suffix_scan launched "
@@ -1686,10 +1968,10 @@ def suffix_phases(itt, dev, smi, N_lim=LIMITED_N, Ms=SCAN_MS,
     base = dict(maxiter=iters(200), tol=1e-7, u_min=-12.0, u_max=12.0,
                 ddp=True, adaptive_reg=True)
     x0 = torch.zeros(4, **f32)
-    sol, wall, counts = timed_solve(dp2, x0, 150,
-                                    itt.IlqrConfig(backward="pallas", **base),
-                                    ("suffix_scan",))
-    report("limited DDP DP N=150 (pallas)", sol, wall, counts)
+    sol, wall, ddp_dp_launches = timed_solve(
+        dp2, x0, 150, itt.IlqrConfig(backward="pallas", **base),
+        ("suffix_scan",))
+    report("limited DDP DP N=150 (pallas)", sol, wall, ddp_dp_launches)
     print(f"limited DDP DP: final angles {sol.X[-1, :2].tolist()}; the "
           f"sequential solve's cost {DP_LIMITED_SEQ_COST} is a golden value "
           f"(not run here)")
@@ -1744,22 +2026,39 @@ def suffix_phases(itt, dev, smi, N_lim=LIMITED_N, Ms=SCAN_MS,
     lap(21)
     print(f"phases 18-21: {time.perf_counter() - t_start:.1f} s")
 
-    M_main = N_lim + 1
-    F = 3 * 2 * 2 + 2 * 2
-    b_ms, b_by = bound(2 * M_main * F * 4, M_main * combine_ops(2))
-    ts, tl, tp = t_scan[("pendulum", M_main)]
-    common = dict(route="cuda", source="ilqr_tpu_torch/csrc/suffix_scan.cu",
-                  bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    def suffix_bound(M, n_x):
+        F = 3 * n_x * n_x + 2 * n_x
+        return bound(2 * M * F * 4, M * combine_ops(n_x))
+
+    def row(name, replaces, layout, label, M, launches, err_key, n_x=2):
+        ms, more = timing_columns(t_scan[layout][label],
+                                  launches_per_call[err_key])
+        b_ms, b_by = suffix_bound(M, n_x)
+        return dict(name=name, route="cuda",
+                    source="ilqr_tpu_torch/csrc/suffix_scan.cu",
+                    replaces=replaces, launches=launches,
+                    max_abs_err=errors[err_key], ms=ms,
+                    plain_ms=t_plain[label], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, **more)
+
+    # B6 at the limited pendulum solve's shape, with that solve's launches,
+    # at the limited-DDP double-pendulum solve's, with its launches, and at
+    # the limited cell's, with its pass's; B7 at the shape of its path (the
+    # lane-layout backward pass on the limited cell).
+    sub, lane_kernel = ("ilqr_tpu/ops/pallas_riccati.py:515",
+                        "ilqr_tpu/ops/pallas_riccati.py:271")
     return [
-        dict(name="suffix_scan_sub",
-             replaces="ilqr_tpu/ops/pallas_riccati.py:515",
-             launches=limited_launches.get("suffix_scan", 0),
-             max_abs_err=errors["suffix_scan"], ms=ts, plain_ms=tp, **common),
-        dict(name="suffix_scan_lane",
-             replaces="ilqr_tpu/ops/pallas_riccati.py:271",
-             launches=lane_launches.get("suffix_scan_lane", 0),
-             max_abs_err=errors["suffix_scan_lane"], ms=tl, plain_ms=tp,
-             **common),
+        row("suffix_scan_sub", sub, "sub", "pendulum M=301", 301,
+            limited_launches.get("suffix_scan", 0), "suffix_scan"),
+        row("suffix_scan_sub_dp_m151", sub, "sub", "DP M=151", 151,
+            ddp_dp_launches.get("suffix_scan", 0), "suffix_scan", n_x=4),
+        row(f"suffix_scan_sub_m{N_lim + 1}", sub, "sub",
+            f"pendulum M={N_lim + 1}", N_lim + 1,
+            engine_counts["limited backward"].get("suffix_scan", 0),
+            "suffix_scan"),
+        row("suffix_scan_lane", lane_kernel, "lane", f"pendulum M={N_lim + 1}",
+            N_lim + 1, lane_launches.get("suffix_scan_lane", 0),
+            "suffix_scan_lane"),
     ]
 
 
@@ -1792,12 +2091,14 @@ def main() -> int:
     for line in ptxas_summary(kernels.ptxas_log):
         print(line)
     spilled = [line for line in ptxas_summary(kernels.ptxas_log)
-               if "chain_kernel" in line
+               if any(k in line for k in ("chain_kernel", "fused_kernel",
+                                          "prefix_kernel", "scan_kernel"))
                and " 0 bytes spill stores" not in line]
     if spilled:
-        raise AssertionError("the chain kernels spill registers:\n"
-                             + "\n".join(spilled))
+        raise AssertionError("the chain or look-back kernels spill "
+                             "registers:\n" + "\n".join(spilled))
     sass_report(kernels.path)
+    launches_per_call = one_launch_check(itt, f32)
     tile = fused_riccati.tile_steps(kernels.lib)
 
     pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
@@ -2111,10 +2412,12 @@ def main() -> int:
     exp_pb = tile_expansion(exp_pend, BENCH_N)
     d_pb = torch.tensor(
         0.01 * np.random.default_rng(5).standard_normal((BENCH_N, 2)), **f32)
-    b1_t = b1_timing(itt, smi, {
-        "DP N=500": (exp_dps, None), "DP N=1411": (exp_1411, None),
-        f"DP N={LONG_N}": (exp_long, None),
-        f"pendulum N={BENCH_N}, defects": (exp_pb, d_pb)})
+    b1_t = design_timing(smi, "B1", {
+        label: {"new": (lambda e=e, d=d: itt.backward_pass_fused(e, 0.0, d))}
+        for label, (e, d) in {
+            "DP N=500": (exp_dps, None), "DP N=1411": (exp_1411, None),
+            f"DP N={LONG_N}": (exp_long, None),
+            f"pendulum N={BENCH_N}, defects": (exp_pb, d_pb)}.items()})
     t_b1p = cuda_ms(lambda: itt.backward_pass_associative(exp_dps, reg0), 10, 2)
     t_b1lp = cuda_ms(lambda: itt.backward_pass_associative(exp_long, reg0), 3, 1)
     t_b1s = cuda_ms(lambda: itt.backward_pass(exp_dps, reg0), 2, 1)
@@ -2132,10 +2435,10 @@ def main() -> int:
                        50, 5)
     print(f"timing on {smi} (CUDA events, ms per call):")
     print(f"  B1 fused_riccati N=500: kernel (device) "
-          f"{b1_t['DP N=500']['new']['device_us'] * 1e-3:.4f}, plain "
+          f"{ms_text(b1_t['DP N=500']['new']['device_us'])}, plain "
           f"(associative) {t_b1p:.4f}, sequential scan {t_b1s:.2f}")
     print(f"  B1 fused_riccati N={LONG_N}: kernel (device) "
-          f"{b1_t[f'DP N={LONG_N}']['new']['device_us'] * 1e-3:.4f}, plain "
+          f"{ms_text(b1_t[f'DP N={LONG_N}']['new']['device_us'])}, plain "
           f"(associative) {t_b1lp:.4f}")
     print(f"  B2 linesearch_costs N=500, {alphas.numel()} alphas: kernel "
           f"{t_c:.4f}, plain {t_cp:.2f}")
@@ -2157,14 +2460,16 @@ def main() -> int:
 
     runs = [("pallas", "pallas", 200), ("scan", "scan", 3),
             ("scan", "scan", 3), ("pallas", "pallas", 200)]
-    b1_dev_ms = b1_t["DP N=500"]["new"]["device_us"] * 1e-3
+    b1_dev_us = b1_t["DP N=500"]["new"]["device_us"]
     for backward, rollout_engine, maxiter in runs:
         total, iters, per_iter = timed_solve(backward, rollout_engine,
                                              maxiter)
-        share = (f"; B1 {iters} launches x {b1_dev_ms:.4f} ms device = "
-                 f"{iters * b1_dev_ms:.3f} ms "
-                 f"({100 * iters * b1_dev_ms / total:.2f} % of the solve)"
-                 if backward == "pallas" else "")
+        share = ""
+        if backward == "pallas" and b1_dev_us is not None:
+            b1_ms = iters * b1_dev_us * 1e-3
+            share = (f"; B1 {iters} launches x {b1_dev_us * 1e-3:.4f} ms "
+                     f"device = {b1_ms:.3f} ms "
+                     f"({100 * b1_ms / total:.2f} % of the solve)")
         print(f"  DP solve backward={backward} rollout={rollout_engine}: "
               f"{total:.1f} ms total, {iters} iterations, {per_iter:.2f} ms "
               f"per iteration after the initial rollout{share}")
@@ -2194,49 +2499,11 @@ def main() -> int:
         return counts
 
     # ---- 6. B3 against its plain version ----------------------------------
-    block3 = affine_scan.block_steps(kernels.lib)
-    mid_n3 = 5 * block3 + block3 // 2 + 3   # crosses 5 block edges
-    print(f"B3 tolerance: max|kernel - plain| <= max({RTOL_B3} * max|plain|, "
-          f"{F32_FLOOR} * max|plain - plain in f64|); scan block {block3} "
-          f"steps")
-
-    def check_b3(label, P, q, d0):
-        torch.cuda.synchronize()
-        got = itt.affine_prefix_scan_multi(P, q, d0, engine="pallas")
-        plain = itt.affine_prefix_scan_multi(P, q, d0, engine="xla")
-        ref64 = itt.affine_prefix_scan_multi(P.double(), q.double(),
-                                             d0.double(), engine="xla")
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"B3 {label}: non-finite output")
-        err, rel = rel_err(got, plain)
-        floor = rel_err(plain, ref64)[0]
-        limit = max(RTOL_B3 * float(plain.abs().max()), F32_FLOOR * floor)
-        errors["affine_prefix_scan"] = max(errors["affine_prefix_scan"], err)
-        note = (f"N={P.shape[0]} n={P.shape[-1]} A={q.shape[0]}: max abs "
-                f"error {err:.2e} (rel {rel:.1e}, limit {limit:.2e}; kernel "
-                f"vs f64 {rel_err(got, ref64)[0]:.2e}, plain vs f64 "
-                f"{floor:.2e})")
-        if not err <= limit:
-            raise AssertionError(f"B3 {label}: {note}")
-        print(f"B3 {label}: {note}")
-
-    def random_chain(N, n, A, seed):
-        """A seeded contractive chain P ~ 0.9 I + 0.05 N(0, 1), drives and
-        initial states ~ N(0, 1)."""
-        rng = np.random.default_rng(seed)
-        P = 0.9 * np.eye(n) + 0.05 * rng.standard_normal((N, n, n))
-        return (torch.tensor(P, **f32),
-                torch.tensor(rng.standard_normal((A, N, n)), **f32),
-                torch.tensor(rng.standard_normal((A, n)), **f32))
-
-    for N in (500, mid_n3, BENCH_N):
-        for n in (2, 4):
-            for A in (1, 10):
-                check_b3("random chain", *random_chain(N, n, A, N + 10 * n + A))
+    b3_checks(itt, kernels.lib, f32, errors)
     A_cl_s = (exp_dps.f_x + exp_dps.f_u @ K_s).contiguous()
-    _, q_s, d0_s = random_chain(500, 4, 10, 7)
-    check_b3("DP closed loop f_x + f_u K, solved trajectory", A_cl_s, q_s, d0_s)
+    _, q_s, d0_s = random_chain(500, 4, 10, 7, f32)
+    check_b3(itt, "DP closed loop f_x + f_u K, solved trajectory", A_cl_s,
+             q_s, d0_s, errors)
 
     # ---- 7. B1d against its plain version ---------------------------------
     rng = np.random.default_rng(17)
@@ -2316,7 +2583,8 @@ def main() -> int:
                                                 engine=engine)
         torch.cuda.synchronize()
         if engine == "pallas":
-            launched("bench-size line search", ("affine_prefix_scan",))
+            ls_counts = launched("bench-size line search",
+                                 ("affine_prefix_scan",))
     n_alpha_b = alphas.numel()
     costs_k, defects_k = (t.cpu().numpy() for t in ls["pallas"][2:])
     costs_p, defects_p = (t.cpu().numpy() for t in ls["xla"][2:])
@@ -2430,17 +2698,25 @@ def main() -> int:
             raise AssertionError(f"the MS bench solve never launched {kernel}")
 
     # ---- 12. timing of B3 and B1d, and the parallel-in-time stages --------
-    P5, q5, d5 = random_chain(500, 4, 10, 5)
-    P1, q1, d1 = random_chain(500, 4, 1, 6)
+    # B3 at the DP defect solve's shape (the closed-loop transition along
+    # the solved trajectory, 10 candidates) and the bench's, new against
+    # the first design in turns.
     Pb = (exp_b.f_x + exp_b.f_u @ K_b).contiguous()
-    _, qb, db = random_chain(BENCH_N, 4, 10, 8)
+    _, qb, db = random_chain(BENCH_N, 4, 10, 8, f32)
     scan = itt.affine_prefix_scan_multi
-    t_b3 = {}
-    for label, (P_, q_, d_) in (("N=500 A=1", (P1, q1, d1)),
-                                ("N=500 A=10", (P5, q5, d5)),
-                                (f"N={BENCH_N} A=10", (Pb, qb, db))):
-        t_b3[label] = (cuda_ms(lambda: scan(P_, q_, d_, engine="pallas"), 50, 5),
-                       cuda_ms(lambda: scan(P_, q_, d_, engine="xla"), 10, 2))
+    b3_cases = {"DP N=500 A=10": (A_cl_s, q_s, d0_s),
+                f"DP N={BENCH_N} A=10": (Pb, qb, db)}
+
+    def b3_old(P_, q_, d_):
+        affine_scan._check(P_, q_, d_)
+        return first_design(affine_scan.launch_blocked, dev, P_, q_, d_)
+
+    b3_t = design_timing(smi, "B3", {
+        label: {"new": lambda a=args: scan(*a, engine="pallas"),
+                "old": lambda a=args: b3_old(*a)}
+        for label, args in b3_cases.items()})
+    t_b3p = {label: cuda_ms(lambda a=args: scan(*a, engine="xla"), 10, 2)
+             for label, args in b3_cases.items()}
     exp_pl = tile_expansion(exp_pend, BENCH_N)
     d_pl = gaps(BENCH_N, 2)
     t_b1d = cuda_ms(lambda: itt.backward_pass_fused(exp_pl, 0.0, d_pl), 20, 3)
@@ -2523,9 +2799,12 @@ def main() -> int:
     }
     t_ls = {k: cuda_ms(f, 2, 1) for k, f in t_ls.items()}
     print(f"timing on {smi} (CUDA events, ms per call):")
-    for label, (tk, tp) in t_b3.items():
-        print(f"  B3 affine_prefix_scan {label} n=4: kernel {tk:.4f}, plain "
-              f"{tp:.4f}")
+    for label, tp in t_b3p.items():
+        print(f"  B3 affine_prefix_scan {label}: kernel "
+              f"{b3_t[label]['new']['event_ms']:.4f} (device "
+              f"{ms_text(b3_t[label]['new']['device_us'])}), first design "
+              f"{b3_t[label]['old']['event_ms']:.4f} (device "
+              f"{ms_text(b3_t[label]['old']['device_us'])}), plain {tp:.4f}")
     print(f"  B1d fused_riccati (defects) DP N=500: kernel {t_b1d5:.4f}, "
           f"plain (associative) {t_b1d5p:.4f}")
     print(f"  B1d fused_riccati (defects) pendulum N={BENCH_N}: kernel "
@@ -2562,8 +2841,6 @@ def main() -> int:
     b_tr = bound(4 * (traj_in + nx + 1 + (N5 + 1) * nx + N5 * nu + 1),
                  N5 * ls_ops)
     b_ol = chain_bounds(nx, nu, N5, A10)["open_loop_rollout"]
-    b_b3 = bound(4 * (BENCH_N * 16 + 10 * BENCH_N * 4 + 10 * 4
-                      + 10 * (BENCH_N + 1) * 4), 10 * BENCH_N * 2 * 16)
     b_b1d = bound(4 * (expansion_floats(BENCH_N, 2, 1) + BENCH_N * 2
                        + BENCH_N * (1 + 2) + 2), BENCH_N * riccati_step_ops(2))
 
@@ -2574,20 +2851,14 @@ def main() -> int:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
                     bound_by=b[1], library_ms=None, **more)
 
-    def b1_times(label):
-        """B1's ms (CUDA events over back-to-back calls, as every row) and
-        its other timings, new and old design."""
-        new, old = b1_t[label]["new"], b1_t[label]["old"]
-        return new["event_ms"], dict(
-            device_ms=new["device_us"] * 1e-3,
-            wrapper_host_ms=new["host_us"] * 1e-3,
-            launches_per_call=new["launches"],
-            old_ms=old["event_ms"], old_device_ms=old["device_us"] * 1e-3,
-            old_wrapper_host_ms=old["host_us"] * 1e-3,
-            old_launches_per_call=old["launches"])
-
-    b1_ms, b1_more = b1_times("DP N=500")
-    b1d_ms, b1d_more = b1_times(f"pendulum N={BENCH_N}, defects")
+    lpc = launches_per_call
+    b1_ms, b1_more = timing_columns(b1_t["DP N=500"], lpc["fused_riccati"])
+    b3_ms, b3_more = timing_columns(b3_t["DP N=500 A=10"],
+                                    lpc["affine_prefix_scan"])
+    b3l_ms, b3l_more = timing_columns(b3_t[f"DP N={BENCH_N} A=10"],
+                                      lpc["affine_prefix_scan"])
+    b1d_ms, b1d_more = timing_columns(b1_t[f"pendulum N={BENCH_N}, defects"],
+                                      lpc["fused_riccati_defects"])
     b_imp = chain_bounds(2, 1, 400, A10, model="pendulum",
                          integrator="backward_euler")
     imp_source = {"linesearch_costs": "pallas_rollout.py:92",
@@ -2606,10 +2877,17 @@ def main() -> int:
         entry("open_loop_rollout", "chain_rollout.cu",
               "pallas_rollout.py:132", launches.get("open_loop_rollout", 0),
               errors["open_loop_rollout"], t_init_k, t_init, b_ol),
+        # B3 at the DP defect solve's shape, with that solve's launches,
+        # and at the bench's (N = 100000), with its line search's.
         entry("affine_prefix_scan", "affine_scan.cu", "pallas_affine.py:137",
               par_launches["defect"].get("affine_prefix_scan", 0),
-              errors["affine_prefix_scan"], t_b3[f"N={BENCH_N} A=10"][0],
-              t_b3[f"N={BENCH_N} A=10"][1], b_b3),
+              errors["affine_prefix_scan"], b3_ms, t_b3p["DP N=500 A=10"],
+              b3_bound(500, 4, 10), **b3_more),
+        entry(f"affine_prefix_scan_n{BENCH_N}", "affine_scan.cu",
+              "pallas_affine.py:137", ls_counts.get("affine_prefix_scan", 0),
+              errors["affine_prefix_scan"], b3l_ms,
+              t_b3p[f"DP N={BENCH_N} A=10"], b3_bound(BENCH_N, 4, 10),
+              **b3l_more),
         entry("fused_riccati_defects", "fused_riccati.cu",
               "pallas_riccati.py:774", ms_launches.get("fused_riccati", 0),
               errors["fused_riccati_defects"], b1d_ms, t_b1dp, b_b1d,
@@ -2627,7 +2905,7 @@ def main() -> int:
               ua_dp_ns_per_step=imp_t["UA-DP", name]["ns_per_step"])
         for name in imp_source]
     kernels_json += batched_phases(itt, dev, smi)
-    kernels_json += suffix_phases(itt, dev, smi)
+    kernels_json += suffix_phases(itt, dev, smi, lpc)
     for k in kernels_json:
         print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "

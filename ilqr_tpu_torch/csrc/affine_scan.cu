@@ -6,56 +6,324 @@
 // Math (see ilqr_tpu_torch/ops/affine_scan.py): step k is the element
 // (P_k, q_k^(1..A)); the transition chain P is shared by the A candidates.
 // Elements combine as (P, q^a) o (P', q'^a) = (P'P, P'q^a + q'^a), earlier
-// first, and the q part of the inclusive prefix at k is delta_{k+1} once
-// the state entering the scan is folded into the first drive.
+// first.  Closing a local prefix (P_loc, q_loc) at step k against the state
+// delta_in that enters it gives delta_{k+1} = P_loc delta_in + q_loc, so a
+// state (A n floats) is all a carry across steps needs.
 //
-// What bounds it on an H100: latency and memory, not arithmetic.  A combine
-// is n^3 + A n^2 FMAs (224 at n = 4, A = 10) on F = n^2 + A n floats, and a
-// step reads P and q (F floats) and writes delta (A n floats) once; at
-// N = 100000 that is ~40 MB of traffic for ~17 doubling sweeps of tiny
-// products.  Nothing here needs tensor cores.
+// What bounds it on an H100.  By its counts, the bytes: a step reads P and
+// q (n^2 + A n floats) and writes delta (A n floats) once, 38 MB at
+// N = 100000, n = 4, A = 10 (11 us at 3.35 TB/s), against n^3 + A n^2 FMAs
+// a combine.  In practice latency, in two parts: the warp scan, 56
+// shuffles and ~224 FMAs a level at n = 4, A = 10, on 16 warps an SM (128
+// registers a thread), before a tile's aggregate is out; and the
+// look-back, a chain of one affine map per tile, since tiles that run at
+// once publish their aggregates together and each then folds nearly all
+// of its predecessors.  Nothing here needs tensor cores.
 //
-// Design.  The TPU kernel walks its blocks left to right on a sequential
-// grid and carries the whole prefix element (F fields) in SMEM.  CUDA blocks
-// run in no order, so the carry is its own pass, and it carries a state:
-// closing a block's local prefix (P_loc, q_loc) at step k against the delta
-// that enters the block gives delta_{k+1} = P_loc delta_in + q_loc, so only
-// A n floats cross each block edge.
-//   1. scan_kernel (aggregate mode): one thread per step loads its element
-//      (the identity beyond N), runs a Hillis-Steele inclusive prefix scan
-//      over kScanSteps elements in shared memory (field-major) and writes
-//      only the block aggregate (the prefix at the block's last step).
-//   2. walk_kernel: one thread per candidate walks the block aggregates
-//      left to right from delta_0, staging them through shared memory in
-//      chunks, and writes the state entering every block (and delta_0).
-//   3. scan_kernel (final mode): the same local scan, with the state that
-//      enters the block folded into its first drive (q_s += P_s delta_in),
-//      so the local q prefix is delta itself; writes delta_{k+1}.
-// Only delta leaves the chip: the P chain and the local prefixes stay in
-// registers and shared memory (pass 1 recomputes what pass 3 needs instead
-// of storing N elements).  Each thread keeps its own q for up to kMaxCand
-// candidates in registers: the candidate loops are unrolled to kMaxCand with
-// a runtime guard, so A stays a runtime count.
+// Design (prefix_kernel): one launch, one block per tile of kTileSteps
+// steps; no per-step data makes a round trip through device memory.
+//   1. Tiles take tickets from the left (lookback.cuh, shared with B1 and
+//      B6/B7).  One thread per step loads (P_k, q_k^(1..A)) once (the
+//      identity beyond N) and the warp scans its 32 steps by shuffles:
+//      five levels, no barrier, each thread's element in registers.  The
+//      candidate loops are unrolled to C (1, or kMaxCand) with a runtime
+//      guard, so A stays a runtime count.
+//   2. The 8 warp aggregates go through shared memory; the tile aggregate
+//      is their chain: lanes 0..A-1 of warp 0 carry q^a (x <- P_w x + q_w^a
+//      from the first warp's q^a), lane 0 of warp 1 the product of the P_w.
+//      The tile publishes it (n^2 + A n floats).
+//   3. Look-back: lanes 0..A-1, one per candidate, carry the nearest
+//      published inclusive state (or delta_0) through the aggregates in
+//      between and this tile's own, delta <- P_agg delta + q_agg^a, keep
+//      the state delta_in that enters the tile, and publish the state at
+//      its last step (A n floats).
+//   4. The same lanes carry delta_in through the warp aggregates to the
+//      state entering each warp; each step closes its warp-local prefix,
+//      delta_{k+1} = P_w,k delta_w + q_w,k^a, and writes it.  No second
+//      scan: the local prefixes stay in registers.
+// Scratch (per device, stream and shape, zeroed once by the wrapper):
+// counters [ticket, done, status (n_tiles)] and floats [aggregates
+// (n_tiles, n^2 + A n), inclusive states (n_tiles, A n)].
+//
+// The first design (scan_kernel, walk_kernel: a blocked scan for the block
+// aggregates, one thread per candidate walking them, the same scan again
+// with the carry folded in; three launches) stays callable as
+// ilqr_affine_prefix_scan_blocked, for timing against the new design on
+// the card; only chip_smoke.py calls it.
 #include <cuda_runtime.h>
+
+#include "lookback.cuh"
+#include "smallmat.cuh"
 
 namespace {
 
-constexpr int kScanSteps = 256;  // steps per scan block (threads of 1 and 3)
+using namespace ilqr;
+using lookback::kFromLeft;
+
+constexpr int kTileSteps = 256;  // steps of a tile = threads of its block
+constexpr int kWarps = kTileSteps / 32;
 constexpr int kMaxCand = 16;     // most candidates a launch takes
+constexpr int kStageTiles = 64;  // aggregates staged per look-back round
 constexpr int kWalkThreads = 128;
 constexpr int kWalkChunk = 64;   // block aggregates staged per walk round
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// x <- P x + q: an element's affine map on one candidate's state.
+template <int NX>
+__device__ __forceinline__ void affine_step(const float* P, const float* q,
+                                            float* x) {
+  float y[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    float s = q[i];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) s += P[i * NX + j] * x[j];
+    y[i] = s;
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = y[i];
+}
+
+// Inclusive prefix of the elements (p, v) of a warp's lanes: at distance
+// d, lane l takes lane l - d as the earlier operand, P = P_l P_{l-d},
+// q^a = P_l q^a_{l-d} + q^a_l.  Lanes below d keep theirs.
+template <int NX, int C>
+__device__ __forceinline__ void warp_prefix(float* p, float (*v)[NX], int A,
+                                            int lane) {
+  constexpr int NN = NX * NX;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const bool take = lane >= d;
+#pragma unroll
+    for (int a = 0; a < C; ++a) {
+      if (a < A) {
+        float qp[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+          qp[i] = __shfl_up_sync(kFullMask, v[a][i], d);
+        if (take) {
+          float y[NX];
+#pragma unroll
+          for (int i = 0; i < NX; ++i) {
+            float s = v[a][i];
+#pragma unroll
+            for (int j = 0; j < NX; ++j) s += p[i * NX + j] * qp[j];
+            y[i] = s;
+          }
+#pragma unroll
+          for (int i = 0; i < NX; ++i) v[a][i] = y[i];
+        }
+      }
+    }
+    float pp[NN];
+#pragma unroll
+    for (int f = 0; f < NN; ++f) pp[f] = __shfl_up_sync(kFullMask, p[f], d);
+    if (take) {
+      float pn[NN];
+      mm<NX, NX, NX>(p, pp, pn);
+#pragma unroll
+      for (int f = 0; f < NN; ++f) p[f] = pn[f];
+    }
+  }
+}
+
+// Shared memory of prefix_kernel, in floats, at A candidates.
+constexpr int prefix_smem_floats(int NX, int A) {
+  return kWarps * (NX * NX + A * NX)   // the warp aggregates
+         + kWarps * A * NX            // the state entering each warp
+         + kStageTiles * (NX * NX + A * NX);   // staged tile aggregates
+}
+
+template <int NX, int C>
+__global__ void __launch_bounds__(kTileSteps)
+prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
+              const float* __restrict__ delta0, int N, int A, int n_tiles,
+              int* __restrict__ counters, float* __restrict__ scratch,
+              float* __restrict__ out) {
+  constexpr int NN = NX * NX;
+  const int F = NN + A * NX;   // an element or aggregate: P, then q^1..A
+  const int S = A * NX;        // a state of every candidate
+  extern __shared__ __align__(16) float sm[];
+  __shared__ lookback::Slots slots;
+  float* wagg = sm;                  // (kWarps, F)
+  float* win = wagg + kWarps * F;    // (kWarps, S)
+  float* stage = win + kWarps * S;   // (kStageTiles, F)
+  int* status = counters + 2;
+  float* aggs = scratch;                        // (n_tiles, F)
+  float* incl = aggs + (size_t)n_tiles * F;     // (n_tiles, S)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // 1. The tile in start order from the left; its elements, scanned by
+  // warps.
+  const int p = lookback::take_tile<kFromLeft>(counters, n_tiles, &slots);
+  const int k = p * kTileSteps + tid;
+  float pm[NN], v[C][NX];
+  if (k < N) {
+#pragma unroll
+    for (int f = 0; f < NN; ++f) pm[f] = P[(size_t)k * NN + f];
+#pragma unroll
+    for (int a = 0; a < C; ++a) {
+      if (a < A) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+          v[a][i] = q[((size_t)a * N + k) * NX + i];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < NN; ++f) pm[f] = (f / NX == f % NX) ? 1.0f : 0.0f;
+#pragma unroll
+    for (int a = 0; a < C; ++a)
+#pragma unroll
+      for (int i = 0; i < NX; ++i) v[a][i] = 0.0f;
+  }
+  warp_prefix<NX, C>(pm, v, A, lane);
+  if (lane == 31) {
+    float* w = wagg + warp * F;
+#pragma unroll
+    for (int f = 0; f < NN; ++f) w[f] = pm[f];
+#pragma unroll
+    for (int a = 0; a < C; ++a) {
+      if (a < A) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) w[NN + a * NX + i] = v[a][i];
+      }
+    }
+  }
+  if (p == 0 && tid < S) out[(size_t)(tid / NX) * (N + 1) * NX + tid % NX] =
+      delta0[tid];
+  __syncthreads();
+
+  // 2. The tile aggregate: the chain of the warp aggregates.
+  float* agg = aggs + (size_t)p * F;
+  if (warp == 0 && lane < A) {
+    float x[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = wagg[NN + lane * NX + i];
+    for (int w = 1; w < kWarps; ++w)
+      affine_step<NX>(wagg + w * F, wagg + w * F + NN + lane * NX, x);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) agg[NN + lane * NX + i] = x[i];
+    __threadfence();
+  } else if (warp == 1 && lane == 0) {
+    float pt[NN], pn[NN];
+#pragma unroll
+    for (int f = 0; f < NN; ++f) pt[f] = wagg[f];
+    for (int w = 1; w < kWarps; ++w) {
+      mm<NX, NX, NX>(wagg + w * F, pt, pn);
+#pragma unroll
+      for (int f = 0; f < NN; ++f) pt[f] = pn[f];
+    }
+#pragma unroll
+    for (int f = 0; f < NN; ++f) agg[f] = pt[f];
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) lookback::publish(&status[p], lookback::kAggregate);
+
+  // 3. Look-back, one lane per candidate: the nearest inclusive state to
+  // the left (or delta_0) carried through the aggregates up to this tile's;
+  // the state before the last step is the one entering this tile.
+  const int qt = lookback::find_inclusive<kFromLeft>(counters, p, n_tiles,
+                                                     &slots);
+  float x[NX], x_in[NX];
+  if (tid < A) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+      x[i] = qt >= 0 ? __ldcg(incl + (size_t)qt * S + tid * NX + i)
+                     : delta0[tid * NX + i];
+  }
+  lookback::fold<kFromLeft, kStageTiles>(
+      aggs, F, p, qt, stage, tid < A, [&](const float* a_j) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) x_in[i] = x[i];
+        affine_step<NX>(a_j, a_j + NN + tid * NX, x);
+      });
+  if (warp == 0) {
+    if (tid < A) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) incl[(size_t)p * S + tid * NX + i] = x[i];
+      __threadfence();
+#pragma unroll
+      for (int i = 0; i < NX; ++i) win[tid * NX + i] = x_in[i];
+    }
+    __syncwarp();
+    if (lane == 0) lookback::publish(&status[p], lookback::kInclusive);
+  }
+  if (lookback::arrive(counters, n_tiles, &slots)) {
+    lookback::reset(counters, n_tiles);
+  }
+
+  // 4. The state entering each warp, then every step's delta.
+  if (tid < A) {
+    float y[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) y[i] = win[tid * NX + i];
+    for (int w = 1; w < kWarps; ++w) {
+      const float* wa = wagg + (w - 1) * F;
+      affine_step<NX>(wa, wa + NN + tid * NX, y);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) win[w * S + tid * NX + i] = y[i];
+    }
+  }
+  __syncthreads();
+  if (k < N) {
+    const float* d_in = win + warp * S;
+#pragma unroll
+    for (int a = 0; a < C; ++a) {
+      if (a < A) {
+        float y[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) y[i] = d_in[a * NX + i];
+        affine_step<NX>(pm, v[a], y);
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+          out[((size_t)a * (N + 1) + k + 1) * NX + i] = y[i];
+      }
+    }
+  }
+}
+
+template <int NX, int C>
+int run(int A, int N, const float* P, const float* q, const float* delta0,
+        int* counters, float* scratch, float* out, cudaStream_t stream) {
+  const int n_tiles = (N + kTileSteps - 1) / kTileSteps;
+  const int smem = static_cast<int>(sizeof(float) * prefix_smem_floats(NX, A));
+  cudaError_t err = cudaFuncSetAttribute(
+      prefix_kernel<NX, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prefix_kernel<NX, C><<<n_tiles, kTileSteps, smem, stream>>>(
+      P, q, delta0, N, A, n_tiles, counters, scratch, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NX, int C>
+int occupancy(int A) {
+  int blocks = 0;
+  const int smem = static_cast<int>(sizeof(float) * prefix_smem_floats(NX, A));
+  cudaError_t err = cudaFuncSetAttribute(
+      prefix_kernel<NX, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, prefix_kernel<NX, C>, kTileSteps, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+int tiles(int N) { return (N + kTileSteps - 1) / kTileSteps; }
+
+// ---- The first design (three launches), kept for comparison --------------
 
 // Passes 1 and 3.  carry == nullptr: aggregate mode (writes agg); else
 // final mode (folds carry[block] into the first drive and writes out).
 template <int NX>
-__global__ void __launch_bounds__(kScanSteps)
+__global__ void __launch_bounds__(kTileSteps)
 scan_kernel(const float* __restrict__ P, const float* __restrict__ q, int N,
             int A, const float* __restrict__ carry, float* __restrict__ agg,
             float* __restrict__ out) {
   constexpr int NN = NX * NX;
-  extern __shared__ float smem[];  // (NN + A NX) x kScanSteps, field-major
+  extern __shared__ float smem[];  // (NN + A NX) x kTileSteps, field-major
   const int tid = threadIdx.x;
-  const int k = blockIdx.x * kScanSteps + tid;
+  const int k = blockIdx.x * kTileSteps + tid;
   float p[NN], v[kMaxCand][NX];
   if (k < N) {
 #pragma unroll
@@ -91,15 +359,15 @@ scan_kernel(const float* __restrict__ P, const float* __restrict__ q, int N,
       }
     }
   }
-  for (int d = 1; d < kScanSteps; d <<= 1) {
+  for (int d = 1; d < kTileSteps; d <<= 1) {
 #pragma unroll
-    for (int f = 0; f < NN; ++f) smem[f * kScanSteps + tid] = p[f];
+    for (int f = 0; f < NN; ++f) smem[f * kTileSteps + tid] = p[f];
 #pragma unroll
     for (int a = 0; a < kMaxCand; ++a) {
       if (a < A) {
 #pragma unroll
         for (int i = 0; i < NX; ++i)
-          smem[(NN + a * NX + i) * kScanSteps + tid] = v[a][i];
+          smem[(NN + a * NX + i) * kTileSteps + tid] = v[a][i];
       }
     }
     __syncthreads();
@@ -111,7 +379,7 @@ scan_kernel(const float* __restrict__ P, const float* __restrict__ q, int N,
           float qp[NX];
 #pragma unroll
           for (int i = 0; i < NX; ++i)
-            qp[i] = smem[(NN + a * NX + i) * kScanSteps + src];
+            qp[i] = smem[(NN + a * NX + i) * kTileSteps + src];
 #pragma unroll
           for (int i = 0; i < NX; ++i) {
             float s = v[a][i];
@@ -123,7 +391,7 @@ scan_kernel(const float* __restrict__ P, const float* __restrict__ q, int N,
       }
       float pp[NN], pn[NN];
 #pragma unroll
-      for (int f = 0; f < NN; ++f) pp[f] = smem[f * kScanSteps + src];
+      for (int f = 0; f < NN; ++f) pp[f] = smem[f * kTileSteps + src];
 #pragma unroll
       for (int i = 0; i < NX; ++i)
 #pragma unroll
@@ -139,7 +407,7 @@ scan_kernel(const float* __restrict__ P, const float* __restrict__ q, int N,
     __syncthreads();
   }
   if (carry == nullptr) {
-    if (tid == kScanSteps - 1) {
+    if (tid == kTileSteps - 1) {
       float* e = agg + (size_t)blockIdx.x * (NN + A * NX);
 #pragma unroll
       for (int f = 0; f < NN; ++f) e[f] = p[f];
@@ -212,19 +480,20 @@ walk_kernel(const float* __restrict__ agg, int n_blocks, int A, int N,
 }
 
 template <int NX>
-int run(int A, int N, const float* P, const float* q, const float* delta0,
-        float* agg, float* carry, float* out, cudaStream_t stream) {
+int run_blocked(int A, int N, const float* P, const float* q,
+                const float* delta0, float* agg, float* carry, float* out,
+                cudaStream_t stream) {
   constexpr int NN = NX * NX;
   const int F = NN + A * NX;
-  const int n_blocks = (N + kScanSteps - 1) / kScanSteps;
-  const int scan_smem = static_cast<int>(sizeof(float) * F * kScanSteps);
+  const int n_blocks = (N + kTileSteps - 1) / kTileSteps;
+  const int scan_smem = static_cast<int>(sizeof(float) * F * kTileSteps);
   const int walk_smem = static_cast<int>(sizeof(float) * F * kWalkChunk);
   cudaError_t err = cudaFuncSetAttribute(
       scan_kernel<NX>, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_blocks > 1) {
     // Aggregates of every block but the last, which nothing follows.
-    scan_kernel<NX><<<n_blocks - 1, kScanSteps, scan_smem, stream>>>(
+    scan_kernel<NX><<<n_blocks - 1, kTileSteps, scan_smem, stream>>>(
         P, q, N, A, nullptr, agg, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -233,25 +502,64 @@ int run(int A, int N, const float* P, const float* q, const float* delta0,
       agg, n_blocks, A, N, delta0, carry, out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_kernel<NX><<<n_blocks, kScanSteps, scan_smem, stream>>>(
+  scan_kernel<NX><<<n_blocks, kTileSteps, scan_smem, stream>>>(
       P, q, N, A, carry, nullptr, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int ilqr_affine_block_steps() { return kScanSteps; }
+extern "C" int ilqr_affine_tile_steps() { return kTileSteps; }
 
-// Inputs P (N, n, n), q (A, N, n), delta0 (A, n); scratch agg
-// (n_blocks, n^2 + A n) and carry (n_blocks, A, n); output out (A, N+1, n).
+// Sizes of prefix_kernel's scratch: ints (zeroed once, left zeroed by
+// every call) and floats.
+extern "C" int ilqr_affine_prefix_scan_counters(int n, int A, int N) {
+  (void)n;
+  (void)A;
+  return lookback::counter_ints(tiles(N));
+}
+extern "C" int ilqr_affine_prefix_scan_scratch(int n, int A, int N) {
+  return tiles(N) * (n * n + 2 * A * n);
+}
+
+// Blocks of prefix_kernel resident on one SM at A candidates (a negative
+// CUDA error code on failure).
+extern "C" int ilqr_affine_prefix_scan_occupancy(int n, int A) {
+  if (A < 1 || A > kMaxCand) return -static_cast<int>(cudaErrorInvalidValue);
+  if (n == 2) return A == 1 ? occupancy<2, 1>(A) : occupancy<2, kMaxCand>(A);
+  if (n == 4) return A == 1 ? occupancy<4, 1>(A) : occupancy<4, kMaxCand>(A);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One launch.  Inputs P (N, n, n), q (A, N, n), delta0 (A, n); counters
+// and scratch as sized above; output out (A, N+1, n).
 extern "C" int ilqr_affine_prefix_scan(int n, int A, int N, const float* P,
                                        const float* q, const float* delta0,
-                                       float* agg, float* carry, float* out,
-                                       void* stream) {
+                                       int* counters, float* scratch,
+                                       float* out, void* stream) {
   if (A < 1 || A > kMaxCand || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 2) return run<2>(A, N, P, q, delta0, agg, carry, out, s);
-  if (n == 4) return run<4>(A, N, P, q, delta0, agg, carry, out, s);
+  if (n == 2 && A == 1)
+    return run<2, 1>(A, N, P, q, delta0, counters, scratch, out, s);
+  if (n == 2)
+    return run<2, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
+  if (n == 4 && A == 1)
+    return run<4, 1>(A, N, P, q, delta0, counters, scratch, out, s);
+  if (n == 4)
+    return run<4, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The first design, three launches.  Scratch agg (n_tiles, n^2 + A n) and
+// carry (n_tiles, A, n); output out (A, N+1, n).
+extern "C" int ilqr_affine_prefix_scan_blocked(
+    int n, int A, int N, const float* P, const float* q, const float* delta0,
+    float* agg, float* carry, float* out, void* stream) {
+  if (A < 1 || A > kMaxCand || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 2) return run_blocked<2>(A, N, P, q, delta0, agg, carry, out, s);
+  if (n == 4) return run_blocked<4>(A, N, P, q, delta0, agg, carry, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,33 +34,24 @@
 //      R >= 2 at the main path's horizons (N = 400-800 is 2-4 tiles), and
 //      one element a thread is what the register file holds at T = 256.
 //   2. The tile publishes its aggregate (its local suffix at its first
-//      step, F floats) and then, by decoupled look-back, its inclusive value
-//      function (eta, J): the CUDA form of the TPU kernel's right-to-left
-//      walk with its carry in SMEM.  The block polls the status words of the
-//      tiles to its right, kTileSteps at a time, for the nearest one whose
-//      inclusive value is out; every tile in between has its aggregate out.
+//      step, F floats) and then, by decoupled look-back (lookback.cuh, shared
+//      with B3 and B6/B7), its inclusive value function (eta, J): the CUDA
+//      form of the TPU kernel's right-to-left walk with its carry in SMEM.
 //      Only (eta, J) of the later operand enter the (eta, J) of a combine
-//      (apply_value), so the value at the tile's right edge is that value
-//      carried left through those aggregates, one apply_value each, staged
-//      in shared memory.  Every carry is the same chain of apply_value calls
-//      on the same inputs, at one call site, wherever the look-back stops:
-//      a repeated call gives the same bits.
+//      (apply_value), so the value at the tile's right edge is the nearest
+//      published inclusive value carried left through the aggregates in
+//      between, one apply_value each by thread 0, staged in shared memory.
 //   3. Each step closes its local suffix with the edge value, which gives
 //      V(k) in shared memory; step t reads V(t+1) and forms the Q-expansion,
 //      the gains and its dV.  The block sums dV1, dV2 and a count of
 //      non-finite gains in a fixed tree; the last block to finish sums the
 //      tiles' partials in tile order (no float atomics), writes dV and the
-//      all-finite flag, and resets the ticket and the status words, so the
-//      next call on the stream needs no memset.
+//      all-finite flag, and resets the look-back counters, so the next call
+//      on the stream needs no memset.
 // Scratch (per device, stream and shape, zeroed once by the wrapper):
 // counters [ticket, done, status (n_tiles)] and floats [aggregates
 // (n_tiles, F), inclusive values (n_tiles, n_x + n_x^2), partials
 // (n_tiles, 3)].
-//
-// The first design, three launches (blocked scan, one-thread boundary walk,
-// gains) with the block-local suffixes round-tripped through device memory,
-// stays callable as ilqr_fused_riccati_blocked for comparison on the card;
-// only chip_smoke.py calls it.
 //
 // GNMS defects (multiple shooting, B1d; the with_defects variant of the TPU
 // kernel): with gaps d_k the local dynamics are affine, dx+ = f_x dx +
@@ -70,18 +61,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lookback.cuh"
 #include "riccati_scan.cuh"
 
 namespace {
 
 using namespace ilqr;
 
+using lookback::kFromRight;
+
 constexpr int kTileSteps = 256;   // steps of a tile = threads of its block
 constexpr int kStageTiles = 64;   // aggregates staged per look-back round
-constexpr int kBlockSteps = 256;  // blocked design: steps per scan block
-constexpr int kGainThreads = 128;  // blocked design: threads of pass 3
-
-enum TileStatus : int { kEmpty = 0, kAggregate = 1, kInclusive = 2 };
 
 struct Expansion {
   const float* f_x;   // (N, NX, NX)
@@ -155,29 +145,6 @@ __device__ __forceinline__ void build_element(int k, int N,
   } else {
 #pragma unroll
     for (int d = 0; d < NX; ++d) e[E::A + d * NX + d] = 1.0f;
-  }
-}
-
-// Inclusive suffix scan of the T elements of a block, one a thread, in
-// place in e; `smem` holds F x T floats (field-major).  Element k's partner
-// at distance d is skipped past the terminal element k + d > N (identity).
-template <int NX, int T>
-__device__ __forceinline__ void tile_suffix_scan(float* e, float* smem,
-                                                 int tid, int k, int N) {
-  using E = Elem<NX>;
-  for (int d = 1; d < T; d <<= 1) {
-#pragma unroll
-    for (int f = 0; f < E::F; ++f) smem[f * T + tid] = e[f];
-    __syncthreads();
-    if (tid + d < T && k + d <= N) {
-      float p[E::F], o[E::F];
-#pragma unroll
-      for (int f = 0; f < E::F; ++f) p[f] = smem[f * T + tid + d];
-      combine<NX>(e, p, o);
-#pragma unroll
-      for (int f = 0; f < E::F; ++f) e[f] = o[f];
-    }
-    __syncthreads();
   }
 }
 
@@ -262,31 +229,16 @@ __device__ __forceinline__ void block_sum3(float* red, int tid, float a,
   }
 }
 
-// Device-scope publication between blocks: payload stores, a fence, then
-// the status word; readers poll the word, fence, and read the payload from
-// L2 (L1 is not coherent across SMs).
-__device__ __forceinline__ void publish(int* word, int value) {
-  __threadfence();
-  atomicExch(word, value);
-}
-
-__device__ __forceinline__ int poll(const int* word) {
-  const int v = *reinterpret_cast<const volatile int*>(word);
-  __threadfence();
-  return v;
-}
-
-// Shared memory of fused_kernel, in floats after a 4-int header.
+// Shared memory of fused_kernel, in floats.
 template <int NX>
 struct TileSmem {
   static constexpr int F = Elem<NX>::F;
   static constexpr int NV = NX + NX * NX;   // a value function (eta, J)
-  static constexpr int kHeader = 4;         // ints: tile, q, last, spare
   static constexpr int kBuf = 0;            // F x T: the scan, then e_k
   static constexpr int kVals = kBuf + F * kTileSteps;   // NV x (T + 1)
   static constexpr int kStage = kVals + NV * (kTileSteps + 1);
   static constexpr int kFloats = kStage + kStageTiles * F;
-  static constexpr int kBytes = 4 * kHeader + 4 * kFloats;
+  static constexpr int kBytes = 4 * kFloats;
 };
 
 template <int NX, int NU>
@@ -298,14 +250,11 @@ fused_kernel(Expansion ex, int N, float reg, int n_tiles,
   using E = Elem<NX>;
   using S = TileSmem<NX>;
   constexpr int F = E::F, NN = E::NN, NV = S::NV, T = kTileSteps;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* hdr = reinterpret_cast<int*>(smem_raw);
-  float* sm = reinterpret_cast<float*>(smem_raw + 4 * S::kHeader);
+  extern __shared__ __align__(16) float sm[];
+  __shared__ lookback::Slots slots;
   float* buf = sm + S::kBuf;
   float* vals = sm + S::kVals;   // vals[i * (T + 1) + c]: field i of V(c)
   float* stage = sm + S::kStage;
-  int* ticket = counters;
-  int* done = counters + 1;
   int* status = counters + 2;
   float* aggs = scratch;                        // (n_tiles, F)
   float* values = aggs + (size_t)n_tiles * F;   // (n_tiles, NV)
@@ -314,12 +263,7 @@ fused_kernel(Expansion ex, int N, float reg, int n_tiles,
 
   // 1. The tile in start order from the right end; its elements and their
   // tile-local suffixes.
-  if (tid == 0) {
-    hdr[0] = n_tiles - 1 - atomicAdd(ticket, 1);
-    hdr[1] = n_tiles;
-  }
-  __syncthreads();
-  const int p = hdr[0];
+  const int p = lookback::take_tile<kFromRight>(counters, n_tiles, &slots);
   const int k = p * T + tid;
   {
     float e[F];
@@ -328,37 +272,19 @@ fused_kernel(Expansion ex, int N, float reg, int n_tiles,
     if (tid == 0) {
 #pragma unroll
       for (int f = 0; f < F; ++f) aggs[(size_t)p * F + f] = e[f];
-      publish(&status[p], kAggregate);
+      lookback::publish(&status[p], lookback::kAggregate);
     }
 #pragma unroll
     for (int f = 0; f < F; ++f) buf[f * T + tid] = e[f];
   }
-  // The block stages this tile's aggregate below, even when the loop that
-  // follows does not run (the last tile).
-  __syncthreads();
 
   // 2. Look-back: q = the nearest tile to the right whose inclusive value
-  // is out (n_tiles: none; the value beyond the last step is zero).  Every
-  // tile to the right started earlier, so each publishes its aggregate
-  // without waiting for this one.
-  for (int base = p + 1; base < n_tiles; base += T) {
-    const int j = base + tid;
-    if (j < n_tiles) {
-      int s;
-      do {
-        s = poll(&status[j]);
-      } while (s == kEmpty);
-      if (s == kInclusive) atomicMin(&hdr[1], j);
-    }
-    __syncthreads();
-    const bool found = hdr[1] < n_tiles;
-    __syncthreads();
-    if (found) break;
-  }
-  const int q = hdr[1];
-  // Carry (eta, J) from q leftward through the aggregates of q-1 .. p,
-  // thread 0 applying, the block staging kStageTiles aggregates at a time.
-  float eta[NX], J[NN];
+  // is out (none: n_tiles; the value beyond the last step is zero).  Thread
+  // 0 carries (eta, J) from q leftward through the aggregates of q-1 .. p;
+  // the value before the last step is the one at this tile's right edge.
+  const int q = lookback::find_inclusive<kFromRight>(counters, p, n_tiles,
+                                                     &slots);
+  float eta[NX], J[NN], eta_e[NX], J_e[NN];
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < NX; ++i)
@@ -367,36 +293,34 @@ fused_kernel(Expansion ex, int N, float reg, int n_tiles,
     for (int i = 0; i < NN; ++i)
       J[i] = q < n_tiles ? __ldcg(values + (size_t)q * NV + NX + i) : 0.0f;
   }
-  for (int hi = q - 1; hi >= p; hi -= kStageTiles) {
-    const int lo = max(p, hi - kStageTiles + 1);
-    for (int i = tid; i < (hi - lo + 1) * F; i += T)
-      stage[i] = __ldcg(aggs + (size_t)lo * F + i);
-    __syncthreads();
-    if (tid == 0) {
-      for (int j = hi; j >= lo; --j) {
-        if (j == p) {   // the value at this tile's right edge
-#pragma unroll
-          for (int i = 0; i < NX; ++i) vals[i * (T + 1) + T] = eta[i];
-#pragma unroll
-          for (int i = 0; i < NN; ++i) vals[(NX + i) * (T + 1) + T] = J[i];
-        }
+  lookback::fold<kFromRight, kStageTiles>(
+      aggs, F, p, q, stage, tid == 0, [&](const float* agg) {
         float eta2[NX], J2[NN], Li[NN];
-        apply_value<NX>(stage + (j - lo) * F, eta, J, eta2, J2, Li);
+        apply_value<NX>(agg, eta, J, eta2, J2, Li);
 #pragma unroll
-        for (int i = 0; i < NX; ++i) eta[i] = eta2[i];
+        for (int i = 0; i < NX; ++i) {
+          eta_e[i] = eta[i];
+          eta[i] = eta2[i];
+        }
 #pragma unroll
-        for (int i = 0; i < NN; ++i) J[i] = J2[i];
-      }
-    }
-    __syncthreads();
-  }
+        for (int i = 0; i < NN; ++i) {
+          J_e[i] = J[i];
+          J[i] = J2[i];
+        }
+      });
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < NX; ++i) values[(size_t)p * NV + i] = eta[i];
 #pragma unroll
     for (int i = 0; i < NN; ++i) values[(size_t)p * NV + NX + i] = J[i];
-    publish(&status[p], kInclusive);
+    lookback::publish(&status[p], lookback::kInclusive);
+    // The value at this tile's right edge.
+#pragma unroll
+    for (int i = 0; i < NX; ++i) vals[i * (T + 1) + T] = eta_e[i];
+#pragma unroll
+    for (int i = 0; i < NN; ++i) vals[(NX + i) * (T + 1) + T] = J_e[i];
   }
+  __syncthreads();
 
   // 3. V(k) = local suffix at k closed with the edge value; then the gains.
   if (k <= N) {
@@ -428,11 +352,8 @@ fused_kernel(Expansion ex, int N, float reg, int n_tiles,
     partials[(size_t)p * 3 + 0] = buf[0];
     partials[(size_t)p * 3 + 1] = buf[T];
     partials[(size_t)p * 3 + 2] = buf[2 * T];
-    __threadfence();
-    hdr[2] = atomicAdd(done, 1) == n_tiles - 1;
   }
-  __syncthreads();
-  if (!hdr[2]) return;
+  if (!lookback::arrive(counters, n_tiles, &slots)) return;
   __threadfence();
   float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
   for (int j = tid; j < n_tiles; j += T) {
@@ -445,11 +366,8 @@ fused_kernel(Expansion ex, int N, float reg, int n_tiles,
     dV_out[0] = buf[0];
     dV_out[1] = buf[T];
     ok_out[0] = buf[2 * T] == 0.0f;
-    *ticket = 0;
-    *done = 0;
   }
-  // Every block has finished reading the status words.
-  for (int j = tid; j < n_tiles; j += T) status[j] = kEmpty;
+  lookback::reset(counters, n_tiles);
 }
 
 template <int NX, int NU>
@@ -467,105 +385,7 @@ int run(int N, float reg, const Expansion& ex, int* counters, float* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- The blocked design (three launches), kept for comparison ------------
-
-// Pass 1: elements and the block-local inclusive suffix scan.
-template <int NX, int NU>
-__global__ void __launch_bounds__(kBlockSteps)
-scan_blocks_kernel(Expansion ex, int N, float reg, float* __restrict__ local) {
-  using E = Elem<NX>;
-  extern __shared__ float smem[];  // E::F x kBlockSteps, field-major
-  const int tid = threadIdx.x;
-  const int k = blockIdx.x * kBlockSteps + tid;
-  float e[E::F];
-  build_element<NX, NU>(k, N, ex, reg, e);
-  tile_suffix_scan<NX, kBlockSteps>(e, smem, tid, k, N);
-  if (k <= N) {
-#pragma unroll
-    for (int f = 0; f < E::F; ++f) local[(size_t)k * E::F + f] = e[f];
-  }
-}
-
-// Pass 2: the value (eta, J) at the right edge of every block, i.e. the
-// suffix of all later blocks; the last block's is zero (identity).
-template <int NX>
-__global__ void boundary_kernel(const float* __restrict__ local, int n_blocks,
-                                float* __restrict__ edge) {
-  using E = Elem<NX>;
-  constexpr int NN = E::NN;
-  if (threadIdx.x != 0) return;
-  float eta[NX], J[NN], eta2[NX], J2[NN], Li[NN], e[E::F];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) eta[i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < NN; ++i) J[i] = 0.0f;
-  for (int b = n_blocks - 1; b >= 0; --b) {
-    float* out = edge + (size_t)b * (NX + NN);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) out[i] = eta[i];
-#pragma unroll
-    for (int i = 0; i < NN; ++i) out[NX + i] = J[i];
-    load<E::F>(local + (size_t)b * kBlockSteps * E::F, e);
-    apply_value<NX>(e, eta, J, eta2, J2, Li);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) eta[i] = eta2[i];
-#pragma unroll
-    for (int i = 0; i < NN; ++i) J[i] = J2[i];
-  }
-}
-
-// Pass 3: V(t+1) by closure, then the gains and dV at step t.
-template <int NX, int NU>
-__global__ void __launch_bounds__(kGainThreads)
-gains_kernel(Expansion ex, int N, float reg, const float* __restrict__ local,
-             const float* __restrict__ edge, float* __restrict__ u_ff_out,
-             float* __restrict__ K_out, float* __restrict__ partials) {
-  using E = Elem<NX>;
-  constexpr int NN = E::NN;
-  extern __shared__ float smem[];  // 3 x kGainThreads
-  const int tid = threadIdx.x;
-  const int t = blockIdx.x * kGainThreads + tid;
-  float dv1 = 0.0f, dv2 = 0.0f, bad = 0.0f;
-  if (t < N) {
-    const int j = t + 1;
-    float e[E::F], eta_n[NX], J_n[NN], Li[NN];
-    load<E::F>(local + (size_t)j * E::F, e);
-    const float* V = edge + (size_t)(j / kBlockSteps) * (NX + NN);
-    apply_value<NX>(e, V, V + NX, eta_n, J_n, Li);
-    gains<NX, NU>(ex, t, reg, eta_n, J_n, u_ff_out, K_out, dv1, dv2, bad);
-  }
-  block_sum3<kGainThreads>(smem, tid, dv1, dv2, bad);
-  if (tid == 0) {
-    partials[blockIdx.x * 3 + 0] = smem[0];
-    partials[blockIdx.x * 3 + 1] = smem[kGainThreads];
-    partials[blockIdx.x * 3 + 2] = smem[2 * kGainThreads];
-  }
-}
-
-template <int NX, int NU>
-int run_blocked(int N, float reg, const Expansion& ex, float* local,
-                float* edge, float* u_ff, float* K, float* partials,
-                cudaStream_t stream) {
-  using E = Elem<NX>;
-  const int n_blocks = (N + 1 + kBlockSteps - 1) / kBlockSteps;
-  const int scan_smem = static_cast<int>(sizeof(float) * E::F * kBlockSteps);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_blocks_kernel<NX, NU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      scan_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_blocks_kernel<NX, NU><<<n_blocks, kBlockSteps, scan_smem, stream>>>(
-      ex, N, reg, local);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  boundary_kernel<NX><<<1, 32, 0, stream>>>(local, n_blocks, edge);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int gain_blocks = (N + kGainThreads - 1) / kGainThreads;
-  gains_kernel<NX, NU><<<gain_blocks, kGainThreads,
-                         3 * kGainThreads * sizeof(float), stream>>>(
-      ex, N, reg, local, edge, u_ff, K, partials);
-  return static_cast<int>(cudaGetLastError());
-}
+int tiles(int N) { return (N + 1 + kTileSteps - 1) / kTileSteps; }
 
 template <int NX>
 constexpr int scratch_floats(int n_tiles) {
@@ -576,15 +396,15 @@ constexpr int scratch_floats(int n_tiles) {
 
 extern "C" int ilqr_riccati_tile_steps() { return kTileSteps; }
 
-// Sizes of fused_kernel's scratch at horizon N: ints (zeroed once, left
-// zeroed by every call) and floats.
-extern "C" int ilqr_fused_riccati_counters(int N) {
-  return 2 + (N + 1 + kTileSteps - 1) / kTileSteps;
+// Sizes of fused_kernel's scratch at state size n_x and horizon N: ints
+// (zeroed once, left zeroed by every call) and floats.
+extern "C" int ilqr_fused_riccati_counters(int n_x, int N) {
+  (void)n_x;
+  return lookback::counter_ints(tiles(N));
 }
 extern "C" int ilqr_fused_riccati_scratch(int n_x, int N) {
-  const int n_tiles = (N + 1 + kTileSteps - 1) / kTileSteps;
-  if (n_x == 2) return scratch_floats<2>(n_tiles);
-  if (n_x == 4) return scratch_floats<4>(n_tiles);
+  if (n_x == 2) return scratch_floats<2>(tiles(N));
+  if (n_x == 4) return scratch_floats<4>(tiles(N));
   return 0;
 }
 
@@ -606,30 +426,5 @@ extern "C" int ilqr_fused_riccati(
     return run<4, 1>(N, reg, ex, counters, scratch, u_ff, K, dV, ok, s);
   if (n_x == 4 && n_u == 2)
     return run<4, 2>(N, reg, ex, counters, scratch, u_ff, K, dV, ok, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int ilqr_riccati_block_steps() { return kBlockSteps; }
-extern "C" int ilqr_riccati_gain_threads() { return kGainThreads; }
-
-// The blocked design, three launches.  Scratch: local (N+1, F), edge
-// (n_blocks, n_x + n_x^2); outputs u_ff (N, n_u), K (N, n_u, n_x), partials
-// (gain_blocks, 3) = per-block sums of dV1, dV2 and the count of
-// non-finite gains.
-extern "C" int ilqr_fused_riccati_blocked(
-    int n_x, int n_u, int N, float reg, const float* f_x, const float* f_u,
-    const float* l_x, const float* l_u, const float* l_xx, const float* l_ux,
-    const float* l_uu, const float* v_x, const float* v_xx,
-    const float* defects, float* local, float* edge, float* u_ff, float* K,
-    float* partials, void* stream) {
-  const Expansion ex{f_x, f_u, l_x, l_u, l_xx, l_ux, l_uu, v_x, v_xx,
-                     defects};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_x == 2 && n_u == 1)
-    return run_blocked<2, 1>(N, reg, ex, local, edge, u_ff, K, partials, s);
-  if (n_x == 4 && n_u == 1)
-    return run_blocked<4, 1>(N, reg, ex, local, edge, u_ff, K, partials, s);
-  if (n_x == 4 && n_u == 2)
-    return run_blocked<4, 2>(N, reg, ex, local, edge, u_ff, K, partials, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
 // The Riccati scan core: the element layout and the associative combine.
 //
 // Shared by the fused backward pass (fused_riccati.cu, B1) and the
-// standalone suffix scan (suffix_scan.cu, B6/B7).  The math is that of
+// standalone suffix scan (suffix_scan.cu, B6/B7), with the scan of a tile.  The math is that of
 // ilqr_tpu_torch/ops/parallel_riccati.py: step k of the LQ subproblem is
 // the element e = (A, b, C, eta, J), stored as F = 3 n_x^2 + 2 n_x floats
 // in that order (A, C, J row-major), and the suffix products under the
@@ -93,6 +93,33 @@ __device__ __forceinline__ void identity(float* e) {
   for (int i = 0; i < E::F; ++i) e[i] = 0.0f;
 #pragma unroll
   for (int d = 0; d < NX; ++d) e[E::A + d * NX + d] = 1.0f;
+}
+
+// Inclusive suffix scan of the T elements of a tile, one a thread (thread
+// tid holds element k), in place in e; `smem` holds F x T floats, field-
+// major (conflict-free).  Hillis-Steele: at distance d each element joins
+// the adjacent window that starts d later, so windows never overlap (the
+// combine is neither commutative nor idempotent); a partner past the last
+// element, k + d > last, is the identity and is skipped.  log2(T)
+// dependent combines, two barriers each.
+template <int NX, int T>
+__device__ __forceinline__ void tile_suffix_scan(float* e, float* smem,
+                                                 int tid, int k, int last) {
+  using E = Elem<NX>;
+  for (int d = 1; d < T; d <<= 1) {
+#pragma unroll
+    for (int f = 0; f < E::F; ++f) smem[f * T + tid] = e[f];
+    __syncthreads();
+    if (tid + d < T && k + d <= last) {
+      float p[E::F], o[E::F];
+#pragma unroll
+      for (int f = 0; f < E::F; ++f) p[f] = smem[f * T + tid + d];
+      combine<NX>(e, p, o);
+#pragma unroll
+      for (int f = 0; f < E::F; ++f) e[f] = o[f];
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace ilqr

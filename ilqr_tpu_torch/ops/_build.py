@@ -16,7 +16,9 @@ package on machines without nvcc or a GPU.
 Every C entry returns ``cudaGetLastError()`` after its launches; `check`
 turns a non-zero code into an exception.  Each kernel wrapper adds one to
 its entry in the launch counts where it launches its kernel, and nowhere
-else, so a run can show which kernels its main path went through.
+else, so a run can show which kernels its main path went through.  The
+look-back kernels (B1, B3, B6/B7: ``csrc/lookback.cuh``) take their
+counters and scratch from `scratch`, one set per device, stream and shape.
 """
 from __future__ import annotations
 
@@ -47,13 +49,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry: c_void_p for each pointer and the stream.
 SIGNATURES = {
     "ilqr_fused_riccati": [_I, _I, _I, _F] + [_P] * 10 + [_P] * 6 + [_P],
-    "ilqr_fused_riccati_counters": [_I],
+    "ilqr_fused_riccati_counters": [_I, _I],
     "ilqr_fused_riccati_scratch": [_I, _I],
     "ilqr_riccati_tile_steps": [],
-    "ilqr_fused_riccati_blocked": [_I, _I, _I, _F] + [_P] * 10 + [_P] * 5
-                                  + [_P],
-    "ilqr_riccati_block_steps": [],
-    "ilqr_riccati_gain_threads": [],
     "ilqr_linesearch_costs": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _I,
                               _P, _P, _P, _P, _I, _P, _P],
     "ilqr_closed_loop_rollout": [_I, _I, _I, _I, _I, _P, _I, _P, _F,
@@ -63,7 +61,11 @@ SIGNATURES = {
     "ilqr_chain_chunk_steps": [],
     "ilqr_chain_ring_stages": [],
     "ilqr_affine_prefix_scan": [_I, _I, _I] + [_P] * 6 + [_P],
-    "ilqr_affine_block_steps": [],
+    "ilqr_affine_prefix_scan_counters": [_I, _I, _I],
+    "ilqr_affine_prefix_scan_scratch": [_I, _I, _I],
+    "ilqr_affine_prefix_scan_occupancy": [_I, _I],
+    "ilqr_affine_prefix_scan_blocked": [_I, _I, _I] + [_P] * 6 + [_P],
+    "ilqr_affine_tile_steps": [],
     "ilqr_batched_riccati": [_I, _I, _I, _I] + [_P] * 10 + [_P] * 3 + [_P],
     "ilqr_linesearch_costs_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
                                       _P, _P, _P, _P, _I, _P, _P],
@@ -72,12 +74,20 @@ SIGNATURES = {
     "ilqr_open_loop_rollout_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P,
                                        _I, _P, _P, _P, _P],
     "ilqr_suffix_scan": [_I, _I, _I] + [_P] * 5 + [_P] * 2 + [_P] * 5 + [_P],
-    "ilqr_suffix_block_steps": [_I],
+    "ilqr_suffix_scan_counters": [_I, _I, _I],
+    "ilqr_suffix_scan_scratch": [_I, _I, _I],
+    "ilqr_suffix_scan_occupancy": [_I, _I],
+    "ilqr_suffix_scan_blocked": [_I, _I, _I] + [_P] * 5 + [_P] * 2 + [_P] * 5
+                                + [_P],
+    "ilqr_suffix_tile_steps": [_I],
     "ilqr_cuda_error_string": [_I],
 }
 
 # Kernel name -> launches since the last reset (plain integers).
 _LAUNCHES: Dict[str, int] = {}
+# (kernel, device, stream, sizes) -> (counters, floats): the scratch of the
+# look-back kernels (csrc/lookback.cuh).
+_SCRATCH: Dict[tuple, tuple] = {}
 
 
 def current_stream(device: torch.device) -> int:
@@ -106,6 +116,26 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
+
+
+def scratch(lib, kernel: str, device: torch.device, stream: int,
+            *sizes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reusable scratch of a look-back kernel (B1, B3, B6/B7) for this
+    device, stream and shape: its counters, int32, sized by the C entry
+    ``ilqr_<kernel>_counters(*sizes)`` and zeroed here once (each launch
+    leaves them zeroed, so launches on one stream can share them, and other
+    streams get their own), and its floats, sized by
+    ``ilqr_<kernel>_scratch(*sizes)``.  Per call a wrapper then allocates
+    only its outputs."""
+    key = (kernel, device, stream, sizes)
+    out = _SCRATCH.get(key)
+    if out is None:
+        n_int = getattr(lib, f"ilqr_{kernel}_counters")(*sizes)
+        n_float = getattr(lib, f"ilqr_{kernel}_scratch")(*sizes)
+        out = (torch.zeros(n_int, dtype=torch.int32, device=device),
+               torch.empty(n_float, dtype=torch.float32, device=device))
+        _SCRATCH[key] = out
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

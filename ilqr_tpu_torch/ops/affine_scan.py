@@ -9,8 +9,13 @@ elements (P_k, q_k^(1..A)) combine associatively,
 
 so the inclusive prefixes give every δ_{k+1} = (P_k⋯P_0) δ_0 + (q prefix)_k
 in ⌈log₂ N⌉ sweeps.  The plain version, `prefix_scan`, doubles over the
-whole horizon with torch ops; the CUDA kernel, `csrc/affine_scan.cu`, scans
-256-step blocks in shared memory and carries a state across blocks.
+whole horizon with torch ops; the CUDA kernel, `csrc/affine_scan.cu`, is
+one launch: 256-step tiles scanned by warp shuffles, a state carried
+across tiles by decoupled look-back, each step's δ closed in registers.
+Its counters and scratch come from `_build.scratch` (once per device,
+stream and shape); per call the wrapper allocates only δ.  `launch_blocked`
+runs the first, three-launch design of the same function; only
+`chip_smoke.py` calls it, to time the two in turns.
 
 Dispatch: ``engine='xla'`` runs the plain version on any device.
 ``'pallas'`` and ``'auto'`` run the plain version on CPU tensors and launch
@@ -71,25 +76,40 @@ def _check(P, q, delta0) -> None:
         raise ValueError("the CUDA affine scan needs a horizon N >= 1")
 
 
-def block_steps(lib) -> int:
-    """Steps per scan block of the kernel (its cross-block carry period)."""
-    return lib.ilqr_affine_block_steps()
+def tile_steps(lib) -> int:
+    """Steps per tile of the kernel (its cross-tile carry period)."""
+    return lib.ilqr_affine_tile_steps()
 
 
 def launch(lib, P, q, delta0, stream) -> torch.Tensor:
-    """Allocate δ and the block scratch and run the kernel on ``stream``;
+    """Allocate δ and run the kernel on ``stream``: one launch.  Takes the
+    library handle so that any build of the sources can be run; inputs must
+    already have passed `_check`."""
+    N, n = P.shape[0], P.shape[-1]
+    A = q.shape[0]
+    counters, scratch = _build.scratch(lib, KERNEL, P.device, stream, n, A, N)
+    out = torch.empty((A, N + 1, n), dtype=torch.float32, device=P.device)
+    code = lib.ilqr_affine_prefix_scan(
+        n, A, N, P.data_ptr(), q.data_ptr(), delta0.data_ptr(),
+        counters.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
+    _build.check(lib, code, "affine prefix scan kernel")
+    return out
+
+
+def launch_blocked(lib, P, q, delta0, stream) -> torch.Tensor:
+    """The first design (three launches), for timing against `launch`;
     inputs must already have passed `_check`."""
     N, n = P.shape[0], P.shape[-1]
     A = q.shape[0]
-    n_blocks = -(-N // block_steps(lib))
+    n_blocks = -(-N // tile_steps(lib))
     opts = dict(dtype=torch.float32, device=P.device)
     out = torch.empty((A, N + 1, n), **opts)
     agg = torch.empty((n_blocks, n * n + A * n), **opts)
     carry = torch.empty((n_blocks, A, n), **opts)
-    code = lib.ilqr_affine_prefix_scan(
+    code = lib.ilqr_affine_prefix_scan_blocked(
         n, A, N, P.data_ptr(), q.data_ptr(), delta0.data_ptr(),
         agg.data_ptr(), carry.data_ptr(), out.data_ptr(), stream)
-    _build.check(lib, code, "affine prefix scan kernel")
+    _build.check(lib, code, "affine prefix scan kernel (blocked)")
     return out
 
 

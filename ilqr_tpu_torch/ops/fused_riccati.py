@@ -18,10 +18,8 @@ on every device.  The kernel is instantiated for (n_x, n_u) in `SHAPES`,
 the slice's three models; other shapes raise on CUDA (ROADMAP item B1w).
 
 The kernel's scratch (tile status words, aggregates, carried values and
-partial sums) is allocated once per device, stream and shape and reused:
-the kernel leaves its counters zeroed.  `launch_blocked` runs the first,
-three-launch design of the same function; only `chip_smoke.py` calls it,
-to time the two in turns.
+partial sums) comes from `_build.scratch`, allocated once per device,
+stream and shape and reused: the kernel leaves its counters zeroed.
 """
 from __future__ import annotations
 
@@ -36,18 +34,11 @@ from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
 KERNEL = "fused_riccati"
 SHAPES = ((2, 1), (4, 1), (4, 2))
 _FIELDS = ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu", "v_x", "v_xx")
-# (device, stream, N, n_x) -> (counters int32, scratch float32) of the kernel.
-_SCRATCH: dict = {}
 
 
 def tile_steps(lib) -> int:
     """Steps per tile of the kernel (its cross-tile carry period)."""
     return lib.ilqr_riccati_tile_steps()
-
-
-def block_steps(lib) -> int:
-    """Steps per scan block of the blocked design."""
-    return lib.ilqr_riccati_block_steps()
 
 
 def _check(exp: TrajectoryExpansion, defects=None) -> None:
@@ -85,20 +76,6 @@ def _check(exp: TrajectoryExpansion, defects=None) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _scratch(lib, device, stream, N: int, n_x: int):
-    """The kernel's reusable scratch for this device, stream and shape:
-    counters (zeroed here once; every call leaves them zeroed) and floats."""
-    key = (device, stream, N, n_x)
-    out = _SCRATCH.get(key)
-    if out is None:
-        out = (torch.zeros(lib.ilqr_fused_riccati_counters(N),
-                           dtype=torch.int32, device=device),
-               torch.empty(lib.ilqr_fused_riccati_scratch(n_x, N),
-                           dtype=torch.float32, device=device))
-        _SCRATCH[key] = out
-    return out
-
-
 def launch(lib, exp: TrajectoryExpansion, reg: float, stream, defects=None):
     """Allocate the outputs and run the kernel on ``stream``: one launch.
 
@@ -110,7 +87,7 @@ def launch(lib, exp: TrajectoryExpansion, reg: float, stream, defects=None):
     N, n_x = f_x.shape[0], f_x.shape[-1]
     n_u = exp.l_u.shape[-1]
     device = f_x.device
-    counters, scratch = _scratch(lib, device, stream, N, n_x)
+    counters, scratch = _build.scratch(lib, KERNEL, device, stream, n_x, N)
     u_ff = torch.empty((N, n_u), dtype=torch.float32, device=device)
     K = torch.empty((N, n_u, n_x), dtype=torch.float32, device=device)
     dV = torch.empty((2,), dtype=torch.float32, device=device)
@@ -124,31 +101,6 @@ def launch(lib, exp: TrajectoryExpansion, reg: float, stream, defects=None):
         K.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
     _build.check(lib, code, "fused Riccati kernel")
     return u_ff, K, dV, ok
-
-
-def launch_blocked(lib, exp: TrajectoryExpansion, reg: float, stream,
-                   defects=None):
-    """The blocked design (three launches, then a sum and a compare), for
-    comparison with `launch`; inputs must already have passed `_check`."""
-    N, n_x = exp.f_x.shape[0], exp.f_x.shape[-1]
-    n_u = exp.l_u.shape[-1]
-    F = 3 * n_x * n_x + 2 * n_x
-    n_blocks = -(-(N + 1) // block_steps(lib))
-    gain_blocks = -(-N // lib.ilqr_riccati_gain_threads())
-    opts = dict(dtype=torch.float32, device=exp.f_x.device)
-    local = torch.empty((N + 1, F), **opts)
-    edge = torch.empty((n_blocks, n_x + n_x * n_x), **opts)
-    u_ff = torch.empty((N, n_u), **opts)
-    K = torch.empty((N, n_u, n_x), **opts)
-    partials = torch.empty((gain_blocks, 3), **opts)
-    code = lib.ilqr_fused_riccati_blocked(
-        n_x, n_u, N, reg, *(getattr(exp, f).data_ptr() for f in _FIELDS),
-        None if defects is None else defects.data_ptr(), local.data_ptr(),
-        edge.data_ptr(), u_ff.data_ptr(), K.data_ptr(), partials.data_ptr(),
-        stream)
-    _build.check(lib, code, "fused Riccati kernel (blocked)")
-    sums = partials.sum(0)
-    return u_ff, K, sums[:2], sums[2] == 0
 
 
 def backward_pass_fused(

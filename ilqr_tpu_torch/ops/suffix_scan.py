@@ -4,8 +4,14 @@ PyTorch counterpart of `ilqr_tpu/ops/pallas_riccati.py::suffix_scan_pallas`
 (kernels `_suffix_kernel_sub`, layout 'sub', and `_suffix_kernel`, layout
 'lane') and of `backward_pass_pallas`, the backward pass built on it.  The
 kernel, `csrc/suffix_scan.cu`, returns every suffix product
-e_k ⊗ … ⊗ e_{M−1} of prebuilt Riccati elements, all five fields; its note
-says how the TPU design was rethought for a GPU.  The limited
+e_k ⊗ … ⊗ e_{M−1} of prebuilt Riccati elements, all five fields, in one
+launch (tiles scanned in shared memory, the suffix of the later tiles
+carried by decoupled look-back); its note says how the TPU design was
+rethought for a GPU.  Its counters and scratch come from `_build.scratch`
+(once per device, stream and shape); per call the wrapper allocates only
+the outputs.  `launch_blocked` runs the first, three-launch design of the
+same function; only `chip_smoke.py` calls it, to time the two in turns.
+The limited
 (`ops/limited_parallel.py`) and DDP/iLQG (`parallel_riccati.
 backward_pass_ddp_parallel`) parallel passes scan their elements through it,
 and so does the solver's ``backward='pallas'`` when n_u > 6.
@@ -38,9 +44,9 @@ KERNEL = {"sub": "suffix_scan", "lane": "suffix_scan_lane"}
 NX = (2, 4)
 
 
-def block_steps(lib, layout: str = "sub") -> int:
-    """Elements per scan block of a layout's kernel."""
-    return lib.ilqr_suffix_block_steps(int(layout == "lane"))
+def tile_steps(lib, layout: str = "sub") -> int:
+    """Elements per tile of a layout's kernel."""
+    return lib.ilqr_suffix_tile_steps(int(layout == "lane"))
 
 
 def _check(elems: RiccatiElement) -> None:
@@ -63,23 +69,39 @@ def _check(elems: RiccatiElement) -> None:
 
 def launch(lib, elems: RiccatiElement, layout: str,
            stream) -> RiccatiElement:
-    """Allocate outputs and scratch and run the kernel on ``stream``.
+    """Allocate the outputs and run the kernel on ``stream``: one launch.
 
     Takes the library handle so that any build of the sources can be run;
     inputs must already have passed `_check`.
     """
     M, n_x = elems.A.shape[0], elems.A.shape[-1]
+    lane = int(layout == "lane")
+    counters, scratch = _build.scratch(lib, "suffix_scan", elems.A.device,
+                                       stream, lane, n_x, M)
+    out = RiccatiElement(*(torch.empty_like(t) for t in elems))
+    code = lib.ilqr_suffix_scan(
+        lane, n_x, M, *(t.data_ptr() for t in elems), counters.data_ptr(),
+        scratch.data_ptr(), *(t.data_ptr() for t in out), stream)
+    _build.check(lib, code, "suffix scan kernel")
+    return out
+
+
+def launch_blocked(lib, elems: RiccatiElement, layout: str,
+                   stream) -> RiccatiElement:
+    """The first design (three launches), for timing against `launch`;
+    inputs must already have passed `_check`."""
+    M, n_x = elems.A.shape[0], elems.A.shape[-1]
     F = 3 * n_x * n_x + 2 * n_x
-    n_blocks = -(-M // block_steps(lib, layout))
+    n_blocks = -(-M // tile_steps(lib, layout))
     opts = dict(dtype=torch.float32, device=elems.A.device)
     local = torch.empty((M, F), **opts)
     edge = torch.empty((n_blocks, F), **opts)
     out = RiccatiElement(*(torch.empty_like(t) for t in elems))
-    code = lib.ilqr_suffix_scan(
+    code = lib.ilqr_suffix_scan_blocked(
         int(layout == "lane"), n_x, M, *(t.data_ptr() for t in elems),
         local.data_ptr(), edge.data_ptr(), *(t.data_ptr() for t in out),
         stream)
-    _build.check(lib, code, "suffix scan kernel")
+    _build.check(lib, code, "suffix scan kernel (blocked)")
     return out
 
 

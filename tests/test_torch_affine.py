@@ -5,8 +5,8 @@ recursive-doubling prefix scan) under every engine; the CUDA kernel
 (csrc/affine_scan.cu) is checked against the same plain version on the GPU
 by chip_smoke.py.  Here the plain version is held against JAX's
 ``engine='xla'`` scan in f32 and f64 (JAX under `enable_x64_oracle`),
-against the recurrence itself, and once against the Pallas kernel it
-replaces, run by the JAX package's interpret mode.
+against the recurrence itself, and against the Pallas kernel it replaces,
+run by the JAX package's interpret mode, at the CUDA kernel's tile edges.
 """
 import jax
 import jax.numpy as jnp
@@ -78,10 +78,14 @@ def test_plain_scan_is_the_recurrence():
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-12)
 
 
-def test_cpu_path_matches_jax_pallas_kernel_interpret():
-    """One small single-block case against the Pallas kernel it replaces
-    (f32, interpret mode, which is slow to compile)."""
-    P, q, d0 = _problem(40, 2, 2, seed=4)
+@pytest.mark.parametrize("N,n,A", [(40, 2, 2), (255, 2, 16), (256, 4, 1),
+                                   (257, 2, 16), (513, 4, 1)])
+def test_cpu_path_matches_jax_pallas_kernel_interpret(N, n, A):
+    """The wrapper on CPU tensors against the Pallas kernel it replaces
+    (f32, interpret mode, which is slow to compile): a small single-block
+    case, then horizons at the CUDA kernel's 256-step tile edges (255, 256,
+    257) and across two of them (513), with 1 and 16 candidates."""
+    P, q, d0 = _problem(N, n, A, seed=4)
     ref = _jax_scan(P, q, d0, torch.float32, engine="pallas", interpret=True)
     t = lambda a: torch.tensor(a, dtype=torch.float32)
     got = itt.affine_prefix_scan_multi(t(P), t(q), t(d0), engine="pallas")

@@ -84,12 +84,15 @@ def _check_fields(got, ref, rtol):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("layout,M", [("sub", 1100), ("lane", 2100)])
+@pytest.mark.parametrize("layout,M", [
+    ("sub", 1100), ("lane", 2100), ("sub", 255), ("sub", 256), ("sub", 257),
+    ("sub", 513), ("lane", 127), ("lane", 128), ("lane", 129)])
 def test_suffix_scan_fused_matches_jax_kernel_interpret(layout, M):
     """f32, pendulum elements, against JAX's B6 ('sub', blocks of 1024
     steps) and B7 ('lane', blocks of 2048) in interpret mode, at an M that
-    crosses the block: every field within 1e-4 of its max (two f32 scans
-    in different association orders)."""
+    crosses the block and at the CUDA kernel's tile edges (256 elements a
+    tile for 'sub', 128 for 'lane'): every field within 1e-4 of its max
+    (two f32 scans in different association orders)."""
     elems = _elements("pendulum", M, x64=False)
     ref = jax_suffix_pallas(RiccatiElement(*map(jnp.asarray, elems)),
                             interpret=True, layout=layout)
