@@ -15,8 +15,8 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    flagship's rollout kernels in SASS (instructions, loads from shared,
    global, constant and local memory) where the toolkit has cuobjdump;
    and counts by torch.profiler the kernels a call launches: one for B1,
-   B1d, B3, B6 and B7, three for the first designs of B3, B6 and B7
-   (the kernels line's launches per call);
+   B1d, B3, B6, B7, B4 and each B5 entry (the kernels line's launches per
+   call);
 2. checks the fused backward pass (B1, one launch) against its plain
    version on the double-pendulum, pendulum and under-actuated
    double-pendulum expansions, at N = 500, at the tile edges (N + 1 = T - 1,
@@ -33,9 +33,10 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    instantiations (pendulum, under-actuated and full DP; euler, midpoint,
    rk4, backward_euler, trapezoidal) at N = 1, a ring chunk less and plus
    one, an N that wraps the ring twice and ends mid-chunk, and 500, with 1,
-   10 and 33 alphas, the implicit ones also at newton_iters 1 and 10, and
-   at N = 100000 against the old design (B5's entries at B = 1) on a
-   damped pendulum (rk4);
+   10 and 33 alphas (their plain versions in f32 on the host, in child
+   processes), the UA-DP's backward Euler also at newton_iters 1 and 10, and
+   at N = 100000 against the plain versions in f64 on the host on a damped
+   pendulum (rk4; costs summed in f32 in time order, as the kernels sum);
 4. solves the double-pendulum swing-up (N = 500, maxiter 200, tol 1e-6,
    euler) with backward='pallas' and rollout='pallas', with the launch
    counts reset just before and read just after, and gates the result
@@ -54,10 +55,10 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    at 100000; each kernel and its
    plain version with CUDA events; the initial rollout by kernel and by
    host loop; the double-pendulum solve per iteration with kernels against
-   plain engines and B1's share of it; the B2 kernels against the old
-   design in turns on the bench's DP line-search cell at N = 500 and 100000
-   (ns per step and fixed µs beside the bound); and the implicit
-   instantiations' ns per step on the pendulum and UA-DP goldens;
+   plain engines and B1's share of it; the B2 kernels on the bench's DP
+   line-search cell at N = 500 and 100000 (ns per step and fixed µs beside
+   the bound); and the implicit instantiations' ns per step on the
+   pendulum and UA-DP goldens;
 6. checks the affine prefix scan (B3, one launch) against its plain
    version on seeded random chains at N = 1, T - 1, T, T + 1 for its
    T-step tiles, 5T + T/2 + 3 (crosses 5 tile edges, ends mid-tile),
@@ -79,28 +80,41 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
 11. runs the multiple-shooting pendulum solve at N = 100000 (rk4, maxiter
    60, tol 1e-5, init_rollout='defect') with the kernels and with the plain
    engines and holds the two to each other;
-12. times B3 against its first (three-launch) design in turns (device µs,
-   host µs, events, as B1 in phase 5) at the DP defect solve's shape (N = 500,
-   10 candidates) and at N = 100000, B3 and B1d against their plain
-   versions, and the stages of the parallel-in-time solves;
+12. times B3 (device µs, host µs, events, as B1 in phase 5) at the DP
+   defect solve's shape (N = 500, 10 candidates) and at N = 100000, B3
+   and B1d against their plain versions, and the stages of the
+   parallel-in-time solves;
 13. checks the batched backward pass (B4) against its plain version on
    double-pendulum expansions along seeded random-control rollouts from
    bench.py's batched initial states, at B = 1024, 1000 and 1 (N = 128),
-   with a scalar and a per-instance reg, and on pendulum and
-   under-actuated double-pendulum expansions at B = 1024;
-14. checks the batched rollouts (B5: line-search costs with the 10-alpha
-   schedule, trajectories at seeded per-instance alphas, the open loop)
-   against their plain versions at B = 1024 and 1000;
+   with a scalar and a per-instance reg, on pendulum and under-actuated
+   double-pendulum expansions at B = 1024, at its chunk edges (N = 1,
+   T - 1, T, T + 1 and across five chunk edges) at B = 1001, and on the
+   pendulum at an odd N (misaligned instance rows), each call twice with
+   equal bits required;
+14. prints how B5 splits B = 1024 instances over chain warps and blocks,
+   and checks the batched rollouts (B5: line-search costs with 1, 10 and
+   33 alphas, trajectories at seeded per-instance alphas, the open loop)
+   against their plain versions at B = 1024, 1000 and 1, and in all 15
+   model and integrator instantiations (the implicit ones at newton_iters
+   1 and 10; 10 alphas) at B = 5 with misaligned instance rows, each call
+   twice with equal bits required;
 15. runs bench.py's batched-solve cell at full size (B = 1024, N = 128,
    maxiter 10) with rollout='scan' and 'pallas', gates the costs, traces
-   and launch counts (B4 once per iteration), holds eight sampled
+   and launch counts (B4 and B5's costs and trajectory once per
+   iteration, its open loop once per solve), holds eight sampled
    instances (cost, X and U) to single-instance solves with the plain
-   engines, and times the stages of an iteration against the plain
-   versions of B4 and B5;
+   engines, and times B4 and B5 (device µs, host µs, events) against
+   their plain versions at the solved trajectories;
 16. runs bench.py's batched-MPC cell at full size (B = 512, H = 64, 50
    steps) with rollout='pallas', and cut to 10 steps with rollout='auto',
-   and holds two sampled instances to single-instance run_mpc over every
-   step of each run;
+   holds two sampled instances to single-instance run_mpc over every
+   step of each run, and times B4 and B5 at the cell's shape;
+16b. runs the reference's pendulum MPC (examples/pendulum_mpc.py:
+   backward-Euler solver, midpoint plant, H = 200) as a batch of 8
+   initial angles for 3 steps through B4 and B5 (the implicit step),
+   gates the launch counts, and holds two instances to single-instance
+   run_mpc (B2) over every step;
 17. runs run_mpc on the double pendulum through B1 and B2 and run_mpc_ms
    on the pendulum through B1d and B3;
 18. checks the standalone suffix scan, B6 (layout 'sub') and B7 ('lane'),
@@ -109,10 +123,9 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    bench.py's limited cell, at each layout's tile edges (M = 1, T - 1, T,
    T + 1), 5T + T/2 + 3, T (T + 1) + 1 and more tiles than are resident,
    and tiled to M = 1411, 32769 and 131073 with and without the terminal
-   element, each call twice with equal bits required; and times both
-   against their first (three-launch) designs in turns at M = 301 (the
-   limited pendulum solve's), the DP's 151 (the limited-DDP swing-up's),
-   32769 and the DP's 131073;
+   element, each call twice with equal bits required; and times both at
+   M = 301 (the limited pendulum solve's), the DP's 151 (the limited-DDP
+   swing-up's), 32769 and the DP's 131073;
 19. runs bench.py's limited-backward cell at full size (pendulum rk4,
    N = 32768, U = clip(2.5 sin, +-2)) through backward_pass_limited_parallel
    with the kernel engine and the plain one, prints their sweep counts and
@@ -143,10 +156,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
 import warnings
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -211,6 +226,9 @@ RTOL_B5 = RTOL_B2
 BATCH_B, BATCH_N, BATCH_MAXITER = 1024, 128, 10
 MPC_B, MPC_H, MPC_SIM = 512, 64, 50
 RAGGED_B = 1000   # phases 13-14: a batch that does not fill its last block
+# Phase 16b: the reference's pendulum MPC (examples/pendulum_mpc.py, H = 200)
+# as a batch of PEND_BATCH initial angles, cut to PEND_STEPS steps.
+PEND_BATCH, PEND_H, PEND_STEPS = 8, 200, 3
 # Phase 16 runs the batched-MPC cell with rollout='auto' (the plain batched
 # rollouts) for MPC_SIM_AUTO of its MPC_SIM steps: its single-instance
 # references take ~0.85 s a step with the plain engines on an H100, against
@@ -377,77 +395,46 @@ def ms_text(us: float | None) -> str:
     return "not measured" if us is None else f"{us * 1e-3:.4f}"
 
 
-def design_timing(smi, kernel: str, cases) -> dict:
-    """A kernel's designs timed in turns, on each case {label: {design:
-    fn}}: with a first design ("old") beside the new one, (old, new, new,
-    old) x 3, else six turns of the new.  Each turn gives device µs per call
-    by CUDA events around calls queued behind a spin kernel (`queued_us`),
-    the wrapper's host µs per call, and CUDA-event ms per call over 50
-    back-to-back calls (what earlier PRs reported).  Returns, per label and
-    design, the medians; the device time is None when a turn could not
+def design_timing(smi, kernel: str, cases, turns: int = 6) -> dict:
+    """A kernel timed in ``turns`` turns on each case {label: fn}.  Each turn
+    gives device µs per call by CUDA events around calls queued behind a
+    spin kernel (`queued_us`), the wrapper's host µs per call, and
+    CUDA-event ms per call over 50 back-to-back calls.  Returns, per
+    label, the medians; the device time is None when a turn could not
     measure it.  Launches per call are counted in phase 1."""
     out = {}
-    print(f"{kernel} timing on {smi}, in turns: device µs per call (CUDA "
-          f"events behind a spin kernel), wrapper host µs per call, "
+    print(f"{kernel} timing on {smi}, {turns} turns: device µs per call "
+          f"(CUDA events behind a spin kernel), wrapper host µs per call, "
           f"CUDA-event ms per call:")
-    for label, designs in cases.items():
-        order = (("old", "new", "new", "old") * 3 if "old" in designs
-                 else ("new",) * 6)
-        turns = {which: [] for which in designs}
-        for which in order:
-            fn = designs[which]
-            turns[which].append((queued_us(fn), host_us(fn, 100),
-                                 cuda_ms(fn, 50, 2)))
-        out[label] = {}
-        for which, runs in turns.items():
-            queued = [r[0] for r in runs]
-            device = (None if None in queued
-                      else float(np.median(queued)))
-            host, event = (float(np.median([r[i] for r in runs]))
-                           for i in (1, 2))
-            out[label][which] = dict(device_us=device, host_us=host,
-                                     event_ms=event)
-            print(f"  {kernel} {label} {which}: device "
-                  f"{'not measured' if device is None else f'{device:.1f} µs'}"
-                  f" by queued events ("
-                  f"{'/'.join('-' if q is None else f'{q:.1f}' for q in queued)}"
-                  f"); host {host:.1f} µs "
-                  f"({'/'.join(f'{r[1]:.1f}' for r in runs)}); events "
-                  f"{event:.4f} ms ({'/'.join(f'{r[2]:.4f}' for r in runs)})")
+    for label, fn in cases.items():
+        runs = [(queued_us(fn), host_us(fn, 100), cuda_ms(fn, 50, 2))
+                for _ in range(turns)]
+        queued = [r[0] for r in runs]
+        device = None if None in queued else float(np.median(queued))
+        host, event = (float(np.median([r[i] for r in runs])) for i in (1, 2))
+        out[label] = dict(device_us=device, host_us=host, event_ms=event)
+        print(f"  {kernel} {label}: device "
+              f"{'not measured' if device is None else f'{device:.1f} µs'}"
+              f" by queued events ("
+              f"{'/'.join('-' if q is None else f'{q:.1f}' for q in queued)}"
+              f"); host {host:.1f} µs "
+              f"({'/'.join(f'{r[1]:.1f}' for r in runs)}); events "
+              f"{event:.4f} ms ({'/'.join(f'{r[2]:.4f}' for r in runs)})")
     return out
 
 
-def timing_columns(t: dict, launches: dict | None = None
+def timing_columns(t: dict, launches: float | None = None
                    ) -> tuple[float, dict]:
     """A kernels-line row's ms (CUDA events over back-to-back calls, as
-    every row) and its other timings, of the new design and, where it was
-    timed, of the first one, from one `design_timing` case: device ms by
-    queued events (null where not measured), the wrapper's host ms, and
-    the launches per call that phase 1 counted ({design: launches})."""
-    cols = {}
-    for which, prefix in (("new", ""), ("old", "old_")):
-        if which not in t:
-            continue
-        d = t[which]
-        dev_us = d["device_us"]
-        cols.update({f"{prefix}device_ms": (None if dev_us is None
-                                            else dev_us * 1e-3),
-                     f"{prefix}wrapper_host_ms": d["host_us"] * 1e-3})
-        if launches is not None and which in launches:
-            cols[f"{prefix}launches_per_call"] = launches[which]
-        if which == "old":
-            cols["old_ms"] = d["event_ms"]
-    return t["new"]["event_ms"], cols
-
-
-def first_design(launch_blocked, device, *args):
-    """A call of a kernel's first design (a wrapper's ``launch_blocked``,
-    on inputs that passed the new design's checks); only this script calls
-    the first designs, to time them against the new ones."""
-    from ilqr_tpu_torch.ops import _build
-    with _build.on_device(device):
-        return launch_blocked(_build.load().lib, *args,
-                              _build.current_stream(device))
+    every row) and its other timings from one `design_timing` case: device
+    ms by queued events (null where not measured), the wrapper's host ms,
+    and the launches per call that phase 1 counted."""
+    dev_us = t["device_us"]
+    cols = {"device_ms": None if dev_us is None else dev_us * 1e-3,
+            "wrapper_host_ms": t["host_us"] * 1e-3}
+    if launches is not None:
+        cols["launches_per_call"] = launches
+    return t["event_ms"], cols
 
 
 def implicit_timing(itt, dev, smi, runs) -> dict:
@@ -515,14 +502,17 @@ def tile_expansion(exp, N: int):
                 ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu")})
 
 
-def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
-                   B_mpc=MPC_B, H=MPC_H, n_sim=MPC_SIM,
-                   n_sim_auto=MPC_SIM_AUTO, n_sim_ms=20, samples=(8, 2)):
-    """Phases 13-17: batched solving and MPC through B4 and B5, and the
-    single-instance MPC loops.  Returns the kernels line's entries of B4
-    and B5."""
+def batched_phases(itt, dev, smi, launches_per_call, B=BATCH_B, N=BATCH_N,
+                   ragged=RAGGED_B, B_mpc=MPC_B, H=MPC_H, n_sim=MPC_SIM,
+                   n_sim_auto=MPC_SIM_AUTO, n_sim_ms=20, samples=(8, 2),
+                   B_pend=PEND_BATCH, H_pend=PEND_H, n_sim_pend=PEND_STEPS):
+    """Phases 13-17 and 16b: batched solving and MPC through B4 and B5, and
+    the single-instance MPC loops.  ``launches_per_call`` is phase 1's
+    count.  Returns the kernels line's entries of B4 and B5."""
     from ilqr_tpu_torch.ops import _build, batched
+    from ilqr_tpu_torch.ops.integrators import IMPLICIT
 
+    lib = _build.load().lib
     f32 = dict(dtype=torch.float32, device=dev)
     dp = dp_system(itt, f32)
     ua = dp_system(itt, f32, underactuated=True)
@@ -534,9 +524,14 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
              "closed_loop_rollout_batched", "open_loop_rollout_batched")
     errors = dict.fromkeys(names, 0.0)
     alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    # Phase 14's alpha counts: one lane, the solver's schedule, more than a
+    # warp (grid.y = 2).
+    alpha_all = torch.tensor([0.5 ** i for i in range(max(CHAIN_ALPHA_COUNTS))],
+                             **f32)
+    edge_b = ragged + 1   # fills no whole block of B4 (8 instances)
     t_start = t_lap = time.perf_counter()
 
-    def lap(phase: int) -> None:
+    def lap(phase) -> None:
         """Print the wall time of a phase (these phases aim at ~90 s)."""
         nonlocal t_lap
         now = time.perf_counter()
@@ -556,38 +551,42 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
         X, _ = itt.rollout(system, x0s, U)
         return itt.linearize_trajectory_batched(system, X, U)
 
-    def as64(exp):
+    def first_steps(exp, n):
+        """The first n steps of every stage field (terminal unchanged)."""
         return dataclasses.replace(exp, **{
-            f.name: getattr(exp, f.name).double()
-            for f in dataclasses.fields(exp)})
+            f: getattr(exp, f)[:, :n].contiguous()
+            for f in ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu")})
+
+    def twice(label, fn):
+        """fn's outputs, called twice with equal bits required."""
+        torch.cuda.synchronize()
+        got, again = fn(), fn()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None):
+            raise AssertionError(f"{label}: a repeated call gave other bits")
+        return got
 
     # ---- 13. B4 against its plain version --------------------------------
+    T4 = lib.ilqr_batched_riccati_chunk_steps()
     print(f"B4 tolerance: max|kernel - plain| <= max({RTOL_B4} * max|plain|,"
-          f" {F32_FLOOR} * max|plain - plain in f64|)")
+          f" {F32_FLOOR} * max|plain - plain in f64|); chunks of {T4} steps;"
+          f" every call twice, bit for bit")
 
     def check_b4(label, exp, reg):
-        torch.cuda.synchronize()
-        got = itt.backward_pass_batched(exp, reg)
+        got = twice(f"B4 {label}", lambda: itt.backward_pass_batched(exp, reg))
         plain = batched.vmap_backward(itt.backward_pass, exp, reg)
         ref64 = batched.vmap_backward(
-            itt.backward_pass, as64(exp),
+            itt.backward_pass, as_f64(exp),
             reg.double() if torch.is_tensor(reg) else reg)
         torch.cuda.synchronize()
-        notes = []
-        for name, g, p, r in zip(("u_ff", "K", "dV"), got, plain, ref64):
-            err, rel = rel_err(g, p)
-            floor = rel_err(p, r)[0]
-            limit = max(RTOL_B4 * float(p.abs().max()), F32_FLOOR * floor)
-            errors["batched_riccati"] = max(errors["batched_riccati"], err)
-            notes.append(f"{name} {err:.2e} (rel {rel:.1e}, limit "
-                         f"{limit:.2e}; plain vs f64 {floor:.2e})")
-            if not err <= limit:
-                raise AssertionError(f"B4 {label}: {notes[-1]}")
+        notes = check_fields(f"B4 {label}", got[:3], plain[:3], ref64[:3],
+                             RTOL_B4, errors, "batched_riccati")
         if not (torch.equal(got[3], plain[3]) and bool(got[3].all())):
             raise AssertionError(f"B4 {label}: ok flags differ from the "
                                  f"plain version's or gains not finite")
         print(f"B4 {label}: B={exp.f_x.shape[0]} N={exp.f_x.shape[1]} max "
-              f"abs error " + "; ".join(notes))
+              f"abs error " + "; ".join(notes)
+              + "; repeated call bit-identical")
 
     exp_dp = random_expansion(dp, bench_x0s(B, 0, 0.0, 0.5), N)
     check_b4("DP, random controls, reg 0", exp_dp, 0.0)
@@ -600,12 +599,32 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
              random_expansion(pend, bench_x0s(B, 0, 0.0, 0.5)[:, :2], N), 0.0)
     check_b4("UA-DP, random controls",
              random_expansion(ua, bench_x0s(B, 0, 0.0, 0.5), N), 0.0)
+    # The chunk edges (N = 1, T - 1, T, T + 1, and across five chunk edges
+    # ending mid-chunk) at a batch that fills no whole block; the pendulum
+    # (n_u = 1) at an odd N, where every instance's l_u, l_uu and u_ff rows
+    # start at another 4-byte phase.
+    mid4 = 5 * T4 + T4 // 2 + 3
+    exp_e = random_expansion(dp, bench_x0s(edge_b, 0, 0.0, 0.5), mid4)
+    for n in (1, T4 - 1, T4, T4 + 1, mid4):
+        check_b4(f"DP chunk edges, reg 0.1", first_steps(exp_e, n), 0.1)
+    check_b4("pendulum rk4, odd N (misaligned rows)",
+             random_expansion(pend, bench_x0s(edge_b, 0, 0.0, 0.5)[:, :2],
+                              N - 1), 0.0)
 
     lap(13)
 
     # ---- 14. B5 against its plain versions --------------------------------
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for mode, what, A in ((0, "costs", 10), (0, "costs", 33),
+                          (1, "trajectory", 1), (2, "open loop", 1)):
+        per = lib.ilqr_chain_instances_per_warp(mode, 4, 2, B, A)
+        warps = lib.ilqr_chain_warps_per_block(mode, 4, 2, B, A)
+        blocks = -(-B // (per * warps)) * -(-A // 32)
+        print(f"B5 split at B={B} (DP): {what}, {A} alphas: {per} instances "
+              f"a chain warp, {warps} chain warps a block, {blocks} blocks "
+              f"({blocks / sms:.2f} an SM)")
     print(f"B5 tolerance: max|kernel - plain| <= {RTOL_B5} * max|plain| "
-          f"(B2's recursion per instance)")
+          f"(B2's recursion per instance); every call twice, bit for bit")
 
     def check_b5_pair(kernel, label, got, ref):
         if not bool(torch.isfinite(got).all()):
@@ -617,45 +636,84 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
                                  f"{rel:.3e} of max |plain|")
         return rel
 
-    def first_iteration(n):
-        """The first iteration of the batched-solve cell: the rest
-        trajectories under zero controls and their B4 gains."""
-        x0s = bench_x0s(n, 0, 0.0, 0.5)
-        U0 = torch.zeros((n, N, 2), **f32)
-        X0, _ = itt.rollout(dp, x0s, U0)
-        u0, K0, _, _ = itt.backward_pass_batched(
-            itt.linearize_trajectory_batched(dp, X0, U0), 0.0)
-        return x0s, X0, U0, u0, K0
-
-    def check_b5(n):
-        x0s, X0, U0, u0, K0 = first_iteration(n)
+    def check_b5_all(label, system, x0s, X0, U0, u0, K0, counts,
+                     U_open=None):
+        """Costs at each alpha count, the trajectory at seeded
+        per-instance alphas and the open loop (of U_open, else U0)
+        against the plain versions."""
+        n = x0s.shape[0]
+        worst = 0.0
+        for A in counts:
+            got = twice(f"B5 {label}", lambda: (itt.linesearch_costs_batched(
+                system, x0s, alpha_all[:A], X0, U0, u0, K0),))
+            ref = itt.linesearch_rollouts(system, x0s, alpha_all[:A], X0, U0,
+                                          u0, K0)[2]
+            worst = max(worst, check_b5_pair(
+                "linesearch_costs_batched", f"{label} costs, {A} alphas",
+                got[0], ref))
         alpha_b = alphas[torch.tensor(rng.integers(0, alphas.numel(), n),
                                       device=dev)]
-        torch.cuda.synchronize()
-        worst = 0.0
-        costs = itt.linesearch_costs_batched(dp, x0s, alphas, X0, U0, u0, K0)
-        ref = itt.linesearch_rollouts(dp, x0s, alphas, X0, U0, u0, K0)[2]
-        worst = max(worst, check_b5_pair("linesearch_costs_batched",
-                                         "costs", costs, ref))
-        got = itt.closed_loop_rollout_batched(dp, x0s, alpha_b, X0, U0, u0,
-                                              K0)
-        ref = itt.linesearch_rollouts(dp, x0s, alpha_b[:, None], X0, U0, u0,
-                                      K0)
-        for name, g, r in zip(("X", "U", "cost"), got, ref):
+        got = twice(f"B5 {label}", lambda: itt.closed_loop_rollout_batched(
+            system, x0s, alpha_b, X0, U0, u0, K0))
+        ref = itt.linesearch_rollouts(system, x0s, alpha_b[:, None], X0, U0,
+                                      u0, K0)
+        for what, g, r in zip(("X", "U", "cost"), got, ref):
             worst = max(worst, check_b5_pair(
-                "closed_loop_rollout_batched", name, g, r[:, 0]))
-        U_rand = torch.tensor(0.5 * rng.standard_normal((n, N, 2)), **f32)
-        got = itt.open_loop_rollout_batched(dp, x0s, U_rand)
-        ref = itt.rollout(dp, x0s, U_rand)
-        for name, g, r in zip(("open-loop X", "open-loop cost"), got, ref):
-            worst = max(worst, check_b5_pair("open_loop_rollout_batched",
-                                             name, g, r))
-        print(f"B5 DP first iteration: B={n} N={N}, {alphas.numel()} alphas, "
-              f"per-instance alphas, open loop of random controls: max rel "
-              f"error {worst:.3e}")
+                "closed_loop_rollout_batched", f"{label} trajectory {what}",
+                g, r[:, 0]))
+        U_o = U0 if U_open is None else U_open
+        got = twice(f"B5 {label}", lambda: itt.open_loop_rollout_batched(
+            system, x0s, U_o))
+        for what, g, r in zip(("X", "cost"), got, itt.rollout(system, x0s,
+                                                              U_o)):
+            worst = max(worst, check_b5_pair(
+                "open_loop_rollout_batched", f"{label} open loop {what}", g,
+                r))
+        return worst
 
-    check_b5(B)
-    check_b5(ragged)
+    def first_iteration(system, x0s, n_steps):
+        """The first iteration of a batched solve: the trajectories of zero
+        controls and their B4 gains."""
+        U0 = torch.zeros((x0s.shape[0], n_steps, system.n_u), **f32)
+        X0, _ = itt.rollout(system, x0s, U0)
+        u0, K0, _, _ = itt.backward_pass_batched(
+            itt.linearize_trajectory_batched(system, X0, U0), 0.0)
+        return x0s, X0.contiguous(), U0, u0, K0
+
+    for n in (B, ragged, 1):
+        args = first_iteration(dp, bench_x0s(n, 0, 0.0, 0.5), N)
+        U_rand = torch.tensor(0.5 * rng.standard_normal((n, N, 2)), **f32)
+        worst = check_b5_all(f"DP first iteration B={n}", dp, *args,
+                             CHAIN_ALPHA_COUNTS, U_open=U_rand)
+        print(f"B5 DP first iteration: B={n} N={N}, {CHAIN_ALPHA_COUNTS} "
+              f"alphas, per-instance alphas, open loop of random controls: "
+              f"max rel error {worst:.3e}")
+    # Every instantiation (three models, five integrators; the implicit
+    # ones at newton_iters 1 and 10) at a small batch, at N = 34 for the
+    # pendulum and 35 for the double pendulums (across a chunk edge):
+    # X_old rows (n_x = 2) or U rows (n_u = 2) and U, u_ff rows (n_u = 1)
+    # of every instance start at another 4-byte phase.  Nominal: seeded
+    # random controls and their B4 gains at reg CHAIN_REG.
+    for integ in CHAIN_INTEGRATORS:
+        for name, system in chain_systems(itt, f32, integ).items():
+            n_steps = 34 if system.n_x == 2 else 35
+            x0s = torch.tensor(0.3 * rng.standard_normal((5, system.n_x)),
+                               **f32)
+            U_r = torch.tensor(0.5 * rng.standard_normal(
+                (5, n_steps, system.n_u)), **f32)
+            for iters in ((1, 10) if integ in IMPLICIT else (None,)):
+                sys_i = (system if iters is None
+                         else system.replace(newton_iters=iters))
+                X_r, _ = itt.rollout(sys_i, x0s, U_r)
+                u_r, K_r, _, _ = itt.backward_pass_batched(
+                    itt.linearize_trajectory_batched(sys_i, X_r, U_r),
+                    CHAIN_REG)
+                label = (f"{name} {integ}"
+                         + ("" if iters is None else f" newton_iters {iters}"))
+                worst = check_b5_all(label, sys_i, x0s, X_r.contiguous(), U_r,
+                                     u_r, K_r, (10,))
+                print(f"B5 {label}: B=5 N={n_steps}: max rel error "
+                      f"{worst:.2e}")
 
     lap(14)
 
@@ -730,42 +788,53 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
               f"cost rel {w['cost']:.2e}, X {w['X']:.2e}, U {w['U']:.2e} "
               f"(limits {RTOL_BATCH}, {ATOL_BATCH_X}, {ATOL_BATCH_U})")
 
-    # Stages of one iteration at the solved trajectories, and the plain
-    # versions of B4 and B5 at the same shapes.
+    def kernel_timing(label, system, x0s_t, X_t, U_t):
+        """B4 and B5 at one shape, each by `design_timing`, with the plain
+        versions by CUDA events: the expansion at (X_t, U_t), its B4 gains,
+        10 alphas, the trajectory at alpha 0.5 and the open loop of U_t."""
+        exp_t = itt.linearize_trajectory_batched(system, X_t, U_t)
+        u_t, K_t, _, _ = itt.backward_pass_batched(exp_t, 0.0)
+        alpha_t = torch.full((x0s_t.shape[0],), 0.5, **f32)
+        t_lin = cuda_ms(lambda: itt.linearize_trajectory_batched(
+            system, X_t, U_t), 3, 1)
+        dt = {}
+        for kernel, fn in {
+                "batched_riccati": lambda: itt.backward_pass_batched(
+                    exp_t, 0.0),
+                "linesearch_costs_batched": lambda:
+                    itt.linesearch_costs_batched(system, x0s_t, alphas, X_t,
+                                                 U_t, u_t, K_t),
+                "closed_loop_rollout_batched": lambda:
+                    itt.closed_loop_rollout_batched(system, x0s_t, alpha_t,
+                                                    X_t, U_t, u_t, K_t),
+                "open_loop_rollout_batched": lambda:
+                    itt.open_loop_rollout_batched(system, x0s_t, U_t)}.items():
+            dt[kernel] = design_timing(smi, kernel, {label: fn})[label]
+        plain = {
+            "batched_riccati": cuda_ms(lambda: batched.vmap_backward(
+                itt.backward_pass, exp_t, 0.0), 2, 1),
+            "linesearch_costs_batched": cuda_ms(
+                lambda: itt.linesearch_rollouts(system, x0s_t, alphas, X_t,
+                                                U_t, u_t, K_t), 2, 1),
+            "closed_loop_rollout_batched": cuda_ms(
+                lambda: itt.linesearch_rollouts(system, x0s_t,
+                                                alpha_t[:, None], X_t, U_t,
+                                                u_t, K_t), 2, 1),
+            "open_loop_rollout_batched": cuda_ms(
+                lambda: itt.rollout(system, x0s_t, U_t), 2, 1),
+        }
+        print(f"timing on {smi} (ms per call), {label}: "
+              f"linearize_trajectory_batched {t_lin:.4f}; "
+              + "; ".join(f"{k} events {dt[k]['event_ms']:.4f}, device "
+                          f"{ms_text(dt[k]['device_us'])}, host "
+                          f"{dt[k]['host_us'] * 1e-3:.4f}, plain "
+                          f"{plain[k]:.4f}" for k in names))
+        return dt, plain
+
+    # The kernels at the solved trajectories of the cell.
     sol = sols["pallas"]
-    X_s, U_s = sol.X, sol.U
-    exp_s = itt.linearize_trajectory_batched(dp, X_s, U_s)
-    u_s, K_s, _, _ = itt.backward_pass_batched(exp_s, 0.0)
-    alpha_b = torch.full((B,), 0.5, **f32)
-    t = {
-        "linearize_trajectory_batched": cuda_ms(
-            lambda: itt.linearize_trajectory_batched(dp, X_s, U_s), 3, 1),
-        "B4 batched_riccati": cuda_ms(
-            lambda: itt.backward_pass_batched(exp_s, 0.0), 20, 3),
-        "B4 plain (vmap of the sequential pass)": cuda_ms(
-            lambda: batched.vmap_backward(itt.backward_pass, exp_s, 0.0),
-            2, 1),
-        "B5 linesearch_costs_batched, 10 alphas": cuda_ms(
-            lambda: itt.linesearch_costs_batched(dp, x0s, alphas, X_s, U_s,
-                                                 u_s, K_s), 20, 3),
-        "B5 plain costs (batched host loop)": cuda_ms(
-            lambda: itt.linesearch_rollouts(dp, x0s, alphas, X_s, U_s, u_s,
-                                            K_s), 2, 1),
-        "B5 closed_loop_rollout_batched (materialize)": cuda_ms(
-            lambda: itt.closed_loop_rollout_batched(dp, x0s, alpha_b, X_s,
-                                                    U_s, u_s, K_s), 20, 3),
-        "B5 plain materialize": cuda_ms(
-            lambda: itt.linesearch_rollouts(dp, x0s, alpha_b[:, None], X_s,
-                                            U_s, u_s, K_s), 2, 1),
-        "B5 open_loop_rollout_batched": cuda_ms(
-            lambda: itt.open_loop_rollout_batched(dp, x0s, U_s), 20, 3),
-        "B5 plain open loop": cuda_ms(
-            lambda: itt.rollout(dp, x0s, U_s), 2, 1),
-    }
-    print(f"timing on {smi} (CUDA events, ms per call), batched-solve cell "
-          f"B={B} N={N}, at the solved trajectories:")
-    for k, v in t.items():
-        print(f"  {k}: {v:.4f}")
+    t15 = kernel_timing(f"batched-solve cell B={B} N={N}", dp, x0s, sol.X,
+                        sol.U)
 
     lap(15)
 
@@ -775,6 +844,7 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
     refs = np.sort(rng.choice(B_mpc, samples[1], replace=False))
     print(f"batched MPC: rollout='auto' cut to {n_sim_auto} of {n_sim} "
           f"steps; instances {refs.tolist()} re-run alone over every step")
+    counts16 = {}
     for rollout, steps in (("auto", n_sim_auto), ("pallas", n_sim)):
         cfg = itt.IlqrConfig(maxiter=5, tol=1e-4, rollout=rollout)
         torch.cuda.synchronize()
@@ -783,7 +853,7 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
         res = itt.run_mpc_batched(dp, dp, x0m, Um, steps, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = _build.launch_counts()
+        counts16[rollout] = counts = _build.launch_counts()
         print(f"batched MPC B={B_mpc} H={H} n_sim={steps} (rollout={rollout})"
               f": {wall:.3f} s, {B_mpc * steps / wall:.1f} step-solves/s, "
               f"{float(res.solve_iters.float().mean()):.2f} iterations per "
@@ -821,8 +891,75 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
               f"{dx_worst:.2e} (limit {ATOL_MPC}); closed-loop cost rel "
               f"{dc_worst:.2e}; {flips} of {len(refs) * steps} solves ended "
               f"at another iteration count")
+    # The kernels at the cell's shape: its first solve's first iteration.
+    x0m_, Xm, Um_, _, _ = first_iteration(dp, x0m, H)
+    t16 = kernel_timing(f"batched-MPC cell B={B_mpc} N={H}", dp, x0m_, Xm,
+                        Um_)
 
     lap(16)
+
+    # ---- 16b. the reference's pendulum MPC as a batch (B4, B5i) ----------
+    # examples/pendulum_mpc.py: backward-Euler solver, midpoint plant,
+    # H = 200, maxiter 10; B_pend initial angles, n_sim_pend steps; two
+    # instances held to single-instance run_mpc (B2m) over every step.
+    def mpc_pendulum(integrator):
+        return itt.make_pendulum(
+            0.01, [np.pi, 0.0], Q=np.diag([10.0, 1.0]), R=np.eye(1),
+            Q_f=np.diag([10.0, 10.0]), d=0.0, integrator=integrator, **f32)
+
+    p_solver, p_plant = (mpc_pendulum("backward_euler"),
+                         mpc_pendulum("midpoint"))
+    x0p = torch.zeros((B_pend, 2), **f32)
+    x0p[:, 0] = torch.linspace(0.0, 0.7, B_pend, **f32)
+    Up = torch.zeros((H_pend, 1), **f32)
+    cfg = itt.IlqrConfig(maxiter=10, tol=1e-5, rollout="pallas")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = itt.run_mpc_batched(p_solver, p_plant, x0p, Up, n_sim_pend, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    print(f"batched pendulum MPC (backward-Euler solver, midpoint plant) "
+          f"B={B_pend} H={H_pend} n_sim={n_sim_pend}: {wall:.3f} s, "
+          f"{float(res.solve_iters.float().mean()):.2f} iterations per solve,"
+          f" closed-loop cost mean {float(res.cost.mean()):.4f}, launches "
+          f"{counts}")
+    if counts.get("open_loop_rollout_batched", 0) != n_sim_pend:
+        raise AssertionError(f"batched pendulum MPC: open_loop_rollout_"
+                             f"batched launched "
+                             f"{counts.get('open_loop_rollout_batched', 0)} "
+                             f"times, expected one a solve ({n_sim_pend})")
+    for kernel in names[:3]:
+        if counts.get(kernel, 0) < n_sim_pend:
+            raise AssertionError(f"batched pendulum MPC: {kernel} launched "
+                                 f"{counts.get(kernel, 0)} times in "
+                                 f"{n_sim_pend} steps")
+    if not (bool(torch.isfinite(res.X).all())
+            and res.X.shape == (B_pend, n_sim_pend + 1, 2)):
+        raise AssertionError("batched pendulum MPC: closed loop not finite "
+                             "or of the wrong shape")
+    dx_worst = 0.0
+    for i in (0, B_pend - 1):
+        _build.reset_launch_counts()
+        one = itt.run_mpc(p_solver, p_plant, x0p[i], Up, n_sim_pend, cfg)
+        one_counts = _build.launch_counts()
+        for kernel in ("linesearch_costs", "closed_loop_rollout",
+                       "open_loop_rollout"):
+            if one_counts.get(kernel, 0) < 1:
+                raise AssertionError(f"pendulum MPC instance {i} alone never "
+                                     f"launched {kernel}")
+        dx = float((res.X[i] - one.X).abs().max())
+        dx_worst = max(dx_worst, dx)
+        if not dx <= ATOL_MPC:
+            raise AssertionError(f"batched pendulum MPC instance {i}: closed "
+                                 f"loop differs from run_mpc alone by "
+                                 f"{dx:.2e}")
+    print(f"batched pendulum MPC: instances 0 and {B_pend - 1} agree with "
+          f"single-instance run_mpc (B2m) over all {n_sim_pend} steps to "
+          f"{dx_worst:.2e} (limit {ATOL_MPC})")
+
+    lap("16b")
 
     # ---- 17. single-instance MPC through B1/B2 and B1d/B3 ------------------
     cfg = itt.IlqrConfig(maxiter=5, tol=1e-4, backward="pallas",
@@ -864,48 +1001,31 @@ def batched_phases(itt, dev, smi, B=BATCH_B, N=BATCH_N, ragged=RAGGED_B,
     lap(17)
     print(f"phases 13-17: {time.perf_counter() - t_start:.1f} s")
 
-    replaces = "ilqr_tpu/ops/pallas_batched.py:"
-    n_x, n_u, A = 4, 2, alphas.numel()
-    step_ops = rollout_step_ops("double_pendulum", "euler", n_x, n_u)
-    traj_in = B * ((N + 1) * n_x + 2 * N * n_u + N * n_u * n_x + n_x)
-    traj_out = B * ((N + 1) * n_x + N * n_u + 1)
-    p_in = params_floats(n_x, n_u)
-    bounds = {
-        "batched_riccati": bound(
-            4 * B * (expansion_floats(N, n_x, n_u) + N * (n_u + n_u * n_x)
-                     + 3), B * N * riccati_step_ops(n_x)),
-        "linesearch_costs_batched": bound(
-            4 * (traj_in + A + p_in + B * A), B * A * N * step_ops),
-        "closed_loop_rollout_batched": bound(
-            4 * (traj_in + B + p_in + traj_out), B * N * step_ops),
-        "open_loop_rollout_batched": bound(
-            4 * (B * (n_x + N * n_u) + p_in + B * ((N + 1) * n_x + 1)),
-            B * N * rollout_step_ops("double_pendulum", "euler", n_x, n_u,
-                                     feedback=False)),
-    }
-    pairs = {
-        "batched_riccati": (
-            "batched_riccati.cu", "114", counts15["scan"],
-            "B4 batched_riccati", "B4 plain (vmap of the sequential pass)"),
-        "linesearch_costs_batched": (
-            "fused_rollout.cu", "377", counts15["pallas"],
-            "B5 linesearch_costs_batched, 10 alphas",
-            "B5 plain costs (batched host loop)"),
-        "closed_loop_rollout_batched": (
-            "fused_rollout.cu", "377", counts15["pallas"],
-            "B5 closed_loop_rollout_batched (materialize)",
-            "B5 plain materialize"),
-        "open_loop_rollout_batched": (
-            "fused_rollout.cu", "377", counts15["pallas"],
-            "B5 open_loop_rollout_batched", "B5 plain open loop"),
-    }
-    return [dict(name=name, route="cuda",
-                 source=f"ilqr_tpu_torch/csrc/{src}",
-                 replaces=replaces + line, launches=counts.get(name, 0),
-                 max_abs_err=errors[name], ms=t[tk], plain_ms=t[tp],
-                 bound_ms=bounds[name][0], bound_by=bounds[name][1],
-                 library_ms=None)
-            for name, (src, line, counts, tk, tp) in pairs.items()]
+    # Rows at the batched-solve cell's shape, with its launches, and at the
+    # batched-MPC cell's, with the pallas run's.
+    replaces = {"batched_riccati": "ilqr_tpu/ops/pallas_batched.py:114"}
+    rows = []
+    for suffix, (b_n, n_n), (dt, plain), launches in (
+            ("", (B, N), t15, {"batched_riccati": counts15["scan"],
+                               **dict.fromkeys(names[1:],
+                                               counts15["pallas"])}),
+            ("_mpc", (B_mpc, H), t16, dict.fromkeys(names,
+                                                    counts16["pallas"]))):
+        bounds = batched_bounds(b_n, n_n, alphas.numel())
+        for name in names:
+            ms, more = timing_columns(dt[name], launches_per_call[name])
+            rows.append(dict(
+                name=name + suffix, route="cuda",
+                source="ilqr_tpu_torch/csrc/" + (
+                    "batched_riccati.cu" if name == "batched_riccati"
+                    else "chain_rollout.cu"),
+                replaces=replaces.get(name,
+                                      "ilqr_tpu/ops/pallas_batched.py:377"),
+                launches=launches[name].get(name, 0),
+                max_abs_err=errors[name], ms=ms, plain_ms=plain[name],
+                bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                library_ms=None, B=b_n, N=n_n, **more))
+    return rows
 
 
 # ---- bounds: the least time the card could take for a kernel's work ------
@@ -992,6 +1112,28 @@ def rollout_step_ops(model: str, integrator: str, n_x: int, n_u: int,
     return control + integrator_ops(model, integrator, n_x, n_u) + cost
 
 
+def batched_bounds(B: int, N: int, A: int, n_x: int = 4, n_u: int = 2):
+    """Bounds of B4 and the B5 entries on B DP euler instances of N steps,
+    A alphas."""
+    step_ops = rollout_step_ops("double_pendulum", "euler", n_x, n_u)
+    traj_in = B * ((N + 1) * n_x + 2 * N * n_u + N * n_u * n_x + n_x)
+    traj_out = B * ((N + 1) * n_x + N * n_u + 1)
+    p_in = params_floats(n_x, n_u)
+    return {
+        "batched_riccati": bound(
+            4 * B * (expansion_floats(N, n_x, n_u) + N * (n_u + n_u * n_x)
+                     + 3), B * N * riccati_step_ops(n_x)),
+        "linesearch_costs_batched": bound(
+            4 * (traj_in + A + p_in + B * A), B * A * N * step_ops),
+        "closed_loop_rollout_batched": bound(
+            4 * (traj_in + B + p_in + traj_out), B * N * step_ops),
+        "open_loop_rollout_batched": bound(
+            4 * (B * (n_x + N * n_u) + p_in + B * ((N + 1) * n_x + 1)),
+            B * N * rollout_step_ops("double_pendulum", "euler", n_x, n_u,
+                                     feedback=False)),
+    }
+
+
 def expansion_floats(N: int, n_x: int, n_u: int) -> int:
     """Floats of a TrajectoryExpansion (the seven stage blocks and the
     terminal v_x, v_xx)."""
@@ -1029,16 +1171,14 @@ CHAIN_ALPHA_COUNTS = (1, 10, 33)
 CHAIN_INTEGRATORS = ("euler", "midpoint", "rk4", "backward_euler",
                      "trapezoidal")
 CHAIN_REG = 1.0   # the regularization of phase 3's B1 gains
-# The SASS report's instantiations: the DP flagship's (double pendulum,
-# n_u = 2, euler) in the new design and the old one (B5's kernel), by
-# demangled or mangled name.
+# The SASS report's instantiations: the DP flagship's chain kernel (double
+# pendulum, n_u = 2, euler) and B4 at (4, 2), by demangled or mangled name.
 SASS_KERNELS = {
     "chain_kernel DP (4,2) euler": (
         "chain_kernel<ilqr::DoublePendulumRegs<2>, 4, 2, 0,",
         "chain_kernelIN4ilqr18DoublePendulumRegsILi2EEELi4ELi2ELi0E"),
-    "rollout_kernel DP (4,2) euler (old design)": (
-        "rollout_kernel<ilqr::DoublePendulum, 4, 2, 0,",
-        "rollout_kernelIN4ilqr14DoublePendulumELi4ELi2ELi0E"),
+    "batched_riccati_kernel (4,2)": (
+        "batched_riccati_kernel<4, 2>", "batched_riccati_kernelILi4ELi2EE"),
 }
 
 
@@ -1056,59 +1196,153 @@ def chain_systems(itt, f32, integrator):
     }
 
 
-def old_chain(itt, system, x0):
-    """The old design on one instance: B5's entries (rollout_kernel of
-    csrc/fused_rollout.cu) at B = 1, as (costs, trajectory, open loop)
-    with the B2 wrappers' arguments and results."""
-    def costs(alphas, X, U, u_ff, K):
-        return itt.linesearch_costs_batched(system, x0[None], alphas, X[None],
-                                            U[None], u_ff[None], K[None])[0]
+def long_pendulum(itt, opts):
+    """Phase 3's system at N = 1e5: the pendulum (rk4), damped, so that the
+    open loop settles: an undamped pendulum's phase drifts by f32 rounding
+    (3.8e-5 of max|X| against f64 at N = 20000 on the CPU)."""
+    return itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                             Q_f=np.zeros((2, 2)), d=0.1, integrator="rk4",
+                             **opts)
 
-    def trajectory(alpha, X, U, u_ff, K):
-        a = torch.full((1,), alpha, dtype=torch.float32, device=x0.device)
-        out = itt.closed_loop_rollout_batched(system, x0[None], a, X[None],
-                                              U[None], u_ff[None], K[None])
-        return tuple(t[0] for t in out)
 
-    def open_loop(U):
-        return tuple(t[0] for t in itt.open_loop_rollout_batched(
-            system, x0[None], U[None]))
+def long_plain_f64(X, U, u_ff, K, alphas) -> dict:
+    """The plain versions of phase 3's N = 1e5 check, in f64 on the host:
+    the closed loops of every alpha along (X, U, u_ff, K) from [1, 0], the
+    one of alphas[1], and the open loop of U (numpy in, numpy out; run in a
+    child process).  A cost is a sum over 1e5 steps, which the kernels (as
+    the TPU kernels, ilqr_tpu/ops/pallas_rollout.py:117) accumulate in f32
+    in time order, ~N u of it in rounding (9e-4 of the cost here): the
+    costs' reference ("*32") is the plain f64 stage costs summed in f32 in
+    time order, beside the f64 sums."""
+    import ilqr_tpu_torch as itt
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    host64 = dict(dtype=torch.float64, device="cpu")
+    pend = long_pendulum(itt, dict(dtype=torch.float32, device="cpu"))
+    pend = pend.replace(params={k: v.to(**host64)
+                                for k, v in pend.params.items()})
 
-    return costs, trajectory, open_loop
+    def f32_sum(Xs, Us):
+        p = pend.params
+        terms = pend.stage_cost(p, Xs[..., :-1, :], Us).numpy()
+        run = np.cumsum(terms.astype(np.float32), axis=-1,
+                        dtype=np.float32)[..., -1]
+        term = pend.terminal_cost(p, Xs[..., -1, :]).numpy()
+        return np.asarray(run + term.astype(np.float32))
+
+    x0 = torch.tensor([1.0, 0.0], **host64)
+    X, U, u_ff, K, alphas = (torch.from_numpy(a).to(**host64)
+                             for a in (X, U, u_ff, K, alphas))
+    X_o, _ = itt.rollout(pend, x0, U)
+    X_P, U_P, c_P = itt.linesearch_rollouts(pend, x0, alphas, X, U, u_ff, K)
+    c_P32 = f32_sum(X_P, U_P)
+    return dict(c_P=c_P.numpy(), c_P32=c_P32, X_t=X_P[1].numpy(),
+                U_t=U_P[1].numpy(), c_t32=c_P32[1], X_o=X_o.numpy(),
+                c_o32=f32_sum(X_o, U), seconds=time.perf_counter() - t0)
+
+
+def chain_plain(integ: str, name: str, Ns, seed: int) -> dict:
+    """Phase 3's inputs and plain versions for one instantiation, in f32 on
+    the host (numpy out; run in a child process, where the eager loops
+    take a few ms a step against tens on the card): a seeded random
+    nominal near rest over max(Ns) steps, its gains at reg CHAIN_REG, the
+    closed loops of every alpha of phase 3 along it, and at each N the
+    costs of their prefixes and of the nominal's (the recursion is causal:
+    step t reads row t of the nominal and gains)."""
+    import ilqr_tpu_torch as itt
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    f32 = dict(dtype=torch.float32, device="cpu")
+    system = chain_systems(itt, f32, integ)[name]
+    rng = np.random.default_rng(seed)
+    n_max = max(Ns)
+    x0 = torch.tensor(0.3 * rng.standard_normal(system.n_x), **f32)
+    U_n = torch.tensor(0.5 * rng.standard_normal((n_max, system.n_u)), **f32)
+    X_n, _ = itt.rollout(system, x0, U_n)
+    u_n, K_n, _, _ = itt.backward_pass(
+        itt.linearize_trajectory(system, X_n, U_n), CHAIN_REG)
+    alphas = torch.tensor([0.5 ** i for i in range(max(CHAIN_ALPHA_COUNTS))],
+                          **f32)
+    X_P, U_P, _ = itt.linesearch_rollouts(system, x0, alphas, X_n, U_n, u_n,
+                                          K_n)
+
+    def prefix_cost(X, U):
+        p = system.params
+        return (system.stage_cost(p, X[..., :-1, :], U).sum(-1)
+                + system.terminal_cost(p, X[..., -1, :]))
+
+    return dict(
+        x0=x0.numpy(), X_n=X_n.numpy(), U_n=U_n.numpy(), u_n=u_n.numpy(),
+        K_n=K_n.numpy(), X_P=X_P.numpy(), U_P=U_P.numpy(),
+        c_P={N: prefix_cost(X_P[:, :N + 1], U_P[:, :N]).numpy() for N in Ns},
+        c_o={N: prefix_cost(X_n[:N + 1], U_n[:N]).numpy() for N in Ns},
+        seconds=time.perf_counter() - t0)
+
+
+# Child processes of phase 3's plain versions (the host has 8 cores).
+CHAIN_WORKERS = 6
 
 
 def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
     """Phase 3: B2a, B2b and its open-loop mode against their plain versions
-    (run once at the longest N, their prefixes at the others)
     in all 15 instantiations (three models, CHAIN_INTEGRATORS), at N =
-    1, a chunk less one and plus one, an N that wraps the ring twice and
-    ends mid-chunk, and 500, with 1, 10 and 33 alphas; the open loop of
+    1, a chunk less one and plus one, an N that wraps the ring twice
+    and ends mid-chunk, and the flagship's N = 500, with 1, 10 and 33
+    alphas; the open loop of
     the UA-DP under backward Euler at newton_iters 1 and 10, where the two
     differ by ~1e-2 of max|X| (dt 0.05), so that an ignored argument shows;
-    then, at N = long_n,
-    against the old design at B = 1 on the pendulum (rk4, zero nominal,
-    gains from B1).  Inputs: a seeded random nominal near rest and its B1
-    gains at reg CHAIN_REG, a closed loop in which f32 rounding does not
-    grow (its plain f32 costs within 1e-6 of f64 on the CPU; at reg 0 the
-    under-actuated DP's terminal weight gives gains near 70 and 5e-5).
-    Records the largest kernel-against-plain errors in ``errors``."""
+    then, at N = long_n, against the plain versions in f64 on the host
+    (`long_plain_f64`) on a damped pendulum (rk4, zero nominal, gains from
+    B1).  The instantiations' inputs and plain versions come from
+    `chain_plain`, in f32 on the host; they and the N = long_n check run
+    in CHAIN_WORKERS child processes while the kernels run.  Inputs: a
+    seeded random nominal near rest and its gains at reg CHAIN_REG, a
+    closed loop in which f32 rounding does not grow (its plain f32 costs
+    within 1e-6 of f64 on the CPU; at reg 0 the under-actuated DP's
+    terminal weight gives gains near 70 and 5e-5).  Records the largest
+    kernel-against-plain errors in ``errors``."""
     from ilqr_tpu_torch.ops import _build, fused_rollout
 
     f32 = dict(dtype=torch.float32, device=dev)
-    lib = _build.load().lib
-    chunk = fused_rollout.chunk_steps(lib)
-    stages = fused_rollout.ring_stages(lib)
     if Ns is None:
+        lib = _build.load().lib
+        chunk = fused_rollout.chunk_steps(lib)
+        stages = fused_rollout.ring_stages(lib)
         Ns = (1, chunk - 1, chunk + 1, 2 * stages * chunk + chunk // 2 + 3,
               500)
-    n_max = max(Ns)
+        print(f"B2 chain kernels: a ring of {stages} stages of {chunk} "
+              f"steps")
     alphas = torch.tensor([0.5 ** i for i in range(max(CHAIN_ALPHA_COUNTS))],
                           **f32)
     i_traj = 3
     rng = np.random.default_rng(seed)
-    print(f"B2 chain kernels: a ring of {stages} stages of {chunk} steps; "
-          f"N in {Ns}, alpha counts {CHAIN_ALPHA_COUNTS}; tolerance "
-          f"max|kernel - plain| <= {RTOL_B2} * max|plain|")
+    print(f"B2 chain kernels: N in {Ns}, alpha counts {CHAIN_ALPHA_COUNTS}; "
+          f"tolerance max|kernel - plain| <= {RTOL_B2} * max|plain|")
+
+    # At N = long_n: the kernels now, their plain versions in f64 in a
+    # child process, beside the instantiations' plain versions.
+    pend = long_pendulum(itt, f32)
+    x0 = torch.tensor([1.0, 0.0], **f32)
+    U = torch.zeros((long_n, 1), **f32)
+    X, cost = itt.open_loop_rollout_fused(pend, x0, U)
+    u_ff, K, _, _ = itt.backward_pass_fused(
+        itt.linearize_trajectory(pend, X, U), 0.0)
+    a10 = alphas[:10].contiguous()
+    long_k = (itt.linesearch_costs_fused(pend, x0, a10, X, U, u_ff, K),
+              itt.closed_loop_rollout_fused(pend, x0, float(a10[1]), X, U,
+                                            u_ff, K),
+              (X, cost))
+    pool = multiprocessing.get_context("spawn").Pool(CHAIN_WORKERS)
+    t_pool = time.perf_counter()
+    plain = pool.apply_async(long_plain_f64, tuple(
+        t.cpu().numpy() for t in (X, U, u_ff, K, a10)))
+    cases = [(integ, name) for integ in CHAIN_INTEGRATORS
+             for name in ("pendulum", "UA-DP", "DP")]
+    jobs = {case: pool.apply_async(chain_plain, case + (Ns, seed + 1 + i))
+            for i, case in enumerate(cases)}
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(**f32)
 
     def gate(kernel, label, got, ref, key=True):
         if not bool(torch.isfinite(got).all()):
@@ -1122,6 +1356,7 @@ def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
                                  f"{RTOL_B2})")
         return rel
 
+    host_s = 0.0
     for integ in CHAIN_INTEGRATORS:
         # The explicit instantiations' errors under the kernel's name, the
         # implicit ones' under kernel_integrator (the kernels line's rows).
@@ -1129,30 +1364,16 @@ def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
             return kernel if integ in INTEGRATOR_EVALS else f"{kernel}_{integ}"
 
         for name, system in chain_systems(itt, f32, integ).items():
-            x0 = torch.tensor(0.3 * rng.standard_normal(system.n_x), **f32)
-            U_n = torch.tensor(0.5 * rng.standard_normal((n_max, system.n_u)),
-                               **f32)
-            X_n, _ = itt.rollout(system, x0, U_n)
-            u_n, K_n, _, _ = itt.backward_pass_fused(
-                itt.linearize_trajectory(system, X_n, U_n), CHAIN_REG)
-            # The plain rollouts once, at the longest N; at each N their
-            # prefixes (the recursion is causal: step t reads row t of the
-            # nominal and gains) with the prefix's cost.  X_n is the open
-            # loop's.
-            X_P, U_P, _ = itt.linesearch_rollouts(system, x0, alphas, X_n, U_n,
-                                                  u_n, K_n)
-
-            def prefix_cost(X, U):
-                p = system.params
-                return (system.stage_cost(p, X[..., :-1, :], U).sum(-1)
-                        + system.terminal_cost(p, X[..., -1, :]))
-
+            ref = jobs[integ, name].get(timeout=1200)
+            host_s += ref["seconds"]
+            x0, X_n, U_n, u_n, K_n, X_P, U_P = (t(ref[k]) for k in (
+                "x0", "X_n", "U_n", "u_n", "K_n", "X_P", "U_P"))
             worst = 0.0
             for N in Ns:
                 label = f"{name} {integ} N={N}"
                 X, U, u_ff, K = X_n[:N + 1], U_n[:N], u_n[:N], K_n[:N]
                 X_p, U_p = X_P[:, :N + 1], U_P[:, :N]
-                c_p = prefix_cost(X_p, U_p)
+                c_p = t(ref["c_P"][N])
                 for A in CHAIN_ALPHA_COUNTS:
                     c_k = itt.linesearch_costs_fused(system, x0, alphas[:A], X,
                                                      U, u_ff, K)
@@ -1167,11 +1388,14 @@ def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
                                             f"{label} trajectory {what}", g, r))
                 got = itt.open_loop_rollout_fused(system, x0, U)
                 for what, g, r in zip(("X", "cost"), got,
-                                      (X, prefix_cost(X, U))):
+                                      (X, t(ref["c_o"][N]))):
                     worst = max(worst, gate(ek("open_loop_rollout"),
                                             f"{label} open loop {what}", g, r))
             print(f"B2 {name} {integ}: costs, trajectory and open loop at N "
                   f"{Ns}: max rel error {worst:.2e}")
+    print(f"B2 plain versions of the 15 instantiations: {host_s:.1f} s of "
+          f"host time in {CHAIN_WORKERS} child processes, "
+          f"{time.perf_counter() - t_pool:.1f} s of wall time")
 
     # newton_iters reaches the kernels: 1 and 10 corrections, each against
     # the plain rollout at the same count.
@@ -1199,45 +1423,33 @@ def chain_checks(itt, dev, errors, Ns=None, long_n=BENCH_N, seed=31):
         raise AssertionError("B2: newton_iters 1 and 10 give the same open "
                              "loop: the kernel ignores newton_iters")
 
-    # At the bench's length: the new design against the old one, B = 1.
-    # Damped, so that the open loop settles: an undamped pendulum's phase
-    # drifts by f32 rounding (3.8e-5 of max|X| against f64 at N = 20000 on
-    # the CPU), and two designs that round differently would drift apart.
-    pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
-                             Q_f=np.zeros((2, 2)), d=0.1, integrator="rk4",
-                             **f32)
-    x0 = torch.tensor([1.0, 0.0], **f32)
-    old_costs, old_traj, old_open = old_chain(itt, pend, x0)
-    U = torch.zeros((long_n, 1), **f32)
-    X, cost = old_open(U)
-    u_ff, K, _, _ = itt.backward_pass_fused(
-        itt.linearize_trajectory(pend, X, U), 0.0)
-    a10 = alphas[:10].contiguous()
-    pairs = [("costs", itt.linesearch_costs_fused(pend, x0, a10, X, U, u_ff,
-                                                  K),
-              old_costs(a10, X, U, u_ff, K))]
-    pairs += [(f"trajectory {w}", g, r) for w, g, r in zip(
-        ("X", "U", "cost"),
-        itt.closed_loop_rollout_fused(pend, x0, 0.5, X, U, u_ff, K),
-        old_traj(0.5, X, U, u_ff, K))]
-    pairs += [(f"open loop {w}", g, r) for w, g, r in zip(
-        ("X", "cost"), itt.open_loop_rollout_fused(pend, x0, U), (X, cost))]
-    notes = [f"{what} {gate(None, f'pendulum rk4 N={long_n} {what}', g, r, key=False):.1e}"
+    # At the bench's length, against the plain versions in f64 on the host.
+    res = plain.get(timeout=1200)
+    pairs = [("costs", long_k[0], res["c_P32"])]
+    pairs += [(f"trajectory {w}", g, res[r]) for w, g, r in zip(
+        ("X", "U", "cost"), long_k[1], ("X_t", "U_t", "c_t32"))]
+    pairs += [(f"open loop {w}", g, res[r]) for w, g, r in zip(
+        ("X", "cost"), long_k[2], ("X_o", "c_o32"))]
+    notes = [f"{what} {gate(None, f'pendulum rk4 N={long_n} {what}', g.cpu(), torch.from_numpy(np.asarray(r)), key=False):.1e}"
              for what, g, r in pairs]
-    print(f"B2 new against old design, damped pendulum rk4 N={long_n} (zero "
-          f"nominal from x0 = [1, 0], B1 gains, 10 alphas, trajectory alpha "
-          f"0.5): max rel " + ", ".join(notes))
+    print(f"B2 against the plain versions in f64 on the host "
+          f"({res['seconds']:.1f} s in a child process; costs summed in f32 "
+          f"in time order), damped pendulum rk4 N={long_n} (zero nominal "
+          f"from x0 = [1, 0], B1 gains, 10 alphas, trajectory alpha 0.5): "
+          f"max rel " + ", ".join(notes) + f"; costs against the f64 sums "
+          f"{rel_err(long_k[0].cpu(), torch.from_numpy(res['c_P']))[1]:.1e}")
+    pool.close()
+    pool.join()
     return Ns
 
 
 def chain_timing(itt, dev, smi, n_short=500, n_long=BENCH_N):
-    """Phase 5 for the chain kernels: the new design against the old one
-    (B5's entries at B = 1), in turns (old, new, new, old), on bench.py's
-    DP line-search cell (bench.py:596-605: DP euler, the rest nominal
-    under zero controls, gains from its expansion by B1, alpha = 0.5^i,
-    i < 10) at N = n_short and n_long; the trajectory at alpha = 1 and the
-    open loop of the zero controls.  Prints each kernel's time at both N,
-    its ns per step (the slope) and fixed µs (the intercept) beside its
+    """Phase 5 for the chain kernels, in two turns, on bench.py's DP
+    line-search cell (bench.py:596-605: DP euler, the rest nominal under
+    zero controls, gains from its expansion by B1, alpha = 0.5^i, i < 10)
+    at N = n_short and n_long; the trajectory at alpha = 1 and the open
+    loop of the zero controls.  Prints each kernel's time at both N, its
+    ns per step (the slope) and fixed µs (the intercept) beside its
     bound's."""
     f32 = dict(dtype=torch.float32, device=dev)
     dp = dp_system(itt, f32)
@@ -1247,52 +1459,38 @@ def chain_timing(itt, dev, smi, n_short=500, n_long=BENCH_N):
     X = torch.zeros((n_long + 1, 4), **f32)   # the DP rests exactly
     u_ff, K, _, _ = itt.backward_pass_fused(
         itt.linearize_trajectory(dp, X, U), 0.0)
-    old_costs, old_traj, old_open = old_chain(itt, dp, x0)
 
     def cut(n):
         return X[:n + 1], U[:n], u_ff[:n], K[:n]
 
     kernels = {
-        "linesearch_costs": (
-            lambda n: itt.linesearch_costs_fused(dp, x0, alphas, *cut(n)),
-            lambda n: old_costs(alphas, *cut(n))),
-        "closed_loop_rollout": (
-            lambda n: itt.closed_loop_rollout_fused(dp, x0, 1.0, *cut(n)),
-            lambda n: old_traj(1.0, *cut(n))),
-        "open_loop_rollout": (
-            lambda n: itt.open_loop_rollout_fused(dp, x0, U[:n]),
-            lambda n: old_open(U[:n])),
+        "linesearch_costs": lambda n: itt.linesearch_costs_fused(
+            dp, x0, alphas, *cut(n)),
+        "closed_loop_rollout": lambda n: itt.closed_loop_rollout_fused(
+            dp, x0, 1.0, *cut(n)),
+        "open_loop_rollout": lambda n: itt.open_loop_rollout_fused(
+            dp, x0, U[:n]),
     }
-    t = {}
-    for n, reps in ((n_short, 50), (n_long, 3)):
-        for name, (new, old) in kernels.items():
-            runs = {"old": [], "new": []}
-            for which in ("old", "new", "new", "old"):
-                fn = new if which == "new" else old
-                runs[which].append(cuda_ms(lambda: fn(n), reps, 1))
-            t[name, n] = runs
+    t = {(name, n): [cuda_ms(lambda: fn(n), reps, 1) for _ in range(2)]
+         for n, reps in ((n_short, 50), (n_long, 3))
+         for name, fn in kernels.items()}
     bounds = {n: chain_bounds(4, 2, n, alphas.numel()) for n in (n_short,
                                                                 n_long)}
     print(f"timing on {smi} (CUDA events, ms per call), B = 1 chain kernels "
-          f"on the DP line-search cell, in turns (old, new, new, old):")
+          f"on the DP line-search cell, two turns:")
     for name in kernels:
         b_s, b_l = bounds[n_short][name][0], bounds[n_long][name][0]
         b_slope = (b_l - b_s) / (n_long - n_short) * 1e6
-        parts = []
-        for design in ("new", "old"):
-            ts = np.mean(t[name, n_short][design])
-            tl = np.mean(t[name, n_long][design])
-            slope = (tl - ts) / (n_long - n_short)
-            parts.append(
-                f"{design}: N={n_short} {ts:.4f} "
-                f"({'/'.join(f'{v:.4f}' for v in t[name, n_short][design])}),"
-                f" N={n_long} {tl:.3f} "
-                f"({'/'.join(f'{v:.3f}' for v in t[name, n_long][design])}),"
-                f" {slope * 1e6:.1f} ns per step, "
-                f"{(ts - slope * n_short) * 1e3:.2f} µs fixed")
-        print(f"  {name}: " + "; ".join(parts) + f"; bound {b_s:.2e} / "
-              f"{b_l:.2e} ms ({bounds[n_long][name][1]}), {b_slope:.3f} ns "
-              f"per step")
+        ts, tl = np.mean(t[name, n_short]), np.mean(t[name, n_long])
+        slope = (tl - ts) / (n_long - n_short)
+        print(f"  {name}: N={n_short} {ts:.4f} "
+              f"({'/'.join(f'{v:.4f}' for v in t[name, n_short])}), "
+              f"N={n_long} {tl:.3f} "
+              f"({'/'.join(f'{v:.3f}' for v in t[name, n_long])}), "
+              f"{slope * 1e6:.1f} ns per step, "
+              f"{(ts - slope * n_short) * 1e3:.2f} µs fixed; bound "
+              f"{b_s:.2e} / {b_l:.2e} ms ({bounds[n_long][name][1]}), "
+              f"{b_slope:.3f} ns per step")
     return t
 
 
@@ -1300,7 +1498,7 @@ def sass_report(lib_path) -> None:
     """Print the step loop of the SASS_KERNELS instantiations from
     `cuobjdump -sass`: its static instruction count and its loads from
     shared (LDS), global (LDG), constant (LDC) and local (LDL) memory,
-    local stores (STL), calls, special-function (MUFU) and barrier (SYNCS,
+    shared and local stores (STS, STL), calls, special-function (MUFU) and barrier (SYNCS,
     BAR) instructions.  The count includes the sines' large-argument
     reductions, which run only past |angle| ~ 1e5 (their LDG read a table).
     Never fails the script."""
@@ -1329,8 +1527,10 @@ def sass_report(lib_path) -> None:
                 hit = [p for p in pats if p in name]
                 if not hit:
                     continue
-                # The mode: costs 0/false, trajectory 1/true, open loop 2.
-                kind = name.split(hit[0], 1)[1][:8]
+                # The mode (costs 0, trajectory 1, open loop 2) and, for the
+                # chain kernels, whether the runs' shifts are read at run
+                # time (Lb1) or are 0 (Lb0).
+                kind = name.split(hit[0], 1)[1][:13]
                 instrs, at, branches = [], {}, []
                 for line in body.splitlines():
                     m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
@@ -1366,8 +1566,8 @@ def sass_report(lib_path) -> None:
                     c = ops(lo, hi)
                     desc.append(f"[{lo}-{hi}] {hi - lo + 1} instructions, "
                                 + ", ".join(f"{k} {c.get(k, 0)}" for k in (
-                                    "LDS", "LDG", "LDC", "LDL", "STL", "CALL",
-                                    "MUFU", "SYNCS", "BAR")))
+                                    "LDS", "STS", "LDG", "LDC", "LDL", "STL",
+                                    "CALL", "MUFU", "SYNCS", "BAR")))
                 print(f"SASS {label} ({kind}...): {len(instrs)} instructions;"
                       f" step loop " + ("; ".join(desc) or "not found"))
     except Exception as exc:  # the report is informative only
@@ -1451,14 +1651,15 @@ def b3_checks(itt, lib, f32, errors, long_n=BENCH_N):
 
 
 def one_launch_check(itt, f32) -> dict:
-    """Phase 1: B1, B1d, B3, B6 and B7 each launch one kernel a call, by
-    torch.profiler over five calls at N = M = 600 (a seeded expansion
-    with n_x = 4, n_u = 2, and 10 candidates), early in the run, and the
-    first designs of B3, B6 and B7 their three.  Returns the launches per
-    call, {kernel: {design: launches}}, for the kernels line."""
-    from ilqr_tpu_torch.ops import affine_scan, parallel_riccati, suffix_scan
+    """Phase 1: B1, B1d, B3, B6, B7, B4 and the three B5 entries each
+    launch one kernel a call, and no other device work, by torch.profiler
+    over five calls early in the run: at N = M = 600 (a seeded expansion with n_x = 4, n_u = 2, and
+    10 candidates), and for B4 and B5 on a batch of 300 such expansions
+    cut to N = 37 with the DP flagship's system.  Returns the launches per
+    call, {kernel: launches}, for the kernels line."""
+    from ilqr_tpu_torch.ops import parallel_riccati
     rng = np.random.default_rng(3)
-    N, n_x, n_u = 600, 4, 2
+    N, n_x, n_u, B, N_b = 600, 4, 2, 300, 37
     W = rng.standard_normal((N, n_u, n_u))
 
     def t(a):
@@ -1476,37 +1677,48 @@ def one_launch_check(itt, f32) -> dict:
     gaps = t(0.01 * rng.standard_normal((N, n_x)))
     elems = parallel_riccati.make_elements(exp, 0.0)
     P, q, d0 = random_chain(N, n_x, 10, 3, f32)
-    dev = P.device
+    # The batch: the stage fields cut to N_b steps and repeated B times.
+    exp_b = dataclasses.replace(exp, **{
+        f.name: getattr(exp, f.name)[:N_b].expand(
+            (B, N_b) + getattr(exp, f.name).shape[1:]).contiguous()
+        for f in dataclasses.fields(exp) if f.name not in ("v_x", "v_xx")},
+        v_x=exp.v_x.expand(B, n_x).contiguous(),
+        v_xx=exp.v_xx.expand(B, n_x, n_x).contiguous())
+    dp = dp_system(itt, f32)
+    x0s = t(0.1 * rng.standard_normal((B, n_x)))
+    U_b = t(0.3 * rng.standard_normal((B, N_b, n_u)))
+    X_b = itt.rollout(dp, x0s, U_b)[0].contiguous()
+    u_b, K_b, _, _ = itt.backward_pass_batched(exp_b, 1.0)
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    alpha_b = alphas[torch.arange(B, device=alphas.device) % alphas.numel()]
     cases = {
-        ("fused_riccati", "new"): lambda: itt.backward_pass_fused(exp, 0.0),
-        ("fused_riccati_defects", "new"): lambda: itt.backward_pass_fused(
+        "fused_riccati": lambda: itt.backward_pass_fused(exp, 0.0),
+        "fused_riccati_defects": lambda: itt.backward_pass_fused(
             exp, 0.0, gaps),
-        ("affine_prefix_scan", "new"): lambda: itt.affine_prefix_scan_multi(
+        "affine_prefix_scan": lambda: itt.affine_prefix_scan_multi(
             P, q, d0, engine="pallas"),
-        ("affine_prefix_scan", "old"): lambda: first_design(
-            affine_scan.launch_blocked, dev, P, q, d0),
-        ("suffix_scan", "new"): lambda: itt.suffix_scan_fused(elems, "sub"),
-        ("suffix_scan", "old"): lambda: first_design(
-            suffix_scan.launch_blocked, dev, elems, "sub"),
-        ("suffix_scan_lane", "new"): lambda: itt.suffix_scan_fused(elems,
-                                                                   "lane"),
-        ("suffix_scan_lane", "old"): lambda: first_design(
-            suffix_scan.launch_blocked, dev, elems, "lane"),
+        "suffix_scan": lambda: itt.suffix_scan_fused(elems, "sub"),
+        "suffix_scan_lane": lambda: itt.suffix_scan_fused(elems, "lane"),
+        "batched_riccati": lambda: itt.backward_pass_batched(exp_b, 0.1),
+        "linesearch_costs_batched": lambda: itt.linesearch_costs_batched(
+            dp, x0s, alphas, X_b, U_b, u_b, K_b),
+        "closed_loop_rollout_batched": lambda: itt.closed_loop_rollout_batched(
+            dp, x0s, alpha_b, X_b, U_b, u_b, K_b),
+        "open_loop_rollout_batched": lambda: itt.open_loop_rollout_batched(
+            dp, x0s, U_b),
     }
     out = {}
-    for (name, which), fn in cases.items():
+    for name, fn in cases.items():
         rec = device_us(fn, 5)
         launches = sum(v[1] for v in rec.values())
         kinds = "; ".join(f"{kernel_name(k)} x {v[1]:g}"
                           for k, v in rec.items())
-        design = "first design" if which == "old" else "kernel"
-        print(f"{name} ({design}): {launches:g} launches a call "
-              f"(torch.profiler) [{kinds}]")
-        expected = 3 if which == "old" else 1
-        if launches != expected:
-            raise AssertionError(f"{name} ({design}): {launches:g} launches "
-                                 f"a call, expected {expected}")
-        out.setdefault(name, {})[which] = launches
+        print(f"{name}: {launches:g} launches a call (torch.profiler) "
+              f"[{kinds}]")
+        if launches != 1:
+            raise AssertionError(f"{name}: {launches:g} launches a call, "
+                                 f"expected 1")
+        out[name] = launches
     return out
 
 
@@ -1618,10 +1830,10 @@ def scan_phase(itt, lib, f32, smi, N_lim, Ms, errors):
     two poll rounds unless the first finds an inclusive element) and at
     more tiles than are resident at once, without the terminal element
     (windowed products in every field); then at Ms with and without it.
-    The largest errors go to ``errors``.  Then each layout's new design
-    against its first in turns, at the limited pendulum solve's M = 301,
-    the limited-DDP double-pendulum solve's M = 151, the limited cell's
-    N_lim + 1 and the double pendulum's Ms[-1].
+    The largest errors go to ``errors``.  Then each layout is timed at the
+    limited pendulum solve's M = 301, the limited-DDP double-pendulum
+    solve's M = 151, the limited cell's N_lim + 1 and the double
+    pendulum's Ms[-1].
     Returns the cells, the timings {layout: {label: design_timing case}}
     and the plain scan's CUDA-event ms {label: ms}."""
     from ilqr_tpu_torch.ops import parallel_riccati, suffix_scan
@@ -1686,16 +1898,9 @@ def scan_phase(itt, lib, f32, smi, N_lim, Ms, errors):
              f"DP M={Ms[-1]}": elements(cells["double_pendulum"][3], Ms[-1],
                                         True)}
 
-    def old(el, layout):
-        suffix_scan._check(el)
-        return first_design(suffix_scan.launch_blocked, el.A.device, el,
-                            layout)
-
     timings = {
         layout: design_timing(smi, kernel, {
-            label: {"new": lambda el=el, ly=layout: itt.suffix_scan_fused(el,
-                                                                          ly),
-                    "old": lambda el=el, ly=layout: old(el, ly)}
+            label: lambda el=el, ly=layout: itt.suffix_scan_fused(el, ly)
             for label, el in timed.items()})
         for layout, kernel in (("sub", "B6"), ("lane", "B7"))}
     t_plain = {label: cuda_ms(lambda el=el: parallel_riccati.suffix_scan(el),
@@ -1703,11 +1908,9 @@ def scan_phase(itt, lib, f32, smi, N_lim, Ms, errors):
     print(f"timing on {smi} (CUDA events, ms per call):")
     for label, tp in t_plain.items():
         print(f"  suffix scan {label}: "
-              + ", ".join(f"{k} {timings[ly][label]['new']['event_ms']:.4f} "
+              + ", ".join(f"{k} {timings[ly][label]['event_ms']:.4f} "
                           f"(device "
-                          f"{ms_text(timings[ly][label]['new']['device_us'])}; "
-                          f"first design "
-                          f"{ms_text(timings[ly][label]['old']['device_us'])})"
+                          f"{ms_text(timings[ly][label]['device_us'])})"
                           for ly, k in (("sub", "B6"), ("lane", "B7")))
               + f", plain {tp:.4f}")
     return cells, timings, t_plain
@@ -1719,7 +1922,7 @@ def suffix_phases(itt, dev, smi, launches_per_call, N_lim=LIMITED_N,
     and limited-DDP backward cells at full size, and solves through
     ``solve(..., backward='pallas')`` with limits, DDP and adaptive_reg.
     ``solve_scale`` scales the solves' iteration budgets (1 on the GPU).
-    ``launches_per_call`` is phase 1's count, {kernel: {design: launches}}.
+    ``launches_per_call`` is phase 1's count, {kernel: launches}.
     Returns the kernels line's entries of B6 and B7."""
     from ilqr_tpu_torch.ops import _build, limited_parallel
 
@@ -2069,7 +2272,7 @@ def main() -> int:
         return 1
 
     import ilqr_tpu_torch as itt
-    from ilqr_tpu_torch.ops import _build, affine_scan, fused_riccati
+    from ilqr_tpu_torch.ops import _build, fused_riccati
     from ilqr_tpu_torch.ops.parallel_rollout import (
         linesearch_defect_rollouts,
         open_loop_defect_rollout,
@@ -2091,12 +2294,10 @@ def main() -> int:
     for line in ptxas_summary(kernels.ptxas_log):
         print(line)
     spilled = [line for line in ptxas_summary(kernels.ptxas_log)
-               if any(k in line for k in ("chain_kernel", "fused_kernel",
-                                          "prefix_kernel", "scan_kernel"))
-               and " 0 bytes spill stores" not in line]
+               if " 0 bytes spill stores" not in line]
     if spilled:
-        raise AssertionError("the chain or look-back kernels spill "
-                             "registers:\n" + "\n".join(spilled))
+        raise AssertionError("kernels spill registers:\n"
+                             + "\n".join(spilled))
     sass_report(kernels.path)
     launches_per_call = one_launch_check(itt, f32)
     tile = fused_riccati.tile_steps(kernels.lib)
@@ -2342,7 +2543,8 @@ def main() -> int:
             raise AssertionError(f"the UA-DP golden never launched {kernel}")
 
     # A U_init that is a row view 8 bytes into its storage solves through
-    # the kernels, as a contiguous copy of it does (the wrappers align it).
+    # the kernels, as a contiguous copy of it does (the kernels place each
+    # run at its own 16-byte phase).
     U_prev = torch.zeros((501, 2), **f32)
     U_view = U_prev[1:]
     if U_view.data_ptr() % 16 == 0:
@@ -2413,7 +2615,7 @@ def main() -> int:
     d_pb = torch.tensor(
         0.01 * np.random.default_rng(5).standard_normal((BENCH_N, 2)), **f32)
     b1_t = design_timing(smi, "B1", {
-        label: {"new": (lambda e=e, d=d: itt.backward_pass_fused(e, 0.0, d))}
+        label: (lambda e=e, d=d: itt.backward_pass_fused(e, 0.0, d))
         for label, (e, d) in {
             "DP N=500": (exp_dps, None), "DP N=1411": (exp_1411, None),
             f"DP N={LONG_N}": (exp_long, None),
@@ -2435,10 +2637,10 @@ def main() -> int:
                        50, 5)
     print(f"timing on {smi} (CUDA events, ms per call):")
     print(f"  B1 fused_riccati N=500: kernel (device) "
-          f"{ms_text(b1_t['DP N=500']['new']['device_us'])}, plain "
+          f"{ms_text(b1_t['DP N=500']['device_us'])}, plain "
           f"(associative) {t_b1p:.4f}, sequential scan {t_b1s:.2f}")
     print(f"  B1 fused_riccati N={LONG_N}: kernel (device) "
-          f"{ms_text(b1_t[f'DP N={LONG_N}']['new']['device_us'])}, plain "
+          f"{ms_text(b1_t[f'DP N={LONG_N}']['device_us'])}, plain "
           f"(associative) {t_b1lp:.4f}")
     print(f"  B2 linesearch_costs N=500, {alphas.numel()} alphas: kernel "
           f"{t_c:.4f}, plain {t_cp:.2f}")
@@ -2460,7 +2662,7 @@ def main() -> int:
 
     runs = [("pallas", "pallas", 200), ("scan", "scan", 3),
             ("scan", "scan", 3), ("pallas", "pallas", 200)]
-    b1_dev_us = b1_t["DP N=500"]["new"]["device_us"]
+    b1_dev_us = b1_t["DP N=500"]["device_us"]
     for backward, rollout_engine, maxiter in runs:
         total, iters, per_iter = timed_solve(backward, rollout_engine,
                                              maxiter)
@@ -2699,21 +2901,15 @@ def main() -> int:
 
     # ---- 12. timing of B3 and B1d, and the parallel-in-time stages --------
     # B3 at the DP defect solve's shape (the closed-loop transition along
-    # the solved trajectory, 10 candidates) and the bench's, new against
-    # the first design in turns.
+    # the solved trajectory, 10 candidates) and the bench's.
     Pb = (exp_b.f_x + exp_b.f_u @ K_b).contiguous()
     _, qb, db = random_chain(BENCH_N, 4, 10, 8, f32)
     scan = itt.affine_prefix_scan_multi
     b3_cases = {"DP N=500 A=10": (A_cl_s, q_s, d0_s),
                 f"DP N={BENCH_N} A=10": (Pb, qb, db)}
 
-    def b3_old(P_, q_, d_):
-        affine_scan._check(P_, q_, d_)
-        return first_design(affine_scan.launch_blocked, dev, P_, q_, d_)
-
     b3_t = design_timing(smi, "B3", {
-        label: {"new": lambda a=args: scan(*a, engine="pallas"),
-                "old": lambda a=args: b3_old(*a)}
+        label: lambda a=args: scan(*a, engine="pallas")
         for label, args in b3_cases.items()})
     t_b3p = {label: cuda_ms(lambda a=args: scan(*a, engine="xla"), 10, 2)
              for label, args in b3_cases.items()}
@@ -2801,10 +2997,8 @@ def main() -> int:
     print(f"timing on {smi} (CUDA events, ms per call):")
     for label, tp in t_b3p.items():
         print(f"  B3 affine_prefix_scan {label}: kernel "
-              f"{b3_t[label]['new']['event_ms']:.4f} (device "
-              f"{ms_text(b3_t[label]['new']['device_us'])}), first design "
-              f"{b3_t[label]['old']['event_ms']:.4f} (device "
-              f"{ms_text(b3_t[label]['old']['device_us'])}), plain {tp:.4f}")
+              f"{b3_t[label]['event_ms']:.4f} (device "
+              f"{ms_text(b3_t[label]['device_us'])}), plain {tp:.4f}")
     print(f"  B1d fused_riccati (defects) DP N=500: kernel {t_b1d5:.4f}, "
           f"plain (associative) {t_b1d5p:.4f}")
     print(f"  B1d fused_riccati (defects) pendulum N={BENCH_N}: kernel "
@@ -2904,7 +3098,7 @@ def main() -> int:
               ns_per_step=imp_t["pendulum", name]["ns_per_step"],
               ua_dp_ns_per_step=imp_t["UA-DP", name]["ns_per_step"])
         for name in imp_source]
-    kernels_json += batched_phases(itt, dev, smi)
+    kernels_json += batched_phases(itt, dev, smi, lpc)
     kernels_json += suffix_phases(itt, dev, smi, lpc)
     for k in kernels_json:
         print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
@@ -2917,5 +3111,78 @@ def main() -> int:
     return 0
 
 
+# `--turns`: the batched kernels at the batched-solve and batched-MPC cells'
+# shapes, and the B = 1 chain kernels on the DP line-search cell.
+TURN_SHAPES = {"batched-solve B=1024 N=128": (1024, 128),
+               "batched-MPC B=512 N=64": (512, 64)}
+TURN_CHAIN_N = (500, BENCH_N)
+
+
+def kernel_turns(tag: str, turns: int = 3) -> int:
+    """``python3 chip_smoke.py --turns TAG``: time B4, B5 and B2 through
+    their public wrappers by `design_timing` (``turns`` turns) and print
+    one JSON line {"tag", "device", "times": {label: {kernel: {device_us,
+    host_us, event_ms}}}}.  B4 and B5 run on the first iteration of a DP
+    swing-up batch at each of TURN_SHAPES (bench.py's initial states, zero
+    controls, their expansion and B4 gains; 10 alphas, the trajectory at
+    alpha 0.5, the open loop of the zero controls); B2 on the DP
+    line-search cell at each of TURN_CHAIN_N (as `chain_timing`).  Only
+    wrapper signatures that the port has had since its batched kernels
+    came are used, so this file copied into the root of an older checkout
+    times that checkout's kernels the same way: run two checkouts in turns
+    (A, B, B, A) in one call to compare them on one card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; "
+              "this script runs only on a CUDA GPU", file=sys.stderr)
+        return 1
+    import ilqr_tpu_torch as itt
+
+    dev = torch.device("cuda", 0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    smi = nvidia_smi()
+    dp = dp_system(itt, f32)
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    cases = {}
+    for label, (B, N) in TURN_SHAPES.items():
+        x0s = torch.zeros((B, 4), **f32)
+        x0s[:, 0] += torch.linspace(0.0, 0.5, B, **f32)
+        U = torch.zeros((B, N, 2), **f32)
+        X = itt.rollout(dp, x0s, U)[0].contiguous()
+        exp = itt.linearize_trajectory_batched(dp, X, U)
+        u_ff, K, _, _ = itt.backward_pass_batched(exp, 0.0)
+        alpha_b = torch.full((B,), 0.5, **f32)
+        cases[label] = {
+            "batched_riccati": partial(itt.backward_pass_batched, exp, 0.0),
+            "linesearch_costs_batched": partial(
+                itt.linesearch_costs_batched, dp, x0s, alphas, X, U, u_ff, K),
+            "closed_loop_rollout_batched": partial(
+                itt.closed_loop_rollout_batched, dp, x0s, alpha_b, X, U,
+                u_ff, K),
+            "open_loop_rollout_batched": partial(
+                itt.open_loop_rollout_batched, dp, x0s, U)}
+    x0 = torch.zeros(4, **f32)
+    for N in TURN_CHAIN_N:
+        U = torch.zeros((N, 2), **f32)
+        X = torch.zeros((N + 1, 4), **f32)   # the DP rests exactly
+        u_ff, K, _, _ = itt.backward_pass_fused(
+            itt.linearize_trajectory(dp, X, U), 0.0)
+        cases[f"DP line-search cell N={N}"] = {
+            "linesearch_costs": partial(itt.linesearch_costs_fused, dp, x0,
+                                        alphas, X, U, u_ff, K),
+            "closed_loop_rollout": partial(itt.closed_loop_rollout_fused, dp,
+                                           x0, 1.0, X, U, u_ff, K),
+            "open_loop_rollout": partial(itt.open_loop_rollout_fused, dp, x0,
+                                         U)}
+    out = {"tag": tag, "device": smi, "times": {}}
+    for label, calls in cases.items():
+        out["times"][label] = {
+            kernel: design_timing(smi, kernel, {label: fn}, turns)[label]
+            for kernel, fn in calls.items()}
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--turns"]:
+        sys.exit(kernel_turns(sys.argv[2] if len(sys.argv) > 2 else "tree"))
     sys.exit(main())

@@ -44,12 +44,6 @@
 // Scratch (per device, stream and shape, zeroed once by the wrapper):
 // counters [ticket, done, status (n_tiles)] and floats [aggregates
 // (n_tiles, n^2 + A n), inclusive states (n_tiles, A n)].
-//
-// The first design (scan_kernel, walk_kernel: a blocked scan for the block
-// aggregates, one thread per candidate walking them, the same scan again
-// with the carry folded in; three launches) stays callable as
-// ilqr_affine_prefix_scan_blocked, for timing against the new design on
-// the card; only chip_smoke.py calls it.
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
@@ -64,8 +58,6 @@ constexpr int kTileSteps = 256;  // steps of a tile = threads of its block
 constexpr int kWarps = kTileSteps / 32;
 constexpr int kMaxCand = 16;     // most candidates a launch takes
 constexpr int kStageTiles = 64;  // aggregates staged per look-back round
-constexpr int kWalkThreads = 128;
-constexpr int kWalkChunk = 64;   // block aggregates staged per walk round
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // x <- P x + q: an element's affine map on one candidate's state.
@@ -311,202 +303,6 @@ int occupancy(int A) {
 
 int tiles(int N) { return (N + kTileSteps - 1) / kTileSteps; }
 
-// ---- The first design (three launches), kept for comparison --------------
-
-// Passes 1 and 3.  carry == nullptr: aggregate mode (writes agg); else
-// final mode (folds carry[block] into the first drive and writes out).
-template <int NX>
-__global__ void __launch_bounds__(kTileSteps)
-scan_kernel(const float* __restrict__ P, const float* __restrict__ q, int N,
-            int A, const float* __restrict__ carry, float* __restrict__ agg,
-            float* __restrict__ out) {
-  constexpr int NN = NX * NX;
-  extern __shared__ float smem[];  // (NN + A NX) x kTileSteps, field-major
-  const int tid = threadIdx.x;
-  const int k = blockIdx.x * kTileSteps + tid;
-  float p[NN], v[kMaxCand][NX];
-  if (k < N) {
-#pragma unroll
-    for (int f = 0; f < NN; ++f) p[f] = P[(size_t)k * NN + f];
-#pragma unroll
-    for (int a = 0; a < kMaxCand; ++a) {
-      if (a < A) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-          v[a][i] = q[((size_t)a * N + k) * NX + i];
-      }
-    }
-  } else {
-#pragma unroll
-    for (int f = 0; f < NN; ++f) p[f] = (f / NX == f % NX) ? 1.0f : 0.0f;
-#pragma unroll
-    for (int a = 0; a < kMaxCand; ++a)
-#pragma unroll
-      for (int i = 0; i < NX; ++i) v[a][i] = 0.0f;
-  }
-  if (carry != nullptr && tid == 0) {
-    const float* din = carry + (size_t)blockIdx.x * A * NX;
-#pragma unroll
-    for (int a = 0; a < kMaxCand; ++a) {
-      if (a < A) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          float s = 0.0f;
-#pragma unroll
-          for (int j = 0; j < NX; ++j) s += p[i * NX + j] * din[a * NX + j];
-          v[a][i] += s;
-        }
-      }
-    }
-  }
-  for (int d = 1; d < kTileSteps; d <<= 1) {
-#pragma unroll
-    for (int f = 0; f < NN; ++f) smem[f * kTileSteps + tid] = p[f];
-#pragma unroll
-    for (int a = 0; a < kMaxCand; ++a) {
-      if (a < A) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-          smem[(NN + a * NX + i) * kTileSteps + tid] = v[a][i];
-      }
-    }
-    __syncthreads();
-    if (tid >= d) {
-      const int src = tid - d;  // the earlier partner
-#pragma unroll
-      for (int a = 0; a < kMaxCand; ++a) {
-        if (a < A) {
-          float qp[NX];
-#pragma unroll
-          for (int i = 0; i < NX; ++i)
-            qp[i] = smem[(NN + a * NX + i) * kTileSteps + src];
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            float s = v[a][i];
-#pragma unroll
-            for (int j = 0; j < NX; ++j) s += p[i * NX + j] * qp[j];
-            v[a][i] = s;
-          }
-        }
-      }
-      float pp[NN], pn[NN];
-#pragma unroll
-      for (int f = 0; f < NN; ++f) pp[f] = smem[f * kTileSteps + src];
-#pragma unroll
-      for (int i = 0; i < NX; ++i)
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          float s = 0.0f;
-#pragma unroll
-          for (int m = 0; m < NX; ++m) s += p[i * NX + m] * pp[m * NX + j];
-          pn[i * NX + j] = s;
-        }
-#pragma unroll
-      for (int f = 0; f < NN; ++f) p[f] = pn[f];
-    }
-    __syncthreads();
-  }
-  if (carry == nullptr) {
-    if (tid == kTileSteps - 1) {
-      float* e = agg + (size_t)blockIdx.x * (NN + A * NX);
-#pragma unroll
-      for (int f = 0; f < NN; ++f) e[f] = p[f];
-#pragma unroll
-      for (int a = 0; a < kMaxCand; ++a) {
-        if (a < A) {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) e[NN + a * NX + i] = v[a][i];
-        }
-      }
-    }
-  } else if (k < N) {
-#pragma unroll
-    for (int a = 0; a < kMaxCand; ++a) {
-      if (a < A) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-          out[((size_t)a * (N + 1) + k + 1) * NX + i] = v[a][i];
-      }
-    }
-  }
-}
-
-// Pass 2: the state entering every block, left to right from delta_0.
-template <int NX>
-__global__ void __launch_bounds__(kWalkThreads)
-walk_kernel(const float* __restrict__ agg, int n_blocks, int A, int N,
-            const float* __restrict__ delta0, float* __restrict__ carry,
-            float* __restrict__ out) {
-  constexpr int NN = NX * NX;
-  extern __shared__ float smem[];  // kWalkChunk aggregates of F floats
-  const int F = NN + A * NX;
-  const int a = threadIdx.x;       // the candidate this thread walks
-  float d[NX];
-  if (a < A) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      d[i] = delta0[a * NX + i];
-      out[(size_t)a * (N + 1) * NX + i] = d[i];
-    }
-  }
-  for (int b0 = 0; b0 < n_blocks; b0 += kWalkChunk) {
-    const int nb = min(kWalkChunk, n_blocks - b0);
-    const int n_agg = min(nb, n_blocks - 1 - b0);  // the last block has none
-    for (int i = threadIdx.x; i < n_agg * F; i += blockDim.x)
-      smem[i] = agg[(size_t)b0 * F + i];
-    __syncthreads();
-    if (a < A) {
-      for (int j = 0; j < nb; ++j) {
-        float* c = carry + ((size_t)(b0 + j) * A + a) * NX;
-#pragma unroll
-        for (int i = 0; i < NX; ++i) c[i] = d[i];
-        if (j < n_agg) {
-          const float* e = smem + j * F;
-          float dn[NX];
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            float s = e[NN + a * NX + i];
-#pragma unroll
-            for (int m = 0; m < NX; ++m) s += e[i * NX + m] * d[m];
-            dn[i] = s;
-          }
-#pragma unroll
-          for (int i = 0; i < NX; ++i) d[i] = dn[i];
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int NX>
-int run_blocked(int A, int N, const float* P, const float* q,
-                const float* delta0, float* agg, float* carry, float* out,
-                cudaStream_t stream) {
-  constexpr int NN = NX * NX;
-  const int F = NN + A * NX;
-  const int n_blocks = (N + kTileSteps - 1) / kTileSteps;
-  const int scan_smem = static_cast<int>(sizeof(float) * F * kTileSteps);
-  const int walk_smem = static_cast<int>(sizeof(float) * F * kWalkChunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<NX>, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_blocks > 1) {
-    // Aggregates of every block but the last, which nothing follows.
-    scan_kernel<NX><<<n_blocks - 1, kTileSteps, scan_smem, stream>>>(
-        P, q, N, A, nullptr, agg, nullptr);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  walk_kernel<NX><<<1, kWalkThreads, walk_smem, stream>>>(
-      agg, n_blocks, A, N, delta0, carry, out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_kernel<NX><<<n_blocks, kTileSteps, scan_smem, stream>>>(
-      P, q, N, A, carry, nullptr, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int ilqr_affine_tile_steps() { return kTileSteps; }
@@ -548,18 +344,5 @@ extern "C" int ilqr_affine_prefix_scan(int n, int A, int N, const float* P,
     return run<4, 1>(A, N, P, q, delta0, counters, scratch, out, s);
   if (n == 4)
     return run<4, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The first design, three launches.  Scratch agg (n_tiles, n^2 + A n) and
-// carry (n_tiles, A, n); output out (A, N+1, n).
-extern "C" int ilqr_affine_prefix_scan_blocked(
-    int n, int A, int N, const float* P, const float* q, const float* delta0,
-    float* agg, float* carry, float* out, void* stream) {
-  if (A < 1 || A > kMaxCand || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 2) return run_blocked<2>(A, N, P, q, delta0, agg, carry, out, s);
-  if (n == 4) return run_blocked<4>(A, N, P, q, delta0, agg, carry, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,44 +1,76 @@
-// Batched sequential Riccati backward pass: B instances, one thread each.
+// Batched sequential Riccati backward pass: B instances, a lane group each.
 //
 // Replaces: ilqr_tpu/ops/pallas_batched.py::_batched_kernel (launcher
-// _backward_batched_packed, entry backward_pass_batched).
+// _backward_batched_packed, entry backward_pass_batched), B4.
 //
 // Math: ilqr_tpu_torch/ops/riccati.py::backward_pass for every instance.
 // With V = (V_x, V_xx) from the terminal expansion, t walks N-1 ... 0:
 //   Q_x = l_x + f_x' V_x          Q_u = l_u + f_u' V_x
-//   Q_xx = l_xx + f_x' V_xx f_x   Q_ux = l_ux + f_u' V_xx f_x
-//   Q_uu = l_uu + f_u' V_xx f_u
+//   Q_xx = l_xx + (f_x' V_xx) f_x Q_ux = l_ux + (f_u' V_xx) f_x
+//   Q_uu = l_uu + (f_u' V_xx) f_u
 //   K = -(Q_uu + reg I)^-1 Q_ux,  u_ff = -(Q_uu + reg I)^-1 Q_u
 // and the full symmetric value update through the stationarity residuals
 // W = Q_uu K + Q_ux and w = Q_u + Q_uu u_ff (regularization enters the gain
 // solve only):
 //   V_x = Q_x + K' w + Q_ux' u_ff,  V_xx = sym(Q_xx + K' W + Q_ux' K)
-//   dV += (u_ff' Q_u, 0.5 u_ff' (w - Q_u)).
+//   dV += (u_ff' Q_u, 0.5 u_ff' (w - Q_u)),
+// each sum in that order; ok = every gain finite.
 //
 // What bounds it on an H100: latency.  Each instance is a chain of N
 // dependent steps of about 1-2 kflop on ~60 floats of state and inputs; the
-// B instances are independent.
+// B instances are independent.  By bytes (the expansion read once, the
+// gains written once) B = 1024, N = 128 needs ~11 us.
 //
-// Design: one thread per instance holds V_x and V_xx in registers and walks
-// its horizon backward; blocks of 32 threads, so B = 1024 instances spread
-// over 32 SMs rather than 8.  The TPU kernel put the instances on the
-// (8, 128) vector tiles and time on its sequential grid, with the value in
-// VMEM scratch; here a loop inside the thread is the sequential axis.  The
-// expansion is read in the (B, N, ...) layout that
-// ops/linearize.py::linearize_trajectory_batched gives, so neighbouring
-// threads read addresses N * F floats apart (uncoalesced); a batch-minor
-// layout is later work.  The Q_uu + reg I inverse is the closed form of
-// smallmat.cuh.  No padding: threads past B return.
+// Design:
+// - A lane group per instance: NX lanes, lane r holding column r of V_xx
+//   (its row, V_xx being symmetric) and V_x[r], so a warp runs 32 / NX
+//   instances and B = 1024 spreads over 128 (n_x = 4) or 64 (n_x = 2)
+//   warps, one block each, across the SMs.  Lane r forms column r of
+//   f_x' V_xx and f_u' V_xx; the group exchanges them, V_x, and later the
+//   columns of K, Q_ux and W with width-NX shuffles.  Every lane then forms
+//   column r and row r of Q_xx + K' W + Q_ux' K, whose half-sum is column r
+//   of the new V_xx: the two lanes that form an entry (i, r) and (r, i)
+//   evaluate the same fmaf chains on the same values, so V_xx stays exactly
+//   symmetric.  Q_u, Q_uu, its closed-form inverse (smallmat.cuh), u_ff, w
+//   and dV are formed in every lane of the group.  This cuts the chain a
+//   lane issues per step about NX-fold against one thread per instance.
+// - No device-memory wait on the chain: the recursion runs from the end of
+//   the horizon in chunks of kChunk steps (the ragged chunk at t = 0), and
+//   each chunk of every field is one contiguous run per instance in the
+//   (B, N, ...) layout of ops/linearize.py::linearize_trajectory_batched.
+//   A producer warp beside the compute warp (the block's warp 1, on
+//   another scheduler) keeps a ring of kStages chunk buffers full: its lane
+//   g copies group g's runs by bulk copy (runs.cuh: at any 4-byte
+//   alignment, since an instance's rows start b N F floats in), completing
+//   on the stage's full barrier, and the compute warp releases a stage on
+//   its empty barrier, as the chain kernels of chain_rollout.cu do.  Each
+//   instance's runs start 4 banks after the previous instance's.  (A bulk
+//   copy takes ~100 cycles to issue, one a lane, so the 7 x 32 / NX copies
+//   of a chunk cost about half of the chunk's compute on the compute warp
+//   itself; four-byte cp.async copies, one a lane per float, cost more
+//   than the compute.)
+// - u_ff and K go to device memory through shared memory: the compute warp
+//   stages a chunk's gains in one of two output buffers, and producer lane
+//   g drains group g's runs with bulk stores; dV and the finite flag ok
+//   are formed in the compute warp.
+// - Lanes of instances past B (the last block) run on instance B - 1's data
+//   and store nothing: every lane takes part in every shuffle.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+
+#include "async_copy.cuh"
+#include "runs.cuh"
 #include "smallmat.cuh"
 
 namespace {
 
 using namespace ilqr;
 
-constexpr int kThreads = 32;  // instances per block
+constexpr int kChunk = 16;   // steps per shared-memory chunk
+constexpr int kStages = 2;   // chunk buffers in the ring
+constexpr unsigned kFull = 0xffffffffu;
 
 struct BatchedExpansion {
   const float* f_x;   // (B, N, NX, NX)
@@ -52,121 +84,381 @@ struct BatchedExpansion {
   const float* v_xx;  // (B, NX, NX)
 };
 
-template <int NX, int NU>
-__global__ void __launch_bounds__(kThreads)
-batched_riccati_kernel(BatchedExpansion ex, int B, int N,
-                       const float* __restrict__ reg,
-                       float* __restrict__ u_ff_out, float* __restrict__ K_out,
-                       float* __restrict__ dV_out) {
-  constexpr int NN = NX * NX;
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  float V_x[NX], V_xx[NN];
-  load<NX>(ex.v_x + (size_t)b * NX, V_x);
-  load<NN>(ex.v_xx + (size_t)b * NN, V_xx);
-  const float r = reg[b];
-  float dv1 = 0.0f, dv2 = 0.0f;
-  for (int t = N - 1; t >= 0; --t) {
-    const size_t s = (size_t)b * N + t;
-    float f_x[NN], f_u[NX * NU];
-    load<NN>(ex.f_x + s * NN, f_x);
-    load<NX * NU>(ex.f_u + s * NX * NU, f_u);
+enum Field { kFx = 0, kFu, kLx, kLu, kLxx, kLux, kLuu, kFields };
 
-    // Q-expansion.
-    float Q_x[NX], Q_u[NU], fuT_Vxx[NU * NX], T[NN], Q_xx[NN],
-        Q_ux[NU * NX], Q_uu[NU * NU];
-    mtv<NX, NX>(f_x, V_x, Q_x);
-    mtv<NU, NX>(f_u, V_x, Q_u);
-    mtm<NU, NX, NX>(f_u, V_xx, fuT_Vxx);
-    mtm<NX, NX, NX>(f_x, V_xx, T);
-    mm<NX, NX, NX>(T, f_x, Q_xx);
-    mm<NU, NX, NX>(fuT_Vxx, f_x, Q_ux);
-    mm<NU, NX, NU>(fuT_Vxx, f_u, Q_uu);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) Q_x[i] += ex.l_x[s * NX + i];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) Q_u[i] += ex.l_u[s * NU + i];
-#pragma unroll
-    for (int i = 0; i < NN; ++i) Q_xx[i] += ex.l_xx[s * NN + i];
-#pragma unroll
-    for (int i = 0; i < NU * NX; ++i) Q_ux[i] += ex.l_ux[s * NU * NX + i];
-#pragma unroll
-    for (int i = 0; i < NU * NU; ++i) Q_uu[i] += ex.l_uu[s * NU * NU + i];
-
-    // Gains from Q_uu + reg I.
-    float R[NU * NU], Ri[NU * NU], K[NU * NX], u[NU];
-#pragma unroll
-    for (int i = 0; i < NU * NU; ++i) R[i] = Q_uu[i];
-#pragma unroll
-    for (int d = 0; d < NU; ++d) R[d * NU + d] += r;
-    inv<NU>(R, Ri);
-    mm<NU, NU, NX>(Ri, Q_ux, K);
-    mv<NU, NU>(Ri, Q_u, u);
-#pragma unroll
-    for (int i = 0; i < NU * NX; ++i) {
-      K[i] = -K[i];
-      K_out[s * NU * NX + i] = K[i];
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      u[i] = -u[i];
-      u_ff_out[s * NU + i] = u[i];
-    }
-
-    // Value update through the stationarity residuals.
-    float W[NU * NX], w[NU], a1[NX], a2[NX], KtW[NN], QtK[NN];
-    mm<NU, NU, NX>(Q_uu, K, W);
-    mv<NU, NU>(Q_uu, u, w);
-#pragma unroll
-    for (int i = 0; i < NU * NX; ++i) W[i] += Q_ux[i];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) w[i] += Q_u[i];
-    mtv<NX, NU>(K, w, a1);
-    mtv<NX, NU>(Q_ux, u, a2);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) V_x[i] = Q_x[i] + a1[i] + a2[i];
-    mtm<NX, NU, NX>(K, W, KtW);
-    mtm<NX, NU, NX>(Q_ux, K, QtK);
-#pragma unroll
-    for (int i = 0; i < NN; ++i) T[i] = Q_xx[i] + KtW[i] + QtK[i];
-    sym<NX>(T, V_xx);
-
-    float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      s1 += u[i] * Q_u[i];
-      s2 += u[i] * (w[i] - Q_u[i]);
-    }
-    dv1 += s1;
-    dv2 += 0.5f * s2;
+__device__ __forceinline__ const float* field(const BatchedExpansion& ex,
+                                              int f) {
+  switch (f) {
+    case kFx: return ex.f_x;
+    case kFu: return ex.f_u;
+    case kLx: return ex.l_x;
+    case kLu: return ex.l_u;
+    case kLxx: return ex.l_xx;
+    case kLux: return ex.l_ux;
+    default: return ex.l_uu;
   }
-  dV_out[(size_t)b * 2] = dv1;
-  dV_out[(size_t)b * 2 + 1] = dv2;
+}
+
+// Shared memory of one block: barriers, then, in floats, kStages chunk
+// buffers, each field-major with one segment per instance, then two
+// output buffers of a chunk's K and u_ff.  A segment holds a run of n
+// floats at its phase (runs.cuh): n + 4 rounded up to 32 floats, plus 4,
+// so that consecutive instances' segments start 4 banks apart.
+template <int NX, int NU>
+struct Smem {
+  static constexpr int kGroups = 32 / NX;  // instances per warp
+  __host__ __device__ static constexpr int width(int f) {
+    return f == kFx || f == kLxx ? NX * NX
+           : f == kFu || f == kLux ? NX * NU
+           : f == kLx ? NX
+           : f == kLu ? NU
+           : NU * NU;
+  }
+  __host__ __device__ static constexpr int seg(int n) {
+    return (n + 4 + 31) / 32 * 32 + 4;
+  }
+  __host__ __device__ static constexpr int off(int f) {
+    int o = 0;
+    for (int g = 0; g < f; ++g) o += kGroups * seg(kChunk * width(g));
+    return o;
+  }
+  static constexpr int kBuf = off(kFields);
+  static constexpr int kSegK = seg(kChunk * NU * NX);
+  static constexpr int kSegU = seg(kChunk * NU);
+  static constexpr int kSegOut = kSegK + kSegU;  // K run, then u_ff run
+  static constexpr int kOut = kStages * kBuf;    // the output buffers
+  static constexpr int kOutBuf = kGroups * kSegOut;
+  static constexpr int kBarBytes = 8 * (2 * kStages + 4);
+  static constexpr int kBytes = kBarBytes + 4 * (kOut + 2 * kOutBuf);
+};
+
+struct Barriers {
+  uint64_t* full;    // chunk buffer loaded (kGroups arrivals + bytes)
+  uint64_t* empty;   // chunk buffer read by the compute warp (32)
+  uint64_t* ofull;   // output buffer written by the compute warp (32)
+  uint64_t* oempty;  // output buffer drained by the producer (kGroups)
+};
+
+// Lane g < kGroups: copy group g's runs of steps [t_lo, t_lo + T) of every
+// field (instance b0 + g, or B - 1 past B) into buf; they complete on bar.
+template <int NX, int NU>
+__device__ __forceinline__ void load_chunk(const BatchedExpansion& ex,
+                                           float* buf, uint64_t* bar, int b0,
+                                           int B, int N, int t_lo, int T,
+                                           int lane) {
+  using S = Smem<NX, NU>;
+  if (lane >= S::kGroups) return;
+  const size_t s0 = (size_t)min(b0 + lane, B - 1) * N + t_lo;
+  uint32_t bytes = 0;
+#pragma unroll
+  for (int f = 0; f < kFields; ++f) {
+    const int w = S::width(f);
+    bytes += load_ends(buf + S::off(f) + lane * S::seg(kChunk * w),
+                       field(ex, f) + s0 * w, T * w);
+  }
+  // The plain loads come before the arrival that releases them.
+  mbar_arrive_expect_tx(bar, bytes);
+#pragma unroll
+  for (int f = 0; f < kFields; ++f) {
+    const int w = S::width(f);
+    load_mid(buf + S::off(f) + lane * S::seg(kChunk * w),
+             field(ex, f) + s0 * w, T * w, bar);
+  }
+}
+
+// Producer lane g < kGroups: fill group g's segments of the ring ahead of
+// the compute warp (chunk c in stage c % kStages, round c / kStages) and
+// drain group g's outputs of each chunk (output buffer c % 2).
+template <int NX, int NU>
+__device__ void produce(const BatchedExpansion& ex, float* smem, Barriers bar,
+                        int b0, int B, int N, float* u_ff_out, float* K_out,
+                        int lane) {
+  using S = Smem<NX, NU>;
+  const int n_chunks = (N + kChunk - 1) / kChunk;
+  auto chunk_lo = [&](int c) { return max(0, N - (c + 1) * kChunk); };
+  int loaded = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    for (; loaded < n_chunks && loaded < c + kStages; ++loaded) {
+      const int s = loaded % kStages;
+      // Round r reuses the stage after the compute warp released r - 1.
+      mbar_wait(&bar.empty[s], ((loaded / kStages) & 1) ^ 1);
+      const int t_lo = chunk_lo(loaded);
+      load_chunk<NX, NU>(ex, smem + s * S::kBuf, &bar.full[s], b0, B, N,
+                         t_lo, N - loaded * kChunk - t_lo, lane);
+    }
+    const int o = c & 1;
+    const int t_lo = chunk_lo(c), T = N - c * kChunk - t_lo;
+    mbar_wait(&bar.ofull[o], (c >> 1) & 1);
+    if (b0 + lane < B) {
+      const size_t o0 = (size_t)(b0 + lane) * N + t_lo;
+      const float* src = smem + S::kOut + o * S::kOutBuf + lane * S::kSegOut;
+      store_rows(K_out + o0 * NU * NX, src, T * NU * NX);
+      store_rows(u_ff_out + o0 * NU, src + S::kSegK, T * NU);
+    }
+    bulk_commit();
+    bulk_wait_read();
+    mbar_arrive(&bar.oempty[o]);
+  }
+  bulk_wait_all();
+}
+
+// Element m of every lane of this lane's group.
+__device__ __forceinline__ float from(float v, int m, int width) {
+  return __shfl_sync(kFull, v, m, width);
+}
+
+// sum_m a[m] b[m * stride], as one fmaf chain in m order.
+template <int M>
+__device__ __forceinline__ float dot(const float* a, const float* b,
+                                     int stride) {
+  float s = 0.0f;
+#pragma unroll
+  for (int m = 0; m < M; ++m) s = fmaf(a[m], b[m * stride], s);
+  return s;
 }
 
 template <int NX, int NU>
-int run(int B, int N, const float* reg, const BatchedExpansion& ex,
-        float* u_ff, float* K, float* dV, cudaStream_t stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  batched_riccati_kernel<NX, NU><<<blocks, kThreads, 0, stream>>>(
-      ex, B, N, reg, u_ff, K, dV);
+__global__ void __launch_bounds__(64)
+batched_riccati_kernel(BatchedExpansion ex, int B, int N, float reg,
+                       const float* __restrict__ reg_b,
+                       float* __restrict__ u_ff_out, float* __restrict__ K_out,
+                       float* __restrict__ dV_out,
+                       unsigned char* __restrict__ ok_out) {
+  using S = Smem<NX, NU>;
+  constexpr int NN = NX * NX;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  const Barriers bar{bars, bars + kStages, bars + 2 * kStages,
+                     bars + 2 * kStages + 2};
+  float* smem = reinterpret_cast<float*>(smem_raw + S::kBarBytes);
+  const int b0 = blockIdx.x * S::kGroups;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar.full[s], S::kGroups);
+      mbar_init(&bar.empty[s], 32);
+    }
+    for (int o = 0; o < 2; ++o) {
+      mbar_init(&bar.ofull[o], 32);
+      mbar_init(&bar.oempty[o], S::kGroups);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();  // the block's only barrier: the mbarriers are ready
+  if (threadIdx.x >= 32) {
+    const int lane = threadIdx.x - 32;
+    if (lane < S::kGroups)
+      produce<NX, NU>(ex, smem, bar, b0, B, N, u_ff_out, K_out, lane);
+    return;
+  }
+
+  // The compute warp.
+  const int lane = threadIdx.x, g = lane / NX, r = lane % NX;
+  const int b = b0 + g;
+  const int bl = min(b, B - 1);
+  // Column r of V_xx (the terminal's, read as a column so that an input
+  // that is not exactly symmetric enters as the one-thread recursion reads
+  // it) and V_x[r].
+  float Vc[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) Vc[i] = ex.v_xx[(size_t)bl * NN + i * NX + r];
+  float vx = ex.v_x[(size_t)bl * NX + r];
+  const float rg = reg_b != nullptr ? reg_b[bl] : reg;
+  float dv1 = 0.0f, dv2 = 0.0f;
+  bool bad = false;
+
+  const int n_chunks = (N + kChunk - 1) / kChunk;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t_lo = max(0, N - (c + 1) * kChunk);
+    const int T = N - c * kChunk - t_lo;
+    const int s = c % kStages, o = c & 1;
+    const float* buf = smem + s * S::kBuf;
+    const size_t s0 = (size_t)bl * N + t_lo;
+    // Where group g's runs of this chunk sit in their segments.
+    int sh[kFields];
+#pragma unroll
+    for (int f = 0; f < kFields; ++f)
+      sh[f] = phase(field(ex, f) + s0 * S::width(f));
+    const float* fx0 = buf + S::off(kFx) + g * S::seg(kChunk * NN) + sh[kFx];
+    const float* fu0 =
+        buf + S::off(kFu) + g * S::seg(kChunk * NX * NU) + sh[kFu];
+    const float* lx0 = buf + S::off(kLx) + g * S::seg(kChunk * NX) + sh[kLx];
+    const float* lu0 = buf + S::off(kLu) + g * S::seg(kChunk * NU) + sh[kLu];
+    const float* lxx0 =
+        buf + S::off(kLxx) + g * S::seg(kChunk * NN) + sh[kLxx];
+    const float* lux0 =
+        buf + S::off(kLux) + g * S::seg(kChunk * NU * NX) + sh[kLux];
+    const float* luu0 =
+        buf + S::off(kLuu) + g * S::seg(kChunk * NU * NU) + sh[kLuu];
+    float* out = smem + S::kOut + o * S::kOutBuf + g * S::kSegOut;
+    float* oK = out + phase(K_out + s0 * NU * NX);
+    float* oU = out + S::kSegK + phase(u_ff_out + s0 * NU);
+    mbar_wait(&bar.full[s], (c / kStages) & 1);
+    // Output buffer o is free once the producer drained chunk c - 2.
+    mbar_wait(&bar.oempty[o], ((c >> 1) & 1) ^ 1);
+#pragma unroll 1
+    for (int k = T - 1; k >= 0; --k) {
+      const float* fx = fx0 + k * NN;
+      const float* fu = fu0 + k * NX * NU;
+      const float* lx = lx0 + k * NX;
+      const float* lu = lu0 + k * NU;
+      const float* lxx = lxx0 + k * NN;
+      const float* lux = lux0 + k * NU * NX;
+      const float* luu = luu0 + k * NU * NU;
+
+      // Column r of f_x' V_xx and of f_u' V_xx, then all of both and V_x
+      // in every lane of the group.
+      float Tc[NX], Fc[NU];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) Tc[i] = dot<NX>(Vc, fx + i, NX);
+#pragma unroll
+      for (int a = 0; a < NU; ++a) Fc[a] = dot<NX>(Vc, fu + a, NU);
+      float Tf[NN], Ff[NU * NX], vxf[NX];
+#pragma unroll
+      for (int m = 0; m < NX; ++m) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) Tf[i * NX + m] = from(Tc[i], m, NX);
+#pragma unroll
+        for (int a = 0; a < NU; ++a) Ff[a * NX + m] = from(Fc[a], m, NX);
+        vxf[m] = from(vx, m, NX);
+      }
+      // Row r of f_x' V_xx, by selects (a register array takes no lane
+      // index).
+      float Tr[NX];
+#pragma unroll
+      for (int m = 0; m < NX; ++m) {
+        Tr[m] = Tf[m];
+#pragma unroll
+        for (int i = 1; i < NX; ++i)
+          if (r == i) Tr[m] = Tf[i * NX + m];
+      }
+
+      // The Q-expansion: Q_x[r], Q_u, column and row r of Q_xx, column r
+      // of Q_ux, Q_uu.
+      const float qx = dot<NX>(vxf, fx + r, NX) + lx[r];
+      float Qu[NU], Uc[NU], Quu[NU * NU], Qc[NX], Qr[NX];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        Qu[a] = dot<NX>(vxf, fu + a, NU) + lu[a];
+        Uc[a] = dot<NX>(Ff + a * NX, fx + r, NX) + lux[a * NX + r];
+#pragma unroll
+        for (int d = 0; d < NU; ++d)
+          Quu[a * NU + d] = dot<NX>(Ff + a * NX, fu + d, NU) + luu[a * NU + d];
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        Qc[i] = dot<NX>(Tf + i * NX, fx + r, NX) + lxx[i * NX + r];
+        Qr[i] = dot<NX>(Tr, fx + i, NX) + lxx[r * NX + i];
+      }
+
+      // Gains from Q_uu + reg I: column r of K, and u_ff.
+      float R[NU * NU], Ri[NU * NU], Kc[NU], u[NU];
+#pragma unroll
+      for (int i = 0; i < NU * NU; ++i) R[i] = Quu[i];
+#pragma unroll
+      for (int d = 0; d < NU; ++d) R[d * NU + d] += rg;
+      inv<NU>(R, Ri);
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        Kc[a] = -dot<NU>(Ri + a * NU, Uc, 1);
+        u[a] = -dot<NU>(Ri + a * NU, Qu, 1);
+        bad |= !isfinite(Kc[a]) || !isfinite(u[a]);
+        oK[k * NU * NX + a * NX + r] = Kc[a];
+      }
+      if (r == 0) {
+#pragma unroll
+        for (int a = 0; a < NU; ++a) oU[k * NU + a] = u[a];
+      }
+
+      // The value update through the stationarity residuals.
+      float Wc[NU], w[NU];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        Wc[a] = dot<NU>(Quu + a * NU, Kc, 1) + Uc[a];
+        w[a] = dot<NU>(Quu + a * NU, u, 1) + Qu[a];
+      }
+      vx = qx + dot<NU>(Kc, w, 1) + dot<NU>(Uc, u, 1);
+      float Kf[NU * NX], Uf[NU * NX], Wf[NU * NX];
+#pragma unroll
+      for (int m = 0; m < NX; ++m)
+#pragma unroll
+        for (int a = 0; a < NU; ++a) {
+          Kf[a * NX + m] = from(Kc[a], m, NX);
+          Uf[a * NX + m] = from(Uc[a], m, NX);
+          Wf[a * NX + m] = from(Wc[a], m, NX);
+        }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        // (i, r) and (r, i) of Q_xx + K' W + Q_ux' K.
+        const float col =
+            Qc[i] + dot<NU>(Wc, Kf + i, NX) + dot<NU>(Kc, Uf + i, NX);
+        const float row =
+            Qr[i] + dot<NU>(Kc, Wf + i, NX) + dot<NU>(Uc, Kf + i, NX);
+        Vc[i] = 0.5f * (col + row);
+      }
+
+      float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        s1 = fmaf(u[a], Qu[a], s1);
+        s2 = fmaf(u[a], w[a] - Qu[a], s2);
+      }
+      dv1 += s1;
+      dv2 += 0.5f * s2;
+    }
+    fence_async_smem();  // the staged gains are read next by bulk stores
+    mbar_arrive(&bar.ofull[o]);
+    mbar_arrive(&bar.empty[s]);
+  }
+
+  bool any_bad = false;
+#pragma unroll
+  for (int m = 0; m < NX; ++m) any_bad |= from(bad ? 1.0f : 0.0f, m, NX) != 0.0f;
+  if (r == 0 && b < B) {
+    dV_out[(size_t)b * 2] = dv1;
+    dV_out[(size_t)b * 2 + 1] = dv2;
+    ok_out[b] = any_bad ? 0 : 1;
+  }
+}
+
+template <int NX, int NU>
+int run(int B, int N, float reg, const float* reg_b,
+        const BatchedExpansion& ex, float* u_ff, float* K, float* dV,
+        unsigned char* ok, cudaStream_t stream) {
+  using S = Smem<NX, NU>;
+  cudaError_t err = cudaFuncSetAttribute(
+      batched_riccati_kernel<NX, NU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + S::kGroups - 1) / S::kGroups;
+  batched_riccati_kernel<NX, NU><<<blocks, 64, S::kBytes, stream>>>(
+      ex, B, N, reg, reg_b, u_ff, K, dV, ok);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// reg (B,); expansion fields (B, N, ...) and terminal (B, ...), contiguous;
-// outputs u_ff (B, N, n_u), K (B, N, n_u, n_x), dV (B, 2).
+// Steps per chunk (for tests that cross the chunk edges).
+extern "C" int ilqr_batched_riccati_chunk_steps() { return kChunk; }
+
+// reg_b (B,), or null for reg shared by every instance; expansion fields
+// (B, N, ...) and terminal (B, ...), contiguous; outputs u_ff (B, N, n_u),
+// K (B, N, n_u, n_x), dV (B, 2) and ok (B,) bytes (1: every gain of the
+// instance finite).
 extern "C" int ilqr_batched_riccati(
-    int n_x, int n_u, int B, int N, const float* reg, const float* f_x,
-    const float* f_u, const float* l_x, const float* l_u, const float* l_xx,
-    const float* l_ux, const float* l_uu, const float* v_x, const float* v_xx,
-    float* u_ff, float* K, float* dV, void* stream) {
+    int n_x, int n_u, int B, int N, float reg, const float* reg_b,
+    const float* f_x, const float* f_u, const float* l_x, const float* l_u,
+    const float* l_xx, const float* l_ux, const float* l_uu, const float* v_x,
+    const float* v_xx, float* u_ff, float* K, float* dV, unsigned char* ok,
+    void* stream) {
   const BatchedExpansion ex{f_x, f_u, l_x, l_u, l_xx, l_ux, l_uu, v_x, v_xx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_x == 2 && n_u == 1) return run<2, 1>(B, N, reg, ex, u_ff, K, dV, s);
-  if (n_x == 4 && n_u == 1) return run<4, 1>(B, N, reg, ex, u_ff, K, dV, s);
-  if (n_x == 4 && n_u == 2) return run<4, 2>(B, N, reg, ex, u_ff, K, dV, s);
+  if (n_x == 2 && n_u == 1)
+    return run<2, 1>(B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
+  if (n_x == 4 && n_u == 1)
+    return run<4, 1>(B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
+  if (n_x == 4 && n_u == 2)
+    return run<4, 2>(B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

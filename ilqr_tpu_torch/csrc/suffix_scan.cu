@@ -45,12 +45,6 @@
 // Scratch (per device, stream and shape, zeroed once by the wrapper):
 // counters [ticket, done, status (n_tiles)] and floats [aggregates
 // (n_tiles, F), inclusive elements (n_tiles, F)].
-//
-// The first design (local_kernel, carry_kernel, close_kernel: the block-
-// local suffixes written to an M x F buffer, one thread walking the block
-// aggregates, a closing pass; three launches) stays callable as
-// ilqr_suffix_scan_blocked, for timing against the new design on the card;
-// only chip_smoke.py calls it.
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
@@ -64,7 +58,6 @@ using lookback::kFromRight;
 constexpr int kSubTile = 256;    // B6: elements per tile
 constexpr int kLaneTile = 128;   // B7: elements per tile
 constexpr int kStageTiles = 64;  // aggregates staged per look-back round
-constexpr int kCloseThreads = 128;
 
 struct Elements {
   const float* A;    // (M, NX, NX)
@@ -252,132 +245,6 @@ int tiles(int lane, int M) {
   return (M + tile_steps(lane) - 1) / tile_steps(lane);
 }
 
-// ---- The first design (three launches), kept for comparison --------------
-
-// Pass 1: the block-local inclusive suffix scan.
-template <int NX, int BLOCK>
-__global__ void __launch_bounds__(BLOCK)
-local_kernel(Elements in, int M, float* __restrict__ local) {
-  using E = Elem<NX>;
-  extern __shared__ float smem[];  // E::F x BLOCK, field-major
-  const int tid = threadIdx.x;
-  const int k = blockIdx.x * BLOCK + tid;
-  float e[E::F];
-  if (k < M) {
-    load_element<NX>(in, k, e);
-  } else {
-    identity<NX>(e);
-  }
-  for (int d = 1; d < BLOCK; d <<= 1) {
-#pragma unroll
-    for (int f = 0; f < E::F; ++f) smem[f * BLOCK + tid] = e[f];
-    __syncthreads();
-    // A partner past the last element is the identity: skip it.
-    if (tid + d < BLOCK && k + d < M) {
-      float p[E::F], o[E::F];
-#pragma unroll
-      for (int f = 0; f < E::F; ++f) p[f] = smem[f * BLOCK + tid + d];
-      combine<NX>(e, p, o);
-#pragma unroll
-      for (int f = 0; f < E::F; ++f) e[f] = o[f];
-    }
-    __syncthreads();
-  }
-  if (k < M) {
-#pragma unroll
-    for (int f = 0; f < E::F; ++f) local[(size_t)k * E::F + f] = e[f];
-  }
-}
-
-// Pass 2: the element at the right edge of every block, i.e. the suffix of
-// all later blocks; the last block's is the identity (never read).
-template <int NX, int BLOCK>
-__global__ void carry_kernel(const float* __restrict__ local, int n_blocks,
-                             float* __restrict__ edge) {
-  using E = Elem<NX>;
-  if (threadIdx.x != 0) return;
-  float run[E::F], agg[E::F], o[E::F];
-  identity<NX>(run);
-  for (int blk = n_blocks - 1; blk >= 0; --blk) {
-    float* out = edge + (size_t)blk * E::F;
-#pragma unroll
-    for (int f = 0; f < E::F; ++f) out[f] = run[f];
-    if (blk == 0) break;
-    load<E::F>(local + (size_t)blk * BLOCK * E::F, agg);
-    if (blk == n_blocks - 1) {
-#pragma unroll
-      for (int f = 0; f < E::F; ++f) run[f] = agg[f];
-    } else {
-      combine<NX>(agg, run, o);
-#pragma unroll
-      for (int f = 0; f < E::F; ++f) run[f] = o[f];
-    }
-  }
-}
-
-// Pass 3: close each local suffix with its block's right-edge element.
-template <int NX, int BLOCK>
-__global__ void __launch_bounds__(kCloseThreads)
-close_kernel(const float* __restrict__ local, const float* __restrict__ edge,
-             int M, int n_blocks, Outputs out) {
-  using E = Elem<NX>;
-  constexpr int NN = E::NN;
-  const int k = blockIdx.x * kCloseThreads + threadIdx.x;
-  if (k >= M) return;
-  const int blk = k / BLOCK;
-  float e[E::F], s[E::F];
-  load<E::F>(local + (size_t)k * E::F, e);
-  if (blk == n_blocks - 1) {
-#pragma unroll
-    for (int f = 0; f < E::F; ++f) s[f] = e[f];
-  } else {
-    float r[E::F];
-    load<E::F>(edge + (size_t)blk * E::F, r);
-    combine<NX>(e, r, s);
-  }
-#pragma unroll
-  for (int i = 0; i < NN; ++i) {
-    out.A[(size_t)k * NN + i] = s[E::A + i];
-    out.C[(size_t)k * NN + i] = s[E::C + i];
-    out.J[(size_t)k * NN + i] = s[E::J + i];
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    out.b[(size_t)k * NX + i] = s[E::B + i];
-    out.eta[(size_t)k * NX + i] = s[E::ETA + i];
-  }
-}
-
-template <int NX, int BLOCK>
-int run_blocked(int M, const Elements& in, float* local, float* edge,
-        const Outputs& out, cudaStream_t stream) {
-  using E = Elem<NX>;
-  const int n_blocks = (M + BLOCK - 1) / BLOCK;
-  const int smem = static_cast<int>(sizeof(float) * E::F * BLOCK);
-  cudaError_t err = cudaFuncSetAttribute(
-      local_kernel<NX, BLOCK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  local_kernel<NX, BLOCK><<<n_blocks, BLOCK, smem, stream>>>(in, M, local);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  carry_kernel<NX, BLOCK><<<1, 32, 0, stream>>>(local, n_blocks, edge);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int close_blocks = (M + kCloseThreads - 1) / kCloseThreads;
-  close_kernel<NX, BLOCK><<<close_blocks, kCloseThreads, 0, stream>>>(
-      local, edge, M, n_blocks, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int BLOCK>
-int dispatch_blocked(int n_x, int M, const Elements& in, float* local,
-                     float* edge, const Outputs& out, cudaStream_t stream) {
-  if (n_x == 2) return run_blocked<2, BLOCK>(M, in, local, edge, out, stream);
-  if (n_x == 4) return run_blocked<4, BLOCK>(M, in, local, edge, out, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 // Elements per tile of each entry: lane = 0 (B6), 1 (B7).
@@ -415,22 +282,4 @@ extern "C" int ilqr_suffix_scan(int lane, int n_x, int M, const float* A,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lane) return dispatch<kLaneTile>(n_x, M, in, counters, scratch, out, s);
   return dispatch<kSubTile>(n_x, M, in, counters, scratch, out, s);
-}
-
-// The first design, three launches.  Scratch: local (M, F), edge
-// (n_blocks, F), blocks of ilqr_suffix_tile_steps(lane) elements.
-extern "C" int ilqr_suffix_scan_blocked(int lane, int n_x, int M,
-                                        const float* A, const float* b,
-                                        const float* C, const float* eta,
-                                        const float* J, float* local,
-                                        float* edge, float* A_out,
-                                        float* b_out, float* C_out,
-                                        float* eta_out, float* J_out,
-                                        void* stream) {
-  const Elements in{A, b, C, eta, J};
-  const Outputs out{A_out, b_out, C_out, eta_out, J_out};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lane)
-    return dispatch_blocked<kLaneTile>(n_x, M, in, local, edge, out, s);
-  return dispatch_blocked<kSubTile>(n_x, M, in, local, edge, out, s);
 }

@@ -60,25 +60,27 @@ SIGNATURES = {
                                _P, _P],
     "ilqr_chain_chunk_steps": [],
     "ilqr_chain_ring_stages": [],
+    "ilqr_chain_instances_per_warp": [_I] * 5,
+    "ilqr_chain_warps_per_block": [_I] * 5,
     "ilqr_affine_prefix_scan": [_I, _I, _I] + [_P] * 6 + [_P],
     "ilqr_affine_prefix_scan_counters": [_I, _I, _I],
     "ilqr_affine_prefix_scan_scratch": [_I, _I, _I],
     "ilqr_affine_prefix_scan_occupancy": [_I, _I],
-    "ilqr_affine_prefix_scan_blocked": [_I, _I, _I] + [_P] * 6 + [_P],
     "ilqr_affine_tile_steps": [],
-    "ilqr_batched_riccati": [_I, _I, _I, _I] + [_P] * 10 + [_P] * 3 + [_P],
-    "ilqr_linesearch_costs_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
-                                      _P, _P, _P, _P, _I, _P, _P],
-    "ilqr_closed_loop_rollout_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P,
-                                         _P, _P, _P, _P, _I, _P, _P, _P, _P],
-    "ilqr_open_loop_rollout_batched": [_I, _I, _I, _I, _P, _I, _I, _P, _P,
-                                       _I, _P, _P, _P, _P],
+    "ilqr_batched_riccati": [_I, _I, _I, _I, _F] + [_P] * 10 + [_P] * 4
+                            + [_P],
+    "ilqr_batched_riccati_chunk_steps": [],
+    "ilqr_linesearch_costs_batched": [_I] * 5 + [_P, _I, _I, _P, _P, _I,
+                                               _P, _P, _P, _P, _I, _P, _P],
+    "ilqr_closed_loop_rollout_batched": [_I] * 5 + [_P, _I, _I, _P, _P, _P,
+                                                  _P, _P, _P, _I, _P, _P, _P,
+                                                  _P],
+    "ilqr_open_loop_rollout_batched": [_I] * 5 + [_P, _I, _I, _P, _P, _I,
+                                                _P, _P, _P],
     "ilqr_suffix_scan": [_I, _I, _I] + [_P] * 5 + [_P] * 2 + [_P] * 5 + [_P],
     "ilqr_suffix_scan_counters": [_I, _I, _I],
     "ilqr_suffix_scan_scratch": [_I, _I, _I],
     "ilqr_suffix_scan_occupancy": [_I, _I],
-    "ilqr_suffix_scan_blocked": [_I, _I, _I] + [_P] * 5 + [_P] * 2 + [_P] * 5
-                                + [_P],
     "ilqr_suffix_tile_steps": [_I],
     "ilqr_cuda_error_string": [_I],
 }

@@ -13,9 +13,7 @@ whole horizon with torch ops; the CUDA kernel, `csrc/affine_scan.cu`, is
 one launch: 256-step tiles scanned by warp shuffles, a state carried
 across tiles by decoupled look-back, each step's δ closed in registers.
 Its counters and scratch come from `_build.scratch` (once per device,
-stream and shape); per call the wrapper allocates only δ.  `launch_blocked`
-runs the first, three-launch design of the same function; only
-`chip_smoke.py` calls it, to time the two in turns.
+stream and shape); per call the wrapper allocates only δ.
 
 Dispatch: ``engine='xla'`` runs the plain version on any device.
 ``'pallas'`` and ``'auto'`` run the plain version on CPU tensors and launch
@@ -93,23 +91,6 @@ def launch(lib, P, q, delta0, stream) -> torch.Tensor:
         n, A, N, P.data_ptr(), q.data_ptr(), delta0.data_ptr(),
         counters.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, code, "affine prefix scan kernel")
-    return out
-
-
-def launch_blocked(lib, P, q, delta0, stream) -> torch.Tensor:
-    """The first design (three launches), for timing against `launch`;
-    inputs must already have passed `_check`."""
-    N, n = P.shape[0], P.shape[-1]
-    A = q.shape[0]
-    n_blocks = -(-N // tile_steps(lib))
-    opts = dict(dtype=torch.float32, device=P.device)
-    out = torch.empty((A, N + 1, n), **opts)
-    agg = torch.empty((n_blocks, n * n + A * n), **opts)
-    carry = torch.empty((n_blocks, A, n), **opts)
-    code = lib.ilqr_affine_prefix_scan_blocked(
-        n, A, N, P.data_ptr(), q.data_ptr(), delta0.data_ptr(),
-        agg.data_ptr(), carry.data_ptr(), out.data_ptr(), stream)
-    _build.check(lib, code, "affine prefix scan kernel (blocked)")
     return out
 
 

@@ -4,12 +4,12 @@ PyTorch counterpart of `ilqr_tpu/ops/pallas_batched.py`.  Two CUDA kernels
 serve batched solving and batched MPC (`solver.solve_batch`):
 
 * B4, `csrc/batched_riccati.cu`: the sequential Riccati recursion of
-  `ops/riccati.py::backward_pass` for every instance, one thread each
-  (`backward_pass_batched`);
-* B5, the batched entries of `csrc/fused_rollout.cu`: B2's closed-loop
-  recursion with one block per instance — the candidate costs of a shared
-  α schedule (`linesearch_costs_batched`), the trajectory at a per-instance
-  α (`closed_loop_rollout_batched`) and the open-loop rollout
+  `ops/riccati.py::backward_pass` for every instance, a group of n_x lanes
+  each, with the finite flag formed in the kernel (`backward_pass_batched`);
+* B5, the batched entries of `csrc/chain_rollout.cu`: B2's chain kernels
+  with lanes carrying (instance, α) pairs — the candidate costs of a shared
+  α schedule (`linesearch_costs_batched`), the trajectory at a
+  per-instance α (`closed_loop_rollout_batched`) and the open-loop rollout
   (`open_loop_rollout_batched`).
 
 Dispatch follows the tensor, as in `ops/fused_rollout.py`: on the CPU each
@@ -19,12 +19,12 @@ small solves run on (B, n_u, n_u); `rollout.linesearch_rollouts`
 and `rollout.rollout`, whose host loop over time carries (B, A, n_x)
 states) — and on a CUDA tensor it launches the kernel or raises.  The
 kernels take float32 and the (n_x, n_u) of `SHAPES`; the rollouts take the
-systems with a device function (`fused_rollout.device_model`) under the
-explicit integrators, which B5 instantiates (JAX, too, sends implicit
-integrators away from its batched kernel).  Anything else raises on CUDA
-(ROADMAP items B4w, B2m and B5i), where JAX falls back to the vmapped
-scan.  JAX swaps these kernels in under `jax.vmap(solve)` by
-`custom_vmap` rules; the port calls them from its explicitly batched solve.
+systems with a device function (`fused_rollout.device_model`) under every
+integrator, the implicit ones with the system's ``newton_iters``.
+Anything else raises on CUDA (ROADMAP items B4w and B2m).  The kernels
+read instance rows at any 4-byte alignment.  JAX swaps its kernels in
+under `jax.vmap(solve)` by `custom_vmap` rules; the port calls them from
+its explicitly batched solve.
 """
 from __future__ import annotations
 
@@ -36,7 +36,6 @@ from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.fused_riccati import SHAPES
 from ilqr_tpu_torch.ops.fused_rollout import _params_on, device_model
-from ilqr_tpu_torch.ops.integrators import IMPLICIT
 from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
 from ilqr_tpu_torch.ops.riccati import backward_pass
 from ilqr_tpu_torch.ops.rollout import linesearch_rollouts, rollout
@@ -48,11 +47,14 @@ KERNEL_OPEN_LOOP = "open_loop_rollout_batched"
 _FIELDS = ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu", "v_x", "v_xx")
 
 
-def _reg_vector(reg, B: int, like: torch.Tensor) -> torch.Tensor:
-    """``reg`` (a number or (B,)) as a (B,) tensor of ``like``'s kind."""
+def _reg_vector(reg, B: int, like: torch.Tensor):
+    """``reg`` as B4 takes it: a float when it is one number, else a (B,)
+    tensor of ``like``'s kind."""
+    if isinstance(reg, (int, float)):
+        return float(reg)
     reg = torch.as_tensor(reg, dtype=like.dtype, device=like.device)
     if reg.ndim == 0:
-        return reg.expand(B).contiguous()
+        return float(reg)
     if tuple(reg.shape) != (B,):
         raise ValueError(f"reg must be a number or of shape ({B},), "
                          f"got {tuple(reg.shape)}")
@@ -95,23 +97,23 @@ def _check_expansion(exp: TrajectoryExpansion) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch_riccati(lib, exp: TrajectoryExpansion, reg_b: torch.Tensor,
-                   stream):
+def launch_riccati(lib, exp: TrajectoryExpansion, reg, stream):
     """Run B4 on ``stream``; inputs must already have passed
-    `_check_expansion`, ``reg_b`` is (B,) float32 on the same device."""
+    `_check_expansion`, ``reg`` is a float or (B,) float32 on the same
+    device (`_reg_vector`)."""
     B, N, n_x = exp.f_x.shape[:3]
     n_u = exp.l_u.shape[-1]
     opts = dict(dtype=torch.float32, device=exp.f_x.device)
     u_ff = torch.empty((B, N, n_u), **opts)
     K = torch.empty((B, N, n_u, n_x), **opts)
     dV = torch.empty((B, 2), **opts)
+    ok = torch.empty((B,), dtype=torch.bool, device=exp.f_x.device)
     code = lib.ilqr_batched_riccati(
-        n_x, n_u, B, N, reg_b.data_ptr(),
+        n_x, n_u, B, N, *((reg, None) if isinstance(reg, float)
+                          else (0.0, reg.data_ptr())),
         *(getattr(exp, f).data_ptr() for f in _FIELDS), u_ff.data_ptr(),
-        K.data_ptr(), dV.data_ptr(), stream)
+        K.data_ptr(), dV.data_ptr(), ok.data_ptr(), stream)
     _build.check(lib, code, "batched Riccati kernel")
-    ok = (torch.isfinite(u_ff).all(dim=(1, 2))
-          & torch.isfinite(K).all(dim=(1, 2, 3)))
     return u_ff, K, dV, ok
 
 
@@ -173,27 +175,17 @@ def _check_rollout(system: System, x0s, U_old, X_old=None, u_ff=None,
     return B, N
 
 
-def _batched_model(system: System):
-    """(model id, integrator id) of B5: `device_model`'s, explicit
-    integrators only."""
-    if system.integrator in IMPLICIT:
-        raise NotImplementedError(
-            f"the batched CUDA rollouts run euler, midpoint and rk4, not "
-            f"{system.integrator!r}: ROADMAP item B5i (B5's implicit "
-            f"integrators, with its move to the chain design)")
-    return device_model(system)
-
-
 def launch_costs(lib, system, x0s, alphas, X_old, U_old, u_ff, K, stream):
     """Candidate costs (B, A); inputs must already have passed
     `_check_rollout`, ``alphas`` is (A,) float32 and contiguous."""
-    model, integ = _batched_model(system)
+    model, integ = device_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     costs = torch.empty((B, alphas.numel()), dtype=torch.float32,
                         device=x0s.device)
     code = lib.ilqr_linesearch_costs_batched(
-        model, integ, system.n_x, system.n_u, params.data_ptr(),
+        model, integ, system.newton_iters, system.n_x, system.n_u,
+        params.data_ptr(),
         params.numel(), B, x0s.data_ptr(), alphas.data_ptr(), alphas.numel(),
         X_old.data_ptr(), U_old.data_ptr(), u_ff.data_ptr(), K.data_ptr(), N,
         costs.data_ptr(), stream)
@@ -203,29 +195,30 @@ def launch_costs(lib, system, x0s, alphas, X_old, U_old, u_ff, K, stream):
 
 def launch_trajectory(lib, system, x0s, alpha_b, X_old, U_old, u_ff, K,
                       stream):
-    """(X, U, cost) at one α per instance, or the open-loop rollout of
-    U_old when X_old, u_ff and K are None; inputs must already have passed
-    `_check_rollout`, ``alpha_b`` is (B,) float32 (ignored open loop)."""
-    model, integ = _batched_model(system)
+    """(X, U, cost) at one α per instance, or (X, None, cost), the
+    open-loop rollout of U_old, when X_old, u_ff and K are None; inputs
+    must already have passed `_check_rollout`, ``alpha_b`` is (B,) float32
+    (ignored open loop)."""
+    model, integ = device_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     opts = dict(dtype=torch.float32, device=x0s.device)
     X = torch.empty((B, N + 1, system.n_x), **opts)
-    U = torch.empty((B, N, system.n_u), **opts)
     cost = torch.empty((B,), **opts)
-    head = (model, integ, system.n_x, system.n_u, params.data_ptr(),
-            params.numel(), B, x0s.data_ptr())
+    head = (model, integ, system.newton_iters, system.n_x, system.n_u,
+            params.data_ptr(), params.numel(), B, x0s.data_ptr())
     if u_ff is None:
         code = lib.ilqr_open_loop_rollout_batched(
             *head, U_old.data_ptr(), N, cost.data_ptr(), X.data_ptr(),
-            U.data_ptr(), stream)
+            stream)
         _build.check(lib, code, "batched open-loop rollout kernel")
-    else:
-        code = lib.ilqr_closed_loop_rollout_batched(
-            *head, alpha_b.data_ptr(), X_old.data_ptr(), U_old.data_ptr(),
-            u_ff.data_ptr(), K.data_ptr(), N, cost.data_ptr(), X.data_ptr(),
-            U.data_ptr(), stream)
-        _build.check(lib, code, "batched closed-loop rollout kernel")
+        return X, None, cost
+    U = torch.empty((B, N, system.n_u), **opts)
+    code = lib.ilqr_closed_loop_rollout_batched(
+        *head, alpha_b.data_ptr(), X_old.data_ptr(), U_old.data_ptr(),
+        u_ff.data_ptr(), K.data_ptr(), N, cost.data_ptr(), X.data_ptr(),
+        U.data_ptr(), stream)
+    _build.check(lib, code, "batched closed-loop rollout kernel")
     return X, U, cost
 
 

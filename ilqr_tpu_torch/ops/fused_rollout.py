@@ -8,11 +8,13 @@ PyTorch counterpart of `ilqr_tpu/ops/pallas_rollout.py`
 u = u_old + α·u_ff + K(x − x_old) for every α at once with the model, the
 integrator and the quadratic costs inlined from `csrc/models.cuh`; the
 open-loop entry runs u = U_old (the solver's initial rollout under
-``rollout='pallas'``).  A producer warp feeds the chain with bulk copies,
-which need every array 16-byte aligned: `_check` refuses one that is not,
-and the wrappers hand the kernels `aligned` copies of views that start
-elsewhere (a row slice such as ``U_prev[1:]``), as JAX's entries take any
-array.
+``rollout='pallas'``).  A producer warp feeds the chain with bulk copies
+and places each run at its own 16-byte phase (`csrc/runs.cuh`), so the
+kernels take views that start anywhere (a row slice such as
+``U_prev[1:]``), as JAX's entries take any array; the wrappers make
+strided inputs contiguous.  B5, the batched rollouts of `ops/batched.py`,
+are the same kernels with lanes carrying (instance, α) pairs; here each
+launch is the batch of one instance.
 
 Dispatch follows the tensor: on the CPU the wrappers run their plain
 versions (`rollout.linesearch_rollouts(...)[2]`,
@@ -26,6 +28,7 @@ Anything else raises `NotImplementedError` on CUDA (ROADMAP item B2m).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Tuple
 
 import torch
@@ -46,11 +49,9 @@ from ilqr_tpu_torch.ops.rollout import (
 KERNEL_COSTS = "linesearch_costs"
 KERNEL_TRAJECTORY = "closed_loop_rollout"
 KERNEL_OPEN_LOOP = "open_loop_rollout"
-# Bulk copies move 16-byte aligned blocks.
-ALIGN_BYTES = 16
 
-# f_cont -> model id of the rollout kernels (csrc/chain_rollout.cu,
-# csrc/fused_rollout.cu), with its device model block.
+# f_cont -> model id of the rollout kernels (csrc/chain_rollout.cu, B2 and
+# B5), with its device model block.
 _MODELS = {
     pendulum.f_cont: (0, ("g", "l", "d")),
     double_pendulum.f_cont: (1, ("m1", "m2", "l1", "l2", "g", "d1", "d2",
@@ -89,29 +90,45 @@ def params_buffer(system: System) -> torch.Tensor:
     return torch.cat([p[n].reshape(-1) for n in names]).to(torch.float32)
 
 
+# Parameter buffers already built, keyed by the identity and version counter
+# of the tensors each was built from.  An entry holds those tensors, so no
+# other tensor takes their ids while it lives, and an in-place change of a
+# parameter bumps its version: a launch reuses the buffer of unchanged
+# parameters instead of concatenating them on the device again.
+_PARAMS: "OrderedDict[tuple, Tuple[tuple, torch.Tensor]]" = OrderedDict()
+_PARAMS_KEPT = 64
+
+
 def _params_on(system: System, device) -> torch.Tensor:
-    params = params_buffer(system)
+    """`params_buffer(system)` on ``device``, built once per set of
+    parameter tensors (the least recently used of `_PARAMS_KEPT` buffers
+    goes first)."""
+    tensors = tuple(system.params.values())
+    try:
+        key = (_MODELS[system.f_cont][0],) + tuple(
+            (id(t), t._version) for t in tensors)
+    except RuntimeError:   # inference tensors keep no version counter
+        key = None
+    hit = _PARAMS.get(key) if key is not None else None
+    if hit is not None:
+        _PARAMS.move_to_end(key)
+        params = hit[1]
+    else:
+        params = params_buffer(system)
+        if key is not None:
+            _PARAMS[key] = (tensors, params)
+            if len(_PARAMS) > _PARAMS_KEPT:
+                _PARAMS.popitem(last=False)
     if params.device != device:
         raise ValueError(f"the system's parameters are on {params.device}, "
                          f"the trajectory on {device}")
     return params
 
 
-def aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when it is contiguous and starts on an ALIGN_BYTES
-    boundary, else a fresh contiguous copy (the allocator aligns it).
-    `Tensor.contiguous` alone returns a contiguous view at a misaligned
-    offset as it is."""
-    if t.is_contiguous() and t.data_ptr() % ALIGN_BYTES == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
-
-
 def _check(system, x0, X_old, U_old, u_ff, K) -> int:
     """N, after checking what the B = 1 kernels take: float32, contiguous
-    tensors of the expected shapes on x0's device, every one but x0 (read
-    by plain loads) 16-byte aligned.  The open-loop rollout passes None for
-    X_old, u_ff and K."""
+    tensors of the expected shapes on x0's device, at any offset.  The
+    open-loop rollout passes None for X_old, u_ff and K."""
     N = U_old.shape[0]
     n_x, n_u = system.n_x, system.n_u
     shapes = dict(x0=(n_x,), X_old=(N + 1, n_x), U_old=(N, n_u),
@@ -128,10 +145,19 @@ def _check(system, x0, X_old, U_old, u_ff, K) -> int:
             raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name != "x0" and t.data_ptr() % ALIGN_BYTES:
-            raise ValueError(f"{name} must start on a {ALIGN_BYTES}-byte "
-                             f"boundary (the kernels copy it in bulk)")
     return N
+
+
+def kernel_inputs(system, x0, X_old, U_old, u_ff, K):
+    """What the B = 1 kernels are handed: each of X_old, U_old, u_ff and K
+    as it is when it is contiguous, at whatever offset it starts (a row
+    view such as ``U_prev[1:]`` is not copied), else a contiguous copy;
+    then `_check`.  The open-loop rollout passes None for X_old, u_ff and
+    K."""
+    X_old, U_old, u_ff, K = (None if t is None else t.contiguous()
+                             for t in (X_old, U_old, u_ff, K))
+    _check(system, x0, X_old, U_old, u_ff, K)
+    return X_old, U_old, u_ff, K
 
 
 def chunk_steps(lib) -> int:
@@ -205,8 +231,7 @@ def linesearch_costs_fused(system: System, x0, alphas, X_old, U_old, u_ff, K):
                                    K)[2]
     if x0.device.type != "cuda":
         raise ValueError(f"no rollout kernel for device {x0.device}")
-    X_old, U_old, u_ff, K = map(aligned, (X_old, U_old, u_ff, K))
-    _check(system, x0, X_old, U_old, u_ff, K)
+    X_old, U_old, u_ff, K = kernel_inputs(system, x0, X_old, U_old, u_ff, K)
     with _build.on_device(x0.device):
         lib = _build.load().lib
         costs = launch_costs(lib, system, x0, alphas.contiguous(), X_old,
@@ -223,8 +248,7 @@ def closed_loop_rollout_fused(system: System, x0, alpha: float, X_old, U_old,
         return closed_loop_rollout(system, x0, alpha, X_old, U_old, u_ff, K)
     if x0.device.type != "cuda":
         raise ValueError(f"no rollout kernel for device {x0.device}")
-    X_old, U_old, u_ff, K = map(aligned, (X_old, U_old, u_ff, K))
-    _check(system, x0, X_old, U_old, u_ff, K)
+    X_old, U_old, u_ff, K = kernel_inputs(system, x0, X_old, U_old, u_ff, K)
     with _build.on_device(x0.device):
         lib = _build.load().lib
         out = launch_trajectory(
@@ -241,8 +265,7 @@ def open_loop_rollout_fused(system: System, x0, U):
         return rollout(system, x0, U)
     if x0.device.type != "cuda":
         raise ValueError(f"no rollout kernel for device {x0.device}")
-    U = aligned(U)
-    _check(system, x0, None, U, None, None)
+    U = kernel_inputs(system, x0, None, U, None, None)[1]
     with _build.on_device(x0.device):
         lib = _build.load().lib
         out = launch_open_loop(

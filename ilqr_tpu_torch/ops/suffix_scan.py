@@ -9,12 +9,10 @@ launch (tiles scanned in shared memory, the suffix of the later tiles
 carried by decoupled look-back); its note says how the TPU design was
 rethought for a GPU.  Its counters and scratch come from `_build.scratch`
 (once per device, stream and shape); per call the wrapper allocates only
-the outputs.  `launch_blocked` runs the first, three-launch design of the
-same function; only `chip_smoke.py` calls it, to time the two in turns.
-The limited
-(`ops/limited_parallel.py`) and DDP/iLQG (`parallel_riccati.
-backward_pass_ddp_parallel`) parallel passes scan their elements through it,
-and so does the solver's ``backward='pallas'`` when n_u > 6.
+the outputs.  The limited (`ops/limited_parallel.py`) and DDP/iLQG
+(`parallel_riccati.backward_pass_ddp_parallel`) parallel passes scan their
+elements through it, and so does the solver's ``backward='pallas'`` when
+n_u > 6.
 
 Dispatch follows the tensor: on the CPU `suffix_scan_fused` runs its plain
 version, `parallel_riccati.suffix_scan`; on a CUDA tensor it launches the
@@ -83,25 +81,6 @@ def launch(lib, elems: RiccatiElement, layout: str,
         lane, n_x, M, *(t.data_ptr() for t in elems), counters.data_ptr(),
         scratch.data_ptr(), *(t.data_ptr() for t in out), stream)
     _build.check(lib, code, "suffix scan kernel")
-    return out
-
-
-def launch_blocked(lib, elems: RiccatiElement, layout: str,
-                   stream) -> RiccatiElement:
-    """The first design (three launches), for timing against `launch`;
-    inputs must already have passed `_check`."""
-    M, n_x = elems.A.shape[0], elems.A.shape[-1]
-    F = 3 * n_x * n_x + 2 * n_x
-    n_blocks = -(-M // tile_steps(lib, layout))
-    opts = dict(dtype=torch.float32, device=elems.A.device)
-    local = torch.empty((M, F), **opts)
-    edge = torch.empty((n_blocks, F), **opts)
-    out = RiccatiElement(*(torch.empty_like(t) for t in elems))
-    code = lib.ilqr_suffix_scan_blocked(
-        int(layout == "lane"), n_x, M, *(t.data_ptr() for t in elems),
-        local.data_ptr(), edge.data_ptr(), *(t.data_ptr() for t in out),
-        stream)
-    _build.check(lib, code, "suffix scan kernel (blocked)")
     return out
 
 

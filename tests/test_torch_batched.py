@@ -2,8 +2,9 @@
 
 On CPU tensors the batched kernel wrappers of `ilqr_tpu_torch.ops.batched`
 run their plain versions; the CUDA kernels (B4 `csrc/batched_riccati.cu`,
-B5 the batched entries of `csrc/fused_rollout.cu`) are checked against
-those on the GPU by chip_smoke.py.  Here:
+B5 the batched entries of `csrc/chain_rollout.cu`) are checked against
+those on the GPU by chip_smoke.py and on a host mock of the runtime by
+test_torch_batched_host.py.  Here:
 
 * B4's plain version against the JAX batched Pallas kernel in interpret
   mode and against ``jax.vmap(backward_pass)``, with a scalar and a
@@ -126,6 +127,35 @@ def test_b4_plain_matches_jax_batched_kernel_and_vmapped_scan(B, N, reg):
             np.testing.assert_allclose(g.numpy(), r, rtol=2e-4,
                                        atol=1e-5 * (1.0 + np.abs(r).max()))
         np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+
+
+@pytest.mark.parametrize("kind,B,N", [("pendulum", 19, 13), ("UA-DP", 11, 7)])
+def test_b4_plain_matches_jax_batched_kernel_at_a_ragged_batch(kind, B, N):
+    """n_u = 1 at odd N (every instance's l_u, l_uu and u_ff rows start at
+    another 4-byte phase, as the CUDA kernel reads them) and a B that fills
+    no whole warp of B4's lane groups (16 instances a warp at n_x = 2, 8
+    at n_x = 4): the plain version, with ``ok`` per instance, against the
+    JAX batched kernel in interpret mode, at the tolerance of
+    `test_b4_plain_matches_jax_batched_kernel_and_vmapped_scan`."""
+    if kind == "pendulum":
+        jsys = _jax_pendulum()
+    else:
+        jsys = it.make_double_pendulum(
+            0.02, [np.pi, 0.0, 0.0, 0.0], Q=np.diag([1.0, 1.0, 0.1, 0.1]),
+            R=np.eye(1), Q_f=np.diag([100.0, 100.0, 10.0, 10.0]), d1=0.1,
+            d2=0.1, theta1=1 / 12, theta2=1 / 12, underactuated=True,
+            integrator="rk4")
+    _, exp = _jax_batched_expansion(jsys, *_random_batch(jsys, B, N, seed=N))
+    ref = jax_backward_batched(exp, jnp.float32(0.05), interpret=True)
+    got = itt.backward_pass_batched(expansion_from_numpy(exp, device="cpu"),
+                                    0.05)
+    assert got[0].shape == (B, N, 1) and got[3].shape == (B,)
+    for g, r in zip(got[:3], ref[:3]):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=2e-4,
+                                   atol=1e-5 * (1.0 + np.abs(r).max()))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    assert got[3].all()
 
 
 def test_b4_plain_flags_non_finite_instances_only():
@@ -312,6 +342,30 @@ def test_solve_batch_pallas_engines_match_jax_f32_pendulum():
                           torch.zeros((N, 1)), itt.IlqrConfig(**cfg))
     assert sol.status.tolist() == [itt.CONVERGED] * 3
     _compare(sol, ref, rtol_cost=2e-5, atol_x=2e-4)
+
+
+def test_solve_batch_backward_euler_pallas_rollouts_match_jax_vmap_f64():
+    """Batched backward-Euler solves with rollout='pallas' (on CUDA: B5's
+    implicit step; here its plain versions) against ``jax.vmap(solve)``,
+    f64, on the reference's pendulum MPC solver system."""
+    jsys = it.make_pendulum(0.01, [np.pi, 0.0], Q=np.diag([10.0, 1.0]),
+                            R=np.eye(1), Q_f=np.diag([10.0, 10.0]), d=0.0,
+                            integrator="backward_euler")
+    x0s = np.array([[0.0, 0.0], [0.5, 0.1], [np.pi, 0.0]])
+    N = 40
+    cfg = dict(maxiter=8, tol=1e-6, rollout="pallas")
+    with enable_x64_oracle():
+        j64 = _f64(jsys)
+        ref = jax.jit(jax.vmap(lambda x: it.solve(
+            j64, x, jnp.zeros((N, 1)), it.IlqrConfig(**cfg))))(
+            jnp.asarray(x0s))
+        ref = jax.tree_util.tree_map(np.asarray, ref)
+    f64 = dict(dtype=torch.float64)
+    sol = itt.solve_batch(_port(jsys, torch.float64),
+                          torch.tensor(x0s, **f64),
+                          torch.zeros((N, 1), **f64), itt.IlqrConfig(**cfg))
+    assert sol.status[2] == itt.CONVERGED
+    _compare(sol, ref, rtol_cost=1e-8, atol_x=1e-7)
 
 
 def test_solve_batch_equals_the_ports_single_instance_solves():

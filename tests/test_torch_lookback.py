@@ -140,10 +140,10 @@ def test_lookback_scratch_is_zeroed_once_per_device_stream_and_shape(
 # ---- the kernels on a host mock of the runtime ---------------------------
 
 # cuda_runtime.h for a host build: each CUDA thread of a launch runs as a
-# pthread, blocks start in order with at most MOCK_RESIDENT of them running
-# at once, __syncthreads and __syncwarp are std::barriers, shuffles go
-# through a per-warp buffer, and atomics and fences are GCC __atomic
-# builtins.  `_rewrite` turns the sources' shared arrays and launches into
+# pthread, blocks (of a one- or two-dimensional grid) start in order with
+# at most MOCK_RESIDENT of them running at once, __syncthreads and
+# __syncwarp are std::barriers, shuffles go through a per-warp buffer, and
+# atomics and fences are GCC __atomic builtins.  `_rewrite` turns the sources' shared arrays and launches into
 # the mock:: forms.
 MOCK_RUNTIME = r"""#pragma once
 #include <algorithm>
@@ -260,7 +260,7 @@ void* thread_main(void* p) {
 template <class F>
 void launch(dim3 grid, dim3 block, size_t smem, F&& body) {
   using Body = std::remove_reference_t<F>;
-  const int nb = grid.x, nt = block.x, cap = resident();
+  const int nb = grid.x * grid.y, nt = block.x, cap = resident();
   Launch l;
   std::vector<std::unique_ptr<Block>> blocks;
   std::vector<std::unique_ptr<Arg<Body>>> args;
@@ -277,7 +277,8 @@ void launch(dim3 grid, dim3 block, size_t smem, F&& body) {
     blocks.emplace_back(std::make_unique<Block>(nt, smem));
     for (int t = 0; t < nt; ++t) {
       args.emplace_back(new Arg<Body>{&body, blocks.back().get(), &l,
-                                      dim3(t), dim3(b), block, grid});
+                                      dim3(t), dim3(b % grid.x, b / grid.x),
+                                      block, grid});
       pthread_t th;
       if (pthread_create(&th, &attr, &thread_main<Body>, args.back().get()))
         std::abort();
@@ -305,6 +306,15 @@ inline float __shfl_up_sync(unsigned, float v, int d) {
   b->shfl[t] = v;
   b->warp_bars[t / 32]->arrive_and_wait();
   const float r = lane >= d ? b->shfl[base + lane - d] : v;
+  b->warp_bars[t / 32]->arrive_and_wait();
+  return r;
+}
+inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
+  const int t = mock::ctx.tid.x, lane = t % 32, base = t - lane;
+  mock::Block* b = mock::ctx.block;
+  b->shfl[t] = v;
+  b->warp_bars[t / 32]->arrive_and_wait();
+  const float r = b->shfl[base + lane / width * width + src % width];
   b->warp_bars[t / 32]->arrive_and_wait();
   return r;
 }
@@ -349,6 +359,7 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "mock error"; }
 """
 
 

@@ -281,23 +281,43 @@ def test_device_model_covers_the_kernels_and_refuses_the_rest():
 
 
 def test_batched_rollout_entries_refuse_implicit_integrators():
-    """B5 (the batched entries) stays explicit-only, as JAX's batched
-    kernel does: its launchers refuse the implicit integrators by name,
-    before touching the library, and keep B2m's refusals."""
+    """B5 (the batched entries) used to refuse the implicit integrators by
+    name (ROADMAP B5i); on B2's chain kernels it runs them, so its
+    launchers now hand the library the integrator's id and the system's
+    newton_iters (checked here with a stand-in library) and keep only
+    B2m's refusals."""
     N, B = 4, 2
     x0s, U = torch.zeros(B, 4), torch.zeros(B, N, 2)
     X, u_ff, K = torch.zeros(B, N + 1, 4), torch.zeros(B, N, 2), torch.zeros(
         B, N, 2, 4)
-    for integ in ("backward_euler", "trapezoidal"):
+
+    class StandIn:
+        calls = []
+
+        def ilqr_linesearch_costs_batched(self, *args):
+            self.calls.append(("costs",) + args)
+            return 0
+
+        def ilqr_open_loop_rollout_batched(self, *args):
+            self.calls.append(("open loop",) + args)
+            return 0
+
+    lib = StandIn()
+    for integ, iters in (("backward_euler", 3), ("trapezoidal", 7)):
         dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
                                       R=np.eye(2), Q_f=np.eye(4),
-                                      integrator=integ, device="cpu")
-        with pytest.raises(NotImplementedError, match="B5i"):
-            batched.launch_costs(None, dp, x0s, torch.ones(1), X, U, u_ff, K,
-                                 None)
-        with pytest.raises(NotImplementedError, match="B5i"):
-            batched.launch_trajectory(None, dp, x0s, None, None, U, None,
-                                      None, None)
+                                      integrator=integ, device="cpu"
+                                      ).replace(newton_iters=iters)
+        costs = batched.launch_costs(lib, dp, x0s, torch.ones(1), X, U, u_ff,
+                                     K, None)
+        assert costs.shape == (B, 1)
+        X_o, U_o, c_o = batched.launch_trajectory(lib, dp, x0s, None, None, U,
+                                                  None, None, None)
+        assert X_o.shape == (B, N + 1, 4) and U_o is None
+        for call in lib.calls[-2:]:
+            # (model, integrator, newton_iters, n_x, n_u, ...)
+            assert call[1:6] == (1, fused_rollout._INTEGRATORS[integ], iters,
+                                 4, 2)
     with pytest.raises(NotImplementedError, match="B2m"):
         batched.launch_costs(None, dp.with_integrator("discrete"), x0s,
                              torch.ones(1), X, U, u_ff, K, None)
@@ -306,30 +326,78 @@ def test_batched_rollout_entries_refuse_implicit_integrators():
 @pytest.mark.parametrize("offset_floats", [1, 2])
 def test_aligned_copies_misaligned_views_and_keeps_aligned_tensors(
         offset_floats):
-    """`aligned` (what the wrappers hand the kernels): a row view at a 4-
-    or 8-byte offset, such as U_prev[1:] of an (N, 1) or (N, 2) tensor, is
-    contiguous but misaligned; it comes back as an equal, aligned copy.  An
-    aligned contiguous tensor comes back as itself, and a non-contiguous
-    one as a contiguous copy."""
+    """What the B = 1 wrappers hand their launchers (`kernel_inputs`): a row
+    view at a 4- or 8-byte offset, such as U_prev[1:] of an (N, 1) or
+    (N, 2) tensor, is contiguous but misaligned; it reaches each launcher
+    at its own data_ptr, with no copy, since the kernels place every run
+    at its own 16-byte phase.  A non-contiguous view arrives as an equal
+    contiguous copy.  Checked with a stand-in library that records the
+    launchers' arguments."""
     n_u = offset_floats
+    system = (itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                                Q_f=np.eye(2), device="cpu") if n_u == 1
+              else itt.make_double_pendulum(
+                  0.01, [np.pi, 0, 0, 0], Q=np.eye(4), R=np.eye(2),
+                  Q_f=np.eye(4), integrator="euler", device="cpu"))
+    n_x, N = system.n_x, 500
     U_prev = torch.arange(501.0 * n_u).reshape(501, n_u)
     view = U_prev[1:]
-    assert view.is_contiguous()
-    assert view.data_ptr() % fused_rollout.ALIGN_BYTES == 4 * offset_floats
-    got = fused_rollout.aligned(view)
-    assert got.data_ptr() % fused_rollout.ALIGN_BYTES == 0
-    assert got.is_contiguous() and torch.equal(got, view)
-    assert fused_rollout.aligned(U_prev) is U_prev
-    strided = torch.zeros(6, 4)[:, ::2]
-    out = fused_rollout.aligned(strided)
-    assert out.is_contiguous() and torch.equal(out, strided)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset_floats
+    x0, X_old = torch.zeros(n_x), torch.zeros(N + 1, n_x)
+    u_ff, K = torch.zeros(N, n_u), torch.zeros(N, n_u, n_x)
+
+    class StandIn:
+        def __init__(self):
+            self.calls = []
+
+        def __getattr__(self, name):
+            return lambda *args: self.calls.append((name, args)) or 0
+
+    strided = torch.arange(2.0 * N * n_u).reshape(N, 2 * n_u)[:, ::2]
+    assert not strided.is_contiguous()
+    for U_in in (view, strided):
+        X_k, U_k, u_k, K_k = fused_rollout.kernel_inputs(system, x0, X_old,
+                                                          U_in, u_ff, K)
+        assert (X_k, u_k, K_k) == (X_old, u_ff, K)   # the same tensors
+        U_o = fused_rollout.kernel_inputs(system, x0, None, U_in, None,
+                                          None)[1]
+        if U_in is view:
+            assert U_k.data_ptr() == U_o.data_ptr() == view.data_ptr()
+        else:
+            assert U_k.is_contiguous() and torch.equal(U_k, strided)
+            assert U_o.is_contiguous() and torch.equal(U_o, strided)
+        lib = StandIn()
+        fused_rollout.launch_costs(lib, system, x0, torch.ones(3), X_k, U_k,
+                                   u_k, K_k, None)
+        fused_rollout.launch_trajectory(lib, system, x0, 0.5, X_k, U_k, u_k,
+                                        K_k, None)
+        fused_rollout.launch_open_loop(lib, system, x0, U_o, None)
+        assert [c[0] for c in lib.calls] == [
+            "ilqr_linesearch_costs", "ilqr_closed_loop_rollout",
+            "ilqr_open_loop_rollout"]
+        for (_, args), U_passed in zip(lib.calls, (U_k, U_k, U_o)):
+            assert U_passed.data_ptr() in args and N in args
+
+
+def test_params_buffer_is_built_once_per_set_of_parameters():
+    """The launchers' parameter buffer (`_params_on`) is built once for a
+    set of parameter tensors and reused, by a system rebuilt around them
+    too, so a launch does not concatenate the parameters on the device
+    again; an in-place change of a parameter builds it anew."""
     dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
                                   R=np.eye(2), Q_f=np.eye(4),
                                   integrator="euler", device="cpu")
-    assert fused_rollout._check(dp, torch.zeros(4), None,
-                                fused_rollout.aligned(
-                                    torch.zeros(2 * 9 + 1)[1:].view(9, 2)),
-                                None, None) == 9
+    cpu = torch.device("cpu")
+    buf = fused_rollout._params_on(dp, cpu)
+    assert fused_rollout._params_on(dp, cpu) is buf
+    assert fused_rollout._params_on(dp.replace(newton_iters=3), cpu) is buf
+    assert torch.equal(buf, fused_rollout.params_buffer(dp))
+    dp.params["Q"].mul_(2.0)
+    fresh = fused_rollout._params_on(dp, cpu)
+    assert fresh is not buf
+    assert torch.equal(fresh, fused_rollout.params_buffer(dp))
+    with pytest.raises(ValueError, match="parameters are on"):
+        fused_rollout._params_on(dp, torch.device("meta"))
 
 
 def test_kernel_input_checks_refuse_what_the_kernel_does_not_take():
@@ -350,9 +418,10 @@ def test_kernel_input_checks_refuse_what_the_kernel_does_not_take():
 
 
 def test_kernel_input_checks_refuse_unaligned_arrays():
-    """The kernels copy X_old, U_old, u_ff and K in 16-byte blocks: a view
-    at an odd storage offset is refused, x0 (read by plain loads) is not,
-    and the open loop checks U alone."""
+    """The kernels used to refuse views that do not start on 16 bytes, and
+    the wrappers copied them; they now place every run at its own 16-byte
+    phase (csrc/runs.cuh), so the checks take a contiguous view at any
+    offset, for the open loop too, and still refuse a strided one."""
     dp = itt.make_double_pendulum(0.01, [np.pi, 0, 0, 0], Q=np.eye(4),
                                   R=np.eye(2), Q_f=np.eye(4),
                                   integrator="euler", device="cpu")
@@ -366,13 +435,11 @@ def test_kernel_input_checks_refuse_unaligned_arrays():
                    K=torch.zeros(N * 8 + 2)[2:].view(N, 2, 4))
     for key, value in shifted.items():
         assert value.is_contiguous() and value.data_ptr() % 16 != 0
-        with pytest.raises(ValueError, match="16-byte"):
-            fused_rollout._check(dp, **{**good, key: value})
+        assert fused_rollout._check(dp, **{**good, key: value}) == N
     x0 = torch.zeros(5)[1:]
     assert fused_rollout._check(dp, **{**good, "x0": x0}) == N
-    assert fused_rollout._check(dp, good["x0"], None, good["U_old"], None,
+    assert fused_rollout._check(dp, good["x0"], None, shifted["U_old"], None,
                                 None) == N
-    with pytest.raises(ValueError, match="16-byte"):
-        fused_rollout._check(dp, good["x0"], None, shifted["U_old"], None,
-                             None)
-
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_rollout._check(dp, good["x0"], None,
+                             torch.zeros(N, 4)[:, ::2], None, None)
