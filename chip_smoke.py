@@ -42,9 +42,9 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    counts reset just before and read just after, and gates the result
    (the initial rollout launches open_loop_rollout once); then the
    pendulum golden (backward_euler, N = 400) with rollout='pallas' (every
-   B2 kernel, the open loop once) and with rollout='scan'; the
-   under-actuated double-pendulum golden (backward_euler, N = 800, maxiter
-   700) through the kernels under tests/test_solver.py's gate; a solve
+   B2 kernel, the open loop once); the under-actuated double-pendulum
+   golden (backward_euler, N = 800, maxiter 700) through the kernels under
+   tests/test_solver.py's gate; a solve
    whose U_init is a misaligned row view; and the pendulum MPC example
    (backward-Euler solver, midpoint plant, H = 200, cut to MPC_STEPS
    steps) through the kernels, its first steps held to the same loop with
@@ -141,7 +141,26 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    limited-DDP double-pendulum swing-up (N = 150, +-12, adaptive_reg;
    against the sequential solve's golden cost) and the DDP pendulum
    (4 sweeps), the two pendulums against backward='scan', and the
-   backward pass through B7 (backward_pass_suffix_scan(layout='lane')).
+   backward pass through B7 (backward_pass_suffix_scan(layout='lane'));
+22. solves the pendulum golden through the compat facade (`compat.iLQR`,
+   whose 'auto' engines are host loops: no kernel) and evaluates its 13
+   derivative functions on the card;
+23. runs the reference drivers of examples_torch/ through their
+   main(plot=False): the pendulum and DP open loops under phase 4's gates
+   (phase 4 solves the open-loop drivers' problem() and runs the UA-DP
+   driver's main as its golden), and the FA and UA double-pendulum MPC at
+   full horizon cut to MPC_STEPS steps, their first MPC_REF_STEPS held to
+   the same loops with backward='scan', rollout='scan';
+24. solves examples_torch/constrained_pendulum.py at full size (N = 400,
+   rk4, |u| <= 3 and the exact goal) by the augmented Lagrangian with
+   backward='pallas' (B1, one launch per backward pass) and 'scan', by AL
+   x multiple shooting (B1d, B3) and, on the box alone, by the barrier
+   solver with both engines, each against the JAX package's f32 results
+   on a CPU; and times B1, B1d and B3 at these solves' shapes;
+25. runs examples_torch/constrained_mpc.py's AL and barrier loops (H =
+   200, backward-Euler solver, midpoint plant, |u| <= 6) cut to MPC_STEPS
+   steps with backward='pallas' and 'scan', held to each other and to the
+   JAX package's f32 closed-loop costs.
 Each solve phase resets the launch counts just before it and reads them
 just after.  The kernels line gives every kernel's time, its plain
 version's, and its bound: the larger of the bytes it must move over the
@@ -154,6 +173,7 @@ device it exits non-zero before printing any result.  The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -232,8 +252,9 @@ PEND_BATCH, PEND_H, PEND_STEPS = 8, 200, 3
 # Phase 16 runs the batched-MPC cell with rollout='auto' (the plain batched
 # rollouts) for MPC_SIM_AUTO of its MPC_SIM steps: its single-instance
 # references take ~0.85 s a step with the plain engines on an H100, against
-# ~0.3 s with B2.  The rollout='pallas' run keeps all MPC_SIM steps.
-MPC_SIM_AUTO = 10
+# ~0.3 s with B2.  The rollout='pallas' run keeps all MPC_SIM steps.  (Cut
+# from 10 to 5 when phases 22-25 came.)
+MPC_SIM_AUTO = 5
 # Phase 15: eight sampled instances of the batched solve against the same
 # problems solved one at a time with the plain engines (B4 against the
 # plain sequential pass, batched against single rollouts: f32 in other
@@ -2265,6 +2286,472 @@ def suffix_phases(itt, dev, smi, launches_per_call, N_lim=LIMITED_N,
     ]
 
 
+def dp_gates(itt, sol, label, launches, kernels):
+    """Phase 4's gates of a DP flagship solve (tests/test_solver.py:88-92)."""
+    trace = sol.cost_trace[:sol.iterations].cpu().numpy()
+    cost = float(sol.cost)
+    # Status gate.  tol = 1e-6 is below the f32 resolution of a cost
+    # near 37 (one ulp is 3.8e-6), so a solve at its f32 floor stops
+    # either by an exactly repeated cost (CONVERGED) or by a line search
+    # in which no candidate beats the current cost by rounding
+    # (LINESEARCH_FAILED).  The latter counts only when the last
+    # accepted step moved the cost by at most 8 ulp.
+    last_step = (abs(float(trace[-1] - trace[-2])) if len(trace) > 1
+                 else np.inf)
+    at_floor = last_step <= 8 * float(np.spacing(np.float32(cost)))
+    if not (sol.status in (itt.CONVERGED, itt.MAXITER)
+            or (sol.status == itt.LINESEARCH_FAILED and at_floor)):
+        raise AssertionError(f"{label} ended with status {sol.status}, "
+                             f"last accepted step {last_step:.3e}")
+    if not np.all(np.diff(trace) <= 0):
+        raise AssertionError(f"{label}: cost trace increased")
+    if not cost <= 1.02 * DP_GOLDEN_COST:
+        raise AssertionError(
+            f"{label}: cost {cost} above 1.02 x {DP_GOLDEN_COST}")
+    ang_err = (sol.X[-1, :2]
+               - torch.tensor([np.pi, 0.0], dtype=sol.X.dtype,
+                             device=sol.X.device)).abs().max()
+    if not float(ang_err) <= 0.2:
+        raise AssertionError(f"{label}: final angles "
+                             f"{sol.X[-1, :2].tolist()} not within 0.2 "
+                             f"of the target")
+    if not (torch.isfinite(sol.X).all() and torch.isfinite(sol.U).all()
+            and sol.X.shape == (501, 4) and sol.U.shape == (500, 2)):
+        raise AssertionError(f"{label}: solution not finite or of the "
+                             f"wrong shape")
+    for kernel in kernels:
+        if launches.get(kernel, 0) < 1:
+            raise AssertionError(f"{label} never launched {kernel}")
+    print(f"{label} gates passed: cost {cost:.4f} <= "
+          f"{1.02 * DP_GOLDEN_COST:.4f}, final angle error "
+          f"{float(ang_err):.2e}, trace non-increasing")
+
+
+# Phases 22-25: the facade, the drivers and the constrained solvers.  The
+# reference results they are held to are the JAX package's f32 results on
+# a CPU (examples/constrained_pendulum.py at full size: cost 40.55818 by
+# backward='scan'; examples/constrained_mpc.py cut to 20 steps:
+# closed-loop costs 73.1158 by AL and 71.9151 by the barrier).
+AL_PENDULUM_COST = 40.5582
+RTOL_AL = 1e-3
+AL_MPC_COST = {"AL": 73.1158, "barrier": 71.9151}
+RTOL_AL_MPC = 1e-2
+
+
+@contextlib.contextmanager
+def counting(module, name: str):
+    """Count the calls of ``module.name`` (a backward pass) in the block:
+    the path's backward passes, which its B1 launches must match."""
+    calls = [0]
+    orig = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def timed_run(fn):
+    """(result, seconds, launch counts) of fn() with the counts reset just
+    before it and read just after, the device drained on both sides."""
+    from ilqr_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _build.launch_counts()
+
+
+def share(launches: int, dev_us: float | None, secs: float) -> str:
+    """A kernel's share of a solve: launches x device time per call."""
+    if dev_us is None:
+        return f"{launches} launches, device time not measured"
+    ms = launches * dev_us * 1e-3
+    return (f"{launches} x {dev_us * 1e-3:.4f} ms = {ms:.3f} ms, "
+            f"{100 * ms * 1e-3 / secs:.3f} % of the {secs:.3f} s solve")
+
+
+def need(label: str, counts: dict, kernels) -> None:
+    for kernel in kernels:
+        if counts.get(kernel, 0) < 1:
+            raise AssertionError(f"{label} never launched {kernel}")
+
+
+def facade_phase(itt, dev) -> None:
+    """Phase 22: the pendulum golden through `compat.iLQR` (host loops under
+    the port's 'auto') and the 13 functions on CUDA tensors."""
+    from ilqr_tpu_torch import compat
+
+    t_phase = time.perf_counter()
+    psys = compat.MyPendulum(
+        dt=0.01, x_target=[np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+        Q_f=np.zeros((2, 2)), g=9.81, l=1.0, d=0.0,
+        integrator="backward_euler", device=dev)
+    x, u = np.array([0.3, -0.2]), np.array([0.2])
+    names = ("f_fcn", "f_x_fcn", "f_u_fcn", "l_fcn", "l_x_fcn", "l_u_fcn",
+             "l_xx_fcn", "l_ux_fcn", "l_uu_fcn", "l_f_fcn", "l_f_x_fcn",
+             "l_f_xx_fcn")
+    for name in names:
+        out = getattr(psys, name)(*((x, u) if "_f_" not in name
+                                    and name != "l_f_fcn" else (x,)))
+        if not (out.is_cuda and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"compat {name}: not a finite CUDA tensor")
+    solver = compat.iLQR(psys, T=4.0, x_0=[1.0, 0.0],
+                         U_init=torch.zeros((1, 400)), tol=1e-5, maxiter=100,
+                         verbose=True)
+    (X, U, cost), secs, counts = timed_run(solver.optimize_trajectory)
+    err = abs(float(cost) - PENDULUM_GOLDEN_COST)
+    print(f"phase 22: compat.iLQR pendulum golden (backward Euler, N = 400, "
+          f"'auto' engines = host loops): cost {float(cost):.6f}, "
+          f"|cost - {PENDULUM_GOLDEN_COST}| {err:.2e} (limit 1e-3), X "
+          f"{tuple(X.shape)} U {tuple(U.shape)} on {X.device}, {secs:.3f} s, "
+          f"launches {counts}; {len(names)} derivative functions evaluated "
+          f"on {dev}")
+    if not (err <= 1e-3 and X.shape == (2, 401) and U.shape == (1, 400)
+            and X.is_cuda and U.is_cuda):
+        raise AssertionError("compat facade: cost, layout or device wrong")
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+
+def driver_phase(itt, dev) -> None:
+    """Phase 23: the reference drivers' main(plot=False) on the card."""
+    from examples_torch import (
+        double_pendulum_mpc,
+        double_pendulum_open_loop,
+        pendulum_open_loop,
+    )
+
+    t_phase = time.perf_counter()
+    b12 = ("fused_riccati", "linesearch_costs", "closed_loop_rollout",
+           "open_loop_rollout")
+    sol, secs, counts = timed_run(lambda: pendulum_open_loop.main(
+        plot=False, device=dev, reps=1))
+    err = abs(float(sol.cost) - PENDULUM_GOLDEN_COST)
+    print(f"pendulum_open_loop.main: status {sol.status}, cost "
+          f"{float(sol.cost):.6f} (|cost - {PENDULUM_GOLDEN_COST}| "
+          f"{err:.2e}, limit 1e-3), {secs:.3f} s with its warm-up, launches "
+          f"{counts}")
+    if not (sol.status == itt.CONVERGED and err <= 1e-3):
+        raise AssertionError("pendulum driver: gates not met")
+    need("pendulum driver", counts, b12)
+    sol, secs, counts = timed_run(lambda: double_pendulum_open_loop.main(
+        plot=False, device=dev, reps=1))
+    print(f"double_pendulum_open_loop.main: status {sol.status}, "
+          f"{sol.iterations} iterations, cost {float(sol.cost):.6f}, "
+          f"{secs:.3f} s with its warm-up, launches {counts}")
+    dp_gates(itt, sol, "DP driver", counts, b12)
+    print("ua_double_pendulum_open_loop.main: run in phase 4 (the UA-DP "
+          "golden), under its gates")
+
+    # The FA and UA double-pendulum MPC at full horizon, cut to MPC_STEPS
+    # steps; each solve's initial rollout is one open-loop launch.
+    out, secs, counts = timed_run(lambda: double_pendulum_mpc.main(
+        plot=False, device=dev, reps=(1, 1), n_sim=MPC_STEPS))
+    passes = sum(int(r.solve_iters.sum())
+                 + int((r.solve_status == itt.LINESEARCH_FAILED).sum())
+                 for r in out.values())
+    print(f"double_pendulum_mpc.main(n_sim={MPC_STEPS}): FA cost "
+          f"{float(out['fa'].cost):.4f}, UA cost {float(out['ua'].cost):.4f}, "
+          f"{secs:.3f} s with the warm-ups, launches {counts}; backward "
+          f"passes of the timed loops {passes}")
+    if counts.get("open_loop_rollout", 0) != 2 * (MPC_STEPS + 1):
+        raise AssertionError("DP MPC driver: one open-loop launch per solve "
+                             "expected, the warm-up steps included")
+    if counts.get("fused_riccati", 0) < passes:
+        raise AssertionError("DP MPC driver: fewer B1 launches than "
+                             "backward passes")
+    need("DP MPC driver", counts, b12)
+    for key, ua in (("fa", False), ("ua", True)):
+        p = double_pendulum_mpc.problem(dev, underactuated=ua)
+        if not all(bool(torch.isfinite(t).all())
+                   for t in (out[key].X, out[key].U)):
+            raise AssertionError(f"DP MPC driver {key}: not finite")
+        cfg = dataclasses.replace(p.config, backward="scan", rollout="scan")
+        ref, secs, counts = timed_run(lambda: itt.run_mpc(
+            p.solver, p.plant, p.x0, p.U0, MPC_REF_STEPS, cfg))
+        dx = float((out[key].X[:MPC_REF_STEPS + 1] - ref.X).abs().max())
+        print(f"DP MPC {key.upper()} (H = {p.U0.shape[0]}): the first "
+              f"{MPC_REF_STEPS} steps through the kernels agree with "
+              f"backward='scan', rollout='scan' to {dx:.2e} (limit "
+              f"{ATOL_MPC}); the scan loop {secs:.3f} s, "
+              f"{ref.solve_iters.tolist()} iterations")
+        if not dx <= ATOL_MPC:
+            raise AssertionError(f"DP MPC {key}: kernels and scan differ")
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+
+
+def constrained_phases(itt, dev, smi) -> list:
+    """Phases 24-25: the AL, AL-MS and barrier solves at
+    examples_torch/constrained_pendulum.py's full size, and the constrained
+    MPC loops of constrained_mpc.py cut to MPC_STEPS steps; returns the
+    kernels-line rows of B1, B1d and B3 at these paths' shapes."""
+    from examples_torch import constrained_mpc, constrained_pendulum
+    from ilqr_tpu_torch import constrained, shooting
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    t_phase = time.perf_counter()
+    p = constrained_pendulum.problem(dev)
+    N = p.U0.shape[0]
+    lim = float(p.box.params["hi"])
+
+    def al_gates(label, sol):
+        rel = abs(float(sol.cost) - AL_PENDULUM_COST) / AL_PENDULUM_COST
+        umax = float(sol.U.abs().max())
+        print(f"{label}: status {sol.status}, {sol.outer_iterations} outer / "
+              f"{sol.inner_iterations} inner iterations, cost "
+              f"{float(sol.cost):.5f} ({rel:.1e} from the JAX result "
+              f"{AL_PENDULUM_COST}, limit {RTOL_AL}), violation "
+              f"{float(sol.violation):.2e}, max|u| {umax:.6f}")
+        if not (sol.status == itt.CONVERGED and rel <= RTOL_AL
+                and float(sol.violation) <= 1e-4 and umax <= lim + 1e-4):
+            raise AssertionError(f"{label}: gates not met")
+
+    runs = {}
+    for backward in ("pallas", "scan"):
+        cfg = dataclasses.replace(p.config, backward=backward)
+        with counting(constrained, "_backward") as passes:
+            sol, secs, counts = timed_run(lambda: itt.solve_constrained(
+                p.system, p.constraints, p.x0, p.U0, cfg, p.al_config))
+        print(f"AL pendulum N={N} (backward={backward}, rollout=pallas): "
+              f"{secs:.3f} s, {passes[0]} backward passes, launches {counts}")
+        al_gates(f"AL pendulum ({backward})", sol)
+        runs[backward] = (sol, secs, counts, passes[0])
+    sol, secs, counts, n_pass = runs["pallas"]
+    if not (counts.get("fused_riccati", 0) == n_pass
+            >= sol.inner_iterations):
+        raise AssertionError("AL pendulum: B1 launches differ from the "
+                             "backward passes or fall below the inner "
+                             "iterations")
+    need("AL pendulum", counts, ("closed_loop_rollout", "open_loop_rollout"))
+
+    # B1 at this path's shape: the augmented expansion at the solution.
+    exp_al = constrained._augment_expansion(
+        itt.linearize_trajectory(p.system, sol.X, sol.U), p.constraints,
+        {"gi": sol.lam_stage_ineq, "he": sol.lam_stage_eq,
+         "gti": sol.lam_terminal_ineq, "hte": sol.lam_terminal_eq},
+        sol.mu, sol.X, sol.U)
+    rows = []
+
+    def kernel_row(name, label, fn, plain, plain64, rtol, source, replaces,
+                   launches, b, secs, plain_reps=10):
+        """Hold the kernel to its plain version at this path's shape
+        (max|kernel - plain| <= max(rtol max|plain|, F32_FLOOR max|plain -
+        plain in f64|), as phases 2 and 6), time both, and add its row."""
+        got, ref, r64 = fn(), plain(), plain64()
+        err, notes = 0.0, []
+        for g, r, r6 in zip(got, ref, r64):
+            if not g.is_floating_point():
+                continue
+            e = rel_err(g, r)[0]
+            limit = max(rtol * float(r.abs().max()),
+                        F32_FLOOR * rel_err(r, r6)[0])
+            notes.append(f"{e:.2e} (limit {limit:.2e})")
+            if not e <= limit:
+                raise AssertionError(f"{label}: kernel against plain "
+                                     f"{e:.3e}, limit {limit:.3e}")
+            err = max(err, e)
+        dev_us = queued_us(fn)
+        ms = cuda_ms(fn, 50, 5)
+        plain_ms = cuda_ms(plain, plain_reps, 1)
+        print(f"  {label}: device {ms_text(dev_us)} ms, events {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b[0]:.2e} ms ({b[1]}), max "
+              f"abs error against the plain version by output "
+              f"{', '.join(notes)}; {share(launches, dev_us, secs)} on {smi}")
+        rows.append(dict(
+            name=name, route="cuda", source=f"ilqr_tpu_torch/csrc/{source}",
+            replaces=f"ilqr_tpu/ops/{replaces}", launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None,
+            device_ms=None if dev_us is None else dev_us * 1e-3))
+        return dev_us
+
+    def f64(exp):
+        return dataclasses.replace(exp, **{
+            f.name: getattr(exp, f.name).double()
+            for f in dataclasses.fields(exp)})
+
+    def b2b_row(name, label, system, x0, X, U, exp, launches, integrator,
+                secs):
+        """B2b (one α's trajectory, as the AL and barrier line searches
+        launch it per α) along a solution, with the gains of ``exp``."""
+        u_ff, K, _, _ = itt.backward_pass_fused(exp, 0.0)
+        X, U = X.contiguous(), U.contiguous()
+        sys64 = system.replace(params={k: v.double()
+                                       for k, v in system.params.items()})
+        n_x, n_u = system.n_x, system.n_u
+        return kernel_row(
+            name, label,
+            lambda: itt.closed_loop_rollout_fused(system, x0, 0.5, X, U, u_ff,
+                                                  K),
+            lambda: itt.closed_loop_rollout(system, x0, 0.5, X, U, u_ff, K),
+            lambda: itt.closed_loop_rollout(sys64, x0.double(), 0.5,
+                                            X.double(), U.double(),
+                                            u_ff.double(), K.double()),
+            RTOL_B2, "chain_rollout.cu", "pallas_rollout.py:132", launches,
+            chain_bounds(n_x, n_u, U.shape[0], 1,
+                         model="pendulum" if n_x == 2 else "double_pendulum",
+                         integrator=integrator)["closed_loop_rollout"],
+            secs, plain_reps=2)
+
+    b_al = bound(4 * (expansion_floats(N, 2, 1) + N * 3 + 2),
+                 N * riccati_step_ops(2))
+    print(f"AL pendulum kernels at N={N} (B1's share: launches x device "
+          f"time per call):")
+    b1_us = kernel_row("fused_riccati_al", f"B1 AL pendulum N={N}",
+                       lambda: itt.backward_pass_fused(exp_al, 0.0),
+                       lambda: itt.backward_pass_associative(exp_al, 0.0),
+                       lambda: itt.backward_pass_associative(f64(exp_al), 0.0),
+                       RTOL_B1, "fused_riccati.cu", "pallas_riccati.py:774",
+                       counts["fused_riccati"], b_al, secs)
+
+    b2_us = b2b_row("closed_loop_rollout_al", f"B2b AL pendulum N={N}, rk4",
+                    p.system, p.x0, sol.X, sol.U, exp_al,
+                    counts["closed_loop_rollout"], "rk4", secs)
+
+    # AL x multiple shooting: B1d and B3.
+    ms_cfg = itt.MsConfig(update_engine="pallas")
+    with counting(shooting, "_backward_ms") as passes:
+        sol_ms, secs_ms, counts_ms = timed_run(lambda: itt.solve_constrained_ms(
+            p.system, p.constraints, p.x0, p.U0, config=p.config,
+            al_config=p.al_config, ms=ms_cfg))
+    rel = abs(float(sol_ms.cost) - float(sol.cost)) / float(sol.cost)
+    print(f"AL-MS pendulum N={N} (backward=pallas, update_engine=pallas): "
+          f"status {sol_ms.status}, {sol_ms.outer_iterations} outer / "
+          f"{sol_ms.inner_iterations} inner iterations, cost "
+          f"{float(sol_ms.cost):.5f} ({rel:.1e} from the single-shooting "
+          f"cost, limit {RTOL_AL}), violation {float(sol_ms.violation):.2e}, "
+          f"{secs_ms:.3f} s, {passes[0]} backward passes, launches "
+          f"{counts_ms}")
+    if not (sol_ms.status == itt.CONVERGED and rel <= RTOL_AL):
+        raise AssertionError("AL-MS pendulum: gates not met")
+    need("AL-MS pendulum", counts_ms, ("fused_riccati", "affine_prefix_scan"))
+    if counts_ms["fused_riccati"] != passes[0]:
+        raise AssertionError("AL-MS: B1d launches differ from the passes")
+    X_m, U_m = sol_ms.X.contiguous(), sol_ms.U.contiguous()
+    d_m = shooting._node_defects(p.system, X_m, U_m)
+    d_m = d_m + 1e-3 * torch.tensor(np.random.default_rng(9).standard_normal(
+        tuple(d_m.shape)), **f32)   # gaps of an iterate still closing them
+    exp_m = itt.linearize_trajectory(p.system, X_m, U_m)
+    u_m, K_m, _, _ = itt.backward_pass_fused(exp_m, 0.0, d_m)
+    alphas = torch.tensor(p.config.alpha_schedule(), **f32)
+    P = (exp_m.f_x + exp_m.f_u @ K_m).contiguous()
+    q = (alphas[:, None, None] * ((exp_m.f_u @ u_m[..., None])[..., 0]
+                                  + d_m)[None]).contiguous()
+    d0 = torch.zeros((alphas.numel(), 2), **f32)
+    kernel_row("fused_riccati_defects_al_ms", f"B1d AL-MS N={N}",
+               lambda: itt.backward_pass_fused(exp_m, 0.0, d_m),
+               lambda: itt.backward_pass_associative(exp_m, 0.0, d_m),
+               lambda: itt.backward_pass_associative(f64(exp_m), 0.0,
+                                                     d_m.double()),
+               RTOL_B1, "fused_riccati.cu", "pallas_riccati.py:774",
+               counts_ms["fused_riccati"],
+               bound(4 * (expansion_floats(N, 2, 1) + N * 2 + N * 3 + 2),
+                     N * riccati_step_ops(2)), secs_ms)
+    kernel_row("affine_prefix_scan_al_ms",
+               f"B3 AL-MS N={N}, {alphas.numel()} candidates",
+               lambda: (itt.affine_prefix_scan_multi(P, q, d0,
+                                                     engine="pallas"),),
+               lambda: (itt.affine_prefix_scan_multi(P, q, d0, engine="xla"),),
+               lambda: (itt.affine_prefix_scan_multi(
+                   P.double(), q.double(), d0.double(), engine="xla"),),
+               RTOL_B3, "affine_scan.cu", "pallas_affine.py:137",
+               counts_ms["affine_prefix_scan"], b3_bound(N, 2, alphas.numel()),
+               secs_ms)
+
+    # The barrier on the box alone, pallas against scan.
+    bar = {}
+    for backward in ("pallas", "scan"):
+        cfg = dataclasses.replace(p.config, backward=backward)
+        with counting(constrained, "_backward") as passes:
+            sol_b, secs_b, counts_b = timed_run(lambda: itt.solve_barrier(
+                p.system, p.box, p.x0, p.U0, cfg, itt.BarrierConfig()))
+        print(f"barrier pendulum N={N}, box alone (backward={backward}): "
+              f"status {sol_b.status}, {sol_b.inner_iterations} inner "
+              f"iterations, cost {float(sol_b.cost):.5f}, violation "
+              f"{float(sol_b.violation):.2e}, max|u| "
+              f"{float(sol_b.U.abs().max()):.5f}, {secs_b:.3f} s, "
+              f"{passes[0]} backward passes, launches {counts_b}")
+        bar[backward] = sol_b
+        if backward == "pallas" and counts_b.get("fused_riccati", 0) != \
+                passes[0]:
+            raise AssertionError("barrier: B1 launches differ from passes")
+        if backward == "pallas":
+            print(f"  B1's share: "
+                  f"{share(counts_b['fused_riccati'], b1_us, secs_b)}; "
+                  f"B2b's: "
+                  f"{share(counts_b['closed_loop_rollout'], b2_us, secs_b)}")
+    rel = abs(float(bar["pallas"].cost) - float(bar["scan"].cost)) / abs(
+        float(bar["scan"].cost))
+    if not (bar["pallas"].status == bar["scan"].status and rel <= RTOL_AL):
+        raise AssertionError(f"barrier: pallas and scan differ (status, or "
+                             f"cost by {rel:.1e})")
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 25. constrained MPC (examples/constrained_mpc.py, 20 steps) ----
+    t_phase = time.perf_counter()
+    m = constrained_mpc.problem(dev)
+    loops = {
+        "AL": lambda cfg: itt.run_mpc_constrained(
+            m.solver, m.plant, m.constraints, m.x0, m.U0, MPC_STEPS, cfg,
+            m.al_config),
+        "barrier": lambda cfg: itt.run_mpc_barrier(
+            m.solver, m.plant, m.constraints, m.x0, m.U0, MPC_STEPS, cfg,
+            **m.barrier)}
+    base_cfg = {"AL": m.config_al, "barrier": m.config_barrier}
+    # B2b (backward Euler) at the loops' shape, along the first step's
+    # constrained plan.
+    plan = itt.solve_constrained(m.solver, m.constraints, m.x0, m.U0,
+                                 m.config_al, m.al_config)
+    H = m.U0.shape[0]
+    print(f"constrained MPC kernels at H={H} (backward Euler):")
+    b2_mpc_us = None
+    for name, loop in loops.items():
+        costs = {}
+        for backward in ("pallas", "scan"):
+            cfg = dataclasses.replace(base_cfg[name], backward=backward)
+            with counting(constrained, "_backward") as passes:
+                res, secs, counts = timed_run(lambda: loop(cfg))
+            costs[backward] = float(res.cost)
+            rel = abs(costs[backward] - AL_MPC_COST[name]) / AL_MPC_COST[name]
+            umax = float(res.U.abs().max())
+            print(f"{name} MPC H={m.U0.shape[0]} (cut to {MPC_STEPS} of "
+                  f"{m.n_sim} steps; backward={backward}, rollout=pallas): "
+                  f"cost {costs[backward]:.4f} ({rel:.1e} from the JAX "
+                  f"result {AL_MPC_COST[name]}), max|u| {umax:.5f}, "
+                  f"{secs:.3f} s, {secs * 1e3 / MPC_STEPS:.1f} ms per step, "
+                  f"{int(res.solve_iters.sum())} inner iterations, "
+                  f"{passes[0]} backward passes, launches {counts}")
+            if not (rel <= RTOL_AL_MPC and umax <= m.lim + 1e-3
+                    and bool(torch.isfinite(res.X).all())):
+                raise AssertionError(f"{name} MPC ({backward}): gates not met")
+            if backward == "pallas" and counts.get("fused_riccati", 0) != \
+                    passes[0]:
+                raise AssertionError(f"{name} MPC: B1 launches "
+                                     f"{counts.get('fused_riccati', 0)} != "
+                                     f"backward passes {passes[0]}")
+            if backward == "pallas" and name == "AL":
+                b2_mpc_us = b2b_row(
+                    "closed_loop_rollout_al_mpc",
+                    f"B2b AL MPC H={H}, backward Euler", m.solver, m.x0,
+                    plan.X, plan.U,
+                    itt.linearize_trajectory(m.solver, plan.X, plan.U),
+                    counts["closed_loop_rollout"], "backward_euler", secs)
+            if backward == "pallas":
+                print(f"  B2b's share: "
+                      f"{share(counts['closed_loop_rollout'], b2_mpc_us, secs)}")
+        if not abs(costs["pallas"] - costs["scan"]) <= RTOL_AL_MPC * abs(
+                costs["scan"]):
+            raise AssertionError(f"{name} MPC: pallas and scan costs differ")
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; "
@@ -2302,11 +2789,17 @@ def main() -> int:
     launches_per_call = one_launch_check(itt, f32)
     tile = fused_riccati.tile_steps(kernels.lib)
 
-    pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
-                             Q_f=np.zeros((2, 2)), d=0.0,
-                             integrator="backward_euler", **f32)
-    dp = dp_system(itt, f32)
-    ua = dp_system(itt, f32, underactuated=True, integrator="backward_euler")
+    # The reference workloads' systems, from the port's drivers (phase 4
+    # solves their problems, phases 22-25 run the drivers).
+    from examples_torch import (
+        double_pendulum_open_loop,
+        pendulum_open_loop,
+        ua_double_pendulum_open_loop,
+    )
+    pend = pendulum_open_loop.problem(dev).system
+    dp_problem = double_pendulum_open_loop.problem(dev)
+    dp = dp_problem.system
+    ua = ua_double_pendulum_open_loop.problem(dev).system
     x0_dp = torch.zeros(4, **f32)
     x0_pend = torch.tensor([1.0, 0.0], **f32)
 
@@ -2415,45 +2908,11 @@ def main() -> int:
     chain_checks(itt, dev, errors)
     print(f"phase 3 chain checks: {time.perf_counter() - t0:.1f} s")
 
-    def dp_gates(sol, label, launches, kernels):
-        trace = sol.cost_trace[:sol.iterations].cpu().numpy()
-        cost = float(sol.cost)
-        # Status gate.  tol = 1e-6 is below the f32 resolution of a cost
-        # near 37 (one ulp is 3.8e-6), so a solve at its f32 floor stops
-        # either by an exactly repeated cost (CONVERGED) or by a line search
-        # in which no candidate beats the current cost by rounding
-        # (LINESEARCH_FAILED).  The latter counts only when the last
-        # accepted step moved the cost by at most 8 ulp.
-        last_step = (abs(float(trace[-1] - trace[-2])) if len(trace) > 1
-                     else np.inf)
-        at_floor = last_step <= 8 * float(np.spacing(np.float32(cost)))
-        if not (sol.status in (itt.CONVERGED, itt.MAXITER)
-                or (sol.status == itt.LINESEARCH_FAILED and at_floor)):
-            raise AssertionError(f"{label} ended with status {sol.status}, "
-                                 f"last accepted step {last_step:.3e}")
-        if not np.all(np.diff(trace) <= 0):
-            raise AssertionError(f"{label}: cost trace increased")
-        if not cost <= 1.02 * DP_GOLDEN_COST:
-            raise AssertionError(
-                f"{label}: cost {cost} above 1.02 x {DP_GOLDEN_COST}")
-        ang_err = (sol.X[-1, :2]
-                   - torch.tensor([np.pi, 0.0], **f32)).abs().max()
-        if not float(ang_err) <= 0.2:
-            raise AssertionError(f"{label}: final angles "
-                                 f"{sol.X[-1, :2].tolist()} not within 0.2 "
-                                 f"of the target")
-        if not (torch.isfinite(sol.X).all() and torch.isfinite(sol.U).all()
-                and sol.X.shape == (501, 4) and sol.U.shape == (500, 2)):
-            raise AssertionError(f"{label}: solution not finite or of the "
-                                 f"wrong shape")
-        for kernel in kernels:
-            if launches.get(kernel, 0) < 1:
-                raise AssertionError(f"{label} never launched {kernel}")
-        print(f"{label} gates passed: cost {cost:.4f} <= "
-              f"{1.02 * DP_GOLDEN_COST:.4f}, final angle error "
-              f"{float(ang_err):.2e}, trace non-increasing")
-
     # ---- 4. the slice: the DP swing-up through both kernels -------------
+    # examples_torch/double_pendulum_open_loop.py's problem (phase 22 runs
+    # the driver itself); its config is phase 3's.
+    if dp_problem.config != cfg or tuple(dp_problem.U0.shape) != (500, 2):
+        raise AssertionError("the DP driver's problem is not the flagship")
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2464,7 +2923,7 @@ def main() -> int:
     print(f"DP solve (pallas/pallas): status {sol.status}, "
           f"{sol.iterations} iterations, cost {float(sol.cost):.6f}, "
           f"{solve_s:.3f} s, launches {launches}")
-    dp_gates(sol, "DP solve", launches,
+    dp_gates(itt, sol, "DP solve", launches,
              ("fused_riccati", "linesearch_costs", "closed_loop_rollout"))
     if launches.get("open_loop_rollout", 0) != 1:
         raise AssertionError(f"DP solve launched open_loop_rollout "
@@ -2480,11 +2939,12 @@ def main() -> int:
     check_b2("DP solved trajectory", X_s, U_s, u_s, K_s, alpha=1.0)
 
     # The pendulum golden (backward Euler) through B1, B2a, B2b and the
-    # open-loop entry, then with the plain host-loop rollouts for their time.
+    # open-loop entry.  Phase 22 solves it with host loops (the compat
+    # facade's 'auto' engines), which gives the plain rollouts' time.
     b2_kernels = ("linesearch_costs", "closed_loop_rollout",
                   "open_loop_rollout")
     pend_runs = {}
-    for rollout_engine in ("pallas", "scan"):
+    for rollout_engine in ("pallas",):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2515,21 +2975,22 @@ def main() -> int:
         pend_runs[rollout_engine] = (sol_p, pend_s, counts)
 
     # The under-actuated golden (tests/test_solver.py:42-55, 96-101) through
-    # the kernels, f32.
+    # the kernels, f32: examples_torch/ua_double_pendulum_open_loop.py's
+    # main(plot=False), which is that problem, so the 700-iteration solve
+    # runs once (the launch counts include its one-iteration warm-up).
     gold = np.load(UA_GOLDEN)
     ua_cost_ref = float(gold["cost"])
     ua_angles_ref = torch.tensor(gold["X"][:2, -1], **f32)  # (dim, time)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    sol_ua = itt.solve(ua, x0_dp, torch.zeros((800, 1), **f32),
-                       itt.IlqrConfig(maxiter=700, tol=1e-5, backward="pallas",
-                                      rollout="pallas"))
+    sol_ua = ua_double_pendulum_open_loop.main(plot=False, device=dev, reps=1)
     torch.cuda.synchronize()
     ua_s = time.perf_counter() - t0
     ua_counts = _build.launch_counts()
     ua_ang = float((sol_ua.X[-1, :2] - ua_angles_ref).abs().max())
-    print(f"UA-DP golden (pallas/pallas): status {sol_ua.status}, "
+    print(f"UA-DP golden (the driver's main, pallas/pallas, warm-up "
+          f"included): status {sol_ua.status}, "
           f"{sol_ua.iterations} iterations, cost {float(sol_ua.cost):.6f} "
           f"(reference {ua_cost_ref:.6f}, limit 1.05x), final angles "
           f"{sol_ua.X[-1, :2].tolist()} ({ua_ang:.2e} from the reference's, "
@@ -2741,7 +3202,7 @@ def main() -> int:
               f"{sol_par.alpha_trace[:sol_par.iterations].tolist()}")
         # The chunked search scans its C chunk boundaries with the plain
         # version (as in JAX), so only the defect search must launch B3.
-        dp_gates(sol_par, f"DP solve ({rollout_engine})", counts,
+        dp_gates(itt, sol_par, f"DP solve ({rollout_engine})", counts,
                  ("fused_riccati", "affine_prefix_scan")
                  if rollout_engine == "defect" else ("fused_riccati",))
 
@@ -3100,6 +3561,9 @@ def main() -> int:
         for name in imp_source]
     kernels_json += batched_phases(itt, dev, smi, lpc)
     kernels_json += suffix_phases(itt, dev, smi, lpc)
+    facade_phase(itt, dev)
+    driver_phase(itt, dev)
+    kernels_json += constrained_phases(itt, dev, smi)
     for k in kernels_json:
         print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "

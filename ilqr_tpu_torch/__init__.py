@@ -7,9 +7,13 @@ sequential and associative Riccati backward passes, the rollouts, the
 parallel-in-time (defect and chunked) rollouts, the iLQR `solve` and the
 multiple-shooting `solve_ms`, batched solving (`solve_batch`,
 `parallel.solve_batched`, `parallel.solve_multistart`) and MPC (`mpc`:
-`run_mpc`, `run_mpc_rti`, `run_mpc_batched`, `run_mpc_ms`), control
-limits (`ops/boxqp.py`, the sequential and parallel limited backward
-passes), full DDP (`dynamics_hessians`) and iLQG (`ilqg`).  Its kernel
+`run_mpc`, `run_mpc_rti`, `run_mpc_batched`, `run_mpc_ms`,
+`run_mpc_constrained`, `run_mpc_barrier`), control limits (`ops/boxqp.py`,
+the sequential and parallel limited backward passes), full DDP
+(`dynamics_hessians`), iLQG (`ilqg`), the augmented-Lagrangian and
+relaxed-barrier constrained solvers (`constrained`, `barrier`), the
+reference-compatible facade (`compat`), `utils` (timing, guards,
+checkpoints) and `viz` (plots).  Its kernel
 engines are CUDA C++ written for Hopper (sm_90a), built with nvcc at first
 use: the fused backward pass (``backward='pallas'``,
 `ops/fused_riccati.py`, with GNMS defects), the rollout kernels of the
@@ -93,10 +97,31 @@ from ilqr_tpu_torch.shooting import (
     interpolate_states,
     solve_ms,
 )
+from ilqr_tpu_torch.constrained import (
+    INFEASIBLE,
+    AlConfig,
+    ConstrainedSolution,
+    ConstraintSet,
+    box_control_constraints,
+    goal_constraint,
+    merge_constraints,
+    solve_constrained,
+    solve_constrained_ms,
+    state_bound_constraints,
+)
+from ilqr_tpu_torch.barrier import (
+    BarrierConfig,
+    BarrierSolution,
+    relaxed_log_barrier,
+    solve_barrier,
+)
 from ilqr_tpu_torch.mpc import (
+    ConstrainedMpcResult,
     MpcResult,
     run_mpc,
+    run_mpc_barrier,
     run_mpc_batched,
+    run_mpc_constrained,
     run_mpc_ms,
     run_mpc_rti,
 )
@@ -130,6 +155,12 @@ __all__ = [
     "solve", "solve_batch", "IlqrConfig", "IlqrSolution",
     "CONVERGED", "LINESEARCH_FAILED", "MAXITER",
     "solve_ms", "MsConfig", "MsSolution", "interpolate_states",
+    "solve_constrained", "solve_constrained_ms",
+    "ConstraintSet", "ConstrainedSolution", "AlConfig",
+    "box_control_constraints", "goal_constraint", "state_bound_constraints",
+    "merge_constraints", "INFEASIBLE",
+    "solve_barrier", "BarrierConfig", "BarrierSolution", "relaxed_log_barrier",
     "MpcResult", "run_mpc", "run_mpc_rti", "run_mpc_batched", "run_mpc_ms",
+    "ConstrainedMpcResult", "run_mpc_constrained", "run_mpc_barrier",
     "solve_batched", "solve_multistart", "run_mpc_sharded",
 ]

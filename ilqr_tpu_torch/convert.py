@@ -2,8 +2,9 @@
 
 The JAX package and the port share no tensor type, so objects cross as
 numpy arrays: ``{k: np.asarray(v) for k, v in jax_system.params.items()}``
-for a system's parameters, and the nine fields of a JAX
-`TrajectoryExpansion` for an expansion.  These functions rebuild the port's
+for a system's parameters, the nine fields of a JAX `TrajectoryExpansion`
+for an expansion, and the (nested) params dict of a JAX `ConstraintSet`
+for a constraint set.  These functions rebuild the port's
 objects from them on a given device (the GPU unless the caller names one)
 and dtype.  Nothing here imports JAX.
 """
@@ -14,6 +15,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ilqr_tpu_torch import constrained
 from ilqr_tpu_torch.models import double_pendulum, pendulum
 from ilqr_tpu_torch.models.base import (
     DEFAULT_DEVICE,
@@ -65,3 +67,37 @@ def expansion_from_numpy(exp: Any, device=DEFAULT_DEVICE,
     return TrajectoryExpansion(*(
         torch.tensor(np.asarray(get(f)), dtype=dtype, device=device)
         for f in _EXPANSION_FIELDS))
+
+
+# Constraint factories by name, each from its params dict.
+CONSTRAINT_KINDS = {
+    "box_control": lambda p, **kw: constrained.box_control_constraints(
+        p["lo"], p["hi"], **kw),
+    "state_bound": lambda p, **kw: constrained.state_bound_constraints(
+        p["lo"], p["hi"], **kw),
+    "state_bound_stage": lambda p, **kw: constrained.state_bound_constraints(
+        p["lo"], p["hi"], terminal=False, **kw),
+    "goal": lambda p, **kw: constrained.goal_constraint(p["x_goal"], **kw),
+}
+
+
+def constraints_from_numpy(kind, params_np: Mapping, device=DEFAULT_DEVICE,
+                           dtype=torch.float32) -> constrained.ConstraintSet:
+    """The port's `ConstraintSet` from the numpy copy of a JAX set's params.
+
+    ``kind`` names the factory that built the set (a key of
+    `CONSTRAINT_KINDS`: 'box_control', 'state_bound', 'state_bound_stage'
+    for ``terminal=False``, 'goal'), or is a pair (kind_a, kind_b) for
+    ``merge_constraints(a, b)``, whose params are ``{'a': ..., 'b': ...}``;
+    pairs nest as merges do.
+    """
+    if isinstance(kind, (tuple, list)):
+        kind_a, kind_b = kind
+        return constrained.merge_constraints(
+            constraints_from_numpy(kind_a, params_np["a"], device, dtype),
+            constraints_from_numpy(kind_b, params_np["b"], device, dtype))
+    if kind not in CONSTRAINT_KINDS:
+        raise ValueError(f"unknown constraint kind {kind!r}; have "
+                         f"{sorted(CONSTRAINT_KINDS)}")
+    params = {k: np.array(v) for k, v in params_np.items()}
+    return CONSTRAINT_KINDS[kind](params, device=device, dtype=dtype)

@@ -15,12 +15,14 @@ and the solution is shifted and held as the next warm start
   simulated step — what ``jax.vmap(run_mpc)`` returns per instance.
 * `run_mpc_ms`: the loop on the multiple-shooting solver, with the states
   shifted and held as well.
+* `run_mpc_constrained`: the loop on the augmented-Lagrangian solver, with
+  the stage multipliers shifted and held and the penalty carried.
+* `run_mpc_barrier`: the loop on the relaxed-barrier solver at a fixed
+  (μ, δ).
 
 The JAX loops resolve 'auto' engines to parallel-in-time ones on a TPU
 (``auto_parallel``, from TPU timings); the port has no such rule, so
-'auto' means the sequential engines here.  The constrained and barrier
-loops (`run_mpc_constrained`, `run_mpc_barrier`) wait for ROADMAP item A16.
-Every loop runs on the solver system's device and dtype; x0 and U_init
+'auto' means the sequential engines here.  Every loop runs on the solver system's device and dtype; x0 and U_init
 (tensors on any device, or numpy arrays) move there.
 """
 from __future__ import annotations
@@ -30,6 +32,13 @@ from typing import Any
 
 import torch
 
+from ilqr_tpu_torch.barrier import BarrierConfig, solve_barrier
+from ilqr_tpu_torch.constrained import (
+    AlConfig,
+    constraint_sizes,
+    prepare,
+    solve_constrained,
+)
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops.integrators import step
 from ilqr_tpu_torch.ops.rollout import rollout
@@ -218,3 +227,103 @@ def run_mpc_ms(
         x = step(plant_system, x, u0)
         U_warm, X_warm = _shift(sol.U), _shift(sol.X)
     return _result(plant_system, xs, us, costs, x, iters, status)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstrainedMpcResult:
+    X: Any             # (n_sim+1, n_x) closed-loop state trajectory
+    U: Any             # (n_sim, n_u) applied controls
+    cost: Any          # 0-d: plant stage costs along the loop + terminal
+    violation: Any     # (n_sim,) per-step max constraint violation at the plan
+    solve_iters: Any   # (n_sim,) inner iLQR iterations used per step
+    solve_status: Any  # (n_sim,) per-step solver status
+
+
+def _constrained_result(system: System, xs, us, costs, x_N, viols, iters,
+                        status) -> ConstrainedMpcResult:
+    res = _result(system, xs, us, costs, x_N, iters, status)
+    return ConstrainedMpcResult(
+        X=res.X, U=res.U, cost=res.cost, violation=torch.stack(viols),
+        solve_iters=res.solve_iters, solve_status=res.solve_status)
+
+
+@full_f32_matmuls()
+def run_mpc_constrained(
+    solver_system: System,
+    plant_system: System,
+    constraints,
+    x0: torch.Tensor,
+    U_init: torch.Tensor,
+    n_sim: int,
+    config: IlqrConfig = IlqrConfig(maxiter=10),
+    al_config: AlConfig | None = None,
+) -> ConstrainedMpcResult:
+    """Receding-horizon MPC with general constraints (augmented
+    Lagrangian).  Each step runs `solve_constrained` with a small budget,
+    warm-started on the shifted controls AND the shifted stage multipliers
+    (terminal multipliers and the penalty carried as they are), so across
+    steps the multipliers converge (the ALTRO-MPC pattern).  The first
+    step starts cold: zero multipliers of the shapes one call of each
+    constraint callable at (x0, U_init[0]) gives, and ``al_config.mu0``."""
+    if al_config is None:
+        al_config = AlConfig(max_outer=3, ctol=1e-3)
+    cons, x0, U_init = prepare(solver_system, constraints, x0, U_init)
+    N = U_init.shape[0]
+    n_gi, n_he, n_gti, n_hte = constraint_sizes(cons, x0, U_init[0])
+    zeros = lambda *shape: U_init.new_zeros(shape)
+    lams = dict(gi=zeros(N, n_gi), he=zeros(N, n_he), gti=zeros(n_gti),
+                hte=zeros(n_hte))
+    x, U_warm, mu = x0, U_init, al_config.mu0
+    xs, us, costs, viols, iters, status = [], [], [], [], [], []
+    for _ in range(n_sim):
+        sol = solve_constrained(solver_system, cons, x, U_warm, config,
+                                al_config, lam_init=lams, mu_init=mu)
+        u0 = sol.U[0]
+        xs.append(x)
+        us.append(u0)
+        costs.append(plant_system.stage_cost(plant_system.params, x, u0))
+        viols.append(sol.violation)
+        iters.append(sol.inner_iterations)
+        status.append(sol.status)
+        x = step(plant_system, x, u0)
+        U_warm = _shift(sol.U)
+        lams = dict(gi=_shift(sol.lam_stage_ineq), he=_shift(sol.lam_stage_eq),
+                    gti=sol.lam_terminal_ineq, hte=sol.lam_terminal_eq)
+        mu = sol.mu
+    return _constrained_result(plant_system, xs, us, costs, x, viols, iters,
+                               status)
+
+
+@full_f32_matmuls()
+def run_mpc_barrier(
+    solver_system: System,
+    plant_system: System,
+    constraints,
+    x0: torch.Tensor,
+    U_init: torch.Tensor,
+    n_sim: int,
+    config: IlqrConfig = IlqrConfig(maxiter=10),
+    mu: float = 1e-2,
+    delta: float = 0.05,
+) -> ConstrainedMpcResult:
+    """Relaxed-barrier MPC at a FIXED (μ, δ) every step (Feller & Ebenbauer
+    2017): each step solves one smooth barrier-penalized problem from the
+    shifted warm start, so the per-step work is constant; infeasible states
+    get finite costs and the controller steers back to the interior."""
+    bc = BarrierConfig(n_outer=1, mu0=mu, delta=delta, delta_factor=1.0)
+    x0, U_init = solver_system.inputs(x0, U_init)
+    x, U_warm = x0, U_init
+    xs, us, costs, viols, iters, status = [], [], [], [], [], []
+    for _ in range(n_sim):
+        sol = solve_barrier(solver_system, constraints, x, U_warm, config, bc)
+        u0 = sol.U[0]
+        xs.append(x)
+        us.append(u0)
+        costs.append(plant_system.stage_cost(plant_system.params, x, u0))
+        viols.append(sol.violation)
+        iters.append(sol.inner_iterations)
+        status.append(sol.status)
+        x = step(plant_system, x, u0)
+        U_warm = _shift(sol.U)
+    return _constrained_result(plant_system, xs, us, costs, x, viols, iters,
+                               status)
