@@ -138,10 +138,11 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    and +-1) and the unconstrained DDP parallel pass with both engines;
 21. solves through solve(..., backward='pallas'): the torque-limited
    pendulum (N = 300, +-2; then with rollout='defect', B6 and B3), the
-   limited-DDP double-pendulum swing-up (N = 150, +-12, adaptive_reg;
-   against the sequential solve's golden cost) and the DDP pendulum
-   (4 sweeps), the two pendulums against backward='scan', and the
-   backward pass through B7 (backward_pass_suffix_scan(layout='lane'));
+   limited-DDP double-pendulum swing-up (N = 150, +-12, adaptive_reg)
+   and the DDP pendulum (4 sweeps), each against the cost of its
+   sequential solve (the JAX package's f32 result for the two pendulums,
+   a golden value for the DP), and the backward pass through B7
+   (backward_pass_suffix_scan(layout='lane'));
 22. solves the pendulum golden through the compat facade (`compat.iLQR`,
    whose 'auto' engines are host loops: no kernel) and evaluates its 13
    derivative functions on the card;
@@ -153,14 +154,44 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    the same loops with backward='scan', rollout='scan';
 24. solves examples_torch/constrained_pendulum.py at full size (N = 400,
    rk4, |u| <= 3 and the exact goal) by the augmented Lagrangian with
-   backward='pallas' (B1, one launch per backward pass) and 'scan', by AL
-   x multiple shooting (B1d, B3) and, on the box alone, by the barrier
-   solver with both engines, each against the JAX package's f32 results
-   on a CPU; and times B1, B1d and B3 at these solves' shapes;
+   backward='pallas' (B1, one launch per backward pass) and 'pscan' (B1's
+   plain version), by AL x multiple shooting (B1d, B3) and, on the box
+   alone, by the barrier solver with both engines, each against the JAX
+   package's f32 results on a CPU; and times B1, B1d and B3 at these
+   solves' shapes;
 25. runs examples_torch/constrained_mpc.py's AL and barrier loops (H =
    200, backward-Euler solver, midpoint plant, |u| <= 6) cut to MPC_STEPS
-   steps with backward='pallas' and 'scan', held to each other and to the
-   JAX package's f32 closed-loop costs.
+   steps with backward='pallas', held to the JAX package's f32
+   closed-loop costs, their first MPC_REF_STEPS steps held to
+   backward='scan';
+26. checks the wide form of the fused backward pass (B1w) against its
+   plain version at (n_x, n_u) = (6, 2), (12, 4), (16, 4) (the quadrotors'
+   expansions), (3, 1), (5, 2) (the tracking wrappers') and (16, 6) (a
+   seeded expansion): N = 1, the tile edges, across 5 tile edges, T + 2
+   tiles, 150 and 8192 (more tiles than are resident), and with defects
+   (B1d) at (12, 4), each call twice with equal bits required;
+27. checks the suffix scan's wide form (B6w) at n = 6, 12 and 16 at its
+   tile edges, beyond the resident tiles, the flight's M = 151, the
+   dash's 301 and 8193, with the terminal element and (some M) stage
+   elements only, each call twice;
+28. checks B2's new device models (cart-pole, quadrotor, 3-D quadrotor,
+   its rotor variant, car) under euler, midpoint and rk4 at N = 1, 31,
+   33, 129 and 500 with 1, 10 and 33 alphas against the plain rollouts in
+   f64 (in child processes), each call twice, along seeded nominals (the
+   3-D quadrotors' at dt 0.005 with noise 0.003, where a rounding does
+   not grow);
+29. runs this slice's path through the kernels: the 3-D quadrotor flight
+   (examples_torch/quadrotor3d_flight.py: N = 150, thrust limits,
+   adaptive_reg; B6w launches equal the limited pass's sweeps) and its
+   MPC (H = 50, rk4 solver, euler plant) cut to WIDE_STEPS steps (B1w,
+   B2; the first MPC_REF_STEPS held to scan/scan), the planar quadrotor
+   dash (B6w) with TVLQR gains through B1w, the bench's cart-pole MPC
+   (H = 200) cut to WIDE_STEPS steps and the car's AL solve, each gated
+   on its status and its cost against the JAX package's f32 result;
+30. times B1w at N = 8192 and at its paths' shapes, B6w at the flight's
+   and the dash's M, B2's 3-D quadrotor (rk4) at N = 50, 150, 500, the
+   cart-pole's costs at H = 200 and the car's trajectory at N = 120.
+Every phase prints its seconds.
 Each solve phase resets the launch counts just before it and reads them
 just after.  The kernels line gives every kernel's time, its plain
 version's, and its bound: the larger of the bytes it must move over the
@@ -1672,11 +1703,12 @@ def b3_checks(itt, lib, f32, errors, long_n=BENCH_N):
 
 
 def one_launch_check(itt, f32) -> dict:
-    """Phase 1: B1, B1d, B3, B6, B7, B4 and the three B5 entries each
-    launch one kernel a call, and no other device work, by torch.profiler
-    over five calls early in the run: at N = M = 600 (a seeded expansion with n_x = 4, n_u = 2, and
-    10 candidates), and for B4 and B5 on a batch of 300 such expansions
-    cut to N = 37 with the DP flagship's system.  Returns the launches per
+    """Phase 1: B1, B1d, B3, B6, B7, B4, the three B5 entries and the
+    wide forms B1w and B6w each launch one kernel a call, and no other
+    device work, by torch.profiler over five calls early in the run: at N =
+    M = 600 (a seeded expansion with n_x = 4, n_u = 2, and 10 candidates),
+    for B4 and B5 on a batch of 300 such expansions cut to N = 37 with the
+    DP flagship's system, and for B1w and B6w at (12, 4), N = 200.  Returns the launches per
     call, {kernel: launches}, for the kernels line."""
     from ilqr_tpu_torch.ops import parallel_riccati
     rng = np.random.default_rng(3)
@@ -1727,7 +1759,12 @@ def one_launch_check(itt, f32) -> dict:
             dp, x0s, alpha_b, X_b, U_b, u_b, K_b),
         "open_loop_rollout_batched": lambda: itt.open_loop_rollout_batched(
             dp, x0s, U_b),
+        # The wide forms (B1w, B6w) at the 3-D quadrotor's (12, 4).
+        "fused_riccati_wide": lambda: itt.backward_pass_fused(exp_w, 0.0),
+        "suffix_scan_wide": lambda: itt.suffix_scan_fused(elems_w, "sub"),
     }
+    exp_w = random_expansion(itt, 200, 12, 4, 5, f32)
+    elems_w = parallel_riccati.make_elements(exp_w, 0.0)
     out = {}
     for name, fn in cases.items():
         rec = device_us(fn, 5)
@@ -1781,6 +1818,15 @@ SEQ_TIGHT_LIMIT = 0.5
 # (45.6 and 57.3, tests/test_limited_parallel.py:153-161); a stall costs
 # more than 200.
 DP_LIMITED_SEQ_COST = 45.607353
+# Phase 21's two other sequential references are the JAX package's f32
+# results on a CPU (ilqr_tpu 07c4af6, jax.jit, x86 host; recomputed and
+# compared by tests/test_torch_chip_refs.py), as JAX_F32 is: the
+# torque-limited pendulum's sequential box-QP solve and the DDP pendulum's
+# sequential solve (backward='scan' both).  The port's own sequential
+# solves take 23.7 s and 10.2 s on the card (NVIDIA H100 80GB HBM3, 700 W),
+# too long to keep inside the script's time with phases 26-30.
+LIMITED_PEND_SEQ_COST = 182.7090606689453
+DDP_PEND_SEQ_COST = 36.416297912597656
 
 
 def limited_cell(itt, f32, N, model="pendulum"):
@@ -1893,7 +1939,9 @@ def scan_phase(itt, lib, f32, smi, N_lim, Ms, errors):
 
     for layout in ("sub", "lane"):
         lane = int(layout == "lane")
-        T = suffix_scan.tile_steps(lib, layout)
+        T = suffix_scan.tile_steps(lib, layout, 2)
+        if suffix_scan.tile_steps(lib, layout, 4) != T:
+            raise AssertionError(f"{layout}: tiles differ at n = 2 and 4")
         resident = max(resident_tiles(lib.ilqr_suffix_scan_occupancy(lane, n),
                                       f"{'B7' if lane else 'B6'} n_x={n}")
                        for n in (2, 4))
@@ -2161,11 +2209,8 @@ def suffix_phases(itt, dev, smi, launches_per_call, N_lim=LIMITED_N,
                                 d=0.0, integrator="rk4", **f32)
     base = dict(maxiter=iters(200), tol=1e-7, u_min=-2.0, u_max=2.0)
     x0 = torch.zeros(2, **f32)
-    seq, seq_wall, counts = timed_solve(tl_pend, x0, 300,
-                                        itt.IlqrConfig(backward="scan",
-                                                       **base))
-    report("limited pendulum N=300 (scan: sequential box QPs)", seq,
-           seq_wall, counts)
+    print(f"limited pendulum N=300: the sequential box-QP solve's cost "
+          f"{LIMITED_PEND_SEQ_COST} is the JAX package's f32 result")
     limited_launches = None
     for rollout, kernels in (("scan", ("suffix_scan",)),
                              ("defect", ("suffix_scan",
@@ -2179,7 +2224,7 @@ def suffix_phases(itt, dev, smi, launches_per_call, N_lim=LIMITED_N,
         if limited_launches is None:
             limited_launches = counts
         if not (float(sol.U.abs().max()) <= 2.0 + 1e-5
-                and float(sol.cost) <= 1.01 * float(seq.cost)):
+                and float(sol.cost) <= 1.01 * LIMITED_PEND_SEQ_COST):
             raise AssertionError(f"limited pendulum (pallas/{rollout}): cost "
                                  f"above 1.01 x sequential or |U| > 2")
     # The limited-DDP double-pendulum swing-up (:132-161), the full-width
@@ -2212,18 +2257,16 @@ def suffix_phases(itt, dev, smi, launches_per_call, N_lim=LIMITED_N,
     base = dict(maxiter=iters(150), tol=1e-8, ddp=True, adaptive_reg=True,
                 reg_init=1e-6)
     x0 = torch.zeros(2, **f32)
-    seq, seq_wall, counts = timed_solve(ddp_pend, x0, 300,
-                                        itt.IlqrConfig(backward="scan",
-                                                       **base))
-    report("DDP pendulum N=300 (scan: sequential)", seq, seq_wall, counts)
+    print(f"DDP pendulum N=300: the sequential solve's cost "
+          f"{DDP_PEND_SEQ_COST} is the JAX package's f32 result")
     sol, wall, counts = timed_solve(
         ddp_pend, x0, 300, itt.IlqrConfig(backward="pallas", ddp_sweeps=4,
                                           **base), ("suffix_scan",))
     report("DDP pendulum N=300 (pallas, 4 sweeps)", sol, wall, counts)
-    rel = abs(float(sol.cost) - float(seq.cost)) / abs(float(seq.cost))
+    rel = abs(float(sol.cost) - DDP_PEND_SEQ_COST) / DDP_PEND_SEQ_COST
     if not (sol.status == itt.CONVERGED and rel <= 1e-4):
         raise AssertionError(f"DDP pendulum (pallas): not CONVERGED or cost "
-                             f"{rel:.2e} from sequential (limit 1e-4)")
+                             f"{rel:.2e} from JAX's sequential (limit 1e-4)")
     # B7's path: the backward pass through the lane-layout scan
     # (`backward_pass_suffix_scan(layout='lane')`, JAX's
     # backward_pass_pallas(layout='lane')) on the limited cell's expansion.
@@ -2512,8 +2555,11 @@ def constrained_phases(itt, dev, smi) -> list:
                 and float(sol.violation) <= 1e-4 and umax <= lim + 1e-4):
             raise AssertionError(f"{label}: gates not met")
 
+    # The reference engine is 'pscan', B1's plain version (the associative
+    # scan on the card): the sequential host loop ('scan') took 37-54 s of
+    # the phase's card time.
     runs = {}
-    for backward in ("pallas", "scan"):
+    for backward in ("pallas", "pscan"):
         cfg = dataclasses.replace(p.config, backward=backward)
         with counting(constrained, "_backward") as passes:
             sol, secs, counts = timed_run(lambda: itt.solve_constrained(
@@ -2664,9 +2710,10 @@ def constrained_phases(itt, dev, smi) -> list:
                counts_ms["affine_prefix_scan"], b3_bound(N, 2, alphas.numel()),
                secs_ms)
 
-    # The barrier on the box alone, pallas against scan.
+    # The barrier on the box alone, pallas against pscan (B1's plain
+    # version; the sequential 'scan' took 49-68 s).
     bar = {}
-    for backward in ("pallas", "scan"):
+    for backward in ("pallas", "pscan"):
         cfg = dataclasses.replace(p.config, backward=backward)
         with counting(constrained, "_backward") as passes:
             sol_b, secs_b, counts_b = timed_run(lambda: itt.solve_barrier(
@@ -2686,10 +2733,10 @@ def constrained_phases(itt, dev, smi) -> list:
                   f"{share(counts_b['fused_riccati'], b1_us, secs_b)}; "
                   f"B2b's: "
                   f"{share(counts_b['closed_loop_rollout'], b2_us, secs_b)}")
-    rel = abs(float(bar["pallas"].cost) - float(bar["scan"].cost)) / abs(
-        float(bar["scan"].cost))
-    if not (bar["pallas"].status == bar["scan"].status and rel <= RTOL_AL):
-        raise AssertionError(f"barrier: pallas and scan differ (status, or "
+    rel = abs(float(bar["pallas"].cost) - float(bar["pscan"].cost)) / abs(
+        float(bar["pscan"].cost))
+    if not (bar["pallas"].status == bar["pscan"].status and rel <= RTOL_AL):
+        raise AssertionError(f"barrier: pallas and pscan differ (status, or "
                              f"cost by {rel:.1e})")
     print(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2697,11 +2744,11 @@ def constrained_phases(itt, dev, smi) -> list:
     t_phase = time.perf_counter()
     m = constrained_mpc.problem(dev)
     loops = {
-        "AL": lambda cfg: itt.run_mpc_constrained(
-            m.solver, m.plant, m.constraints, m.x0, m.U0, MPC_STEPS, cfg,
+        "AL": lambda cfg, steps=MPC_STEPS: itt.run_mpc_constrained(
+            m.solver, m.plant, m.constraints, m.x0, m.U0, steps, cfg,
             m.al_config),
-        "barrier": lambda cfg: itt.run_mpc_barrier(
-            m.solver, m.plant, m.constraints, m.x0, m.U0, MPC_STEPS, cfg,
+        "barrier": lambda cfg, steps=MPC_STEPS: itt.run_mpc_barrier(
+            m.solver, m.plant, m.constraints, m.x0, m.U0, steps, cfg,
             **m.barrier)}
     base_cfg = {"AL": m.config_al, "barrier": m.config_barrier}
     # B2b (backward Euler) at the loops' shape, along the first step's
@@ -2711,10 +2758,22 @@ def constrained_phases(itt, dev, smi) -> list:
     H = m.U0.shape[0]
     print(f"constrained MPC kernels at H={H} (backward Euler):")
     b2_mpc_us = None
+    # The 'scan' loops are held to the kernels' for their first
+    # MPC_REF_STEPS steps (all MPC_STEPS of them took 18-27 s a loop).
     for name, loop in loops.items():
         costs = {}
         for backward in ("pallas", "scan"):
             cfg = dataclasses.replace(base_cfg[name], backward=backward)
+            if backward == "scan":
+                ref, secs, _ = timed_run(lambda: loop(cfg, MPC_REF_STEPS))
+                dx = float((res.X[:MPC_REF_STEPS + 1] - ref.X).abs().max())
+                print(f"{name} MPC: the first {MPC_REF_STEPS} steps through "
+                      f"the kernels agree with backward='scan' to {dx:.2e} "
+                      f"(limit {ATOL_MPC}); the scan loop {secs:.3f} s")
+                if not dx <= ATOL_MPC:
+                    raise AssertionError(f"{name} MPC: kernels and scan "
+                                         f"differ")
+                continue
             with counting(constrained, "_backward") as passes:
                 res, secs, counts = timed_run(lambda: loop(cfg))
             costs[backward] = float(res.cost)
@@ -2745,10 +2804,690 @@ def constrained_phases(itt, dev, smi) -> list:
             if backward == "pallas":
                 print(f"  B2b's share: "
                       f"{share(counts['closed_loop_rollout'], b2_mpc_us, secs)}")
-        if not abs(costs["pallas"] - costs["scan"]) <= RTOL_AL_MPC * abs(
-                costs["scan"]):
-            raise AssertionError(f"{name} MPC: pallas and scan costs differ")
     print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+# ---- Phases 26-30: the other model families (B1w, B6w, B2's new models) ----
+# The JAX package's f32 results on a CPU (ilqr_tpu 07c4af6, jax.jit, x86
+# host) of the slice's solves, at the drivers' configurations: the
+# thrust-limited 3-D quadrotor flight (examples/quadrotor3d_flight.py, N =
+# 150: CONVERGED, 29 iterations), its MPC loop (H = 50, rk4 solver, euler
+# plant) cut to 20 steps, the planar quadrotor dash (N = 300: CONVERGED,
+# 32 iterations), the bench's cart-pole MPC (bench.py:795-810, H = 200)
+# cut to 20 steps and the car's AL solve (examples/car_obstacles.py:
+# CONVERGED, 4 outer / 183 inner iterations, violation 6.8e-4), recomputed
+# and compared by tests/test_torch_chip_refs.py.  Gated as phase 24's
+# constrained solves are, within RTOL_AL (1e-3 relative).
+JAX_F32 = {"flight": 3.1779935359954834, "flight_mpc_20": 432.25994873046875,
+           "dash": 5.539409160614014, "cartpole_mpc_20": 1599.4395751953125,
+           "car": 12.004977226257324}
+WIDE_STEPS = 20          # the MPC loops of this slice, cut from 150 / 200
+WIDE_N = 8192            # the bench's backward cells (bench.py:465-535)
+# B1w's shapes: the planar quadrotor (6, 2), the 3-D quadrotor (12, 4),
+# its rotor-lag variant (16, 4), the tracking wrappers of the pendulum
+# (3, 1) and the double pendulum (5, 2), and the corner (16, 6).
+WIDE_B1_SHAPES = ((6, 2), (12, 4), (16, 4), (3, 1), (5, 2), (16, 6))
+WIDE_B2_MODELS = ("cartpole", "quadrotor", "quadrotor3d", "quadrotor3d_rotor",
+                  "car")
+WIDE_B2_NS = (1, 31, 33, 129, 500)   # the ring's chunk (32) and ring edges
+FCONT_OPS.update({"cartpole": (22, 0), "quadrotor": (11, 0),
+                  "quadrotor3d": (63, 0), "quadrotor3d_rotor": (71, 0),
+                  "car": (7, 0)})
+
+
+def wide_systems(itt, dev):
+    """The slice's systems on the card: the drivers' problems and the
+    tracking wrappers at (3, 1) and (5, 2)."""
+    from examples_torch import (
+        car_obstacles,
+        quadrotor3d_flight,
+        quadrotor_dash,
+        reference_tracking_mpc,
+    )
+    from ilqr_tpu_torch.models import quadrotor3d
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    flight = quadrotor3d_flight.problem(dev)
+    Q, R, Q_f = quadrotor3d.default_weights(**f32)
+    rotor = itt.make_quadrotor3d_rotor(
+        0.02, [2.0, 1.0, 1.5] + [0.0] * 9 + [1.226] * 4,
+        torch.block_diag(Q, 0.01 * torch.eye(4, **f32)), R,
+        torch.block_diag(Q_f, torch.eye(4, **f32)), **f32)
+    dp = itt.make_double_pendulum(
+        0.01, [np.pi, 0.0, 0.0, 0.0], Q=np.diag([10.0, 10.0, 0.1, 0.1]),
+        R=np.diag([0.1, 0.1]), Q_f=np.diag([1000.0, 1000.0, 100.0, 100.0]),
+        d1=0.1, d2=0.1, theta1=1 / 12, theta2=1 / 12, integrator="rk4",
+        **f32)
+    t = torch.arange(201, **f32) * 0.01
+    X_ref = torch.stack([torch.sin(t), 0.5 * torch.cos(t), torch.zeros_like(t),
+                         torch.zeros_like(t)], dim=-1)
+    trk_dp = itt.make_tracking_system(dp, X_ref, torch.zeros((200, 2), **f32),
+                                      torch.eye(4, **f32),
+                                      0.1 * torch.eye(2, **f32),
+                                      torch.eye(4, **f32))
+    cart = itt.make_cartpole(
+        0.01, [0.0, np.pi, 0.0, 0.0], Q=np.diag([1.0, 10.0, 0.1, 0.1]),
+        R=0.1 * np.eye(1), Q_f=np.diag([100.0, 500.0, 10.0, 10.0]),
+        integrator="rk4", **f32)
+    return dict(flight=flight, dash=quadrotor_dash.problem(dev), rotor=rotor,
+                trk_pend=reference_tracking_mpc.problem(dev).system,
+                trk_dp=trk_dp, cart=cart, car=car_obstacles.problem(dev))
+
+
+def hover_expansion(itt, system, N, u, f32, seed=0):
+    """The expansion along a rollout of controls ``u`` (n_u,) plus seeded
+    noise (0.1), from a seeded state near zero (a tracking clock rounds to
+    step 0)."""
+    rng = np.random.default_rng(seed)
+    U = (u + torch.tensor(0.1 * rng.standard_normal((N, system.n_u)), **f32)
+         ).contiguous()
+    x0 = torch.tensor(0.05 * rng.standard_normal(system.n_x), **f32)
+    X, _ = itt.rollout(system, x0, U)
+    return itt.linearize_trajectory(system, X, U)
+
+
+def random_expansion(itt, N, n_x, n_u, seed, f32):
+    """A seeded expansion at (n_x, n_u) with positive definite l_uu."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((N, n_u, n_u))
+    e = dict(f_x=np.eye(n_x) + 0.05 * rng.standard_normal((N, n_x, n_x)),
+             f_u=0.3 * rng.standard_normal((N, n_x, n_u)),
+             l_x=rng.standard_normal((N, n_x)),
+             l_u=rng.standard_normal((N, n_u)),
+             l_xx=np.broadcast_to(np.eye(n_x), (N, n_x, n_x)).copy(),
+             l_ux=0.1 * rng.standard_normal((N, n_u, n_x)),
+             l_uu=M @ M.transpose(0, 2, 1) / n_u + np.eye(n_u),
+             v_x=rng.standard_normal(n_x), v_xx=10.0 * np.eye(n_x))
+    return itt.TrajectoryExpansion(**{k: torch.tensor(v, **f32)
+                                      for k, v in e.items()})
+
+
+def wide_expansions(itt, systems, f32):
+    """One expansion at each of WIDE_B1_SHAPES."""
+    from ilqr_tpu_torch.models import quadrotor, quadrotor3d
+
+    q3 = systems["flight"].system
+    h3 = quadrotor3d.hover_controls(q3.params)
+    dash = systems["dash"].system
+    return {
+        (6, 2): hover_expansion(itt, dash, 300,
+                                quadrotor.hover_controls(dash.params), f32),
+        (12, 4): hover_expansion(itt, q3, 150, h3, f32),
+        (16, 4): hover_expansion(itt, systems["rotor"], 150, h3, f32),
+        (3, 1): hover_expansion(itt, systems["trk_pend"], 50,
+                                torch.zeros(1, **f32), f32),
+        (5, 2): hover_expansion(itt, systems["trk_dp"], 100,
+                                torch.zeros(2, **f32), f32),
+        (16, 6): random_expansion(itt, 150, 16, 6, 6, f32),
+    }
+
+
+def wide_b1_checks(itt, lib, exps, errors) -> None:
+    """Phase 26: B1w against its plain version at every shape of
+    WIDE_B1_SHAPES: N = 1, the tile edges (N + 1 = T - 1, T, T + 1), across
+    5 tile edges ending mid-tile, T + 2 tiles, the flight's 150 and the
+    bench's WIDE_N (more tiles than the card holds at once: one 256-thread
+    block of at most 228 KB of shared memory an SM), and with defects
+    (B1d) at (12, 4); every call twice with equal bits required."""
+    from ilqr_tpu_torch.ops import fused_riccati
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (n_x, n_u), exp in exps.items():
+        T = fused_riccati.tile_steps(lib, n_x, n_u)
+        Ns = (1, T - 2, T - 1, T, 5 * T + T // 2 + 3, T * (T + 2), 150,
+              WIDE_N)
+        print(f"B1w (n_x, n_u) = ({n_x}, {n_u}): tile {T} steps, at most "
+              f"{sms} tiles resident; N {Ns}")
+        for N in Ns:
+            check_b1w(itt, f"({n_x}, {n_u})", tile_expansion(exp, N), errors,
+                      "fused_riccati_wide")
+    exp = exps[12, 4]
+    rng = np.random.default_rng(12)
+    for N in (150, WIDE_N):
+        e = tile_expansion(exp, N)
+        d = torch.tensor(1e-2 * rng.standard_normal((N, 12)),
+                         dtype=torch.float32, device=e.f_x.device)
+        check_b1w(itt, "(12, 4) with defects", e, errors,
+                  "fused_riccati_wide_defects", defects=d)
+
+
+def check_b1w(itt, label, exp, errors, key, defects=None, reg=0.0):
+    """B1's gate (phase 2) at a wide shape."""
+    torch.cuda.synchronize()
+    got = itt.backward_pass_fused(exp, reg, defects)
+    again = itt.backward_pass_fused(exp, reg, defects)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"B1w {label} N={exp.f_x.shape[0]}: a repeated "
+                             f"call gave other bits")
+    plain = itt.backward_pass_associative(exp, reg, defects)
+    ref64 = itt.backward_pass_associative(
+        as_f64(exp), reg, None if defects is None else defects.double())
+    if not (bool(got[3]) and bool(plain[3])):
+        raise AssertionError(f"B1w {label}: non-finite gains")
+    notes = check_fields(f"B1w {label} N={exp.f_x.shape[0]}", got[:3],
+                         plain[:3], ref64[:3], RTOL_B1, errors, key)
+    print(f"B1w {label} N={exp.f_x.shape[0]}: " + "; ".join(notes)
+          + "; repeated call bit-identical")
+
+
+def wide_b6_checks(itt, lib, exps, errors) -> dict:
+    """Phase 27: B6w (the suffix scan's wide form) against the plain scan
+    at n = 6, 12 and 16, on the elements of the quadrotors' expansions with
+    the terminal element: M = 1, T - 1, T, T + 1, across 5 tile edges,
+    T (T + 1) + 1, more tiles than are resident, the flight's M = 151 and
+    the dash's 301, and WIDE_N + 1; every call twice.  Returns the timed
+    element sets {label: elements}."""
+    from ilqr_tpu_torch.ops import parallel_riccati, suffix_scan
+    from ilqr_tpu_torch.ops.parallel_riccati import RiccatiElement
+
+    def elements(exp, M, terminal=True):
+        # With the terminal element every suffix has A = b = C = 0; the
+        # stage elements alone give windowed products in all five fields.
+        el = parallel_riccati.make_elements(
+            tile_expansion(exp, M - 1 if terminal else M), 0.0)
+        return RiccatiElement(*(t[:M].contiguous() for t in el))
+
+    for n, shape in ((6, (6, 2)), (12, (12, 4)), (16, (16, 4))):
+        T = suffix_scan.tile_steps(lib, "sub", n)
+        resident = resident_tiles(lib.ilqr_suffix_scan_occupancy(0, n),
+                                  f"B6w n={n}")
+        Ms = (1, T - 1, T, T + 1, 5 * T + T // 2 + 3, T * (T + 1) + 1,
+              (resident + 3) * T + T // 2, 151, 301, WIDE_N + 1)
+        print(f"B6w n={n}: tile {T} elements; M {Ms}, with the terminal "
+              f"element, and M {Ms[3:5] + Ms[-1:]} of stage elements only")
+        for M, terminal in ([(M, True) for M in Ms]
+                            + [(M, False) for M in Ms[3:5] + Ms[-1:]]):
+            el = elements(exps[shape], M, terminal)
+            torch.cuda.synchronize()
+            got = itt.suffix_scan_fused(el)
+            again = itt.suffix_scan_fused(el)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"B6w n={n} M={M}: a repeated call "
+                                     f"gave other bits")
+            label = f"B6w n={n} M={M}{'' if terminal else ' stages only'}"
+            notes = check_fields(
+                label, got, parallel_riccati.suffix_scan(el),
+                parallel_riccati.suffix_scan(as_f64(el)), RTOL_B6, errors,
+                "suffix_scan_wide")
+            print(f"{label}: " + "; ".join(notes)
+                  + "; repeated call bit-identical")
+    return {"flight M=151": elements(exps[12, 4], 151),
+            "dash M=301": elements(exps[6, 2], 301)}
+
+
+def wide_model_nominal(system, name, N, seed, f32):
+    """x0, a nominal (X, U) about the model's operating point, seeded
+    feedforward steps and small gains (f32 on the card)."""
+    from ilqr_tpu_torch.ops.rollout import rollout
+
+    rng = np.random.default_rng(seed)
+    # The 3-D quadrotors' torques are arm / J ~ 70 times their thrusts: a
+    # thrust noise of 0.3 at dt 0.02 tumbles them within a second, and
+    # there a change of 1e-7 in x0 grows 1e6-fold or more within 129 steps
+    # (tests/test_torch_chain_models_host.py), so any two f32 evaluations
+    # part from f64 by unrelated amounts (a chaotic nominal, not a fault).
+    # Their check runs at dt 0.005 (500 steps are 2.5 s) with noise 0.003.
+    scale = 0.003 if name.startswith("quadrotor3d") else 0.3
+    x0 = torch.tensor(scale * rng.standard_normal(system.n_x), **f32)
+    U = scale * rng.standard_normal((N, system.n_u))
+    if name.startswith("quadrotor"):
+        U += 9.81 * 0.5 / system.n_u * (2.0 if name == "quadrotor" else 1.0)
+    if name == "quadrotor3d_rotor":
+        x0[12:] += 1.226
+    U = torch.tensor(U, **f32)
+    X, _ = rollout(system, x0, U)
+    u_ff = torch.tensor(scale * rng.standard_normal((N, system.n_u)), **f32)
+    K = torch.tensor(-0.05 * scale / 0.3 * rng.standard_normal(
+        (N, system.n_u, system.n_x)), **f32)
+    return x0, X.contiguous(), U, u_ff, K
+
+
+def wide_model_systems(itt, f32, integrator):
+    """The new device models under ``integrator``."""
+    from ilqr_tpu_torch.models import quadrotor3d
+
+    Q, R, Q_f = quadrotor3d.default_weights(**f32)
+    return {
+        "cartpole": itt.make_cartpole(
+            0.02, [0.0, np.pi, 0.0, 0.0], np.diag([1.0, 10.0, 0.1, 0.1]),
+            0.1 * np.eye(1), np.diag([100.0, 100.0, 10.0, 10.0]),
+            integrator=integrator, **f32),
+        "quadrotor": itt.make_quadrotor(
+            0.01, [3.0, 1.0, 0.0, 0.0, 0.0, 0.0],
+            np.diag([1.0, 1.0, 0.5, 0.1, 0.1, 0.1]), 0.1 * np.eye(2),
+            np.diag([200.0, 200.0, 50.0, 20.0, 20.0, 10.0]),
+            integrator=integrator, **f32),
+        "quadrotor3d": itt.make_quadrotor3d(
+            0.005, [2.0, 1.0, 1.5] + [0.0] * 9, Q, R, Q_f,
+            integrator=integrator, **f32),
+        "quadrotor3d_rotor": itt.make_quadrotor3d_rotor(
+            0.005, [2.0, 1.0, 1.5] + [0.0] * 9 + [1.226] * 4,
+            torch.block_diag(Q, 0.01 * torch.eye(4, **f32)), R,
+            torch.block_diag(Q_f, torch.eye(4, **f32)),
+            integrator=integrator, **f32),
+        "car": itt.make_car(
+            0.05, [8.0, 0.0, 0.0, 0.0], np.diag([0.1, 0.1, 0.01, 0.1]),
+            np.diag([1.0, 5.0]), 100.0 * np.diag([1.0, 1.0, 0.1, 1.0]),
+            integrator=integrator, **f32),
+    }
+
+
+def wide_plain(integ: str, name: str, seed: int) -> dict:
+    """Phase 28's inputs and plain versions for one instantiation, on the
+    host (numpy out; run in a child process): at each N of WIDE_B2_NS a
+    seeded nominal and gains in f32 (`wide_model_nominal`), the closed
+    loops of 33 alphas along it and the open loop, in f64 and in f32."""
+    import ilqr_tpu_torch as itt
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cpu32 = dict(dtype=torch.float32, device="cpu")
+    system = wide_model_systems(itt, cpu32, integ)[name]
+    s64 = system.replace(params={k: v.double()
+                                 for k, v in system.params.items()})
+    alphas = torch.tensor([0.5 ** i for i in range(33)], **cpu32)
+    out = {}
+    for N in WIDE_B2_NS:
+        inputs = wide_model_nominal(system, name, N, seed + N, cpu32)
+        x0, X, U, u_ff, K = inputs
+        d = {"inputs": [t.numpy() for t in inputs]}
+        for key, sys_, cast in (("f64", s64, torch.Tensor.double),
+                                ("f32", system, lambda t: t)):
+            h = [cast(t) for t in (x0, alphas, X, U, u_ff, K)]
+            X_r, U_r, c_r = itt.linesearch_rollouts(sys_, *h)
+            X_o, c_o = itt.rollout(sys_, h[0], h[3])
+            d[key] = [t.numpy() for t in (c_r, X_r[1], U_r[1], c_r[1], X_o,
+                                          c_o)]
+        out[N] = d
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def wide_b2_checks(itt, dev, errors) -> None:
+    """Phase 28: B2 in every new model's instantiations (WIDE_B2_MODELS
+    under euler, midpoint and rk4) at WIDE_B2_NS (N = 1, a ring chunk less
+    and plus one, the ring wrapped, 500) with 1, 10 and 33 alphas, against
+    the plain rollouts in f64 on the host (`wide_plain`, in CHAIN_WORKERS
+    child processes while the kernels run; the nominal, gains and alphas
+    the kernels' f32 ones), the limit B1's rule: RTOL_B2 of the output's
+    max or F32_FLOOR times the plain version's own f32 error (the 3-D
+    quadrotors' costs reach ~1e3 over 500 steps, where f32 sums part from
+    f64 by more than RTOL_B2 of the max): costs, one alpha's trajectory and
+    the open loop, each call twice with equal bits required.  The rule
+    needs nominals along which a rounding does not grow:
+    tests/test_torch_chain_models_host.py holds the 3-D quadrotors' ones to
+    that."""
+    from ilqr_tpu_torch.ops import fused_rollout
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    alphas = torch.tensor([0.5 ** i for i in range(33)], **f32)
+    pool = multiprocessing.get_context("spawn").Pool(CHAIN_WORKERS)
+    t_pool = time.perf_counter()
+    cases = [(integ, name) for integ in ("euler", "midpoint", "rk4")
+             for name in WIDE_B2_MODELS]
+    jobs = {case: pool.apply_async(wide_plain, case + (7 + i,))
+            for i, case in enumerate(cases)}
+
+    def twice(fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("B2: a repeated call gave other bits")
+        return a
+
+    def gate(label, key, got, ref, ref32):
+        ref, ref32 = torch.from_numpy(ref), torch.from_numpy(ref32)
+        err, rel = rel_err(got.cpu(), ref)
+        floor = rel_err(ref32, ref)[0]
+        limit = max(RTOL_B2 * float(ref.abs().max()), F32_FLOOR * floor)
+        errors[key] = max(errors[key], err)
+        if not (bool(torch.isfinite(got).all()) and err <= limit):
+            raise AssertionError(f"B2 {label}: {err:.3e} ({rel:.2e} of max),"
+                                 f" limit {limit:.3e} (plain f32 vs f64 "
+                                 f"{floor:.3e})")
+        return rel
+
+    print(f"B2 new models: against the plain rollouts in f64 on the host, "
+          f"max|kernel - plain f64| <= max({RTOL_B2} * max|plain f64|, "
+          f"{F32_FLOOR} * max|plain f32 - plain f64|), both plain versions "
+          f"on the host")
+    host_s = 0.0
+    try:
+        for (integ, name), job in jobs.items():
+            system = wide_model_systems(itt, f32, integ)[name]
+            ref = job.get(timeout=1200)
+            host_s += ref["seconds"]
+            worst = 0.0
+            for N in WIDE_B2_NS:
+                x0, X, U, u_ff, K = (torch.from_numpy(a).to(**f32)
+                                     for a in ref[N]["inputs"])
+                r64, r32 = ref[N]["f64"], ref[N]["f32"]
+                label = f"{name} {integ} N={N}"
+                for A in CHAIN_ALPHA_COUNTS:
+                    (c,) = twice(lambda: (itt.linesearch_costs_fused(
+                        system, x0, alphas[:A], X, U, u_ff, K),))
+                    worst = max(worst, gate(f"{label} A={A} costs",
+                                            "linesearch_costs_models", c,
+                                            r64[0][:A], r32[0][:A]))
+                got = twice(lambda: itt.closed_loop_rollout_fused(
+                    system, x0, float(alphas[1]), X, U, u_ff, K))
+                for what, g, i in (("X", got[0], 1), ("U", got[1], 2),
+                                   ("cost", got[2], 3)):
+                    worst = max(worst, gate(f"{label} trajectory {what}",
+                                            "closed_loop_rollout_models", g,
+                                            r64[i], r32[i]))
+                got = twice(lambda: itt.open_loop_rollout_fused(system, x0,
+                                                                U))
+                for what, g, i in (("X", got[0], 4), ("cost", got[1], 5)):
+                    worst = max(worst, gate(f"{label} open loop {what}",
+                                            "open_loop_rollout_models", g,
+                                            r64[i], r32[i]))
+            print(f"B2 {name} {integ} (model id "
+                  f"{fused_rollout.device_model(system)[0]}): N "
+                  f"{WIDE_B2_NS}, alphas {CHAIN_ALPHA_COUNTS}; largest error "
+                  f"{worst:.2e} of max; repeated calls bit-identical")
+    finally:
+        pool.terminate()
+        pool.join()
+    print(f"B2 new models' plain versions: {host_s:.1f} s of host time in "
+          f"{CHAIN_WORKERS} child processes, "
+          f"{time.perf_counter() - t_pool:.1f} s of wall time")
+
+
+def wide_solves(itt, dev, systems) -> dict:
+    """Phase 29: the slice's solves through the kernels, the launch counts
+    reset just before each and read just after, each gated on its status
+    and on its cost against the JAX package's f32 result (JAX_F32, within
+    RTOL_AL).  Returns {label: (result, seconds, counts)}."""
+    from ilqr_tpu_torch import constrained
+    from ilqr_tpu_torch import solver as solver_module
+    from ilqr_tpu_torch.mpc import run_mpc
+    from ilqr_tpu_torch.ops import limited_parallel
+    from ilqr_tpu_torch.tracking import track, tvlqr_gains
+
+    out = {}
+
+    def gate(label, key, cost, ok=True):
+        rel = abs(cost - JAX_F32[key]) / abs(JAX_F32[key])
+        print(f"  {label}: cost {cost:.6f}, {rel:.1e} from the JAX f32 result"
+              f" {JAX_F32[key]} (limit {RTOL_AL})")
+        if not (ok and rel <= RTOL_AL):
+            raise AssertionError(f"{label}: gates not met")
+
+    # The 3-D quadrotor flight's open loop: limited, adaptive_reg; every
+    # sweep of the limited parallel pass is one B6w launch at n = 12.
+    p = systems["flight"]
+    with counting(limited_parallel, "suffix_scan_fused") as sweeps:
+        sol, secs, counts = timed_run(lambda: itt.solve(p.system, p.x0, p.U0,
+                                                        p.config))
+    print(f"quadrotor3d flight N={p.U0.shape[0]} (backward=pallas, "
+          f"limits [0, {p.f_max:.3f}], adaptive_reg): status {sol.status}, "
+          f"{sol.iterations} iterations, {secs:.2f} s, {sweeps[0]} sweeps, "
+          f"launches {counts}, max thrust {float(sol.U.max()):.4f}")
+    gate("flight", "flight", float(sol.cost), sol.status == itt.CONVERGED
+         and float(sol.U.max()) <= p.f_max + 1e-4
+         and float(sol.U.min()) >= -1e-4)
+    if counts.get("suffix_scan", 0) != sweeps[0] or sweeps[0] < 1:
+        raise AssertionError("flight: B6 launches differ from the sweeps")
+    out["flight"] = (sol, secs, counts)
+
+    # Its MPC loop, WIDE_STEPS steps; the first MPC_REF_STEPS held to
+    # backward='scan', rollout='scan'.
+    with counting(solver_module, "_backward") as passes:
+        res, secs, counts = timed_run(lambda: run_mpc(
+            p.system, p.plant, p.x0, p.U0_mpc, WIDE_STEPS, p.config_mpc))
+    print(f"quadrotor3d MPC H={p.U0_mpc.shape[0]} ({WIDE_STEPS} of "
+          f"{p.n_sim} steps, rk4 solver / euler plant, pallas/pallas): "
+          f"{secs:.2f} s, {secs / WIDE_STEPS * 1e3:.1f} ms per step, "
+          f"{int(res.solve_iters.sum())} iterations, launches {counts}")
+    gate("flight MPC", "flight_mpc_20", float(res.cost),
+         bool(torch.isfinite(res.X).all()))
+    need("flight MPC", counts, ("fused_riccati", "linesearch_costs",
+                                "closed_loop_rollout", "open_loop_rollout"))
+    if counts["fused_riccati"] != passes[0]:
+        raise AssertionError("flight MPC: B1 launches differ from passes")
+    cfg = dataclasses.replace(p.config_mpc, backward="scan", rollout="scan")
+    ref, ref_secs, _ = timed_run(lambda: run_mpc(
+        p.system, p.plant, p.x0, p.U0_mpc, MPC_REF_STEPS, cfg))
+    dx = float((res.X[:MPC_REF_STEPS + 1] - ref.X).abs().max())
+    print(f"  the first {MPC_REF_STEPS} steps agree with backward='scan', "
+          f"rollout='scan' to {dx:.2e} (limit {ATOL_MPC}); {ref_secs:.2f} s")
+    if not dx <= ATOL_MPC:
+        raise AssertionError("flight MPC: kernels and scan differ")
+    out["flight_mpc"] = (res, secs, counts)
+
+    # The planar quadrotor dash (B6w at n = 6), then TVLQR gains (B1w at
+    # (6, 2)) on the 20 % heavier plant.
+    d = systems["dash"]
+    with counting(limited_parallel, "suffix_scan_fused") as sweeps:
+        sol, secs, counts = timed_run(lambda: itt.solve(d.system, d.x0, d.U0,
+                                                        d.config))
+    print(f"quadrotor dash N={d.U0.shape[0]}: status {sol.status}, "
+          f"{sol.iterations} iterations, {secs:.2f} s, {sweeps[0]} sweeps, "
+          f"launches {counts}")
+    gate("dash", "dash", float(sol.cost), sol.status == itt.CONVERGED
+         and float(sol.U.max()) <= d.f_max + 1e-4)
+    if counts.get("suffix_scan", 0) != sweeps[0] or sweeps[0] < 1:
+        raise AssertionError("dash: B6 launches differ from the sweeps")
+    (K, (X_tr, _, _)), tsecs, tcounts = timed_run(lambda: (
+        K := tvlqr_gains(d.system, sol.X, sol.U,
+                         backward=itt.backward_pass_fused,
+                         **d.track_weights),
+        track(d.plant, d.x0, sol.X, sol.U, K, u_limits=(0.0, d.f_max))))
+    X_ol, _ = itt.rollout(d.plant, d.x0, sol.U)
+    err_tr = float((X_tr[-1] - d.target).norm())
+    err_ol = float((X_ol[-1] - d.target).norm())
+    print(f"  TVLQR on the heavy plant: final error {err_tr:.4f} tracked, "
+          f"{err_ol:.4f} open loop; launches {tcounts}")
+    if tcounts.get("fused_riccati", 0) != 1 or not err_tr < err_ol:
+        raise AssertionError("dash TVLQR: one B1w launch and a smaller "
+                             "error than open loop expected")
+    out["dash"] = (sol, secs, counts)
+    out["dash_tvlqr"] = (K, tsecs, tcounts)
+
+    # The bench's cart-pole MPC (B1 at (4, 1), B2's cart-pole).
+    cart = systems["cart"]
+    cfg = itt.IlqrConfig(maxiter=10, tol=1e-5, backward="pallas",
+                         rollout="pallas")
+    x0 = torch.tensor([0.0, 0.3, 0.0, 0.0], dtype=torch.float32, device=dev)
+    U0 = torch.zeros((200, 1), dtype=torch.float32, device=dev)
+    res, secs, counts = timed_run(lambda: run_mpc(cart, cart, x0, U0,
+                                                  WIDE_STEPS, cfg))
+    print(f"cart-pole MPC H=200 ({WIDE_STEPS} of 200 steps, pallas/pallas): "
+          f"{secs:.2f} s, {secs / WIDE_STEPS * 1e3:.1f} ms per step, "
+          f"{int(res.solve_iters.sum())} iterations, launches {counts}")
+    gate("cart-pole MPC", "cartpole_mpc_20", float(res.cost),
+         bool(torch.isfinite(res.X).all()))
+    need("cart-pole MPC", counts, ("fused_riccati", "linesearch_costs",
+                                   "closed_loop_rollout",
+                                   "open_loop_rollout"))
+    out["cartpole_mpc"] = (res, secs, counts)
+
+    # The car's AL solve (B1 at (4, 2), B2's car per alpha).
+    c = systems["car"]
+    with counting(constrained, "_backward") as passes:
+        sol, secs, counts = timed_run(lambda: itt.solve_constrained(
+            c.system, c.constraints, c.x0, c.U0, c.config, c.al_config))
+    print(f"car AL N={c.U0.shape[0]}: status {sol.status}, "
+          f"{sol.outer_iterations} outer / {sol.inner_iterations} inner, "
+          f"violation {float(sol.violation):.2e}, {secs:.2f} s, "
+          f"{passes[0]} backward passes, launches {counts}")
+    gate("car AL", "car", float(sol.cost), sol.status == itt.CONVERGED
+         and float(sol.violation) <= c.al_config.ctol)
+    need("car AL", counts, ("closed_loop_rollout", "open_loop_rollout"))
+    if counts.get("fused_riccati", 0) != passes[0]:
+        raise AssertionError("car AL: B1 launches differ from the passes")
+    out["car"] = (sol, secs, counts)
+    return out
+
+
+def wide_phases(itt, dev, smi, launches_per_call) -> list:
+    """Phases 26-30 (this slice's kernels and solves); returns the kernels
+    line's rows of B1w, B6w and B2's new models."""
+    from ilqr_tpu_torch.ops import _build, parallel_riccati
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    errors = {k: 0.0 for k in (
+        "fused_riccati_wide", "fused_riccati_wide_defects",
+        "suffix_scan_wide", "linesearch_costs_models",
+        "closed_loop_rollout_models", "open_loop_rollout_models")}
+    t_lap = time.perf_counter()
+
+    def lap(phase):
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_lap:.1f} s")
+        t_lap = now
+
+    systems = wide_systems(itt, dev)
+    exps = wide_expansions(itt, systems, f32)
+    # ---- 26. B1w ----
+    print(f"B1w tolerance: field by field, max|kernel - plain| <= "
+          f"max({RTOL_B1} * max|plain|, {F32_FLOOR} * max|plain - plain in "
+          f"f64|) (phase 2's)")
+    wide_b1_checks(itt, lib, exps, errors)
+    lap(26)
+    # ---- 27. B6w ----
+    timed_el = wide_b6_checks(itt, lib, exps, errors)
+    lap(27)
+    # ---- 28. B2's new models ----
+    wide_b2_checks(itt, dev, errors)
+    lap(28)
+    # ---- 29. the slice's solves ----
+    runs = wide_solves(itt, dev, systems)
+    lap(29)
+
+    # ---- 30. timing at the bench's and the paths' shapes ----
+    b1_cases = {f"({n_x}, {n_u}) N={WIDE_N}": tile_expansion(exps[n_x, n_u],
+                                                              WIDE_N)
+                for n_x, n_u in ((6, 2), (12, 4), (16, 4))}
+    b1_t = design_timing(smi, "B1w", {
+        k: lambda e=e: itt.backward_pass_fused(e, 0.0)
+        for k, e in b1_cases.items()}, turns=3)
+    b1_plain = {k: cuda_ms(lambda e=e: itt.backward_pass_associative(e, 0.0),
+                           3, 1) for k, e in b1_cases.items()}
+    b6_t = design_timing(smi, "B6w", {
+        k: lambda e=e: itt.suffix_scan_fused(e) for k, e in timed_el.items()},
+        turns=3)
+    b6_plain = {k: cuda_ms(lambda e=e: parallel_riccati.suffix_scan(e), 3, 1)
+                for k, e in timed_el.items()}
+    q3 = systems["flight"].system
+    b2_cases = {}
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    for N in (50, 150, 500):
+        x0, X, U, u_ff, K = wide_model_nominal(q3, "quadrotor3d", N, 3, f32)
+        b2_cases[N] = (x0, X, U, u_ff, K)
+    rows = []
+    lpc = launches_per_call
+    mpc_counts = runs["flight_mpc"][2]
+
+    def row(name, source, replaces, launches, err, t, plain_ms, b, **more):
+        key = ("fused_riccati_wide" if "riccati" in name else
+               "suffix_scan_wide" if "suffix" in name else None)
+        ms, cols = timing_columns(t, lpc.get(key))
+        rows.append(dict(
+            name=name, route="cuda", source=f"ilqr_tpu_torch/csrc/{source}",
+            replaces=f"ilqr_tpu/ops/{replaces}", launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None, **cols, **more))
+
+    path_launches = {"(6, 2)": runs["dash_tvlqr"][2].get("fused_riccati", 0),
+                     "(12, 4)": mpc_counts.get("fused_riccati", 0)}
+    for label, e in b1_cases.items():
+        n_x, n_u = e.f_x.shape[-1], e.l_u.shape[-1]
+        b = bound(4 * (expansion_floats(WIDE_N, n_x, n_u)
+                       + WIDE_N * (n_u + n_u * n_x) + 2),
+                  WIDE_N * riccati_step_ops(n_x))
+        row(f"fused_riccati_wide_{n_x}x{n_u}_n{WIDE_N}", "fused_riccati.cu",
+            "pallas_riccati.py:774", 0, errors["fused_riccati_wide"],
+            b1_t[label], b1_plain[label], b,
+            path_launches_other_shape=path_launches.get(f"({n_x}, {n_u})",
+                                                        0))
+    # B1w at the paths' own shapes: the flight MPC's (12, 4), H = 50, and
+    # the dash TVLQR's (6, 2), N = 300.
+    path_cases = {"(12, 4) H=50": tile_expansion(exps[12, 4], 50),
+                  "(6, 2) N=300": exps[6, 2]}
+    pt = design_timing(smi, "B1w", {
+        k: lambda e=e: itt.backward_pass_fused(e, 0.0)
+        for k, e in path_cases.items()}, turns=3)
+    for (label, e), key in zip(path_cases.items(), ("(12, 4)", "(6, 2)")):
+        n_x, n_u, N = e.f_x.shape[-1], e.l_u.shape[-1], e.f_x.shape[0]
+        row(f"fused_riccati_wide_{n_x}x{n_u}_n{N}", "fused_riccati.cu",
+            "pallas_riccati.py:774", path_launches[key],
+            errors["fused_riccati_wide"], pt[label],
+            cuda_ms(lambda e=e: itt.backward_pass_associative(e, 0.0), 3, 1),
+            bound(4 * (expansion_floats(N, n_x, n_u) + N * (n_u + n_u * n_x)
+                       + 2), N * riccati_step_ops(n_x)))
+    for label, el in timed_el.items():
+        M, n = el.A.shape[0], el.A.shape[-1]
+        F = 3 * n * n + 2 * n
+        path = runs["flight" if "flight" in label else "dash"][2]
+        row(f"suffix_scan_wide_n{n}_m{M}", "suffix_scan.cu",
+            "pallas_riccati.py:515", path.get("suffix_scan", 0),
+            errors["suffix_scan_wide"], b6_t[label], b6_plain[label],
+            bound(4 * 2 * M * F, (M - 1) * combine_ops(n)))
+    # B2's 3-D quadrotor under rk4: the MPC's H = 50 (its launches), and
+    # N = 150 and 500.
+    for N, (x0, X, U, u_ff, K) in b2_cases.items():
+        bnd = chain_bounds(12, 4, N, alphas.numel(), model="quadrotor3d",
+                           integrator="rk4")
+        launches = mpc_counts if N == 50 else {}
+        cases = {
+            "linesearch_costs": (
+                lambda: itt.linesearch_costs_fused(q3, x0, alphas, X, U,
+                                                   u_ff, K),
+                lambda: itt.linesearch_rollouts(q3, x0, alphas, X, U, u_ff,
+                                                K)),
+            "closed_loop_rollout": (
+                lambda: itt.closed_loop_rollout_fused(q3, x0, 0.5, X, U,
+                                                      u_ff, K),
+                lambda: itt.closed_loop_rollout(q3, x0, 0.5, X, U, u_ff,
+                                                K)),
+            "open_loop_rollout": (
+                lambda: itt.open_loop_rollout_fused(q3, x0, U),
+                lambda: itt.rollout(q3, x0, U))}
+        t = design_timing(smi, f"B2 quadrotor3d rk4 N={N}",
+                          {k: v[0] for k, v in cases.items()}, turns=3)
+        for name, (_, plain) in cases.items():
+            row(f"{name}_quadrotor3d_n{N}", "chain_models.cu",
+                "pallas_rollout.py:92" if name == "linesearch_costs"
+                else "pallas_rollout.py:132", launches.get(name, 0),
+                errors[f"{name}_models"], t[name], cuda_ms(plain, 1, 0),
+                bnd[name])
+    # B2 at the cart-pole MPC's shape (H = 200, rk4, its costs entry) and
+    # the car AL's (N = 120, rk4, one alpha's trajectory a launch).
+    cart, car = systems["cart"], systems["car"].system
+    xc, Xc, Uc, fc, Kc = wide_model_nominal(cart, "cartpole", 200, 5, f32)
+    xr, Xr, Ur, fr, Kr = wide_model_nominal(car, "car", 120, 6, f32)
+    cases = {
+        "cart-pole H=200 costs": (
+            lambda: itt.linesearch_costs_fused(cart, xc, alphas, Xc, Uc, fc,
+                                               Kc),
+            lambda: itt.linesearch_rollouts(cart, xc, alphas, Xc, Uc, fc,
+                                            Kc),
+            "linesearch_costs_cartpole_h200", "pallas_rollout.py:92",
+            runs["cartpole_mpc"][2].get("linesearch_costs", 0),
+            chain_bounds(4, 1, 200, alphas.numel(), model="cartpole",
+                         integrator="rk4")["linesearch_costs"],
+            "linesearch_costs_models"),
+        "car N=120 trajectory": (
+            lambda: itt.closed_loop_rollout_fused(car, xr, 0.5, Xr, Ur, fr,
+                                                  Kr),
+            lambda: itt.closed_loop_rollout(car, xr, 0.5, Xr, Ur, fr, Kr),
+            "closed_loop_rollout_car_n120", "pallas_rollout.py:132",
+            runs["car"][2].get("closed_loop_rollout", 0),
+            chain_bounds(4, 2, 120, 1, model="car",
+                         integrator="rk4")["closed_loop_rollout"],
+            "closed_loop_rollout_models")}
+    t = design_timing(smi, "B2 cart-pole and car", {
+        k: v[0] for k, v in cases.items()}, turns=3)
+    for label, (_, plain, name, replaces, launches, b, ekey) in cases.items():
+        row(name, "chain_models.cu", replaces, launches, errors[ekey],
+            t[label], cuda_ms(plain, 1, 0), b)
+    lap(30)
     return rows
 
 
@@ -2768,6 +3507,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     f32 = dict(dtype=torch.float32, device=dev)
+    t_run = t_lap = time.perf_counter()
+
+    def lap(done: str) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"phase {done}: {now - t_lap:.1f} s")
+        t_lap = now
 
     # ---- 1. device, versions, build ------------------------------------
     smi = nvidia_smi()
@@ -2787,7 +3533,7 @@ def main() -> int:
                              + "\n".join(spilled))
     sass_report(kernels.path)
     launches_per_call = one_launch_check(itt, f32)
-    tile = fused_riccati.tile_steps(kernels.lib)
+    tile = fused_riccati.tile_steps(kernels.lib, 4, 2)   # the DP's shape
 
     # The reference workloads' systems, from the port's drivers (phase 4
     # solves their problems, phases 22-25 run the drivers).
@@ -2848,6 +3594,7 @@ def main() -> int:
         print(f"B1 {label}: N={exp.f_x.shape[0]} max abs error "
               + "; ".join(notes) + "; repeated call bit-identical")
 
+    lap("1")
     # ---- 2. B1 against its plain version --------------------------------
     mid_n = 5 * tile + tile // 2 + 3   # crosses 5 tile edges, ends mid-tile
     # N + 1 = T - 1, T, T + 1 steps and elements; N = 1; T + 2 tiles, more
@@ -2869,6 +3616,7 @@ def main() -> int:
     for N in (800, mid_n):
         check_b1("UA-DP", tile_expansion(exp_ua, N))
 
+    lap("2")
     # ---- 3. B2 against its plain version (first iteration) --------------
     cfg = itt.IlqrConfig(maxiter=200, tol=1e-6, backward="pallas",
                          rollout="pallas")
@@ -2908,6 +3656,7 @@ def main() -> int:
     chain_checks(itt, dev, errors)
     print(f"phase 3 chain checks: {time.perf_counter() - t0:.1f} s")
 
+    lap("3")
     # ---- 4. the slice: the DP swing-up through both kernels -------------
     # examples_torch/double_pendulum_open_loop.py's problem (phase 22 runs
     # the driver itself); its config is phase 3's.
@@ -3068,6 +3817,7 @@ def main() -> int:
     if not mpc_dx <= ATOL_MPC:
         raise AssertionError("pendulum MPC: kernels and scan rollouts differ")
 
+    lap("4")
     # ---- 5. timing --------------------------------------------------------
     reg0 = 0.0
     exp_long = tile_expansion(exp_dps, LONG_N)
@@ -3161,6 +3911,7 @@ def main() -> int:
                 raise AssertionError(f"{label} never launched {kernel}")
         return counts
 
+    lap("5")
     # ---- 6. B3 against its plain version ----------------------------------
     b3_checks(itt, kernels.lib, f32, errors)
     A_cl_s = (exp_dps.f_x + exp_dps.f_u @ K_s).contiguous()
@@ -3168,6 +3919,7 @@ def main() -> int:
     check_b3(itt, "DP closed loop f_x + f_u K, solved trajectory", A_cl_s,
              q_s, d0_s, errors)
 
+    lap("6")
     # ---- 7. B1d against its plain version ---------------------------------
     rng = np.random.default_rng(17)
 
@@ -3181,6 +3933,7 @@ def main() -> int:
         check_b1("pendulum, defects", tile_expansion(exp_pend, N),
                  defects=gaps(N, 2), key="fused_riccati_defects")
 
+    lap("7")
     # ---- 8. the DP swing-up through the parallel-in-time path -------------
     par_launches = {}
     for rollout_engine in ("defect", "chunked"):
@@ -3206,6 +3959,7 @@ def main() -> int:
                  ("fused_riccati", "affine_prefix_scan")
                  if rollout_engine == "defect" else ("fused_riccati",))
 
+    lap("8")
     # ---- 9. multiple shooting: the pendulum golden ------------------------
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -3228,6 +3982,7 @@ def main() -> int:
         raise AssertionError("MS pendulum golden: not CONVERGED within 1e-3 "
                              "of the golden cost with defect < 1e-5")
 
+    lap("9")
     # ---- 10. defect sweeps at the bench's size (DP, N = 100000) -----------
     # bench.py's cell: the nominal is the rest state under zero controls
     # (built by the defect rollout, which certifies it without a sweep),
@@ -3300,6 +4055,7 @@ def main() -> int:
             raise AssertionError("bench-size open-loop rollout: not certified, "
                                  "or the kernel and plain costs disagree")
 
+    lap("10")
     # ---- 11. multiple shooting at the bench's size (pendulum, rk4) --------
     p_rk4 = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
                               Q_f=np.zeros((2, 2)), d=0.0, integrator="rk4",
@@ -3360,6 +4116,7 @@ def main() -> int:
         if ms_launches.get(kernel, 0) < 1:
             raise AssertionError(f"the MS bench solve never launched {kernel}")
 
+    lap("11")
     # ---- 12. timing of B3 and B1d, and the parallel-in-time stages --------
     # B3 at the DP defect solve's shape (the closed-loop transition along
     # the solved trajectory, 10 candidates) and the bench's.
@@ -3559,11 +4316,14 @@ def main() -> int:
               ns_per_step=imp_t["pendulum", name]["ns_per_step"],
               ua_dp_ns_per_step=imp_t["UA-DP", name]["ns_per_step"])
         for name in imp_source]
+    lap("12")
     kernels_json += batched_phases(itt, dev, smi, lpc)
     kernels_json += suffix_phases(itt, dev, smi, lpc)
     facade_phase(itt, dev)
     driver_phase(itt, dev)
     kernels_json += constrained_phases(itt, dev, smi)
+    kernels_json += wide_phases(itt, dev, smi, lpc)
+    print(f"phases 1-30: {time.perf_counter() - t_run:.1f} s")
     for k in kernels_json:
         print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "

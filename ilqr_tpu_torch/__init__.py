@@ -1,8 +1,10 @@
 """ilqr_tpu_torch — the PyTorch and CUDA port of ilqr_tpu.
 
 Counterpart of `ilqr_tpu/__init__.py`.  The JAX package `ilqr_tpu` is the
-reference; this package carries its main path to PyTorch: the pendulum and
-double-pendulum models, the integrators, trajectory linearization, the
+reference; this package carries its main path to PyTorch: the models
+(pendulum, double pendulum, cart-pole, planar and 3-D quadrotors, car,
+LTI, spring chain, and the tracking and control-rate wrappers), one-shot
+LQR and TVLQR tracking, the integrators, trajectory linearization, the
 sequential and associative Riccati backward passes, the rollouts, the
 parallel-in-time (defect and chunked) rollouts, the iLQR `solve` and the
 multiple-shooting `solve_ms`, batched solving (`solve_batch`,
@@ -36,8 +38,31 @@ from ilqr_tpu_torch.models.base import (
     quadratic_stage_cost,
     quadratic_terminal_cost,
 )
+from ilqr_tpu_torch.models.car import make_car, obstacle_constraints
+from ilqr_tpu_torch.models.cartpole import make_cartpole
+from ilqr_tpu_torch.models.chain import make_spring_chain
 from ilqr_tpu_torch.models.double_pendulum import make_double_pendulum
+from ilqr_tpu_torch.models.linear import (
+    cont2disc,
+    make_discrete_lti,
+    make_lti,
+)
 from ilqr_tpu_torch.models.pendulum import make_pendulum
+from ilqr_tpu_torch.models.quadrotor import make_quadrotor
+from ilqr_tpu_torch.models.quadrotor3d import (
+    make_quadrotor3d,
+    make_quadrotor3d_rotor,
+)
+from ilqr_tpu_torch.models.rate import (
+    make_rate_penalized_system,
+    rate_augment_x0,
+    strip_rate,
+)
+from ilqr_tpu_torch.models.tracking import (
+    augment_x0,
+    make_tracking_system,
+    strip_clock,
+)
 from ilqr_tpu_torch.ilqg import (
     NoiseExpansion,
     additive_noise,
@@ -60,6 +85,7 @@ from ilqr_tpu_torch.ops.fused_rollout import (
     open_loop_rollout_fused,
 )
 from ilqr_tpu_torch.ops.integrators import step
+from ilqr_tpu_torch.ops.lqr import LqrSolution, lqr_backward, lqr_solve
 from ilqr_tpu_torch.ops.limited_parallel import backward_pass_limited_parallel
 from ilqr_tpu_torch.ops.linearize import (
     DynamicsHessians,
@@ -125,6 +151,7 @@ from ilqr_tpu_torch.mpc import (
     run_mpc_ms,
     run_mpc_rti,
 )
+from ilqr_tpu_torch.tracking import track, track_solution, tvlqr_gains
 from ilqr_tpu_torch.parallel import (
     run_mpc_sharded,
     solve_batched,
@@ -136,7 +163,13 @@ __version__ = "0.1.0"
 __all__ = [
     "System", "INTEGRATORS", "full_f32_matmuls", "quadratic_cost_params",
     "quadratic_stage_cost", "quadratic_terminal_cost",
-    "make_pendulum", "make_double_pendulum", "step",
+    "make_pendulum", "make_double_pendulum", "make_cartpole",
+    "make_quadrotor", "make_quadrotor3d", "make_quadrotor3d_rotor",
+    "make_car", "obstacle_constraints", "make_lti", "make_discrete_lti",
+    "cont2disc", "make_spring_chain", "make_tracking_system", "augment_x0",
+    "strip_clock", "make_rate_penalized_system", "rate_augment_x0",
+    "strip_rate", "lqr_backward", "lqr_solve", "LqrSolution",
+    "tvlqr_gains", "track", "track_solution", "step",
     "TrajectoryExpansion", "linearize_trajectory",
     "linearize_trajectory_batched",
     "backward_pass", "backward_pass_associative", "backward_pass_fused",

@@ -16,7 +16,18 @@ import numpy as np
 import torch
 
 from ilqr_tpu_torch import constrained
-from ilqr_tpu_torch.models import double_pendulum, pendulum
+from ilqr_tpu_torch.models import (
+    car,
+    cartpole,
+    chain,
+    double_pendulum,
+    linear,
+    pendulum,
+    quadrotor,
+    quadrotor3d,
+    rate,
+    tracking,
+)
 from ilqr_tpu_torch.models.base import (
     DEFAULT_DEVICE,
     System,
@@ -25,11 +36,22 @@ from ilqr_tpu_torch.models.base import (
 )
 from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
 
-# System kinds the port has, by name.
+# System kinds the port has, by name: f_cont, under the quadratic tracking
+# costs unless `_COSTS` names the kind's own.
 KINDS = {
     "pendulum": pendulum.f_cont,
     "double_pendulum": double_pendulum.f_cont,
+    "cartpole": cartpole.f_cont,
+    "quadrotor": quadrotor.f_cont,
+    "quadrotor3d": quadrotor3d.f_cont,
+    "quadrotor3d_rotor": quadrotor3d.f_cont_rotor,
+    "car": car.f_cont,
+    "lti": linear.lti_f_cont,
+    "chain": chain._f_cont,
 }
+_COSTS = {"chain": (chain._stage_cost, chain._terminal_cost)}
+# Wrapper kinds: each wraps a converted base system.
+WRAPPERS = ("tracking", "rate")
 
 _EXPANSION_FIELDS = ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu",
                      "v_x", "v_xx")
@@ -42,19 +64,49 @@ def params_from_numpy(params: Mapping[str, np.ndarray],
             for k, v in params.items()}
 
 
-def system_from_numpy(kind: str, params_np: Mapping[str, np.ndarray],
+def system_from_numpy(kind, params_np: Mapping[str, np.ndarray],
                       n_x: int, n_u: int, dt: float,
                       integrator: str = "rk4", newton_iters: int = 10,
                       device=DEFAULT_DEVICE, dtype=torch.float32) -> System:
-    """The port's `System` of ``kind`` (a key of `KINDS`) with the given
-    parameters, for the quadratic tracking costs the models use."""
+    """The port's `System` of ``kind`` with the given parameters.
+
+    ``kind`` is a key of `KINDS` (the model's own costs, quadratic unless
+    `_COSTS` says otherwise), or a pair (wrapper, base kind) with the
+    wrapper in `WRAPPERS`, which nest as the wrappers do.  A wrapper's
+    ``params_np`` holds the base's parameters under 'base' (where JAX's
+    tracking system keeps them; for JAX's rate system, its base system's
+    params) beside its own: X_ref, U_ref, Q, R and Q_f for 'tracking', S
+    for 'rate'.  n_x and n_u are the wrapped system's.  ``integrator`` and
+    ``newton_iters`` are the base's: a tracking system runs its base's, a
+    rate system is 'discrete' and steps its base with them.
+    """
+    if isinstance(kind, (tuple, list)):
+        wrapper, base_kind = kind
+        if wrapper not in WRAPPERS:
+            raise ValueError(f"unknown wrapper {wrapper!r}; have {WRAPPERS}")
+        own = {k: v for k, v in params_np.items() if k != "base"}
+        if wrapper == "tracking":
+            base = system_from_numpy(base_kind, params_np["base"], n_x - 1,
+                                     n_u, dt, integrator, newton_iters,
+                                     device, dtype)
+            p = params_from_numpy(
+                {k: own[k] for k in ("X_ref", "U_ref", "Q", "R", "Q_f")},
+                device, dtype)
+            return tracking.make_tracking_system(base, **p)
+        base = system_from_numpy(base_kind, params_np["base"], n_x - n_u,
+                                 n_u, dt, integrator, newton_iters, device,
+                                 dtype)
+        return rate.make_rate_penalized_system(
+            base, torch.tensor(np.asarray(own["S"]), dtype=dtype,
+                               device=device))
     if kind not in KINDS:
         raise ValueError(f"unknown system kind {kind!r}; have {sorted(KINDS)}")
+    stage, terminal = _COSTS.get(
+        kind, (quadratic_stage_cost, quadratic_terminal_cost))
     return System(
         params=params_from_numpy(params_np, device, dtype),
         n_x=n_x, n_u=n_u, dt=dt, f_cont=KINDS[kind],
-        stage_cost=quadratic_stage_cost,
-        terminal_cost=quadratic_terminal_cost,
+        stage_cost=stage, terminal_cost=terminal,
         integrator=integrator, newton_iters=newton_iters,
     )
 

@@ -53,6 +53,25 @@
 // (n_tiles, F), inclusive values (n_tiles, n_x + n_x^2), partials
 // (n_tiles, 3)].
 //
+// The wide form (wide_kernel; B1w), for every other n_x <= 16, n_u <= 6:
+// an element of F = 3 n_x^2 + 2 n_x floats does not fit one thread's
+// registers beyond n_x = 4 (800 floats at n_x = 16), and a 256-step tile of
+// them does not fit shared memory.  Each step's element belongs to a group
+// of P lanes (P = 8 for n_x <= 8, 16 above), a row a lane, with every
+// matrix in shared memory (riccati_scan.cuh, namespace wide); a block of
+// 256 threads holds one tile of T = 256 / P steps (32 or 16), and the same
+// steps run as above with group collectives in place of one thread's code:
+// the elements (l_uu + reg I inverted by pivoted Gauss-Jordan), the
+// out-of-place Hillis-Steele scan, the look-back (group 0 folds the
+// aggregates, F floats a tile, staged two at a time), the closure, and the
+// gains (Q_uu + reg I by the same Gauss-Jordan).  n_x and n_u are run-time
+// bounds inside one instantiation per P, so no input is padded and the
+// build stays two kernels; shapes it takes: n_x <= 16 and n_u <= 6 but
+// (2, 1), (4, 1) and (4, 2), which keep the register form.  What bounds it:
+// the same chain, now of group collectives that each wait on a warp
+// barrier; by its counts (30 n_x^3 operations a step) it would be
+// operations bound near 15 us at n_x = 16, N = 8192.
+//
 // GNMS defects (multiple shooting, B1d; the with_defects variant of the TPU
 // kernel): with gaps d_k the local dynamics are affine, dx+ = f_x dx +
 // f_u du + d_k, which adds d_k to the stage element's b and shifts the
@@ -392,24 +411,341 @@ constexpr int scratch_floats(int n_tiles) {
   return n_tiles * (Elem<NX>::F + NX + NX * NX + 3);
 }
 
+// ---- The wide form (B1w) --------------------------------------------------
+
+constexpr int kWideThreads = 256;   // a block: 256 / P groups, one a step
+constexpr int kWideStage = 2;       // aggregates staged per look-back round
+
+template <int P>
+struct WideSmem {
+  using L = wide::Layout<P>;
+  static constexpr int T = kWideThreads / P;   // steps of a tile
+  static constexpr int kBuf0 = 0;               // T elements
+  static constexpr int kBuf1 = kBuf0 + T * L::F;
+  static constexpr int kVals = kBuf1 + T * L::F;        // (T + 1) values
+  static constexpr int kWork = kVals + (T + 1) * L::NV;  // T work spaces
+  static constexpr int kCarry = kWork + T * L::W;        // 3 values
+  static constexpr int kStage = kCarry + 3 * L::NV;
+  static constexpr int kFloats = kStage + kWideStage * L::F;
+  static constexpr int kBytes = 4 * kFloats;
+  static_assert(kBytes <= 232448 - 64, "a tile must fit shared memory");
+};
+
+// Loads of an (rows x cols) row-major block of global memory (stride cols)
+// into a group's shared matrix, row r by lane r.
+template <int P>
+__device__ __forceinline__ void load_rows(const wide::Group<P>& g, int rows,
+                                          int cols, const float* src,
+                                          float* dst) {
+  constexpr int LD = P + 1;
+  if (g.r < rows) {
+    for (int j = 0; j < cols; ++j) dst[g.r * LD + j] = src[g.r * cols + j];
+  }
+  g.sync();
+}
+
+// Element k of the wide form into e (see build_element).
+template <int P>
+__device__ __forceinline__ void build_wide(const wide::Group<P>& g, int nx,
+                                           int nu, int k, int N,
+                                           const Expansion& ex, float reg,
+                                           float* e, const wide::Work<P>& w) {
+  using L = wide::Layout<P>;
+  constexpr int LD = L::LD;
+  const int r = g.r;
+  if (k > N) {
+    wide::identity<P>(g, nx, e);
+    return;
+  }
+  if (k == N) {
+    if (r < nx) {
+      for (int j = 0; j < nx; ++j) {
+        e[L::A + r * LD + j] = 0.0f;
+        e[L::C + r * LD + j] = 0.0f;
+        e[L::J + r * LD + j] = ex.v_xx[r * nx + j];
+      }
+      e[L::B + r] = 0.0f;
+      e[L::ETA + r] = -ex.v_x[r];
+    }
+    g.sync();
+    return;
+  }
+  const size_t NN = (size_t)nx * nx;
+  const float* f_x = ex.f_x + k * NN;
+  const float* l_xx = ex.l_xx + k * NN;
+  load_rows<P>(g, nx, nu, ex.f_u + (size_t)k * nx * nu, w.m0);      // f_u
+  load_rows<P>(g, nu, nx, ex.l_ux + (size_t)k * nu * nx, w.m1);     // M
+  load_rows<P>(g, nu, nu, ex.l_uu + (size_t)k * nu * nu, w.m2);     // R
+  if (r < nu) {
+    w.m2[r * LD + r] += reg;
+    w.v0[r] = ex.l_u[(size_t)k * nu + r];
+  }
+  g.sync();
+  wide::inv<P>(g, nu, w.m2, w.m3, w.red);                 // R^-1
+  wide::mm<P>(g, nu, nu, nx, w.m3, w.m1, w.m4);           // R^-1 M
+  wide::mv<P>(g, nu, nu, w.m3, w.v0, w.v1);               // R^-1 r
+  // A = f_x - f_u R^-1 M
+  wide::mm<P>(g, nx, nu, nx, w.m0, w.m4, w.m2);
+  if (r < nx) {
+    for (int j = 0; j < nx; ++j)
+      e[L::A + r * LD + j] = f_x[r * nx + j] - w.m2[r * LD + j];
+  }
+  // b = -f_u R^-1 r (+ d)
+  wide::mv<P>(g, nx, nu, w.m0, w.v1, e + L::B);
+  if (r < nx) {
+    e[L::B + r] = -e[L::B + r];
+    if (ex.d != nullptr) e[L::B + r] += ex.d[(size_t)k * nx + r];
+  }
+  // J = sym(l_xx - M' R^-1 M)
+  wide::mtm<P>(g, nx, nu, nx, w.m1, w.m4, w.m2);
+  if (r < nx) {
+    for (int j = 0; j < nx; ++j)
+      w.m2[r * LD + j] = l_xx[r * nx + j] - w.m2[r * LD + j];
+  }
+  g.sync();
+  wide::sym<P>(g, nx, w.m2, e + L::J);
+  // eta = -(l_x - M' R^-1 r)
+  wide::mtv<P>(g, nx, nu, w.m1, w.v1, e + L::ETA);
+  if (r < nx)
+    e[L::ETA + r] = -(ex.l_x[(size_t)k * nx + r] - e[L::ETA + r]);
+  // C = sym(f_u R^-1 f_u')
+  wide::mmt<P>(g, nu, nu, nx, w.m3, w.m0, w.m1);          // R^-1 f_u'
+  wide::mm<P>(g, nx, nu, nx, w.m0, w.m1, w.m2);
+  wide::sym<P>(g, nx, w.m2, e + L::C);
+}
+
+// Step t's gains and dV (on lane 0) from V(t+1) = (J_n, -eta_n).
+template <int P>
+__device__ __forceinline__ void gains_wide(
+    const wide::Group<P>& g, int nx, int nu, const Expansion& ex, int t,
+    float reg, const float* eta_n, const float* J_n, const wide::Work<P>& w,
+    float* __restrict__ u_ff_out, float* __restrict__ K_out, float& dv1,
+    float& dv2, float& bad) {
+  using L = wide::Layout<P>;
+  constexpr int LD = L::LD;
+  const int r = g.r;
+  load_rows<P>(g, nx, nu, ex.f_u + (size_t)t * nx * nu, w.m0);   // f_u
+  load_rows<P>(g, nx, nx, ex.f_x + (size_t)t * nx * nx, w.m3);   // f_x
+  if (r < nx) {
+    float v = -eta_n[r];
+    if (ex.d != nullptr) {
+      for (int j = 0; j < nx; ++j)
+        v += J_n[r * LD + j] * ex.d[(size_t)t * nx + j];
+    }
+    w.v0[r] = v;                                          // V_x (+ V_xx d)
+  }
+  g.sync();
+  wide::mtm<P>(g, nu, nx, nx, w.m0, J_n, w.m1);           // f_u' V_xx
+  wide::mtv<P>(g, nu, nx, w.m0, w.v0, w.v1);              // Q_u
+  if (r < nu) w.v1[r] += ex.l_u[(size_t)t * nu + r];
+  wide::mm<P>(g, nu, nx, nx, w.m1, w.m3, w.m2);           // Q_ux
+  if (r < nu) {
+    for (int j = 0; j < nx; ++j)
+      w.m2[r * LD + j] += ex.l_ux[((size_t)t * nu + r) * nx + j];
+  }
+  wide::mm<P>(g, nu, nx, nu, w.m1, w.m0, w.m4);
+  if (r < nu) {
+    for (int j = 0; j < nu; ++j)
+      w.m4[r * LD + j] += ex.l_uu[((size_t)t * nu + r) * nu + j];
+    w.m4[r * LD + r] += reg;
+  }
+  g.sync();
+  wide::sym<P>(g, nu, w.m4, w.m3);                        // Q_uu
+  wide::copy<P>(g, w.m3, w.m4, P * LD);
+  wide::inv<P>(g, nu, w.m4, w.m0, w.red);                 // Q_uu^-1
+  wide::mm<P>(g, nu, nu, nx, w.m0, w.m2, w.m1);           // -K
+  wide::mv<P>(g, nu, nu, w.m0, w.v1, w.v0);               // -u_ff
+  float b = 0.0f;
+  if (r < nu) {
+    for (int j = 0; j < nx; ++j) {
+      const float kv = -w.m1[r * LD + j];
+      K_out[((size_t)t * nu + r) * nx + j] = kv;
+      if (!isfinite(kv)) b = 1.0f;
+    }
+    const float uf = -w.v0[r];
+    u_ff_out[(size_t)t * nu + r] = uf;
+    if (!isfinite(uf)) b = 1.0f;
+    w.red[r] = b;
+  }
+  g.sync();
+  if (r == 0) {
+    float uQu = 0.0f, uu = 0.0f;
+    for (int i = 0; i < nu; ++i) {
+      const float ui = -w.v0[i];
+      float q = 0.0f;
+      for (int j = 0; j < nu; ++j) q += w.m3[i * LD + j] * -w.v0[j];
+      dv1 += ui * w.v1[i];
+      uQu += ui * q;
+      uu += ui * ui;
+      if (w.red[i] != 0.0f) bad = 1.0f;
+    }
+    dv2 = 0.5f * (uQu - reg * uu);
+  }
+  g.sync();
+}
+
+template <int P>
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_kernel(Expansion ex, int nx, int nu, int N, float reg, int n_tiles,
+            int* __restrict__ counters, float* __restrict__ scratch,
+            float* __restrict__ u_ff_out, float* __restrict__ K_out,
+            float* __restrict__ dV_out, unsigned char* __restrict__ ok_out) {
+  using L = wide::Layout<P>;
+  using S = WideSmem<P>;
+  constexpr int F = L::F, NV = L::NV, T = S::T;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ lookback::Slots slots;
+  int* status = counters + 2;
+  float* aggs = scratch;                               // (n_tiles, F)
+  float* values = aggs + (size_t)n_tiles * F;          // (n_tiles, NV)
+  float* partials = values + (size_t)n_tiles * NV;     // (n_tiles, 3)
+  float* vals = sm + S::kVals;   // V(c) of the tile's steps, V(T) the edge
+  const int tid = threadIdx.x, q = tid / P;
+  const wide::Group<P> g;
+  const wide::Work<P> w(sm + S::kWork + q * L::W);
+
+  // 1. The tile from the right end; its elements and local suffixes.
+  const int p = lookback::take_tile<kFromRight>(counters, n_tiles, &slots);
+  const int k = p * T + q;
+  build_wide<P>(g, nx, nu, k, N, ex, reg, sm + S::kBuf0 + q * F, w);
+  __syncthreads();
+  float* buf = wide::tile_suffix_scan<P, T>(g, q, nx, k, N, sm + S::kBuf0,
+                                           sm + S::kBuf1, w);
+  for (int i = tid; i < F; i += kWideThreads) {
+    aggs[(size_t)p * F + i] = buf[i];
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) lookback::publish(&status[p], lookback::kAggregate);
+
+  // 2. Look-back: group 0 carries (eta, J) from the nearest inclusive tile
+  // q2 through the aggregates of q2-1 .. p (three values in rotation: the
+  // carry, its previous value and the next).
+  const int q2 = lookback::find_inclusive<kFromRight>(counters, p, n_tiles,
+                                                      &slots);
+  float* cur = sm + S::kCarry;
+  float* prev = cur + NV;
+  float* next = prev + NV;
+  if (q == 0) {
+    for (int i = g.r; i < NV; i += P)
+      cur[i] = q2 < n_tiles ? __ldcg(values + (size_t)q2 * NV + i) : 0.0f;
+    g.sync();
+  }
+  lookback::fold<kFromRight, kWideStage>(
+      aggs, F, p, q2, sm + S::kStage, q == 0, [&](const float* agg) {
+        wide::apply_value<P>(g, nx, agg, cur, cur + P, next, next + P, w);
+        float* t = prev;
+        prev = cur;
+        cur = next;
+        next = t;
+      });
+  if (q == 0) {
+    for (int i = g.r; i < NV; i += P) {
+      values[(size_t)p * NV + i] = cur[i];
+      vals[T * NV + i] = prev[i];   // the value at this tile's right edge
+    }
+    __threadfence();
+    g.sync();
+    if (g.r == 0) lookback::publish(&status[p], lookback::kInclusive);
+  }
+  __syncthreads();
+
+  // 3. V(k) = local suffix at k closed with the edge value; then the gains.
+  if (k <= N) {
+    wide::apply_value<P>(g, nx, buf + q * F, vals + T * NV,
+                         vals + T * NV + P, vals + q * NV,
+                         vals + q * NV + P, w);
+  }
+  __syncthreads();
+  float dv1 = 0.0f, dv2 = 0.0f, bad = 0.0f;
+  if (k < N) {
+    gains_wide<P>(g, nx, nu, ex, k, reg, vals + (q + 1) * NV,
+                  vals + (q + 1) * NV + P, w, u_ff_out, K_out, dv1, dv2, bad);
+  }
+
+  // 4. dV and the finite flag, as the register form sums them.
+  float* red = sm + S::kBuf0;
+  block_sum3<kWideThreads>(red, tid, dv1, dv2, bad);
+  if (tid == 0) {
+    partials[(size_t)p * 3 + 0] = red[0];
+    partials[(size_t)p * 3 + 1] = red[kWideThreads];
+    partials[(size_t)p * 3 + 2] = red[2 * kWideThreads];
+  }
+  if (!lookback::arrive(counters, n_tiles, &slots)) return;
+  __threadfence();
+  float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+  for (int j = tid; j < n_tiles; j += kWideThreads) {
+    s1 += __ldcg(partials + (size_t)j * 3 + 0);
+    s2 += __ldcg(partials + (size_t)j * 3 + 1);
+    s3 += __ldcg(partials + (size_t)j * 3 + 2);
+  }
+  block_sum3<kWideThreads>(red, tid, s1, s2, s3);
+  if (tid == 0) {
+    dV_out[0] = red[0];
+    dV_out[1] = red[kWideThreads];
+    ok_out[0] = red[2 * kWideThreads] == 0.0f;
+  }
+  lookback::reset(counters, n_tiles);
+}
+
+// The group width of the wide form at n_x.
+int wide_lanes(int n_x) { return n_x <= 8 ? 8 : 16; }
+int wide_tiles(int n_x, int N) {
+  const int T = kWideThreads / wide_lanes(n_x);
+  return (N + 1 + T - 1) / T;
+}
+template <int P>
+constexpr int wide_scratch_floats(int n_tiles) {
+  return n_tiles * (wide::Layout<P>::F + wide::Layout<P>::NV + 3);
+}
+
+template <int P>
+int run_wide(int nx, int nu, int N, float reg, const Expansion& ex,
+             int* counters, float* scratch, float* u_ff, float* K, float* dV,
+             unsigned char* ok, cudaStream_t stream) {
+  using S = WideSmem<P>;
+  const int n_tiles = wide_tiles(nx, N);
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_kernel<P><<<n_tiles, kWideThreads, S::kBytes, stream>>>(
+      ex, nx, nu, N, reg, n_tiles, counters, scratch, u_ff, K, dV, ok);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" int ilqr_riccati_tile_steps() { return kTileSteps; }
+// Steps per tile at (n_x, n_u): the register form's or the wide form's.
+extern "C" int ilqr_riccati_tile_steps(int n_x, int n_u) {
+  const bool registers =
+      (n_x == 2 && n_u == 1) || (n_x == 4 && (n_u == 1 || n_u == 2));
+  return registers ? kTileSteps : kWideThreads / wide_lanes(n_x);
+}
 
-// Sizes of fused_kernel's scratch at state size n_x and horizon N: ints
-// (zeroed once, left zeroed by every call) and floats.
+// Sizes of the kernel's scratch at state size n_x and horizon N: ints
+// (zeroed once, left zeroed by every call) and floats.  At n_x = 2 and 4
+// both forms may run (by n_u), and the larger size serves both: a launch
+// resets the counters of its own tiles only, the rest stay zero.
 extern "C" int ilqr_fused_riccati_counters(int n_x, int N) {
-  (void)n_x;
-  return lookback::counter_ints(tiles(N));
+  const int wide_n = lookback::counter_ints(wide_tiles(n_x, N));
+  return n_x == 2 || n_x == 4
+             ? (lookback::counter_ints(tiles(N)) > wide_n
+                    ? lookback::counter_ints(tiles(N))
+                    : wide_n)
+             : wide_n;
 }
 extern "C" int ilqr_fused_riccati_scratch(int n_x, int N) {
-  if (n_x == 2) return scratch_floats<2>(tiles(N));
-  if (n_x == 4) return scratch_floats<4>(tiles(N));
-  return 0;
+  const int wide_f = wide_lanes(n_x) == 8
+                         ? wide_scratch_floats<8>(wide_tiles(n_x, N))
+                         : wide_scratch_floats<16>(wide_tiles(n_x, N));
+  if (n_x == 2) return scratch_floats<2>(tiles(N)) > wide_f ? scratch_floats<2>(tiles(N)) : wide_f;
+  if (n_x == 4) return scratch_floats<4>(tiles(N)) > wide_f ? scratch_floats<4>(tiles(N)) : wide_f;
+  return wide_f;
 }
 
-// One launch.  defects: (N, n_x) or null; counters and scratch as sized
-// above; outputs u_ff (N, n_u), K (N, n_u, n_x), dV (2,) = (sum dV1,
+// One launch: the register form at (n_x, n_u) = (2, 1), (4, 1), (4, 2),
+// the wide form at every other n_x <= 16, n_u <= 6.  defects: (N, n_x) or
+// null; counters and scratch as sized above; outputs u_ff (N, n_u), K (N, n_u, n_x), dV (2,) = (sum dV1,
 // sum dV2) and ok (1 byte) = all gains finite.
 extern "C" int ilqr_fused_riccati(
     int n_x, int n_u, int N, float reg, const float* f_x, const float* f_u,
@@ -426,5 +762,11 @@ extern "C" int ilqr_fused_riccati(
     return run<4, 1>(N, reg, ex, counters, scratch, u_ff, K, dV, ok, s);
   if (n_x == 4 && n_u == 2)
     return run<4, 2>(N, reg, ex, counters, scratch, u_ff, K, dV, ok, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (n_x < 1 || n_x > 16 || n_u < 1 || n_u > 6)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wide_lanes(n_x) == 8)
+    return run_wide<8>(n_x, n_u, N, reg, ex, counters, scratch, u_ff, K, dV,
+                       ok, s);
+  return run_wide<16>(n_x, n_u, N, reg, ex, counters, scratch, u_ff, K, dV,
+                      ok, s);
 }

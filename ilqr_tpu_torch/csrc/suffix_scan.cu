@@ -45,6 +45,15 @@
 // Scratch (per device, stream and shape, zeroed once by the wrapper):
 // counters [ticket, done, status (n_tiles)] and floats [aggregates
 // (n_tiles, F), inclusive elements (n_tiles, F)].
+//
+// The wide form (wide_scan_kernel; B6w), 'sub' entry, every other
+// n <= 16: the same three steps with an element per group of P lanes (P =
+// 8 for n <= 8, 16 above), its matrices in shared memory, and the wide
+// combine and tile scan of riccati_scan.cuh (namespace wide), which B1w
+// shares; blocks of 256 threads hold tiles of 256 / P elements, group 0
+// folds the look-back, a whole element a tile, staged two at a time.  n is
+// a run-time bound of one instantiation per P.  The 'lane' entry (B7)
+// keeps n in {2, 4}.
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
@@ -220,6 +229,180 @@ int run(int M, const Elements& in, int* counters, float* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- The wide form (B6w) -------------------------------------------------
+
+constexpr int kWideThreads = 256;   // a block: 256 / P groups
+constexpr int kWideStage = 2;       // aggregates staged per look-back round
+
+template <int P>
+struct WideSmem {
+  using L = wide::Layout<P>;
+  static constexpr int T = kWideThreads / P;   // elements of a tile
+  static constexpr int kBuf0 = 0;
+  static constexpr int kBuf1 = kBuf0 + T * L::F;
+  static constexpr int kWork = kBuf1 + T * L::F;
+  static constexpr int kCarry = kWork + T * L::W;   // run, prev, next
+  static constexpr int kStage = kCarry + 3 * L::F;
+  static constexpr int kFloats = kStage + kWideStage * L::F;
+  static constexpr int kBytes = 4 * kFloats;
+  static_assert(kBytes <= 232448 - 64, "a tile must fit shared memory");
+};
+
+template <int P>
+__device__ __forceinline__ void load_wide(const wide::Group<P>& g, int n,
+                                          const Elements& in, int k,
+                                          float* e) {
+  using L = wide::Layout<P>;
+  const int r = g.r;
+  const size_t NN = (size_t)n * n;
+  if (r < n) {
+    for (int j = 0; j < n; ++j) {
+      e[L::A + r * L::LD + j] = in.A[k * NN + r * n + j];
+      e[L::C + r * L::LD + j] = in.C[k * NN + r * n + j];
+      e[L::J + r * L::LD + j] = in.J[k * NN + r * n + j];
+    }
+    e[L::B + r] = in.b[(size_t)k * n + r];
+    e[L::ETA + r] = in.eta[(size_t)k * n + r];
+  }
+  g.sync();
+}
+
+template <int P>
+__device__ __forceinline__ void store_wide(const wide::Group<P>& g, int n,
+                                           const Outputs& out, int k,
+                                           const float* s) {
+  using L = wide::Layout<P>;
+  const int r = g.r;
+  const size_t NN = (size_t)n * n;
+  if (r < n) {
+    for (int j = 0; j < n; ++j) {
+      out.A[k * NN + r * n + j] = s[L::A + r * L::LD + j];
+      out.C[k * NN + r * n + j] = s[L::C + r * L::LD + j];
+      out.J[k * NN + r * n + j] = s[L::J + r * L::LD + j];
+    }
+    out.b[(size_t)k * n + r] = s[L::B + r];
+    out.eta[(size_t)k * n + r] = s[L::ETA + r];
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_scan_kernel(Elements in, int n, int M, int n_tiles,
+                 int* __restrict__ counters, float* __restrict__ scratch,
+                 Outputs out) {
+  using L = wide::Layout<P>;
+  using S = WideSmem<P>;
+  constexpr int F = L::F, T = S::T;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ lookback::Slots slots;
+  int* status = counters + 2;
+  float* aggs = scratch;                       // (n_tiles, F)
+  float* incl = aggs + (size_t)n_tiles * F;    // (n_tiles, F)
+  const int tid = threadIdx.x, q = tid / P;
+  const wide::Group<P> g;
+  const wide::Work<P> w(sm + S::kWork + q * L::W);
+
+  // 1. The tile from the right end; its local suffixes.
+  const int p = lookback::take_tile<kFromRight>(counters, n_tiles, &slots);
+  const int k = p * T + q;
+  float* e = sm + S::kBuf0 + q * F;
+  if (k < M) {
+    load_wide<P>(g, n, in, k, e);
+  } else {
+    wide::identity<P>(g, n, e);
+  }
+  __syncthreads();
+  float* buf = wide::tile_suffix_scan<P, T>(g, q, n, k, M - 1,
+                                           sm + S::kBuf0, sm + S::kBuf1, w);
+  float* other = buf == sm + S::kBuf0 ? sm + S::kBuf1 : sm + S::kBuf0;
+  for (int i = tid; i < F; i += kWideThreads) {
+    aggs[(size_t)p * F + i] = buf[i];
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) lookback::publish(&status[p], lookback::kAggregate);
+
+  // 2. Look-back: group 0 folds run <- combine(agg, run) from the nearest
+  // inclusive element to the right (none: from the last tile's aggregate)
+  // through this tile's aggregate; the element before the last fold is the
+  // one at this tile's right edge.
+  const int q2 = lookback::find_inclusive<kFromRight>(counters, p, n_tiles,
+                                                      &slots);
+  float* run = sm + S::kCarry;
+  float* prev = run + F;
+  float* next = prev + F;
+  bool started = q2 < n_tiles;
+  if (q == 0 && started) {
+    for (int i = g.r; i < F; i += P) run[i] = __ldcg(incl + (size_t)q2 * F + i);
+    g.sync();
+  }
+  lookback::fold<kFromRight, kWideStage>(
+      aggs, F, p, q2, sm + S::kStage, q == 0, [&](const float* agg) {
+        if (started) {
+          wide::combine<P>(g, n, agg, run, next, w);
+          float* t = prev;
+          prev = run;
+          run = next;
+          next = t;
+        } else {
+          wide::copy<P>(g, agg, run, F);
+          started = true;
+        }
+      });
+  if (q == 0) {
+    for (int i = g.r; i < F; i += P) incl[(size_t)p * F + i] = run[i];
+    __threadfence();
+    g.sync();
+    if (g.r == 0) lookback::publish(&status[p], lookback::kInclusive);
+  }
+  // Every group reads the edge element from group 0's rotation.
+  __shared__ int edge_at;
+  if (tid == 0) edge_at = static_cast<int>(prev - sm);
+  if (lookback::arrive(counters, n_tiles, &slots)) {
+    lookback::reset(counters, n_tiles);
+  }
+
+  // 3. Close each local suffix with the right-edge element and write it.
+  if (k < M) {
+    if (p == n_tiles - 1) {
+      store_wide<P>(g, n, out, k, buf + q * F);
+    } else {
+      wide::combine<P>(g, n, buf + q * F, sm + edge_at, other + q * F, w);
+      store_wide<P>(g, n, out, k, other + q * F);
+    }
+  }
+}
+
+template <int P>
+int run_wide(int n, int M, const Elements& in, int* counters, float* scratch,
+             const Outputs& out, cudaStream_t stream) {
+  using S = WideSmem<P>;
+  const int n_tiles = (M + S::T - 1) / S::T;
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_scan_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_scan_kernel<P><<<n_tiles, kWideThreads, S::kBytes, stream>>>(
+      in, n, M, n_tiles, counters, scratch, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P>
+int wide_occupancy() {
+  using S = WideSmem<P>;
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_scan_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, wide_scan_kernel<P>, kWideThreads, S::kBytes);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+bool register_form(int n_x) { return n_x == 2 || n_x == 4; }
+int wide_lanes(int n_x) { return n_x <= 8 ? 8 : 16; }
+
 template <int T>
 int dispatch(int n_x, int M, const Elements& in, int* counters,
              float* scratch, const Outputs& out, cudaStream_t stream) {
@@ -240,35 +423,48 @@ int occupancy() {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-int tile_steps(int lane) { return lane ? kLaneTile : kSubTile; }
-int tiles(int lane, int M) {
-  return (M + tile_steps(lane) - 1) / tile_steps(lane);
+int tile_steps(int lane, int n_x) {
+  if (lane) return kLaneTile;
+  return register_form(n_x) ? kSubTile : kWideThreads / wide_lanes(n_x);
+}
+int tiles(int lane, int n_x, int M) {
+  return (M + tile_steps(lane, n_x) - 1) / tile_steps(lane, n_x);
+}
+int element_floats(int lane, int n_x) {
+  if (lane || register_form(n_x)) return 3 * n_x * n_x + 2 * n_x;
+  return wide_lanes(n_x) == 8 ? wide::Layout<8>::F : wide::Layout<16>::F;
 }
 
 }  // namespace
 
-// Elements per tile of each entry: lane = 0 (B6), 1 (B7).
-extern "C" int ilqr_suffix_tile_steps(int lane) { return tile_steps(lane); }
+// Elements per tile of each entry at n_x: lane = 0 (B6; at n_x other than
+// 2 and 4 the wide form's), 1 (B7).
+extern "C" int ilqr_suffix_tile_steps(int lane, int n_x) {
+  return tile_steps(lane, n_x);
+}
 
-// Sizes of scan_kernel's scratch: ints (zeroed once, left zeroed by every
+// Sizes of the kernel's scratch: ints (zeroed once, left zeroed by every
 // call) and floats.
 extern "C" int ilqr_suffix_scan_counters(int lane, int n_x, int M) {
-  (void)n_x;
-  return lookback::counter_ints(tiles(lane, M));
+  return lookback::counter_ints(tiles(lane, n_x, M));
 }
 extern "C" int ilqr_suffix_scan_scratch(int lane, int n_x, int M) {
-  return 2 * tiles(lane, M) * (3 * n_x * n_x + 2 * n_x);
+  return 2 * tiles(lane, n_x, M) * element_floats(lane, n_x);
 }
 
-// Blocks of scan_kernel resident on one SM (a negative CUDA error code on
+// Blocks of the kernel resident on one SM (a negative CUDA error code on
 // failure).
 extern "C" int ilqr_suffix_scan_occupancy(int lane, int n_x) {
   if (n_x == 2) return lane ? occupancy<2, kLaneTile>() : occupancy<2, kSubTile>();
   if (n_x == 4) return lane ? occupancy<4, kLaneTile>() : occupancy<4, kSubTile>();
-  return -static_cast<int>(cudaErrorInvalidValue);
+  if (lane || n_x < 1 || n_x > 16)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return wide_lanes(n_x) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
 }
 
-// One launch.  Inputs: the five element fields, (M, n_x, n_x) / (M, n_x);
+// One launch: the register form at n_x = 2, 4 (either layout), the wide
+// form at every other n_x <= 16 ('sub' only).  Inputs: the five element
+// fields, (M, n_x, n_x) / (M, n_x);
 // counters and scratch as sized above.  Outputs: the five fields of every
 // suffix, shaped as the inputs.
 extern "C" int ilqr_suffix_scan(int lane, int n_x, int M, const float* A,
@@ -281,5 +477,10 @@ extern "C" int ilqr_suffix_scan(int lane, int n_x, int M, const float* A,
   const Outputs out{A_out, b_out, C_out, eta_out, J_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lane) return dispatch<kLaneTile>(n_x, M, in, counters, scratch, out, s);
-  return dispatch<kSubTile>(n_x, M, in, counters, scratch, out, s);
+  if (register_form(n_x))
+    return dispatch<kSubTile>(n_x, M, in, counters, scratch, out, s);
+  if (n_x < 1 || n_x > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (wide_lanes(n_x) == 8)
+    return run_wide<8>(n_x, M, in, counters, scratch, out, s);
+  return run_wide<16>(n_x, M, in, counters, scratch, out, s);
 }

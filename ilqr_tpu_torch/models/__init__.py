@@ -5,3 +5,19 @@ from ilqr_tpu_torch.models.base import (
 )
 from ilqr_tpu_torch.models.pendulum import make_pendulum
 from ilqr_tpu_torch.models.double_pendulum import make_double_pendulum
+from ilqr_tpu_torch.models.cartpole import make_cartpole
+from ilqr_tpu_torch.models.chain import make_spring_chain
+from ilqr_tpu_torch.models.quadrotor import make_quadrotor, hover_controls
+from ilqr_tpu_torch.models.quadrotor3d import (
+    make_quadrotor3d, make_quadrotor3d_rotor,
+)
+from ilqr_tpu_torch.models.car import make_car, obstacle_constraints
+from ilqr_tpu_torch.models.linear import (
+    cont2disc, make_discrete_lti, make_lti,
+)
+from ilqr_tpu_torch.models.tracking import (
+    make_tracking_system, augment_x0, strip_clock,
+)
+from ilqr_tpu_torch.models.rate import (
+    make_rate_penalized_system, rate_augment_x0, strip_rate,
+)

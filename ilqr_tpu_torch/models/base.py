@@ -73,8 +73,9 @@ INTEGRATORS = ("euler", "midpoint", "rk4", "backward_euler", "trapezoidal",
 class System:
     """A controlled dynamical system with costs.
 
-    ``params`` maps names to tensors that all live on one device with one
-    floating dtype; the other fields are static metadata.
+    ``params`` maps names to tensors (or, for a wrapped system, to the
+    base's dict) that all live on one device with one floating dtype; the
+    other fields are static metadata.
     """
 
     params: Dict[str, torch.Tensor]
@@ -88,10 +89,21 @@ class System:
     # Fixed quasi-Newton iteration count of the implicit integrators.
     newton_iters: int = 10
 
+    def tensors(self):
+        """The parameter tensors, those of nested dicts (a wrapped system's
+        base) included."""
+        stack = [self.params]
+        while stack:
+            for v in stack.pop().values():
+                if isinstance(v, dict):
+                    stack.append(v)
+                else:
+                    yield v
+
     @property
     def device(self) -> torch.device:
         """The one device of the parameters; raises if they span devices."""
-        devices = {t.device for t in self.params.values()}
+        devices = {t.device for t in self.tensors()}
         if len(devices) != 1:
             raise ValueError(f"the system's parameters span devices "
                              f"{sorted(map(str, devices))}")
@@ -100,8 +112,7 @@ class System:
     @property
     def dtype(self) -> torch.dtype:
         """The floating dtype of the parameters."""
-        return next(t.dtype for t in self.params.values()
-                    if t.is_floating_point())
+        return next(t.dtype for t in self.tensors() if t.is_floating_point())
 
     def inputs(self, *arrays):
         """``arrays`` (numpy arrays, sequences, or tensors on any device) as

@@ -51,7 +51,7 @@ SIGNATURES = {
     "ilqr_fused_riccati": [_I, _I, _I, _F] + [_P] * 10 + [_P] * 6 + [_P],
     "ilqr_fused_riccati_counters": [_I, _I],
     "ilqr_fused_riccati_scratch": [_I, _I],
-    "ilqr_riccati_tile_steps": [],
+    "ilqr_riccati_tile_steps": [_I, _I],
     "ilqr_linesearch_costs": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _I,
                               _P, _P, _P, _P, _I, _P, _P],
     "ilqr_closed_loop_rollout": [_I, _I, _I, _I, _I, _P, _I, _P, _F,
@@ -81,7 +81,7 @@ SIGNATURES = {
     "ilqr_suffix_scan_counters": [_I, _I, _I],
     "ilqr_suffix_scan_scratch": [_I, _I, _I],
     "ilqr_suffix_scan_occupancy": [_I, _I],
-    "ilqr_suffix_tile_steps": [_I],
+    "ilqr_suffix_tile_steps": [_I, _I],
     "ilqr_cuda_error_string": [_I],
 }
 

@@ -19,9 +19,10 @@ small solves run on (B, n_u, n_u); `rollout.linesearch_rollouts`
 and `rollout.rollout`, whose host loop over time carries (B, A, n_x)
 states) — and on a CUDA tensor it launches the kernel or raises.  The
 kernels take float32 and the (n_x, n_u) of `SHAPES`; the rollouts take the
-systems with a device function (`fused_rollout.device_model`) under every
-integrator, the implicit ones with the system's ``newton_iters``.
-Anything else raises on CUDA (ROADMAP items B4w and B2m).  The kernels
+pendulum and the double pendulum (`fused_rollout.device_model`) under
+every integrator, the implicit ones with the system's ``newton_iters``.
+Anything else raises on CUDA (ROADMAP items B4w, B2m and B5n, the device
+models B2 runs for the other families).  The kernels
 read instance rows at any 4-byte alignment.  JAX swaps its kernels in
 under `jax.vmap(solve)` by `custom_vmap` rules; the port calls them from
 its explicitly batched solve.
@@ -35,7 +36,11 @@ import torch
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.fused_riccati import SHAPES
-from ilqr_tpu_torch.ops.fused_rollout import _params_on, device_model
+from ilqr_tpu_torch.ops.fused_rollout import (
+    BATCHED_MODELS,
+    _params_on,
+    device_model,
+)
 from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
 from ilqr_tpu_torch.ops.riccati import backward_pass
 from ilqr_tpu_torch.ops.rollout import linesearch_rollouts, rollout
@@ -175,10 +180,22 @@ def _check_rollout(system: System, x0s, U_old, X_old=None, u_ff=None,
     return B, N
 
 
+def batched_device_model(system: System) -> Tuple[int, int]:
+    """`fused_rollout.device_model` for B5: the pendulum and the double
+    pendulum; the models B2 added later are not registered for the batched
+    entries yet (ROADMAP item B5n)."""
+    model, integ = device_model(system)
+    if model not in BATCHED_MODELS:
+        raise NotImplementedError(
+            "the batched CUDA rollouts (B5) run the pendulum and the double "
+            "pendulum; the other device models are ROADMAP item B5n")
+    return model, integ
+
+
 def launch_costs(lib, system, x0s, alphas, X_old, U_old, u_ff, K, stream):
     """Candidate costs (B, A); inputs must already have passed
     `_check_rollout`, ``alphas`` is (A,) float32 and contiguous."""
-    model, integ = device_model(system)
+    model, integ = batched_device_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     costs = torch.empty((B, alphas.numel()), dtype=torch.float32,
@@ -199,7 +216,7 @@ def launch_trajectory(lib, system, x0s, alpha_b, X_old, U_old, u_ff, K,
     open-loop rollout of U_old, when X_old, u_ff and K are None; inputs
     must already have passed `_check_rollout`, ``alpha_b`` is (B,) float32
     (ignored open loop)."""
-    model, integ = device_model(system)
+    model, integ = batched_device_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     opts = dict(dtype=torch.float32, device=x0s.device)

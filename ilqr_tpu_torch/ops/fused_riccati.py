@@ -14,8 +14,9 @@ Dispatch follows the tensor: on the CPU `backward_pass_fused` runs its
 plain version, `parallel_riccati.backward_pass_associative` (the same
 function, defects included); on a CUDA tensor it launches the kernel or
 raises.  As in JAX, n_x > 16 or n_u > 6 go to `backward_pass_associative`
-on every device.  The kernel is instantiated for (n_x, n_u) in `SHAPES`,
-the slice's three models; other shapes raise on CUDA (ROADMAP item B1w).
+on every device.  The kernel takes every n_x ≤ 16, n_u ≤ 6 on CUDA: in
+its register form (an element a thread) at the (n_x, n_u) of `SHAPES`,
+in its wide form (an element a group of 8 or 16 lanes, B1w) at the rest.
 
 The kernel's scratch (tile status words, aggregates, carried values and
 partial sums) comes from `_build.scratch`, allocated once per device,
@@ -36,9 +37,10 @@ SHAPES = ((2, 1), (4, 1), (4, 2))
 _FIELDS = ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu", "v_x", "v_xx")
 
 
-def tile_steps(lib) -> int:
-    """Steps per tile of the kernel (its cross-tile carry period)."""
-    return lib.ilqr_riccati_tile_steps()
+def tile_steps(lib, n_x: int, n_u: int) -> int:
+    """Steps per tile of the kernel at (n_x, n_u) (its cross-tile carry
+    period): the register form's at `SHAPES`, else the wide form's."""
+    return lib.ilqr_riccati_tile_steps(n_x, n_u)
 
 
 def _check(exp: TrajectoryExpansion, defects=None) -> None:
@@ -115,10 +117,6 @@ def backward_pass_fused(
         return backward_pass_associative(exp, reg, defects=defects)
     if device.type != "cuda":
         raise ValueError(f"no backward pass kernel for device {device}")
-    if (n_x, n_u) not in SHAPES:
-        raise NotImplementedError(
-            f"the CUDA backward pass is instantiated for (n_x, n_u) in "
-            f"{SHAPES}, got {(n_x, n_u)}: ROADMAP item B1w")
     _check(exp, defects)
     with _build.on_device(device):
         out = launch(_build.load().lib, exp, float(reg),

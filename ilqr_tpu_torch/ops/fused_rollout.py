@@ -21,10 +21,15 @@ versions (`rollout.linesearch_rollouts(...)[2]`,
 `rollout.closed_loop_rollout` and `rollout.rollout`); on a CUDA tensor they
 launch the kernel or raise.  A hand-written kernel cannot trace a model's
 Python the way Pallas traces JAX, so the CUDA path covers the models with
-a device function — the pendulum and the double pendulum under the
-quadratic costs — and the integrators euler, midpoint, rk4, backward_euler
-and trapezoidal (the implicit ones with the system's ``newton_iters``).
-Anything else raises `NotImplementedError` on CUDA (ROADMAP item B2m).
+a device function under the quadratic costs: the pendulum and the double
+pendulum under euler, midpoint, rk4, backward_euler and trapezoidal (the
+implicit ones with the system's ``newton_iters``), and the cart-pole, the
+planar and 3-D quadrotors, the rotor-lag quadrotor and the car under the
+explicit three.  Anything else raises `NotImplementedError` on CUDA: the
+new models' implicit rules and the systems without a device function (the
+tracking and rate wrappers, which wrap another system's Python, and the
+LTI and chain systems, whose matrices have any size) name ROADMAP item
+B2m-rest, other costs or integrators item B2m.
 """
 from __future__ import annotations
 
@@ -33,7 +38,14 @@ from typing import Tuple
 
 import torch
 
-from ilqr_tpu_torch.models import double_pendulum, pendulum
+from ilqr_tpu_torch.models import (
+    car,
+    cartpole,
+    double_pendulum,
+    pendulum,
+    quadrotor,
+    quadrotor3d,
+)
 from ilqr_tpu_torch.models.base import (
     System,
     quadratic_stage_cost,
@@ -52,29 +64,54 @@ KERNEL_OPEN_LOOP = "open_loop_rollout"
 
 # f_cont -> model id of the rollout kernels (csrc/chain_rollout.cu, B2 and
 # B5), with its device model block.
+_Q3 = ("g", "m", "arm", "km", "Jx", "Jy", "Jz")
 _MODELS = {
     pendulum.f_cont: (0, ("g", "l", "d")),
     double_pendulum.f_cont: (1, ("m1", "m2", "l1", "l2", "g", "d1", "d2",
                                  "theta1", "theta2", "S")),
+    cartpole.f_cont: (2, ("g", "m_cart", "m_pole", "l")),
+    quadrotor.f_cont: (3, ("g", "m", "arm", "inertia")),
+    quadrotor3d.f_cont: (4, _Q3),
+    quadrotor3d.f_cont_rotor: (5, _Q3 + ("rotor_tau",)),
+    car.f_cont: (6, ("L",)),
 }
+# Models with the implicit integrators on the card (B2m); the rest run the
+# explicit ones there.
+_IMPLICIT_MODELS = (0, 1)
+# Models the batched entries (B5) take: the pendulum and the double
+# pendulum (the others are ROADMAP item B5n).
+BATCHED_MODELS = (0, 1)
 # integrator -> id of csrc/models.cuh's Integrator.
 _INTEGRATORS = {"euler": 0, "midpoint": 1, "rk4": 2, "backward_euler": 3,
                 "trapezoidal": 4}
+_EXPLICIT = ("euler", "midpoint", "rk4")
 
 
 def device_model(system: System) -> Tuple[int, int]:
     """(model id, integrator id) of the system's device functions."""
-    if (system.f_cont not in _MODELS
-            or system.stage_cost is not quadratic_stage_cost
+    if system.f_cont not in _MODELS:
+        raise NotImplementedError(
+            "the CUDA rollout kernels have device functions for the "
+            "pendulum, double pendulum, cart-pole, planar and 3-D quadrotors "
+            "and car; this system (a tracking or rate wrapper, an LTI or "
+            "chain system, or another model) has none: ROADMAP item "
+            "B2m-rest")
+    if (system.stage_cost is not quadratic_stage_cost
             or system.terminal_cost is not quadratic_terminal_cost):
         raise NotImplementedError(
-            "the CUDA rollout kernels have device functions for the pendulum "
-            "and double pendulum with quadratic costs only: ROADMAP item B2m")
+            "the CUDA rollout kernels take the quadratic costs only: "
+            "ROADMAP item B2m")
+    model = _MODELS[system.f_cont][0]
     if system.integrator not in _INTEGRATORS:
         raise NotImplementedError(
             f"the CUDA rollout kernels run {', '.join(_INTEGRATORS)}, not "
             f"{system.integrator!r}: ROADMAP item B2m")
-    return _MODELS[system.f_cont][0], _INTEGRATORS[system.integrator]
+    if model not in _IMPLICIT_MODELS and system.integrator not in _EXPLICIT:
+        raise NotImplementedError(
+            f"the CUDA rollout kernels run this model under "
+            f"{', '.join(_EXPLICIT)}, not {system.integrator!r}: ROADMAP "
+            f"item B2m-rest")
+    return model, _INTEGRATORS[system.integrator]
 
 
 def params_buffer(system: System) -> torch.Tensor:
@@ -82,8 +119,9 @@ def params_buffer(system: System) -> torch.Tensor:
 
         [dt, x_target (n_x), Q (n_x²), R (n_u²), Q_f (n_x²), model block]
 
-    matrices row-major; the pendulum's model block is [g, l, d], the double
-    pendulum's [m1, m2, l1, l2, g, d1, d2, theta1, theta2, S (2 × n_u)].
+    matrices row-major; each model's block is its parameters in the order
+    `_MODELS` names them (the pendulum's [g, l, d], the double pendulum's
+    [m1, m2, l1, l2, g, d1, d2, theta1, theta2, S (2 × n_u)], ...).
     """
     p = system.params
     names = ("dt", "x_target", "Q", "R", "Q_f") + _MODELS[system.f_cont][1]

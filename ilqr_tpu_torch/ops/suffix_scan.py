@@ -17,8 +17,10 @@ n_u > 6.
 Dispatch follows the tensor: on the CPU `suffix_scan_fused` runs its plain
 version, `parallel_riccati.suffix_scan`; on a CUDA tensor it launches the
 kernel or raises.  As in JAX, n_x > 16 runs the plain scan on every device.
-The kernel is instantiated for n_x in `NX` (the slice's systems); other
-n_x ≤ 16 raise on CUDA (ROADMAP item B6w).
+On CUDA, layout 'sub' takes every n_x ≤ 16: the register form (an element
+a thread) at n_x in `NX`, the wide form (an element a group of 8 or 16
+lanes, B6w) at the rest; layout 'lane' (B7) takes n_x in `NX` and raises
+on the rest (ROADMAP item B7w).
 """
 from __future__ import annotations
 
@@ -42,9 +44,9 @@ KERNEL = {"sub": "suffix_scan", "lane": "suffix_scan_lane"}
 NX = (2, 4)
 
 
-def tile_steps(lib, layout: str = "sub") -> int:
-    """Elements per tile of a layout's kernel."""
-    return lib.ilqr_suffix_tile_steps(int(layout == "lane"))
+def tile_steps(lib, layout: str, n_x: int) -> int:
+    """Elements per tile of a layout's kernel at n_x."""
+    return lib.ilqr_suffix_tile_steps(int(layout == "lane"), n_x)
 
 
 def _check(elems: RiccatiElement) -> None:
@@ -95,12 +97,12 @@ def suffix_scan_fused(elems: RiccatiElement,
     device = elems.A.device
     if n_x > 16 or device.type == "cpu":
         return suffix_scan(elems)
+    if layout == "lane" and n_x not in NX:
+        raise NotImplementedError(
+            f"the CUDA suffix scan's 'lane' layout takes n_x in {NX}, got "
+            f"{n_x}: ROADMAP item B7w (layout 'sub' takes every n_x <= 16)")
     if device.type != "cuda":
         raise ValueError(f"no suffix scan kernel for device {device}")
-    if n_x not in NX:
-        raise NotImplementedError(
-            f"the CUDA suffix scan is instantiated for n_x in {NX}, got "
-            f"{n_x}: ROADMAP item B6w")
     _check(elems)
     with _build.on_device(device):
         lib = _build.load().lib

@@ -1,7 +1,8 @@
 """The batched kernels (B4, B5) and the chain kernels (B2) without a GPU.
 
-`csrc/batched_riccati.cu` (B4) and `csrc/chain_rollout.cu` (B2, and B5,
-its batched entries) are compiled with g++ against
+`csrc/batched_riccati.cu` (B4) and `csrc/chain_rollout.cu` with
+`csrc/chain_models.cu` (B2, and B5, its batched entries; the kernels are
+in `csrc/chain_kernel.cuh`) are compiled with g++ against
 `test_torch_lookback.MOCK_RUNTIME` (every CUDA thread a pthread, shuffles
 through a per-warp buffer) and `MOCK_ASYNC_COPY`, a host form of
 `csrc/async_copy.cuh`: synchronous copies, the bulk ones checking their
@@ -33,10 +34,13 @@ from test_torch_lookback import MOCK_RUNTIME, _rewrite
 
 torch.set_num_threads(1)
 
-SOURCES = ("batched_riccati.cu", "chain_rollout.cu")
+SOURCES = ("batched_riccati.cu", "chain_rollout.cu", "chain_models.cu")
+# Cuts of the sources and of chain_kernel.cuh, the chain kernels' header.
 SMALL = {
     "batched_riccati.cu": [("kChunk = 16;", "kChunk = 4;")],
-    "chain_rollout.cu": [("kChunk = 32;", "kChunk = 8;"),
+    "chain_rollout.cu": [],
+    "chain_models.cu": [],
+    "chain_kernel.cuh": [("kChunk = 32;", "kChunk = 8;"),
                          ("kStages = 4;", "kStages = 2;"),
                          ("kTargetWarps = 396;", "kTargetWarps = 2;")],
 }
@@ -149,6 +153,11 @@ def host_lib(tmp_path_factory):
         shutil.copy(header, d / header.name)
     (d / "async_copy.cuh").write_text(MOCK_ASYNC_COPY)
     (d / "cuda_runtime.h").write_text(MOCK_RUNTIME)
+    src = (_build.CSRC_DIR / "chain_kernel.cuh").read_text()
+    for a, b in SMALL["chain_kernel.cuh"]:
+        assert a in src, ("chain_kernel.cuh", a)
+        src = src.replace(a, b)
+    (d / "chain_kernel.cuh").write_text(_rewrite(src))
     for name in SOURCES:
         src = (_build.CSRC_DIR / name).read_text()
         for a, b in SMALL[name]:

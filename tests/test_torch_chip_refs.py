@@ -1,0 +1,176 @@
+"""The JAX package's f32 results that chip_smoke.py holds the port's solves to.
+
+chip_smoke.py imports nothing of JAX, so it carries these results as
+constants (`JAX_F32`, `LIMITED_PEND_SEQ_COST`, `DDP_PEND_SEQ_COST`).  Each
+is recomputed here by `ilqr_tpu` in f32 on the CPU, at the configuration
+chip_smoke.py runs, and compared with the constant.  Run this file as a
+script to print them all:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_chip_refs.py
+"""
+import ast
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import ilqr_tpu as it
+from ilqr_tpu.models.car import make_car, obstacle_constraints
+from ilqr_tpu.models.quadrotor import hover_controls as q2_hover
+from ilqr_tpu.models.quadrotor import make_quadrotor
+from ilqr_tpu.models.quadrotor3d import default_weights
+from ilqr_tpu.models.quadrotor3d import hover_controls as q3_hover
+from ilqr_tpu.models.quadrotor3d import make_quadrotor3d
+from ilqr_tpu.mpc import run_mpc
+
+CHIP_SMOKE = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+MPC_STEPS = 20   # chip_smoke.py's WIDE_STEPS
+
+# Between the f32 result of the host that runs this and the constant (taken
+# on an x86 host): another host's BLAS blocking may move the last digits.
+# The chip's gates are 1e-3 (phases 21, 29) and 1e-4 (phase 21's DDP
+# pendulum).
+RTOL = 1e-5
+
+
+def _cost(fn, *args):
+    return float(jax.jit(fn)(*args))
+
+
+def limited_pendulum():
+    """Phase 21: the torque-limited pendulum (tests/test_limited_parallel.py
+    :66-79), N = 300, |u| <= 2, the sequential box-QP solve."""
+    sys_ = it.make_pendulum(0.01, [np.pi, 0.0], Q=jnp.eye(2),
+                            R=0.1 * jnp.eye(1), Q_f=100.0 * jnp.eye(2),
+                            d=0.0, integrator="rk4")
+    cfg = it.IlqrConfig(maxiter=200, tol=1e-7, u_min=-2.0, u_max=2.0,
+                        backward="scan")
+    return _cost(lambda x, U: it.solve(sys_, x, U, cfg).cost,
+                 jnp.zeros(2), jnp.zeros((300, 1)))
+
+
+def ddp_pendulum():
+    """Phase 21: DDP on the pendulum (tests/test_ddp.py:138-150), N = 300,
+    the sequential solve."""
+    sys_ = it.make_pendulum(0.01, [np.pi, 0.0], Q=jnp.eye(2), R=jnp.eye(1),
+                            Q_f=100.0 * jnp.eye(2), d=0.1, integrator="rk4")
+    cfg = it.IlqrConfig(maxiter=150, tol=1e-8, ddp=True, adaptive_reg=True,
+                        reg_init=1e-6, backward="scan")
+    return _cost(lambda x, U: it.solve(sys_, x, U, cfg).cost,
+                 jnp.zeros(2), jnp.zeros((300, 1)))
+
+
+def _flight():
+    Q, R, Q_f = default_weights()
+    target = [2.0, 1.0, 1.5] + [0.0] * 9
+    sys_ = make_quadrotor3d(0.02, target, Q, R, Q_f, integrator="rk4")
+    plant = make_quadrotor3d(0.02, target, Q, R, Q_f, integrator="euler")
+    return sys_, plant
+
+
+def flight():
+    """Phase 29: examples/quadrotor3d_flight.py's thrust-limited open loop
+    (N = 150)."""
+    sys_, _ = _flight()
+    f_max = 0.6 * float(sys_.params["m"]) * float(sys_.params["g"])
+    cfg = it.IlqrConfig(maxiter=200, tol=1e-6, u_min=0.0, u_max=f_max,
+                        adaptive_reg=True)
+    return _cost(lambda x, U: it.solve(sys_, x, U, cfg).cost, jnp.zeros(12),
+                 jnp.tile(q3_hover(sys_.params), (150, 1)))
+
+
+def flight_mpc():
+    """Phase 29: the flight's MPC loop (H = 50, rk4 solver, euler plant),
+    cut to MPC_STEPS steps."""
+    sys_, plant = _flight()
+    cfg = it.IlqrConfig(maxiter=5, tol=1e-5)
+    U0 = jnp.tile(q3_hover(sys_.params), (50, 1))
+    return _cost(lambda x: run_mpc(sys_, plant, x, U0, MPC_STEPS, cfg).cost,
+                 jnp.zeros(12))
+
+
+def dash():
+    """Phase 29: examples/quadrotor_dash.py's thrust-limited solve
+    (N = 300)."""
+    sys_ = make_quadrotor(
+        0.01, [3.0, 1.0, 0.0, 0.0, 0.0, 0.0],
+        jnp.diag(jnp.array([1.0, 1.0, 0.5, 0.1, 0.1, 0.1])), 0.1 * jnp.eye(2),
+        jnp.diag(jnp.array([200.0, 200.0, 50.0, 20.0, 20.0, 10.0])))
+    f_max = 2.0 * 0.5 * float(sys_.params["m"]) * float(sys_.params["g"])
+    cfg = it.IlqrConfig(maxiter=200, tol=1e-6, u_min=0.0, u_max=f_max,
+                        adaptive_reg=True)
+    return _cost(lambda x, U: it.solve(sys_, x, U, cfg).cost, jnp.zeros(6),
+                 jnp.tile(q2_hover(sys_.params), (300, 1)))
+
+
+def cartpole_mpc():
+    """Phase 29: bench.py:795-810's cart-pole MPC (H = 200), cut to
+    MPC_STEPS steps."""
+    sys_ = it.make_cartpole(
+        0.01, [0.0, jnp.pi, 0.0, 0.0],
+        Q=jnp.diag(jnp.array([1.0, 10.0, 0.1, 0.1])), R=0.1 * jnp.eye(1),
+        Q_f=jnp.diag(jnp.array([100.0, 500.0, 10.0, 10.0])),
+        integrator="rk4")
+    cfg = it.IlqrConfig(maxiter=10, tol=1e-5)
+    U0 = jnp.zeros((200, 1))
+    return _cost(lambda x: run_mpc(sys_, sys_, x, U0, MPC_STEPS, cfg).cost,
+                 jnp.array([0.0, 0.3, 0.0, 0.0]))
+
+
+def car():
+    """Phase 29: examples/car_obstacles.py's AL solve (N = 120)."""
+    goal = jnp.array([8.0, 0.0, 0.0, 0.0])
+    sys_ = make_car(0.05, x_target=goal,
+                    Q=jnp.diag(jnp.array([0.1, 0.1, 0.01, 0.1])),
+                    R=jnp.diag(jnp.array([1.0, 5.0])),
+                    Q_f=100.0 * jnp.diag(jnp.array([1.0, 1.0, 0.1, 1.0])))
+    cons = it.merge_constraints(
+        obstacle_constraints(jnp.array([[3.0, 0.3], [5.5, -0.4]]),
+                             jnp.array([1.0, 0.8])),
+        it.box_control_constraints(jnp.array([-3.0, -0.5]),
+                                   jnp.array([3.0, 0.5])))
+    cfg = it.IlqrConfig(maxiter=100, tol=1e-7)
+    al = it.AlConfig(max_outer=15, ctol=1e-3, mu0=50.0, mu_factor=5.0)
+    return _cost(lambda x, U: it.solve_constrained(sys_, cons, x, U, cfg,
+                                                   al).cost,
+                 jnp.zeros(4), jnp.zeros((120, 2)))
+
+
+# chip_smoke.py's name of each constant, and the function that computes it.
+REFS = {
+    "LIMITED_PEND_SEQ_COST": limited_pendulum,
+    "DDP_PEND_SEQ_COST": ddp_pendulum,
+    "JAX_F32['flight']": flight,
+    "JAX_F32['flight_mpc_20']": flight_mpc,
+    "JAX_F32['dash']": dash,
+    "JAX_F32['cartpole_mpc_20']": cartpole_mpc,
+    "JAX_F32['car']": car,
+}
+
+
+def chip_smoke_constants() -> dict:
+    """The constants of REFS as chip_smoke.py states them (read from its
+    source: it is not imported here)."""
+    values = {}
+    for node in ast.parse(CHIP_SMOKE.read_text()).body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            name = getattr(node.targets[0], "id", None)
+            if name in ("LIMITED_PEND_SEQ_COST", "DDP_PEND_SEQ_COST"):
+                values[name] = ast.literal_eval(node.value)
+            elif name == "JAX_F32":
+                for key, v in ast.literal_eval(node.value).items():
+                    values[f"JAX_F32[{key!r}]"] = v
+    return values
+
+
+@pytest.mark.parametrize("name", list(REFS))
+def test_chip_smoke_reference_is_jax_f32(name):
+    stated = chip_smoke_constants()[name]
+    np.testing.assert_allclose(REFS[name](), stated, rtol=RTOL)
+
+
+if __name__ == "__main__":
+    for name, fn in REFS.items():
+        print(f"{name} = {fn()!r}")

@@ -186,31 +186,42 @@ TERMS = [("hess",), ("noise",), ("hess", "noise")]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("terms", TERMS)
 def test_second_order_backward_pass_matches_jax(terms, dtype):
-    """The sequential pass with DDP and/or iLQG terms.  f64: rtol 1e-9; f32:
-    the same recursion in two frameworks' roundings over 40 steps of the
-    double pendulum, rtol 1e-3 with the absolute part at 1e-4 of the
-    largest entry."""
+    """The sequential pass with DDP and/or iLQG terms, 40 steps of the
+    double pendulum.  f64: rtol 1e-9 against JAX.  f32: both packages'
+    f32 results against the f64 answer (on which they agree to 1e-9), so
+    the host's BLAS does not decide the verdict.  With both terms the
+    gain solves are indefinite and the f32 error is set by the rounding of
+    the small matrix products: the port's order replayed in numpy f32
+    (OpenBLAS) lands at 0.6x JAX's error, the same order in torch f32
+    (MKL) at 3.5-3.9x on one host and under 1e-3 relative on another.
+    So the port's f32 error is held to 8x JAX's, the measured spread of
+    the BLAS libraries with margin, plus 1e-5 of the largest f64 entry,
+    and each package's to 5e-3 of that entry."""
     exp, hess, noise = _second_order_case(_jax_dp(), 40, 7, terms)
-    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
 
-    def jax_ref():
+    def jax_ref(jdt):
         e = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), exp)
         return jax.jit(jax_backward)(e, 0.05, *_jax_terms(hess, noise, jdt))
 
-    if dtype == torch.float64:
-        with enable_x64_oracle():
-            ref = jax_ref()
-    else:
-        ref = jax_ref()
+    with enable_x64_oracle():
+        ref64 = [np.asarray(r) for r in jax_ref(jnp.float64)]
     got = itt.backward_pass(expansion_from_numpy(exp, device="cpu",
                                                  dtype=dtype), 0.05,
                             *_port_terms(hess, noise, dtype))
-    assert bool(got[3]) and bool(ref[3])
-    rtol = 1e-9 if dtype == torch.float64 else 1e-3
-    for g, r in zip(got[:3], ref[:3]):
-        r = np.asarray(r)
-        np.testing.assert_allclose(g.numpy(), r, rtol=rtol,
-                                   atol=rtol * 0.1 * np.abs(r).max())
+    assert bool(got[3]) and bool(ref64[3])
+    if dtype == torch.float64:
+        for g, r in zip(got[:3], ref64[:3]):
+            np.testing.assert_allclose(g.numpy(), r, rtol=1e-9,
+                                       atol=1e-10 * np.abs(r).max())
+        return
+    ref32 = jax_ref(jnp.float32)
+    assert bool(ref32[3])
+    for g, r32, r in zip(got[:3], ref32[:3], ref64[:3]):
+        scale = np.abs(r).max()
+        err = np.abs(g.numpy().astype(np.float64) - r).max()
+        err_jax = np.abs(np.asarray(r32, np.float64) - r).max()
+        assert err <= 8.0 * err_jax + 1e-5 * scale, (err, err_jax, scale)
+        assert max(err, err_jax) <= 5e-3 * scale, (err, err_jax, scale)
 
 
 @pytest.mark.parametrize("engine", ["xla", "pallas"])

@@ -31,11 +31,14 @@ RTOL = 1e-4
 
 
 def test_driver_inventory():
-    # The five reference workloads and the two constrained drivers.
+    # The five reference workloads, the two constrained drivers and the six
+    # drivers of the other model families (test_torch_examples_models.py).
     assert DRIVERS == sorted([
         "pendulum_open_loop", "double_pendulum_open_loop",
         "ua_double_pendulum_open_loop", "pendulum_mpc",
-        "double_pendulum_mpc", "constrained_pendulum", "constrained_mpc"])
+        "double_pendulum_mpc", "constrained_pendulum", "constrained_mpc",
+        "quadrotor3d_flight", "quadrotor_dash", "car_obstacles",
+        "linear_lqr", "tvlqr_tracking", "reference_tracking_mpc"])
 
 
 @pytest.fixture

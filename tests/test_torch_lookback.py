@@ -142,7 +142,8 @@ def test_lookback_scratch_is_zeroed_once_per_device_stream_and_shape(
 # cuda_runtime.h for a host build: each CUDA thread of a launch runs as a
 # pthread, blocks (of a one- or two-dimensional grid) start in order with
 # at most MOCK_RESIDENT of them running at once, __syncthreads and
-# __syncwarp are std::barriers, shuffles go through a per-warp buffer, and
+# __syncwarp are std::barriers (a partial mask: one barrier per warp and
+# mask, over the mask's lanes), shuffles go through a per-warp buffer, and
 # atomics and fences are GCC __atomic builtins.  `_rewrite` turns the sources' shared arrays and launches into
 # the mock:: forms.
 MOCK_RUNTIME = r"""#pragma once
@@ -196,6 +197,9 @@ struct Block {
   std::vector<unsigned char> dyn;   // NaN-filled dynamic shared memory
   std::mutex statics_mutex;
   std::map<int, std::unique_ptr<unsigned char[]>> statics;
+  // Barriers of lane groups (__syncwarp with a partial mask), by warp and
+  // mask, made at first use under statics_mutex.
+  std::map<long, std::unique_ptr<std::barrier<>>> group_bars;
   int left;                          // threads still running
 };
 
@@ -297,8 +301,22 @@ void launch(dim3 grid, dim3 block, size_t smem, F&& body) {
 #define gridDim (mock::ctx.gdim)
 
 inline void __syncthreads() { mock::ctx.block->bar.arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) {
-  mock::ctx.block->warp_bars[mock::ctx.tid.x / 32]->arrive_and_wait();
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  mock::Block* b = mock::ctx.block;
+  const int w = mock::ctx.tid.x / 32;
+  if (mask == 0xffffffffu) {
+    b->warp_bars[w]->arrive_and_wait();
+    return;
+  }
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(b->statics_mutex);
+    auto& slot = b->group_bars[(long(w) << 32) | mask];
+    if (!slot)
+      slot = std::make_unique<std::barrier<>>(__builtin_popcount(mask));
+    bar = slot.get();
+  }
+  bar->arrive_and_wait();
 }
 inline float __shfl_up_sync(unsigned, float v, int d) {
   const int t = mock::ctx.tid.x, lane = t % 32, base = t - lane;

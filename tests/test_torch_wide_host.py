@@ -1,0 +1,167 @@
+"""The wide forms of the fused backward pass (B1w) and of the suffix scan
+(B6w) without a GPU.
+
+`csrc/fused_riccati.cu` and `csrc/suffix_scan.cu` are compiled with g++
+against `test_torch_lookback.MOCK_RUNTIME` (every CUDA thread a pthread,
+`__syncwarp` over a lane group's mask a barrier of those lanes), with
+blocks cut from 256 threads to 64, so that a group of 16 lanes holds a
+4-step tile (8 lanes: 8 steps) and a few dozen steps cross many tile
+edges and fold several two-aggregate look-back stages.  At n_x = 3, 5, 6,
+12 and 16 (the register form keeps (2, 1), (4, 1), (4, 2)) each result is
+held to the plain version in f64 within 1e-5 of each output's max, a
+repeated call must give the same bits, and the counters must be back at
+zero.  The tests skip where no g++ is found; the card runs the same
+sources in chip_smoke.py.
+"""
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import ilqr_tpu_torch as itt
+from ilqr_tpu_torch.ops import _build, fused_riccati, parallel_riccati, \
+    suffix_scan
+from ilqr_tpu_torch.ops.parallel_riccati import RiccatiElement
+from test_torch_lookback import MOCK_RUNTIME, _close, _expansion, _rewrite, \
+    _twice
+
+torch.set_num_threads(1)
+
+SOURCES = ("fused_riccati.cu", "suffix_scan.cu")
+SMALL = {
+    "fused_riccati.cu": [("kWideThreads = 256;", "kWideThreads = 64;"),
+                         ("kTileSteps = 256;", "kTileSteps = 32;"),
+                         ("kStageTiles = 64;", "kStageTiles = 3;")],
+    "suffix_scan.cu": [("kWideThreads = 256;", "kWideThreads = 64;"),
+                       ("kSubTile = 256;", "kSubTile = 64;"),
+                       ("kStageTiles = 64;", "kStageTiles = 3;")],
+}
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the host mock of the CUDA runtime")
+    d = tmp_path_factory.mktemp("wide_host")
+    for header in _build.CSRC_DIR.glob("*.cuh"):
+        shutil.copy(header, d / header.name)
+    (d / "cuda_runtime.h").write_text(MOCK_RUNTIME)
+    for name in SOURCES:
+        src = (_build.CSRC_DIR / name).read_text()
+        for a, b in SMALL[name]:
+            assert a in src, (name, a)
+            src = src.replace(a, b)
+        (d / f"{name}.cpp").write_text(_rewrite(src))
+    (d / "err.cpp").write_text('extern "C" const char* '
+                               'ilqr_cuda_error_string(int) { return ""; }\n')
+    so = d / "libwide_host.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-I", str(d), *(str(d / f"{n}.cpp") for n in SOURCES),
+                    str(d / "err.cpp"), "-o", str(so)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _build.SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    lib.ilqr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def test_wide_tiles_and_scratch_sizes(host_lib):
+    """Tiles of 64 / P steps in the host build (256 / P on the card), and
+    scratch that serves both forms at n_x = 2 and 4."""
+    assert fused_riccati.tile_steps(host_lib, 2, 1) == 32
+    assert fused_riccati.tile_steps(host_lib, 6, 2) == 8
+    assert fused_riccati.tile_steps(host_lib, 4, 3) == 8
+    assert fused_riccati.tile_steps(host_lib, 12, 4) == 4
+    assert suffix_scan.tile_steps(host_lib, "sub", 4) == 64
+    assert suffix_scan.tile_steps(host_lib, "sub", 9) == 4
+    # N = 100: 4 register tiles, 13 wide ones (8 steps) at n_x = 4.
+    assert host_lib.ilqr_fused_riccati_counters(4, 100) == 2 + 13
+
+
+# (N, n_x, n_u, defects, resident): tiles of 8 steps (n_x <= 8) or 4.
+@pytest.mark.parametrize("N,n_x,n_u,defects,resident", [
+    (1, 6, 2, False, 0), (7, 3, 1, False, 0), (8, 5, 2, True, 0),
+    (45, 6, 2, False, 0), (3, 12, 4, False, 0), (30, 12, 4, True, 0),
+    (21, 16, 4, False, 0), (13, 16, 6, False, 0), (40, 4, 3, False, 2),
+    (41, 16, 6, True, 3)])
+def test_wide_fused_riccati_on_the_host(host_lib, monkeypatch, N, n_x, n_u,
+                                        defects, resident):
+    if resident:
+        monkeypatch.setenv("MOCK_RESIDENT", str(resident))
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    exp = _expansion(N, n_x, n_u, N + n_x)
+    d = (torch.tensor(0.01 * np.random.default_rng(N).standard_normal(
+        (N, n_x)), dtype=torch.float32) if defects else None)
+    got = _twice(lambda: fused_riccati.launch(host_lib, exp, 0.1, 0, d))
+    exp64 = itt.TrajectoryExpansion(**{
+        k: getattr(exp, k).double() for k in exp.__dataclass_fields__})
+    ref = itt.backward_pass_associative(exp64, 0.1,
+                                        None if d is None else d.double())
+    assert bool(got[3]) and bool(ref[3])
+    _close(got[:3], ref[:3])
+
+
+def test_wide_fused_riccati_flags_non_finite_gains(host_lib, monkeypatch):
+    """A NaN in one step's l_uu reaches that step's gains and clears ok."""
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    exp = _expansion(20, 6, 2, 1)
+    exp.l_uu[5, 0, 0] = float("nan")
+    got = fused_riccati.launch(host_lib, exp, 0.1, 0)
+    assert not bool(got[3])
+    assert torch.isfinite(got[1][6:]).all()
+
+
+# (M, n_x, resident): tiles of 8 elements (n_x <= 8) or 4.
+@pytest.mark.parametrize("M,n_x,resident", [
+    (1, 6, 0), (8, 6, 0), (9, 3, 0), (37, 5, 0), (4, 12, 0), (29, 12, 0),
+    (23, 16, 0), (50, 16, 3)])
+def test_wide_suffix_scan_on_the_host(host_lib, monkeypatch, M, n_x,
+                                      resident):
+    if resident:
+        monkeypatch.setenv("MOCK_RESIDENT", str(resident))
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    elems = parallel_riccati.make_elements(_expansion(M, n_x, 2, M + n_x), 0.0)
+    elems = RiccatiElement(*(t[:M].contiguous() for t in elems))
+    got = _twice(lambda: suffix_scan.launch(host_lib, elems, "sub", 0))
+    ref = parallel_riccati.suffix_scan(
+        RiccatiElement(*(t.double() for t in elems)))
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("n_x", [6, 12])
+def test_wide_combine_pivots(host_lib, monkeypatch, n_x):
+    """L = I + C J is nonsingular for C, J positive semidefinite, but its
+    leading pivot can vanish: C = [[1, -2], [-2, 4]] and J = ones(2, 2) in
+    the leading block give L_00 = 0, which the Gauss-Jordan inverse must
+    pivot around (elements 0 and 1 meet in one tile, 4 apart in a
+    second)."""
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    M = 6
+    rng = np.random.default_rng(n_x)
+    A = np.broadcast_to(np.eye(n_x), (M, n_x, n_x)).copy()
+    C = np.zeros((M, n_x, n_x))
+    J = np.zeros((M, n_x, n_x))
+    for k in range(M):
+        G = 0.3 * rng.standard_normal((n_x, n_x))
+        C[k] = G @ G.T
+        J[k] = 0.5 * np.eye(n_x)
+    C[0] = 0.0
+    C[0, :2, :2] = [[1.0, -2.0], [-2.0, 4.0]]
+    J[1] = 0.0
+    J[1, :2, :2] = 1.0
+    C[4], J[5] = C[0], J[1]
+    elems = RiccatiElement(
+        *(torch.tensor(a, dtype=torch.float32) for a in (
+            A, rng.standard_normal((M, n_x)), C,
+            rng.standard_normal((M, n_x)), J)))
+    got = _twice(lambda: suffix_scan.launch(host_lib, elems, "sub", 0))
+    ref = parallel_riccati.suffix_scan(
+        RiccatiElement(*(t.double() for t in elems)))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close(got, ref)
