@@ -106,8 +106,8 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    instances (cost, X and U) to single-instance solves with the plain
    engines, and times B4 and B5 (device µs, host µs, events) against
    their plain versions at the solved trajectories;
-16. runs bench.py's batched-MPC cell at full size (B = 512, H = 64, 50
-   steps) with rollout='pallas', and cut to 10 steps with rollout='auto',
+16. runs bench.py's batched-MPC cell (B = 512, H = 64) cut from 50 to
+   MPC_SIM steps with rollout='pallas', and to 5 with rollout='auto',
    holds two sampled instances to single-instance run_mpc over every
    step of each run, and times B4 and B5 at the cell's shape;
 16b. runs the reference's pendulum MPC (examples/pendulum_mpc.py:
@@ -150,7 +150,7 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    main(plot=False): the pendulum and DP open loops under phase 4's gates
    (phase 4 solves the open-loop drivers' problem() and runs the UA-DP
    driver's main as its golden), and the FA and UA double-pendulum MPC at
-   full horizon cut to MPC_STEPS steps, their first MPC_REF_STEPS held to
+   full horizon cut to DRIVER_STEPS steps, their first MPC_REF_STEPS held to
    the same loops with backward='scan', rollout='scan';
 24. solves examples_torch/constrained_pendulum.py at full size (N = 400,
    rk4, |u| <= 3 and the exact goal) by the augmented Lagrangian with
@@ -178,8 +178,8 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    its rotor variant, car) under euler, midpoint and rk4 at N = 1, 31,
    33, 129 and 500 with 1, 10 and 33 alphas against the plain rollouts in
    f64 (in child processes), each call twice, along seeded nominals (the
-   3-D quadrotors' at dt 0.005 with noise 0.003, where a rounding does
-   not grow);
+   cart-pole and both quadrotors at dt 0.005, the 3-D ones with noise
+   0.003, where a rounding does not grow);
 29. runs this slice's path through the kernels: the 3-D quadrotor flight
    (examples_torch/quadrotor3d_flight.py: N = 150, thrust limits,
    adaptive_reg; B6w launches equal the limited pass's sweeps) and its
@@ -190,7 +190,36 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    on its status and its cost against the JAX package's f32 result;
 30. times B1w at N = 8192 and at its paths' shapes, B6w at the flight's
    and the dash's M, B2's 3-D quadrotor (rk4) at N = 50, 150, 500, the
-   cart-pole's costs at H = 200 and the car's trajectory at N = 120.
+   cart-pole's costs at H = 200 and the car's trajectory at N = 120;
+31. checks the wide form of the batched backward pass (B4w, groups of 8
+   or 16 lanes an instance) against its plain version at (n_x, n_u) =
+   (6, 2), (8, 2), (12, 4), (16, 4) and (16, 16) (the quadrotors'
+   expansions along noisy hover rollouts, seeded ones elsewhere) at B =
+   256 and N = 80 with a scalar and a per-instance reg, at a ragged last
+   block (B + 1) with N = 1, 2 and an odd N (instance rows at every 4-byte
+   phase), and with a singular Q_uu in two instances (ok false there, as
+   the plain version's), each call twice with equal bits required; and
+   re-times B4's register form at (2, 1), (4, 1), (4, 2);
+32. checks B5's batched entries on the cart-pole, the planar and 3-D
+   quadrotors, the rotor variant and the car (B5n) under euler, midpoint
+   and rk4 at B = 1, 3 and 64 (N = 33, across the ring's chunk edge; 1,
+   10 and 33 alphas at B = 3) against the plain batched rollouts, each
+   call twice;
+33. checks the wide form of the affine scan (B3w) at n = 6, 12, 16 with 1,
+   10, 17 and 33 candidates at its tile edges, across five, past the
+   resident tiles and at N = 20000, and at n = 2, 4 past 16 candidates;
+34. runs the paths through them: P1, batched solves of the 3-D quadrotor
+   (tests/test_quadrotor3d.py's problem, B = 256, N = 80: B4w at (12, 4),
+   B5 on model 4 under rk4) and of its rotor variant (B = 16: (16, 4)),
+   three instances held to the JAX package's f32 costs and to `solve`
+   under 'scan'; P2, batched MPC of the planar quadrotor (B4w at (6, 2))
+   and the cart-pole (B4 at (4, 1)), B = 64, H = 100, 20 steps, two
+   instances each held to `run_mpc`; P3, P1's problem at B = 1 by the
+   defect line search (B3w at n = 12, 10 candidates, B1w) and by multiple
+   shooting (B1w with defects, B3w), held to 'scan' and to the JAX
+   package's f32 costs; a float64 batched solve of the planar quadrotor
+   under 'auto' (the plain route, no B4 launch); and times B4w, B5n and
+   B3w at the paths' shapes.
 Every phase prints its seconds.
 Each solve phase resets the launch counts just before it and reads them
 just after.  The kernels line gives every kernel's time, its plain
@@ -233,6 +262,9 @@ UA_GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / \
 # to the same loop with rollout='scan' (backward-Euler host loops, ~1 s an
 # iteration on an H100) within ATOL_MPC.
 MPC_STEPS = 20
+# Phase 23 runs the FA and UA double-pendulum MPC drivers for DRIVER_STEPS
+# steps (cut from MPC_STEPS when phases 31-34 came, for the time limit).
+DRIVER_STEPS = 10
 MPC_REF_STEPS = 3
 LONG_N = 131072
 
@@ -275,7 +307,9 @@ RTOL_B4 = 5e-4
 RTOL_B5 = RTOL_B2
 # Phases 15-16: the sizes of bench.py's batched cells (bench.py:700-723).
 BATCH_B, BATCH_N, BATCH_MAXITER = 1024, 128, 10
-MPC_B, MPC_H, MPC_SIM = 512, 64, 50
+# Phase 16 runs the batched-MPC cell for MPC_SIM of its 50 steps (cut
+# from 50 when phases 31-34 came, for the script's time limit).
+MPC_B, MPC_H, MPC_SIM = 512, 64, 25
 RAGGED_B = 1000   # phases 13-14: a batch that does not fill its last block
 # Phase 16b: the reference's pendulum MPC (examples/pendulum_mpc.py, H = 200)
 # as a batch of PEND_BATCH initial angles, cut to PEND_STEPS steps.
@@ -1102,10 +1136,17 @@ def b3_bound(N: int, n: int, A: int) -> tuple[float, str]:
                  A * N * 2 * n * n)
 
 
-def riccati_step_ops(n_x: int) -> int:
-    """One step of the sequential Riccati recursion, JAX's estimate for its
-    batched kernel (ilqr_tpu/ops/pallas_batched.py:214)."""
-    return 30 * n_x ** 3
+def riccati_step_ops(n_x: int, n_u: int) -> int:
+    """The operations of one step of the sequential Riccati recursion as
+    ops/riccati.py's backward_pass (and B4's step) performs it, a
+    multiply-add counting two: f_x' V_xx and (f_x' V_xx) f_x (4 n_x^3);
+    F = f_u' V_xx, F f_x and the V_xx update K'W + Q_ux'K (8 n_u n_x^2);
+    F f_u, the gains K and W = Q_uu K + Q_ux (6 n_u^2 n_x); the inverse of
+    Q_uu + reg I (2 n_u^3); Q_x (2 n_x^2), Q_u and V_x (6 n_x n_u), u_ff
+    and w (4 n_u^2) and dV (4 n_u)."""
+    return (4 * n_x ** 3 + 8 * n_u * n_x ** 2 + 6 * n_u ** 2 * n_x
+            + 2 * n_u ** 3 + 2 * n_x ** 2 + 6 * n_x * n_u + 4 * n_u ** 2
+            + 4 * n_u)
 
 
 def combine_ops(n_x: int) -> int:
@@ -1164,24 +1205,26 @@ def rollout_step_ops(model: str, integrator: str, n_x: int, n_u: int,
     return control + integrator_ops(model, integrator, n_x, n_u) + cost
 
 
-def batched_bounds(B: int, N: int, A: int, n_x: int = 4, n_u: int = 2):
-    """Bounds of B4 and the B5 entries on B DP euler instances of N steps,
-    A alphas."""
-    step_ops = rollout_step_ops("double_pendulum", "euler", n_x, n_u)
+def batched_bounds(B: int, N: int, A: int, n_x: int = 4, n_u: int = 2,
+                   model: str = "double_pendulum", integrator: str = "euler"):
+    """Bounds of B4 and the B5 entries on B instances of N steps (the DP
+    under euler unless ``model`` and ``integrator`` say otherwise), A
+    alphas."""
+    step_ops = rollout_step_ops(model, integrator, n_x, n_u)
     traj_in = B * ((N + 1) * n_x + 2 * N * n_u + N * n_u * n_x + n_x)
     traj_out = B * ((N + 1) * n_x + N * n_u + 1)
     p_in = params_floats(n_x, n_u)
     return {
         "batched_riccati": bound(
             4 * B * (expansion_floats(N, n_x, n_u) + N * (n_u + n_u * n_x)
-                     + 3), B * N * riccati_step_ops(n_x)),
+                     + 3), B * N * riccati_step_ops(n_x, n_u)),
         "linesearch_costs_batched": bound(
             4 * (traj_in + A + p_in + B * A), B * A * N * step_ops),
         "closed_loop_rollout_batched": bound(
             4 * (traj_in + B + p_in + traj_out), B * N * step_ops),
         "open_loop_rollout_batched": bound(
             4 * (B * (n_x + N * n_u) + p_in + B * ((N + 1) * n_x + 1)),
-            B * N * rollout_step_ops("double_pendulum", "euler", n_x, n_u,
+            B * N * rollout_step_ops(model, integrator, n_x, n_u,
                                      feedback=False)),
     }
 
@@ -1685,7 +1728,10 @@ def b3_checks(itt, lib, f32, errors, long_n=BENCH_N):
     an inclusive state), at more tiles than are resident at once, at the
     DP flagship's N = 500 and at long_n."""
     from ilqr_tpu_torch.ops import affine_scan
-    tile = affine_scan.tile_steps(lib)
+    tile = affine_scan.tile_steps(lib, 2, 1)
+    if any(affine_scan.tile_steps(lib, n, A) != tile
+           for n in (2, 4) for A in (1, 10)):
+        raise AssertionError("B3: the register form's tiles differ by shape")
     resident = max(resident_tiles(lib.ilqr_affine_prefix_scan_occupancy(n, A),
                                   f"B3 n={n} A={A}")
                    for n in (2, 4) for A in (1, 10))
@@ -1762,9 +1808,26 @@ def one_launch_check(itt, f32) -> dict:
         # The wide forms (B1w, B6w) at the 3-D quadrotor's (12, 4).
         "fused_riccati_wide": lambda: itt.backward_pass_fused(exp_w, 0.0),
         "suffix_scan_wide": lambda: itt.suffix_scan_fused(elems_w, "sub"),
+        # B4w, B3w and B5n at the 3-D quadrotor's (12, 4), rk4.
+        "batched_riccati_wide": lambda: itt.backward_pass_batched(exp_bw,
+                                                                  0.1),
+        "affine_prefix_scan_wide": lambda: itt.affine_prefix_scan_multi(
+            P_w, q_w, d0_w, engine="pallas"),
+        "linesearch_costs_batched_models": lambda: (
+            itt.linesearch_costs_batched(q3, *nom_w[:1], alphas,
+                                         *nom_w[1:])),
+        "closed_loop_rollout_batched_models": lambda: (
+            itt.closed_loop_rollout_batched(q3, nom_w[0], alpha_b[:16],
+                                            *nom_w[1:])),
+        "open_loop_rollout_batched_models": lambda: (
+            itt.open_loop_rollout_batched(q3, nom_w[0], nom_w[2])),
     }
     exp_w = random_expansion(itt, 200, 12, 4, 5, f32)
     elems_w = parallel_riccati.make_elements(exp_w, 0.0)
+    exp_bw = batched_random_expansion(itt, 64, 40, 12, 4, 6, f32)
+    P_w, q_w, d0_w = random_chain(N, 12, 10, 4, f32)
+    q3 = wide_model_systems(itt, f32, "rk4")["quadrotor3d"]
+    nom_w = model_batch(q3, "quadrotor3d", 16, N_b, 9, f32)
     out = {}
     for name, fn in cases.items():
         rec = device_us(fn, 5)
@@ -2492,18 +2555,18 @@ def driver_phase(itt, dev) -> None:
     print("ua_double_pendulum_open_loop.main: run in phase 4 (the UA-DP "
           "golden), under its gates")
 
-    # The FA and UA double-pendulum MPC at full horizon, cut to MPC_STEPS
+    # The FA and UA double-pendulum MPC at full horizon, cut to DRIVER_STEPS
     # steps; each solve's initial rollout is one open-loop launch.
     out, secs, counts = timed_run(lambda: double_pendulum_mpc.main(
-        plot=False, device=dev, reps=(1, 1), n_sim=MPC_STEPS))
+        plot=False, device=dev, reps=(1, 1), n_sim=DRIVER_STEPS))
     passes = sum(int(r.solve_iters.sum())
                  + int((r.solve_status == itt.LINESEARCH_FAILED).sum())
                  for r in out.values())
-    print(f"double_pendulum_mpc.main(n_sim={MPC_STEPS}): FA cost "
+    print(f"double_pendulum_mpc.main(n_sim={DRIVER_STEPS}): FA cost "
           f"{float(out['fa'].cost):.4f}, UA cost {float(out['ua'].cost):.4f}, "
           f"{secs:.3f} s with the warm-ups, launches {counts}; backward "
           f"passes of the timed loops {passes}")
-    if counts.get("open_loop_rollout", 0) != 2 * (MPC_STEPS + 1):
+    if counts.get("open_loop_rollout", 0) != 2 * (DRIVER_STEPS + 1):
         raise AssertionError("DP MPC driver: one open-loop launch per solve "
                              "expected, the warm-up steps included")
     if counts.get("fused_riccati", 0) < passes:
@@ -2646,7 +2709,7 @@ def constrained_phases(itt, dev, smi) -> list:
             secs, plain_reps=2)
 
     b_al = bound(4 * (expansion_floats(N, 2, 1) + N * 3 + 2),
-                 N * riccati_step_ops(2))
+                 N * riccati_step_ops(2, 1))
     print(f"AL pendulum kernels at N={N} (B1's share: launches x device "
           f"time per call):")
     b1_us = kernel_row("fused_riccati_al", f"B1 AL pendulum N={N}",
@@ -2698,7 +2761,7 @@ def constrained_phases(itt, dev, smi) -> list:
                RTOL_B1, "fused_riccati.cu", "pallas_riccati.py:774",
                counts_ms["fused_riccati"],
                bound(4 * (expansion_floats(N, 2, 1) + N * 2 + N * 3 + 2),
-                     N * riccati_step_ops(2)), secs_ms)
+                     N * riccati_step_ops(2, 1)), secs_ms)
     kernel_row("affine_prefix_scan_al_ms",
                f"B3 AL-MS N={N}, {alphas.numel()} candidates",
                lambda: (itt.affine_prefix_scan_multi(P, q, d0,
@@ -2821,7 +2884,11 @@ def constrained_phases(itt, dev, smi) -> list:
 # constrained solves are, within RTOL_AL (1e-3 relative).
 JAX_F32 = {"flight": 3.1779935359954834, "flight_mpc_20": 432.25994873046875,
            "dash": 5.539409160614014, "cartpole_mpc_20": 1599.4395751953125,
-           "car": 12.004977226257324}
+           "car": 12.004977226257324,
+           # Phase 34: P1's sampled instances, and P3's two solves.
+           "p1_0": 1.5822689533233643, "p1_127": 1.4332703351974487,
+           "p1_255": 1.3097046613693237, "p3_defect": 1.5822689533233643,
+           "p3_ms": 1.5822679996490479}
 WIDE_STEPS = 20          # the MPC loops of this slice, cut from 150 / 200
 WIDE_N = 8192            # the bench's backward cells (bench.py:465-535)
 # B1w's shapes: the planar quadrotor (6, 2), the 3-D quadrotor (12, 4),
@@ -3018,11 +3085,8 @@ def wide_b6_checks(itt, lib, exps, errors) -> dict:
             "dash M=301": elements(exps[6, 2], 301)}
 
 
-def wide_model_nominal(system, name, N, seed, f32):
-    """x0, a nominal (X, U) about the model's operating point, seeded
-    feedforward steps and small gains (f32 on the card)."""
-    from ilqr_tpu_torch.ops.rollout import rollout
-
+def nominal_draws(system, name, N, seed, f32):
+    """`wide_model_nominal`'s seeded x0, U, u_ff and K (f32)."""
     rng = np.random.default_rng(seed)
     # The 3-D quadrotors' torques are arm / J ~ 70 times their thrusts: a
     # thrust noise of 0.3 at dt 0.02 tumbles them within a second, and
@@ -3038,25 +3102,39 @@ def wide_model_nominal(system, name, N, seed, f32):
     if name == "quadrotor3d_rotor":
         x0[12:] += 1.226
     U = torch.tensor(U, **f32)
-    X, _ = rollout(system, x0, U)
     u_ff = torch.tensor(scale * rng.standard_normal((N, system.n_u)), **f32)
     K = torch.tensor(-0.05 * scale / 0.3 * rng.standard_normal(
         (N, system.n_u, system.n_x)), **f32)
+    return x0, U, u_ff, K
+
+
+def wide_model_nominal(system, name, N, seed, f32):
+    """x0, a nominal (X, U) about the model's operating point, seeded
+    feedforward steps and small gains (f32 on the card)."""
+    from ilqr_tpu_torch.ops.rollout import rollout
+
+    x0, U, u_ff, K = nominal_draws(system, name, N, seed, f32)
+    X, _ = rollout(system, x0, U)
     return x0, X.contiguous(), U, u_ff, K
 
 
 def wide_model_systems(itt, f32, integrator):
-    """The new device models under ``integrator``."""
+    """The new device models under ``integrator``.  The cart-pole, the
+    planar and the 3-D quadrotors run at dt 0.005: at their drivers' 0.02
+    and 0.01 a relative change of 1e-7 in x0 grew up to 2199-fold along
+    500 steps of phase 28's nominals (the planar quadrotor under midpoint,
+    a cart-pole 255-fold under euler), where at 0.005 it grows at most
+    77-fold (tests/test_torch_chain_models_host.py)."""
     from ilqr_tpu_torch.models import quadrotor3d
 
     Q, R, Q_f = quadrotor3d.default_weights(**f32)
     return {
         "cartpole": itt.make_cartpole(
-            0.02, [0.0, np.pi, 0.0, 0.0], np.diag([1.0, 10.0, 0.1, 0.1]),
+            0.005, [0.0, np.pi, 0.0, 0.0], np.diag([1.0, 10.0, 0.1, 0.1]),
             0.1 * np.eye(1), np.diag([100.0, 100.0, 10.0, 10.0]),
             integrator=integrator, **f32),
         "quadrotor": itt.make_quadrotor(
-            0.01, [3.0, 1.0, 0.0, 0.0, 0.0, 0.0],
+            0.005, [3.0, 1.0, 0.0, 0.0, 0.0, 0.0],
             np.diag([1.0, 1.0, 0.5, 0.1, 0.1, 0.1]), 0.1 * np.eye(2),
             np.diag([200.0, 200.0, 50.0, 20.0, 20.0, 10.0]),
             integrator=integrator, **f32),
@@ -3400,7 +3478,7 @@ def wide_phases(itt, dev, smi, launches_per_call) -> list:
         n_x, n_u = e.f_x.shape[-1], e.l_u.shape[-1]
         b = bound(4 * (expansion_floats(WIDE_N, n_x, n_u)
                        + WIDE_N * (n_u + n_u * n_x) + 2),
-                  WIDE_N * riccati_step_ops(n_x))
+                  WIDE_N * riccati_step_ops(n_x, n_u))
         row(f"fused_riccati_wide_{n_x}x{n_u}_n{WIDE_N}", "fused_riccati.cu",
             "pallas_riccati.py:774", 0, errors["fused_riccati_wide"],
             b1_t[label], b1_plain[label], b,
@@ -3420,7 +3498,7 @@ def wide_phases(itt, dev, smi, launches_per_call) -> list:
             errors["fused_riccati_wide"], pt[label],
             cuda_ms(lambda e=e: itt.backward_pass_associative(e, 0.0), 3, 1),
             bound(4 * (expansion_floats(N, n_x, n_u) + N * (n_u + n_u * n_x)
-                       + 2), N * riccati_step_ops(n_x)))
+                       + 2), N * riccati_step_ops(n_x, n_u)))
     for label, el in timed_el.items():
         M, n = el.A.shape[0], el.A.shape[-1]
         F = 3 * n * n + 2 * n
@@ -3488,6 +3566,591 @@ def wide_phases(itt, dev, smi, launches_per_call) -> list:
         row(name, "chain_models.cu", replaces, launches, errors[ekey],
             t[label], cuda_ms(plain, 1, 0), b)
     lap(30)
+    return rows
+
+
+# ---- Phases 31-34: the wider models' batched and parallel-in-time paths ----
+# (B4w, B5n, B3w).  P1: batched solves of the 3-D quadrotor
+# (tests/test_quadrotor3d.py:27-29, 146-156: dt 0.02, target (1, 1, 1),
+# default_weights, hover controls, N = 80, maxiter 40, tol 1e-5), its x0
+# spread over [-0.2, 0.2] in x widened to WB_B instances, and a batch of
+# WB_ROTOR_B of the rotor variant; P2: batched MPC of the planar quadrotor
+# of examples/quadrotor_dash.py and the cart-pole of bench.py:795-799,
+# WB_MPC_B instances, H = WB_MPC_H, WB_MPC_STEPS steps; P3: P1's problem at
+# B = 1 by the defect line search and by multiple shooting.
+WB_B = 256
+WB_N = 80
+WB_ROTOR_B = 16
+WB_MPC_B = 64
+WB_MPC_H = 100
+WB_MPC_STEPS = 20
+P1_SAMPLES = (0, 127, 255)
+P1_X0 = -0.2           # P3's instance: P1's first
+# B4w's shapes: the planar quadrotor (6, 2), an (8, 2) corner of the
+# 8-lane groups, the 3-D quadrotor (12, 4), its rotor variant (16, 4) and
+# the widest (16, 16).
+WB_B4_SHAPES = ((6, 2), (8, 2), (12, 4), (16, 4), (16, 16))
+WB_B5_BATCHES = (1, 3, 64)
+WB_B5_N = 33           # across the chain ring's 32-step chunk edge
+# B3w: n and candidates (the solver's 10, one past the register form's
+# 16, and past a block's 16 groups of 16 lanes).
+WB_B3_STATES = (6, 12, 16)
+WB_B3_CANDIDATES = (1, 10, 17, 33)
+WB_B3_LONG = 20000     # the longest horizon, at up to 10 candidates
+
+
+def batched_random_expansion(itt, B, N, n_x, n_u, seed, f32):
+    """A seeded batched expansion at (n_x, n_u) with positive definite
+    l_uu (B instances of `random_expansion`'s kind)."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, N, n_u, n_u))
+    e = dict(f_x=np.eye(n_x) + 0.05 * rng.standard_normal((B, N, n_x, n_x)),
+             f_u=0.3 * rng.standard_normal((B, N, n_x, n_u)),
+             l_x=rng.standard_normal((B, N, n_x)),
+             l_u=rng.standard_normal((B, N, n_u)),
+             l_xx=np.broadcast_to(np.eye(n_x), (B, N, n_x, n_x)).copy(),
+             l_ux=0.1 * rng.standard_normal((B, N, n_u, n_x)),
+             l_uu=M @ np.swapaxes(M, -1, -2) / n_u + np.eye(n_u),
+             v_x=rng.standard_normal((B, n_x)),
+             v_xx=10.0 * np.broadcast_to(np.eye(n_x), (B, n_x, n_x)).copy())
+    return itt.TrajectoryExpansion(**{k: torch.tensor(v, **f32)
+                                      for k, v in e.items()})
+
+
+def model_batch(system, name, B, N, seed, f32):
+    """(x0s, X, U, u_ff, K) of B instances: phase 28's nominal
+    (`wide_model_nominal`) at seeds seed, seed + 1, ..., rolled out as one
+    batch (tests/test_torch_chain_models_host.py bounds them)."""
+    from ilqr_tpu_torch.ops.rollout import rollout
+
+    x0s, U, u_ff, K = (torch.stack(t).contiguous() for t in zip(*(
+        nominal_draws(system, name, N, seed + b, f32) for b in range(B))))
+    X, _ = rollout(system, x0s, U)
+    return x0s, X.contiguous(), U, u_ff, K
+
+
+def p2_systems(itt, f32):
+    """P2's systems: examples/quadrotor_dash.py's planar quadrotor (its
+    thrust limits left out: batched solves take none) with its hover
+    controls, and bench.py:795-799's cart-pole (rk4, dt 0.01)."""
+    from ilqr_tpu_torch.models import quadrotor
+    quad = itt.make_quadrotor(
+        0.01, [3.0, 1.0, 0.0, 0.0, 0.0, 0.0],
+        np.diag([1.0, 1.0, 0.5, 0.1, 0.1, 0.1]), 0.1 * np.eye(2),
+        np.diag([200.0, 200.0, 50.0, 20.0, 20.0, 10.0]), **f32)
+    cart = itt.make_cartpole(
+        0.01, [0.0, np.pi, 0.0, 0.0], Q=np.diag([1.0, 10.0, 0.1, 0.1]),
+        R=0.1 * np.eye(1), Q_f=np.diag([100.0, 500.0, 10.0, 10.0]),
+        integrator="rk4", **f32)
+    return {"quadrotor": quad,
+            "hover_quadrotor": quadrotor.hover_controls(quad.params),
+            "cartpole": cart}
+
+
+def p1_problem(itt, f32, rotor=False):
+    """P1's system (the rotor variant with its lag states at hover) and
+    hover controls."""
+    from ilqr_tpu_torch.models import quadrotor3d
+    Q, R, Q_f = quadrotor3d.default_weights(**f32)
+    target = [1.0, 1.0, 1.0] + [0.0] * 9
+    if rotor:
+        system = itt.make_quadrotor3d_rotor(
+            0.02, target + [1.226] * 4,
+            torch.block_diag(Q, 0.01 * torch.eye(4, **f32)), R,
+            torch.block_diag(Q_f, torch.eye(4, **f32)), **f32)
+    else:
+        system = itt.make_quadrotor3d(0.02, target, Q, R, Q_f, **f32)
+    return system, quadrotor3d.hover_controls(system.params)
+
+
+def p1_x0s(B, n_x, f32):
+    """tests/test_quadrotor3d.py's spread, x over [-0.2, 0.2], at B (the
+    rotor variant's lag states at hover)."""
+    x0s = torch.zeros((B, n_x), **f32)
+    x0s[:, 0] = torch.linspace(-0.2, 0.2, B, **f32)
+    if n_x == 16:
+        x0s[:, 12:] = 1.226
+    return x0s
+
+
+def wide_batched_phases(itt, dev, smi, launches_per_call) -> list:
+    """Phases 31-34: B4w, B5n and B3w against their plain versions, the
+    paths P1-P3 through them, and their timing.  Returns the kernels
+    line's rows of B4w, B5n and B3w."""
+    from ilqr_tpu_torch import mpc as mpc_module
+    from ilqr_tpu_torch.ops import _build, affine_scan, batched
+    from ilqr_tpu_torch.parallel import batch as batch_module
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    rng = np.random.default_rng(41)
+    t_lap = time.perf_counter()
+
+    def lap(phase):
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_lap:.1f} s")
+        t_lap = now
+
+    def bits(t):
+        """A tensor's bits (NaN payloads compare equal to themselves)."""
+        if t.dtype == torch.float32:
+            return t.contiguous().view(torch.int32)
+        return t
+
+    def twice(label, fn):
+        torch.cuda.synchronize()
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)
+                   if a is not None):
+            raise AssertionError(f"{label}: a repeated call gave other bits")
+        return got
+
+    # ---- 31. B4w --------------------------------------------------------
+    print(f"B4w tolerance: B4's, max|kernel - plain| <= max({RTOL_B4} * "
+          f"max|plain|, {F32_FLOOR} * max|plain - plain in f64|); groups of "
+          f"8 or 16 lanes an instance (lanes at "
+          + ", ".join(f"{s}: {lib.ilqr_batched_riccati_wide_lanes(*s)}"
+                      for s in WB_B4_SHAPES)
+          + "); every call twice, bit for bit")
+
+    def check_b4w(label, exp, reg, ok_want=None):
+        got = twice(f"B4w {label}",
+                    lambda: itt.backward_pass_batched(exp, reg, "pallas"))
+        plain = batched.vmap_backward(itt.backward_pass, exp, reg)
+        ref64 = batched.vmap_backward(
+            itt.backward_pass, as_f64(exp),
+            reg.double() if torch.is_tensor(reg) else reg)
+        torch.cuda.synchronize()
+        keep = torch.ones(exp.f_x.shape[0], dtype=torch.bool, device=dev)
+        if ok_want is not None:
+            keep = ok_want
+        one = {"err": 0.0}
+        notes = check_fields(f"B4w {label}", [g[keep] for g in got[:3]],
+                             [p[keep] for p in plain[:3]],
+                             [r[keep] for r in ref64[:3]], RTOL_B4, one,
+                             "err")
+        if not torch.equal(got[3], plain[3]):
+            raise AssertionError(f"B4w {label}: ok flags differ from the "
+                                 f"plain version's")
+        if ok_want is None and not bool(got[3].all()):
+            raise AssertionError(f"B4w {label}: gains not finite")
+        print(f"B4w {label}: B={exp.f_x.shape[0]} N={exp.f_x.shape[1]} "
+              f"(n_x, n_u)=({exp.f_x.shape[-1]}, {exp.l_u.shape[-1]}) max abs "
+              f"error " + "; ".join(notes) + "; repeated call bit-identical")
+        return one["err"]
+
+    def rollout_expansion(system, x0s, u, steps):
+        """The expansion along hover controls plus noise 0.01: at 0.1 (dt
+        0.02, 80 steps) the 3-D quadrotors tumble (states reach 16), Q_uu
+        turns indefinite at reg 0 and any f32 recursion parts from f64
+        without bound (the plain one by 1e-4 of its max, B4w's explicit
+        inverse, in a numpy model of its steps too, by overflow)."""
+        U = (u + torch.tensor(0.01 * rng.standard_normal(
+            (x0s.shape[0], steps, system.n_u)), **f32)).contiguous()
+        X, _ = itt.rollout(system, x0s, U)
+        return itt.linearize_trajectory_batched(system, X, U)
+
+    q3, u_q3 = p1_problem(itt, f32)
+    rotor, u_rot = p1_problem(itt, f32, rotor=True)
+    systems = p2_systems(itt, f32)
+    quad = systems["quadrotor"]
+    u_quad = systems["hover_quadrotor"]
+    path_exps = {
+        (6, 2): rollout_expansion(quad, torch.zeros((WB_B, 6), **f32), u_quad,
+                                  WB_N),
+        (12, 4): rollout_expansion(q3, p1_x0s(WB_B, 12, f32), u_q3, WB_N),
+        (16, 4): rollout_expansion(rotor, p1_x0s(WB_B, 16, f32), u_rot, WB_N),
+    }
+    for (n_x, n_u) in WB_B4_SHAPES:
+        exp = path_exps.get((n_x, n_u))
+        if exp is None:
+            exp = batched_random_expansion(itt, WB_B, WB_N, n_x, n_u,
+                                           n_x + n_u, f32)
+        check_b4w(f"{n_x}x{n_u} reg 0", exp, 0.0)
+        check_b4w(f"{n_x}x{n_u} per-instance reg", exp,
+                  torch.linspace(0.0, 0.2, WB_B, **f32))
+        # A ragged last block (B + 1: 8-lane groups hold 4 a block, 16-lane
+        # ones 2), N = 1 and 2, and an odd N (instance rows at every 4-byte
+        # phase).
+        edge = batched_random_expansion(itt, WB_B + 1, 2 * WB_N + 1, n_x, n_u,
+                                        7 * n_x + n_u, f32)
+        for steps in (1, 2, 2 * WB_N + 1):
+            check_b4w(f"{n_x}x{n_u} edges reg 0.1", dataclasses.replace(
+                edge, **{f: getattr(edge, f)[:, :steps].contiguous()
+                         for f in ("f_x", "f_u", "l_x", "l_u", "l_xx",
+                                   "l_ux", "l_uu")}), 0.1)
+    # A singular Q_uu (zero, with f_u = 0 at that step) in two instances.
+    sing = batched_random_expansion(itt, 9, 12, 12, 4, 3, f32)
+    f_u, l_uu = sing.f_u.clone(), sing.l_uu.clone()
+    for b in (2, 7):
+        f_u[b, 5] = 0.0
+        l_uu[b, 5] = 0.0
+    want = torch.ones(9, dtype=torch.bool, device=dev)
+    want[[2, 7]] = False
+    check_b4w("12x4 singular Q_uu in instances 2 and 7",
+              dataclasses.replace(sing, f_u=f_u, l_uu=l_uu), 0.0,
+              ok_want=want)
+    # The register form, re-timed in the same call at bench.py's batched
+    # cell (B = 1024, N = 128): pendulum (2, 1), UA-DP (4, 1), DP (4, 2).
+    reg_cases = {f"register form ({nx}, {nu}) B=1024 N=128":
+                 batched_random_expansion(itt, 1024, 128, nx, nu, nx + nu,
+                                          f32)
+                 for nx, nu in ((2, 1), (4, 1), (4, 2))}
+    reg_t = design_timing(smi, "B4", {
+        k: lambda e=e: itt.backward_pass_batched(e, 0.0)
+        for k, e in reg_cases.items()}, turns=3)
+    lap(31)
+
+    # ---- 32. B5n ------------------------------------------------------------
+    print(f"B5n tolerance: B5's, max|kernel - plain| <= {RTOL_B5} * "
+          f"max|plain| (the plain batched rollouts in f32 on the card); "
+          f"N = {WB_B5_N}, B {WB_B5_BATCHES}, along phase 28's nominals; "
+          f"every call twice, bit for bit")
+    alpha_all = torch.tensor([0.5 ** i for i in range(33)], **f32)
+
+    def gate5(label, got, ref):
+        """(max abs error, its share of max |plain|), within RTOL_B5."""
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B5n {label}: non-finite kernel output")
+        err, rel = rel_err(got, ref)
+        if not rel <= RTOL_B5:
+            raise AssertionError(f"B5n {label}: max error {err:.3e} is "
+                                 f"{rel:.3e} of max |plain|")
+        return err, rel
+
+    from ilqr_tpu_torch.ops import fused_rollout
+    for integ in ("euler", "midpoint", "rk4"):
+        for name, system in wide_model_systems(itt, f32, integ).items():
+            worst = 0.0
+            for nb in WB_B5_BATCHES:
+                x0s, X, U, u_ff, K = model_batch(system, name, nb, WB_B5_N,
+                                                 300 + 7 * nb, f32)
+                label = f"{name} {integ} B={nb}"
+                for A in ((1, 10, 33) if nb == 3 else (10,)):
+                    (c,) = twice(label, lambda: (itt.linesearch_costs_batched(
+                        system, x0s, alpha_all[:A], X, U, u_ff, K),))
+                    ref = itt.linesearch_rollouts(system, x0s, alpha_all[:A],
+                                                  X, U, u_ff, K)[2]
+                    worst = max(worst, gate5(f"{label} costs A={A}", c,
+                                             ref)[1])
+                alpha_b = alpha_all[torch.tensor(rng.integers(0, 10, nb),
+                                                 device=dev)]
+                got = twice(label, lambda: itt.closed_loop_rollout_batched(
+                    system, x0s, alpha_b, X, U, u_ff, K))
+                ref = itt.linesearch_rollouts(system, x0s, alpha_b[:, None],
+                                              X, U, u_ff, K)
+                for what, g, r in zip(("X", "U", "cost"), got, ref):
+                    worst = max(worst, gate5(f"{label} trajectory {what}",
+                                             g, r[:, 0])[1])
+                got = twice(label, lambda: itt.open_loop_rollout_batched(
+                    system, x0s, U))
+                for what, g, r in zip(("X", "cost"), got,
+                                      itt.rollout(system, x0s, U)):
+                    worst = max(worst, gate5(f"{label} open loop {what}",
+                                             g, r)[1])
+            print(f"B5n {name} {integ} (model id "
+                  f"{fused_rollout.device_model(system)[0]}): B "
+                  f"{WB_B5_BATCHES}, three entries: max rel error "
+                  f"{worst:.2e}; repeated calls bit-identical")
+    lap(32)
+
+    # ---- 33. B3w ------------------------------------------------------------
+    T3 = affine_scan.tile_steps(lib, 12, 10)
+    resident = max(resident_tiles(lib.ilqr_affine_prefix_scan_occupancy(
+        n, 10), f"B3w n={n}") for n in WB_B3_STATES)
+    sizes = (1, T3 - 1, T3, T3 + 1, 5 * T3 + T3 // 2 + 3,
+             (resident + 3) * T3 + 5, WB_B3_LONG)
+    print(f"B3w tolerance: B3's (phase 6); tiles of {T3} steps, horizons "
+          f"{sizes}")
+    errs = {"affine_prefix_scan": 0.0}   # check_b3's record, unread here
+    for N3 in sizes:
+        for n in WB_B3_STATES:
+            for A in WB_B3_CANDIDATES:
+                if N3 > 2000 and A > 10:
+                    continue
+                check_b3(itt, "wide random chain",
+                         *random_chain(N3, n, A, N3 + 10 * n + A, f32), errs)
+    # n in {2, 4} past 16 candidates takes the wide form too.
+    for n in (2, 4):
+        check_b3(itt, "register n past 16 candidates",
+                 *random_chain(700, n, 17, 5 + n, f32), errs)
+    lap(33)
+
+    # ---- 34. the paths through the kernels, and their timing -----------------
+    runs = {}
+    sched = itt.IlqrConfig(maxiter=40, tol=1e-5, rollout="pallas")
+    x0s = p1_x0s(WB_B, 12, f32)
+    U0 = u_q3.expand(WB_N, 4).contiguous()
+    sol, secs, counts = timed_run(lambda: batch_module.solve_batched(
+        q3, x0s, U0, sched, mesh=None))
+    runs["p1"] = counts
+    n_conv = int((sol.status == itt.CONVERGED).sum())
+    print(f"P1 3-D quadrotor B={WB_B} N={WB_N} (solve_batched, "
+          f"rollout=pallas, backward auto): {secs:.2f} s, {n_conv}/{WB_B} "
+          f"CONVERGED, iterations {int(sol.iterations.min())}-"
+          f"{int(sol.iterations.max())}, launches {counts}")
+    need("P1", counts, ("batched_riccati", "linesearch_costs_batched",
+                        "closed_loop_rollout_batched",
+                        "open_loop_rollout_batched"))
+    if not (bool(torch.isfinite(sol.cost).all())
+            and bool(torch.isfinite(sol.X).all())):
+        raise AssertionError("P1: non-finite instances")
+    scan = dataclasses.replace(sched, rollout="scan", backward="scan")
+    for i in P1_SAMPLES:
+        one = itt.solve(q3, x0s[i], U0, scan)
+        c, c1 = float(sol.cost[i]), float(one.cost)
+        jax_c = JAX_F32[f"p1_{i}"]
+        dx = float((sol.X[i] - one.X).abs().max())
+        du = float((sol.U[i] - one.U).abs().max())
+        print(f"  P1 instance {i}: cost {c:.7f}, status "
+              f"{int(sol.status[i])}; single-instance scan {c1:.7f} "
+              f"(rel {abs(c - c1) / abs(c1):.1e}, X {dx:.1e}, U {du:.1e}); "
+              f"JAX f32 {jax_c} (rel {abs(c - jax_c) / jax_c:.1e})")
+        if not (int(sol.status[i]) == itt.CONVERGED
+                and abs(c - jax_c) <= RTOL_AL * jax_c
+                and abs(c - c1) <= RTOL_BATCH * abs(c1)
+                and dx <= ATOL_BATCH_X and du <= ATOL_BATCH_U):
+            raise AssertionError(f"P1 instance {i}: gates not met")
+    # The rotor variant (16, 4).
+    x0r = p1_x0s(WB_ROTOR_B, 16, f32)
+    U0r = u_rot.expand(WB_N, 4).contiguous()
+    solr, secs, counts = timed_run(lambda: batch_module.solve_batched(
+        rotor, x0r, U0r, sched, mesh=None))
+    runs["p1_rotor"] = counts
+    print(f"P1 rotor variant B={WB_ROTOR_B} N={WB_N}: {secs:.2f} s, "
+          f"{int((solr.status == itt.CONVERGED).sum())}/{WB_ROTOR_B} "
+          f"CONVERGED, launches {counts}")
+    need("P1 rotor", counts, ("batched_riccati", "linesearch_costs_batched",
+                              "closed_loop_rollout_batched"))
+    for i in (0, WB_ROTOR_B - 1):
+        one = itt.solve(rotor, x0r[i], U0r, scan)
+        c, c1 = float(solr.cost[i]), float(one.cost)
+        dx = float((solr.X[i] - one.X).abs().max())
+        print(f"  rotor instance {i}: cost {c:.7f}, single-instance scan "
+              f"{c1:.7f} (rel {abs(c - c1) / abs(c1):.1e}, X {dx:.1e})")
+        if not (bool(torch.isfinite(solr.cost).all())
+                and abs(c - c1) <= RTOL_BATCH * abs(c1)
+                and dx <= ATOL_BATCH_X):
+            raise AssertionError(f"P1 rotor instance {i}: gates not met")
+
+    # P2: batched MPC, the planar quadrotor and the cart-pole.
+    mpc_cfg = itt.IlqrConfig(maxiter=10, tol=1e-5, rollout="pallas")
+    # The per-instance loops run B1 and B2 (the B = 1 kernels).
+    ref_cfg = dataclasses.replace(mpc_cfg, backward="pallas")
+    for name, system, spread, u0 in (
+            ("quadrotor", quad, (0, -0.3, 0.3), u_quad),
+            ("cartpole", systems["cartpole"], (1, 0.1, 0.5),
+             torch.zeros(1, **f32))):
+        xs = torch.zeros((WB_MPC_B, system.n_x), **f32)
+        xs[:, spread[0]] = torch.linspace(spread[1], spread[2], WB_MPC_B,
+                                          **f32)
+        U_h = u0.expand(WB_MPC_H, system.n_u).contiguous()
+        res, secs, counts = timed_run(lambda: itt.run_mpc_batched(
+            system, system, xs, U_h, WB_MPC_STEPS, mpc_cfg))
+        runs[f"p2_{name}"] = counts
+        print(f"P2 {name} batched MPC B={WB_MPC_B} H={WB_MPC_H}, "
+              f"{WB_MPC_STEPS} steps: {secs:.2f} s, "
+              f"{WB_MPC_B * WB_MPC_STEPS / secs:.1f} step-solves/s, "
+              f"launches {counts}")
+        need(f"P2 {name}", counts, ("batched_riccati",
+                                    "linesearch_costs_batched",
+                                    "closed_loop_rollout_batched",
+                                    "open_loop_rollout_batched"))
+        if not bool(torch.isfinite(res.X).all()):
+            raise AssertionError(f"P2 {name}: non-finite states")
+        for i in (0, WB_MPC_B - 1):
+            one = mpc_module.run_mpc(system, system, xs[i], U_h, WB_MPC_STEPS,
+                                     ref_cfg)
+            dx = float((res.X[i] - one.X).abs().max())
+            print(f"  P2 {name} instance {i}: against run_mpc {dx:.2e} "
+                  f"(limit {ATOL_MPC})")
+            if not dx <= ATOL_MPC:
+                raise AssertionError(f"P2 {name} instance {i}: batched and "
+                                     f"single-instance MPC differ")
+
+    # P3: P1's problem at B = 1, by the defect line search (B3w at 10
+    # candidates, B1w) and by multiple shooting (B1w with defects, B3w).
+    x0 = torch.zeros(12, **f32)
+    x0[0] = P1_X0
+    ref = itt.solve(q3, x0, U0, scan)
+    p3 = {
+        "p3_defect": lambda: itt.solve(q3, x0, U0, itt.IlqrConfig(
+            maxiter=40, tol=1e-5, rollout="defect", init_rollout="defect",
+            backward="pallas", defect_engine="pallas")),
+        "p3_ms": lambda: itt.solve_ms(
+            q3, x0, U0, config=itt.IlqrConfig(maxiter=40, tol=1e-5,
+                                              backward="pallas"),
+            ms=itt.MsConfig(update_engine="pallas")),
+    }
+    for key, fn in p3.items():
+        out, secs, counts = timed_run(fn)
+        runs[key] = counts
+        c, jax_c, c_ref = float(out.cost), JAX_F32[key], float(ref.cost)
+        print(f"P3 {key}: status {out.status}, {out.iterations} iterations, "
+              f"{secs:.2f} s, cost {c:.7f} (scan {c_ref:.7f}, rel "
+              f"{abs(c - c_ref) / c_ref:.1e}; JAX f32 {jax_c}, rel "
+              f"{abs(c - jax_c) / jax_c:.1e}), launches {counts}")
+        need(key, counts, ("affine_prefix_scan", "fused_riccati"))
+        if not (out.status == itt.CONVERGED
+                and abs(c - c_ref) <= RTOL_AL * c_ref
+                and abs(c - jax_c) <= RTOL_AL * jax_c):
+            raise AssertionError(f"P3 {key}: gates not met")
+
+    # C2's plain route on the card: a batched f64 solve of the planar
+    # quadrotor under 'auto' answers (no B4 launch), equal to `solve`.
+    quad64 = quad.replace(params={k: v.double()
+                                  for k, v in quad.params.items()})
+    xs64 = torch.zeros((4, 6), dtype=torch.float64, device=dev)
+    xs64[:, 0] = torch.linspace(-0.3, 0.3, 4, dtype=torch.float64,
+                                device=dev)
+    U64 = u_quad.double().expand(50, 2).contiguous()
+    cfg64 = itt.IlqrConfig(maxiter=10, tol=1e-6)
+    sol64, secs, counts = timed_run(lambda: itt.solve_batch(quad64, xs64,
+                                                            U64, cfg64))
+    worst = max(abs(float(sol64.cost[i]) - float(itt.solve(
+        quad64, xs64[i], U64, cfg64).cost)) for i in range(4))
+    print(f"C2 f64 batched planar quadrotor under 'auto': {secs:.2f} s, "
+          f"launches {counts}; against solve per instance {worst:.1e}")
+    if counts.get("batched_riccati", 0) or not worst <= 1e-9:
+        raise AssertionError("C2 f64: the plain route did not answer alike")
+
+    # Timing at the paths' shapes.
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    A10 = alphas.numel()
+    rows = []
+
+    def row(name, source, replaces, launches, err, t, plain_ms, b, lpc_key,
+            **more):
+        """A kernels-line row; err is the kernel's error against its plain
+        version at this row's own inputs."""
+        ms, cols = timing_columns(t, launches_per_call.get(lpc_key))
+        rows.append(dict(
+            name=name, route="cuda", source=f"ilqr_tpu_torch/csrc/{source}",
+            replaces=f"ilqr_tpu/ops/{replaces}", launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None, **cols, **more))
+
+    b4_cases = {
+        "P1 (12, 4)": (path_exps[12, 4], runs["p1"], WB_B, WB_N),
+        "P1 rotor (16, 4)": (rollout_expansion(rotor, x0r, u_rot, WB_N),
+                             runs["p1_rotor"], WB_ROTOR_B, WB_N),
+        "P2 quadrotor (6, 2)": (rollout_expansion(
+            quad, torch.zeros((WB_MPC_B, 6), **f32), u_quad, WB_MPC_H),
+            runs["p2_quadrotor"], WB_MPC_B, WB_MPC_H),
+    }
+    # Each path's shape held to the plain version before it is timed.
+    e4 = {label: check_b4w(f"{label} reg 0", v[0], 0.0)
+          for label, v in b4_cases.items()}
+    t4 = design_timing(smi, "B4w", {
+        k: lambda e=v[0]: itt.backward_pass_batched(e, 0.0)
+        for k, v in b4_cases.items()}, turns=3)
+    for label, (e, counts, nb, steps) in b4_cases.items():
+        n_x, n_u = e.f_x.shape[-1], e.l_u.shape[-1]
+        row(f"batched_riccati_wide_{n_x}x{n_u}_b{nb}_n{steps}",
+            "batched_riccati.cu", "pallas_batched.py:114",
+            counts.get("batched_riccati", 0), e4[label], t4[label],
+            cuda_ms(lambda e=e: batched.vmap_backward(
+                itt.backward_pass, e, 0.0), 1, 1),
+            batched_bounds(nb, steps, A10, n_x, n_u)["batched_riccati"],
+            "batched_riccati_wide")
+    for label, t in reg_t.items():
+        print(f"  B4 {label}: events {t['event_ms']:.4f} ms, device "
+              f"{ms_text(t['device_us'])}")
+    # B5n at P1's shape (3-D quadrotor, rk4) and P2's (the planar
+    # quadrotor and the cart-pole), along each path's first iteration.
+    b5_cases = {}
+    for label, system, model, integ, x0b, u0, counts in (
+            ("P1 quadrotor3d rk4", q3, "quadrotor3d", "rk4", x0s, u_q3,
+             runs["p1"]),
+            ("P2 quadrotor", quad, "quadrotor", quad.integrator,
+             torch.zeros((WB_MPC_B, 6), **f32), u_quad, runs["p2_quadrotor"]),
+            ("P2 cartpole rk4", systems["cartpole"], "cartpole", "rk4",
+             torch.zeros((WB_MPC_B, 4), **f32), torch.zeros(1, **f32),
+             runs["p2_cartpole"])):
+        steps = WB_N if label.startswith("P1") else WB_MPC_H
+        Ub = u0.expand(x0b.shape[0], steps, system.n_u).contiguous()
+        Xb = itt.rollout(system, x0b, Ub)[0].contiguous()
+        ub, Kb, _, _ = itt.backward_pass_batched(
+            itt.linearize_trajectory_batched(system, Xb, Ub), 1.0)
+        ab = torch.full((x0b.shape[0],), 0.5, **f32)
+        b5_cases[label] = (system, model, integ, counts, steps, {
+            "linesearch_costs_batched": (
+                lambda s=system, a=(x0b, alphas, Xb, Ub, ub, Kb):
+                itt.linesearch_costs_batched(s, *a),
+                lambda s=system, a=(x0b, alphas, Xb, Ub, ub, Kb):
+                itt.linesearch_rollouts(s, *a)),
+            "closed_loop_rollout_batched": (
+                lambda s=system, a=(x0b, ab, Xb, Ub, ub, Kb):
+                itt.closed_loop_rollout_batched(s, *a),
+                lambda s=system, a=(x0b, ab[:, None], Xb, Ub, ub, Kb):
+                itt.linesearch_rollouts(s, *a)),
+            "open_loop_rollout_batched": (
+                lambda s=system, a=(x0b, Ub): itt.open_loop_rollout_batched(
+                    s, *a),
+                lambda s=system, a=(x0b, Ub): itt.rollout(s, *a))})
+
+    def b5_outputs(entry, got, ref):
+        """(output, kernel's, plain's) of one B5 entry: the plain batched
+        rollouts carry an alpha axis (one alpha a row for the trajectory
+        entry) and the line search's costs are their third output."""
+        if entry == "linesearch_costs_batched":
+            return [("costs", got[0], ref[2])]
+        if entry == "closed_loop_rollout_batched":
+            return [(w, g, r[:, 0])
+                    for w, g, r in zip(("X", "U", "cost"), got, ref)]
+        return list(zip(("X", "cost"), got, ref))
+
+    for label, (system, model, integ, counts, steps, cases) in \
+            b5_cases.items():
+        nb = WB_B if label.startswith("P1") else WB_MPC_B
+        # Each entry held to its plain version at the path's shape.
+        e5 = {}
+        for entry, (kernel, plain) in cases.items():
+            got = twice(f"B5n {label} {entry}", lambda k=kernel: (
+                (k(),) if entry == "linesearch_costs_batched" else k()))
+            e5[entry], worst = 0.0, 0.0
+            for what, g, r in b5_outputs(entry, got, plain()):
+                err, rel = gate5(f"{label} {entry} {what}", g, r)
+                e5[entry], worst = max(e5[entry], err), max(worst, rel)
+            print(f"B5n {label} {entry} B={nb} N={steps}: max abs error "
+                  f"{e5[entry]:.2e} (rel {worst:.1e}, limit {RTOL_B5}); "
+                  f"repeated call bit-identical")
+        t5 = design_timing(smi, f"B5n {label}",
+                           {k: v[0] for k, v in cases.items()}, turns=3)
+        bounds = batched_bounds(nb, steps, A10, system.n_x, system.n_u,
+                                model=model, integrator=integ)
+        for entry, (_, plain) in cases.items():
+            row(f"{entry}_{model}_b{nb}_n{steps}", "chain_models.cu",
+                "pallas_batched.py:377", counts.get(entry, 0), e5[entry],
+                t5[entry], cuda_ms(plain, 1, 0), bounds[entry],
+                f"{entry}_models")
+    # B3w at P3's shape: the defect line search's 10 candidates and the
+    # defect initial rollout's one (n = 12, N = 80).
+    P3c, q3c, d3c = random_chain(WB_N, 12, A10, 17, f32)
+    b3_cases = {f"P3 n=12 A={A} N={WB_N}": (P3c, q3c[:A].contiguous(),
+                                            d3c[:A].contiguous())
+                for A in (A10, 1)}
+    e3 = {}
+    for label, v in b3_cases.items():
+        errs = {"affine_prefix_scan": 0.0}
+        check_b3(itt, label, *v, errs)
+        e3[label] = errs["affine_prefix_scan"]
+    t3 = design_timing(smi, "B3w", {
+        k: lambda a=v: itt.affine_prefix_scan_multi(*a, engine="pallas")
+        for k, v in b3_cases.items()}, turns=3)
+    for label, (Pc, qc, dc) in b3_cases.items():
+        A = qc.shape[0]
+        row(f"affine_prefix_scan_wide_n12_a{A}_n{WB_N}", "affine_scan.cu",
+            "pallas_affine.py:137",
+            runs["p3_defect"].get("affine_prefix_scan", 0), e3[label],
+            t3[label],
+            cuda_ms(lambda a=(Pc, qc, dc): itt.affine_prefix_scan_multi(
+                *a, engine="xla"), 3, 1), b3_bound(WB_N, 12, A),
+            "affine_prefix_scan_wide",
+            ms_solve_launches=runs["p3_ms"].get("affine_prefix_scan", 0))
+    lap(34)
     return rows
 
 
@@ -4248,13 +4911,14 @@ def main() -> int:
     traj_in = (N5 + 1) * nx + 2 * N5 * nu + N5 * nu * nx + params_floats(nx,
                                                                          nu)
     b_b1 = bound(4 * (expansion_floats(N5, nx, nu) + N5 * (nu + nu * nx) + 2),
-                 N5 * riccati_step_ops(nx))
+                 N5 * riccati_step_ops(nx, nu))
     b_ls = bound(4 * (traj_in + nx + A10 + A10), A10 * N5 * ls_ops)
     b_tr = bound(4 * (traj_in + nx + 1 + (N5 + 1) * nx + N5 * nu + 1),
                  N5 * ls_ops)
     b_ol = chain_bounds(nx, nu, N5, A10)["open_loop_rollout"]
     b_b1d = bound(4 * (expansion_floats(BENCH_N, 2, 1) + BENCH_N * 2
-                       + BENCH_N * (1 + 2) + 2), BENCH_N * riccati_step_ops(2))
+                       + BENCH_N * (1 + 2) + 2),
+                  BENCH_N * riccati_step_ops(2, 1))
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, b, **more):
         return dict(name=name, route="cuda",
@@ -4323,7 +4987,8 @@ def main() -> int:
     driver_phase(itt, dev)
     kernels_json += constrained_phases(itt, dev, smi)
     kernels_json += wide_phases(itt, dev, smi, lpc)
-    print(f"phases 1-30: {time.perf_counter() - t_run:.1f} s")
+    kernels_json += wide_batched_phases(itt, dev, smi, lpc)
+    print(f"phases 1-34: {time.perf_counter() - t_run:.1f} s")
     for k in kernels_json:
         print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "

@@ -44,9 +44,38 @@
 // Scratch (per device, stream and shape, zeroed once by the wrapper):
 // counters [ticket, done, status (n_tiles)] and floats [aggregates
 // (n_tiles, n^2 + A n), inclusive states (n_tiles, A n)].
+// That register form serves n in {2, 4} with at most kMaxCand candidates.
+//
+// The wide form (wide_prefix_kernel; B3w), every other n <= 16 and any
+// number of candidates, as JAX's kernel takes them.  An element no longer
+// fits a thread (n = 12, A = 10: 264 floats), so a group of P lanes (P = 8
+// for n <= 8, else 16) works on one n-vector or n x n matrix at a time,
+// lane r owning row r, matrices in shared memory at row stride P + 1
+// (riccati_scan.cuh, namespace wide, as B1w and B6w), n a run-time bound
+// of one instantiation per P.  The tile, kWideTile steps, is a chain
+// rather than a scan: A candidates would make the Hillis-Steele elements
+// of B6w's form A n + n^2 floats each, and the chain needs no element
+// but the tile's transition matrices.  One launch, on lookback.cuh:
+//   1. Tiles take tickets from the left; the block stages its tile's P_k.
+//   2. The aggregate: the block's last group forms the product
+//      P_last ... P_first by a chain of group products, and every group
+//      carries its candidates (a = group, group + G, ...: candidates
+//      beyond the groups loop inside the launch) from 0 through the tile,
+//      x <- P_k x + q_k^a, each candidate's drives staged first.  Published
+//      as [product (n^2), drives (A n)], the register form's layout.
+//   3. Look-back: each group carries its candidates from the nearest
+//      published inclusive state (or delta_0) through the aggregates
+//      between, read from L2, and this tile's own; it keeps the state
+//      entering the tile (scratch) and publishes the state at its end.
+//   4. Each group runs its candidates' chains through the tile again from
+//      the state entering it, writing every delta.
+// Scratch floats: [aggregates (n_tiles, n^2 + A n), inclusive states
+// (n_tiles, A n), entering states (n_tiles, A n)].  Shared memory does not
+// depend on A.
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
+#include "riccati_scan.cuh"
 #include "smallmat.cuh"
 
 namespace {
@@ -301,48 +330,250 @@ int occupancy(int A) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-int tiles(int N) { return (N + kTileSteps - 1) / kTileSteps; }
+// ---- The wide form (B3w) ------------------------------------------------
+
+constexpr int kWideThreads = 256;   // a block: 256 / P lane groups
+constexpr int kWideTile = 32;       // steps of a wide tile
+
+template <int P>
+struct WideSmem {
+  static constexpr int LD = P + 1;
+  static constexpr int M = P * LD;               // one P x P matrix
+  static constexpr int G = kWideThreads / P;     // groups a block
+  static constexpr int kP = 0;                   // the tile's P_k
+  static constexpr int kQ = kP + kWideTile * M;  // a group's drives
+  static constexpr int kX = kQ + G * kWideTile * P;   // a group's x, y
+  static constexpr int kProd = kX + G * 2 * P;   // the product, two buffers
+  static constexpr int kBytes = 4 * (kProd + 2 * M);
+};
+
+// The group's drives q_k^a of the tile's steps into qs (a step a row).
+template <int P>
+__device__ __forceinline__ void stage_drives(const wide::Group<P>& g, int n,
+                                             const float* src, int steps,
+                                             float* qs) {
+  for (int i = g.r; i < steps * n; i += P) qs[(i / n) * P + i % n] = src[i];
+  g.sync();
+}
+
+// y = P_k x + q, then the two swap; every lane of the group keeps the same
+// pointers.
+template <int P>
+__device__ __forceinline__ void affine_group(const wide::Group<P>& g, int n,
+                                             const float* Pk, const float* q,
+                                             float*& x, float*& y) {
+  constexpr int LD = P + 1;
+  if (g.r < n) {
+    float s = q[g.r];
+    for (int j = 0; j < n; ++j) s += Pk[g.r * LD + j] * x[j];
+    y[g.r] = s;
+  }
+  g.sync();
+  float* t = x;
+  x = y;
+  y = t;
+}
+
+template <int P>
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
+                   const float* __restrict__ delta0, int n, int A, int N,
+                   int n_tiles, int* __restrict__ counters,
+                   float* __restrict__ scratch, float* __restrict__ out) {
+  using S = WideSmem<P>;
+  constexpr int LD = S::LD, G = S::G;
+  extern __shared__ __align__(16) float smw[];
+  __shared__ lookback::Slots slots;
+  const int tid = threadIdx.x, grp = tid / P;
+  const wide::Group<P> g;
+  const int r = g.r;
+  const int NN = n * n, F = NN + A * n, SA = A * n;
+  int* status = counters + 2;
+  float* aggs = scratch;                          // (n_tiles, F)
+  float* incl = aggs + (size_t)n_tiles * F;       // (n_tiles, SA)
+  float* entering = incl + (size_t)n_tiles * SA;  // (n_tiles, SA)
+  float* Ps = smw + S::kP;
+  float* qs = smw + S::kQ + grp * kWideTile * P;
+  float* x = smw + S::kX + grp * 2 * P;
+  float* y = x + P;
+
+  // 1. The tile from the left; its transition matrices.
+  const int p = lookback::take_tile<kFromLeft>(counters, n_tiles, &slots);
+  const int k0 = p * kWideTile, steps = min(kWideTile, N - k0);
+  for (int i = tid; i < steps * NN; i += kWideThreads) {
+    const int e = i % NN;
+    Ps[(i / NN) * S::M + (e / n) * LD + e % n] = Pm[(size_t)k0 * NN + i];
+  }
+  if (p == 0) {
+    for (int i = tid; i < SA; i += kWideThreads)
+      out[(size_t)(i / n) * (N + 1) * n + i % n] = delta0[i];
+  }
+  __syncthreads();
+
+  // 2. The aggregate: the product of the tile's P_k, and each candidate's
+  // drive carried from 0 through the tile.
+  float* agg = aggs + (size_t)p * F;
+  if (grp == G - 1) {
+    float* a = smw + S::kProd;
+    float* b = a + S::M;
+    if (r < n) {
+      for (int j = 0; j < n; ++j) a[r * LD + j] = Ps[r * LD + j];
+    }
+    g.sync();
+    for (int k = 1; k < steps; ++k) {
+      wide::mm<P>(g, n, n, n, Ps + k * S::M, a, b);
+      float* t = a;
+      a = b;
+      b = t;
+    }
+    if (r < n) {
+      for (int j = 0; j < n; ++j) agg[r * n + j] = a[r * LD + j];
+    }
+    __threadfence();
+  }
+  for (int c = grp; c < A; c += G) {
+    stage_drives<P>(g, n, q + ((size_t)c * N + k0) * n, steps, qs);
+    if (r < n) x[r] = 0.0f;
+    g.sync();
+    for (int k = 0; k < steps; ++k)
+      affine_group<P>(g, n, Ps + k * S::M, qs + k * P, x, y);
+    if (r < n) agg[NN + c * n + r] = x[r];
+    __threadfence();
+    g.sync();   // qs and x are rewritten for the next candidate
+  }
+  __syncthreads();
+  if (tid == 0) lookback::publish(&status[p], lookback::kAggregate);
+
+  // 3. Look-back, a group per candidate: the nearest inclusive state to
+  // the left (or delta_0) through the aggregates up to this tile's own.
+  const int qt = lookback::find_inclusive<kFromLeft>(counters, p, n_tiles,
+                                                     &slots);
+  for (int c = grp; c < A; c += G) {
+    if (r < n)
+      x[r] = qt >= 0 ? __ldcg(incl + (size_t)qt * SA + c * n + r)
+                     : delta0[c * n + r];
+    g.sync();
+    for (int j = qt + 1; j <= p; ++j) {
+      const float* aj = aggs + (size_t)j * F;
+      if (r < n) {
+        if (j == p) entering[(size_t)p * SA + c * n + r] = x[r];
+        float s = __ldcg(aj + NN + c * n + r);
+        for (int i = 0; i < n; ++i) s += __ldcg(aj + r * n + i) * x[i];
+        y[r] = s;
+      }
+      g.sync();
+      float* t = x;
+      x = y;
+      y = t;
+    }
+    if (r < n) incl[(size_t)p * SA + c * n + r] = x[r];
+    __threadfence();
+    g.sync();
+  }
+  __syncthreads();
+  if (tid == 0) lookback::publish(&status[p], lookback::kInclusive);
+  if (lookback::arrive(counters, n_tiles, &slots)) {
+    lookback::reset(counters, n_tiles);
+  }
+
+  // 4. Every step's delta, from the state entering the tile.
+  for (int c = grp; c < A; c += G) {
+    stage_drives<P>(g, n, q + ((size_t)c * N + k0) * n, steps, qs);
+    if (r < n) x[r] = entering[(size_t)p * SA + c * n + r];
+    g.sync();
+    float* o = out + ((size_t)c * (N + 1) + k0 + 1) * n;
+    for (int k = 0; k < steps; ++k) {
+      affine_group<P>(g, n, Ps + k * S::M, qs + k * P, x, y);
+      if (r < n) o[(size_t)k * n + r] = x[r];
+    }
+    g.sync();
+  }
+}
+
+template <int P>
+int run_wide(int n, int A, int N, const float* Pm, const float* q,
+             const float* delta0, int* counters, float* scratch, float* out,
+             cudaStream_t stream) {
+  using S = WideSmem<P>;
+  const int n_tiles = (N + kWideTile - 1) / kWideTile;
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_prefix_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_prefix_kernel<P><<<n_tiles, kWideThreads, S::kBytes, stream>>>(
+      Pm, q, delta0, n, A, N, n_tiles, counters, scratch, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int P>
+int wide_occupancy() {
+  using S = WideSmem<P>;
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_prefix_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, wide_prefix_kernel<P>, kWideThreads, S::kBytes);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+bool register_form(int n, int A) {
+  return (n == 2 || n == 4) && A <= kMaxCand;
+}
+int wide_lanes(int n) { return n <= 8 ? 8 : 16; }
+int tile_steps(int n, int A) {
+  return register_form(n, A) ? kTileSteps : kWideTile;
+}
+int tiles(int n, int A, int N) {
+  return (N + tile_steps(n, A) - 1) / tile_steps(n, A);
+}
 
 }  // namespace
 
-extern "C" int ilqr_affine_tile_steps() { return kTileSteps; }
+// Steps of a tile at n and A candidates (the cross-tile carry period).
+extern "C" int ilqr_affine_tile_steps(int n, int A) { return tile_steps(n, A); }
 
-// Sizes of prefix_kernel's scratch: ints (zeroed once, left zeroed by
-// every call) and floats.
+// Sizes of the kernel's scratch: ints (zeroed once, left zeroed by every
+// call) and floats.
 extern "C" int ilqr_affine_prefix_scan_counters(int n, int A, int N) {
-  (void)n;
-  (void)A;
-  return lookback::counter_ints(tiles(N));
+  return lookback::counter_ints(tiles(n, A, N));
 }
 extern "C" int ilqr_affine_prefix_scan_scratch(int n, int A, int N) {
-  return tiles(N) * (n * n + 2 * A * n);
+  return tiles(n, A, N) * (n * n + (register_form(n, A) ? 2 : 3) * A * n);
 }
 
-// Blocks of prefix_kernel resident on one SM at A candidates (a negative
-// CUDA error code on failure).
+// Blocks of the kernel resident on one SM at n and A candidates (a
+// negative CUDA error code on failure).
 extern "C" int ilqr_affine_prefix_scan_occupancy(int n, int A) {
-  if (A < 1 || A > kMaxCand) return -static_cast<int>(cudaErrorInvalidValue);
-  if (n == 2) return A == 1 ? occupancy<2, 1>(A) : occupancy<2, kMaxCand>(A);
-  if (n == 4) return A == 1 ? occupancy<4, 1>(A) : occupancy<4, kMaxCand>(A);
-  return -static_cast<int>(cudaErrorInvalidValue);
+  if (A < 1 || n < 1 || n > 16) return -static_cast<int>(cudaErrorInvalidValue);
+  if (n == 2 && A <= kMaxCand)
+    return A == 1 ? occupancy<2, 1>(A) : occupancy<2, kMaxCand>(A);
+  if (n == 4 && A <= kMaxCand)
+    return A == 1 ? occupancy<4, 1>(A) : occupancy<4, kMaxCand>(A);
+  return wide_lanes(n) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
 }
 
 // One launch.  Inputs P (N, n, n), q (A, N, n), delta0 (A, n); counters
-// and scratch as sized above; output out (A, N+1, n).
+// and scratch as sized above; output out (A, N+1, n).  The register form
+// at n in {2, 4} with A <= 16, the wide form at every other n <= 16.
 extern "C" int ilqr_affine_prefix_scan(int n, int A, int N, const float* P,
                                        const float* q, const float* delta0,
                                        int* counters, float* scratch,
                                        float* out, void* stream) {
-  if (A < 1 || A > kMaxCand || N < 1)
+  if (A < 1 || N < 1 || n < 1 || n > 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 2 && A == 1)
-    return run<2, 1>(A, N, P, q, delta0, counters, scratch, out, s);
-  if (n == 2)
-    return run<2, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
-  if (n == 4 && A == 1)
-    return run<4, 1>(A, N, P, q, delta0, counters, scratch, out, s);
-  if (n == 4)
+  if (register_form(n, A)) {
+    if (n == 2 && A == 1)
+      return run<2, 1>(A, N, P, q, delta0, counters, scratch, out, s);
+    if (n == 2)
+      return run<2, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
+    if (A == 1)
+      return run<4, 1>(A, N, P, q, delta0, counters, scratch, out, s);
     return run<4, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (wide_lanes(n) == 8)
+    return run_wide<8>(n, A, N, P, q, delta0, counters, scratch, out, s);
+  return run_wide<16>(n, A, N, P, q, delta0, counters, scratch, out, s);
 }

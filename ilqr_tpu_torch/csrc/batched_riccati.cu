@@ -55,12 +55,33 @@
 //   are formed in the compute warp.
 // - Lanes of instances past B (the last block) run on instance B - 1's data
 //   and store nothing: every lane takes part in every shuffle.
+// That register form serves (n_x, n_u) = (2, 1), (4, 1) and (4, 2).
+//
+// The wide form (wide_riccati_kernel; B4w), every other n_x, n_u <= 16,
+// as JAX's kernel takes them.  A step's operands no longer fit a lane
+// group's registers ((16, 4): 676 floats of inputs a step; the register
+// form's chunk ring would take ~173 KB a block there), so an instance is a
+// group of P lanes (P = 8 when n_x, n_u <= 8, else 16), lane r owning row
+// r, with every matrix in shared memory at row stride P + 1 and n_x, n_u
+// run-time bounds of one instantiation per P (riccati_scan.cuh, namespace
+// wide, as B1w and B6w).  A step is the register form's recursion, matrix
+// by matrix: T = f_x' V_xx and F = f_u' V_xx, Q_xx, Q_ux and Q_uu formed
+// in place over l_xx, l_ux and l_uu, the gain solve by the group's
+// Gauss-Jordan with partial pivoting (wide::inv; a zero pivot gives
+// non-finite gains, so ok = 0, as the plain version's solve flags it), W,
+// w, V_x and V_xx = sym(Q_xx + K'W + Q_ux'K).  Only the group's barriers
+// (__syncwarp over its mask) order it; a block is one warp, 32 / P
+// instances.  Each lane copies its rows of step t - 1's inputs into the
+// group's second stage by 4-byte cp.async while step t computes, so the
+// chain waits on device memory at its first step only; gains go out by
+// plain stores.  Groups past B return at once.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "riccati_scan.cuh"
 #include "runs.cuh"
 #include "smallmat.cuh"
 
@@ -436,15 +457,248 @@ int run(int B, int N, float reg, const float* reg_b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- The wide form (B4w) ------------------------------------------------
+
+constexpr int kWideThreads = 32;   // a block: one warp of 32 / P groups
+
+// Shared memory of one group, in floats: two stages of a step's inputs
+// (f_x, f_u, l_xx, l_ux, l_uu at row stride P + 1, then l_x, l_u), then
+// V_xx, T (later Q_uu + reg I, then W), F (later (Q_uu + reg I)^-1), K,
+// and the vectors V_x, Q_x, Q_u, u_ff, w and the pivot offers.
+template <int P>
+struct WideSmem {
+  static constexpr int LD = P + 1;
+  static constexpr int M = P * LD;
+  static constexpr int kFx = 0, kFu = M, kLxx = 2 * M, kLux = 3 * M,
+                       kLuu = 4 * M, kLx = 5 * M, kLu = 5 * M + P;
+  static constexpr int kStage = 5 * M + 2 * P;
+  static constexpr int kVxx = 2 * kStage, kT = kVxx + M, kF = kT + M,
+                       kK = kF + M;
+  static constexpr int kVx = kK + M, kQx = kVx + P, kQu = kQx + P,
+                       kU = kQu + P, kW = kU + P, kRed = kW + P;
+  static constexpr int kGroup = kRed + P;
+  static constexpr int kBytes = 4 * (kWideThreads / P) * kGroup;
+  static_assert(kBytes <= 48 * 1024, "a block needs no opt-in to its memory");
+};
+
+// This lane's rows of step s's inputs (s = b N + t) into stage st, by
+// 4-byte asynchronous copies in one group of this lane's.
+template <int P>
+__device__ __forceinline__ void load_step(const wide::Group<P>& g, int nx,
+                                          int nu, const BatchedExpansion& ex,
+                                          size_t s, float* st) {
+  using S = WideSmem<P>;
+  constexpr int LD = S::LD;
+  const int r = g.r;
+  if (r < nx) {
+    const size_t xx = s * nx * nx + (size_t)r * nx;
+    const size_t xu = s * nx * nu + (size_t)r * nu;
+    for (int j = 0; j < nx; ++j) {
+      cp_async4(st + S::kFx + r * LD + j, ex.f_x + xx + j);
+      cp_async4(st + S::kLxx + r * LD + j, ex.l_xx + xx + j);
+    }
+    for (int j = 0; j < nu; ++j) cp_async4(st + S::kFu + r * LD + j, ex.f_u + xu + j);
+    cp_async4(st + S::kLx + r, ex.l_x + s * nx + r);
+  }
+  if (r < nu) {
+    const size_t ux = s * nu * nx + (size_t)r * nx;
+    const size_t uu = s * nu * nu + (size_t)r * nu;
+    for (int j = 0; j < nx; ++j) cp_async4(st + S::kLux + r * LD + j, ex.l_ux + ux + j);
+    for (int j = 0; j < nu; ++j) cp_async4(st + S::kLuu + r * LD + j, ex.l_uu + uu + j);
+    cp_async4(st + S::kLu + r, ex.l_u + s * nu + r);
+  }
+  cp_async_commit();
+}
+
+// Row r of c (n x p) += a (n x m) b (m x p), the product summed first; c
+// aliases neither a nor b, and row r of c is this lane's alone.
+template <int P>
+__device__ __forceinline__ void mm_add(const wide::Group<P>& g, int n, int m,
+                                       int p, const float* a, const float* b,
+                                       float* c) {
+  constexpr int LD = P + 1;
+  if (g.r < n) {
+    for (int j = 0; j < p; ++j) {
+      float s = 0.0f;
+      for (int k = 0; k < m; ++k) s += a[g.r * LD + k] * b[k * LD + j];
+      c[g.r * LD + j] += s;
+    }
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kWideThreads)
+wide_riccati_kernel(BatchedExpansion ex, int nx, int nu, int B, int N,
+                    float reg, const float* __restrict__ reg_b,
+                    float* __restrict__ u_ff_out, float* __restrict__ K_out,
+                    float* __restrict__ dV_out,
+                    unsigned char* __restrict__ ok_out) {
+  using S = WideSmem<P>;
+  constexpr int LD = S::LD;
+  extern __shared__ __align__(16) float smem_w[];
+  const wide::Group<P> g;
+  const int r = g.r;
+  const int b = blockIdx.x * (kWideThreads / P) + (int)threadIdx.x / P;
+  if (b >= B) return;   // the whole group: it shares no barrier with others
+  float* sm = smem_w + (threadIdx.x / P) * S::kGroup;
+  float* Vxx = sm + S::kVxx;
+  float* T = sm + S::kT;
+  float* F = sm + S::kF;
+  float* Km = sm + S::kK;
+  float* Vx = sm + S::kVx;
+  float* Qx = sm + S::kQx;
+  float* Qu = sm + S::kQu;
+  float* u = sm + S::kU;
+  float* w = sm + S::kW;
+  float* red = sm + S::kRed;
+
+  if (r < nx) {
+    for (int j = 0; j < nx; ++j)
+      Vxx[r * LD + j] = ex.v_xx[((size_t)b * nx + r) * nx + j];
+    Vx[r] = ex.v_x[(size_t)b * nx + r];
+  }
+  const float rg = reg_b != nullptr ? reg_b[b] : reg;
+  float dv1 = 0.0f, dv2 = 0.0f;
+  bool bad = false;
+  load_step<P>(g, nx, nu, ex, (size_t)b * N + N - 1, sm);
+  for (int t = N - 1; t >= 0; --t) {
+    float* st = sm + ((N - 1 - t) & 1) * S::kStage;
+    if (t > 0) {
+      load_step<P>(g, nx, nu, ex, (size_t)b * N + t - 1,
+                   sm + ((N - t) & 1) * S::kStage);
+      cp_async_wait<1>();   // step t's copies (all but the newest group)
+    } else {
+      cp_async_wait<0>();
+    }
+    g.sync();
+    const float* fx = st + S::kFx;
+    const float* fu = st + S::kFu;
+    float* Qxx = st + S::kLxx;   // l_xx, then Q_xx, then Q_xx + K'W + Q_ux'K
+    float* Qux = st + S::kLux;   // l_ux, then Q_ux
+    float* Quu = st + S::kLuu;   // l_uu, then Q_uu
+
+    // The Q-expansion.
+    wide::mtm<P>(g, nx, nx, nx, fx, Vxx, T);   // T = f_x' V_xx
+    wide::mtm<P>(g, nu, nx, nx, fu, Vxx, F);   // F = f_u' V_xx
+    if (r < nx) {
+      float s = 0.0f;
+      for (int k = 0; k < nx; ++k) s += fx[k * LD + r] * Vx[k];
+      Qx[r] = st[S::kLx + r] + s;
+    }
+    if (r < nu) {
+      float s = 0.0f;
+      for (int k = 0; k < nx; ++k) s += fu[k * LD + r] * Vx[k];
+      Qu[r] = st[S::kLu + r] + s;
+    }
+    mm_add<P>(g, nx, nx, nx, T, fx, Qxx);
+    mm_add<P>(g, nu, nx, nx, F, fx, Qux);
+    mm_add<P>(g, nu, nx, nu, F, fu, Quu);
+    // Gains from (Q_uu + reg I)^-1, formed in F; T holds the system.
+    if (r < nu) {
+      for (int j = 0; j < nu; ++j)
+        T[r * LD + j] = Quu[r * LD + j] + (r == j ? rg : 0.0f);
+    }
+    g.sync();
+    wide::inv<P>(g, nu, T, F, red);
+    const size_t s0 = (size_t)b * N + t;
+    if (r < nu) {
+      for (int j = 0; j < nx; ++j) {
+        float s = 0.0f;
+        for (int a = 0; a < nu; ++a) s += F[r * LD + a] * Qux[a * LD + j];
+        Km[r * LD + j] = -s;
+        K_out[(s0 * nu + r) * nx + j] = -s;
+        bad |= !isfinite(s);
+      }
+      float s = 0.0f;
+      for (int a = 0; a < nu; ++a) s += F[r * LD + a] * Qu[a];
+      u[r] = -s;
+      u_ff_out[s0 * nu + r] = -s;
+      bad |= !isfinite(s);
+    }
+    g.sync();
+    // The value update through W = Q_uu K + Q_ux (in T) and
+    // w = Q_u + Q_uu u_ff.
+    if (r < nu) {
+      for (int j = 0; j < nx; ++j) {
+        float s = 0.0f;
+        for (int a = 0; a < nu; ++a) s += Quu[r * LD + a] * Km[a * LD + j];
+        T[r * LD + j] = s + Qux[r * LD + j];
+      }
+      float s = 0.0f;
+      for (int a = 0; a < nu; ++a) s += Quu[r * LD + a] * u[a];
+      w[r] = Qu[r] + s;
+    }
+    g.sync();
+    if (r < nx) {
+      float s1 = 0.0f, s2 = 0.0f;
+      for (int a = 0; a < nu; ++a) {
+        s1 += Km[a * LD + r] * w[a];
+        s2 += Qux[a * LD + r] * u[a];
+      }
+      Vx[r] = Qx[r] + s1 + s2;
+      for (int j = 0; j < nx; ++j) {
+        float k1 = 0.0f, k2 = 0.0f;
+        for (int a = 0; a < nu; ++a) {
+          k1 += Km[a * LD + r] * T[a * LD + j];
+          k2 += Qux[a * LD + r] * Km[a * LD + j];
+        }
+        Qxx[r * LD + j] = Qxx[r * LD + j] + k1 + k2;
+      }
+    }
+    g.sync();
+    wide::sym<P>(g, nx, Qxx, Vxx);
+    if (r == 0) {
+      float s1 = 0.0f, s2 = 0.0f;
+      for (int a = 0; a < nu; ++a) {
+        s1 = fmaf(u[a], Qu[a], s1);
+        s2 = fmaf(u[a], w[a] - Qu[a], s2);
+      }
+      dv1 += s1;
+      dv2 += 0.5f * s2;
+    }
+    g.sync();   // u, w and Q_u are read above before the next step writes them
+  }
+  red[r] = bad ? 1.0f : 0.0f;
+  g.sync();
+  if (r == 0) {
+    bool any_bad = false;
+    for (int i = 0; i < P; ++i) any_bad |= red[i] != 0.0f;
+    dV_out[(size_t)b * 2] = dv1;
+    dV_out[(size_t)b * 2 + 1] = dv2;
+    ok_out[b] = any_bad ? 0 : 1;
+  }
+}
+
+template <int P>
+int run_wide(int nx, int nu, int B, int N, float reg, const float* reg_b,
+             const BatchedExpansion& ex, float* u_ff, float* K, float* dV,
+             unsigned char* ok, cudaStream_t stream) {
+  const int blocks = (B + kWideThreads / P - 1) / (kWideThreads / P);
+  wide_riccati_kernel<P><<<blocks, kWideThreads, WideSmem<P>::kBytes,
+                           stream>>>(
+      ex, nx, nu, B, N, reg, reg_b, u_ff, K, dV, ok);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Steps per chunk (for tests that cross the chunk edges).
+// Steps per chunk of the register form (for tests that cross the chunk
+// edges).
 extern "C" int ilqr_batched_riccati_chunk_steps() { return kChunk; }
+
+// Lanes a group of the wide form gives an instance at (n_x, n_u) (0: the
+// register form's shapes, whose groups are n_x lanes).
+extern "C" int ilqr_batched_riccati_wide_lanes(int n_x, int n_u) {
+  if ((n_x == 2 && n_u == 1) || (n_x == 4 && (n_u == 1 || n_u == 2)))
+    return 0;
+  return n_x <= 8 && n_u <= 8 ? 8 : 16;
+}
 
 // reg_b (B,), or null for reg shared by every instance; expansion fields
 // (B, N, ...) and terminal (B, ...), contiguous; outputs u_ff (B, N, n_u),
 // K (B, N, n_u, n_x), dV (B, 2) and ok (B,) bytes (1: every gain of the
-// instance finite).
+// instance finite).  The register form at (2, 1), (4, 1), (4, 2), the wide
+// form at every other 1 <= n_x, n_u <= 16.
 extern "C" int ilqr_batched_riccati(
     int n_x, int n_u, int B, int N, float reg, const float* reg_b,
     const float* f_x, const float* f_u, const float* l_x, const float* l_u,
@@ -460,5 +714,9 @@ extern "C" int ilqr_batched_riccati(
     return run<4, 1>(B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
   if (n_x == 4 && n_u == 2)
     return run<4, 2>(B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (n_x < 1 || n_u < 1 || n_x > 16 || n_u > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ilqr_batched_riccati_wide_lanes(n_x, n_u) == 8)
+    return run_wide<8>(n_x, n_u, B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
+  return run_wide<16>(n_x, n_u, B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
 }

@@ -66,10 +66,11 @@ SIGNATURES = {
     "ilqr_affine_prefix_scan_counters": [_I, _I, _I],
     "ilqr_affine_prefix_scan_scratch": [_I, _I, _I],
     "ilqr_affine_prefix_scan_occupancy": [_I, _I],
-    "ilqr_affine_tile_steps": [],
+    "ilqr_affine_tile_steps": [_I, _I],
     "ilqr_batched_riccati": [_I, _I, _I, _I, _F] + [_P] * 10 + [_P] * 4
                             + [_P],
     "ilqr_batched_riccati_chunk_steps": [],
+    "ilqr_batched_riccati_wide_lanes": [_I, _I],
     "ilqr_linesearch_costs_batched": [_I] * 5 + [_P, _I, _I, _P, _P, _I,
                                                _P, _P, _P, _P, _I, _P, _P],
     "ilqr_closed_loop_rollout_batched": [_I] * 5 + [_P, _I, _I, _P, _P, _P,

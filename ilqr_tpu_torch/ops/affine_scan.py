@@ -10,16 +10,19 @@ elements (P_k, q_k^(1..A)) combine associatively,
 so the inclusive prefixes give every δ_{k+1} = (P_k⋯P_0) δ_0 + (q prefix)_k
 in ⌈log₂ N⌉ sweeps.  The plain version, `prefix_scan`, doubles over the
 whole horizon with torch ops; the CUDA kernel, `csrc/affine_scan.cu`, is
-one launch: 256-step tiles scanned by warp shuffles, a state carried
-across tiles by decoupled look-back, each step's δ closed in registers.
-Its counters and scratch come from `_build.scratch` (once per device,
-stream and shape); per call the wrapper allocates only δ.
+one launch: at n ∈ {2, 4} and up to 16 candidates (the register form)
+256-step tiles scanned by warp shuffles, elsewhere at n ≤ 16 and any
+number of candidates (the wide form) 32-step tiles run by lane groups, a
+state carried across tiles by decoupled look-back either way.  Its
+counters and scratch come from `_build.scratch` (once per device, stream
+and shape); per call the wrapper allocates only δ.
 
-Dispatch: ``engine='xla'`` runs the plain version on any device.
-``'pallas'`` and ``'auto'`` run the plain version on CPU tensors and launch
-the kernel on CUDA tensors, or raise: the kernel is instantiated for
-n ∈ `STATES` (the slice's models) and at most `MAX_CANDIDATES` candidates
-(ROADMAP item B3w).  As in JAX, n > 16 runs the plain version everywhere.
+Dispatch: ``engine='xla'`` runs the plain version on any device, and so
+does every engine on CPU tensors and at n > 16, as in JAX.  On a CUDA
+tensor ``'pallas'`` launches the kernel, which takes float32 at n ≤ 16
+(`kernel_takes`), or raises; ``'auto'`` launches it where it takes the
+inputs and runs the plain version elsewhere (float64), as JAX's 'auto'
+runs XLA wherever its kernel does not apply (`pallas_affine.py:300-304`).
 """
 from __future__ import annotations
 
@@ -29,8 +32,7 @@ from ilqr_tpu_torch.models.base import full_f32_matmuls
 from ilqr_tpu_torch.ops import _build
 
 KERNEL = "affine_prefix_scan"
-STATES = (2, 4)
-MAX_CANDIDATES = 16
+MAX_STATE = 16   # the largest n of the kernel (and of JAX's)
 ENGINES = ("auto", "pallas", "xla")
 
 
@@ -55,6 +57,13 @@ def prefix_scan(P: torch.Tensor, q: torch.Tensor):
     return P, q
 
 
+def kernel_takes(P, q, delta0) -> bool:
+    """Whether the kernel takes these inputs: float32, n <= `MAX_STATE`
+    (any number of candidates)."""
+    return (P.shape[-1] <= MAX_STATE
+            and all(t.dtype == torch.float32 for t in (P, q, delta0)))
+
+
 def _check(P, q, delta0) -> None:
     N, n = P.shape[0], P.shape[-1]
     A = q.shape[0]
@@ -74,9 +83,11 @@ def _check(P, q, delta0) -> None:
         raise ValueError("the CUDA affine scan needs a horizon N >= 1")
 
 
-def tile_steps(lib) -> int:
-    """Steps per tile of the kernel (its cross-tile carry period)."""
-    return lib.ilqr_affine_tile_steps()
+def tile_steps(lib, n: int, A: int) -> int:
+    """Steps per tile of the kernel at n and A candidates (its cross-tile
+    carry period): the register form's at n in {2, 4} with A <= 16, else
+    the wide form's."""
+    return lib.ilqr_affine_tile_steps(n, A)
 
 
 def launch(lib, P, q, delta0, stream) -> torch.Tensor:
@@ -105,17 +116,16 @@ def affine_prefix_scan_multi(P: torch.Tensor, q: torch.Tensor,
     """
     if engine not in ENGINES:
         raise ValueError(f"engine must be 'auto'|'pallas'|'xla', got {engine!r}")
-    n, A = P.shape[-1], q.shape[0]
+    n = P.shape[-1]
     device = P.device
-    if engine == "xla" or n > 16 or device.type == "cpu":
+    if (engine == "xla" or n > MAX_STATE or device.type == "cpu"
+            or (engine == "auto" and not kernel_takes(P, q, delta0))):
         Ps, qs = prefix_scan(P, q)
         deltas = torch.einsum("kij,aj->aki", Ps, delta0) + qs
         return torch.cat([delta0[:, None], deltas], dim=1)
-    if n not in STATES or A > MAX_CANDIDATES:
-        raise NotImplementedError(
-            f"the CUDA affine scan is instantiated for n in {STATES} and at "
-            f"most {MAX_CANDIDATES} candidates, got n={n}, A={A}: "
-            f"ROADMAP item B3w")
+    if not kernel_takes(P, q, delta0):
+        raise TypeError(f"the CUDA affine scan takes float32, got "
+                        f"{P.dtype}, {q.dtype}, {delta0.dtype}")
     if device.type != "cuda":
         raise ValueError(f"no affine scan kernel for device {device}")
     P, q, delta0 = P.contiguous(), q.contiguous(), delta0.contiguous()

@@ -4,8 +4,8 @@ PyTorch counterpart of `ilqr_tpu/ops/pallas_batched.py`.  Two CUDA kernels
 serve batched solving and batched MPC (`solver.solve_batch`):
 
 * B4, `csrc/batched_riccati.cu`: the sequential Riccati recursion of
-  `ops/riccati.py::backward_pass` for every instance, a group of n_x lanes
-  each, with the finite flag formed in the kernel (`backward_pass_batched`);
+  `ops/riccati.py::backward_pass` for every instance, a lane group each,
+  with the finite flag formed in the kernel (`backward_pass_batched`);
 * B5, the batched entries of `csrc/chain_rollout.cu`: B2's chain kernels
   with lanes carrying (instance, α) pairs — the candidate costs of a shared
   α schedule (`linesearch_costs_batched`), the trajectory at a
@@ -17,12 +17,18 @@ wrapper runs its plain version — the single-instance function with a
 leading batch axis (`torch.func.vmap` of `riccati.backward_pass`, so its
 small solves run on (B, n_u, n_u); `rollout.linesearch_rollouts`
 and `rollout.rollout`, whose host loop over time carries (B, A, n_x)
-states) — and on a CUDA tensor it launches the kernel or raises.  The
-kernels take float32 and the (n_x, n_u) of `SHAPES`; the rollouts take the
-pendulum and the double pendulum (`fused_rollout.device_model`) under
-every integrator, the implicit ones with the system's ``newton_iters``.
-Anything else raises on CUDA (ROADMAP items B4w, B2m and B5n, the device
-models B2 runs for the other families).  The kernels
+states) — and on a CUDA tensor it launches the kernel or raises.  B4 takes
+float32 at every n_x, n_u <= 16: its register form at the (n_x, n_u)
+of `fused_riccati.SHAPES`, its wide form (a group of 8 or 16 lanes an
+instance) elsewhere.
+Outside those, the backward pass follows JAX's batched rule
+(`pallas_batched.py:277-297`): engine 'auto' or 'scan' runs the plain
+version on the tensors' own device (f64, and the chain's n_x = 32), and
+'pallas' raises.  The rollouts take every model with a device function
+(`fused_rollout.device_model`: the pendulum and the double pendulum under
+every integrator, the implicit ones with the system's ``newton_iters``,
+and the cart-pole, the quadrotors and the car under the explicit ones);
+anything else raises on CUDA (ROADMAP item B2m-rest).  The kernels
 read instance rows at any 4-byte alignment.  JAX swaps its kernels in
 under `jax.vmap(solve)` by `custom_vmap` rules; the port calls them from
 its explicitly batched solve.
@@ -35,12 +41,7 @@ import torch
 
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops import _build
-from ilqr_tpu_torch.ops.fused_riccati import SHAPES
-from ilqr_tpu_torch.ops.fused_rollout import (
-    BATCHED_MODELS,
-    _params_on,
-    device_model,
-)
+from ilqr_tpu_torch.ops.fused_rollout import _params_on, device_model
 from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
 from ilqr_tpu_torch.ops.riccati import backward_pass
 from ilqr_tpu_torch.ops.rollout import linesearch_rollouts, rollout
@@ -49,6 +50,9 @@ KERNEL_RICCATI = "batched_riccati"
 KERNEL_COSTS = "linesearch_costs_batched"
 KERNEL_TRAJECTORY = "closed_loop_rollout_batched"
 KERNEL_OPEN_LOOP = "open_loop_rollout_batched"
+# The largest n_x and n_u of B4's wide form (JAX's kernel takes the same).
+MAX_WIDTH = 16
+ENGINES = ("auto", "scan", "pallas")
 _FIELDS = ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu", "v_x", "v_xx")
 
 
@@ -122,24 +126,39 @@ def launch_riccati(lib, exp: TrajectoryExpansion, reg, stream):
     return u_ff, K, dV, ok
 
 
+def kernel_takes(exp: TrajectoryExpansion) -> bool:
+    """Whether B4 takes this expansion's shape and dtype: float32 with
+    n_x and n_u at most `MAX_WIDTH`."""
+    n_x, n_u = exp.f_x.shape[-1], exp.l_u.shape[-1]
+    return (exp.f_x.dtype == torch.float32
+            and 1 <= n_x <= MAX_WIDTH and 1 <= n_u <= MAX_WIDTH)
+
+
 @full_f32_matmuls()
 def backward_pass_batched(
-    exp: TrajectoryExpansion, reg=0.0,
+    exp: TrajectoryExpansion, reg=0.0, engine: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The sequential backward pass of B instances: ``exp`` fields lead
     with B, ``reg`` is a number or (B,).  Returns (u_ff (B, N, n_u),
     K (B, N, n_u, n_x), dV (B, 2), ok (B,)) — `riccati.backward_pass` per
-    instance."""
+    instance.  ``engine`` 'auto' and 'scan' run the plain version where
+    B4 does not take the shape or dtype (`kernel_takes`), 'pallas' raises
+    there."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be 'auto'|'scan'|'pallas', "
+                         f"got {engine!r}")
     device = exp.f_x.device
     if device.type == "cpu":
         return vmap_backward(backward_pass, exp, reg)
+    if not kernel_takes(exp):
+        if engine == "pallas":
+            n_x, n_u = exp.f_x.shape[-1], exp.l_u.shape[-1]
+            raise NotImplementedError(
+                f"the batched CUDA backward pass takes float32 with n_x, "
+                f"n_u <= {MAX_WIDTH}, got {(n_x, n_u)} in {exp.f_x.dtype}")
+        return vmap_backward(backward_pass, exp, reg)
     if device.type != "cuda":
         raise ValueError(f"no batched backward pass kernel for device {device}")
-    n_x, n_u = exp.f_x.shape[-1], exp.l_u.shape[-1]
-    if (n_x, n_u) not in SHAPES:
-        raise NotImplementedError(
-            f"the batched CUDA backward pass is instantiated for (n_x, n_u) "
-            f"in {SHAPES}, got {(n_x, n_u)}: ROADMAP item B4w")
     _check_expansion(exp)
     reg_b = _reg_vector(reg, exp.f_x.shape[0], exp.f_x)
     with _build.on_device(device):
@@ -180,22 +199,10 @@ def _check_rollout(system: System, x0s, U_old, X_old=None, u_ff=None,
     return B, N
 
 
-def batched_device_model(system: System) -> Tuple[int, int]:
-    """`fused_rollout.device_model` for B5: the pendulum and the double
-    pendulum; the models B2 added later are not registered for the batched
-    entries yet (ROADMAP item B5n)."""
-    model, integ = device_model(system)
-    if model not in BATCHED_MODELS:
-        raise NotImplementedError(
-            "the batched CUDA rollouts (B5) run the pendulum and the double "
-            "pendulum; the other device models are ROADMAP item B5n")
-    return model, integ
-
-
 def launch_costs(lib, system, x0s, alphas, X_old, U_old, u_ff, K, stream):
     """Candidate costs (B, A); inputs must already have passed
     `_check_rollout`, ``alphas`` is (A,) float32 and contiguous."""
-    model, integ = batched_device_model(system)
+    model, integ = device_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     costs = torch.empty((B, alphas.numel()), dtype=torch.float32,
@@ -216,7 +223,7 @@ def launch_trajectory(lib, system, x0s, alpha_b, X_old, U_old, u_ff, K,
     open-loop rollout of U_old, when X_old, u_ff and K are None; inputs
     must already have passed `_check_rollout`, ``alpha_b`` is (B,) float32
     (ignored open loop)."""
-    model, integ = batched_device_model(system)
+    model, integ = device_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     opts = dict(dtype=torch.float32, device=x0s.device)

@@ -78,9 +78,6 @@ _MODELS = {
 # Models with the implicit integrators on the card (B2m); the rest run the
 # explicit ones there.
 _IMPLICIT_MODELS = (0, 1)
-# Models the batched entries (B5) take: the pendulum and the double
-# pendulum (the others are ROADMAP item B5n).
-BATCHED_MODELS = (0, 1)
 # integrator -> id of csrc/models.cuh's Integrator.
 _INTEGRATORS = {"euler": 0, "midpoint": 1, "rk4": 2, "backward_euler": 3,
                 "trapezoidal": 4}

@@ -452,11 +452,13 @@ def solve(
 
 def _backward_batch(exp, reg: float, config: IlqrConfig):
     """'scan', 'pallas' and 'auto' run the batched sequential recursion
-    (kernel B4 on CUDA tensors); 'pscan' the associative scan per
-    instance."""
-    if config.resolved_backward() == "pscan":
+    (kernel B4 on CUDA tensors where it takes the shape and dtype; there
+    'pallas' raises and the others run the plain version); 'pscan' the
+    associative scan per instance."""
+    engine = config.resolved_backward()
+    if engine == "pscan":
         return vmap_backward(backward_pass_associative, exp, reg)
-    return backward_pass_batched(exp, reg)
+    return backward_pass_batched(exp, reg, engine)
 
 
 def _initial_rollout_batch(system: System, x0s, U, config: IlqrConfig):
@@ -494,7 +496,9 @@ def solve_batch(
 
     The accept decision stays on the device; the one host read per
     iteration is whether any instance still runs.  Engines: ``backward``
-    'scan'/'pallas'/'auto' → `ops.batched.backward_pass_batched` (B4),
+    'scan'/'pallas'/'auto' → `ops.batched.backward_pass_batched` (B4;
+    outside its float32 n_x, n_u <= 16 'pallas' raises, the others run
+    its plain version),
     'pscan' → the associative scan per instance; ``rollout`` 'pallas' → B5
     (costs of every (instance, α), then one trajectory at each instance's
     α, and the open-loop initial rollout), 'scan'/'auto' → the plain

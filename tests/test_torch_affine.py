@@ -112,26 +112,35 @@ def test_single_drive_scan_matches_jax(dtype):
 
 
 def test_dispatch_refuses_what_the_kernel_does_not_take():
-    """Engine names as in JAX; off the CPU an uninstantiated n or too many
-    candidates raise (B3w) and never run the plain version; the checks
-    the CUDA wrapper runs before a launch."""
+    """Engine names as in JAX.  Off the CPU, 'auto' launches the kernel
+    where it takes the inputs (float32, n <= 16, any number of candidates:
+    here a meta tensor, which no kernel takes, raises at the device check)
+    and runs the plain version elsewhere (float64), as JAX's 'auto' runs
+    XLA; 'pallas' raises where the kernel does not take the inputs and
+    never runs the plain version.  Then the checks the CUDA wrapper runs
+    before a launch."""
     P, q, d0 = (torch.tensor(a, dtype=torch.float32)
                 for a in _problem(6, 4, 3, seed=0))
     with pytest.raises(ValueError, match="engine"):
         itt.affine_prefix_scan_multi(P, q, d0, engine="cuda")
     meta = dict(device="meta", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="B3w"):
-        itt.affine_prefix_scan_multi(torch.empty(6, 3, 3, **meta),
-                                     torch.empty(2, 6, 3, **meta),
-                                     torch.empty(2, 3, **meta))
-    with pytest.raises(NotImplementedError, match="B3w"):
-        itt.affine_prefix_scan_multi(torch.empty(6, 2, 2, **meta),
-                                     torch.empty(17, 6, 2, **meta),
-                                     torch.empty(17, 2, **meta))
-    with pytest.raises(ValueError, match="device"):
-        itt.affine_prefix_scan_multi(torch.empty(6, 2, 2, **meta),
-                                     torch.empty(3, 6, 2, **meta),
-                                     torch.empty(3, 2, **meta))
+    meta64 = dict(device="meta", dtype=torch.float64)
+    for engine in ("auto", "pallas"):
+        for n, A in ((3, 2), (12, 10), (2, 17), (4, 3)):
+            with pytest.raises(ValueError, match="device"):
+                itt.affine_prefix_scan_multi(torch.empty(6, n, n, **meta),
+                                             torch.empty(A, 6, n, **meta),
+                                             torch.empty(A, n, **meta),
+                                             engine=engine)
+    out = itt.affine_prefix_scan_multi(torch.empty(6, 12, 12, **meta64),
+                                       torch.empty(10, 6, 12, **meta64),
+                                       torch.empty(10, 12, **meta64))
+    assert out.device.type == "meta" and tuple(out.shape) == (10, 7, 12)
+    with pytest.raises(TypeError, match="float32"):
+        itt.affine_prefix_scan_multi(torch.empty(6, 12, 12, **meta64),
+                                     torch.empty(10, 6, 12, **meta64),
+                                     torch.empty(10, 12, **meta64),
+                                     engine="pallas")
     # n > 16 runs the plain version on every device, as in JAX.
     wide = itt.affine_prefix_scan_multi(torch.eye(17).expand(3, 17, 17),
                                         torch.ones(1, 3, 17),

@@ -144,7 +144,8 @@ def test_quadrotor3d_pitch_guard_on_the_device_model(host_lib):
 def test_device_model_dispatch_and_refusals():
     """Model ids and integrators of the new families; their implicit rules
     and the systems without a device function raise with ROADMAP item
-    B2m-rest, B5 (the batched entries) with B5n."""
+    B2m-rest, in B2's entries and in B5's; the models reach B5's batched
+    entries (B5n)."""
     ids = {name: fused_rollout.device_model(s)
            for name, s in _systems("midpoint").items()}
     assert ids == {"cartpole": (2, 1), "quadrotor": (3, 1),
@@ -167,9 +168,40 @@ def test_device_model_dispatch_and_refusals():
     for s in wrapped:
         with pytest.raises(NotImplementedError, match="B2m-rest"):
             fused_rollout.device_model(s)
-    with pytest.raises(NotImplementedError, match="B5n"):
-        batched.launch_costs(None, cart, torch.zeros(2, 4), torch.ones(1),
-                             None, torch.zeros(2, 3, 1), None, None, None)
+    # B5's batched entries take the new models (B5n): a stand-in library
+    # records what each launcher hands it.
+    class StandIn:
+        calls = []
+
+        def _record(self, *args):
+            self.calls.append(args[:8])
+            return 0
+
+        ilqr_linesearch_costs_batched = _record
+        ilqr_closed_loop_rollout_batched = _record
+        ilqr_open_loop_rollout_batched = _record
+
+    lib = StandIn()
+    for integ in ("euler", "midpoint", "rk4"):
+        for name, system in _systems(integ).items():
+            x0, X, U, u_ff, K = _nominal(name, system, 3, 0)
+            x0s, Xs, Us = x0.expand(2, -1), X.expand(2, -1, -1), U.expand(
+                2, -1, -1)
+            fs, Ks = u_ff.expand(2, -1, -1), K.expand(2, -1, -1, -1)
+            batched.launch_costs(lib, system, x0s, torch.ones(2), Xs, Us, fs,
+                                 Ks, 0)
+            batched.launch_trajectory(lib, system, x0s, torch.ones(2), Xs,
+                                      Us, fs, Ks, 0)
+            batched.launch_trajectory(lib, system, x0s, None, None, Us, None,
+                                      None, 0)
+            want = fused_rollout.device_model(system) + (
+                system.newton_iters, system.n_x, system.n_u)
+            assert [c[:5] for c in lib.calls[-3:]] == [want] * 3
+            assert all(c[7] == 2 for c in lib.calls[-3:])   # B
+    with pytest.raises(NotImplementedError, match="B2m-rest"):
+        batched.launch_costs(None, cart.with_integrator("backward_euler"),
+                             torch.zeros(2, 4), torch.ones(1), None,
+                             torch.zeros(2, 3, 1), None, None, None)
     p = fused_rollout.params_buffer(_systems("rk4")["quadrotor3d_rotor"])
     assert p.numel() == 1 + 16 + 256 + 16 + 256 + 8
 
@@ -231,20 +263,25 @@ def _tumbling_nominal(system, rotor, seed):
 
 
 @pytest.mark.parametrize("integrator", ["euler", "midpoint", "rk4"])
-@pytest.mark.parametrize("name", ["quadrotor3d", "quadrotor3d_rotor"])
+@pytest.mark.parametrize("name", ["quadrotor3d", "quadrotor3d_rotor",
+                                  "cartpole", "quadrotor", "car"])
 def test_chip_smoke_b2_nominals_do_not_amplify_rounding(host_lib, name,
                                                         integrator):
     """chip_smoke.py's phase 28 holds B2 to max(RTOL_B2 of the output's max,
-    F32_FLOOR times the plain version's own f32 error against f64).  Two f32
-    evaluations in other orders err alike only where the recursion does not
-    amplify a rounding.  On phase 28's 3-D quadrotor nominals (dt 0.005,
-    noise 0.003, N = 500, its seeds) a relative change of 1e-7 in x0 grows
-    at most 100-fold along the closed loops of 10 alphas (38-fold at most
-    on seeds 11-15), and the host build of the kernel meets that gate.  On
-    its first ones (dt 0.02, noise 0.3: the craft tumbles) the same change
-    grows more than 1e6-fold within 129 steps on one of seeds 11-15 at
-    least, and there two f32 evaluations part from f64 by unrelated
-    amounts."""
+    F32_FLOOR times the plain version's own f32 error against f64), and
+    phase 32 holds B5 on the same models to the plain f32 version.  Two
+    f32 evaluations in other orders err alike only where the recursion
+    does not amplify a rounding.  On phase 28's nominals (N = 500, its
+    seeds; the cart-pole and both quadrotors at dt 0.005, the 3-D ones
+    with noise 0.003) a relative change of 1e-7 in x0 grows at most
+    100-fold along the closed loops of 10 alphas (38-fold at most for the
+    3-D quadrotors on seeds 11-15), and the host build of the kernel meets
+    that gate.  At the cart-pole's dt 0.02 and the planar quadrotor's 0.01
+    the same change grew 255-fold (cart-pole, euler) and 2199-fold
+    (quadrotor, midpoint).  On the 3-D quadrotors' first nominals (dt
+    0.02, noise 0.3: the craft tumbles) it grows more than 1e6-fold
+    within 129 steps on one of seeds 11-15 at least, and there two f32
+    evaluations part from f64 by unrelated amounts."""
     import chip_smoke as cs
 
     system = cs.wide_model_systems(itt, F32, integrator)[name]
@@ -264,6 +301,8 @@ def test_chip_smoke_b2_nominals_do_not_amplify_rounding(host_lib, name,
     floor = float((plain.double() - ref).abs().max())
     assert err <= max(cs.RTOL_B2 * float(ref.abs().max()),
                       cs.F32_FLOOR * floor)
+    if not name.startswith("quadrotor3d"):
+        return
     rotor = name == "quadrotor3d_rotor"
     tumbling = _q3(rotor, integrator)
     assert max(_x0_growth(tumbling, _tumbling_nominal(tumbling, rotor, seed),

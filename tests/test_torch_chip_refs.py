@@ -30,7 +30,7 @@ MPC_STEPS = 20   # chip_smoke.py's WIDE_STEPS
 
 # Between the f32 result of the host that runs this and the constant (taken
 # on an x86 host): another host's BLAS blocking may move the last digits.
-# The chip's gates are 1e-3 (phases 21, 29) and 1e-4 (phase 21's DDP
+# The chip's gates are 1e-3 (phases 21, 29, 34) and 1e-4 (phase 21's DDP
 # pendulum).
 RTOL = 1e-5
 
@@ -138,6 +138,50 @@ def car():
                  jnp.zeros(4), jnp.zeros((120, 2)))
 
 
+def _p1():
+    """Phase 34's P1 problem (tests/test_quadrotor3d.py:27-29, 146-156):
+    dt 0.02, target (1, 1, 1), hover controls, N = 80, maxiter 40, tol
+    1e-5, JAX's default engines."""
+    Q, R, Q_f = default_weights()
+    sys_ = make_quadrotor3d(0.02, [1.0, 1.0, 1.0] + [0.0] * 9, Q, R, Q_f)
+    return sys_, jnp.tile(q3_hover(sys_.params), (80, 1))
+
+
+def _p1_x0(x):
+    return jnp.zeros(12).at[0].set(x)
+
+
+def p1(i):
+    """Phase 34's P1: instance i of the x0 spread over [-0.2, 0.2] at B =
+    256 (the spread's f32 linspace as torch makes it), CONVERGED."""
+    sys_, U0 = _p1()
+    x = float(np.linspace(-0.2, 0.2, 256, dtype=np.float32)[i])
+    sol = jax.jit(lambda x0, U: it.solve(
+        sys_, x0, U, it.IlqrConfig(maxiter=40, tol=1e-5)))(_p1_x0(x), U0)
+    assert int(sol.status) == it.CONVERGED
+    return float(sol.cost)
+
+
+def p3_defect():
+    """Phase 34's P3: P1's first instance by the defect line search with
+    the defect initial rollout (JAX's 'scan' backward pass, XLA scan)."""
+    sys_, U0 = _p1()
+    cfg = it.IlqrConfig(maxiter=40, tol=1e-5, rollout="defect",
+                        init_rollout="defect", backward="scan")
+    return _cost(lambda x, U: it.solve(sys_, x, U, cfg).cost, _p1_x0(-0.2),
+                 U0)
+
+
+def p3_ms():
+    """Phase 34's P3 by multiple shooting (update engine 'xla')."""
+    from ilqr_tpu.shooting import MsConfig, solve_ms
+    sys_, U0 = _p1()
+    cfg = it.IlqrConfig(maxiter=40, tol=1e-5, backward="scan")
+    return _cost(lambda x, U: solve_ms(sys_, x, U, config=cfg,
+                                       ms=MsConfig(update_engine="xla")).cost,
+                 _p1_x0(-0.2), U0)
+
+
 # chip_smoke.py's name of each constant, and the function that computes it.
 REFS = {
     "LIMITED_PEND_SEQ_COST": limited_pendulum,
@@ -147,6 +191,11 @@ REFS = {
     "JAX_F32['dash']": dash,
     "JAX_F32['cartpole_mpc_20']": cartpole_mpc,
     "JAX_F32['car']": car,
+    "JAX_F32['p1_0']": lambda: p1(0),
+    "JAX_F32['p1_127']": lambda: p1(127),
+    "JAX_F32['p1_255']": lambda: p1(255),
+    "JAX_F32['p3_defect']": p3_defect,
+    "JAX_F32['p3_ms']": p3_ms,
 }
 
 

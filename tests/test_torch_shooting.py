@@ -209,20 +209,28 @@ def test_solve_ms_pendulum_golden_matches_jax(engines, dtype):
     assert float(sol.defect) < 1e-5
     # Both packages' f64 solves stop after six iterations.  The sixth moves
     # the f64 cost by 3e-7, below the f32 resolution of the cost, and there
-    # the f32 solves part: JAX's takes α = 0.5 and a seventh iteration, the
-    # port's accepts no step and stops.  So the count is held to the f64
-    # solve's, the traces to the same package's solve before that floor,
-    # and, in f32, the whole traces to the f64 solve as well.
-    assert sol.iterations == int(ref64.iterations)
+    # the f32 solves part, by host: JAX's takes α = 0.5 at that sixth step
+    # and runs a seventh iteration; the port's does the same on some hosts
+    # and on others accepts no step and stops after six.  So the count is
+    # held to the f64 solve's or to JAX f32's, the traces to the same
+    # package's solve before that floor, and, in f32, the whole traces to
+    # the f64 solve but the floor's entry: no step, the f64 solve's step,
+    # or JAX f32's step, which then moves the cost by less than one f32 eps
+    # of it.
+    assert sol.iterations in (int(ref64.iterations), int(ref.iterations))
     n = None if dtype == torch.float64 else int(ref64.iterations) - 1
     _assert_traces(sol, ref, slice(None, n))
     if dtype == torch.float32:
+        eps = np.finfo(np.float32).eps
         c64 = ref64.cost_trace
-        assert abs(c64[n] - c64[n - 1]) < np.finfo(np.float32).eps * c64[n]
+        assert abs(c64[n] - c64[n - 1]) < eps * c64[n]
         _assert_traces(sol, ref64, np.arange(len(c64)) != n)
-        # At the floor iteration the f32 solve accepts no step, or the f64
-        # solve's step.
-        if not np.isnan(sol.alpha_trace.numpy()[n]):
+        if sol.iterations != int(ref64.iterations):
+            # JAX f32's extra step.
+            cost = sol.cost_trace.numpy()
+            assert abs(cost[n] - cost[n - 1]) < eps * cost[n]
+            _assert_traces(sol, ref, slice(n, n + 1))
+        elif not np.isnan(sol.alpha_trace.numpy()[n]):
             _assert_traces(sol, ref64, slice(n, n + 1))
     np.testing.assert_allclose(sol.X.numpy(), ref.X, atol=1e-3)
 
