@@ -12,11 +12,12 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
 1. prints the GPU's name and power limit, the torch and CUDA versions and
    the kernel build time (with each kernel's registers and spills; the
    chain and look-back kernels must not spill), and the loops of the DP
-   flagship's rollout kernels in SASS (instructions, loads from shared,
-   global, constant and local memory) where the toolkit has cuobjdump;
-   and counts by torch.profiler the kernels a call launches: one for B1,
-   B1d, B3, B6, B7, B4 and each B5 entry (the kernels line's launches per
-   call);
+   flagship's rollout kernels, the wide implicit rules and a tracking
+   form in SASS (instructions, loads from shared, global, constant and
+   local memory) where the toolkit has cuobjdump (read beside the later
+   phases, printed before the kernels line); and counts by torch.profiler
+   the kernels a call launches: one for B1, B1d, B3, B6, B7, B4 and each
+   B5 entry, and the wide forms (the kernels line's launches per call);
 2. checks the fused backward pass (B1, one launch) against its plain
    version on the double-pendulum, pendulum and under-actuated
    double-pendulum expansions, at N = 500, at the tile edges (N + 1 = T - 1,
@@ -35,7 +36,7 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    one, an N that wraps the ring twice and ends mid-chunk, and 500, with 1,
    10 and 33 alphas (their plain versions in f32 on the host, in child
    processes), the UA-DP's backward Euler also at newton_iters 1 and 10, and
-   at N = 100000 against the plain versions in f64 on the host on a damped
+   at N = 50000 against the plain versions in f64 on the host on a damped
    pendulum (rk4; costs summed in f32 in time order, as the kernels sum);
 4. solves the double-pendulum swing-up (N = 500, maxiter 200, tol 1e-6,
    euler) with backward='pallas' and rollout='pallas', with the launch
@@ -150,8 +151,8 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    main(plot=False): the pendulum and DP open loops under phase 4's gates
    (phase 4 solves the open-loop drivers' problem() and runs the UA-DP
    driver's main as its golden), and the FA and UA double-pendulum MPC at
-   full horizon cut to DRIVER_STEPS steps, their first MPC_REF_STEPS held to
-   the same loops with backward='scan', rollout='scan';
+   full horizon cut to DRIVER_STEPS steps, their first DRIVER_REF_STEPS held
+   to the same loops with backward='scan', rollout='scan';
 24. solves examples_torch/constrained_pendulum.py at full size (N = 400,
    rk4, |u| <= 3 and the exact goal) by the augmented Lagrangian with
    backward='pallas' (B1, one launch per backward pass) and 'pscan' (B1's
@@ -219,7 +220,25 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    shooting (B1w with defects, B3w), held to 'scan' and to the JAX
    package's f32 costs; a float64 batched solve of the planar quadrotor
    under 'auto' (the plain route, no B4 launch); and times B4w, B5n and
-   B3w at the paths' shapes.
+   B3w at the paths' shapes;
+35. runs the rollout kernels on every system JAX's kernels take: the LTI
+   systems at (2, 1) ... (16, 4) under euler, midpoint, rk4 and
+   'discrete', the tracking and rate wrappers over the register models and
+   the LTI systems, the implicit rules of the cart-pole, the quadrotors and
+   the car, and the spring chain (16 masses): 119 instantiations, each at
+   N = 1, its ring chunk less and plus one, and 500: B2a with 1, 10 and 33
+   alphas, B2b and the open loop, and B5's three entries on 3 instances
+   (but for the implicit rules), against the plain rollouts in f64 on the
+   host (in child processes) under phase 28's rule, every call twice, bit
+   for bit; B7w (the suffix scan's 'lane' layout at n = 6, 12, 16) at its
+   tile edges, past the resident tiles, M = 151 and 32769; the paths P4
+   (examples/reference_tracking_mpc.py's tracking MPC through B1w (3, 1)
+   and B2's tracking form, cut to 100 of its 600 steps), P5 (batched
+   solves of bench.py's cart-pole with a rate penalty, B = 256, N = 100:
+   B4w (5, 1), B5 on the rate form) and P6 (examples/linear_lqr.py's
+   double integrator under 'discrete': B1 and B2's LTI form), each against
+   the JAX package's f32 results; and times each family at its path's
+   shape or alone.
 Every phase prints its seconds.
 Each solve phase resets the launch counts just before it and reads them
 just after.  The kernels line gives every kernel's time, its plain
@@ -233,6 +252,7 @@ device it exits non-zero before printing any result.  The last line is
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -265,7 +285,13 @@ MPC_STEPS = 20
 # Phase 23 runs the FA and UA double-pendulum MPC drivers for DRIVER_STEPS
 # steps (cut from MPC_STEPS when phases 31-34 came, for the time limit).
 DRIVER_STEPS = 10
-MPC_REF_STEPS = 3
+# Phases 4, 25 and 29 hold MPC_REF_STEPS of their MPC loops to scan/scan
+# (cut from 3 when phase 35 came, for the time limit).
+MPC_REF_STEPS = 2
+# Phase 23 holds the first DRIVER_REF_STEPS of the DP MPC drivers to their
+# scan loops (backward='scan', rollout='scan'; ~5-11 s a step on an H100),
+# cut from 3 when phase 35 came, for the time limit.
+DRIVER_REF_STEPS = 1
 LONG_N = 131072
 
 # B1 tolerance: max|kernel - plain| <= max(RTOL_B1 * max|plain|,
@@ -295,6 +321,11 @@ RTOL_B3 = 1e-5
 RTOL_LS = 1e-4
 RTOL_MS = 1e-4
 BENCH_N = 100_000
+# Phase 3 holds B2 to its plain versions in f64 on the host at this N (a
+# child process that took 42 s at BENCH_N on the H100 machine's host, the
+# phase's longest part; cut from BENCH_N when phase 35 came, for the time
+# limit).
+CHAIN_LONG_N = 25_000
 # B4 tolerance: max|kernel - plain| <= max(RTOL_B4 * max|plain|,
 # F32_FLOOR * max|plain - plain in f64|).  Both run the same sequential
 # recursion in f32 with other operation orders (closed-form inverse against
@@ -1164,8 +1195,10 @@ def combine_ops(n_x: int) -> int:
 # the other of sincosf's outputs (or r r) and n_x products.  The double
 # pendulum's torque S u adds 4 n_u to both.
 FCONT_OPS = {"pendulum": (5, 16), "double_pendulum": (46, 302)}
-# The evaluations and state updates of one explicit integrator step.
-INTEGRATOR_EVALS = {"euler": (1, 2), "midpoint": (2, 5), "rk4": (4, 14)}
+# The evaluations and state updates of one explicit integrator step
+# ('discrete': the map itself).
+INTEGRATOR_EVALS = {"euler": (1, 2), "midpoint": (2, 5), "rk4": (4, 14),
+                    "discrete": (1, 0)}
 # smallmat.cuh's inv<n>: at n = 2 the determinant (3), its reciprocal and
 # four products; at n = 4 two of those, six 2 x 2 products (12 each) and
 # eight sums.
@@ -1173,47 +1206,91 @@ INV_OPS = {2: 8, 4: 2 * 8 + 6 * 12 + 8}
 NEWTON_ITERS = 10   # System.newton_iters, the implicit rules' corrections
 
 
-def fcont_ops(model: str, n_u: int, dual: bool = False) -> int:
+def fcont_ops(model: str, n_u: int, dual: bool = False, n_x: int = 0
+              ) -> int:
+    """One evaluation of a model's f (FCONT_OPS); the LTI systems' two
+    products (2 n_x^2 + 2 n_x n_u - n_x) and the spring chain's 10 an
+    oscillator (S u is formed once a step) from their shapes."""
+    if model == "lti":
+        return 2 * n_x * n_x + 2 * n_x * n_u - n_x
+    if model == "spring_chain":
+        return 10 * (n_x // 2)
     torque = 4 * n_u if model == "double_pendulum" else 0
     return FCONT_OPS[model][dual] + torque
 
 
+def gauss_jordan_ops(n: int) -> int:
+    """models.cuh's gauss_jordan on [M | I] (n x 2n): at pivot k the
+    search (n - k - 1 comparisons), the pivot row scaled (2n - k and the
+    reciprocal) and n - 1 rows updated (2 (2n - k) each)."""
+    return sum((n - k - 1) + (2 * n - k + 1) + (n - 1) * 2 * (2 * n - k)
+               for k in range(n))
+
+
 def integrator_ops(model: str, integrator: str, n_x: int, n_u: int) -> int:
     """One integrator step.  The implicit rules (models.cuh, integrate):
-    the predictor (one evaluation and 2 n_x), df/dx by one dual evaluation,
-    I - h df/dx (2 n_x^2) and its closed-form inverse, and NEWTON_ITERS
-    corrections of one evaluation, the residual (3 n_x for backward Euler,
-    4 n_x for trapezoidal), a matrix-vector product (2 n_x^2) and the
-    update (n_x) each."""
-    f = fcont_ops(model, n_u)
+    the predictor (one evaluation and 2 n_x), df/dx, I - h df/dx (2 n_x^2)
+    and its inverse, and NEWTON_ITERS corrections of one evaluation, the
+    residual (3 n_x for backward Euler, 4 n_x for trapezoidal), a
+    matrix-vector product (2 n_x^2) and the update (n_x) each.  Up to
+    n_x = 4 df/dx is one Dual<n_x> evaluation and the inverse a closed
+    form; wider, n_x Dual<1> evaluations (FCONT_OPS's dual count is then a
+    column's) and Gauss-Jordan."""
+    f = fcont_ops(model, n_u, n_x=n_x)
     if integrator in INTEGRATOR_EVALS:
         evals, axpy = INTEGRATOR_EVALS[integrator]
         return evals * f + axpy * n_x
     residual = 4 * n_x if integrator == "trapezoidal" else 3 * n_x
-    return (f + 2 * n_x + fcont_ops(model, n_u, dual=True) + 2 * n_x * n_x
-            + INV_OPS[n_x]
+    if n_x <= 4:
+        jac = fcont_ops(model, n_u, dual=True) + INV_OPS[n_x]
+    else:
+        jac = n_x * fcont_ops(model, n_u, dual=True) + gauss_jordan_ops(n_x)
+    return (f + 2 * n_x + jac + 2 * n_x * n_x
             + NEWTON_ITERS * (f + residual + 2 * n_x * n_x + n_x))
 
 
 def rollout_step_ops(model: str, integrator: str, n_x: int, n_u: int,
                      feedback: bool = True) -> int:
     """One closed-loop (or open-loop) rollout step: the control law
-    u = u_old + a u_ff + K (x - x_old), the dynamics step and the quadratic
-    stage cost."""
+    u = u_old + a u_ff + K (x - x_old), the dynamics step and the stage
+    cost.  ``model``: a name of FCONT_OPS under the quadratic costs, "lti",
+    "spring_chain" (its diagonal costs, S u once a step), or a wrapper
+    "tracking:<base>" (the base's step and the clock's update; the cost
+    about the reference row: the rounded clock, its clamps, dx and du) or
+    "rate:<base>" (the base's step on n_x - n_u states; its cost and the
+    rate term 0.5 du' S du dt)."""
     control = 2 * n_u * n_x + 3 * n_u + n_x if feedback else 0
-    cost = 3 * (n_x * n_x + n_u * n_u) + n_x + 4
-    return control + integrator_ops(model, integrator, n_x, n_u) + cost
+    if model.startswith("tracking:"):
+        base, n_b = model.split(":")[1], n_x - 1
+        step = (integrator_ops(base, integrator, n_b, n_u)
+                + INTEGRATOR_EVALS[integrator][1])
+        cost = 3 * (n_b * n_b + n_u * n_u) + n_b + n_u + 8
+    elif model.startswith("rate:"):
+        base, n_b = model.split(":")[1], n_x - n_u
+        step = integrator_ops(base, integrator, n_b, n_u)
+        cost = (3 * (n_b * n_b + n_u * n_u) + n_b + 4
+                + n_u + 3 * n_u * n_u + 3)
+    elif model == "spring_chain":
+        m = n_x // 2
+        step = integrator_ops(model, integrator, n_x, n_u) + 2 * m * n_u
+        cost = 5 * m + 2 * n_u + 6
+    else:
+        step = integrator_ops(model, integrator, n_x, n_u)
+        cost = 3 * (n_x * n_x + n_u * n_u) + n_x + 4
+    return control + step + cost
 
 
 def batched_bounds(B: int, N: int, A: int, n_x: int = 4, n_u: int = 2,
-                   model: str = "double_pendulum", integrator: str = "euler"):
+                   model: str = "double_pendulum", integrator: str = "euler",
+                   extra_floats: int = 0):
     """Bounds of B4 and the B5 entries on B instances of N steps (the DP
     under euler unless ``model`` and ``integrator`` say otherwise), A
-    alphas."""
+    alphas; ``extra_floats``: parameters the rollouts read beyond
+    `params_floats` (a tracking reference's rows)."""
     step_ops = rollout_step_ops(model, integrator, n_x, n_u)
     traj_in = B * ((N + 1) * n_x + 2 * N * n_u + N * n_u * n_x + n_x)
     traj_out = B * ((N + 1) * n_x + N * n_u + 1)
-    p_in = params_floats(n_x, n_u)
+    p_in = params_floats(n_x, n_u) + extra_floats
     return {
         "batched_riccati": bound(
             4 * B * (expansion_floats(N, n_x, n_u) + N * (n_u + n_u * n_x)
@@ -1243,18 +1320,19 @@ def params_floats(n_x: int, n_u: int) -> int:
 
 
 def chain_bounds(n_x: int, n_u: int, N: int, A: int, model="double_pendulum",
-                 integrator="euler"):
+                 integrator="euler", extra_floats: int = 0):
     """Bounds of the B = 1 chain kernels at horizon N: the costs of A
-    alphas, the trajectory of one, and the open loop."""
+    alphas, the trajectory of one, and the open loop; ``extra_floats`` as
+    in `batched_bounds`."""
     ops = rollout_step_ops(model, integrator, n_x, n_u)
-    traj_in = ((N + 1) * n_x + 2 * N * n_u + N * n_u * n_x
-               + params_floats(n_x, n_u) + n_x)
+    p_in = params_floats(n_x, n_u) + extra_floats
+    traj_in = ((N + 1) * n_x + 2 * N * n_u + N * n_u * n_x + p_in + n_x)
     return {
         "linesearch_costs": bound(4 * (traj_in + 2 * A), A * N * ops),
         "closed_loop_rollout": bound(
             4 * (traj_in + 1 + (N + 1) * n_x + N * n_u + 1), N * ops),
         "open_loop_rollout": bound(
-            4 * (n_x + N * n_u + params_floats(n_x, n_u) + (N + 1) * n_x + 1),
+            4 * (n_x + N * n_u + p_in + (N + 1) * n_x + 1),
             N * rollout_step_ops(model, integrator, n_x, n_u, feedback=False)),
     }
 
@@ -1271,7 +1349,20 @@ CHAIN_REG = 1.0   # the regularization of phase 3's B1 gains
 SASS_KERNELS = {
     "chain_kernel DP (4,2) euler": (
         "chain_kernel<ilqr::DoublePendulumRegs<2>, 4, 2, 0,",
-        "chain_kernelIN4ilqr18DoublePendulumRegsILi2EEELi4ELi2ELi0E"),
+        "chain_kernelINS_18DoublePendulumRegsILi2EEELi4ELi2ELi0E"),
+    # The wide implicit rules (df/dx by columns, Gauss-Jordan in shared
+    # memory) and a wrapper (the tracked pendulum, rk4).
+    "chain_kernel 3-D quadrotor (12,4) backward Euler": (
+        "chain_kernel<ilqr::Quadrotor3dRegs<4>, 12, 4, 3,",
+        "chain_kernelINS_15Quadrotor3dRegsILi4EEELi12ELi4ELi3E"),
+    "chain_kernel rotor variant (16,4) trapezoidal": (
+        "chain_kernel<ilqr::Quadrotor3dRotorRegs<4>, 16, 4, 4,",
+        "chain_kernelINS_20Quadrotor3dRotorRegsILi4EEELi16ELi4ELi4E"),
+    "chain_kernel tracked 3-D quadrotor (13,4) rk4": (
+        "chain_kernel<ilqr::TrackingForm<ilqr::Quadrotor3dRegs<4>, 12, 4, 2>,"
+        " 13,",
+        "chain_kernelINS_12TrackingFormINS_15Quadrotor3dRegsILi4EEELi12ELi4E"
+        "Li2EEELi13ELi4ELi2E"),
     "batched_riccati_kernel (4,2)": (
         "batched_riccati_kernel<4, 2>", "batched_riccati_kernelILi4ELi2EE"),
 }
@@ -1589,24 +1680,32 @@ def chain_timing(itt, dev, smi, n_short=500, n_long=BENCH_N):
     return t
 
 
-def sass_report(lib_path) -> None:
-    """Print the step loop of the SASS_KERNELS instantiations from
-    `cuobjdump -sass`: its static instruction count and its loads from
+def sass_report(lib_path, ptxas_log: str) -> list[str]:
+    """The step loop of the SASS_KERNELS instantiations from
+    `cuobjdump -sass`, asked for by their mangled names in the build's
+    ptxas report (the whole library's SASS takes a minute), a line each: its static instruction count and its loads from
     shared (LDS), global (LDG), constant (LDC) and local (LDL) memory,
     shared and local stores (STS, STL), calls, special-function (MUFU) and barrier (SYNCS,
     BAR) instructions.  The count includes the sines' large-argument
     reductions, which run only past |angle| ~ 1e5 (their LDG read a table).
-    Never fails the script."""
+    Never fails the script; runs before the timed phases."""
     import re
     import shutil
+    lines = []
     try:
         tool = (shutil.which("cuobjdump")
                 or next((p for p in ("/usr/local/cuda/bin/cuobjdump",)
                          if Path(p).exists()), None))
         if tool is None:
-            print("SASS: cuobjdump not found")
-            return
-        out = subprocess.run([tool, "-sass", str(lib_path)],
+            return ["SASS: cuobjdump not found"]
+        pats = [p for ps in SASS_KERNELS.values() for p in ps]
+        entries = [line.split("'")[1] for line in ptxas_log.splitlines()
+                   if "Compiling entry function" in line and "'" in line]
+        entries = sorted({e for e in entries if any(p in e for p in pats)})
+        if not entries:
+            return ["SASS: no SASS_KERNELS entry in the build"]
+        out = subprocess.run([tool, "-sass", "-fun", ",".join(entries),
+                              str(lib_path)],
                              capture_output=True, text=True, timeout=300,
                              check=True).stdout
         bodies = re.split(r"\n\s*Function : ", out)[1:]
@@ -1626,25 +1725,28 @@ def sass_report(lib_path) -> None:
                 # chain kernels, whether the runs' shifts are read at run
                 # time (Lb1) or are 0 (Lb0).
                 kind = name.split(hit[0], 1)[1][:13]
-                instrs, at, branches = [], {}, []
+                bases, at, branches = [], {}, []
                 for line in body.splitlines():
                     m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
                     if not m:
                         continue
-                    at[int(m.group(1), 16)] = len(instrs)
-                    instrs.append(m.group(2))
+                    at[int(m.group(1), 16)] = len(bases)
+                    tok = m.group(2).split()
+                    op = tok[1] if tok[0].startswith("@") else tok[0]
+                    bases.append(op.split(".")[0])
                     b = re.search(r"\bBRA\b.*?\b0x([0-9a-f]+)\b",
                                   m.group(2))
                     if b:
-                        branches.append((len(instrs) - 1,
+                        branches.append((len(bases) - 1,
                                          int(b.group(1), 16)))
+                # MUFU before each instruction: a loop's count in O(1).
+                mufu = [0]
+                for op in bases:
+                    mufu.append(mufu[-1] + (op == "MUFU"))
 
                 def ops(lo, hi):
                     counts = {}
-                    for ins in instrs[lo:hi + 1]:
-                        tok = ins.split()
-                        op = tok[1] if tok[0].startswith("@") else tok[0]
-                        base = op.split(".")[0]
+                    for base in bases[lo:hi + 1]:
                         counts[base] = counts.get(base, 0) + 1
                     return counts
 
@@ -1652,7 +1754,7 @@ def sass_report(lib_path) -> None:
                 # dynamics' MUFU (the reciprocal of det).
                 loops = [(at[t], i) for i, t in branches
                          if t in at and at[t] < i
-                         and ops(at[t], i).get("MUFU", 0)]
+                         and mufu[i + 1] > mufu[at[t]]]
                 inner = [(lo, hi) for lo, hi in loops
                          if not any(lo <= a < b <= hi and (a, b) != (lo, hi)
                                     for a, b in loops)]
@@ -1663,10 +1765,12 @@ def sass_report(lib_path) -> None:
                                 + ", ".join(f"{k} {c.get(k, 0)}" for k in (
                                     "LDS", "STS", "LDG", "LDC", "LDL", "STL",
                                     "CALL", "MUFU", "SYNCS", "BAR")))
-                print(f"SASS {label} ({kind}...): {len(instrs)} instructions;"
-                      f" step loop " + ("; ".join(desc) or "not found"))
+                lines.append(f"SASS {label} ({kind}...): {len(bases)} "
+                             f"instructions; step loop "
+                             + ("; ".join(desc) or "not found"))
     except Exception as exc:  # the report is informative only
-        print(f"SASS: report failed ({type(exc).__name__}: {exc})")
+        lines.append(f"SASS: report failed ({type(exc).__name__}: {exc})")
+    return lines
 
 
 # ---- Phase 6: the affine prefix scan (B3) -------------------------------
@@ -1750,7 +1854,8 @@ def b3_checks(itt, lib, f32, errors, long_n=BENCH_N):
 
 def one_launch_check(itt, f32) -> dict:
     """Phase 1: B1, B1d, B3, B6, B7, B4, the three B5 entries and the
-    wide forms B1w and B6w each launch one kernel a call, and no other
+    wide forms B1w, B6w, B4w, B3w, B5n and B7w each launch one kernel a
+    call, and no other
     device work, by torch.profiler over five calls early in the run: at N =
     M = 600 (a seeded expansion with n_x = 4, n_u = 2, and 10 candidates),
     for B4 and B5 on a batch of 300 such expansions cut to N = 37 with the
@@ -1821,6 +1926,9 @@ def one_launch_check(itt, f32) -> dict:
                                             *nom_w[1:])),
         "open_loop_rollout_batched_models": lambda: (
             itt.open_loop_rollout_batched(q3, nom_w[0], nom_w[2])),
+        # B7w at n = 12.
+        "suffix_scan_lane_wide": lambda: itt.suffix_scan_fused(elems_w,
+                                                               "lane"),
     }
     exp_w = random_expansion(itt, 200, 12, 4, 5, f32)
     elems_w = parallel_riccati.make_elements(exp_w, 0.0)
@@ -2580,10 +2688,10 @@ def driver_phase(itt, dev) -> None:
             raise AssertionError(f"DP MPC driver {key}: not finite")
         cfg = dataclasses.replace(p.config, backward="scan", rollout="scan")
         ref, secs, counts = timed_run(lambda: itt.run_mpc(
-            p.solver, p.plant, p.x0, p.U0, MPC_REF_STEPS, cfg))
-        dx = float((out[key].X[:MPC_REF_STEPS + 1] - ref.X).abs().max())
+            p.solver, p.plant, p.x0, p.U0, DRIVER_REF_STEPS, cfg))
+        dx = float((out[key].X[:DRIVER_REF_STEPS + 1] - ref.X).abs().max())
         print(f"DP MPC {key.upper()} (H = {p.U0.shape[0]}): the first "
-              f"{MPC_REF_STEPS} steps through the kernels agree with "
+              f"{DRIVER_REF_STEPS} steps through the kernels agree with "
               f"backward='scan', rollout='scan' to {dx:.2e} (limit "
               f"{ATOL_MPC}); the scan loop {secs:.3f} s, "
               f"{ref.solve_iters.tolist()} iterations")
@@ -2888,7 +2996,12 @@ JAX_F32 = {"flight": 3.1779935359954834, "flight_mpc_20": 432.25994873046875,
            # Phase 34: P1's sampled instances, and P3's two solves.
            "p1_0": 1.5822689533233643, "p1_127": 1.4332703351974487,
            "p1_255": 1.3097046613693237, "p3_defect": 1.5822689533233643,
-           "p3_ms": 1.5822679996490479}
+           "p3_ms": 1.5822679996490479,
+           # Phase 35: P4's closed-loop cost and RMS angle error, P5's
+           # sampled instances, P6's cost.
+           "p4_cost": 0.2696681618690491, "p4_rms": 0.027135541662573814,
+           "p5_0": 0.003775405464693904, "p5_127": 0.028269486501812935,
+           "p5_255": 0.21071386337280273, "p6": 3.5682594776153564}
 WIDE_STEPS = 20          # the MPC loops of this slice, cut from 150 / 200
 WIDE_N = 8192            # the bench's backward cells (bench.py:465-535)
 # B1w's shapes: the planar quadrotor (6, 2), the 3-D quadrotor (12, 4),
@@ -2898,9 +3011,12 @@ WIDE_B1_SHAPES = ((6, 2), (12, 4), (16, 4), (3, 1), (5, 2), (16, 6))
 WIDE_B2_MODELS = ("cartpole", "quadrotor", "quadrotor3d", "quadrotor3d_rotor",
                   "car")
 WIDE_B2_NS = (1, 31, 33, 129, 500)   # the ring's chunk (32) and ring edges
-FCONT_OPS.update({"cartpole": (22, 0), "quadrotor": (11, 0),
-                  "quadrotor3d": (63, 0), "quadrotor3d_rotor": (71, 0),
-                  "car": (7, 0)})
+# The dual counts of the implicit rules: a Dual<4> evaluation for
+# the cart-pole and the car, a Dual<1> one (a column of df/dx) for the
+# quadrotors.
+FCONT_OPS.update({"cartpole": (22, 164), "quadrotor": (11, 17),
+                  "quadrotor3d": (63, 154), "quadrotor3d_rotor": (71, 186),
+                  "car": (7, 47)})
 
 
 def wide_systems(itt, dev):
@@ -3583,7 +3699,7 @@ WB_N = 80
 WB_ROTOR_B = 16
 WB_MPC_B = 64
 WB_MPC_H = 100
-WB_MPC_STEPS = 20
+WB_MPC_STEPS = 10      # cut from 20 when phase 35 came, for the time limit
 P1_SAMPLES = (0, 127, 255)
 P1_X0 = -0.2           # P3's instance: P1's first
 # B4w's shapes: the planar quadrotor (6, 2), an (8, 2) corner of the
@@ -4154,6 +4270,755 @@ def wide_batched_phases(itt, dev, smi, launches_per_call) -> list:
     return rows
 
 
+# ---- Phase 35: the rollout kernels on every system JAX's kernels take ------
+# B2 and B5 on the LTI systems, the tracking and rate wrappers, the implicit
+# rules of the cart-pole, the quadrotors and the car, and the spring chain
+# (csrc/forms.cuh and the translation units beside chain_rollout.cu); B7w,
+# the suffix scan's 'lane' layout at n outside {2, 4}.  The paths: P4, the
+# reference tracking MPC (examples/reference_tracking_mpc.py: the tracked
+# pendulum under rk4, H = 50, maxiter 8, backward='pallas'), with
+# rollout='pallas', cut to P4_STEPS of its 600 steps; P5, batched solves of
+# bench.py:795-799's cart-pole (rk4) wrapped with a rate penalty S = 0.1 I
+# (n_x = 5, n_u = 1), P5_B instances from seeded x0s near the upright, N =
+# P5_N; P6, examples/linear_lqr.py's double integrator (cont2disc at dt 0.1,
+# make_discrete_lti, 'discrete', N = 50) by solve(rollout='pallas').  Their
+# references are the JAX package's f32 results (JAX_F32, recomputed by
+# tests/test_torch_chip_refs.py), gated within RTOL_AL.
+WR_N = 500               # the longest kernel-edge horizon
+WR_B5 = 3                # instances of the B5 edge checks
+# The plain versions' child processes: the implicit rules' take up to ~50 s
+# each on the host, the rest 2-10 s (324.6 s in all on the H100 machine's
+# host); the main process mostly waits on the card and on them.
+WR_WORKERS = 7
+# The timed-only rows' horizon (the implicit rule's: WR_TIME_N // 2).
+WR_TIME_N = 100
+WR_REF_ROWS = 301        # a tracking reference of 300 steps: N = 500 clamps
+WR_MODELS = ("pendulum", "ua_dp", "dp", "cartpole", "quadrotor",
+             "quadrotor3d", "car")
+WR_LTI = ((2, 1), (4, 1), (4, 2), (6, 2), (12, 4), (16, 4))
+WR_IMPLICIT = ("cartpole", "quadrotor", "quadrotor3d", "quadrotor3d_rotor",
+               "car")
+P4_STEPS = 100
+P5_B, P5_N = 256, 100
+P5_SAMPLES = (0, 127, 255)
+P6_N = 50
+B7W_STATES = (6, 12, 16)
+B7W_MS = (1, 151, 32769)
+
+
+def lti_system(itt, n_x, n_u, integrator, f32):
+    """A seeded LTI system at (n_x, n_u): A = S - 0.2 I with S
+    skew-symmetric (a damped rotation), under 'discrete' I + 0.05 A (its
+    Euler map at dt 0.05), B and x_target seeded; Q = I, R = 0.1 I,
+    Q_f = 10 I."""
+    rng = np.random.default_rng(10 * n_x + n_u)
+    S = rng.standard_normal((n_x, n_x))
+    A = (S - S.T) / np.sqrt(n_x) - 0.2 * np.eye(n_x)
+    if integrator == "discrete":
+        A = np.eye(n_x) + 0.05 * A
+    return itt.make_lti(A, 0.5 * rng.standard_normal((n_x, n_u)), 0.05,
+                        rng.standard_normal(n_x), np.eye(n_x),
+                        0.1 * np.eye(n_u), 10.0 * np.eye(n_x),
+                        integrator=integrator, **f32)
+
+
+def wr_base(itt, name, integrator, f32):
+    """A system of phase 35 by name: phase 3's pendulum and double
+    pendulums ("pendulum", "ua_dp", "dp"), phase 28's models, and the LTI
+    systems ("lti_{n_x}x{n_u}")."""
+    if name.startswith("lti_"):
+        n_x, n_u = map(int, name[4:].split("x"))
+        return lti_system(itt, n_x, n_u, integrator, f32)
+    if name == "pendulum":
+        return chain_systems(itt, f32, integrator)["pendulum"]
+    if name in ("ua_dp", "dp"):
+        return dp_system(itt, f32, underactuated=name == "ua_dp",
+                         integrator=integrator)
+    return wide_model_systems(itt, f32, integrator)[name]
+
+
+def wr_cases():
+    """Every new instantiation as (kind, base, integrator): the LTI systems
+    at WR_LTI under euler, midpoint, rk4 and 'discrete'; the tracking and
+    rate wrappers over WR_MODELS under the explicit three and over the LTI
+    systems but (16, 4) under the four; the implicit rules of WR_IMPLICIT;
+    the spring chain (16 masses) under the explicit three."""
+    explicit = ("euler", "midpoint", "rk4")
+    lti = [f"lti_{n_x}x{n_u}" for n_x, n_u in WR_LTI]
+    cases = [("lti", b, i) for i in explicit + ("discrete",) for b in lti]
+    cases += [(k, m, i) for k in ("tracking", "rate") for i in explicit
+              for m in WR_MODELS]
+    cases += [(k, b, i) for k in ("tracking", "rate")
+              for i in explicit + ("discrete",) for b in lti[:-1]]
+    cases += [("model", m, i) for i in ("backward_euler", "trapezoidal")
+              for m in WR_IMPLICIT]
+    cases += [("chain", "chain", i) for i in explicit]
+    return cases
+
+
+def wr_system(itt, case, f32):
+    """The system of a case of `wr_cases`.  The tracking references are
+    WR_REF_ROWS seeded sinusoids (X_ref) and WR_REF_ROWS - 1 (U_ref, about
+    the base's hover where it has one); Q = I, R = 0.1 I, Q_f = 10 I; the
+    rate penalty S = 0.1 I."""
+    kind, base, integ = case
+    if kind == "chain":
+        return itt.make_spring_chain(0.02, n_masses=16, integrator=integ,
+                                     **f32)
+    b = wr_base(itt, base, integ, f32)
+    if kind == "tracking":
+        t = torch.arange(WR_REF_ROWS, **f32)[:, None] * b.dt
+        X_ref = 0.2 * torch.sin(t * torch.arange(1, b.n_x + 1, **f32))
+        U_ref = 0.1 * torch.cos(t[:-1] * torch.arange(1, b.n_u + 1, **f32))
+        if base.startswith("quadrotor"):
+            U_ref = U_ref + 9.81 * 0.5 / b.n_u * (
+                2.0 if base == "quadrotor" else 1.0)
+        return itt.make_tracking_system(
+            b, X_ref, U_ref, torch.eye(b.n_x, **f32),
+            0.1 * torch.eye(b.n_u, **f32), 10.0 * torch.eye(b.n_x, **f32))
+    if kind == "rate":
+        return itt.make_rate_penalized_system(
+            b, 0.1 * torch.eye(b.n_u, **f32))
+    return b
+
+
+def wr_draws(case, system, N, seed, f32):
+    """x0, U, u_ff and K of a case: the base's part as phase 28 draws it
+    for its models (`nominal_draws`) and at noise 0.3 (gains -0.05)
+    elsewhere; a tracking clock starts at 0 with no gain on it, a rate
+    wrapper's u_prev at U[0] with gains -0.05 of its noise."""
+    kind, base, _ = case
+    n_u = system.n_u
+    n_b = (system.n_x - 1 if kind == "tracking" else
+           system.n_x - n_u if kind == "rate" else system.n_x)
+    if base in ("cartpole", "quadrotor", "quadrotor3d", "quadrotor3d_rotor",
+                "car"):
+        proxy = dataclasses.replace(system, n_x=n_b)
+        x0, U, u_ff, K = nominal_draws(proxy, base, N, seed, f32)
+    else:
+        rng = np.random.default_rng(seed)
+        x0, U, u_ff = (torch.tensor(0.3 * rng.standard_normal(s), **f32)
+                       for s in (n_b, (N, n_u), (N, n_u)))
+        K = torch.tensor(-0.05 * rng.standard_normal((N, n_u, n_b)), **f32)
+    if kind == "tracking":
+        x0 = torch.cat([x0, torch.zeros(1, **f32)])
+        K = torch.cat([K, torch.zeros((N, n_u, 1), **f32)], dim=-1)
+    elif kind == "rate":
+        x0 = torch.cat([x0, U[0]])
+        rng = np.random.default_rng(seed + 1)
+        K = torch.cat([K, torch.tensor(-0.05 * rng.standard_normal(
+            (N, n_u, n_u)), **f32)], dim=-1)
+    return x0, U.contiguous(), u_ff, K.contiguous()
+
+
+def wr_nominal(case, system, N, seed, f32, batch=None):
+    """(x0, X, U, u_ff, K) of a case: `wr_draws` rolled out (``batch``
+    instances at seeds seed, seed + 1, ..., stacked, when given)."""
+    from ilqr_tpu_torch.ops.rollout import rollout
+
+    if batch is None:
+        x0, U, u_ff, K = wr_draws(case, system, N, seed, f32)
+    else:
+        x0, U, u_ff, K = (torch.stack(t).contiguous() for t in zip(*(
+            wr_draws(case, system, N, seed + b, f32) for b in range(batch))))
+    X, _ = rollout(system, x0, U)
+    return x0, X.contiguous(), U, u_ff, K
+
+
+def wr_alphas(kw):
+    """Phase 3's 33 alphas, 0.5^i."""
+    return torch.tensor([0.5 ** i for i in range(33)], **kw)
+
+
+def params_f64(params: dict) -> dict:
+    """A system's parameters (a wrapper's nested ones too) in float64."""
+    return {k: params_f64(v) if isinstance(v, dict) else v.double()
+            for k, v in params.items()}
+
+
+def wr_plain(case, seed: int, Ns) -> dict:
+    """Phase 35's inputs and plain versions of one case, on the host (numpy
+    out; run in a child process): WR_B5 instances' nominals at max(Ns) in
+    f32 (one for the implicit rules, which JAX's batched kernel does not
+    take), their closed loops of 33 alphas and their open loops in f64 and
+    f32, and the costs of each prefix of N steps (the recursion is causal).
+    Instance 0 serves B2; instance b's trajectory at alpha 0.5^b is its
+    closed loop b, B5's per-instance alpha."""
+    import ilqr_tpu_torch as itt
+    from ilqr_tpu_torch.ops.rollout import linesearch_rollouts, rollout
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cpu32 = dict(dtype=torch.float32, device="cpu")
+    system = wr_system(itt, case, cpu32)
+    s64 = system.replace(params=params_f64(system.params))
+    inputs = wr_nominal(case, system, max(Ns), seed, cpu32,
+                        batch=1 if case[0] == "model" else WR_B5)
+    out = {"inputs": [t.numpy() for t in inputs]}
+
+    def prefix(sys_, X, U, N):
+        p = sys_.params
+        return (sys_.stage_cost(p, X[..., :N, :], U[..., :N, :]).sum(-1)
+                + sys_.terminal_cost(p, X[..., N, :])).numpy()
+
+    for key, sys_, cast in (("f64", s64, torch.Tensor.double),
+                            ("f32", system, lambda t: t)):
+        x0, X, U, u_ff, K = (cast(t) for t in inputs)
+        X_P, U_P, _ = linesearch_rollouts(sys_, x0, cast(wr_alphas(cpu32)), X,
+                                          U, u_ff, K)
+        X_o, _ = rollout(sys_, x0, U)
+        b = torch.arange(X_P.shape[0])
+        out[key] = {"c_P": {N: prefix(sys_, X_P, U_P, N) for N in Ns},
+                    "c_o": {N: prefix(sys_, X_o, U, N) for N in Ns},
+                    "X_o": X_o.numpy(),
+                    "X_t": X_P[b, b].numpy(), "U_t": U_P[b, b].numpy(),
+                    "X_1": X_P[0, 1].numpy(), "U_1": U_P[0, 1].numpy()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def wr_family(case) -> str:
+    """The kernels-line family of a case: lti, tracking, rate, implicit or
+    chain."""
+    return {"model": "implicit"}.get(case[0], case[0])
+
+
+def wr_checks(itt, dev, lib, errors) -> None:
+    """Phase 35's kernel edges: every case of `wr_cases` at N = 1, its
+    ring chunk less and plus one (32 steps; the spring chain's 8) and WR_N:
+    B2a with 1, 10 and 33 alphas, B2b at alpha 0.5 and the open loop, then
+    (but for the implicit rules, which JAX's batched kernel does not take)
+    B5's three entries on WR_B5 instances (10 alphas; instance b's
+    trajectory at alpha 0.5^b), each call twice with equal bits required,
+    against the plain versions in f64 on the host (`wr_plain`, in
+    WR_WORKERS child processes while the kernels run; the nominals and
+    gains the kernels' f32 ones) within phase 28's rule: RTOL_B2 of the
+    output's max or F32_FLOOR times the plain version's own f32 error.
+    Records the largest error of each entry and family in ``errors``."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    alphas = wr_alphas(f32)
+    cases = wr_cases()
+    ns = {}
+    for case in cases:
+        s = wr_system(itt, case, f32)
+        c = lib.ilqr_chain_chunk_steps_at(s.n_x, s.n_u)
+        ns[case] = (1, c - 1, c + 1, WR_N)
+    # The implicit rules' plain versions take longest: handed out first,
+    # read last.
+    pool = multiprocessing.get_context("spawn").Pool(WR_WORKERS)
+    t_pool = time.perf_counter()
+    jobs = {case: pool.apply_async(wr_plain, (case, 70 + i, ns[case]))
+            for i, case in enumerate(sorted(cases,
+                                            key=lambda c: c[0] != "model"))}
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def twice(fn):
+        torch.cuda.synchronize()
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b)):
+            raise AssertionError("phase 35: a repeated call gave other bits")
+        return a
+
+    def gate(label, key, got, ref, ref32):
+        ref = torch.from_numpy(np.asarray(ref, dtype=np.float64))
+        ref32 = torch.from_numpy(np.asarray(ref32, dtype=np.float64))
+        got = got.cpu()
+        err, rel = rel_err(got, ref)
+        floor = rel_err(ref32, ref)[0]
+        limit = max(RTOL_B2 * float(ref.abs().max()), F32_FLOOR * floor)
+        errors[key] = max(errors.get(key, 0.0), err)
+        if not (bool(torch.isfinite(got).all()) and err <= limit):
+            raise AssertionError(f"{label}: {err:.3e} ({rel:.2e} of max), "
+                                 f"limit {limit:.3e} (plain f32 vs f64 "
+                                 f"{floor:.3e})")
+        return rel
+
+    def dev_t(arrays):
+        return [torch.from_numpy(a).to(**f32) for a in arrays]
+
+    print(f"phase 35 kernel edges: {len(cases)} instantiations, against the "
+          f"plain rollouts in f64 on the host, max|kernel - plain f64| <= "
+          f"max({RTOL_B2} * max|plain f64|, {F32_FLOOR} * max|plain f32 - "
+          f"plain f64|); every call twice, bit for bit")
+    host_s = 0.0
+    try:
+        for case in sorted(cases, key=lambda c: c[0] == "model"):
+            system = wr_system(itt, case, f32)
+            ref = jobs[case].get(timeout=1200)
+            host_s += ref["seconds"]
+            fam = wr_family(case)
+            xb, Xb, Ub, ub, Kb = dev_t(ref["inputs"])
+            x0, X, U, u_ff, K = xb[0], Xb[0], Ub[0], ub[0], Kb[0]
+            r64, r32 = ref["f64"], ref["f32"]
+            batch = xb.shape[0] > 1
+            label = "{} {} {}".format(*case)
+            worst = 0.0
+            for N in ns[case]:
+                Xn, Un, un, Kn = X[:N + 1], U[:N], u_ff[:N], K[:N]
+                at = f"{label} N={N}"
+                for A in CHAIN_ALPHA_COUNTS:
+                    (c,) = twice(lambda: (itt.linesearch_costs_fused(
+                        system, x0, alphas[:A], Xn, Un, un, Kn),))
+                    worst = max(worst, gate(
+                        f"{at} costs A={A}", f"linesearch_costs_{fam}", c,
+                        r64["c_P"][N][0, :A], r32["c_P"][N][0, :A]))
+                got = twice(lambda: itt.closed_loop_rollout_fused(
+                    system, x0, float(alphas[1]), Xn, Un, un, Kn))
+                for what, g, r, r_32 in (
+                        ("X", got[0], r64["X_1"][:N + 1], r32["X_1"][:N + 1]),
+                        ("U", got[1], r64["U_1"][:N], r32["U_1"][:N]),
+                        ("cost", got[2], r64["c_P"][N][0, 1],
+                         r32["c_P"][N][0, 1])):
+                    worst = max(worst, gate(f"{at} trajectory {what}",
+                                            f"closed_loop_rollout_{fam}", g,
+                                            r, r_32))
+                got = twice(lambda: itt.open_loop_rollout_fused(system, x0,
+                                                                Un))
+                for what, g, r, r_32 in (
+                        ("X", got[0], r64["X_o"][0, :N + 1],
+                         r32["X_o"][0, :N + 1]),
+                        ("cost", got[1], r64["c_o"][N][0], r32["c_o"][N][0])):
+                    worst = max(worst, gate(f"{at} open loop {what}",
+                                            f"open_loop_rollout_{fam}", g, r,
+                                            r_32))
+                if not batch:
+                    continue
+                Xs, Us, us, Ks = (t[:, :n].contiguous() for t, n in zip(
+                    (Xb, Ub, ub, Kb), (N + 1, N, N, N)))
+                (c,) = twice(lambda: (itt.linesearch_costs_batched(
+                    system, xb, alphas[:10], Xs, Us, us, Ks),))
+                worst = max(worst, gate(f"{at} B5 costs",
+                                        f"linesearch_costs_batched_{fam}", c,
+                                        r64["c_P"][N][:, :10],
+                                        r32["c_P"][N][:, :10]))
+                got = twice(lambda: itt.closed_loop_rollout_batched(
+                    system, xb, alphas[:WR_B5], Xs, Us, us, Ks))
+                own = np.arange(WR_B5)
+                for what, g, r, r_32 in (
+                        ("X", got[0], r64["X_t"][:, :N + 1],
+                         r32["X_t"][:, :N + 1]),
+                        ("U", got[1], r64["U_t"][:, :N], r32["U_t"][:, :N]),
+                        ("cost", got[2], r64["c_P"][N][own, own],
+                         r32["c_P"][N][own, own])):
+                    worst = max(worst, gate(
+                        f"{at} B5 trajectory {what}",
+                        f"closed_loop_rollout_batched_{fam}", g, r, r_32))
+                got = twice(lambda: itt.open_loop_rollout_batched(system, xb,
+                                                                  Us))
+                for what, g, r, r_32 in (
+                        ("X", got[0], r64["X_o"][:, :N + 1],
+                         r32["X_o"][:, :N + 1]),
+                        ("cost", got[1], r64["c_o"][N], r32["c_o"][N])):
+                    worst = max(worst, gate(
+                        f"{at} B5 open loop {what}",
+                        f"open_loop_rollout_batched_{fam}", g, r, r_32))
+            print(f"  {label} (model id {fused_rollout_id(system)}, (n_x, "
+                  f"n_u) = ({system.n_x}, {system.n_u})): N {ns[case]}, "
+                  f"B2{' and B5' if batch else ''}; largest error "
+                  f"{worst:.2e} of max; repeated calls bit-identical")
+    finally:
+        pool.terminate()
+        pool.join()
+    print(f"phase 35 plain versions: {host_s:.1f} s of host time in "
+          f"{WR_WORKERS} child processes, "
+          f"{time.perf_counter() - t_pool:.1f} s of wall time")
+
+
+def fused_rollout_id(system):
+    from ilqr_tpu_torch.ops import fused_rollout
+    return fused_rollout.device_model(system)[0]
+
+
+def b7w_checks(itt, lib, f32, errors) -> dict:
+    """B7w: the 'lane' layout's wide form at n = 6, 12, 16 against the
+    plain scan in all five fields (phase 18's rule, RTOL_B6 or F32_FLOOR
+    times the plain version's f64 error) at M = 1, its tile edges, more
+    tiles than are resident and B7W_MS, every call twice; the stage
+    elements of a seeded expansion, with the terminal element at the
+    longest M.  Returns the timed element sets {label: elements}."""
+    from ilqr_tpu_torch.ops import parallel_riccati, suffix_scan
+    from ilqr_tpu_torch.ops.parallel_riccati import RiccatiElement
+
+    timed = {}
+    for n in B7W_STATES:
+        T = suffix_scan.tile_steps(lib, "lane", n)
+        resident = resident_tiles(lib.ilqr_suffix_scan_occupancy(1, n),
+                                  f"B7w n={n}")
+        Ms = sorted({1, T - 1, T, T + 1, (resident + 3) * T + T // 2}
+                    | set(B7W_MS))
+        Ms = [M for M in Ms if M >= 1]
+        el_all = parallel_riccati.make_elements(
+            random_expansion(itt, max(Ms) - 1, n, 2, 50 + n, f32), 0.0)
+        print(f"B7w n={n}: tile {T} elements, {resident} tiles resident; "
+              f"M {Ms}")
+        for M in Ms:
+            el = RiccatiElement(*(t[:M].contiguous() for t in el_all))
+            torch.cuda.synchronize()
+            got = itt.suffix_scan_fused(el, "lane")
+            again = itt.suffix_scan_fused(el, "lane")
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"B7w n={n} M={M}: a repeated call "
+                                     f"gave other bits")
+            label = f"B7w n={n} M={M}"
+            notes = check_fields(
+                label, got, parallel_riccati.suffix_scan(el),
+                parallel_riccati.suffix_scan(as_f64(el)), RTOL_B6, errors,
+                "suffix_scan_lane_wide")
+            print(f"  {label}: " + "; ".join(notes)
+                  + "; repeated call bit-identical")
+            if (n, M) == (12, 151):
+                timed[label] = el
+    return timed
+
+
+def p5_x0s(f32):
+    """P5's initial states: the cart-pole near its upright target, x and
+    the angle's offset drawn from numpy's generator seeded 35, u_prev = 0
+    (tests/test_torch_chip_refs.py draws the same)."""
+    off = np.random.default_rng(35).uniform(-0.1, 0.1, (P5_B, 2))
+    x0s = np.zeros((P5_B, 5), np.float32)
+    x0s[:, 0] = off[:, 0]
+    x0s[:, 1] = np.float32(np.pi) + off[:, 1].astype(np.float32)
+    return torch.tensor(x0s, **f32)
+
+
+def p5_system(itt, f32):
+    """bench.py:795-799's cart-pole (rk4, dt 0.01) with S = 0.1 I."""
+    cart = itt.make_cartpole(
+        0.01, [0.0, np.pi, 0.0, 0.0], Q=np.diag([1.0, 10.0, 0.1, 0.1]),
+        R=0.1 * np.eye(1), Q_f=np.diag([100.0, 500.0, 10.0, 10.0]),
+        integrator="rk4", **f32)
+    return itt.make_rate_penalized_system(cart, 0.1 * np.eye(1))
+
+
+def p6_system(itt, f32):
+    """examples/linear_lqr.py's double integrator: cont2disc at dt 0.1,
+    Q = R = I, Q_f = 10 I, as make_discrete_lti's system."""
+    A_d, B_d = itt.cont2disc(torch.tensor([[0.0, 1.0], [0.0, 0.0]], **f32),
+                             torch.tensor([[0.0], [1.0]], **f32), 0.1)
+    return itt.make_discrete_lti(A_d, B_d, 0.1, np.zeros(2), np.eye(2),
+                                 np.eye(1), 10.0 * np.eye(2), **f32)
+
+
+def wr_paths(itt, dev) -> dict:
+    """P4-P6 through the kernels, the launch counts reset just before each
+    and read just after, each gated on the JAX package's f32 result within
+    RTOL_AL.  Returns {label: (result, seconds, counts)}."""
+    from examples_torch import reference_tracking_mpc
+    from ilqr_tpu_torch import solver as solver_module
+    from ilqr_tpu_torch.mpc import run_mpc
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {}
+
+    def gate(label, key, value, ok=True):
+        rel = abs(value - JAX_F32[key]) / abs(JAX_F32[key])
+        print(f"  {label}: {value:.7f}, {rel:.1e} from the JAX f32 result "
+              f"{JAX_F32[key]} (limit {RTOL_AL})")
+        if not (ok and rel <= RTOL_AL):
+            raise AssertionError(f"{label}: gates not met")
+
+    # P4: the tracking MPC with rollout='pallas'.
+    p = reference_tracking_mpc.problem(dev)
+    cfg = dataclasses.replace(p.config, rollout="pallas")
+    with counting(solver_module, "_backward") as passes:
+        res, secs, counts = timed_run(lambda: run_mpc(
+            p.system, p.system, p.x0, p.U0, P4_STEPS, cfg))
+    theta = itt.strip_clock(res.X)[:, 0]
+    rms = float(torch.sqrt(torch.mean(
+        (theta - p.theta_ref[:P4_STEPS + 1]) ** 2)))
+    print(f"P4 tracking MPC H={p.U0.shape[0]} ({P4_STEPS} of {p.n_sim} "
+          f"steps, rk4, backward=pallas, rollout=pallas): {secs:.2f} s, "
+          f"{secs / P4_STEPS * 1e3:.1f} ms per step, "
+          f"{int(res.solve_iters.sum())} iterations, {passes[0]} backward "
+          f"passes, launches {counts}")
+    finite = bool(torch.isfinite(res.X).all())
+    gate("P4 closed-loop cost", "p4_cost", float(res.cost), finite)
+    gate("P4 RMS angle error", "p4_rms", rms, finite)
+    need("P4", counts, ("fused_riccati", "linesearch_costs",
+                        "closed_loop_rollout", "open_loop_rollout"))
+    if counts.get("fused_riccati", 0) != passes[0]:
+        raise AssertionError("P4: B1 launches differ from the passes")
+    out["p4"] = (res, secs, counts)
+
+    # P5: batched solves of the rate-penalized cart-pole.
+    rs = p5_system(itt, f32)
+    x0s = p5_x0s(f32)
+    U0 = torch.zeros((P5_N, 1), **f32)
+    sched = itt.IlqrConfig(maxiter=40, tol=1e-5, rollout="pallas")
+    sol, secs, counts = timed_run(lambda: itt.solve_batch(rs, x0s, U0,
+                                                          sched))
+    n_conv = int((sol.status == itt.CONVERGED).sum())
+    print(f"P5 rate-penalized cart-pole B={P5_B} N={P5_N} (solve_batch, "
+          f"rollout=pallas): {secs:.2f} s, {n_conv}/{P5_B} CONVERGED, "
+          f"iterations {int(sol.iterations.min())}-"
+          f"{int(sol.iterations.max())}, launches {counts}")
+    need("P5", counts, ("batched_riccati", "linesearch_costs_batched",
+                        "closed_loop_rollout_batched",
+                        "open_loop_rollout_batched"))
+    if not (bool(torch.isfinite(sol.cost).all())
+            and bool(torch.isfinite(sol.X).all())):
+        raise AssertionError("P5: non-finite instances")
+    scan = dataclasses.replace(sched, rollout="scan", backward="scan")
+    for i in P5_SAMPLES:
+        one = itt.solve(rs, x0s[i], U0, scan)
+        c, c1 = float(sol.cost[i]), float(one.cost)
+        dx = float((sol.X[i] - one.X).abs().max())
+        du = float((sol.U[i] - one.U).abs().max())
+        print(f"  P5 instance {i}: status {int(sol.status[i])}, "
+              f"single-instance scan {c1:.7f} (rel {abs(c - c1) / abs(c1):.1e}"
+              f", limit {RTOL_AL}; X {dx:.1e}, U {du:.1e})")
+        gate(f"P5 instance {i} cost", f"p5_{i}", c,
+             abs(c - c1) <= RTOL_AL * abs(c1))
+    out["p5"] = (sol, secs, counts)
+
+    # P6: the LTI double integrator under 'discrete'.
+    lti = p6_system(itt, f32)
+    x0 = torch.tensor([2.0, 0.0], **f32)
+    cfg = itt.IlqrConfig(maxiter=20, tol=1e-6, backward="pallas",
+                         rollout="pallas")
+    sol, secs, counts = timed_run(lambda: itt.solve(
+        lti, x0, torch.zeros((P6_N, 1), **f32), cfg))
+    print(f"P6 LTI double integrator N={P6_N} ('discrete', pallas/pallas): "
+          f"status {sol.status}, {sol.iterations} iterations, {secs:.2f} s, "
+          f"launches {counts}")
+    gate("P6 cost", "p6", float(sol.cost), sol.status == itt.CONVERGED)
+    need("P6", counts, ("fused_riccati", "linesearch_costs",
+                        "closed_loop_rollout", "open_loop_rollout"))
+    out["p6"] = (sol, secs, counts)
+    return out
+
+
+def wr_bounds(model, integrator, n_x, n_u, N, A, B=None):
+    """Bounds of B2's three entries (B = None) or B5's on B instances for
+    a phase-35 system (`rollout_step_ops`'s model names); a tracking
+    form also reads the reference rows of its N steps."""
+    extra = N * (n_x - 1 + n_u) if model.startswith("tracking:") else 0
+    if B is None:
+        return chain_bounds(n_x, n_u, N, A, model=model,
+                            integrator=integrator, extra_floats=extra)
+    return batched_bounds(B, N, A, n_x, n_u, model=model,
+                          integrator=integrator, extra_floats=extra)
+
+
+def check_fields_b1(itt, label, exp) -> float:
+    """B1 (B1w) at one expansion held to its plain version field by field
+    (phase 2's rule); returns the largest error."""
+    got = itt.backward_pass_fused(exp, 0.0)
+    plain = itt.backward_pass_associative(exp, 0.0)
+    ref64 = itt.backward_pass_associative(as_f64(exp), 0.0)
+    one = {"err": 0.0}
+    check_fields(f"B1 {label}", got[:3], plain[:3], ref64[:3], RTOL_B1, one,
+                 "err")
+    return one["err"]
+
+
+def wrapper_phases(itt, dev, smi, launches_per_call) -> list:
+    """Phase 35: the new device forms at their kernel edges (`wr_checks`),
+    B7w (`b7w_checks`), the paths P4-P6 (`wr_paths`), and the timing of
+    each family at its path's shape or alone.  Returns the kernels line's
+    rows."""
+    from ilqr_tpu_torch.ops import _build, batched, parallel_riccati
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    t0 = time.perf_counter()
+    errors: dict[str, float] = {"suffix_scan_lane_wide": 0.0}
+    wr_checks(itt, dev, lib, errors)
+    print(f"phase 35 kernel edges: {time.perf_counter() - t0:.1f} s")
+    timed_el = b7w_checks(itt, lib, f32, errors)
+    runs = wr_paths(itt, dev)
+    print(f"phase 35 kernel edges and paths: {time.perf_counter() - t0:.1f} s")
+
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    A10 = alphas.numel()
+    rows = []
+
+    def row(name, source, replaces, launches, err, t, plain_ms, b, lpc_key,
+            **more):
+        ms, cols = timing_columns(t, launches_per_call.get(lpc_key))
+        rows.append(dict(
+            name=name, route="cuda", source=f"ilqr_tpu_torch/csrc/{source}",
+            replaces=f"ilqr_tpu/ops/{replaces}", launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None, **cols, **more))
+
+    def held(label, pairs):
+        """The largest error of (kernel output, plain output) pairs, each
+        within RTOL_B2 of its plain version's max."""
+        worst = 0.0
+        for g, r in pairs:
+            err, rel = rel_err(g, r)
+            if not (bool(torch.isfinite(g).all()) and rel <= RTOL_B2):
+                raise AssertionError(f"{label}: {err:.3e} ({rel:.2e} of "
+                                     f"max) against the plain version")
+            worst = max(worst, err)
+        return worst
+
+    replaces = {"linesearch_costs": "pallas_rollout.py:92",
+                "closed_loop_rollout": "pallas_rollout.py:132",
+                "open_loop_rollout": "pallas_rollout.py:132"}
+
+    def b2_rows(tag, source, system, model, integ, inputs, counts, turns=3):
+        """B2's three entries on one system at its inputs: held to the
+        plain versions, then timed in ``turns`` turns."""
+        x0, X, U, u_ff, K = inputs
+        N = U.shape[0]
+        cases = {
+            "linesearch_costs": (
+                lambda: (itt.linesearch_costs_fused(system, x0, alphas, X, U,
+                                                    u_ff, K),),
+                lambda: (itt.linesearch_rollouts(system, x0, alphas, X, U,
+                                                 u_ff, K)[2],)),
+            "closed_loop_rollout": (
+                lambda: itt.closed_loop_rollout_fused(system, x0, 0.5, X, U,
+                                                      u_ff, K),
+                lambda: itt.closed_loop_rollout(system, x0, 0.5, X, U, u_ff,
+                                                K)),
+            "open_loop_rollout": (
+                lambda: itt.open_loop_rollout_fused(system, x0, U),
+                lambda: itt.rollout(system, x0, U))}
+        errs = {k: held(f"{tag} {k}", zip(kern(), plain()))
+                for k, (kern, plain) in cases.items()}
+        t = design_timing(smi, f"B2 {tag}", {k: v[0] for k, v in
+                                             cases.items()}, turns=turns)
+        bnd = wr_bounds(model, integ, system.n_x, system.n_u, N, A10)
+        for k, (_, plain) in cases.items():
+            row(f"{k}_{tag}", source, replaces[k], counts.get(k, 0), errs[k],
+                t[k], cuda_ms(plain, 1, 0), bnd[k], None)
+
+    # P4: B1w at (3, 1) and B2 on the tracked pendulum (rk4), H = 50, along
+    # a solve's first iteration from the MPC's first state.
+    from examples_torch import reference_tracking_mpc
+    p = reference_tracking_mpc.problem(dev)
+    trk, H = p.system, p.U0.shape[0]
+    U = p.U0 + 0.3
+    X = itt.rollout(trk, p.x0, U)[0].contiguous()
+    exp = itt.linearize_trajectory(trk, X, U)
+    e1 = check_fields_b1(itt, "P4 (3, 1) H=50", exp)
+    t1 = design_timing(smi, "B1w", {"P4 (3, 1) H=50": lambda: (
+        itt.backward_pass_fused(exp, 0.0))}, turns=3)
+    row("fused_riccati_wide_3x1_n50", "fused_riccati.cu",
+        "pallas_riccati.py:774", runs["p4"][2].get("fused_riccati", 0), e1,
+        t1["P4 (3, 1) H=50"],
+        cuda_ms(lambda: itt.backward_pass_associative(exp, 0.0), 3, 1),
+        bound(4 * (expansion_floats(H, 3, 1) + H * (1 + 3) + 2),
+              H * riccati_step_ops(3, 1)), "fused_riccati_wide")
+    u_ff, K, _, _ = itt.backward_pass_fused(exp, 1.0)
+    b2_rows("tracking_pendulum_rk4_h50", "tracking_models.cu", trk,
+            "tracking:pendulum", "rk4", (p.x0, X, U, u_ff, K), runs["p4"][2])
+
+    # P5: B4w at (5, 1) and B5 on the rate-penalized cart-pole, B = 256,
+    # N = 100, along the first iteration.
+    rs = p5_system(itt, f32)
+    x0s = p5_x0s(f32)
+    Ub = torch.zeros((P5_B, P5_N, 1), **f32)
+    Xb = itt.rollout(rs, x0s, Ub)[0].contiguous()
+    expb = itt.linearize_trajectory_batched(rs, Xb, Ub)
+    got = itt.backward_pass_batched(expb, 0.0, "pallas")
+    plain = batched.vmap_backward(itt.backward_pass, expb, 0.0)
+    ref64 = batched.vmap_backward(itt.backward_pass, as_f64(expb), 0.0)
+    one = {"err": 0.0}
+    check_fields("B4w P5 (5, 1)", got[:3], plain[:3], ref64[:3], RTOL_B4,
+                 one, "err")
+    t4 = design_timing(smi, "B4w", {"P5 (5, 1)": lambda: (
+        itt.backward_pass_batched(expb, 0.0))}, turns=3)
+    p5_counts = runs["p5"][2]
+    row(f"batched_riccati_wide_5x1_b{P5_B}_n{P5_N}", "batched_riccati.cu",
+        "pallas_batched.py:114", p5_counts.get("batched_riccati", 0),
+        one["err"], t4["P5 (5, 1)"],
+        cuda_ms(lambda: batched.vmap_backward(itt.backward_pass, expb, 0.0),
+                1, 1),
+        batched_bounds(P5_B, P5_N, A10, 5, 1)["batched_riccati"],
+        "batched_riccati_wide")
+    ub, Kb, _, _ = itt.backward_pass_batched(expb, 1.0)
+    ab = torch.full((P5_B,), 0.5, **f32)
+    cases = {
+        "linesearch_costs_batched": (
+            lambda: (itt.linesearch_costs_batched(rs, x0s, alphas, Xb, Ub, ub,
+                                                  Kb),),
+            lambda: (itt.linesearch_rollouts(rs, x0s, alphas, Xb, Ub, ub,
+                                             Kb)[2],)),
+        "closed_loop_rollout_batched": (
+            lambda: itt.closed_loop_rollout_batched(rs, x0s, ab, Xb, Ub, ub,
+                                                    Kb),
+            lambda: tuple(r[:, 0] for r in itt.linesearch_rollouts(
+                rs, x0s, ab[:, None], Xb, Ub, ub, Kb))),
+        "open_loop_rollout_batched": (
+            lambda: itt.open_loop_rollout_batched(rs, x0s, Ub),
+            lambda: itt.rollout(rs, x0s, Ub))}
+    errs = {k: held(f"B5 P5 {k}", zip(kern(), plain()))
+            for k, (kern, plain) in cases.items()}
+    t5 = design_timing(smi, "B5 P5 rate cart-pole", {
+        k: v[0] for k, v in cases.items()}, turns=3)
+    bnd = wr_bounds("rate:cartpole", "rk4", 5, 1, P5_N, A10, B=P5_B)
+    for k, (_, plain) in cases.items():
+        row(f"{k}_rate_cartpole_b{P5_B}_n{P5_N}", "rate_models.cu",
+            "pallas_batched.py:377", p5_counts.get(k, 0), errs[k], t5[k],
+            cuda_ms(plain, 1, 0), bnd[k], f"{k}_models")
+
+    # P6: B1 at (2, 1) and B2 on the LTI double integrator ('discrete'),
+    # N = 50, along the first iteration.
+    lti = p6_system(itt, f32)
+    x0 = torch.tensor([2.0, 0.0], **f32)
+    U = torch.zeros((P6_N, 1), **f32)
+    X = itt.rollout(lti, x0, U)[0].contiguous()
+    exp = itt.linearize_trajectory(lti, X, U)
+    e1 = check_fields_b1(itt, "P6 (2, 1) N=50", exp)
+    t1 = design_timing(smi, "B1", {"P6 (2, 1) N=50": lambda: (
+        itt.backward_pass_fused(exp, 0.0))}, turns=3)
+    row("fused_riccati_2x1_n50", "fused_riccati.cu", "pallas_riccati.py:774",
+        runs["p6"][2].get("fused_riccati", 0), e1, t1["P6 (2, 1) N=50"],
+        cuda_ms(lambda: itt.backward_pass_associative(exp, 0.0), 3, 1),
+        bound(4 * (expansion_floats(P6_N, 2, 1) + P6_N * (1 + 2) + 2),
+              P6_N * riccati_step_ops(2, 1)), "fused_riccati")
+    u_ff, K, _, _ = itt.backward_pass_fused(exp, 0.0)
+    b2_rows("lti_2x1_discrete_n50", "lti_rollout.cu", lti, "lti",
+            "discrete", (x0, X, U, u_ff, K), runs["p6"][2])
+
+    # Timed alone (no path runs them), along phase 35's nominals: the
+    # implicit rules (the 3-D quadrotor under backward Euler, one turn at
+    # WR_TIME_N // 2: ~0.1 ms a step, its plain version ~50 ms), the
+    # spring chain, the rate and tracking wrappers over the 3-D quadrotor
+    # and the LTI (16, 4) at WR_TIME_N.
+    n_imp = WR_TIME_N // 2
+    for case, tag, source, model, n, turns in (
+            (("model", "quadrotor3d", "backward_euler"),
+             f"backward_euler_quadrotor3d_n{n_imp}", "implicit_models.cu",
+             "quadrotor3d", n_imp, 1),
+            (("chain", "chain", "rk4"), f"spring_chain_rk4_n{WR_TIME_N}",
+             "spring_chain.cu", "spring_chain", WR_TIME_N, 3),
+            (("rate", "quadrotor3d", "rk4"),
+             f"rate_quadrotor3d_rk4_n{WR_TIME_N}", "rate_models.cu",
+             "rate:quadrotor3d", WR_TIME_N, 3),
+            (("tracking", "quadrotor3d", "rk4"),
+             f"tracking_quadrotor3d_rk4_n{WR_TIME_N}", "tracking_models.cu",
+             "tracking:quadrotor3d", WR_TIME_N, 3),
+            (("lti", "lti_16x4", "rk4"), f"lti_16x4_rk4_n{WR_TIME_N}",
+             "lti_rollout.cu", "lti", WR_TIME_N, 3)):
+        system = wr_system(itt, case, f32)
+        inputs = wr_nominal(case, system, n, 90, f32)
+        b2_rows(tag, source, system, model, case[2], inputs, {}, turns)
+    # B7w at n = 12, M = 151, the flight's M (at n = 16, M = 32769, one
+    # call's look-back chain runs through 2049 tiles).
+    tb = design_timing(smi, "B7w", {
+        k: lambda e=e: itt.suffix_scan_fused(e, "lane")
+        for k, e in timed_el.items()}, turns=3)
+    for label, el in timed_el.items():
+        M, n = el.A.shape[0], el.A.shape[-1]
+        row(f"suffix_scan_lane_wide_n{n}_m{M}", "suffix_scan.cu",
+            "pallas_riccati.py:271", 0, errors["suffix_scan_lane_wide"],
+            tb[label], cuda_ms(lambda e=el: parallel_riccati.suffix_scan(e),
+                               3, 1),
+            bound(4 * 2 * M * (3 * n * n + 2 * n), (M - 1) * combine_ops(n)),
+            "suffix_scan_lane_wide")
+    print(f"phase 35: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; "
@@ -4194,7 +5059,10 @@ def main() -> int:
     if spilled:
         raise AssertionError("kernels spill registers:\n"
                              + "\n".join(spilled))
-    sass_report(kernels.path)
+    t0 = time.perf_counter()
+    for line in sass_report(kernels.path, kernels.ptxas_log):
+        print(line)
+    print(f"SASS report: {time.perf_counter() - t0:.1f} s")
     launches_per_call = one_launch_check(itt, f32)
     tile = fused_riccati.tile_steps(kernels.lib, 4, 2)   # the DP's shape
 
@@ -4316,7 +5184,7 @@ def main() -> int:
     u0, K0, _, _ = itt.backward_pass_fused(exp_dp0, 0.0)
     check_b2("DP first iteration", X_dp0, U_dp0, u0, K0, alpha=0.5)
     t0 = time.perf_counter()
-    chain_checks(itt, dev, errors)
+    chain_checks(itt, dev, errors, long_n=CHAIN_LONG_N)
     print(f"phase 3 chain checks: {time.perf_counter() - t0:.1f} s")
 
     lap("3")
@@ -4988,7 +5856,8 @@ def main() -> int:
     kernels_json += constrained_phases(itt, dev, smi)
     kernels_json += wide_phases(itt, dev, smi, lpc)
     kernels_json += wide_batched_phases(itt, dev, smi, lpc)
-    print(f"phases 1-34: {time.perf_counter() - t_run:.1f} s")
+    kernels_json += wrapper_phases(itt, dev, smi, lpc)
+    print(f"phases 1-35: {time.perf_counter() - t_run:.1f} s")
     for k in kernels_json:
         print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "

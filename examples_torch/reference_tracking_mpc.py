@@ -4,9 +4,10 @@ The twin of `examples/reference_tracking_mpc.py`: the pendulum follows a
 sinusoidal angle reference through `make_tracking_system` (the step index
 rides in the state, so the receding-horizon window shifts with the plant's
 clock): 600 steps at dt 0.01, horizon 50, maxiter 8.  Each solve's backward
-pass is the fused kernel (B1w at the augmented (3, 1)); the tracking
-wrapper has no device model, so the rollouts are the host loops.
-``main(n_sim=...)`` cuts the simulated steps.
+pass is the fused kernel (B1w at the augmented (3, 1)); the rollouts are
+the host loops of rollout='auto', and rollout='pallas' runs them through
+the rollout kernels' tracking form instead.  ``main(n_sim=...)`` cuts the
+simulated steps.
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))

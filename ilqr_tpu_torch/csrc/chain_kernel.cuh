@@ -1,9 +1,12 @@
 // The chain kernels of B2 and B5 (line-search costs, trajectory, open
 // loop) and their launcher, shared by the translation units that
-// instantiate them for the models: chain_rollout.cu (the pendulum and the
-// double pendulum, and the library's entries) and chain_models.cu (the
-// cart-pole, the quadrotors and the car), built in parallel.  The design
-// is described in chain_rollout.cu.
+// instantiate them for the systems, built in parallel: chain_rollout.cu
+// (the pendulum and the double pendulum, and the library's entries),
+// chain_models.cu (the cart-pole, the quadrotors and the car under the
+// explicit rules), implicit_models.cu (their implicit rules), lti_rollout.cu
+// (the LTI systems), tracking_*.cu and rate_*.cu (the wrappers over those)
+// and spring_chain.cu.  The design is described in chain_rollout.cu; the
+// systems are the forms of forms.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,6 +15,7 @@
 #include <type_traits>
 
 #include "async_copy.cuh"
+#include "forms.cuh"
 #include "models.cuh"
 #include "runs.cuh"
 
@@ -29,6 +33,40 @@ constexpr int kTargetWarps = 396;
 constexpr int kSmemBudget = 200 * 1024;
 static_assert(kChunk % 4 == 0, "a chunk keeps each run's 16-byte phase");
 
+// Model ids of the entries (ops/fused_rollout.py): the register models
+// 0-6 and LtiRegs, the spring chain, and the wrappers, whose id is their
+// offset plus the base's.
+enum ModelId {
+  kPendulum = 0,
+  kDoublePendulum = 1,
+  kCartpole = 2,
+  kQuadrotor = 3,
+  kQuadrotor3d = 4,
+  kQuadrotor3dRotor = 5,
+  kCar = 6,
+  kLti = 7,
+  kSpringChain = 8,
+  kTracking = 16,
+  kRate = 32,
+};
+
+// Steps per ring stage at (NX, NU): kChunk, or a quarter of it (at least 4)
+// where the gains of a chunk would not fit (the spring chain's K row is
+// 2 KB a step).
+__host__ __device__ constexpr int chunk_steps(int n_x, int n_u) {
+  return n_x * n_u > 64 ? (kChunk / 4 > 4 ? kChunk / 4 : 4) : kChunk;
+}
+
+// The system a kernel runs: a register model of models.cuh under the
+// quadratic costs, or a form of forms.cuh as it is.
+template <class M, class = void>
+struct IsForm : std::false_type {};
+template <class M>
+struct IsForm<M, std::void_t<decltype(M::kForm)>> : std::true_type {};
+template <class Model, int NX, int NU, int INTEG>
+using FormOf = std::conditional_t<IsForm<Model>::value, Model,
+                                  QuadraticForm<Model, NX, NU, INTEG>>;
+
 enum Mode { kCosts = 0, kTrajectory = 1, kOpenLoop = 2 };
 
 struct BlockShape {
@@ -41,42 +79,53 @@ struct BlockShape {
 __host__ __device__ constexpr int region(int n) { return (n + 3) / 4 * 4 + 4; }
 
 // Shared memory of one block, in floats per instance and stage:
-//   [4 kStages barriers | the stage cost's matrices, where they are shared |
+//   [4 kStages barriers | the form's shared parameters (HEAD floats) |
+//    W x 32 lanes x WORK floats of the lanes' work |
 //    kStages x I input regions | kStages x I outputs].
-template <int NX, int NU, int MODE>
+// The defaults of HEAD and WORK are those of a register model under the
+// quadratic costs: the stage cost's matrices where they are shared.
+template <int NX, int NU, int MODE,
+          int HEAD = kCostShared<NX> ? cost_floats<NX, NU>() : 0,
+          int WORK = 0>
 struct Ring {
+  static constexpr int kSteps = chunk_steps(NX, NU);   // steps a stage
+  static_assert(kSteps % 4 == 0, "a chunk keeps each run's 16-byte phase");
   static constexpr bool kFeedback = MODE != kOpenLoop;
   static constexpr bool kStores = MODE != kCosts;
   // Input: X_old rows, U_old rows, u_ff rows, K rows (open loop: U_old).
   static constexpr int kX = 0;
-  static constexpr int kU = kFeedback ? region(kChunk * NX) : 0;
-  static constexpr int kF = kU + region(kChunk * NU);
-  static constexpr int kK = kF + region(kChunk * NU);
+  static constexpr int kU = kFeedback ? region(kSteps * NX) : 0;
+  static constexpr int kF = kU + region(kSteps * NU);
+  static constexpr int kK = kF + region(kSteps * NU);
   static constexpr int kIn =
-      kFeedback ? kK + region(kChunk * NU * NX) : region(kChunk * NU);
+      kFeedback ? kK + region(kSteps * NU * NX) : region(kSteps * NU);
   // Output: x_t rows, then u_t rows (trajectory kernel only).
-  static constexpr int kOutU = region(kChunk * NX);
+  static constexpr int kOutU = region(kSteps * NX);
   static constexpr int kOut =
       MODE == kCosts ? 0
-                     : kOutU + (MODE == kTrajectory ? region(kChunk * NU) : 0);
+                     : kOutU + (MODE == kTrajectory ? region(kSteps * NU) : 0);
   static constexpr int kBarBytes = 4 * kStages * sizeof(uint64_t);
-  // The stage cost's x_target, Q and R where they live in shared memory
-  // (models.cuh, kCostShared), rounded to 16 bytes.
-  static constexpr int kCostBytes =
-      kCostShared<NX> ? (4 * cost_floats<NX, NU>() + 15) / 16 * 16 : 0;
+  // The form's shared parameters, rounded to 16 bytes.
+  static constexpr int kCostBytes = (4 * HEAD + 15) / 16 * 16;
   static constexpr int kHeadBytes = kBarBytes + kCostBytes;
+  static constexpr int kWarpBytes = sizeof(float) * kLanes * WORK;
   static constexpr int kInstBytes = sizeof(float) * kStages * (kIn + kOut);
-  static int bytes(int insts) { return kHeadBytes + insts * kInstBytes; }
+  static int bytes(int insts, int warps) {
+    return kHeadBytes + warps * kWarpBytes + insts * kInstBytes;
+  }
   // B instances on about kTargetWarps chain warps: instances a warp,
   // within its lanes (lpi = min(n_alpha, 32) each), then chain warps a
-  // block, within kMaxChainWarps and kSmemBudget.
+  // block, within kMaxChainWarps and kSmemBudget (each warp with its
+  // lanes' work).
   static BlockShape shape(int B, int n_alpha) {
     const int lpi = min(n_alpha, kLanes);
-    const int fit = max(1, (kSmemBudget - kHeadBytes) / kInstBytes);
+    const int fit =
+        max(1, (kSmemBudget - kHeadBytes - kWarpBytes) / kInstBytes);
     const int per = max(1, min(min(kLanes / lpi, fit),
                                (B + kTargetWarps - 1) / kTargetWarps));
-    const int warps = min(min(kMaxChainWarps, (B + per - 1) / per),
-                          max(1, fit / per));
+    const int warps =
+        min(min(kMaxChainWarps, (B + per - 1) / per),
+            max(1, (kSmemBudget - kHeadBytes) / (per * kInstBytes + kWarpBytes)));
     return {per, warps};
   }
 };
@@ -97,12 +146,13 @@ __device__ void produce(int N, int j, int insts, const float* X_old,
                         float* in, float* out, float* X_out, float* U_out,
                         Barriers b) {
   using R = Ring<NX, NU, MODE>;
-  const int n_chunks = (N + kChunk - 1) / kChunk;
+  constexpr int kSteps = R::kSteps;
+  const int n_chunks = (N + kSteps - 1) / kSteps;
   int loaded = 0;
   for (int c = 0; c < n_chunks; ++c) {
     for (; loaded < n_chunks && loaded < c + kStages; ++loaded) {
       const int s = loaded % kStages;
-      const int t0 = loaded * kChunk, T = min(kChunk, N - t0);
+      const int t0 = loaded * kSteps, T = min(kSteps, N - t0);
       float* st = in + (s * insts + j) * R::kIn;
       // Round r reuses the stage after the chain released round r - 1.
       mbar_wait(&b.empty[s], ((loaded / kStages) & 1) ^ 1);
@@ -123,7 +173,7 @@ __device__ void produce(int N, int j, int insts, const float* X_old,
     }
     if constexpr (R::kStores) {
       const int s = c % kStages;
-      const int t0 = c * kChunk, T = min(kChunk, N - t0);
+      const int t0 = c * kSteps, T = min(kSteps, N - t0);
       const float* ost = out + (s * insts + j) * R::kOut;
       mbar_wait(&b.ofull[s], (c / kStages) & 1);
       store_rows(X_out + t0 * NX, ost, T * NX);
@@ -150,7 +200,8 @@ struct Rows {
 // blockDim.x = 32 (W + 1): W chain warps of per_warp instances, then the
 // producer.
 // PHASED: the runs may start anywhere (their shifts are read at run time);
-// else every run starts on 16 bytes.
+// else every run starts on 16 bytes.  Model: a register model of
+// models.cuh (under INTEG and the quadratic costs) or a form of forms.cuh.
 template <class Model, int NX, int NU, int INTEG, int MODE, bool PHASED>
 __global__ void __launch_bounds__(kLanes * (kMaxChainWarps + 1), 1)
 chain_kernel(const float* __restrict__ params, int B, int per_warp,
@@ -160,20 +211,24 @@ chain_kernel(const float* __restrict__ params, int B, int per_warp,
              const float* __restrict__ u_ff, const float* __restrict__ K,
              int N, int newton_iters, float* __restrict__ costs,
              float* __restrict__ X_out, float* __restrict__ U_out) {
-  using R = Ring<NX, NU, MODE>;
+  using F = FormOf<Model, NX, NU, INTEG>;
+  using R = Ring<NX, NU, MODE, F::kSmem, F::kWork>;
+  constexpr int kSteps = R::kSteps;
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   const Barriers b{bars, bars + kStages, bars + 2 * kStages,
                    bars + 3 * kStages};
   const int warps = blockDim.x / kLanes - 1;  // chain warps
   const int insts = warps * per_warp;          // instances a block
-  float* cost_sm = reinterpret_cast<float*>(smem + R::kBarBytes);
-  float* in = reinterpret_cast<float*>(smem + R::kHeadBytes);
+  float* head_sm = reinterpret_cast<float*>(smem + R::kBarBytes);
+  float* work_sm = reinterpret_cast<float*>(smem + R::kHeadBytes);
+  float* in = reinterpret_cast<float*>(smem + R::kHeadBytes +
+                                       warps * R::kWarpBytes);
   float* out = in + kStages * insts * R::kIn;
   const int b0 = blockIdx.x * insts;
   const int here = min(insts, B - b0);  // the block's instances
 
-  if constexpr (kCostShared<NX>) StageCostShared<NX, NU>::fill(params, cost_sm);
+  if constexpr (F::kSmem > 0) F::fill(params, head_sm);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&b.full[s], here);
@@ -217,28 +272,21 @@ chain_kernel(const float* __restrict__ params, int B, int per_warp,
   const int sK = PHASED && R::kFeedback ? phase(K + rw.k) : 0;
   const int sXo = PHASED && R::kStores ? phase(X_out + rw.x) : 0;
   const int sUo = PHASED && MODE == kTrajectory ? phase(U_out + rw.u) : 0;
-  using L = ParamLayout<NX, NU>;
-  Model model;
-  model.load(params + L::kModel);
-  std::conditional_t<kCostShared<NX>, StageCostShared<NX, NU>,
-                     StageCostRegs<NX, NU>>
-      running_cost;
-  if constexpr (kCostShared<NX>) {
-    running_cost.load(params, cost_sm);
-  } else {
-    running_cost.load(params);
-  }
-  const float dt = running_cost.dt;
+  F form;
+  form.load(params, head_sm);
+  // The lane's work (the wide implicit rules), interleaved with its warp's.
+  float* work = F::kWork > 0 ? work_sm + warp * kLanes * F::kWork + lane
+                             : nullptr;
   float x[NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) x[i] = x0[(size_t)inst * NX + i];
   float cost = 0.0f;
 
-  const int n_chunks = (N + kChunk - 1) / kChunk;
+  const int n_chunks = (N + kSteps - 1) / kSteps;
   for (int c = 0; c < n_chunks; ++c) {
     const int s = c % kStages;
     const uint32_t parity = (c / kStages) & 1;
-    const int T = min(kChunk, N - c * kChunk);
+    const int T = min(kSteps, N - c * kSteps);
     const float* st = in + (s * insts + j) * R::kIn;
     float* ost = out + (s * insts + j) * R::kOut;
     const float* sXr = st + R::kX + sX;
@@ -277,11 +325,9 @@ chain_kernel(const float* __restrict__ params, int B, int per_warp,
           }
         }
       }
-      cost += running_cost(x, u);
+      cost += form.stage(x, u);
       float xn[NX];
-      integrate<NX, INTEG>(
-          [&](const auto* xs, auto* xdot) { model.f(xs, u, xdot); }, dt, x,
-          xn, newton_iters);
+      form.step(x, u, xn, newton_iters, work);
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = xn[i];
     }
@@ -294,7 +340,7 @@ chain_kernel(const float* __restrict__ params, int B, int per_warp,
     }
   }
   if (!active) return;
-  costs[(size_t)inst * n_alpha + a] = cost + terminal_cost<NX, NU>(params, x);
+  costs[(size_t)inst * n_alpha + a] = cost + form.terminal(x);
   if constexpr (R::kStores) {
 #pragma unroll
     for (int i = 0; i < NX; ++i) X_out[rw.x + (size_t)N * NX + i] = x[i];
@@ -336,19 +382,24 @@ bool phased(const ChainArgs& r) {
          off(r.K, u * NX) || off(r.X_out, x) || off(r.U_out, u);
 }
 
-template <class Model, int NX, int NU, int INTEG, int MODE>
+// BOTH: the instantiation with shifts fixed at 0 is built beside the
+// phased one and taken when every run starts on 16 bytes (the register
+// models); else the phased one runs every launch (the other forms: half
+// the instantiations to build).
+template <class Model, int NX, int NU, int INTEG, int MODE, bool BOTH = true>
 int launch(const ChainArgs& r) {
-  using R = Ring<NX, NU, MODE>;
+  using F = FormOf<Model, NX, NU, INTEG>;
+  using R = Ring<NX, NU, MODE, F::kSmem, F::kWork>;
   // The buffer's length must be the layout this instantiation reads.
-  if (r.n_params != ParamLayout<NX, NU>::kModel + Model::kParams ||
-      r.B < 1 || r.N < 1 || r.n_alpha < 1)
+  if (!F::params_ok(r.n_params) || r.B < 1 || r.N < 1 || r.n_alpha < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const BlockShape sh = R::shape(r.B, r.n_alpha);
   const int insts = sh.per_warp * sh.warps;
-  const int bytes = R::bytes(insts);
-  auto kernel = phased<NX, NU>(r)
-                    ? chain_kernel<Model, NX, NU, INTEG, MODE, true>
-                    : chain_kernel<Model, NX, NU, INTEG, MODE, false>;
+  const int bytes = R::bytes(insts, sh.warps);
+  auto kernel = chain_kernel<Model, NX, NU, INTEG, MODE, true>;
+  if constexpr (BOTH) {
+    if (!phased<NX, NU>(r)) kernel = chain_kernel<Model, NX, NU, INTEG, MODE, false>;
+  }
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -376,8 +427,8 @@ int by_integrator(int integrator, const ChainArgs& r) {
   }
 }
 
-// The explicit integrators only (the models added after the implicit rules
-// have no dual-number form yet: ROADMAP B2m-rest).
+// The explicit integrators only (chain_models.cu; the implicit rules of
+// those models are instantiated in implicit_models.cu).
 template <class Model, int NX, int NU, int MODE>
 int by_explicit_integrator(int integrator, const ChainArgs& r) {
   switch (integrator) {
@@ -388,11 +439,60 @@ int by_explicit_integrator(int integrator, const ChainArgs& r) {
   }
 }
 
+// A system Form<INTEG> (a form, or a register model whatever INTEG) under
+// the explicit integrators, and 'discrete' where DISCRETE, in the phased
+// instantiation only.
+template <template <int> class Form, int NX, int NU, int MODE, bool DISCRETE>
+int by_form_integrator(int integrator, const ChainArgs& r) {
+  switch (integrator) {
+    case kEuler: return launch<Form<kEuler>, NX, NU, kEuler, MODE, false>(r);
+    case kMidpoint:
+      return launch<Form<kMidpoint>, NX, NU, kMidpoint, MODE, false>(r);
+    case kRk4: return launch<Form<kRk4>, NX, NU, kRk4, MODE, false>(r);
+    case kDiscrete:
+      if constexpr (DISCRETE) {
+        return launch<Form<kDiscrete>, NX, NU, kDiscrete, MODE, false>(r);
+      }
+      [[fallthrough]];
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
-// The models of chain_models.cu (model ids 2-6) under mode 0 (costs), 1
-// (trajectory) or 2 (open loop).
+// The systems of the other translation units, each under mode 0 (costs),
+// 1 (trajectory) or 2 (open loop); cudaErrorInvalidValue for what none
+// instantiates.  Model ids as ModelId.
+// chain_models.cu: models 2-6 under euler, midpoint, rk4.
 int dispatch_models(int mode, int model, int integrator, int n_x, int n_u,
                     const ChainArgs& r);
+// implicit_models.cu: models 2-6 under backward Euler and trapezoidal.
+int dispatch_implicit(int mode, int model, int integrator, int n_x, int n_u,
+                      const ChainArgs& r);
+// lti_rollout.cu: kLti.
+int dispatch_lti(int mode, int integrator, int n_x, int n_u,
+                 const ChainArgs& r);
+// tracking_models.cu, tracking_lti.cu: kTracking + the base's id.
+int dispatch_tracking_models(int mode, int base, int integrator, int n_x,
+                             int n_u, const ChainArgs& r);
+int dispatch_tracking_lti(int mode, int integrator, int n_x, int n_u,
+                          const ChainArgs& r);
+// rate_models.cu, rate_lti.cu: kRate + the base's id; integrator: the
+// base's.
+int dispatch_rate_models(int mode, int base, int integrator, int n_x,
+                         int n_u, const ChainArgs& r);
+int dispatch_rate_lti(int mode, int integrator, int n_x, int n_u,
+                      const ChainArgs& r);
+// spring_chain.cu: kSpringChain.
+int dispatch_spring_chain(int mode, int integrator, int n_x, int n_u,
+                          const ChainArgs& r);
+
+// The three modes of a dispatch template D<MODE>(args...).
+#define ILQR_CHAIN_MODES(D, mode, ...)                                   \
+  switch (mode) {                                                        \
+    case kCosts: return D<kCosts>(__VA_ARGS__);                          \
+    case kTrajectory: return D<kTrajectory>(__VA_ARGS__);                \
+    case kOpenLoop: return D<kOpenLoop>(__VA_ARGS__);                    \
+    default: return static_cast<int>(cudaErrorInvalidValue);            \
+  }
 
 }  // namespace chain
 }  // namespace ilqr

@@ -9,7 +9,12 @@
 // open_loop_rollout_batched), B5.  B2 is the batch of one instance.  The
 // open-loop entries are the trajectory kernel without feedback, u = U_old:
 // the initial rollout, which the JAX solver runs as one device program
-// (solver.py:389-395).
+// (solver.py:389-395).  The systems are the forms of forms.cuh: the
+// register models of models.cuh (instantiated here for the pendulum and the
+// double pendulum, the rest in the translation units that `dispatch`
+// names), the LTI systems, the tracking and rate wrappers and the spring
+// chain; JAX's kernels trace any system's Python, so each system the
+// port's kernels take has a device form.
 //
 // What bounds it on an H100: the latency of one dependent chain.  The
 // recursion
@@ -54,7 +59,13 @@
 // - Nothing loop-invariant is read from memory on the chain: the parameter
 //   buffer is loaded once into register structs (models.cuh, *Regs), whose
 //   model constants are folded before the time loop; sin and cos of q2 come
-//   from one sincosf and M^-1 h from one IEEE reciprocal of det.
+//   from one sincosf and M^-1 h from one IEEE reciprocal of det.  Wider
+//   operands that would spill (the quadratic costs above n_x = 4, LTI's A
+//   and B above n_x = 4, the chain's S) sit in the block's shared memory and
+//   are read volatile at each use; a tracking reference stays in device
+//   memory, one row a step; the implicit rules above n_x = 4 keep their
+//   Newton matrix in the lane's shared work (models.cuh, integrate), and
+//   the spring chain's stages hold 8 steps (a K row is 2 KB a step).
 // - The arithmetic that fixes the answer stays: the control law is
 //   u_old + a*u_ff + K (x - x_old) in the TPU kernel's order (no folding of
 //   u_old - K x_old, which cancels when x is near x_old), no fast-math
@@ -71,18 +82,37 @@ namespace {
 using namespace ilqr;
 using namespace ilqr::chain;
 
-// model: 0 = pendulum (n_x 2, n_u 1), 1 = double pendulum (n_x 4, n_u 1|2),
-// 2 = cart-pole (4, 1), 3 = planar quadrotor (6, 2), 4 = 3-D quadrotor
-// (12, 4), 5 = its rotor-lag variant (16, 4), 6 = car (4, 2).
+// model (ModelId): 0 = pendulum (n_x 2, n_u 1), 1 = double pendulum (n_x 4,
+// n_u 1|2), 2 = cart-pole (4, 1), 3 = planar quadrotor (6, 2), 4 = 3-D
+// quadrotor (12, 4), 5 = its rotor-lag variant (16, 4), 6 = car (4, 2),
+// 7 = LTI (lti_rollout.cu), 8 = the spring chain (32, 16); 16 + b and
+// 32 + b the tracking and rate wrappers over model b.  The translation
+// units of the other systems answer for their shapes.
 template <int MODE>
 int dispatch(int model, int integrator, int n_x, int n_u, const ChainArgs& r) {
-  if (model == 0 && n_x == 2 && n_u == 1)
+  if (model == kPendulum && n_x == 2 && n_u == 1)
     return by_integrator<PendulumRegs<1>, 2, 1, MODE>(integrator, r);
-  if (model == 1 && n_x == 4 && n_u == 1)
+  if (model == kDoublePendulum && n_x == 4 && n_u == 1)
     return by_integrator<DoublePendulumRegs<1>, 4, 1, MODE>(integrator, r);
-  if (model == 1 && n_x == 4 && n_u == 2)
+  if (model == kDoublePendulum && n_x == 4 && n_u == 2)
     return by_integrator<DoublePendulumRegs<2>, 4, 2, MODE>(integrator, r);
-  if (model >= 2) return dispatch_models(MODE, model, integrator, n_x, n_u, r);
+  if (model >= kCartpole && model <= kCar) {
+    if (integrator == kBackwardEuler || integrator == kTrapezoidal)
+      return dispatch_implicit(MODE, model, integrator, n_x, n_u, r);
+    return dispatch_models(MODE, model, integrator, n_x, n_u, r);
+  }
+  if (model == kLti) return dispatch_lti(MODE, integrator, n_x, n_u, r);
+  if (model == kSpringChain)
+    return dispatch_spring_chain(MODE, integrator, n_x, n_u, r);
+  if (model == kTracking + kLti)
+    return dispatch_tracking_lti(MODE, integrator, n_x, n_u, r);
+  if (model >= kTracking && model <= kTracking + kCar)
+    return dispatch_tracking_models(MODE, model - kTracking, integrator, n_x,
+                                    n_u, r);
+  if (model == kRate + kLti)
+    return dispatch_rate_lti(MODE, integrator, n_x, n_u, r);
+  if (model >= kRate && model <= kRate + kCar)
+    return dispatch_rate_models(MODE, model - kRate, integrator, n_x, n_u, r);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -108,8 +138,12 @@ BlockShape shape_of(int mode, int n_x, int n_u, int B, int n_alpha) {
 
 }  // namespace
 
-// Steps per ring stage and stages in the ring (for tests that cross them).
+// Steps per ring stage and stages in the ring (for tests that cross them);
+// the stage of the widest systems (the spring chain) is shorter.
 extern "C" int ilqr_chain_chunk_steps() { return kChunk; }
+extern "C" int ilqr_chain_chunk_steps_at(int n_x, int n_u) {
+  return chunk_steps(n_x, n_u);
+}
 extern "C" int ilqr_chain_ring_stages() { return kStages; }
 
 // How the chain kernels split B instances (mode: 0 costs, 1 trajectory,

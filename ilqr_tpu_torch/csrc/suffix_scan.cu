@@ -52,8 +52,9 @@
 // combine and tile scan of riccati_scan.cuh (namespace wide), which B1w
 // shares; blocks of 256 threads hold tiles of 256 / P elements, group 0
 // folds the look-back, a whole element a tile, staged two at a time.  n is
-// a run-time bound of one instantiation per P.  The 'lane' entry (B7)
-// keeps n in {2, 4}.
+// a run-time bound of one instantiation per P.  The 'lane' entry (B7) runs
+// the register form at n in {2, 4} and the same wide kernel (B7w) at every
+// other n <= 16.
 #include <cuda_runtime.h>
 
 #include "lookback.cuh"
@@ -424,21 +425,21 @@ int occupancy() {
 }
 
 int tile_steps(int lane, int n_x) {
-  if (lane) return kLaneTile;
-  return register_form(n_x) ? kSubTile : kWideThreads / wide_lanes(n_x);
+  if (register_form(n_x)) return lane ? kLaneTile : kSubTile;
+  return kWideThreads / wide_lanes(n_x);
 }
 int tiles(int lane, int n_x, int M) {
   return (M + tile_steps(lane, n_x) - 1) / tile_steps(lane, n_x);
 }
-int element_floats(int lane, int n_x) {
-  if (lane || register_form(n_x)) return 3 * n_x * n_x + 2 * n_x;
+int element_floats(int n_x) {
+  if (register_form(n_x)) return 3 * n_x * n_x + 2 * n_x;
   return wide_lanes(n_x) == 8 ? wide::Layout<8>::F : wide::Layout<16>::F;
 }
 
 }  // namespace
 
-// Elements per tile of each entry at n_x: lane = 0 (B6; at n_x other than
-// 2 and 4 the wide form's), 1 (B7).
+// Elements per tile of each entry at n_x: lane = 0 (B6), 1 (B7); at n_x
+// other than 2 and 4 the wide form's, the same for both (B6w, B7w).
 extern "C" int ilqr_suffix_tile_steps(int lane, int n_x) {
   return tile_steps(lane, n_x);
 }
@@ -449,7 +450,7 @@ extern "C" int ilqr_suffix_scan_counters(int lane, int n_x, int M) {
   return lookback::counter_ints(tiles(lane, n_x, M));
 }
 extern "C" int ilqr_suffix_scan_scratch(int lane, int n_x, int M) {
-  return 2 * tiles(lane, n_x, M) * element_floats(lane, n_x);
+  return 2 * tiles(lane, n_x, M) * element_floats(n_x);
 }
 
 // Blocks of the kernel resident on one SM (a negative CUDA error code on
@@ -457,14 +458,13 @@ extern "C" int ilqr_suffix_scan_scratch(int lane, int n_x, int M) {
 extern "C" int ilqr_suffix_scan_occupancy(int lane, int n_x) {
   if (n_x == 2) return lane ? occupancy<2, kLaneTile>() : occupancy<2, kSubTile>();
   if (n_x == 4) return lane ? occupancy<4, kLaneTile>() : occupancy<4, kSubTile>();
-  if (lane || n_x < 1 || n_x > 16)
-    return -static_cast<int>(cudaErrorInvalidValue);
+  if (n_x < 1 || n_x > 16) return -static_cast<int>(cudaErrorInvalidValue);
   return wide_lanes(n_x) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
 }
 
 // One launch: the register form at n_x = 2, 4 (either layout), the wide
-// form at every other n_x <= 16 ('sub' only).  Inputs: the five element
-// fields, (M, n_x, n_x) / (M, n_x);
+// form at every other n_x <= 16 (both layouts, one kernel).  Inputs: the
+// five element fields, (M, n_x, n_x) / (M, n_x);
 // counters and scratch as sized above.  Outputs: the five fields of every
 // suffix, shaped as the inputs.
 extern "C" int ilqr_suffix_scan(int lane, int n_x, int M, const float* A,
@@ -476,9 +476,10 @@ extern "C" int ilqr_suffix_scan(int lane, int n_x, int M, const float* A,
   const Elements in{A, b, C, eta, J};
   const Outputs out{A_out, b_out, C_out, eta_out, J_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lane) return dispatch<kLaneTile>(n_x, M, in, counters, scratch, out, s);
-  if (register_form(n_x))
-    return dispatch<kSubTile>(n_x, M, in, counters, scratch, out, s);
+  if (register_form(n_x)) {
+    return lane ? dispatch<kLaneTile>(n_x, M, in, counters, scratch, out, s)
+                : dispatch<kSubTile>(n_x, M, in, counters, scratch, out, s);
+  }
   if (n_x < 1 || n_x > 16) return static_cast<int>(cudaErrorInvalidValue);
   if (wide_lanes(n_x) == 8)
     return run_wide<8>(n_x, M, in, counters, scratch, out, s);

@@ -9,8 +9,9 @@ c, a softening term s·sin(qᵢ), and an actuator on every ``n_act``-th mass:
 State x = (q, q̇) ∈ R^{2m}, controls u ∈ R^{m/n_act}; m = 16 gives
 n_x = 32, above the fused kernels' n_x ≤ 16, so ``backward='pallas'``
 runs the associative scan there, as in JAX.  Its own diagonal stage and
-terminal costs; no device function for the rollout kernels (ROADMAP item
-B2m-rest).
+terminal costs.  The rollout kernels run it through its device form
+(`csrc/forms.cuh`, ChainForm) at 16 masses with an actuator on each (n_x =
+32, n_u = 16), under the explicit integrators.
 """
 from __future__ import annotations
 

@@ -4,8 +4,10 @@ PyTorch counterpart of `ilqr_tpu/models/linear.py`: `cont2disc` by the
 augmented matrix exponential (`torch.linalg.matrix_exp`), the continuous
 `make_lti` and the discrete `make_discrete_lti` (the 'discrete'
 integrator: f_cont is the next-state map).  The one-shot LQR solve is
-`ilqr_tpu_torch.ops.lqr`.  These systems have matrices of any size and no
-device function for the rollout kernels (ROADMAP item B2m-rest).
+`ilqr_tpu_torch.ops.lqr`.  The rollout kernels run these systems through
+their device model (`csrc/models.cuh`, LtiRegs) at the (n_x, n_u) of
+`ops.fused_rollout.LTI_SHAPES`, under the explicit integrators and
+'discrete'; other sizes raise on CUDA (ROADMAP item B2x).
 """
 from __future__ import annotations
 

@@ -6,8 +6,10 @@ z⁺ = [step(base, x, u); u] (the 'discrete' integrator: the u_prev update
 is a jump), and the stage cost adds 0.5 (u − u_prev)ᵀ S (u − u_prev)·dt.
 The base system's own integrator runs inside the map.  The base's
 parameters sit under ``params["base"]``, its static fields are bound into
-the wrapper's functions.  No device function for the rollout kernels
-(ROADMAP item B2m-rest).
+the wrapper's functions, by which the rollout kernels recognise the
+wrapper: their device form (`csrc/forms.cuh`, RateForm) runs it over every
+base with a device model and n_x + n_u at most 16, the base under the
+explicit integrators ('discrete' too for LTI bases).
 """
 from __future__ import annotations
 

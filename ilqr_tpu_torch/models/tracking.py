@@ -10,8 +10,11 @@ expansion sees the reference as locally constant.  The result is a
 `System`, so the solver, MPC loops and constrained solves take it as it is.
 
 The base system's parameters sit under ``params["base"]``; its f_cont is
-bound into the wrapper's.  The wrapped system has no device function for
-the rollout kernels (ROADMAP item B2m-rest).
+bound into the wrapper's, by which the rollout kernels recognise the
+wrapper: their device form (`csrc/forms.cuh`, TrackingForm) runs it over
+every base with a device model whose tracked state has at most 16 entries,
+under the explicit integrators ('discrete' too for LTI bases), and reads
+the reference rows from device memory at the state's clock.
 """
 from __future__ import annotations
 

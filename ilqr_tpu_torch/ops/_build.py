@@ -59,6 +59,7 @@ SIGNATURES = {
     "ilqr_open_loop_rollout": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P,
                                _P, _P],
     "ilqr_chain_chunk_steps": [],
+    "ilqr_chain_chunk_steps_at": [_I, _I],
     "ilqr_chain_ring_stages": [],
     "ilqr_chain_instances_per_warp": [_I] * 5,
     "ilqr_chain_warps_per_block": [_I] * 5,

@@ -24,11 +24,13 @@ instance) elsewhere.
 Outside those, the backward pass follows JAX's batched rule
 (`pallas_batched.py:277-297`): engine 'auto' or 'scan' runs the plain
 version on the tensors' own device (f64, and the chain's n_x = 32), and
-'pallas' raises.  The rollouts take every model with a device function
-(`fused_rollout.device_model`: the pendulum and the double pendulum under
-every integrator, the implicit ones with the system's ``newton_iters``,
-and the cart-pole, the quadrotors and the car under the explicit ones);
-anything else raises on CUDA (ROADMAP item B2m-rest).  The kernels
+'pallas' raises.  The rollouts take every system with a device form
+(`fused_rollout.device_model`: the register models under the explicit
+integrators, the LTI systems, the tracking and rate wrappers and the
+spring chain under the explicit integrators and, where JAX's `_kernel_ok`
+takes it, 'discrete'), and beyond JAX's set the pendulum and the double
+pendulum under the implicit rules with the system's ``newton_iters``
+(`batched_model`); anything else raises on CUDA (ROADMAP item B2x).  The kernels
 read instance rows at any 4-byte alignment.  JAX swaps its kernels in
 under `jax.vmap(solve)` by `custom_vmap` rules; the port calls them from
 its explicitly batched solve.
@@ -42,6 +44,7 @@ import torch
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops import _build
 from ilqr_tpu_torch.ops.fused_rollout import _params_on, device_model
+from ilqr_tpu_torch.ops.integrators import IMPLICIT
 from ilqr_tpu_torch.ops.linearize import TrajectoryExpansion
 from ilqr_tpu_torch.ops.riccati import backward_pass
 from ilqr_tpu_torch.ops.rollout import linesearch_rollouts, rollout
@@ -199,10 +202,28 @@ def _check_rollout(system: System, x0s, U_old, X_old=None, u_ff=None,
     return B, N
 
 
+# The models whose implicit rules B5 runs: the pendulum and the double
+# pendulum (JAX's batched kernel runs no implicit rule).
+_IMPLICIT_MODELS = (0, 1)
+
+
+def batched_model(system: System) -> Tuple[int, int]:
+    """`device_model` of a system B5 takes; raises `NotImplementedError`
+    for the implicit rules of the other models, which run through B2
+    only."""
+    model, integ = device_model(system)
+    if system.integrator in IMPLICIT and model not in _IMPLICIT_MODELS:
+        raise NotImplementedError(
+            f"the batched CUDA rollouts run {system.integrator!r} on the "
+            f"pendulum and the double pendulum only (JAX's batched kernel "
+            f"on none): ROADMAP item B2x")
+    return model, integ
+
+
 def launch_costs(lib, system, x0s, alphas, X_old, U_old, u_ff, K, stream):
     """Candidate costs (B, A); inputs must already have passed
     `_check_rollout`, ``alphas`` is (A,) float32 and contiguous."""
-    model, integ = device_model(system)
+    model, integ = batched_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     costs = torch.empty((B, alphas.numel()), dtype=torch.float32,
@@ -223,7 +244,7 @@ def launch_trajectory(lib, system, x0s, alpha_b, X_old, U_old, u_ff, K,
     open-loop rollout of U_old, when X_old, u_ff and K are None; inputs
     must already have passed `_check_rollout`, ``alpha_b`` is (B,) float32
     (ignored open loop)."""
-    model, integ = device_model(system)
+    model, integ = batched_model(system)
     B, N = U_old.shape[:2]
     params = _params_on(system, x0s.device)
     opts = dict(dtype=torch.float32, device=x0s.device)

@@ -20,19 +20,32 @@ Dispatch follows the tensor: on the CPU the wrappers run their plain
 versions (`rollout.linesearch_rollouts(...)[2]`,
 `rollout.closed_loop_rollout` and `rollout.rollout`); on a CUDA tensor they
 launch the kernel or raise.  A hand-written kernel cannot trace a model's
-Python the way Pallas traces JAX, so the CUDA path covers the models with
-a device function under the quadratic costs: the pendulum and the double
-pendulum under euler, midpoint, rk4, backward_euler and trapezoidal (the
-implicit ones with the system's ``newton_iters``), and the cart-pole, the
-planar and 3-D quadrotors, the rotor-lag quadrotor and the car under the
-explicit three.  Anything else raises `NotImplementedError` on CUDA: the
-new models' implicit rules and the systems without a device function (the
-tracking and rate wrappers, which wrap another system's Python, and the
-LTI and chain systems, whose matrices have any size) name ROADMAP item
-B2m-rest, other costs or integrators item B2m.
+Python the way Pallas traces JAX, so each system the kernels run has a
+device form (`csrc/models.cuh`, `csrc/forms.cuh`), picked by its functions
+(`device_model`):
+
+* the register models under the quadratic costs: the pendulum and the
+  double pendulum under euler, midpoint, rk4, backward_euler and
+  trapezoidal; the cart-pole, the planar and 3-D quadrotors, the rotor-lag
+  quadrotor and the car under the same five (the implicit rules with the
+  system's ``newton_iters``); the LTI systems (`models/linear.py`) at
+  (n_x, n_u) in `LTI_SHAPES` under the explicit three and 'discrete';
+* the tracking wrapper (`models/tracking.py`) over each of those bases
+  whose tracked state has at most 16 entries (all but the rotor variant
+  and the LTI (16, 4)), and the rate wrapper (`models/rate.py`) over each
+  base with n_x + n_u at most 16 (all but the rotor variant and the LTI
+  (16, 4)), the base under the explicit three ('discrete' too for LTI
+  bases);
+* the spring chain (`models/chain.py`) at 16 masses and 16 controls
+  (n_x = 32) under the explicit three.
+
+Anything else (physical models under 'discrete', wrappers over implicit
+rules or over other wrappers, other costs, shapes or integrators) raises
+`NotImplementedError` on CUDA, naming ROADMAP item B2x.
 """
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from typing import Tuple
 
@@ -41,10 +54,14 @@ import torch
 from ilqr_tpu_torch.models import (
     car,
     cartpole,
+    chain,
     double_pendulum,
+    linear,
     pendulum,
     quadrotor,
     quadrotor3d,
+    rate,
+    tracking,
 )
 from ilqr_tpu_torch.models.base import (
     System,
@@ -62,8 +79,8 @@ KERNEL_COSTS = "linesearch_costs"
 KERNEL_TRAJECTORY = "closed_loop_rollout"
 KERNEL_OPEN_LOOP = "open_loop_rollout"
 
-# f_cont -> model id of the rollout kernels (csrc/chain_rollout.cu, B2 and
-# B5), with its device model block.
+# f_cont -> model id of the rollout kernels (csrc/chain_kernel.cuh's
+# ModelId, B2 and B5), with its device model block.
 _Q3 = ("g", "m", "arm", "km", "Jx", "Jy", "Jz")
 _MODELS = {
     pendulum.f_cont: (0, ("g", "l", "d")),
@@ -74,55 +91,166 @@ _MODELS = {
     quadrotor3d.f_cont: (4, _Q3),
     quadrotor3d.f_cont_rotor: (5, _Q3 + ("rotor_tau",)),
     car.f_cont: (6, ("L",)),
+    linear.lti_f_cont: (7, ("A", "B")),
 }
-# Models with the implicit integrators on the card (B2m); the rest run the
-# explicit ones there.
-_IMPLICIT_MODELS = (0, 1)
+LTI = 7
+# The spring chain, and the wrappers' offsets (plus the base's id).
+SPRING_CHAIN = 8
+TRACKING = 16
+RATE = 32
+# The (n_x, n_u) of the LTI instantiations, and the spring chain's.
+LTI_SHAPES = ((2, 1), (4, 1), (4, 2), (6, 2), (12, 4), (16, 4))
+CHAIN_SHAPE = (32, 16)
+# The largest state a wrapper's instantiation holds.
+MAX_WRAPPED = 16
 # integrator -> id of csrc/models.cuh's Integrator.
 _INTEGRATORS = {"euler": 0, "midpoint": 1, "rk4": 2, "backward_euler": 3,
-                "trapezoidal": 4}
+                "trapezoidal": 4, "discrete": 5}
 _EXPLICIT = ("euler", "midpoint", "rk4")
+# The chain's parameters in its buffer's order (csrc/forms.cuh, ChainForm).
+_CHAIN_PARAMS = ("dt", "k", "c", "s", "wq", "wv", "wu", "wqf", "wvf",
+                 "q_target", "S")
+
+
+def _refuse(what: str):
+    raise NotImplementedError(
+        f"the CUDA rollout kernels have no device form for {what}: ROADMAP "
+        f"item B2x")
+
+
+def _register_model(f_cont, n_x: int, n_u: int, integrator: str,
+                    wrapped: int | None = None) -> int:
+    """The model id of a register model (`_MODELS`) at (n_x, n_u) under
+    ``integrator``, after checking that an instantiation takes it;
+    ``wrapped``: the n_x of a wrapper around it, which must not exceed
+    `MAX_WRAPPED`."""
+    if f_cont not in _MODELS:
+        _refuse("this system (a nested wrapper, the spring chain inside a "
+                "wrapper, or another model)" if wrapped is not None
+                else "this model")
+    model = _MODELS[f_cont][0]
+    if model == LTI:
+        if (n_x, n_u) not in LTI_SHAPES:
+            _refuse(f"an LTI system at (n_x, n_u) = {(n_x, n_u)} "
+                    f"(instantiated at {LTI_SHAPES})")
+        if integrator not in _EXPLICIT + ("discrete",):
+            _refuse(f"an LTI system under {integrator!r}")
+    elif integrator == "discrete":
+        _refuse("a physical model under 'discrete' (its f_cont as the map)")
+    elif integrator not in _INTEGRATORS:
+        _refuse(f"the integrator {integrator!r}")
+    if wrapped is not None:
+        if wrapped > MAX_WRAPPED:
+            _refuse(f"a wrapper whose state has {wrapped} entries (at most "
+                    f"{MAX_WRAPPED})")
+        if integrator not in _EXPLICIT + ("discrete",):
+            _refuse(f"a wrapper over {integrator!r}")
+    return model
+
+
+def _quadratic(system: System) -> bool:
+    return (system.stage_cost is quadratic_stage_cost
+            and system.terminal_cost is quadratic_terminal_cost)
+
+
+def _wrapper(system: System):
+    """('tracking' | 'rate', base) of a wrapped system, else None: the
+    tracking wrapper's base is its f_cont's bound function, the rate
+    wrapper's the System bound into its functions."""
+    f = system.f_cont
+    if not isinstance(f, functools.partial):
+        return None
+    if f.func in (tracking._f_cont, tracking._f_discrete):
+        return "tracking", f.args[0]
+    if f.func is rate._f_disc:
+        return "rate", f.args[0]
+    return None
 
 
 def device_model(system: System) -> Tuple[int, int]:
-    """(model id, integrator id) of the system's device functions."""
-    if system.f_cont not in _MODELS:
-        raise NotImplementedError(
-            "the CUDA rollout kernels have device functions for the "
-            "pendulum, double pendulum, cart-pole, planar and 3-D quadrotors "
-            "and car; this system (a tracking or rate wrapper, an LTI or "
-            "chain system, or another model) has none: ROADMAP item "
-            "B2m-rest")
-    if (system.stage_cost is not quadratic_stage_cost
-            or system.terminal_cost is not quadratic_terminal_cost):
-        raise NotImplementedError(
-            "the CUDA rollout kernels take the quadratic costs only: "
-            "ROADMAP item B2m")
-    model = _MODELS[system.f_cont][0]
-    if system.integrator not in _INTEGRATORS:
-        raise NotImplementedError(
-            f"the CUDA rollout kernels run {', '.join(_INTEGRATORS)}, not "
-            f"{system.integrator!r}: ROADMAP item B2m")
-    if model not in _IMPLICIT_MODELS and system.integrator not in _EXPLICIT:
-        raise NotImplementedError(
-            f"the CUDA rollout kernels run this model under "
-            f"{', '.join(_EXPLICIT)}, not {system.integrator!r}: ROADMAP "
-            f"item B2m-rest")
+    """(model id, integrator id) of the system's device form; for the rate
+    wrapper the integrator is the base's (the wrapper's map is
+    'discrete').  Raises `NotImplementedError` for what no instantiation
+    takes."""
+    wrapped = _wrapper(system)
+    if wrapped is not None and wrapped[0] == "tracking":
+        if (system.stage_cost is not tracking.stage_cost
+                or system.terminal_cost is not tracking.terminal_cost):
+            _refuse("a tracking system with other costs")
+        base_id = _register_model(wrapped[1], system.n_x - 1, system.n_u,
+                                  system.integrator, wrapped=system.n_x)
+        return TRACKING + base_id, _INTEGRATORS[system.integrator]
+    if wrapped is not None:
+        base = wrapped[1]
+        costs = (system.stage_cost, system.terminal_cost)
+        if not (all(isinstance(c, functools.partial) for c in costs)
+                and costs[0].func is rate._stage_cost
+                and costs[1].func is rate._terminal_cost
+                and _quadratic(base)):
+            _refuse("a rate system with other costs")
+        base_id = _register_model(base.f_cont, base.n_x, base.n_u,
+                                  base.integrator, wrapped=system.n_x)
+        return RATE + base_id, _INTEGRATORS[base.integrator]
+    if system.f_cont is chain._f_cont:
+        if (system.stage_cost is not chain._stage_cost
+                or system.terminal_cost is not chain._terminal_cost):
+            _refuse("a spring chain with other costs")
+        if (system.n_x, system.n_u) != CHAIN_SHAPE:
+            _refuse(f"the spring chain at (n_x, n_u) = "
+                    f"{(system.n_x, system.n_u)} (instantiated at "
+                    f"{CHAIN_SHAPE})")
+        if system.integrator not in _EXPLICIT:
+            _refuse(f"the spring chain under {system.integrator!r}")
+        return SPRING_CHAIN, _INTEGRATORS[system.integrator]
+    if system.f_cont in _MODELS and not _quadratic(system):
+        _refuse("a model with other costs than the quadratic ones")
+    model = _register_model(system.f_cont, system.n_x, system.n_u,
+                            system.integrator)
     return model, _INTEGRATORS[system.integrator]
 
 
+def _flat(*tensors) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors]).to(torch.float32)
+
+
+def _quadratic_buffer(params: dict, f_cont) -> torch.Tensor:
+    names = ("dt", "x_target", "Q", "R", "Q_f") + _MODELS[f_cont][1]
+    return _flat(*(params[n] for n in names))
+
+
 def params_buffer(system: System) -> torch.Tensor:
-    """The flat float32 parameter buffer that `csrc/models.cuh` reads:
+    """The flat float32 parameter buffer that the system's device form
+    reads (`csrc/models.cuh`, `csrc/forms.cuh`), matrices row-major:
 
-        [dt, x_target (n_x), Q (n_x²), R (n_u²), Q_f (n_x²), model block]
-
-    matrices row-major; each model's block is its parameters in the order
-    `_MODELS` names them (the pendulum's [g, l, d], the double pendulum's
-    [m1, m2, l1, l2, g, d1, d2, theta1, theta2, S (2 × n_u)], ...).
+    * a register model: [dt, x_target (n_x), Q (n_x²), R (n_u²), Q_f (n_x²),
+      model block], each model's block its parameters in the order `_MODELS`
+      names them (the pendulum's [g, l, d], the double pendulum's [m1, m2,
+      l1, l2, g, d1, d2, theta1, theta2, S (2 × n_u)], LTI's [A, B], ...);
+    * the tracking wrapper: [dt, rows of X_ref, rows of U_ref, Q, R, Q_f,
+      the base's model block, X_ref, U_ref];
+    * the rate wrapper: the base's buffer, then S (n_u²);
+    * the spring chain: [dt, k, c, s, wq, wv, wu, wqf, wvf, q_target, S].
     """
+    model = device_model(system)[0]
     p = system.params
-    names = ("dt", "x_target", "Q", "R", "Q_f") + _MODELS[system.f_cont][1]
-    return torch.cat([p[n].reshape(-1) for n in names]).to(torch.float32)
+    if model >= RATE:
+        base = _wrapper(system)[1]
+        return torch.cat([_quadratic_buffer(p["base"], base.f_cont),
+                          _flat(p["S"])])
+    if model >= TRACKING:
+        base_f = _wrapper(system)[1]
+        n_rows = (p["X_ref"].shape[0], p["U_ref"].shape[0])
+        if not all(1 <= n < 2 ** 24 for n in n_rows):
+            raise ValueError("the tracking kernels take 1 to 2^24 - 1 "
+                             "reference rows")
+        rows = torch.tensor(n_rows, dtype=torch.float32,
+                            device=p["dt"].device)
+        block = (p["base"][n] for n in _MODELS[base_f][1])
+        return _flat(p["dt"], rows, p["Q"], p["R"], p["Q_f"], *block,
+                     p["X_ref"], p["U_ref"])
+    if model == SPRING_CHAIN:
+        return _flat(*(p[n] for n in _CHAIN_PARAMS))
+    return _quadratic_buffer(p, system.f_cont)
 
 
 # Parameter buffers already built, keyed by the identity and version counter
@@ -138,9 +266,9 @@ def _params_on(system: System, device) -> torch.Tensor:
     """`params_buffer(system)` on ``device``, built once per set of
     parameter tensors (the least recently used of `_PARAMS_KEPT` buffers
     goes first)."""
-    tensors = tuple(system.params.values())
+    tensors = tuple(system.tensors())
     try:
-        key = (_MODELS[system.f_cont][0],) + tuple(
+        key = (device_model(system)[0],) + tuple(
             (id(t), t._version) for t in tensors)
     except RuntimeError:   # inference tensors keep no version counter
         key = None

@@ -17,10 +17,10 @@ n_u > 6.
 Dispatch follows the tensor: on the CPU `suffix_scan_fused` runs its plain
 version, `parallel_riccati.suffix_scan`; on a CUDA tensor it launches the
 kernel or raises.  As in JAX, n_x > 16 runs the plain scan on every device.
-On CUDA, layout 'sub' takes every n_x ≤ 16: the register form (an element
-a thread) at n_x in `NX`, the wide form (an element a group of 8 or 16
-lanes, B6w) at the rest; layout 'lane' (B7) takes n_x in `NX` and raises
-on the rest (ROADMAP item B7w).
+On CUDA both layouts take every n_x ≤ 16, as JAX's kernels do: the
+register form (an element a thread) at n_x in `NX`, the wide form (an
+element a group of 8 or 16 lanes in blocks of 256 threads; B7w launches
+B6w's kernel) at the rest.
 """
 from __future__ import annotations
 
@@ -97,10 +97,6 @@ def suffix_scan_fused(elems: RiccatiElement,
     device = elems.A.device
     if n_x > 16 or device.type == "cpu":
         return suffix_scan(elems)
-    if layout == "lane" and n_x not in NX:
-        raise NotImplementedError(
-            f"the CUDA suffix scan's 'lane' layout takes n_x in {NX}, got "
-            f"{n_x}: ROADMAP item B7w (layout 'sub' takes every n_x <= 16)")
     if device.type != "cuda":
         raise ValueError(f"no suffix scan kernel for device {device}")
     _check(elems)

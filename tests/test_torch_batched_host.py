@@ -1,8 +1,10 @@
 """The batched kernels (B4, B5) and the chain kernels (B2) without a GPU.
 
-`csrc/batched_riccati.cu` (B4) and `csrc/chain_rollout.cu` with
-`csrc/chain_models.cu` (B2, and B5, its batched entries; the kernels are
-in `csrc/chain_kernel.cuh`) are compiled with g++ against
+`csrc/batched_riccati.cu` (B4) and `csrc/chain_rollout.cu` with the other
+translation units of the chain kernels (B2, and B5, its batched entries;
+the kernels are in `csrc/chain_kernel.cuh`, the systems in
+`csrc/forms.cuh`) are compiled with g++, once per set of sources for all
+the test modules that use the library, against
 `test_torch_lookback.MOCK_RUNTIME` (every CUDA thread a pthread, shuffles
 through a per-warp buffer) and `MOCK_ASYNC_COPY`, a host form of
 `csrc/async_copy.cuh`: synchronous copies, the bulk ones checking their
@@ -19,10 +21,16 @@ its plain version in f64 within 1e-5 of each output's max, and a repeated
 call must give the same bits.  The tests skip where no g++ is found; the
 card runs the same sources in chip_smoke.py.
 """
+import concurrent.futures
 import ctypes
 import dataclasses
+import fcntl
+import hashlib
+import os
 import shutil
 import subprocess
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,12 +42,14 @@ from test_torch_lookback import MOCK_RUNTIME, _rewrite
 
 torch.set_num_threads(1)
 
-SOURCES = ("batched_riccati.cu", "chain_rollout.cu", "chain_models.cu")
+# B4 and every translation unit of the chain kernels.
+SOURCES = ("batched_riccati.cu", "chain_rollout.cu", "chain_models.cu",
+           "implicit_models.cu", "lti_rollout.cu", "tracking_models.cu",
+           "tracking_lti.cu", "rate_models.cu", "rate_lti.cu",
+           "spring_chain.cu")
 # Cuts of the sources and of chain_kernel.cuh, the chain kernels' header.
 SMALL = {
     "batched_riccati.cu": [("kChunk = 16;", "kChunk = 4;")],
-    "chain_rollout.cu": [],
-    "chain_models.cu": [],
     "chain_kernel.cuh": [("kChunk = 32;", "kChunk = 8;"),
                          ("kStages = 4;", "kStages = 2;"),
                          ("kTargetWarps = 396;", "kTargetWarps = 2;")],
@@ -143,12 +153,9 @@ inline void cp_async_wait() {}
 """
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the host mock of the CUDA runtime")
-    d = tmp_path_factory.mktemp("batched_host")
+def _build_host_lib(gxx, d):
+    """Write the cut sources and the mocks into ``d``, compile each source
+    with g++ (four at a time) and link them into one library."""
     for header in _build.CSRC_DIR.glob("*.cuh"):
         shutil.copy(header, d / header.name)
     (d / "async_copy.cuh").write_text(MOCK_ASYNC_COPY)
@@ -160,14 +167,46 @@ def host_lib(tmp_path_factory):
     (d / "chain_kernel.cuh").write_text(_rewrite(src))
     for name in SOURCES:
         src = (_build.CSRC_DIR / name).read_text()
-        for a, b in SMALL[name]:
+        for a, b in SMALL.get(name, []):
             assert a in src, (name, a)
             src = src.replace(a, b)
         (d / f"{name}.cpp").write_text(_rewrite(src))
+
+    def compile_one(name):
+        subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-pthread", "-I",
+                        str(d), "-c", str(d / f"{name}.cpp"), "-o",
+                        str(d / f"{name}.o")], check=True)
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        list(pool.map(compile_one, SOURCES))
     so = d / "libbatched_host.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-I", str(d), *(str(d / f"{n}.cpp") for n in SOURCES),
-                    "-o", str(so)], check=True)
+    subprocess.run([gxx, "-shared", "-pthread",
+                    *(str(d / f"{n}.o") for n in SOURCES), "-o", str(so)],
+                   check=True)
+    return so
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The library built once per set of sources and mocks: test modules
+    (and test processes) that use it share one build in the temporary
+    directory, under a lock."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the host mock of the CUDA runtime")
+    key = hashlib.sha256(repr((MOCK_RUNTIME, MOCK_ASYNC_COPY, SMALL, SOURCES,
+                               _rewrite.__code__.co_code)).encode())
+    for src in sorted(_build.CSRC_DIR.glob("*.cu*")):
+        key.update(src.name.encode() + src.read_bytes())
+    d = Path(tempfile.gettempdir()) / f"ilqr_batched_host_{key.hexdigest()[:16]}"
+    d.mkdir(exist_ok=True)
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        so = d / "libbatched_host.so"
+        if not so.exists():
+            work = Path(tempfile.mkdtemp(dir=d))
+            os.replace(_build_host_lib(gxx, work), so)
+            shutil.rmtree(work, ignore_errors=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _build.SIGNATURES.items():
         if hasattr(lib, name):

@@ -4,7 +4,8 @@
 (B2b) and the open-loop rollout of one instance with each model's twin in
 `csrc/models.cuh`: the cart-pole, the planar and 3-D quadrotors, the
 rotor-lag quadrotor and the car, under euler, midpoint and rk4 (their
-implicit rules are ROADMAP item B2m-rest).  It is compiled with g++ as in
+implicit rules, the wrappers, the LTI systems and the spring chain are
+`test_torch_wrapper_models_host.py`'s).  It is compiled with g++ as in
 `test_torch_batched_host.py` (its fixture: `MOCK_RUNTIME`, the
 `MOCK_ASYNC_COPY` mbarrier model, a ring of 2 stages of 8 steps), so that
 N = 17 and 33 cross several chunk edges, and each result is held to the
@@ -142,31 +143,25 @@ def test_quadrotor3d_pitch_guard_on_the_device_model(host_lib):
 
 
 def test_device_model_dispatch_and_refusals():
-    """Model ids and integrators of the new families; their implicit rules
-    and the systems without a device function raise with ROADMAP item
-    B2m-rest, in B2's entries and in B5's; the models reach B5's batched
-    entries (B5n)."""
+    """Model ids and integrators of the new families, their implicit rules
+    (integrator ids 3 and 4) among them; what has no device form (a
+    physical model under 'discrete', the spring chain at another size)
+    raises with ROADMAP item B2x, in B2's entries and in B5's; the models
+    reach B5's batched entries (B5n) under the explicit rules, and B5
+    refuses their implicit ones (B2x)."""
     ids = {name: fused_rollout.device_model(s)
            for name, s in _systems("midpoint").items()}
     assert ids == {"cartpole": (2, 1), "quadrotor": (3, 1),
                    "quadrotor3d": (4, 1), "quadrotor3d_rotor": (5, 1),
                    "car": (6, 1)}
     cart = _systems("rk4")["cartpole"]
-    for integ in ("backward_euler", "trapezoidal"):
-        with pytest.raises(NotImplementedError, match="B2m-rest"):
-            fused_rollout.device_model(cart.with_integrator(integ))
-    pend = itt.make_pendulum(0.01, [np.pi, 0.0], np.eye(2), np.eye(1),
-                             np.eye(2), **F32)
-    wrapped = (
-        itt.make_tracking_system(pend, torch.zeros(5, 2), torch.zeros(4, 1),
-                                 np.eye(2), np.eye(1), np.eye(2)),
-        itt.make_rate_penalized_system(pend, np.eye(1)),
-        itt.make_lti(np.eye(2), np.ones((2, 1)), 0.1, np.zeros(2), np.eye(2),
-                     np.eye(1), np.eye(2), **F32),
-        itt.make_spring_chain(0.02, n_masses=2, **F32),
-    )
-    for s in wrapped:
-        with pytest.raises(NotImplementedError, match="B2m-rest"):
+    for integ, i in (("backward_euler", 3), ("trapezoidal", 4)):
+        assert fused_rollout.device_model(cart.with_integrator(integ)) == (
+            2, i)
+    refused = (cart.with_integrator("discrete"),
+               itt.make_spring_chain(0.02, n_masses=2, **F32))
+    for s in refused:
+        with pytest.raises(NotImplementedError, match="B2x"):
             fused_rollout.device_model(s)
     # B5's batched entries take the new models (B5n): a stand-in library
     # records what each launcher hands it.
@@ -198,10 +193,17 @@ def test_device_model_dispatch_and_refusals():
                 system.newton_iters, system.n_x, system.n_u)
             assert [c[:5] for c in lib.calls[-3:]] == [want] * 3
             assert all(c[7] == 2 for c in lib.calls[-3:])   # B
-    with pytest.raises(NotImplementedError, match="B2m-rest"):
-        batched.launch_costs(None, cart.with_integrator("backward_euler"),
+    with pytest.raises(NotImplementedError, match="B2x"):
+        batched.launch_costs(None, cart.with_integrator("discrete"),
                              torch.zeros(2, 4), torch.ones(1), None,
                              torch.zeros(2, 3, 1), None, None, None)
+    # Their implicit rules run through B2 only, as JAX's batched kernel
+    # runs none.
+    for integ in ("backward_euler", "trapezoidal"):
+        with pytest.raises(NotImplementedError, match="B2x"):
+            batched.launch_costs(None, cart.with_integrator(integ),
+                                 torch.zeros(2, 4), torch.ones(1), None,
+                                 torch.zeros(2, 3, 1), None, None, None)
     p = fused_rollout.params_buffer(_systems("rk4")["quadrotor3d_rotor"])
     assert p.numel() == 1 + 16 + 256 + 16 + 256 + 8
 

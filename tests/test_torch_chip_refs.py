@@ -23,10 +23,16 @@ from ilqr_tpu.models.quadrotor import make_quadrotor
 from ilqr_tpu.models.quadrotor3d import default_weights
 from ilqr_tpu.models.quadrotor3d import hover_controls as q3_hover
 from ilqr_tpu.models.quadrotor3d import make_quadrotor3d
+from ilqr_tpu.models.linear import make_discrete_lti
+from ilqr_tpu.models.rate import make_rate_penalized_system
 from ilqr_tpu.mpc import run_mpc
 
 CHIP_SMOKE = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
 MPC_STEPS = 20   # chip_smoke.py's WIDE_STEPS
+# chip_smoke.py's P4_STEPS, P5_B, P5_N and P6_N (phase 35).
+P4_STEPS = 100
+P5_B, P5_N = 256, 100
+P6_N = 50
 
 # Between the f32 result of the host that runs this and the constant (taken
 # on an x86 host): another host's BLAS blocking may move the last digits.
@@ -182,6 +188,70 @@ def p3_ms():
                  _p1_x0(-0.2), U0)
 
 
+def p4():
+    """Phase 35's P4: examples/reference_tracking_mpc.py's tracking MPC
+    (the tracked pendulum under rk4, H = 50, maxiter 8, tol 1e-6; the
+    reference built for its 600 steps), cut to P4_STEPS steps: the
+    closed-loop cost and the RMS angle error against the reference."""
+    dt, n_sim, horizon = 0.01, 600, 50
+    base = it.make_pendulum(dt, [jnp.pi, 0.0], Q=jnp.eye(2), R=jnp.eye(1),
+                            Q_f=jnp.zeros((2, 2)), d=0.05, integrator="rk4")
+    t = jnp.arange(n_sim + horizon + 1) * dt
+    theta_ref = 0.8 * jnp.sin(2.0 * t)
+    X_ref = jnp.stack([theta_ref, 1.6 * jnp.cos(2.0 * t)], axis=-1)
+    trk = it.make_tracking_system(
+        base, X_ref, jnp.zeros((n_sim + horizon, 1)),
+        Q=jnp.diag(jnp.array([100.0, 1.0])), R=0.01 * jnp.eye(1),
+        Q_f=jnp.zeros((2, 2)))
+    res = jax.jit(lambda x: run_mpc(
+        trk, trk, x, jnp.zeros((horizon, 1)), P4_STEPS,
+        it.IlqrConfig(maxiter=8, tol=1e-6)))(it.augment_x0(jnp.zeros(2)))
+    theta = it.strip_clock(res.X)[:, 0]
+    rms = jnp.sqrt(jnp.mean((theta - theta_ref[:P4_STEPS + 1]) ** 2))
+    return float(res.cost), float(rms)
+
+
+def p5_x0s():
+    """Phase 35's P5 initial states: bench.py:795-799's cart-pole near its
+    upright target, x and the angle's offset drawn by numpy's seeded
+    generator (chip_smoke.py's `p5_x0s`), u_prev = 0."""
+    off = np.random.default_rng(35).uniform(-0.1, 0.1, (P5_B, 2))
+    x0s = np.zeros((P5_B, 5), np.float32)
+    x0s[:, 0] = off[:, 0]
+    x0s[:, 1] = np.float32(np.pi) + off[:, 1].astype(np.float32)
+    return x0s
+
+
+def p5(samples):
+    """Phase 35's P5: `jax.vmap(solve)` of the rate-penalized cart-pole
+    (S = 0.1 I, rk4, dt 0.01, N = P5_N, maxiter 40, tol 1e-5) from the
+    sampled instances of `p5_x0s`."""
+    cart = it.make_cartpole(
+        0.01, [0.0, jnp.pi, 0.0, 0.0],
+        Q=jnp.diag(jnp.array([1.0, 10.0, 0.1, 0.1])), R=0.1 * jnp.eye(1),
+        Q_f=jnp.diag(jnp.array([100.0, 500.0, 10.0, 10.0])),
+        integrator="rk4")
+    sys_ = make_rate_penalized_system(cart, 0.1 * jnp.eye(1))
+    cfg = it.IlqrConfig(maxiter=40, tol=1e-5)
+    x0s = jnp.asarray(p5_x0s()[list(samples)])
+    sol = jax.jit(jax.vmap(lambda x: it.solve(
+        sys_, x, jnp.zeros((P5_N, 1)), cfg)))(x0s)
+    return [float(c) for c in sol.cost]
+
+
+def p6():
+    """Phase 35's P6: examples/linear_lqr.py's double integrator
+    (cont2disc at dt 0.1, Q = R = I, Q_f = 10 I, x0 = (2, 0), N = 50) as
+    make_discrete_lti's system, by `solve` (maxiter 20, tol 1e-6)."""
+    A_d, B_d = it.cont2disc(jnp.array([[0.0, 1.0], [0.0, 0.0]]),
+                            jnp.array([[0.0], [1.0]]), 0.1)
+    sys_ = make_discrete_lti(A_d, B_d, 0.1, jnp.zeros(2), jnp.eye(2),
+                                jnp.eye(1), 10.0 * jnp.eye(2))
+    cfg = it.IlqrConfig(maxiter=20, tol=1e-6)
+    return _cost(lambda x, U: it.solve(sys_, x, U, cfg).cost,
+                 jnp.array([2.0, 0.0]), jnp.zeros((P6_N, 1)))
+
+
 # chip_smoke.py's name of each constant, and the function that computes it.
 REFS = {
     "LIMITED_PEND_SEQ_COST": limited_pendulum,
@@ -196,6 +266,12 @@ REFS = {
     "JAX_F32['p1_255']": lambda: p1(255),
     "JAX_F32['p3_defect']": p3_defect,
     "JAX_F32['p3_ms']": p3_ms,
+    "JAX_F32['p4_cost']": lambda: p4()[0],
+    "JAX_F32['p4_rms']": lambda: p4()[1],
+    "JAX_F32['p5_0']": lambda: p5((0,))[0],
+    "JAX_F32['p5_127']": lambda: p5((127,))[0],
+    "JAX_F32['p5_255']": lambda: p5((255,))[0],
+    "JAX_F32['p6']": p6,
 }
 
 

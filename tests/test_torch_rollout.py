@@ -273,9 +273,9 @@ def test_device_model_covers_the_kernels_and_refuses_the_rest():
         dp.with_integrator("backward_euler")) == (1, 3)
     assert fused_rollout.device_model(
         pend.with_integrator("trapezoidal")) == (0, 4)
-    with pytest.raises(NotImplementedError, match="B2m"):
+    with pytest.raises(NotImplementedError, match="B2x"):
         fused_rollout.device_model(dp.with_integrator("discrete"))
-    with pytest.raises(NotImplementedError, match="B2m"):
+    with pytest.raises(NotImplementedError, match="B2x"):
         fused_rollout.device_model(dp.replace(
             stage_cost=lambda p, x, u: (x * x).sum()))
 
@@ -284,8 +284,9 @@ def test_batched_rollout_entries_refuse_implicit_integrators():
     """B5 (the batched entries) used to refuse the implicit integrators by
     name (ROADMAP B5i); on B2's chain kernels it runs them, so its
     launchers now hand the library the integrator's id and the system's
-    newton_iters (checked here with a stand-in library) and keep only
-    B2m's refusals."""
+    newton_iters (checked here with a stand-in library) and keep only the
+    refusals of ROADMAP item B2x (B2m's until the other systems' device
+    forms came)."""
     N, B = 4, 2
     x0s, U = torch.zeros(B, 4), torch.zeros(B, N, 2)
     X, u_ff, K = torch.zeros(B, N + 1, 4), torch.zeros(B, N, 2), torch.zeros(
@@ -318,7 +319,7 @@ def test_batched_rollout_entries_refuse_implicit_integrators():
             # (model, integrator, newton_iters, n_x, n_u, ...)
             assert call[1:6] == (1, fused_rollout._INTEGRATORS[integ], iters,
                                  4, 2)
-    with pytest.raises(NotImplementedError, match="B2m"):
+    with pytest.raises(NotImplementedError, match="B2x"):
         batched.launch_costs(None, dp.with_integrator("discrete"), x0s,
                              torch.ones(1), X, U, u_ff, K, None)
 

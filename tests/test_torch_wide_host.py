@@ -1,12 +1,13 @@
 """The wide forms of the fused backward pass (B1w) and of the suffix scan
-(B6w) without a GPU.
+(B6w), with the suffix scan's 'lane' entry at the same n (B7w), without a
+GPU.
 
 `csrc/fused_riccati.cu` and `csrc/suffix_scan.cu` are compiled with g++
 against `test_torch_lookback.MOCK_RUNTIME` (every CUDA thread a pthread,
 `__syncwarp` over a lane group's mask a barrier of those lanes), with
 blocks cut from 256 threads to 64, so that a group of 16 lanes holds a
-4-step tile (8 lanes: 8 steps) and a few dozen steps cross many tile
-edges and fold several two-aggregate look-back stages.  At n_x = 3, 5, 6,
+4-step tile (8 lanes: 8 steps; the 'lane' entry runs the same kernel) and a
+few dozen steps cross many tile edges and fold several two-aggregate look-back stages.  At n_x = 3, 5, 6,
 12 and 16 (the register form keeps (2, 1), (4, 1), (4, 2)) each result is
 held to the plain version in f64 within 1e-5 of each output's max, a
 repeated call must give the same bits, and the counters must be back at
@@ -80,6 +81,8 @@ def test_wide_tiles_and_scratch_sizes(host_lib):
     assert fused_riccati.tile_steps(host_lib, 12, 4) == 4
     assert suffix_scan.tile_steps(host_lib, "sub", 4) == 64
     assert suffix_scan.tile_steps(host_lib, "sub", 9) == 4
+    assert suffix_scan.tile_steps(host_lib, "lane", 6) == 8
+    assert suffix_scan.tile_steps(host_lib, "lane", 9) == 4
     # N = 100: 4 register tiles, 13 wide ones (8 steps) at n_x = 4.
     assert host_lib.ilqr_fused_riccati_counters(4, 100) == 2 + 13
 
@@ -129,6 +132,27 @@ def test_wide_suffix_scan_on_the_host(host_lib, monkeypatch, M, n_x,
     elems = parallel_riccati.make_elements(_expansion(M, n_x, 2, M + n_x), 0.0)
     elems = RiccatiElement(*(t[:M].contiguous() for t in elems))
     got = _twice(lambda: suffix_scan.launch(host_lib, elems, "sub", 0))
+    ref = parallel_riccati.suffix_scan(
+        RiccatiElement(*(t.double() for t in elems)))
+    _close(got, ref)
+
+
+# (M, n_x, resident): 'lane' tiles of 8 elements (n_x <= 8) or 4, as 'sub'.
+@pytest.mark.parametrize("M,n_x,resident", [
+    (1, 6, 0), (8, 6, 0), (9, 6, 0), (19, 3, 0), (4, 12, 0), (5, 12, 0),
+    (17, 16, 0), (33, 12, 3)])
+def test_wide_lane_suffix_scan_on_the_host(host_lib, monkeypatch, M, n_x,
+                                           resident):
+    """B7w: the 'lane' entry's wide form at n outside {2, 4}, against the
+    plain scan in f64, across its tile edges and with few tiles resident;
+    the counters end at zero (a repeated call gives the same bits)."""
+    if resident:
+        monkeypatch.setenv("MOCK_RESIDENT", str(resident))
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    elems = parallel_riccati.make_elements(_expansion(M, n_x, 2, M + 7 * n_x),
+                                           0.0)
+    elems = RiccatiElement(*(t[:M].contiguous() for t in elems))
+    got = _twice(lambda: suffix_scan.launch(host_lib, elems, "lane", 0))
     ref = parallel_riccati.suffix_scan(
         RiccatiElement(*(t.double() for t in elems)))
     _close(got, ref)

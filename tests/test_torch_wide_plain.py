@@ -142,12 +142,14 @@ def test_wide_shapes_reach_the_kernels_on_cuda():
 
 
 def test_wide_lane_layout_refuses_with_its_roadmap_item():
-    """Off the CPU, the 'lane' layout (B7) at n outside {2, 4} raises
-    naming ROADMAP item B7w before any launch (a tensor on the meta
-    device stands in for a GPU one); 'sub' goes on to the device check."""
-    el = RiccatiElement(*(torch.zeros(s, device="meta") for s in
-                          ((5, 6, 6), (5, 6), (5, 6, 6), (5, 6), (5, 6, 6))))
-    with pytest.raises(NotImplementedError, match="B7w"):
-        itt.suffix_scan_fused(el, "lane")
-    with pytest.raises(ValueError, match="device"):
-        itt.suffix_scan_fused(el, "sub")
+    """The 'lane' layout's ROADMAP item (B7w) is done: off the CPU, at n
+    outside {2, 4} it no longer raises NotImplementedError but goes on to
+    the device check as 'sub' does (a tensor on the meta device stands in
+    for a GPU one), for every n <= 16."""
+    for n in (1, 3, 5, 6, 12, 16):
+        el = RiccatiElement(*(torch.zeros(s, device="meta") for s in
+                              ((5, n, n), (5, n), (5, n, n), (5, n),
+                               (5, n, n))))
+        for layout in ("lane", "sub"):
+            with pytest.raises(ValueError, match="device"):
+                itt.suffix_scan_fused(el, layout)
