@@ -171,8 +171,9 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    seeded expansion): N = 1, the tile edges, across 5 tile edges, T + 2
    tiles, 150 and 8192 (more tiles than are resident), and with defects
    (B1d) at (12, 4), each call twice with equal bits required;
-27. checks the suffix scan's wide form (B6w) at n = 6, 12 and 16 at its
-   tile edges, beyond the resident tiles, the flight's M = 151, the
+27. checks the suffix scan's wide form (B6w, a warp an element in tiles
+   of 16, group_linalg.cuh) at n = 6, 12 and 16 at its tile edges (read
+   from the library), beyond the resident tiles, the flight's M = 151, the
    dash's 301 and 8193, with the terminal element and (some M) stage
    elements only, each call twice;
 28. checks B2's new device models (cart-pole, quadrotor, 3-D quadrotor,
@@ -192,15 +193,16 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
 30. times B1w at N = 8192 and at its paths' shapes, B6w at the flight's
    and the dash's M, B2's 3-D quadrotor (rk4) at N = 50, 150, 500, the
    cart-pole's costs at H = 200 and the car's trajectory at N = 120;
-31. checks the wide form of the batched backward pass (B4w, groups of 8
-   or 16 lanes an instance) against its plain version at (n_x, n_u) =
+31. checks the wide form of the batched backward pass (B4w, a warp an
+   instance, group_linalg.cuh) against its plain version at (n_x, n_u) =
    (6, 2), (8, 2), (12, 4), (16, 4) and (16, 16) (the quadrotors'
    expansions along noisy hover rollouts, seeded ones elsewhere) at B =
-   256 and N = 80 with a scalar and a per-instance reg, at a ragged last
-   block (B + 1) with N = 1, 2 and an odd N (instance rows at every 4-byte
-   phase), and with a singular Q_uu in two instances (ok false there, as
-   the plain version's), each call twice with equal bits required; and
-   re-times B4's register form at (2, 1), (4, 1), (4, 2);
+   256 and N = 80 with a scalar and a per-instance reg, at B + 1 with N =
+   1, 2, the ring's chunk edges (read from the library) and an odd N
+   (instance rows at every 4-byte phase), and with a singular Q_uu in two
+   instances (ok false there, as the plain version's), each call twice
+   with equal bits required; and re-times B4's register form at (2, 1),
+   (4, 1), (4, 2);
 32. checks B5's batched entries on the cart-pole, the planar and 3-D
    quadrotors, the rotor variant and the car (B5n) under euler, midpoint
    and rk4 at B = 1, 3 and 64 (N = 33, across the ring's chunk edge; 1,
@@ -214,10 +216,10 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    B5 on model 4 under rk4) and of its rotor variant (B = 16: (16, 4)),
    three instances held to the JAX package's f32 costs and to `solve`
    under 'scan'; P2, batched MPC of the planar quadrotor (B4w at (6, 2))
-   and the cart-pole (B4 at (4, 1)), B = 64, H = 100, 20 steps, two
-   instances each held to `run_mpc`; P3, P1's problem at B = 1 by the
-   defect line search (B3w at n = 12, 10 candidates, B1w) and by multiple
-   shooting (B1w with defects, B3w), held to 'scan' and to the JAX
+   and the cart-pole (B4 at (4, 1)), B = 64, H = 100, WB_MPC_STEPS
+   steps, two instances each held to `run_mpc`; P3, P1's problem at B = 1
+   by the defect line search (B3w at n = 12, 10 candidates, B1w) and by
+   multiple shooting (B1w with defects, B3w), held to 'scan' and to the JAX
    package's f32 costs; a float64 batched solve of the planar quadrotor
    under 'auto' (the plain route, no B4 launch); and times B4w, B5n and
    B3w at the paths' shapes;
@@ -226,7 +228,7 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    'discrete', the tracking and rate wrappers over the register models and
    the LTI systems, the implicit rules of the cart-pole, the quadrotors and
    the car, and the spring chain (16 masses): 119 instantiations, each at
-   N = 1, its ring chunk less and plus one, and 500: B2a with 1, 10 and 33
+   N = 1, its ring chunk less and plus one, and WR_N: B2a with 1, 10 and 33
    alphas, B2b and the open loop, and B5's three entries on 3 instances
    (but for the implicit rules), against the plain rollouts in f64 on the
    host (in child processes) under phase 28's rule, every call twice, bit
@@ -283,11 +285,13 @@ UA_GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / \
 # iteration on an H100) within ATOL_MPC.
 MPC_STEPS = 20
 # Phase 23 runs the FA and UA double-pendulum MPC drivers for DRIVER_STEPS
-# steps (cut from MPC_STEPS when phases 31-34 came, for the time limit).
-DRIVER_STEPS = 10
+# steps (cut from MPC_STEPS when phases 31-34 came, and from 10 when
+# phases 27-35 checked the entry-parallel forms, for the time limit).
+DRIVER_STEPS = 5
 # Phases 4, 25 and 29 hold MPC_REF_STEPS of their MPC loops to scan/scan
-# (cut from 3 when phase 35 came, for the time limit).
-MPC_REF_STEPS = 2
+# (cut from 3 when phase 35 came, and from 2 with DRIVER_STEPS, for the
+# time limit).
+MPC_REF_STEPS = 1
 # Phase 23 holds the first DRIVER_REF_STEPS of the DP MPC drivers to their
 # scan loops (backward='scan', rollout='scan'; ~5-11 s a step on an H100),
 # cut from 3 when phase 35 came, for the time limit.
@@ -1345,7 +1349,8 @@ CHAIN_INTEGRATORS = ("euler", "midpoint", "rk4", "backward_euler",
                      "trapezoidal")
 CHAIN_REG = 1.0   # the regularization of phase 3's B1 gains
 # The SASS report's instantiations: the DP flagship's chain kernel (double
-# pendulum, n_u = 2, euler) and B4 at (4, 2), by demangled or mangled name.
+# pendulum, n_u = 2, euler), B4 at (4, 2) and the wide forms of B6w and B4w
+# at P = 16, by demangled or mangled name.
 SASS_KERNELS = {
     "chain_kernel DP (4,2) euler": (
         "chain_kernel<ilqr::DoublePendulumRegs<2>, 4, 2, 0,",
@@ -1365,6 +1370,11 @@ SASS_KERNELS = {
         "Li2EEELi13ELi4ELi2E"),
     "batched_riccati_kernel (4,2)": (
         "batched_riccati_kernel<4, 2>", "batched_riccati_kernelILi4ELi2EE"),
+    # The entry-parallel wide forms at P = 16 (B6w/B7w; B4w at n_u <= 8).
+    "wide_scan_kernel P=16": (
+        "wide_scan_kernel<16>", "wide_scan_kernelILi16EE"),
+    "wide_riccati_kernel P=16 U=8": (
+        "wide_riccati_kernel<16, 8>", "wide_riccati_kernelILi16ELi8EE"),
 }
 
 
@@ -3699,7 +3709,7 @@ WB_N = 80
 WB_ROTOR_B = 16
 WB_MPC_B = 64
 WB_MPC_H = 100
-WB_MPC_STEPS = 10      # cut from 20 when phase 35 came, for the time limit
+WB_MPC_STEPS = 5       # cut from 20 when phase 35 came, then from 10
 P1_SAMPLES = (0, 127, 255)
 P1_X0 = -0.2           # P3's instance: P1's first
 # B4w's shapes: the planar quadrotor (6, 2), an (8, 2) corner of the
@@ -3825,9 +3835,10 @@ def wide_batched_phases(itt, dev, smi, launches_per_call) -> list:
 
     # ---- 31. B4w --------------------------------------------------------
     print(f"B4w tolerance: B4's, max|kernel - plain| <= max({RTOL_B4} * "
-          f"max|plain|, {F32_FLOOR} * max|plain - plain in f64|); groups of "
-          f"8 or 16 lanes an instance (lanes at "
-          + ", ".join(f"{s}: {lib.ilqr_batched_riccati_wide_lanes(*s)}"
+          f"max|plain|, {F32_FLOOR} * max|plain - plain in f64|); a warp "
+          f"an instance (lanes, padded size at "
+          + ", ".join(f"{s}: {lib.ilqr_batched_riccati_wide_lanes(*s)}, "
+                      f"{lib.ilqr_batched_riccati_wide_pad(*s)}"
                       for s in WB_B4_SHAPES)
           + "); every call twice, bit for bit")
 
@@ -3879,6 +3890,8 @@ def wide_batched_phases(itt, dev, smi, launches_per_call) -> list:
         (12, 4): rollout_expansion(q3, p1_x0s(WB_B, 12, f32), u_q3, WB_N),
         (16, 4): rollout_expansion(rotor, p1_x0s(WB_B, 16, f32), u_rot, WB_N),
     }
+    chunk = lib.ilqr_batched_riccati_wide_chunk_steps()
+    print(f"B4w: one instance a block, {chunk}-step chunks in its ring")
     for (n_x, n_u) in WB_B4_SHAPES:
         exp = path_exps.get((n_x, n_u))
         if exp is None:
@@ -3887,12 +3900,11 @@ def wide_batched_phases(itt, dev, smi, launches_per_call) -> list:
         check_b4w(f"{n_x}x{n_u} reg 0", exp, 0.0)
         check_b4w(f"{n_x}x{n_u} per-instance reg", exp,
                   torch.linspace(0.0, 0.2, WB_B, **f32))
-        # A ragged last block (B + 1: 8-lane groups hold 4 a block, 16-lane
-        # ones 2), N = 1 and 2, and an odd N (instance rows at every 4-byte
-        # phase).
+        # B + 1, N = 1 and 2, the ring's chunk edges and an odd N (instance
+        # rows at every 4-byte phase).
         edge = batched_random_expansion(itt, WB_B + 1, 2 * WB_N + 1, n_x, n_u,
                                         7 * n_x + n_u, f32)
-        for steps in (1, 2, 2 * WB_N + 1):
+        for steps in (1, 2, chunk - 1, chunk, chunk + 1, 2 * WB_N + 1):
             check_b4w(f"{n_x}x{n_u} edges reg 0.1", dataclasses.replace(
                 edge, **{f: getattr(edge, f)[:, :steps].contiguous()
                          for f in ("f_x", "f_u", "l_x", "l_u", "l_xx",
@@ -4284,7 +4296,7 @@ def wide_batched_phases(itt, dev, smi, launches_per_call) -> list:
 # make_discrete_lti, 'discrete', N = 50) by solve(rollout='pallas').  Their
 # references are the JAX package's f32 results (JAX_F32, recomputed by
 # tests/test_torch_chip_refs.py), gated within RTOL_AL.
-WR_N = 500               # the longest kernel-edge horizon
+WR_N = 400               # the longest kernel-edge horizon (cut from 500)
 WR_B5 = 3                # instances of the B5 edge checks
 # The plain versions' child processes: the implicit rules' take up to ~50 s
 # each on the host, the rest 2-10 s (324.6 s in all on the H100 machine's
@@ -4292,7 +4304,7 @@ WR_B5 = 3                # instances of the B5 edge checks
 WR_WORKERS = 7
 # The timed-only rows' horizon (the implicit rule's: WR_TIME_N // 2).
 WR_TIME_N = 100
-WR_REF_ROWS = 301        # a tracking reference of 300 steps: N = 500 clamps
+WR_REF_ROWS = 301        # a tracking reference of 300 steps: N = 400 clamps
 WR_MODELS = ("pendulum", "ua_dp", "dp", "cartpole", "quadrotor",
              "quadrotor3d", "car")
 WR_LTI = ((2, 1), (4, 1), (4, 2), (6, 2), (12, 4), (16, 4))
@@ -5059,6 +5071,16 @@ def main() -> int:
     if spilled:
         raise AssertionError("kernels spill registers:\n"
                              + "\n".join(spilled))
+    wide = [line for line in ptxas_summary(kernels.ptxas_log)
+            if "wide_scan_kernel" in line or "wide_riccati_kernel" in line]
+    if len(wide) != 5:
+        raise AssertionError(f"expected B6w's kernels at P = 8 and 16 and "
+                             f"B4w's at (P, U) = (8, 8), (16, 8), (16, 16) "
+                             f"in the build, found {wide}")
+    print("the entry-parallel kernels (csrc/group_linalg.cuh): B6w/B7w "
+          "wide_scan_kernel<P>, B4w wide_riccati_kernel<P, U>:")
+    for line in wide:
+        print(line)
     t0 = time.perf_counter()
     for line in sass_report(kernels.path, kernels.ptxas_log):
         print(line)
@@ -5874,21 +5896,30 @@ def main() -> int:
 TURN_SHAPES = {"batched-solve B=1024 N=128": (1024, 128),
                "batched-MPC B=512 N=64": (512, 64)}
 TURN_CHAIN_N = (500, BENCH_N)
+# The wide forms at their paths' shapes: B6w (and B7w, the same kernel) at
+# the flight's (n, M) and the dash's; B4w at P1, its rotor variant, P2's
+# planar quadrotor and P5's rate cart-pole (n_x, n_u, B, N).
+TURN_B6W = ((12, 151), (6, 301))
+TURN_B4W = ((12, 4, 256, 80), (16, 4, 16, 80), (6, 2, 64, 100),
+            (5, 1, 256, 100))
 
 
 def kernel_turns(tag: str, turns: int = 3) -> int:
-    """``python3 chip_smoke.py --turns TAG``: time B4, B5 and B2 through
-    their public wrappers by `design_timing` (``turns`` turns) and print
-    one JSON line {"tag", "device", "times": {label: {kernel: {device_us,
-    host_us, event_ms}}}}.  B4 and B5 run on the first iteration of a DP
-    swing-up batch at each of TURN_SHAPES (bench.py's initial states, zero
-    controls, their expansion and B4 gains; 10 alphas, the trajectory at
-    alpha 0.5, the open loop of the zero controls); B2 on the DP
-    line-search cell at each of TURN_CHAIN_N (as `chain_timing`).  Only
-    wrapper signatures that the port has had since its batched kernels
-    came are used, so this file copied into the root of an older checkout
-    times that checkout's kernels the same way: run two checkouts in turns
-    (A, B, B, A) in one call to compare them on one card."""
+    """``python3 chip_smoke.py --turns TAG``: time B4, B5, B2, B6w, B7w and
+    B4w through their public wrappers by `design_timing` (``turns`` turns)
+    and print one JSON line {"tag", "device", "times": {label: {kernel:
+    {device_us, host_us, event_ms}}}}.  B4 and B5 run on the first
+    iteration of a DP swing-up batch at each of TURN_SHAPES (bench.py's
+    initial states, zero controls, their expansion and B4 gains; 10
+    alphas, the trajectory at alpha 0.5, the open loop of the zero
+    controls); B2 on the DP line-search cell at each of TURN_CHAIN_N (as
+    `chain_timing`); B6w and B7w on the elements (`make_elements`) of a
+    seeded expansion at each of TURN_B6W, B4w on a seeded batched
+    expansion at each of TURN_B4W.  Only wrapper signatures that the port
+    has had since its wide kernels came are used, so this file copied
+    into the root of an older checkout times that checkout's kernels the
+    same way: run two checkouts in turns (A, B, B, A) in one call to
+    compare them on one card."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; "
               "this script runs only on a CUDA GPU", file=sys.stderr)
@@ -5931,6 +5962,20 @@ def kernel_turns(tag: str, turns: int = 3) -> int:
                                            x0, 1.0, X, U, u_ff, K),
             "open_loop_rollout": partial(itt.open_loop_rollout_fused, dp, x0,
                                          U)}
+    from ilqr_tpu_torch.ops.parallel_riccati import (RiccatiElement,
+                                                     make_elements)
+    for n, M in TURN_B6W:
+        el = RiccatiElement(*(t.contiguous() for t in make_elements(
+            random_expansion(itt, M - 1, n, n // 3, 60 + n, f32), 0.0)))
+        cases[f"B6w n={n} M={M}"] = {
+            "suffix_scan_wide": partial(itt.suffix_scan_fused, el),
+            "suffix_scan_lane_wide": partial(itt.suffix_scan_fused, el,
+                                             "lane")}
+    for n_x, n_u, B, N in TURN_B4W:
+        exp = batched_random_expansion(itt, B, N, n_x, n_u, 70 + n_x, f32)
+        cases[f"B4w ({n_x}, {n_u}) B={B} N={N}"] = {
+            "batched_riccati_wide": partial(itt.backward_pass_batched, exp,
+                                            0.0)}
     out = {"tag": tag, "device": smi, "times": {}}
     for label, calls in cases.items():
         out["times"][label] = {
@@ -5940,7 +5985,42 @@ def kernel_turns(tag: str, turns: int = 3) -> int:
     return 0
 
 
+def flight_turn(tag: str) -> int:
+    """``python3 chip_smoke.py --flight TAG``: solve the 3-D quadrotor
+    flight's open loop once (examples_torch/quadrotor3d_flight.py's
+    problem: N = 150, thrust limits, adaptive_reg; one B6w launch at
+    n = 12 a sweep), the kernels built first, and print one JSON line
+    {"tag", "device", "status", "iterations", "sweeps", "cost",
+    "seconds"}.  Copied into the root of an older checkout it solves with
+    that checkout's kernels, so two checkouts' counts show whether a kernel
+    change moved the solve's path."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; "
+              "this script runs only on a CUDA GPU", file=sys.stderr)
+        return 1
+    import ilqr_tpu_torch as itt
+    from examples_torch import quadrotor3d_flight
+    from ilqr_tpu_torch.ops import _build
+
+    _build.load()
+    p = quadrotor3d_flight.problem(torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = itt.solve(p.system, p.x0, p.U0, p.config)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(json.dumps({
+        "tag": tag, "device": nvidia_smi(), "status": int(sol.status),
+        "iterations": int(sol.iterations),
+        "sweeps": _build.launch_counts().get("suffix_scan", 0),
+        "cost": float(sol.cost), "seconds": secs}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--turns"]:
         sys.exit(kernel_turns(sys.argv[2] if len(sys.argv) > 2 else "tree"))
+    if sys.argv[1:2] == ["--flight"]:
+        sys.exit(flight_turn(sys.argv[2] if len(sys.argv) > 2 else "tree"))
     sys.exit(main())

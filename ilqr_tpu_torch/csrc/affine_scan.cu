@@ -51,10 +51,10 @@
 // fits a thread (n = 12, A = 10: 264 floats), so a group of P lanes (P = 8
 // for n <= 8, else 16) works on one n-vector or n x n matrix at a time,
 // lane r owning row r, matrices in shared memory at row stride P + 1
-// (riccati_scan.cuh, namespace wide, as B1w and B6w), n a run-time bound
-// of one instantiation per P.  The tile, kWideTile steps, is a chain
-// rather than a scan: A candidates would make the Hillis-Steele elements
-// of B6w's form A n + n^2 floats each, and the chain needs no element
+// (riccati_scan.cuh, namespace wide, as B1w), n a run-time bound of one
+// instantiation per P.  The tile, kWideTile steps, is a chain rather than
+// a scan: A candidates would make the Hillis-Steele elements of a suffix
+// scan's form A n + n^2 floats each, and the chain needs no element
 // but the tile's transition matrices.  One launch, on lookback.cuh:
 //   1. Tiles take tickets from the left; the block stages its tile's P_k.
 //   2. The aggregate: the block's last group forms the product

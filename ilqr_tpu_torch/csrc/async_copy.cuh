@@ -2,9 +2,9 @@
 //
 // The chain kernels of chain_rollout.cu run a producer warp that feeds a ring
 // of shared-memory stages with 1-D bulk copies (cp.async.bulk, the TMA's
-// non-tensor form) and drains output stages back to device memory; the
-// batched Riccati kernel (batched_riccati.cu) double-buffers its expansion
-// with 4-byte asynchronous copies (cp.async).  Every PTX instruction of
+// non-tensor form) and drains output stages back to device memory, and the
+// batched Riccati kernels (batched_riccati.cu) feed their chunk rings the
+// same way.  Every PTX instruction of
 // those protocols lives here, so the kernels read as plain C++ and a host
 // build can stand in for this one header.
 //
@@ -99,24 +99,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 // Wait until every committed bulk store has completed its writes.
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// 4 bytes device -> shared memory, asynchronously: complete for this thread
-// after cp_async_wait, for the block after a barrier that follows it.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-// Close this thread's group of cp_async4 copies.
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 }  // namespace ilqr

@@ -59,29 +59,30 @@
 //
 // The wide form (wide_riccati_kernel; B4w), every other n_x, n_u <= 16,
 // as JAX's kernel takes them.  A step's operands no longer fit a lane
-// group's registers ((16, 4): 676 floats of inputs a step; the register
-// form's chunk ring would take ~173 KB a block there), so an instance is a
-// group of P lanes (P = 8 when n_x, n_u <= 8, else 16), lane r owning row
-// r, with every matrix in shared memory at row stride P + 1 and n_x, n_u
-// run-time bounds of one instantiation per P (riccati_scan.cuh, namespace
-// wide, as B1w and B6w).  A step is the register form's recursion, matrix
-// by matrix: T = f_x' V_xx and F = f_u' V_xx, Q_xx, Q_ux and Q_uu formed
-// in place over l_xx, l_ux and l_uu, the gain solve by the group's
-// Gauss-Jordan with partial pivoting (wide::inv; a zero pivot gives
-// non-finite gains, so ok = 0, as the plain version's solve flags it), W,
-// w, V_x and V_xx = sym(Q_xx + K'W + Q_ux'K).  Only the group's barriers
-// (__syncwarp over its mask) order it; a block is one warp, 32 / P
-// instances.  Each lane copies its rows of step t - 1's inputs into the
-// group's second stage by 4-byte cp.async while step t computes, so the
-// chain waits on device memory at its first step only; gains go out by
-// plain stores.  Groups past B return at once.
+// group's registers ((16, 4): 676 floats of inputs a step), so an instance
+// is a warp, its matrices zero-padded to P x P in shared memory (P = 8 when
+// n_x, n_u <= 8, else 16; one instantiation per P), and a step is the
+// register form's recursion in the entry-parallel math of
+// group_linalg.cuh: T = f_x' V_xx and F = f_u' V_xx, Q_xx (kept in
+// registers), Q_ux and Q_uu, the gain solve by Gauss-Jordan with the pivot
+// from a warp reduction (a zero pivot gives non-finite gains, so ok = 0,
+// as the plain version's solve flags it), W, w, V_x and V_xx = sym(Q_xx +
+// K'W + Q_ux'K), each product unrolled to P.  Rows and sums that run over
+// the controls stop at U = 8 when n_u <= 8 (one instantiation more at
+// P = 16: (12, 4) forms 7 of its 9 products at half or a quarter of the
+// work).  A block is one instance (so B = 64 fills 64 SMs): a compute warp
+// and a producer warp whose lane 0 keeps the instance's ring of
+// kWideStages chunks of kWideChunk steps full with the bulk copies of
+// runs.cuh (any 4-byte alignment: an instance's rows start b N F floats
+// in), released by the compute warp on the stage's empty barrier.  Gains
+// go out by plain stores.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <cstdint>
 
 #include "async_copy.cuh"
-#include "riccati_scan.cuh"
+#include "group_linalg.cuh"
 #include "runs.cuh"
 #include "smallmat.cuh"
 
@@ -459,226 +460,316 @@ int run(int B, int N, float reg, const float* reg_b,
 
 // ---- The wide form (B4w) ------------------------------------------------
 
-constexpr int kWideThreads = 32;   // a block: one warp of 32 / P groups
+constexpr int kWideChunk = 8;      // steps a stage of the ring
+constexpr int kWideStages = 2;     // stages of the ring
 
-// Shared memory of one group, in floats: two stages of a step's inputs
-// (f_x, f_u, l_xx, l_ux, l_uu at row stride P + 1, then l_x, l_u), then
-// V_xx, T (later Q_uu + reg I, then W), F (later (Q_uu + reg I)^-1), K,
-// and the vectors V_x, Q_x, Q_u, u_ff, w and the pivot offers.
+// Floats of a run of n floats placed at its phase, 16-byte multiples.
+__host__ __device__ __forceinline__ int wide_seg(int n) {
+  return (n + 7) / 4 * 4;
+}
+
+__host__ __device__ __forceinline__ int wide_width(int f, int nx, int nu) {
+  return f == kFx || f == kLxx ? nx * nx
+         : f == kFu ? nx * nu
+         : f == kLux ? nu * nx
+         : f == kLx ? nx
+         : f == kLu ? nu
+         : nu * nu;
+}
+
+// A block's shared memory: the ring's barrier words, then in floats
+// kWideStages stages of the ring (each field's run of a chunk, field after
+// field, at run-time sizes), then the step's matrices (zero-padded P x P)
+// and vectors.
 template <int P>
 struct WideSmem {
-  static constexpr int LD = P + 1;
-  static constexpr int M = P * LD;
-  static constexpr int kFx = 0, kFu = M, kLxx = 2 * M, kLux = 3 * M,
-                       kLuu = 4 * M, kLx = 5 * M, kLu = 5 * M + P;
-  static constexpr int kStage = 5 * M + 2 * P;
-  static constexpr int kVxx = 2 * kStage, kT = kVxx + M, kF = kT + M,
-                       kK = kF + M;
-  static constexpr int kVx = kK + M, kQx = kVx + P, kQu = kQx + P,
-                       kU = kQu + P, kW = kU + P, kRed = kW + P;
-  static constexpr int kGroup = kRed + P;
-  static constexpr int kBytes = 4 * (kWideThreads / P) * kGroup;
-  static_assert(kBytes <= 48 * 1024, "a block needs no opt-in to its memory");
+  static constexpr int S = grp::Mat<P>::SIZE;
+  enum { kVxx, kFX, kFU, kT, kF, kQux, kQuu, kR, kRi, kK, kW, kX, kMats };
+  enum { kVx, kQx, kQu, kU, kWv, kVecs };
+  static constexpr int kWork = kMats * S + 8 * P;
+  int off[kFields];   // each field's run in a stage
+  int stage;          // floats of a stage
+  __host__ __device__ WideSmem(int nx, int nu) {
+    int o = 0;
+    for (int f = 0; f < kFields; ++f) {
+      off[f] = o;
+      o += wide_seg(kWideChunk * wide_width(f, nx, nu));
+    }
+    stage = o;
+  }
+  static constexpr int kBarBytes = 16 * kWideStages;
+  __host__ __device__ int bytes() const {
+    return kBarBytes + 4 * (kWideStages * stage + kWork);
+  }
 };
 
-// This lane's rows of step s's inputs (s = b N + t) into stage st, by
-// 4-byte asynchronous copies in one group of this lane's.
+// Producer lane: fill instance b's ring ahead of its compute warp, chunk c
+// in stage c % kWideStages, from the end of the horizon.
 template <int P>
-__device__ __forceinline__ void load_step(const wide::Group<P>& g, int nx,
-                                          int nu, const BatchedExpansion& ex,
-                                          size_t s, float* st) {
-  using S = WideSmem<P>;
-  constexpr int LD = S::LD;
-  const int r = g.r;
-  if (r < nx) {
-    const size_t xx = s * nx * nx + (size_t)r * nx;
-    const size_t xu = s * nx * nu + (size_t)r * nu;
-    for (int j = 0; j < nx; ++j) {
-      cp_async4(st + S::kFx + r * LD + j, ex.f_x + xx + j);
-      cp_async4(st + S::kLxx + r * LD + j, ex.l_xx + xx + j);
+__device__ void produce_wide(const BatchedExpansion& ex,
+                             const WideSmem<P>& S, float* ring,
+                             uint64_t* full, uint64_t* empty, int nx, int nu,
+                             int b, int N) {
+  const int n_chunks = (N + kWideChunk - 1) / kWideChunk;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int s = c % kWideStages;
+    mbar_wait(&empty[s], ((c / kWideStages) & 1) ^ 1);
+    const int t_lo = max(0, N - (c + 1) * kWideChunk);
+    const int T = N - c * kWideChunk - t_lo;
+    const size_t s0 = (size_t)b * N + t_lo;
+    float* buf = ring + s * S.stage;
+    uint32_t bytes = 0;
+    for (int f = 0; f < kFields; ++f) {
+      const int w = wide_width(f, nx, nu);
+      bytes += load_ends(buf + S.off[f], field(ex, f) + s0 * w, T * w);
     }
-    for (int j = 0; j < nu; ++j) cp_async4(st + S::kFu + r * LD + j, ex.f_u + xu + j);
-    cp_async4(st + S::kLx + r, ex.l_x + s * nx + r);
-  }
-  if (r < nu) {
-    const size_t ux = s * nu * nx + (size_t)r * nx;
-    const size_t uu = s * nu * nu + (size_t)r * nu;
-    for (int j = 0; j < nx; ++j) cp_async4(st + S::kLux + r * LD + j, ex.l_ux + ux + j);
-    for (int j = 0; j < nu; ++j) cp_async4(st + S::kLuu + r * LD + j, ex.l_uu + uu + j);
-    cp_async4(st + S::kLu + r, ex.l_u + s * nu + r);
-  }
-  cp_async_commit();
-}
-
-// Row r of c (n x p) += a (n x m) b (m x p), the product summed first; c
-// aliases neither a nor b, and row r of c is this lane's alone.
-template <int P>
-__device__ __forceinline__ void mm_add(const wide::Group<P>& g, int n, int m,
-                                       int p, const float* a, const float* b,
-                                       float* c) {
-  constexpr int LD = P + 1;
-  if (g.r < n) {
-    for (int j = 0; j < p; ++j) {
-      float s = 0.0f;
-      for (int k = 0; k < m; ++k) s += a[g.r * LD + k] * b[k * LD + j];
-      c[g.r * LD + j] += s;
+    // The plain loads come before the arrival that releases them.
+    mbar_arrive_expect_tx(&full[s], bytes);
+    for (int f = 0; f < kFields; ++f) {
+      const int w = wide_width(f, nx, nu);
+      load_mid(buf + S.off[f], field(ex, f) + s0 * w, T * w, &full[s]);
     }
   }
 }
 
+// Row i, column j of an (rows x cols) row-major run at p, or 0 past it.
+__device__ __forceinline__ float raw(const float* p, int i, int j, int rows,
+                                     int cols) {
+  return i < rows && j < cols ? p[i * cols + j] : 0.0f;
+}
+
+// Tile c = this lane's entries of the (rows x cols) run at p.
 template <int P>
-__global__ void __launch_bounds__(kWideThreads)
-wide_riccati_kernel(BatchedExpansion ex, int nx, int nu, int B, int N,
+__device__ __forceinline__ void load_raw(const grp::Lane& ln, const float* p,
+                                         int rows, int cols,
+                                         grp::Tile<P>& c) {
+  using M = grp::Mat<P>;
+#pragma unroll
+  for (int t = 0; t < M::R; ++t)
+#pragma unroll
+    for (int s = 0; s < M::CC; ++s)
+      c.v[t][s] = raw(p, ln.rg + 8 * t, M::CC * ln.cg + s, rows, cols);
+}
+
+template <int P, int U>
+__global__ void __launch_bounds__(64)
+wide_riccati_kernel(BatchedExpansion ex, int nx, int nu, int N,
                     float reg, const float* __restrict__ reg_b,
                     float* __restrict__ u_ff_out, float* __restrict__ K_out,
                     float* __restrict__ dV_out,
                     unsigned char* __restrict__ ok_out) {
-  using S = WideSmem<P>;
-  constexpr int LD = S::LD;
-  extern __shared__ __align__(16) float smem_w[];
-  const wide::Group<P> g;
-  const int r = g.r;
-  const int b = blockIdx.x * (kWideThreads / P) + (int)threadIdx.x / P;
-  if (b >= B) return;   // the whole group: it shares no barrier with others
-  float* sm = smem_w + (threadIdx.x / P) * S::kGroup;
-  float* Vxx = sm + S::kVxx;
-  float* T = sm + S::kT;
-  float* F = sm + S::kF;
-  float* Km = sm + S::kK;
-  float* Vx = sm + S::kVx;
-  float* Qx = sm + S::kQx;
-  float* Qu = sm + S::kQu;
-  float* u = sm + S::kU;
-  float* w = sm + S::kW;
-  float* red = sm + S::kRed;
+  using M = grp::Mat<P>;
+  using W = WideSmem<P>;
+  constexpr int LD = M::LD, SZ = M::SIZE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const W S(nx, nu);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  float* smem = reinterpret_cast<float*>(smem_raw + W::kBarBytes);
+  const int b = blockIdx.x;
+  // kWideStages full barriers (the producer lane's arrival and bytes),
+  // then kWideStages empty ones (the compute warp's).
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kWideStages;
+  float* ring = smem;
 
-  if (r < nx) {
-    for (int j = 0; j < nx; ++j)
-      Vxx[r * LD + j] = ex.v_xx[((size_t)b * nx + r) * nx + j];
-    Vx[r] = ex.v_x[(size_t)b * nx + r];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWideStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 32);
+    }
+    mbar_init_fence();
   }
+  __syncthreads();  // the block's only barrier: the mbarriers are ready
+  if (threadIdx.x >= 32) {
+    if (threadIdx.x == 32)
+      produce_wide<P>(ex, S, ring, full, empty, nx, nu, b, N);
+    return;
+  }
+
+  // The compute warp.
+  const grp::Lane ln;
+  const int l = ln.l;
+  float* wk = ring + kWideStages * S.stage;
+  float* Vxx = wk + W::kVxx * SZ;
+  float* FX = wk + W::kFX * SZ;
+  float* FU = wk + W::kFU * SZ;
+  float* Tm = wk + W::kT * SZ;
+  float* Fm = wk + W::kF * SZ;
+  float* Qux = wk + W::kQux * SZ;
+  float* Quu = wk + W::kQuu * SZ;
+  float* Rm = wk + W::kR * SZ;
+  float* Ri = wk + W::kRi * SZ;
+  float* Km = wk + W::kK * SZ;
+  float* Wm = wk + W::kW * SZ;
+  float* Xm = wk + W::kX * SZ;
+  float* vec = wk + W::kMats * SZ;
+  float* Vx = vec + W::kVx * P;
+  float* Qx = vec + W::kQx * P;
+  float* Qu = vec + W::kQu * P;
+  float* u = vec + W::kU * P;
+  float* w = vec + W::kWv * P;
+
+  // Padding stays zero: clear the work space once, then write real
+  // entries only.
+  for (int i = l; i < W::kWork; i += 32) wk[i] = 0.0f;
+  grp::sync();
+  for (int i = l; i < nx * nx; i += 32)
+    Vxx[i / nx * LD + i % nx] = ex.v_xx[(size_t)b * nx * nx + i];
+  if (l < nx) Vx[l] = ex.v_x[(size_t)b * nx + l];
   const float rg = reg_b != nullptr ? reg_b[b] : reg;
   float dv1 = 0.0f, dv2 = 0.0f;
   bool bad = false;
-  load_step<P>(g, nx, nu, ex, (size_t)b * N + N - 1, sm);
-  for (int t = N - 1; t >= 0; --t) {
-    float* st = sm + ((N - 1 - t) & 1) * S::kStage;
-    if (t > 0) {
-      load_step<P>(g, nx, nu, ex, (size_t)b * N + t - 1,
-                   sm + ((N - t) & 1) * S::kStage);
-      cp_async_wait<1>();   // step t's copies (all but the newest group)
-    } else {
-      cp_async_wait<0>();
-    }
-    g.sync();
-    const float* fx = st + S::kFx;
-    const float* fu = st + S::kFu;
-    float* Qxx = st + S::kLxx;   // l_xx, then Q_xx, then Q_xx + K'W + Q_ux'K
-    float* Qux = st + S::kLux;   // l_ux, then Q_ux
-    float* Quu = st + S::kLuu;   // l_uu, then Q_uu
+  grp::sync();
 
-    // The Q-expansion.
-    wide::mtm<P>(g, nx, nx, nx, fx, Vxx, T);   // T = f_x' V_xx
-    wide::mtm<P>(g, nu, nx, nx, fu, Vxx, F);   // F = f_u' V_xx
-    if (r < nx) {
-      float s = 0.0f;
-      for (int k = 0; k < nx; ++k) s += fx[k * LD + r] * Vx[k];
-      Qx[r] = st[S::kLx + r] + s;
-    }
-    if (r < nu) {
-      float s = 0.0f;
-      for (int k = 0; k < nx; ++k) s += fu[k * LD + r] * Vx[k];
-      Qu[r] = st[S::kLu + r] + s;
-    }
-    mm_add<P>(g, nx, nx, nx, T, fx, Qxx);
-    mm_add<P>(g, nu, nx, nx, F, fx, Qux);
-    mm_add<P>(g, nu, nx, nu, F, fu, Quu);
-    // Gains from (Q_uu + reg I)^-1, formed in F; T holds the system.
-    if (r < nu) {
-      for (int j = 0; j < nu; ++j)
-        T[r * LD + j] = Quu[r * LD + j] + (r == j ? rg : 0.0f);
-    }
-    g.sync();
-    wide::inv<P>(g, nu, T, F, red);
-    const size_t s0 = (size_t)b * N + t;
-    if (r < nu) {
-      for (int j = 0; j < nx; ++j) {
-        float s = 0.0f;
-        for (int a = 0; a < nu; ++a) s += F[r * LD + a] * Qux[a * LD + j];
-        Km[r * LD + j] = -s;
-        K_out[(s0 * nu + r) * nx + j] = -s;
-        bad |= !isfinite(s);
-      }
-      float s = 0.0f;
-      for (int a = 0; a < nu; ++a) s += F[r * LD + a] * Qu[a];
-      u[r] = -s;
-      u_ff_out[s0 * nu + r] = -s;
-      bad |= !isfinite(s);
-    }
-    g.sync();
-    // The value update through W = Q_uu K + Q_ux (in T) and
-    // w = Q_u + Q_uu u_ff.
-    if (r < nu) {
-      for (int j = 0; j < nx; ++j) {
-        float s = 0.0f;
-        for (int a = 0; a < nu; ++a) s += Quu[r * LD + a] * Km[a * LD + j];
-        T[r * LD + j] = s + Qux[r * LD + j];
-      }
-      float s = 0.0f;
-      for (int a = 0; a < nu; ++a) s += Quu[r * LD + a] * u[a];
-      w[r] = Qu[r] + s;
-    }
-    g.sync();
-    if (r < nx) {
-      float s1 = 0.0f, s2 = 0.0f;
-      for (int a = 0; a < nu; ++a) {
-        s1 += Km[a * LD + r] * w[a];
-        s2 += Qux[a * LD + r] * u[a];
-      }
-      Vx[r] = Qx[r] + s1 + s2;
-      for (int j = 0; j < nx; ++j) {
-        float k1 = 0.0f, k2 = 0.0f;
-        for (int a = 0; a < nu; ++a) {
-          k1 += Km[a * LD + r] * T[a * LD + j];
-          k2 += Qux[a * LD + r] * Km[a * LD + j];
+  const int n_chunks = (N + kWideChunk - 1) / kWideChunk;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t_lo = max(0, N - (c + 1) * kWideChunk);
+    const int T = N - c * kWideChunk - t_lo;
+    const int s = c % kWideStages;
+    const float* buf = ring + s * S.stage;
+    const size_t s0 = (size_t)b * N + t_lo;
+    // Where this chunk's runs sit in their regions (load_ends' phase), in
+    // floats from buf.
+    int run[kFields];
+#pragma unroll
+    for (int f = 0; f < kFields; ++f)
+      run[f] = S.off[f] + phase(field(ex, f) + s0 * wide_width(f, nx, nu));
+    mbar_wait(&full[s], (c / kWideStages) & 1);
+#pragma unroll 1
+    for (int k = T - 1; k >= 0; --k) {
+      const float* fx = buf + run[kFx] + k * nx * nx;
+      const float* fu = buf + run[kFu] + k * nx * nu;
+      const float* lx = buf + run[kLx] + k * nx;
+      const float* lu = buf + run[kLu] + k * nu;
+      const float* lxx = buf + run[kLxx] + k * nx * nx;
+      const float* lux = buf + run[kLux] + k * nu * nx;
+      const float* luu = buf + run[kLuu] + k * nu * nu;
+      const size_t st = s0 + k;
+      grp::Tile<P> a, d, q;
+
+      // f_x and f_u into their padded matrices.
+      load_raw<P>(ln, fx, nx, nx, a);
+      grp::store<P>(ln, a, FX);
+      load_raw<P>(ln, fu, nx, nu, a);
+      grp::store<P>(ln, a, FU);
+      grp::sync();
+      // T = f_x' V_xx, F = f_u' V_xx; Q_x = l_x + f_x' V_x (lanes 0..P-1),
+      // Q_u = l_u + f_u' V_x (lanes P..2P-1).
+      grp::mm<P, true>(ln, FX, Vxx, a);
+      grp::store<P>(ln, a, Tm);
+      grp::mm<P, true, false, U>(ln, FU, Vxx, a);
+      grp::store<P, U>(ln, a, Fm);
+      if (l < P) Qx[l] = (l < nx ? lx[l] : 0.0f) + grp::dot_col<P>(FX, l, Vx);
+      if (l >= P && l < 2 * P)
+        Qu[l - P] = (l - P < nu ? lu[l - P] : 0.0f) +
+                    grp::dot_col<P>(FU, l - P, Vx);
+      grp::sync();
+      // Q_xx = l_xx + T f_x (kept in q), Q_ux = l_ux + F f_x,
+      // Q_uu = l_uu + F f_u, R = Q_uu + reg I.
+      grp::mm<P>(ln, Tm, FX, q);
+      load_raw<P>(ln, lxx, nx, nx, d);
+      grp::add<P>(q, d);
+      grp::mm<P, false, false, U>(ln, Fm, FX, a);
+      load_raw<P>(ln, lux, nu, nx, d);
+      grp::add<P>(a, d);
+      grp::store<P, U>(ln, a, Qux);
+      grp::mm<P, false, false, U>(ln, Fm, FU, a);
+      load_raw<P>(ln, luu, nu, nu, d);
+      grp::add<P>(a, d);
+      grp::store<P, U>(ln, a, Quu);
+#pragma unroll
+      for (int t = 0; t < M::R; ++t)
+#pragma unroll
+        for (int j = 0; j < M::CC; ++j) {
+          const int i = ln.rg + 8 * t;
+          if (i == M::CC * ln.cg + j && i < nu) a.v[t][j] += rg;
         }
-        Qxx[r * LD + j] = Qxx[r * LD + j] + k1 + k2;
+      grp::store<P, U>(ln, a, Rm);
+      grp::sync();
+      grp::inv<P>(ln, nu, Rm, Ri);
+      // K = -(Q_uu + reg I)^-1 Q_ux, u_ff = -(Q_uu + reg I)^-1 Q_u.
+      grp::mm<P, false, false, U, U>(ln, Ri, Qux, a);
+#pragma unroll
+      for (int t = 0; t < M::R; ++t)
+#pragma unroll
+        for (int j = 0; j < M::CC; ++j) {
+          const int i = ln.rg + 8 * t, jj = M::CC * ln.cg + j;
+          a.v[t][j] = -a.v[t][j];
+          if (i < nu && jj < nx) {
+            K_out[(st * nu + i) * nx + jj] = a.v[t][j];
+            bad |= !isfinite(a.v[t][j]);
+          }
+        }
+      grp::store<P, U>(ln, a, Km);
+      if (l < P) {
+        const float v = -grp::dot_row<P>(Ri, l, Qu);
+        u[l] = v;
+        if (l < nu) {
+          u_ff_out[st * nu + l] = v;
+          bad |= !isfinite(v);
+        }
       }
-    }
-    g.sync();
-    wide::sym<P>(g, nx, Qxx, Vxx);
-    if (r == 0) {
-      float s1 = 0.0f, s2 = 0.0f;
-      for (int a = 0; a < nu; ++a) {
-        s1 = fmaf(u[a], Qu[a], s1);
-        s2 = fmaf(u[a], w[a] - Qu[a], s2);
+      grp::sync();
+      // W = Q_uu K + Q_ux, w = Q_u + Q_uu u_ff.
+      grp::mm<P, false, false, U, U>(ln, Quu, Km, a);
+      grp::load<P>(ln, Qux, d);
+      grp::add<P>(a, d);
+      grp::store<P, U>(ln, a, Wm);
+      if (l < P) w[l] = Qu[l] + grp::dot_row<P>(Quu, l, u);
+      grp::sync();
+      // V_xx = sym(Q_xx + K' W + Q_ux' K), V_x = Q_x + K' w + Q_ux' u_ff,
+      // dV += (u_ff' Q_u, 0.5 u_ff' (w - Q_u)).
+      grp::mm<P, true, false, P, U>(ln, Km, Wm, a);
+      grp::add<P>(q, a);
+      grp::mm<P, true, false, P, U>(ln, Qux, Km, a);
+      grp::add<P>(q, a);
+      grp::store<P>(ln, q, Xm);
+      if (l < P) {
+        const float s1 = grp::dot_col<P>(Km, l, w);
+        const float s2 = grp::dot_col<P>(Qux, l, u);
+        Vx[l] = Qx[l] + s1 + s2;
       }
-      dv1 += s1;
-      dv2 += 0.5f * s2;
+      if (l == 0) {
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int i = 0; i < nu; ++i) {
+          s1 = fmaf(u[i], Qu[i], s1);
+          s2 = fmaf(u[i], w[i] - Qu[i], s2);
+        }
+        dv1 += s1;
+        dv2 += 0.5f * s2;
+      }
+      grp::sync();
+      grp::sym<P>(ln, Xm, Vxx);
     }
-    g.sync();   // u, w and Q_u are read above before the next step writes them
+    mbar_arrive(&empty[s]);
   }
-  red[r] = bad ? 1.0f : 0.0f;
-  g.sync();
-  if (r == 0) {
-    bool any_bad = false;
-    for (int i = 0; i < P; ++i) any_bad |= red[i] != 0.0f;
+
+  const bool any_bad = __ballot_sync(grp::kWarp, bad) != 0u;
+  if (l == 0) {
     dV_out[(size_t)b * 2] = dv1;
     dV_out[(size_t)b * 2 + 1] = dv2;
     ok_out[b] = any_bad ? 0 : 1;
   }
 }
 
-template <int P>
+template <int P, int U>
 int run_wide(int nx, int nu, int B, int N, float reg, const float* reg_b,
              const BatchedExpansion& ex, float* u_ff, float* K, float* dV,
              unsigned char* ok, cudaStream_t stream) {
-  const int blocks = (B + kWideThreads / P - 1) / (kWideThreads / P);
-  wide_riccati_kernel<P><<<blocks, kWideThreads, WideSmem<P>::kBytes,
-                           stream>>>(
-      ex, nx, nu, B, N, reg, reg_b, u_ff, K, dV, ok);
+  const int bytes = WideSmem<P>(nx, nu).bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_riccati_kernel<P, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_riccati_kernel<P, U><<<B, 64, bytes, stream>>>(
+      ex, nx, nu, N, reg, reg_b, u_ff, K, dV, ok);
   return static_cast<int>(cudaGetLastError());
 }
+
+bool register_shape(int n_x, int n_u) {
+  return (n_x == 2 && n_u == 1) || (n_x == 4 && (n_u == 1 || n_u == 2));
+}
+int wide_pad(int n_x, int n_u) { return n_x <= 8 && n_u <= 8 ? 8 : 16; }
 
 }  // namespace
 
@@ -686,13 +777,19 @@ int run_wide(int nx, int nu, int B, int N, float reg, const float* reg_b,
 // edges).
 extern "C" int ilqr_batched_riccati_chunk_steps() { return kChunk; }
 
-// Lanes a group of the wide form gives an instance at (n_x, n_u) (0: the
+// Lanes the wide form gives an instance at (n_x, n_u): a warp (0: the
 // register form's shapes, whose groups are n_x lanes).
 extern "C" int ilqr_batched_riccati_wide_lanes(int n_x, int n_u) {
-  if ((n_x == 2 && n_u == 1) || (n_x == 4 && (n_u == 1 || n_u == 2)))
-    return 0;
-  return n_x <= 8 && n_u <= 8 ? 8 : 16;
+  return register_shape(n_x, n_u) ? 0 : 32;
 }
+
+// The wide form's padded size P at (n_x, n_u) (0: the register form's
+// shapes) and the steps of a ring stage (for tests that cross its chunk
+// edges).
+extern "C" int ilqr_batched_riccati_wide_pad(int n_x, int n_u) {
+  return register_shape(n_x, n_u) ? 0 : wide_pad(n_x, n_u);
+}
+extern "C" int ilqr_batched_riccati_wide_chunk_steps() { return kWideChunk; }
 
 // reg_b (B,), or null for reg shared by every instance; expansion fields
 // (B, N, ...) and terminal (B, ...), contiguous; outputs u_ff (B, N, n_u),
@@ -716,7 +813,10 @@ extern "C" int ilqr_batched_riccati(
     return run<4, 2>(B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
   if (n_x < 1 || n_u < 1 || n_x > 16 || n_u > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (ilqr_batched_riccati_wide_lanes(n_x, n_u) == 8)
-    return run_wide<8>(n_x, n_u, B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
-  return run_wide<16>(n_x, n_u, B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
+  if (wide_pad(n_x, n_u) == 8)
+    return run_wide<8, 8>(n_x, n_u, B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
+  if (n_u <= 8)
+    return run_wide<16, 8>(n_x, n_u, B, N, reg, reg_b, ex, u_ff, K, dV, ok,
+                           s);
+  return run_wide<16, 16>(n_x, n_u, B, N, reg, reg_b, ex, u_ff, K, dV, ok, s);
 }

@@ -126,8 +126,11 @@ __device__ __forceinline__ void tile_suffix_scan(float* e, float* smem,
 
 // ---- The wide form: one element per lane group -------------------------
 //
-// For 5 <= n_x <= 16 (and every shape the register form above does not
-// take) an element no longer fits one thread's registers: F = 3 n^2 + 2 n
+// The fused backward pass's wide form (B1w) and the affine scan's (B3w);
+// the suffix scan (B6w, B7w) and the batched backward pass (B4w) run the
+// entry-parallel math of group_linalg.cuh instead.  For 5 <= n_x <= 16
+// (and every shape the register form above does not take) an element no
+// longer fits one thread's registers: F = 3 n^2 + 2 n
 // is 456 floats at n = 12 and 800 at n = 16.  Here an element belongs to a
 // group of P lanes of one warp (P = 8 or 16), lane r owning row r, and
 // every matrix lives in shared memory, row-major with stride P + 1 so that

@@ -47,16 +47,19 @@
 // (n_tiles, F), inclusive elements (n_tiles, F)].
 //
 // The wide form (wide_scan_kernel; B6w), 'sub' entry, every other
-// n <= 16: the same three steps with an element per group of P lanes (P =
-// 8 for n <= 8, 16 above), its matrices in shared memory, and the wide
-// combine and tile scan of riccati_scan.cuh (namespace wide), which B1w
-// shares; blocks of 256 threads hold tiles of 256 / P elements, group 0
-// folds the look-back, a whole element a tile, staged two at a time.  n is
-// a run-time bound of one instantiation per P.  The 'lane' entry (B7) runs
-// the register form at n in {2, 4} and the same wide kernel (B7w) at every
-// other n <= 16.
+// n <= 16: the same three steps with an element per warp, zero-padded to
+// P x P (P = 8 for n <= 8, 16 above; one instantiation per P), and the
+// entry-parallel combine of group_linalg.cuh: each lane owns 2 or 8 entries
+// of every product, the inverse of L = I + C J is a Gauss-Jordan with the
+// pivot from a warp reduction.  Blocks of 16 warps hold tiles of 16
+// elements (a combine is a few thousand cycles, so a bigger tile's
+// Hillis-Steele levels and the look-back's fold chain cost about the
+// same), warp 0 folds the look-back, a whole element a tile, staged two
+// at a time.  The 'lane' entry (B7) runs the register form at n in
+// {2, 4} and the same wide kernel (B7w) at every other n <= 16.
 #include <cuda_runtime.h>
 
+#include "group_linalg.cuh"
 #include "lookback.cuh"
 #include "riccati_scan.cuh"
 
@@ -232,98 +235,129 @@ int run(int M, const Elements& in, int* counters, float* scratch,
 
 // ---- The wide form (B6w) -------------------------------------------------
 
-constexpr int kWideThreads = 256;   // a block: 256 / P groups
-constexpr int kWideStage = 2;       // aggregates staged per look-back round
+constexpr int kWideTile = 16;    // elements of a tile: a warp each
+constexpr int kWideStage = 2;    // aggregates staged per look-back round
 
 template <int P>
 struct WideSmem {
-  using L = wide::Layout<P>;
-  static constexpr int T = kWideThreads / P;   // elements of a tile
+  using E = grp::Elem<P>;
+  static constexpr int T = kWideTile;
+  static constexpr int kThreads = 32 * T;
   static constexpr int kBuf0 = 0;
-  static constexpr int kBuf1 = kBuf0 + T * L::F;
-  static constexpr int kWork = kBuf1 + T * L::F;
-  static constexpr int kCarry = kWork + T * L::W;   // run, prev, next
-  static constexpr int kStage = kCarry + 3 * L::F;
-  static constexpr int kFloats = kStage + kWideStage * L::F;
+  static constexpr int kBuf1 = kBuf0 + T * E::F;
+  static constexpr int kWork = kBuf1 + T * E::F;
+  static constexpr int kCarry = kWork + T * E::WORK;   // run, prev, next
+  static constexpr int kStage = kCarry + 3 * E::F;
+  static constexpr int kFloats = kStage + kWideStage * E::F;
   static constexpr int kBytes = 4 * kFloats;
   static_assert(kBytes <= 232448 - 64, "a tile must fit shared memory");
 };
 
+// Element k of the inputs into e, zero-padded past n.
 template <int P>
-__device__ __forceinline__ void load_wide(const wide::Group<P>& g, int n,
+__device__ __forceinline__ void load_wide(const grp::Lane& ln, int n,
                                           const Elements& in, int k,
                                           float* e) {
-  using L = wide::Layout<P>;
-  const int r = g.r;
+  using E = grp::Elem<P>;
+  constexpr int LD = grp::Mat<P>::LD;
   const size_t NN = (size_t)n * n;
-  if (r < n) {
-    for (int j = 0; j < n; ++j) {
-      e[L::A + r * L::LD + j] = in.A[k * NN + r * n + j];
-      e[L::C + r * L::LD + j] = in.C[k * NN + r * n + j];
-      e[L::J + r * L::LD + j] = in.J[k * NN + r * n + j];
-    }
-    e[L::B + r] = in.b[(size_t)k * n + r];
-    e[L::ETA + r] = in.eta[(size_t)k * n + r];
+  for (int i = ln.l; i < P * P; i += 32) {
+    const int r = i / P, c = i % P;
+    const bool real = r < n && c < n;
+    const size_t g = k * NN + r * n + c;
+    e[E::A + r * LD + c] = real ? in.A[g] : 0.0f;
+    e[E::C + r * LD + c] = real ? in.C[g] : 0.0f;
+    e[E::J + r * LD + c] = real ? in.J[g] : 0.0f;
   }
-  g.sync();
+  if (ln.l < P) {
+    e[E::B + ln.l] = ln.l < n ? in.b[(size_t)k * n + ln.l] : 0.0f;
+    e[E::ETA + ln.l] = ln.l < n ? in.eta[(size_t)k * n + ln.l] : 0.0f;
+  }
+  grp::sync();
 }
 
 template <int P>
-__device__ __forceinline__ void store_wide(const wide::Group<P>& g, int n,
+__device__ __forceinline__ void store_wide(const grp::Lane& ln, int n,
                                            const Outputs& out, int k,
                                            const float* s) {
-  using L = wide::Layout<P>;
-  const int r = g.r;
+  using E = grp::Elem<P>;
+  constexpr int LD = grp::Mat<P>::LD;
   const size_t NN = (size_t)n * n;
-  if (r < n) {
-    for (int j = 0; j < n; ++j) {
-      out.A[k * NN + r * n + j] = s[L::A + r * L::LD + j];
-      out.C[k * NN + r * n + j] = s[L::C + r * L::LD + j];
-      out.J[k * NN + r * n + j] = s[L::J + r * L::LD + j];
-    }
-    out.b[(size_t)k * n + r] = s[L::B + r];
-    out.eta[(size_t)k * n + r] = s[L::ETA + r];
+  for (int i = ln.l; i < n * n; i += 32) {
+    const int r = i / n, c = i % n;
+    out.A[k * NN + i] = s[E::A + r * LD + c];
+    out.C[k * NN + i] = s[E::C + r * LD + c];
+    out.J[k * NN + i] = s[E::J + r * LD + c];
+  }
+  if (ln.l < n) {
+    out.b[(size_t)k * n + ln.l] = s[E::B + ln.l];
+    out.eta[(size_t)k * n + ln.l] = s[E::ETA + ln.l];
   }
 }
 
+// Inclusive suffix scan of a tile's T elements, one a warp (warp q holds
+// element k), between two buffers of T elements (F floats apart): the
+// register form's Hillis-Steele, out of place; a partner past `last` is the
+// identity and is skipped.  Returns the buffer that holds the result.
+// Block-wide: every warp calls it.
 template <int P>
-__global__ void __launch_bounds__(kWideThreads, 1)
+__device__ __forceinline__ float* wide_tile_scan(const grp::Lane& ln, int q,
+                                                 int n, int k, int last,
+                                                 float* src, float* dst,
+                                                 float* w) {
+  constexpr int F = grp::Elem<P>::F, T = kWideTile;
+  for (int d = 1; d < T; d <<= 1) {
+    if (q + d < T && k + d <= last) {
+      grp::combine<P>(ln, n, src + q * F, src + (q + d) * F, dst + q * F, w);
+    } else {
+      grp::copy(ln, src + q * F, dst + q * F, F);
+    }
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
+}
+
+template <int P>
+__global__ void __launch_bounds__(32 * kWideTile, 1)
 wide_scan_kernel(Elements in, int n, int M, int n_tiles,
                  int* __restrict__ counters, float* __restrict__ scratch,
                  Outputs out) {
-  using L = wide::Layout<P>;
+  using E = grp::Elem<P>;
   using S = WideSmem<P>;
-  constexpr int F = L::F, T = S::T;
+  constexpr int F = E::F, T = S::T;
   extern __shared__ __align__(16) float sm[];
   __shared__ lookback::Slots slots;
   int* status = counters + 2;
   float* aggs = scratch;                       // (n_tiles, F)
   float* incl = aggs + (size_t)n_tiles * F;    // (n_tiles, F)
-  const int tid = threadIdx.x, q = tid / P;
-  const wide::Group<P> g;
-  const wide::Work<P> w(sm + S::kWork + q * L::W);
+  const int tid = threadIdx.x, q = tid / 32;
+  const grp::Lane ln;
+  float* w = sm + S::kWork + q * E::WORK;
 
   // 1. The tile from the right end; its local suffixes.
   const int p = lookback::take_tile<kFromRight>(counters, n_tiles, &slots);
   const int k = p * T + q;
   float* e = sm + S::kBuf0 + q * F;
   if (k < M) {
-    load_wide<P>(g, n, in, k, e);
+    load_wide<P>(ln, n, in, k, e);
   } else {
-    wide::identity<P>(g, n, e);
+    grp::identity<P>(ln, n, e);
   }
   __syncthreads();
-  float* buf = wide::tile_suffix_scan<P, T>(g, q, n, k, M - 1,
-                                           sm + S::kBuf0, sm + S::kBuf1, w);
+  float* buf = wide_tile_scan<P>(ln, q, n, k, M - 1, sm + S::kBuf0,
+                                 sm + S::kBuf1, w);
   float* other = buf == sm + S::kBuf0 ? sm + S::kBuf1 : sm + S::kBuf0;
-  for (int i = tid; i < F; i += kWideThreads) {
+  for (int i = tid; i < F; i += S::kThreads) {
     aggs[(size_t)p * F + i] = buf[i];
     __threadfence();
   }
   __syncthreads();
   if (tid == 0) lookback::publish(&status[p], lookback::kAggregate);
 
-  // 2. Look-back: group 0 folds run <- combine(agg, run) from the nearest
+  // 2. Look-back: warp 0 folds run <- combine(agg, run) from the nearest
   // inclusive element to the right (none: from the last tile's aggregate)
   // through this tile's aggregate; the element before the last fold is the
   // one at this tile's right edge.
@@ -334,29 +368,30 @@ wide_scan_kernel(Elements in, int n, int M, int n_tiles,
   float* next = prev + F;
   bool started = q2 < n_tiles;
   if (q == 0 && started) {
-    for (int i = g.r; i < F; i += P) run[i] = __ldcg(incl + (size_t)q2 * F + i);
-    g.sync();
+    for (int i = ln.l; i < F; i += 32)
+      run[i] = __ldcg(incl + (size_t)q2 * F + i);
+    grp::sync();
   }
   lookback::fold<kFromRight, kWideStage>(
       aggs, F, p, q2, sm + S::kStage, q == 0, [&](const float* agg) {
         if (started) {
-          wide::combine<P>(g, n, agg, run, next, w);
+          grp::combine<P>(ln, n, agg, run, next, w);
           float* t = prev;
           prev = run;
           run = next;
           next = t;
         } else {
-          wide::copy<P>(g, agg, run, F);
+          grp::copy(ln, agg, run, F);
           started = true;
         }
       });
   if (q == 0) {
-    for (int i = g.r; i < F; i += P) incl[(size_t)p * F + i] = run[i];
+    for (int i = ln.l; i < F; i += 32) incl[(size_t)p * F + i] = run[i];
     __threadfence();
-    g.sync();
-    if (g.r == 0) lookback::publish(&status[p], lookback::kInclusive);
+    grp::sync();
+    if (ln.l == 0) lookback::publish(&status[p], lookback::kInclusive);
   }
-  // Every group reads the edge element from group 0's rotation.
+  // Every warp reads the edge element from warp 0's rotation.
   __shared__ int edge_at;
   if (tid == 0) edge_at = static_cast<int>(prev - sm);
   if (lookback::arrive(counters, n_tiles, &slots)) {
@@ -366,10 +401,10 @@ wide_scan_kernel(Elements in, int n, int M, int n_tiles,
   // 3. Close each local suffix with the right-edge element and write it.
   if (k < M) {
     if (p == n_tiles - 1) {
-      store_wide<P>(g, n, out, k, buf + q * F);
+      store_wide<P>(ln, n, out, k, buf + q * F);
     } else {
-      wide::combine<P>(g, n, buf + q * F, sm + edge_at, other + q * F, w);
-      store_wide<P>(g, n, out, k, other + q * F);
+      grp::combine<P>(ln, n, buf + q * F, sm + edge_at, other + q * F, w);
+      store_wide<P>(ln, n, out, k, other + q * F);
     }
   }
 }
@@ -383,7 +418,7 @@ int run_wide(int n, int M, const Elements& in, int* counters, float* scratch,
       wide_scan_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_scan_kernel<P><<<n_tiles, kWideThreads, S::kBytes, stream>>>(
+  wide_scan_kernel<P><<<n_tiles, S::kThreads, S::kBytes, stream>>>(
       in, n, M, n_tiles, counters, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -397,12 +432,12 @@ int wide_occupancy() {
       S::kBytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, wide_scan_kernel<P>, kWideThreads, S::kBytes);
+        &blocks, wide_scan_kernel<P>, S::kThreads, S::kBytes);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 bool register_form(int n_x) { return n_x == 2 || n_x == 4; }
-int wide_lanes(int n_x) { return n_x <= 8 ? 8 : 16; }
+int wide_pad(int n_x) { return n_x <= 8 ? 8 : 16; }
 
 template <int T>
 int dispatch(int n_x, int M, const Elements& in, int* counters,
@@ -426,14 +461,14 @@ int occupancy() {
 
 int tile_steps(int lane, int n_x) {
   if (register_form(n_x)) return lane ? kLaneTile : kSubTile;
-  return kWideThreads / wide_lanes(n_x);
+  return kWideTile;
 }
 int tiles(int lane, int n_x, int M) {
   return (M + tile_steps(lane, n_x) - 1) / tile_steps(lane, n_x);
 }
 int element_floats(int n_x) {
   if (register_form(n_x)) return 3 * n_x * n_x + 2 * n_x;
-  return wide_lanes(n_x) == 8 ? wide::Layout<8>::F : wide::Layout<16>::F;
+  return wide_pad(n_x) == 8 ? grp::Elem<8>::F : grp::Elem<16>::F;
 }
 
 }  // namespace
@@ -459,7 +494,7 @@ extern "C" int ilqr_suffix_scan_occupancy(int lane, int n_x) {
   if (n_x == 2) return lane ? occupancy<2, kLaneTile>() : occupancy<2, kSubTile>();
   if (n_x == 4) return lane ? occupancy<4, kLaneTile>() : occupancy<4, kSubTile>();
   if (n_x < 1 || n_x > 16) return -static_cast<int>(cudaErrorInvalidValue);
-  return wide_lanes(n_x) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
+  return wide_pad(n_x) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
 }
 
 // One launch: the register form at n_x = 2, 4 (either layout), the wide
@@ -481,7 +516,7 @@ extern "C" int ilqr_suffix_scan(int lane, int n_x, int M, const float* A,
                 : dispatch<kSubTile>(n_x, M, in, counters, scratch, out, s);
   }
   if (n_x < 1 || n_x > 16) return static_cast<int>(cudaErrorInvalidValue);
-  if (wide_lanes(n_x) == 8)
+  if (wide_pad(n_x) == 8)
     return run_wide<8>(n_x, M, in, counters, scratch, out, s);
   return run_wide<16>(n_x, M, in, counters, scratch, out, s);
 }

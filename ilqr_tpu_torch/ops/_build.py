@@ -72,6 +72,8 @@ SIGNATURES = {
                             + [_P],
     "ilqr_batched_riccati_chunk_steps": [],
     "ilqr_batched_riccati_wide_lanes": [_I, _I],
+    "ilqr_batched_riccati_wide_pad": [_I, _I],
+    "ilqr_batched_riccati_wide_chunk_steps": [],
     "ilqr_linesearch_costs_batched": [_I] * 5 + [_P, _I, _I, _P, _P, _I,
                                                _P, _P, _P, _P, _I, _P, _P],
     "ilqr_closed_loop_rollout_batched": [_I] * 5 + [_P, _I, _I, _P, _P, _P,

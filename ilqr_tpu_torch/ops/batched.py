@@ -19,8 +19,8 @@ small solves run on (B, n_u, n_u); `rollout.linesearch_rollouts`
 and `rollout.rollout`, whose host loop over time carries (B, A, n_x)
 states) — and on a CUDA tensor it launches the kernel or raises.  B4 takes
 float32 at every n_x, n_u <= 16: its register form at the (n_x, n_u)
-of `fused_riccati.SHAPES`, its wide form (a group of 8 or 16 lanes an
-instance) elsewhere.
+of `fused_riccati.SHAPES`, its wide form (a warp an instance,
+`csrc/group_linalg.cuh`) elsewhere.
 Outside those, the backward pass follows JAX's batched rule
 (`pallas_batched.py:277-297`): engine 'auto' or 'scan' runs the plain
 version on the tensors' own device (f64, and the chain's n_x = 32), and

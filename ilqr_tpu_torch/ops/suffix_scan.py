@@ -19,8 +19,8 @@ version, `parallel_riccati.suffix_scan`; on a CUDA tensor it launches the
 kernel or raises.  As in JAX, n_x > 16 runs the plain scan on every device.
 On CUDA both layouts take every n_x ≤ 16, as JAX's kernels do: the
 register form (an element a thread) at n_x in `NX`, the wide form (an
-element a group of 8 or 16 lanes in blocks of 256 threads; B7w launches
-B6w's kernel) at the rest.
+element a warp in blocks of 16 warps, `csrc/group_linalg.cuh`; B7w
+launches B6w's kernel) at the rest.
 """
 from __future__ import annotations
 

@@ -144,10 +144,6 @@ inline void bulk_store(void* dst, const void* src, uint32_t bytes) {
 inline void bulk_commit() {}
 inline void bulk_wait_read() {}
 inline void bulk_wait_all() {}
-inline void cp_async4(void* dst, const void* src) { std::memcpy(dst, src, 4); }
-inline void cp_async_commit() {}
-template <int N>
-inline void cp_async_wait() {}
 
 }  // namespace ilqr
 """

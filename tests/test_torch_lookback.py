@@ -143,8 +143,9 @@ def test_lookback_scratch_is_zeroed_once_per_device_stream_and_shape(
 # pthread, blocks (of a one- or two-dimensional grid) start in order with
 # at most MOCK_RESIDENT of them running at once, __syncthreads and
 # __syncwarp are std::barriers (a partial mask: one barrier per warp and
-# mask, over the mask's lanes), shuffles go through a per-warp buffer, and
-# atomics and fences are GCC __atomic builtins.  `_rewrite` turns the sources' shared arrays and launches into
+# mask, over the mask's lanes), shuffles, ballots and max reductions go
+# through a per-warp buffer, and atomics and fences are GCC __atomic
+# builtins.  `_rewrite` turns the sources' shared arrays and launches into
 # the mock:: forms.
 MOCK_RUNTIME = r"""#pragma once
 #include <algorithm>
@@ -175,6 +176,16 @@ typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+struct __attribute__((aligned(16))) float4 {
+  float x, y, z, w;
+};
+struct __attribute__((aligned(8))) float2 {
+  float x, y;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
@@ -334,6 +345,37 @@ inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
   b->warp_bars[t / 32]->arrive_and_wait();
   const float r = b->shfl[base + lane / width * width + src % width];
   b->warp_bars[t / 32]->arrive_and_wait();
+  return r;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  const int t = mock::ctx.tid.x, lane = t % 32, base = t - lane;
+  mock::Block* b = mock::ctx.block;
+  std::memcpy(&b->shfl[t], &v, 4);
+  b->warp_bars[t / 32]->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) {
+    unsigned u;
+    std::memcpy(&u, &b->shfl[base + i], 4);
+    r = u > r ? u : r;
+  }
+  b->warp_bars[t / 32]->arrive_and_wait();
+  return r;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int t = mock::ctx.tid.x, lane = t % 32, base = t - lane;
+  mock::Block* b = mock::ctx.block;
+  b->shfl[t] = pred ? 1.0f : 0.0f;
+  b->warp_bars[t / 32]->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i)
+    if (b->shfl[base + i] != 0.0f) r |= 1u << i;
+  b->warp_bars[t / 32]->arrive_and_wait();
+  return r;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+inline unsigned __float_as_uint(float v) {
+  unsigned r;
+  std::memcpy(&r, &v, 4);
   return r;
 }
 inline void __threadfence() {

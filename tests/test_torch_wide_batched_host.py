@@ -3,18 +3,19 @@ prefix scan (B3w) without a GPU.
 
 `csrc/batched_riccati.cu` and `csrc/affine_scan.cu` are compiled with g++
 against `test_torch_lookback.MOCK_RUNTIME` (every CUDA thread a pthread,
-`__syncwarp` over a lane group's mask a barrier of those lanes) and
-`test_torch_batched_host.MOCK_ASYNC_COPY` (cp.async as a synchronous
-copy).  B4w runs a group of 8 or 16 lanes an instance, one warp a block,
-so B = 5 at n_x <= 8 (four groups a warp) and B = 3 at n_x > 8 (two) leave
-a ragged last block, and n_x = 6 and 12 leave idle lanes in every group.
-B3w's tiles are cut from 32 steps to 4 and its blocks from 256 threads to
-64 (four groups of 16 lanes, eight of 8), so that 17 candidates loop over
-the groups and a few dozen steps cross many tiles.  Each result is held to
-the plain version in f64 within 1e-5 of each output's max, a repeated
-call must give the same bits, and the look-back counters must be back at
-zero.  The tests skip where no g++ is found; the card runs the same
-sources in chip_smoke.py.
+`__syncwarp` a barrier of the warp or of a lane group's mask, shuffles and
+ballots through a per-warp buffer) and `test_torch_batched_host.
+MOCK_ASYNC_COPY` (bulk copies as synchronous copies that check their
+alignment, the mbarrier model).  B4w runs a warp an instance
+(group_linalg.cuh), one instance a block; its ring's chunks are cut from
+8 steps to 3, so that a few steps cross chunk edges, and n_x = 6 and 12
+leave padded rows in every matrix.  B3w's tiles are cut from 32 steps to 4 and its
+blocks from 256 threads to 64 (four groups of 16 lanes, eight of 8), so
+that 17 candidates loop over the groups and a few dozen steps cross many
+tiles.  Each result is held to the plain version in f64 within 1e-5 of
+each output's max, a repeated call must give the same bits, and the
+look-back counters must be back at zero.  The tests skip where no g++ is
+found; the card runs the same sources in chip_smoke.py.
 """
 import ctypes
 import dataclasses
@@ -34,7 +35,7 @@ torch.set_num_threads(1)
 
 SOURCES = ("batched_riccati.cu", "affine_scan.cu")
 SMALL = {
-    "batched_riccati.cu": [],
+    "batched_riccati.cu": [("kWideChunk = 8;", "kWideChunk = 3;")],
     "affine_scan.cu": [("kWideThreads = 256;", "kWideThreads = 64;"),
                        ("kWideTile = 32;", "kWideTile = 4;")],
 }
@@ -111,14 +112,17 @@ def _plain64(exp, reg):
     return batched.vmap_backward(itt.backward_pass, exp64, reg.double())
 
 
-@pytest.mark.parametrize("n_x,n_u,B,N,lanes", [
+# (n_x, n_u, B, N, pad): matrices padded to 8 (n_x, n_u <= 8) or 16.
+@pytest.mark.parametrize("n_x,n_u,B,N,pad", [
     (6, 2, 5, 7, 8), (8, 2, 4, 3, 8), (3, 1, 9, 5, 8), (2, 2, 5, 4, 8),
     (1, 1, 3, 2, 8), (12, 4, 3, 6, 16), (16, 4, 2, 5, 16), (5, 9, 3, 4, 16),
     (16, 16, 3, 3, 16)])
-def test_wide_batched_riccati_on_the_host(host_lib, n_x, n_u, B, N, lanes):
-    """B4w against the f64 plain version: groups of 8 or 16 lanes, ragged
-    last blocks, idle lanes, a per-instance reg; N = 2-7 steps."""
-    assert host_lib.ilqr_batched_riccati_wide_lanes(n_x, n_u) == lanes
+def test_wide_batched_riccati_on_the_host(host_lib, n_x, n_u, B, N, pad):
+    """B4w against the f64 plain version: a warp an instance, padded rows,
+    a per-instance reg; N = 2-7 steps across the 3-step chunks."""
+    assert host_lib.ilqr_batched_riccati_wide_lanes(n_x, n_u) == 32
+    assert host_lib.ilqr_batched_riccati_wide_pad(n_x, n_u) == pad
+    assert host_lib.ilqr_batched_riccati_wide_chunk_steps() == 3
     exp = _expansion(B, N, n_x, n_u, seed=7 * B + N + n_x)
     reg = torch.linspace(0.0, 0.3, B)
     got = _twice(lambda: batched.launch_riccati(host_lib, exp, reg, 0))
@@ -130,6 +134,24 @@ def test_wide_batched_riccati_on_the_host(host_lib, n_x, n_u, B, N, lanes):
 def test_register_form_shapes_keep_their_lanes(host_lib):
     for shape in ((2, 1), (4, 1), (4, 2)):
         assert host_lib.ilqr_batched_riccati_wide_lanes(*shape) == 0
+        assert host_lib.ilqr_batched_riccati_wide_pad(*shape) == 0
+
+
+# (n_x, n_u, N): N = 1, the 3-step chunk less one, at and plus one, and odd
+# N past two and three chunk edges, at odd B.
+@pytest.mark.parametrize("n_x,n_u,N", [
+    (6, 2, 1), (6, 2, 2), (6, 2, 3), (6, 2, 4), (6, 2, 7), (12, 4, 1),
+    (12, 4, 2), (12, 4, 3), (12, 4, 4), (12, 4, 7), (5, 1, 9)])
+def test_wide_batched_riccati_horizon_edges(host_lib, n_x, n_u, N):
+    """B4w at the horizon's and the ring's edges: the gains of every
+    instance match the f64 plain version, twice with equal bits."""
+    for B in (3, 5):
+        exp = _expansion(B, N, n_x, n_u, seed=11 * B + N + n_x)
+        reg = torch.full((B,), 0.05)
+        got = _twice(lambda: batched.launch_riccati(host_lib, exp, reg, 0))
+        ref = _plain64(exp, reg)
+        _close(got[:3], ref[:3])
+        assert got[3].tolist() == [True] * B
 
 
 def _pivot_case(B, N, n_x, n_u, seed, step, l_uu):
@@ -146,7 +168,7 @@ def _pivot_case(B, N, n_x, n_u, seed, step, l_uu):
 def test_wide_batched_riccati_pivots_a_zero_leading_entry(host_lib, n_x,
                                                           n_u):
     """Q_uu with Q_uu[0, 0] = 0 but nonsingular (a permuted identity):
-    the in-group Gauss-Jordan pivots, and the gains match the plain
+    the warp's Gauss-Jordan pivots, and the gains match the plain
     version's solve."""
     perm = np.eye(n_u)[::-1].copy()
     exp = _pivot_case(3, 4, n_x, n_u, seed=n_x, step=2, l_uu=perm)

@@ -4,15 +4,17 @@ GPU.
 
 `csrc/fused_riccati.cu` and `csrc/suffix_scan.cu` are compiled with g++
 against `test_torch_lookback.MOCK_RUNTIME` (every CUDA thread a pthread,
-`__syncwarp` over a lane group's mask a barrier of those lanes), with
-blocks cut from 256 threads to 64, so that a group of 16 lanes holds a
-4-step tile (8 lanes: 8 steps; the 'lane' entry runs the same kernel) and a
-few dozen steps cross many tile edges and fold several two-aggregate look-back stages.  At n_x = 3, 5, 6,
-12 and 16 (the register form keeps (2, 1), (4, 1), (4, 2)) each result is
-held to the plain version in f64 within 1e-5 of each output's max, a
-repeated call must give the same bits, and the counters must be back at
-zero.  The tests skip where no g++ is found; the card runs the same
-sources in chip_smoke.py.
+`__syncwarp` a barrier of the warp or of a lane group's mask, shuffles and
+ballots through a per-warp buffer).  B1w's blocks are cut from 256 threads
+to 64, so that a group of 16 lanes holds a 4-step tile (8 lanes: 8 steps);
+B6w's tiles (a warp an element, group_linalg.cuh) from 16 elements to 4,
+and the 'lane' entry runs the same kernel.  A few dozen steps then cross
+many tile edges and fold several two-aggregate look-back stages.  At n_x =
+3, 5, 6, 12 and 16 (the register form keeps (2, 1), (4, 1), (4, 2)) each
+result is held to the plain version in f64 within 1e-5 of each output's
+max, a repeated call must give the same bits, and the counters must be
+back at zero.  The tests skip where no g++ is found; the card runs the
+same sources in chip_smoke.py.
 """
 import ctypes
 import shutil
@@ -36,7 +38,7 @@ SMALL = {
     "fused_riccati.cu": [("kWideThreads = 256;", "kWideThreads = 64;"),
                          ("kTileSteps = 256;", "kTileSteps = 32;"),
                          ("kStageTiles = 64;", "kStageTiles = 3;")],
-    "suffix_scan.cu": [("kWideThreads = 256;", "kWideThreads = 64;"),
+    "suffix_scan.cu": [("kWideTile = 16;", "kWideTile = 4;"),
                        ("kSubTile = 256;", "kSubTile = 64;"),
                        ("kStageTiles = 64;", "kStageTiles = 3;")],
 }
@@ -81,7 +83,8 @@ def test_wide_tiles_and_scratch_sizes(host_lib):
     assert fused_riccati.tile_steps(host_lib, 12, 4) == 4
     assert suffix_scan.tile_steps(host_lib, "sub", 4) == 64
     assert suffix_scan.tile_steps(host_lib, "sub", 9) == 4
-    assert suffix_scan.tile_steps(host_lib, "lane", 6) == 8
+    assert suffix_scan.tile_steps(host_lib, "sub", 6) == 4
+    assert suffix_scan.tile_steps(host_lib, "lane", 6) == 4
     assert suffix_scan.tile_steps(host_lib, "lane", 9) == 4
     # N = 100: 4 register tiles, 13 wide ones (8 steps) at n_x = 4.
     assert host_lib.ilqr_fused_riccati_counters(4, 100) == 2 + 13
@@ -120,10 +123,12 @@ def test_wide_fused_riccati_flags_non_finite_gains(host_lib, monkeypatch):
     assert torch.isfinite(got[1][6:]).all()
 
 
-# (M, n_x, resident): tiles of 8 elements (n_x <= 8) or 4.
+# (M, n_x, resident): tiles of 4 elements at every n_x: M = T - 1, T,
+# T + 1, several tiles, and more tiles than are resident.
 @pytest.mark.parametrize("M,n_x,resident", [
     (1, 6, 0), (8, 6, 0), (9, 3, 0), (37, 5, 0), (4, 12, 0), (29, 12, 0),
-    (23, 16, 0), (50, 16, 3)])
+    (23, 16, 0), (50, 16, 3), (3, 12, 0), (5, 6, 0), (5, 16, 0),
+    (33, 6, 2), (21, 12, 2)])
 def test_wide_suffix_scan_on_the_host(host_lib, monkeypatch, M, n_x,
                                       resident):
     if resident:
@@ -137,7 +142,7 @@ def test_wide_suffix_scan_on_the_host(host_lib, monkeypatch, M, n_x,
     _close(got, ref)
 
 
-# (M, n_x, resident): 'lane' tiles of 8 elements (n_x <= 8) or 4, as 'sub'.
+# (M, n_x, resident): 'lane' tiles of 4 elements, as 'sub'.
 @pytest.mark.parametrize("M,n_x,resident", [
     (1, 6, 0), (8, 6, 0), (9, 6, 0), (19, 3, 0), (4, 12, 0), (5, 12, 0),
     (17, 16, 0), (33, 12, 3)])
