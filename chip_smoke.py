@@ -45,11 +45,11 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    pendulum golden (backward_euler, N = 400) with rollout='pallas' (every
    B2 kernel, the open loop once); the under-actuated double-pendulum
    golden (backward_euler, N = 800, maxiter 700) through the kernels under
-   tests/test_solver.py's gate; a solve
+   tests/test_solver.py's gate, warm-started from the reference's
+   controls; a solve
    whose U_init is a misaligned row view; and the pendulum MPC example
    (backward-Euler solver, midpoint plant, H = 200, cut to MPC_STEPS
-   steps) through the kernels, its first steps held to the same loop with
-   rollout='scan';
+   steps) through the kernels;
 5. times B1 (device time per call by CUDA events around calls queued
    behind a spin kernel, the wrapper's host time per call, CUDA events
    over back-to-back calls) at N = 500, 1411 and 131072 and with defects
@@ -149,14 +149,16 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    derivative functions on the card;
 23. runs the reference drivers of examples_torch/ through their
    main(plot=False): the pendulum and DP open loops under phase 4's gates
-   (phase 4 solves the open-loop drivers' problem() and runs the UA-DP
-   driver's main as its golden), and the FA and UA double-pendulum MPC at
-   full horizon cut to DRIVER_STEPS steps, their first DRIVER_REF_STEPS held
-   to the same loops with backward='scan', rollout='scan';
+   (phase 4 solves the open-loop drivers' problem()s), the UA-DP open loop
+   at its smoke depth (ILQR_TPU_SMOKE=1; phase 4 holds its problem to the
+   golden), and the FA and UA double-pendulum MPC at
+   full horizon cut to DRIVER_STEPS steps, the FA loop's first
+   DRIVER_REF_STEPS held to the same loop with backward='scan',
+   rollout='scan';
 24. solves examples_torch/constrained_pendulum.py at full size (N = 400,
    rk4, |u| <= 3 and the exact goal) by the augmented Lagrangian with
-   backward='pallas' (B1, one launch per backward pass) and 'pscan' (B1's
-   plain version), by AL x multiple shooting (B1d, B3) and, on the box
+   backward='pallas' (B1, one launch per backward pass), by AL x multiple
+   shooting (B1d, B3) and, on the box
    alone, by the barrier solver with both engines, each against the JAX
    package's f32 results on a CPU; and times B1, B1d and B3 at these
    solves' shapes;
@@ -165,7 +167,8 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    steps with backward='pallas', held to the JAX package's f32
    closed-loop costs, their first MPC_REF_STEPS steps held to
    backward='scan';
-26. checks the wide form of the fused backward pass (B1w) against its
+26. checks the wide form of the fused backward pass (B1w, a warp a step
+   in tiles of 16, group_linalg.cuh) against its
    plain version at (n_x, n_u) = (6, 2), (12, 4), (16, 4) (the quadrotors'
    expansions), (3, 1), (5, 2) (the tracking wrappers') and (16, 6) (a
    seeded expansion): N = 1, the tile edges, across 5 tile edges, T + 2
@@ -208,8 +211,10 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    and rk4 at B = 1, 3 and 64 (N = 33, across the ring's chunk edge; 1,
    10 and 33 alphas at B = 3) against the plain batched rollouts, each
    call twice;
-33. checks the wide form of the affine scan (B3w) at n = 6, 12, 16 with 1,
-   10, 17 and 33 candidates at its tile edges, across five, past the
+33. checks the wide form of the affine scan (B3w, a warp a product or a
+   candidate in tiles of 32, group_linalg.cuh) at n = 6, 12, 16 with 1,
+   10, 17 and 33 candidates at its tile edges (read from the library),
+   across five, past the
    resident tiles and at N = 20000, and at n = 2, 4 past 16 candidates;
 34. runs the paths through them: P1, batched solves of the 3-D quadrotor
    (tests/test_quadrotor3d.py's problem, B = 256, N = 80: B4w at (12, 4),
@@ -259,6 +264,7 @@ import contextlib
 import dataclasses
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -280,21 +286,22 @@ PENDULUM_GOLDEN_COST = 23.435774
 UA_GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / \
     "ua_double_pendulum_ol.npz"
 # Phase 4's pendulum MPC (examples/pendulum_mpc.py, H = 200, 400 steps in
-# the example) is cut to MPC_STEPS steps; its first MPC_REF_STEPS are held
-# to the same loop with rollout='scan' (backward-Euler host loops, ~1 s an
-# iteration on an H100) within ATOL_MPC.
+# the example) is cut to MPC_STEPS steps (its first step was held to
+# rollout='scan' until the time limit cut it: backward-Euler host loops,
+# 12.5 s on an H100).
 MPC_STEPS = 20
 # Phase 23 runs the FA and UA double-pendulum MPC drivers for DRIVER_STEPS
 # steps (cut from MPC_STEPS when phases 31-34 came, and from 10 when
 # phases 27-35 checked the entry-parallel forms, for the time limit).
 DRIVER_STEPS = 5
-# Phases 4, 25 and 29 hold MPC_REF_STEPS of their MPC loops to scan/scan
+# Phases 25 and 29 hold MPC_REF_STEPS of their MPC loops to scan/scan
 # (cut from 3 when phase 35 came, and from 2 with DRIVER_STEPS, for the
 # time limit).
 MPC_REF_STEPS = 1
-# Phase 23 holds the first DRIVER_REF_STEPS of the DP MPC drivers to their
-# scan loops (backward='scan', rollout='scan'; ~5-11 s a step on an H100),
-# cut from 3 when phase 35 came, for the time limit.
+# Phase 23 holds the first DRIVER_REF_STEPS of the FA DP MPC driver to its
+# scan loop (backward='scan', rollout='scan'; ~10 s a step on an H100),
+# cut from 3 when phase 35 came, for the time limit; the UA driver's scan
+# loop (28 s a step) was cut for it too.
 DRIVER_REF_STEPS = 1
 LONG_N = 131072
 
@@ -1370,11 +1377,16 @@ SASS_KERNELS = {
         "Li2EEELi13ELi4ELi2E"),
     "batched_riccati_kernel (4,2)": (
         "batched_riccati_kernel<4, 2>", "batched_riccati_kernelILi4ELi2EE"),
-    # The entry-parallel wide forms at P = 16 (B6w/B7w; B4w at n_u <= 8).
+    # The entry-parallel wide forms at P = 16 (B6w/B7w; B4w at n_u <= 8;
+    # B1w; B3w).
     "wide_scan_kernel P=16": (
         "wide_scan_kernel<16>", "wide_scan_kernelILi16EE"),
     "wide_riccati_kernel P=16 U=8": (
         "wide_riccati_kernel<16, 8>", "wide_riccati_kernelILi16ELi8EE"),
+    "wide_fused_kernel P=16": (
+        "wide_fused_kernel<16>", "wide_fused_kernelILi16EE"),
+    "wide_prefix_kernel P=16": (
+        "wide_prefix_kernel<16>", "wide_prefix_kernelILi16EE"),
 }
 
 
@@ -2649,6 +2661,7 @@ def driver_phase(itt, dev) -> None:
         double_pendulum_mpc,
         double_pendulum_open_loop,
         pendulum_open_loop,
+        ua_double_pendulum_open_loop,
     )
 
     t_phase = time.perf_counter()
@@ -2670,8 +2683,28 @@ def driver_phase(itt, dev) -> None:
           f"{sol.iterations} iterations, cost {float(sol.cost):.6f}, "
           f"{secs:.3f} s with its warm-up, launches {counts}")
     dp_gates(itt, sol, "DP driver", counts, b12)
-    print("ua_double_pendulum_open_loop.main: run in phase 4 (the UA-DP "
-          "golden), under its gates")
+    # The UA-DP driver at its smoke depth (N = 20, 5 iterations, as
+    # tests/test_torch_examples_smoke.py holds it to JAX's); phase 4 holds
+    # its full problem to the golden.
+    smoke_was = os.environ.get("ILQR_TPU_SMOKE")
+    os.environ["ILQR_TPU_SMOKE"] = "1"
+    try:
+        sol, secs, counts = timed_run(lambda: ua_double_pendulum_open_loop.main(
+            plot=False, device=dev, reps=1))
+    finally:
+        if smoke_was is None:
+            os.environ.pop("ILQR_TPU_SMOKE")
+        else:
+            os.environ["ILQR_TPU_SMOKE"] = smoke_was
+    trace = sol.cost_trace[:sol.iterations].cpu().numpy()
+    print(f"ua_double_pendulum_open_loop.main (smoke depth): status "
+          f"{sol.status}, {sol.iterations} iterations, cost "
+          f"{float(sol.cost):.6f}, {secs:.3f} s with its warm-up, launches "
+          f"{counts}")
+    if not (bool(torch.isfinite(sol.X).all())
+            and np.all(np.diff(trace) <= 0)):
+        raise AssertionError("UA-DP driver: not finite or cost increased")
+    need("UA-DP driver", counts, b12)
 
     # The FA and UA double-pendulum MPC at full horizon, cut to DRIVER_STEPS
     # steps; each solve's initial rollout is one open-loop launch.
@@ -2696,6 +2729,8 @@ def driver_phase(itt, dev) -> None:
         if not all(bool(torch.isfinite(t).all())
                    for t in (out[key].X, out[key].U)):
             raise AssertionError(f"DP MPC driver {key}: not finite")
+        if ua:
+            continue   # its scan loop: cut for the time limit (PERF.md §4)
         cfg = dataclasses.replace(p.config, backward="scan", rollout="scan")
         ref, secs, counts = timed_run(lambda: itt.run_mpc(
             p.solver, p.plant, p.x0, p.U0, DRIVER_REF_STEPS, cfg))
@@ -2736,11 +2771,13 @@ def constrained_phases(itt, dev, smi) -> list:
                 and float(sol.violation) <= 1e-4 and umax <= lim + 1e-4):
             raise AssertionError(f"{label}: gates not met")
 
-    # The reference engine is 'pscan', B1's plain version (the associative
-    # scan on the card): the sequential host loop ('scan') took 37-54 s of
-    # the phase's card time.
+    # Through the kernels, held to the JAX package's f32 result.  The same
+    # solve with 'pscan' (B1's plain version) was cut for the time limit
+    # (9.2 s; PERF.md §4): the kernel_row below holds B1 to its plain
+    # version at this path's shape, and tests/test_torch_constrained.py
+    # holds the plain engines' AL solve to JAX's in f64.
     runs = {}
-    for backward in ("pallas", "pscan"):
+    for backward in ("pallas",):
         cfg = dataclasses.replace(p.config, backward=backward)
         with counting(constrained, "_backward") as passes:
             sol, secs, counts = timed_run(lambda: itt.solve_constrained(
@@ -3120,7 +3157,7 @@ def wide_b1_checks(itt, lib, exps, errors) -> None:
     """Phase 26: B1w against its plain version at every shape of
     WIDE_B1_SHAPES: N = 1, the tile edges (N + 1 = T - 1, T, T + 1), across
     5 tile edges ending mid-tile, T + 2 tiles, the flight's 150 and the
-    bench's WIDE_N (more tiles than the card holds at once: one 256-thread
+    bench's WIDE_N (more tiles than the card holds at once: one 512-thread
     block of at most 228 KB of shared memory an SM), and with defects
     (B1d) at (12, 4); every call twice with equal bits required."""
     from ilqr_tpu_torch.ops import fused_riccati
@@ -3713,7 +3750,7 @@ WB_MPC_STEPS = 5       # cut from 20 when phase 35 came, then from 10
 P1_SAMPLES = (0, 127, 255)
 P1_X0 = -0.2           # P3's instance: P1's first
 # B4w's shapes: the planar quadrotor (6, 2), an (8, 2) corner of the
-# 8-lane groups, the 3-D quadrotor (12, 4), its rotor variant (16, 4) and
+# 8 x 8 padding, the 3-D quadrotor (12, 4), its rotor variant (16, 4) and
 # the widest (16, 16).
 WB_B4_SHAPES = ((6, 2), (8, 2), (12, 4), (16, 4), (16, 16))
 WB_B5_BATCHES = (1, 3, 64)
@@ -5071,14 +5108,17 @@ def main() -> int:
     if spilled:
         raise AssertionError("kernels spill registers:\n"
                              + "\n".join(spilled))
+    wide_kernels = ("wide_scan_kernel", "wide_riccati_kernel",
+                    "wide_fused_kernel", "wide_prefix_kernel")
     wide = [line for line in ptxas_summary(kernels.ptxas_log)
-            if "wide_scan_kernel" in line or "wide_riccati_kernel" in line]
-    if len(wide) != 5:
-        raise AssertionError(f"expected B6w's kernels at P = 8 and 16 and "
-                             f"B4w's at (P, U) = (8, 8), (16, 8), (16, 16) "
-                             f"in the build, found {wide}")
+            if any(k in line for k in wide_kernels)]
+    if len(wide) != 9:
+        raise AssertionError(f"expected B6w's, B1w's and B3w's kernels at "
+                             f"P = 8 and 16 and B4w's at (P, U) = (8, 8), "
+                             f"(16, 8), (16, 16) in the build, found {wide}")
     print("the entry-parallel kernels (csrc/group_linalg.cuh): B6w/B7w "
-          "wide_scan_kernel<P>, B4w wide_riccati_kernel<P, U>:")
+          "wide_scan_kernel<P>, B4w wide_riccati_kernel<P, U>, B1w "
+          "wide_fused_kernel<P>, B3w wide_prefix_kernel<P>:")
     for line in wide:
         print(line)
     t0 = time.perf_counter()
@@ -5277,22 +5317,28 @@ def main() -> int:
         pend_runs[rollout_engine] = (sol_p, pend_s, counts)
 
     # The under-actuated golden (tests/test_solver.py:42-55, 96-101) through
-    # the kernels, f32: examples_torch/ua_double_pendulum_open_loop.py's
-    # main(plot=False), which is that problem, so the 700-iteration solve
-    # runs once (the launch counts include its one-iteration warm-up).
+    # the kernels, f32, on examples_torch/ua_double_pendulum_open_loop.py's
+    # problem, warm-started from the reference's controls (the golden's U)
+    # under the golden's gates: cut from the 272-iteration cold start for
+    # the time limit (PERF.md §4).  tests/test_torch_solve.py holds the
+    # cold start's iterations to JAX's (cut in N and maxiter, f64), phases
+    # 2-3 hold its kernels to their plain versions, and phase 23 runs the
+    # driver's main.
     gold = np.load(UA_GOLDEN)
     ua_cost_ref = float(gold["cost"])
     ua_angles_ref = torch.tensor(gold["X"][:2, -1], **f32)  # (dim, time)
+    p_ua = ua_double_pendulum_open_loop.problem(dev)
+    U_ua = torch.tensor(gold["U"].T, **f32).contiguous()   # (time, dim)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    sol_ua = ua_double_pendulum_open_loop.main(plot=False, device=dev, reps=1)
+    sol_ua = itt.solve(p_ua.system, p_ua.x0, U_ua, p_ua.config)
     torch.cuda.synchronize()
     ua_s = time.perf_counter() - t0
     ua_counts = _build.launch_counts()
     ua_ang = float((sol_ua.X[-1, :2] - ua_angles_ref).abs().max())
-    print(f"UA-DP golden (the driver's main, pallas/pallas, warm-up "
-          f"included): status {sol_ua.status}, "
+    print(f"UA-DP golden (pallas/pallas, from the reference's controls): "
+          f"status {sol_ua.status}, "
           f"{sol_ua.iterations} iterations, cost {float(sol_ua.cost):.6f} "
           f"(reference {ua_cost_ref:.6f}, limit 1.05x), final angles "
           f"{sol_ua.X[-1, :2].tolist()} ({ua_ang:.2e} from the reference's, "
@@ -5331,6 +5377,10 @@ def main() -> int:
 
     # The pendulum MPC example (examples/pendulum_mpc.py: backward-Euler
     # solver, midpoint plant, H = 200, maxiter 10), cut to MPC_STEPS steps.
+    # Its first step is no longer held to rollout='scan' on the card (12.5 s
+    # of host loops, cut for the time limit, PERF.md §4): phase 3 holds the
+    # backward-Euler B2 kernels to their plain versions, and
+    # tests/test_torch_examples_smoke.py holds the example's loop to JAX's.
     def mpc_pendulum(integrator):
         return itt.make_pendulum(
             0.01, [np.pi, 0.0], Q=np.diag([10.0, 1.0]), R=np.eye(1),
@@ -5339,8 +5389,7 @@ def main() -> int:
     mpc_solver, mpc_plant = (mpc_pendulum("backward_euler"),
                              mpc_pendulum("midpoint"))
     mpc_runs = {}
-    for rollout_engine, n_sim in (("pallas", MPC_STEPS),
-                                  ("scan", MPC_REF_STEPS)):
+    for rollout_engine, n_sim in (("pallas", MPC_STEPS),):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -5363,12 +5412,6 @@ def main() -> int:
     for kernel in ("fused_riccati",) + b2_kernels:
         if mpc_runs["pallas"][1].get(kernel, 0) < 1:
             raise AssertionError(f"pendulum MPC never launched {kernel}")
-    mpc_dx = float((mpc_runs["pallas"][0].X[:MPC_REF_STEPS + 1]
-                    - mpc_runs["scan"][0].X).abs().max())
-    print(f"pendulum MPC: the first {MPC_REF_STEPS} steps through the kernels "
-          f"agree with rollout='scan' to {mpc_dx:.2e} (limit {ATOL_MPC})")
-    if not mpc_dx <= ATOL_MPC:
-        raise AssertionError("pendulum MPC: kernels and scan rollouts differ")
 
     lap("4")
     # ---- 5. timing --------------------------------------------------------
@@ -5902,11 +5945,18 @@ TURN_CHAIN_N = (500, BENCH_N)
 TURN_B6W = ((12, 151), (6, 301))
 TURN_B4W = ((12, 4, 256, 80), (16, 4, 16, 80), (6, 2, 64, 100),
             (5, 1, 256, 100))
+# B1w at the flight MPC's (n_x, n_u, N), P4's, the dash TVLQR's and the
+# bench's widest cell (there beside its plain version,
+# backward_pass_associative); B3w at P3's (n, N, A): the defect line
+# search's 10 candidates and multiple shooting's 1.
+TURN_B1W = ((12, 4, 50), (3, 1, 50), (6, 2, 300), (16, 4, WIDE_N))
+TURN_B3W = ((12, 80, 10), (12, 80, 1))
 
 
 def kernel_turns(tag: str, turns: int = 3) -> int:
-    """``python3 chip_smoke.py --turns TAG``: time B4, B5, B2, B6w, B7w and
-    B4w through their public wrappers by `design_timing` (``turns`` turns)
+    """``python3 chip_smoke.py --turns TAG``: time B4, B5, B2, B6w, B7w,
+    B4w, B1w and B3w through their public wrappers by `design_timing`
+    (``turns`` turns)
     and print one JSON line {"tag", "device", "times": {label: {kernel:
     {device_us, host_us, event_ms}}}}.  B4 and B5 run on the first
     iteration of a DP swing-up batch at each of TURN_SHAPES (bench.py's
@@ -5915,7 +5965,9 @@ def kernel_turns(tag: str, turns: int = 3) -> int:
     controls); B2 on the DP line-search cell at each of TURN_CHAIN_N (as
     `chain_timing`); B6w and B7w on the elements (`make_elements`) of a
     seeded expansion at each of TURN_B6W, B4w on a seeded batched
-    expansion at each of TURN_B4W.  Only wrapper signatures that the port
+    expansion at each of TURN_B4W, B1w on a seeded expansion at each of
+    TURN_B1W (and its plain version at N = WIDE_N), B3w on a seeded chain
+    at each of TURN_B3W.  Only wrapper signatures that the port
     has had since its wide kernels came are used, so this file copied
     into the root of an older checkout times that checkout's kernels the
     same way: run two checkouts in turns (A, B, B, A) in one call to
@@ -5976,6 +6028,19 @@ def kernel_turns(tag: str, turns: int = 3) -> int:
         cases[f"B4w ({n_x}, {n_u}) B={B} N={N}"] = {
             "batched_riccati_wide": partial(itt.backward_pass_batched, exp,
                                             0.0)}
+    for n_x, n_u, N in TURN_B1W:
+        exp = random_expansion(itt, N, n_x, n_u, 80 + n_x, f32)
+        calls = {"fused_riccati_wide": partial(itt.backward_pass_fused, exp,
+                                               0.0)}
+        if N == WIDE_N:
+            calls["backward_pass_associative"] = partial(
+                itt.backward_pass_associative, exp, 0.0)
+        cases[f"B1w ({n_x}, {n_u}) N={N}"] = calls
+    for n, N, A in TURN_B3W:
+        P, q, d0 = random_chain(N, n, A, 90 + A, f32)
+        cases[f"B3w n={n} N={N} A={A}"] = {
+            "affine_prefix_scan_wide": partial(
+                itt.affine_prefix_scan_multi, P, q, d0, engine="pallas")}
     out = {"tag": tag, "device": smi, "times": {}}
     for label, calls in cases.items():
         out["times"][label] = {

@@ -48,34 +48,37 @@
 //
 // The wide form (wide_prefix_kernel; B3w), every other n <= 16 and any
 // number of candidates, as JAX's kernel takes them.  An element no longer
-// fits a thread (n = 12, A = 10: 264 floats), so a group of P lanes (P = 8
-// for n <= 8, else 16) works on one n-vector or n x n matrix at a time,
-// lane r owning row r, matrices in shared memory at row stride P + 1
-// (riccati_scan.cuh, namespace wide, as B1w), n a run-time bound of one
-// instantiation per P.  The tile, kWideTile steps, is a chain rather than
-// a scan: A candidates would make the Hillis-Steele elements of a suffix
-// scan's form A n + n^2 floats each, and the chain needs no element
-// but the tile's transition matrices.  One launch, on lookback.cuh:
+// fits a thread (n = 12, A = 10: 264 floats), so a warp works on one n x n
+// product or one candidate's n-vector at a time, with the entry-parallel
+// math of group_linalg.cuh: matrices zero-padded to P x P (P = 8 for n <= 8,
+// else 16; one instantiation per P) at row stride P + 4 in shared memory.
+// The candidates' part of a tile is a chain rather than a scan: A
+// candidates would make the Hillis-Steele elements of a suffix scan's form
+// A n + n^2 floats each, and the chain needs no element but the tile's
+// transition matrices.  One launch of 16 warps a tile of 32 steps, on
+// lookback.cuh:
 //   1. Tiles take tickets from the left; the block stages its tile's P_k.
-//   2. The aggregate: the block's last group forms the product
-//      P_last ... P_first by a chain of group products, and every group
-//      carries its candidates (a = group, group + G, ...: candidates
-//      beyond the groups loop inside the launch) from 0 through the tile,
-//      x <- P_k x + q_k^a, each candidate's drives staged first.  Published
-//      as [product (n^2), drives (A n)], the register form's layout.
-//   3. Look-back: each group carries its candidates from the nearest
+//   2. The aggregate: the product P_last ... P_first by a fixed tree of
+//      warp products, five levels (16, 8, 4, 2, 1 products) in place of a
+//      chain of 31, so the association and the bits repeat; and each warp
+//      carries its candidates (a = warp, warp + 16, ...: candidates beyond
+//      the warps loop inside the launch) from 0 through the tile, x <- P_k x
+//      + q_k^a, lane r forming row r from x broadcast by shuffles and the
+//      candidate's drives loaded first.  Published as [product (n^2),
+//      drives (A n)], the register form's layout.
+//   3. Look-back: each warp carries its candidates from the nearest
 //      published inclusive state (or delta_0) through the aggregates
 //      between, read from L2, and this tile's own; it keeps the state
 //      entering the tile (scratch) and publishes the state at its end.
-//   4. Each group runs its candidates' chains through the tile again from
+//   4. Each warp runs its candidates' chains through the tile again from
 //      the state entering it, writing every delta.
 // Scratch floats: [aggregates (n_tiles, n^2 + A n), inclusive states
 // (n_tiles, A n), entering states (n_tiles, A n)].  Shared memory does not
 // depend on A.
 #include <cuda_runtime.h>
 
+#include "group_linalg.cuh"
 #include "lookback.cuh"
-#include "riccati_scan.cuh"
 #include "smallmat.cuh"
 
 namespace {
@@ -332,143 +335,146 @@ int occupancy(int A) {
 
 // ---- The wide form (B3w) ------------------------------------------------
 
-constexpr int kWideThreads = 256;   // a block: 256 / P lane groups
-constexpr int kWideTile = 32;       // steps of a wide tile
+constexpr int kWideTile = 32;               // steps of a wide tile
+constexpr int kWideWarps = kWideTile / 2;   // a warp a first-level product
 
 template <int P>
 struct WideSmem {
-  static constexpr int LD = P + 1;
-  static constexpr int M = P * LD;               // one P x P matrix
-  static constexpr int G = kWideThreads / P;     // groups a block
-  static constexpr int kP = 0;                   // the tile's P_k
-  static constexpr int kQ = kP + kWideTile * M;  // a group's drives
-  static constexpr int kX = kQ + G * kWideTile * P;   // a group's x, y
-  static constexpr int kProd = kX + G * 2 * P;   // the product, two buffers
-  static constexpr int kBytes = 4 * (kProd + 2 * M);
+  static constexpr int SZ = grp::Mat<P>::SIZE;
+  static constexpr int kThreads = 32 * kWideWarps;
+  static constexpr int kP = 0;                          // the tile's P_k
+  static constexpr int kTree0 = kP + kWideTile * SZ;    // levels 1, 3, 5
+  static constexpr int kTree1 = kTree0 + kWideWarps * SZ;   // levels 2, 4
+  static constexpr int kBytes = 4 * (kTree1 + kWideWarps / 2 * SZ);
 };
 
-// The group's drives q_k^a of the tile's steps into qs (a step a row).
+// y = Pk x + q on lane r's row (r = lane % P), x broadcast from lane j by
+// shuffles: one fmaf chain in j order from q.  Rows and x past n are zero,
+// and so is the result there.
 template <int P>
-__device__ __forceinline__ void stage_drives(const wide::Group<P>& g, int n,
-                                             const float* src, int steps,
-                                             float* qs) {
-  for (int i = g.r; i < steps * n; i += P) qs[(i / n) * P + i % n] = src[i];
-  g.sync();
-}
-
-// y = P_k x + q, then the two swap; every lane of the group keeps the same
-// pointers.
-template <int P>
-__device__ __forceinline__ void affine_group(const wide::Group<P>& g, int n,
-                                             const float* Pk, const float* q,
-                                             float*& x, float*& y) {
-  constexpr int LD = P + 1;
-  if (g.r < n) {
-    float s = q[g.r];
-    for (int j = 0; j < n; ++j) s += Pk[g.r * LD + j] * x[j];
-    y[g.r] = s;
+__device__ __forceinline__ float affine_row(const grp::Lane& ln,
+                                            const float* Pk, float x,
+                                            float q) {
+  const float* row = Pk + (ln.l % P) * grp::Mat<P>::LD;
+  float s = q;
+#pragma unroll
+  for (int j = 0; j < P; j += 4) {
+    float a[4];
+    grp::ld_row<4>(row + j, a);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s = fmaf(a[i], __shfl_sync(grp::kWarp, x, j + i), s);
   }
-  g.sync();
-  float* t = x;
-  x = y;
-  y = t;
+  return s;
+}
+
+// Candidate c's drives of the tile's steps, q_k^c on lane r < n (0
+// elsewhere and past the tile's steps), loaded before its chain runs.
+__device__ __forceinline__ void load_drives(const float* q, int c, int N,
+                                            int n, int k0, int steps, int r,
+                                            float (&qv)[kWideTile]) {
+  const float* src = q + ((size_t)c * N + k0) * n + r;
+#pragma unroll
+  for (int k = 0; k < kWideTile; ++k)
+    qv[k] = k < steps && r < n ? src[(size_t)k * n] : 0.0f;
 }
 
 template <int P>
-__global__ void __launch_bounds__(kWideThreads, 1)
+__global__ void __launch_bounds__(32 * kWideWarps)
 wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
                    const float* __restrict__ delta0, int n, int A, int N,
                    int n_tiles, int* __restrict__ counters,
                    float* __restrict__ scratch, float* __restrict__ out) {
-  using S = WideSmem<P>;
-  constexpr int LD = S::LD, G = S::G;
+  using W = WideSmem<P>;
+  using M = grp::Mat<P>;
+  constexpr int LD = M::LD, SZ = W::SZ, kThreads = W::kThreads;
   extern __shared__ __align__(16) float smw[];
   __shared__ lookback::Slots slots;
-  const int tid = threadIdx.x, grp = tid / P;
-  const wide::Group<P> g;
-  const int r = g.r;
+  const int tid = threadIdx.x, warp = tid / 32;
+  const grp::Lane ln;
+  const int r = ln.l % P;
   const int NN = n * n, F = NN + A * n, SA = A * n;
   int* status = counters + 2;
   float* aggs = scratch;                          // (n_tiles, F)
   float* incl = aggs + (size_t)n_tiles * F;       // (n_tiles, SA)
   float* entering = incl + (size_t)n_tiles * SA;  // (n_tiles, SA)
-  float* Ps = smw + S::kP;
-  float* qs = smw + S::kQ + grp * kWideTile * P;
-  float* x = smw + S::kX + grp * 2 * P;
-  float* y = x + P;
+  float* Ps = smw + W::kP;
 
-  // 1. The tile from the left; its transition matrices.
+  // 1. The tile from the left; its transition matrices, zero-padded, the
+  // identity past N.
   const int p = lookback::take_tile<kFromLeft>(counters, n_tiles, &slots);
   const int k0 = p * kWideTile, steps = min(kWideTile, N - k0);
-  for (int i = tid; i < steps * NN; i += kWideThreads) {
-    const int e = i % NN;
-    Ps[(i / NN) * S::M + (e / n) * LD + e % n] = Pm[(size_t)k0 * NN + i];
+  for (int i = tid; i < kWideTile * P * P; i += kThreads) {
+    const int k = i / (P * P), e = i % (P * P), row = e / P, col = e % P;
+    float v = 0.0f;
+    if (row < n && col < n)
+      v = k < steps ? Pm[(size_t)(k0 + k) * NN + row * n + col]
+                    : (row == col ? 1.0f : 0.0f);
+    Ps[k * SZ + row * LD + col] = v;
   }
   if (p == 0) {
-    for (int i = tid; i < SA; i += kWideThreads)
+    for (int i = tid; i < SA; i += kThreads)
       out[(size_t)(i / n) * (N + 1) * n + i % n] = delta0[i];
   }
   __syncthreads();
 
-  // 2. The aggregate: the product of the tile's P_k, and each candidate's
-  // drive carried from 0 through the tile.
+  // 2. The aggregate: the product P_last ... P_first by a fixed tree of
+  // warp products (level 1: warp w forms P_2w+1 P_2w; each level pairs the
+  // last one's products the same way, later on the left), and each
+  // candidate's drive carried from 0 through the tile.
+  const float* src = Ps;
+  float* dst = smw + W::kTree0;
+  for (int count = kWideTile / 2; count >= 1; count /= 2) {
+    if (warp < count) {
+      grp::Tile<P> c;
+      grp::mm<P>(ln, src + (2 * warp + 1) * SZ, src + 2 * warp * SZ, c);
+      grp::store<P>(ln, c, dst + warp * SZ);
+    }
+    __syncthreads();
+    src = dst;
+    dst = dst == smw + W::kTree0 ? smw + W::kTree1 : smw + W::kTree0;
+  }
   float* agg = aggs + (size_t)p * F;
-  if (grp == G - 1) {
-    float* a = smw + S::kProd;
-    float* b = a + S::M;
-    if (r < n) {
-      for (int j = 0; j < n; ++j) a[r * LD + j] = Ps[r * LD + j];
-    }
-    g.sync();
-    for (int k = 1; k < steps; ++k) {
-      wide::mm<P>(g, n, n, n, Ps + k * S::M, a, b);
-      float* t = a;
-      a = b;
-      b = t;
-    }
-    if (r < n) {
-      for (int j = 0; j < n; ++j) agg[r * n + j] = a[r * LD + j];
-    }
+  if (warp == 0) {
+    for (int i = ln.l; i < NN; i += 32) agg[i] = src[(i / n) * LD + i % n];
     __threadfence();
   }
-  for (int c = grp; c < A; c += G) {
-    stage_drives<P>(g, n, q + ((size_t)c * N + k0) * n, steps, qs);
-    if (r < n) x[r] = 0.0f;
-    g.sync();
-    for (int k = 0; k < steps; ++k)
-      affine_group<P>(g, n, Ps + k * S::M, qs + k * P, x, y);
-    if (r < n) agg[NN + c * n + r] = x[r];
+  for (int c = warp; c < A; c += kWideWarps) {
+    float qv[kWideTile];
+    load_drives(q, c, N, n, k0, steps, r, qv);
+    float x = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kWideTile; ++k)
+      if (k < steps) x = affine_row<P>(ln, Ps + k * SZ, x, qv[k]);
+    if (ln.l < n) agg[NN + c * n + ln.l] = x;
     __threadfence();
-    g.sync();   // qs and x are rewritten for the next candidate
   }
   __syncthreads();
   if (tid == 0) lookback::publish(&status[p], lookback::kAggregate);
 
-  // 3. Look-back, a group per candidate: the nearest inclusive state to
-  // the left (or delta_0) through the aggregates up to this tile's own.
+  // 3. Look-back, a warp a candidate: the nearest inclusive state to the
+  // left (or delta_0) through the aggregates up to this tile's own, each
+  // read from L2; the state before the last is the one entering the tile.
   const int qt = lookback::find_inclusive<kFromLeft>(counters, p, n_tiles,
                                                      &slots);
-  for (int c = grp; c < A; c += G) {
-    if (r < n)
-      x[r] = qt >= 0 ? __ldcg(incl + (size_t)qt * SA + c * n + r)
-                     : delta0[c * n + r];
-    g.sync();
+  for (int c = warp; c < A; c += kWideWarps) {
+    float x = 0.0f;
+    if (r < n && ln.l < P)
+      x = qt >= 0 ? __ldcg(incl + (size_t)qt * SA + c * n + r)
+                  : delta0[c * n + r];
     for (int j = qt + 1; j <= p; ++j) {
       const float* aj = aggs + (size_t)j * F;
-      if (r < n) {
-        if (j == p) entering[(size_t)p * SA + c * n + r] = x[r];
-        float s = __ldcg(aj + NN + c * n + r);
-        for (int i = 0; i < n; ++i) s += __ldcg(aj + r * n + i) * x[i];
-        y[r] = s;
+      if (j == p && ln.l < n) entering[(size_t)p * SA + c * n + ln.l] = x;
+      float s = r < n ? __ldcg(aj + NN + c * n + r) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const float xi = __shfl_sync(grp::kWarp, x, i);
+        if (r < n && i < n) s = fmaf(__ldcg(aj + r * n + i), xi, s);
       }
-      g.sync();
-      float* t = x;
-      x = y;
-      y = t;
+      x = ln.l < P ? s : 0.0f;
     }
-    if (r < n) incl[(size_t)p * SA + c * n + r] = x[r];
+    if (ln.l < n) incl[(size_t)p * SA + c * n + ln.l] = x;
     __threadfence();
-    g.sync();
   }
   __syncthreads();
   if (tid == 0) lookback::publish(&status[p], lookback::kInclusive);
@@ -477,16 +483,18 @@ wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
   }
 
   // 4. Every step's delta, from the state entering the tile.
-  for (int c = grp; c < A; c += G) {
-    stage_drives<P>(g, n, q + ((size_t)c * N + k0) * n, steps, qs);
-    if (r < n) x[r] = entering[(size_t)p * SA + c * n + r];
-    g.sync();
+  for (int c = warp; c < A; c += kWideWarps) {
+    float qv[kWideTile];
+    load_drives(q, c, N, n, k0, steps, r, qv);
+    float x = ln.l < n ? entering[(size_t)p * SA + c * n + ln.l] : 0.0f;
     float* o = out + ((size_t)c * (N + 1) + k0 + 1) * n;
-    for (int k = 0; k < steps; ++k) {
-      affine_group<P>(g, n, Ps + k * S::M, qs + k * P, x, y);
-      if (r < n) o[(size_t)k * n + r] = x[r];
+#pragma unroll
+    for (int k = 0; k < kWideTile; ++k) {
+      if (k < steps) {
+        x = affine_row<P>(ln, Ps + k * SZ, x, qv[k]);
+        if (ln.l < n) o[(size_t)k * n + ln.l] = x;
+      }
     }
-    g.sync();
   }
 }
 
@@ -500,7 +508,7 @@ int run_wide(int n, int A, int N, const float* Pm, const float* q,
       wide_prefix_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_prefix_kernel<P><<<n_tiles, kWideThreads, S::kBytes, stream>>>(
+  wide_prefix_kernel<P><<<n_tiles, S::kThreads, S::kBytes, stream>>>(
       Pm, q, delta0, n, A, N, n_tiles, counters, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -514,14 +522,14 @@ int wide_occupancy() {
       S::kBytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, wide_prefix_kernel<P>, kWideThreads, S::kBytes);
+        &blocks, wide_prefix_kernel<P>, S::kThreads, S::kBytes);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 bool register_form(int n, int A) {
   return (n == 2 || n == 4) && A <= kMaxCand;
 }
-int wide_lanes(int n) { return n <= 8 ? 8 : 16; }
+int wide_pad(int n) { return n <= 8 ? 8 : 16; }
 int tile_steps(int n, int A) {
   return register_form(n, A) ? kTileSteps : kWideTile;
 }
@@ -551,7 +559,7 @@ extern "C" int ilqr_affine_prefix_scan_occupancy(int n, int A) {
     return A == 1 ? occupancy<2, 1>(A) : occupancy<2, kMaxCand>(A);
   if (n == 4 && A <= kMaxCand)
     return A == 1 ? occupancy<4, 1>(A) : occupancy<4, kMaxCand>(A);
-  return wide_lanes(n) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
+  return wide_pad(n) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
 }
 
 // One launch.  Inputs P (N, n, n), q (A, N, n), delta0 (A, n); counters
@@ -573,7 +581,7 @@ extern "C" int ilqr_affine_prefix_scan(int n, int A, int N, const float* P,
       return run<4, 1>(A, N, P, q, delta0, counters, scratch, out, s);
     return run<4, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
   }
-  if (wide_lanes(n) == 8)
+  if (wide_pad(n) == 8)
     return run_wide<8>(n, A, N, P, q, delta0, counters, scratch, out, s);
   return run_wide<16>(n, A, N, P, q, delta0, counters, scratch, out, s);
 }

@@ -532,25 +532,6 @@ __device__ void produce_wide(const BatchedExpansion& ex,
   }
 }
 
-// Row i, column j of an (rows x cols) row-major run at p, or 0 past it.
-__device__ __forceinline__ float raw(const float* p, int i, int j, int rows,
-                                     int cols) {
-  return i < rows && j < cols ? p[i * cols + j] : 0.0f;
-}
-
-// Tile c = this lane's entries of the (rows x cols) run at p.
-template <int P>
-__device__ __forceinline__ void load_raw(const grp::Lane& ln, const float* p,
-                                         int rows, int cols,
-                                         grp::Tile<P>& c) {
-  using M = grp::Mat<P>;
-#pragma unroll
-  for (int t = 0; t < M::R; ++t)
-#pragma unroll
-    for (int s = 0; s < M::CC; ++s)
-      c.v[t][s] = raw(p, ln.rg + 8 * t, M::CC * ln.cg + s, rows, cols);
-}
-
 template <int P, int U>
 __global__ void __launch_bounds__(64)
 wide_riccati_kernel(BatchedExpansion ex, int nx, int nu, int N,
@@ -648,9 +629,9 @@ wide_riccati_kernel(BatchedExpansion ex, int nx, int nu, int N,
       grp::Tile<P> a, d, q;
 
       // f_x and f_u into their padded matrices.
-      load_raw<P>(ln, fx, nx, nx, a);
+      grp::load_raw<P>(ln, fx, nx, nx, a);
       grp::store<P>(ln, a, FX);
-      load_raw<P>(ln, fu, nx, nu, a);
+      grp::load_raw<P>(ln, fu, nx, nu, a);
       grp::store<P>(ln, a, FU);
       grp::sync();
       // T = f_x' V_xx, F = f_u' V_xx; Q_x = l_x + f_x' V_x (lanes 0..P-1),
@@ -667,23 +648,17 @@ wide_riccati_kernel(BatchedExpansion ex, int nx, int nu, int N,
       // Q_xx = l_xx + T f_x (kept in q), Q_ux = l_ux + F f_x,
       // Q_uu = l_uu + F f_u, R = Q_uu + reg I.
       grp::mm<P>(ln, Tm, FX, q);
-      load_raw<P>(ln, lxx, nx, nx, d);
+      grp::load_raw<P>(ln, lxx, nx, nx, d);
       grp::add<P>(q, d);
       grp::mm<P, false, false, U>(ln, Fm, FX, a);
-      load_raw<P>(ln, lux, nu, nx, d);
+      grp::load_raw<P>(ln, lux, nu, nx, d);
       grp::add<P>(a, d);
       grp::store<P, U>(ln, a, Qux);
       grp::mm<P, false, false, U>(ln, Fm, FU, a);
-      load_raw<P>(ln, luu, nu, nu, d);
+      grp::load_raw<P>(ln, luu, nu, nu, d);
       grp::add<P>(a, d);
       grp::store<P, U>(ln, a, Quu);
-#pragma unroll
-      for (int t = 0; t < M::R; ++t)
-#pragma unroll
-        for (int j = 0; j < M::CC; ++j) {
-          const int i = ln.rg + 8 * t;
-          if (i == M::CC * ln.cg + j && i < nu) a.v[t][j] += rg;
-        }
+      grp::add_diag<P>(ln, nu, rg, a);
       grp::store<P, U>(ln, a, Rm);
       grp::sync();
       grp::inv<P>(ln, nu, Rm, Ri);

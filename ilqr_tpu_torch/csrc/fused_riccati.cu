@@ -53,23 +53,27 @@
 // (n_tiles, F), inclusive values (n_tiles, n_x + n_x^2), partials
 // (n_tiles, 3)].
 //
-// The wide form (wide_kernel; B1w), for every other n_x <= 16, n_u <= 6:
-// an element of F = 3 n_x^2 + 2 n_x floats does not fit one thread's
-// registers beyond n_x = 4 (800 floats at n_x = 16), and a 256-step tile of
-// them does not fit shared memory.  Each step's element belongs to a group
-// of P lanes (P = 8 for n_x <= 8, 16 above), a row a lane, with every
-// matrix in shared memory (riccati_scan.cuh, namespace wide); a block of
-// 256 threads holds one tile of T = 256 / P steps (32 or 16), and the same
-// steps run as above with group collectives in place of one thread's code:
-// the elements (l_uu + reg I inverted by pivoted Gauss-Jordan), the
-// out-of-place Hillis-Steele scan, the look-back (group 0 folds the
-// aggregates, F floats a tile, staged two at a time), the closure, and the
-// gains (Q_uu + reg I by the same Gauss-Jordan).  n_x and n_u are run-time
-// bounds inside one instantiation per P, so no input is padded and the
-// build stays two kernels; shapes it takes: n_x <= 16 and n_u <= 6 but
-// (2, 1), (4, 1) and (4, 2), which keep the register form.  What bounds it:
-// the same chain, now of group collectives that each wait on a warp
-// barrier; by its counts (30 n_x^3 operations a step) it would be
+// The wide form (wide_fused_kernel; B1w), for every other n_x <= 16,
+// n_u <= 6: an element of F = 3 n_x^2 + 2 n_x floats does not fit one
+// thread's registers beyond n_x = 4 (800 floats at n_x = 16), and a
+// 256-step tile of them does not fit shared memory.  Each step's element
+// belongs to a warp, zero-padded to P x P (P = 8 for n_x <= 8, 16 above;
+// one instantiation per P), with the entry-parallel math of
+// group_linalg.cuh, laid out as the wide suffix scan (suffix_scan.cu, B6w):
+// each lane owns 2 or 8 entries of every product, and the inverses (of
+// l_uu + reg I, of L = I + C J, of Q_uu + reg I) are Gauss-Jordan with the
+// pivot from a warp reduction.  A block of 16 warps holds a tile of 16
+// steps and runs the same steps as above: the elements (products whose
+// rows or depth run over the controls stop at 8), the out-of-place
+// Hillis-Steele scan of `combine`s, the look-back (warp 0 carries (eta,
+// J) through the aggregates by `apply_value`, F floats a tile, staged two
+// at a time; the carry starts at the last tile's aggregate, taken as it
+// is), the closure (each warp's `apply_value` of the edge value; the last
+// tile's local suffixes are the suffixes) and
+// the gains (the plain version's, by the same products and inverse).  What
+// bounds it: the chain of warp-wide inverses and products, log2(16) = 4
+// levels of combines in the tile and one value application a tile in the
+// look-back; by its counts (30 n_x^3 operations a step) it would be
 // operations bound near 15 us at n_x = 16, N = 8192.
 //
 // GNMS defects (multiple shooting, B1d; the with_defects variant of the TPU
@@ -80,6 +84,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "group_linalg.cuh"
 #include "lookback.cuh"
 #include "riccati_scan.cuh"
 
@@ -413,186 +418,233 @@ constexpr int scratch_floats(int n_tiles) {
 
 // ---- The wide form (B1w) --------------------------------------------------
 
-constexpr int kWideThreads = 256;   // a block: 256 / P groups, one a step
-constexpr int kWideStage = 2;       // aggregates staged per look-back round
+constexpr int kWideTile = 16;   // steps of a tile: a warp each
+constexpr int kWideStage = 2;   // aggregates staged per look-back round
+constexpr int kWideU = 8;       // rows and depths that run over the controls
+constexpr int kWideMaxN = 1 << 23;   // horizons the wide form takes
 
 template <int P>
 struct WideSmem {
-  using L = wide::Layout<P>;
-  static constexpr int T = kWideThreads / P;   // steps of a tile
-  static constexpr int kBuf0 = 0;               // T elements
-  static constexpr int kBuf1 = kBuf0 + T * L::F;
-  static constexpr int kVals = kBuf1 + T * L::F;        // (T + 1) values
-  static constexpr int kWork = kVals + (T + 1) * L::NV;  // T work spaces
-  static constexpr int kCarry = kWork + T * L::W;        // 3 values
-  static constexpr int kStage = kCarry + 3 * L::NV;
-  static constexpr int kFloats = kStage + kWideStage * L::F;
+  using E = grp::Elem<P>;
+  static constexpr int SZ = grp::Mat<P>::SIZE;
+  static constexpr int NV = SZ + P;   // a value function: J, then eta
+  static constexpr int T = kWideTile;
+  static constexpr int kThreads = 32 * T;
+  static constexpr int kBuf0 = 0;                       // T elements
+  static constexpr int kBuf1 = kBuf0 + T * E::F;        // T elements
+  static constexpr int kWork = kBuf1 + T * E::F;        // T work spaces
+  static constexpr int kVals = kWork + T * E::WORK;     // T + 1 values
+  static constexpr int kCarry = kVals + (T + 1) * NV;   // 3 values
+  static constexpr int kStage = kCarry + 3 * NV;
+  static constexpr int kFloats = kStage + kWideStage * E::F;
   static constexpr int kBytes = 4 * kFloats;
   static_assert(kBytes <= 232448 - 64, "a tile must fit shared memory");
 };
 
-// Loads of an (rows x cols) row-major block of global memory (stride cols)
-// into a group's shared matrix, row r by lane r.
+// The value (J, eta) of element e, J then eta as the kernel keeps values:
+// the value of e (x) 0, the suffix at the last step of the horizon, as the
+// plain scan has it (apply_value of the zero value would form the same
+// entries but J symmetrised, and the terminal element's J = v_xx is the
+// caller's).
 template <int P>
-__device__ __forceinline__ void load_rows(const wide::Group<P>& g, int rows,
-                                          int cols, const float* src,
-                                          float* dst) {
-  constexpr int LD = P + 1;
-  if (g.r < rows) {
-    for (int j = 0; j < cols; ++j) dst[g.r * LD + j] = src[g.r * cols + j];
-  }
-  g.sync();
+__device__ __forceinline__ void take_value(const grp::Lane& ln,
+                                           const float* e, float* v) {
+  using E = grp::Elem<P>;
+  if (ln.l < P) v[WideSmem<P>::SZ + ln.l] = e[E::ETA + ln.l];
+  grp::copy(ln, e + E::J, v, WideSmem<P>::SZ);
 }
 
-// Element k of the wide form into e (see build_element).
+// Element k of the wide form into e, zero-padded (see build_element);
+// s and w are 3 P x P matrices and 2 vectors of work space each.
 template <int P>
-__device__ __forceinline__ void build_wide(const wide::Group<P>& g, int nx,
+__device__ __forceinline__ void build_wide(const grp::Lane& ln, int nx,
                                            int nu, int k, int N,
                                            const Expansion& ex, float reg,
-                                           float* e, const wide::Work<P>& w) {
-  using L = wide::Layout<P>;
-  constexpr int LD = L::LD;
-  const int r = g.r;
+                                           float* e, float* s, float* w) {
+  using E = grp::Elem<P>;
+  constexpr int SZ = E::S, U = kWideU;
+  const int l = ln.l;
+  grp::Tile<P> a, d;
   if (k > N) {
-    wide::identity<P>(g, nx, e);
+    grp::identity<P>(ln, nx, e);
     return;
   }
   if (k == N) {
-    if (r < nx) {
-      for (int j = 0; j < nx; ++j) {
-        e[L::A + r * LD + j] = 0.0f;
-        e[L::C + r * LD + j] = 0.0f;
-        e[L::J + r * LD + j] = ex.v_xx[r * nx + j];
-      }
-      e[L::B + r] = 0.0f;
-      e[L::ETA + r] = -ex.v_x[r];
+    const grp::Tile<P> zero = {};
+    grp::load_raw<P>(ln, ex.v_xx, nx, nx, a);
+    grp::store<P>(ln, a, e + E::J);
+    grp::store<P>(ln, zero, e + E::A);
+    grp::store<P>(ln, zero, e + E::C);
+    if (l < P) {
+      e[E::B + l] = 0.0f;
+      e[E::ETA + l] = l < nx ? -ex.v_x[l] : 0.0f;
     }
-    g.sync();
+    grp::sync();
     return;
   }
+  float* FU = s;           // f_u
+  float* Mm = s + SZ;      // M = l_ux
+  float* Rm = s + 2 * SZ;  // R = l_uu + reg I, then C before sym
+  float* lu = s + 3 * SZ;
+  float* rir = lu + P;     // R^-1 r
+  float* Ri = w;           // R^-1, then J before sym
+  float* RiM = w + SZ;
+  float* RiBt = w + 2 * SZ;
   const size_t NN = (size_t)nx * nx;
-  const float* f_x = ex.f_x + k * NN;
-  const float* l_xx = ex.l_xx + k * NN;
-  load_rows<P>(g, nx, nu, ex.f_u + (size_t)k * nx * nu, w.m0);      // f_u
-  load_rows<P>(g, nu, nx, ex.l_ux + (size_t)k * nu * nx, w.m1);     // M
-  load_rows<P>(g, nu, nu, ex.l_uu + (size_t)k * nu * nu, w.m2);     // R
-  if (r < nu) {
-    w.m2[r * LD + r] += reg;
-    w.v0[r] = ex.l_u[(size_t)k * nu + r];
+  grp::load_raw<P>(ln, ex.f_u + (size_t)k * nx * nu, nx, nu, a);
+  grp::store<P>(ln, a, FU);
+  grp::load_raw<P>(ln, ex.l_ux + (size_t)k * nu * nx, nu, nx, a);
+  grp::store<P>(ln, a, Mm);
+  grp::load_raw<P>(ln, ex.l_uu + (size_t)k * nu * nu, nu, nu, a);
+  grp::add_diag<P>(ln, nu, reg, a);
+  grp::store<P>(ln, a, Rm);
+  if (l < P) lu[l] = l < nu ? ex.l_u[(size_t)k * nu + l] : 0.0f;
+  grp::sync();
+  grp::inv<P>(ln, nu, Rm, Ri);
+  // R^-1 M, R^-1 f_u' and R^-1 r: rows and depths past U are zero.
+  grp::mm<P, false, false, U, U>(ln, Ri, Mm, a);
+  grp::store<P>(ln, a, RiM);
+  grp::mm<P, false, true, U, U>(ln, Ri, FU, a);
+  grp::store<P>(ln, a, RiBt);
+  if (l < P) rir[l] = grp::dot_row<P>(Ri, l, lu);
+  grp::sync();
+  // A = f_x - f_u R^-1 M.
+  grp::mm<P, false, false, P, U>(ln, FU, RiM, a);
+  grp::load_raw<P>(ln, ex.f_x + k * NN, nx, nx, d);
+#pragma unroll
+  for (int t = 0; t < grp::Mat<P>::R; ++t)
+#pragma unroll
+    for (int j = 0; j < grp::Mat<P>::CC; ++j) d.v[t][j] -= a.v[t][j];
+  grp::store<P>(ln, d, e + E::A);
+  // C = sym(f_u R^-1 f_u') and J = sym(l_xx - M' R^-1 M), formed in Rm and
+  // Ri.
+  grp::mm<P, false, false, P, U>(ln, FU, RiBt, a);
+  grp::store<P>(ln, a, Rm);
+  grp::mm<P, true, false, P, U>(ln, Mm, RiM, a);
+  grp::load_raw<P>(ln, ex.l_xx + k * NN, nx, nx, d);
+#pragma unroll
+  for (int t = 0; t < grp::Mat<P>::R; ++t)
+#pragma unroll
+    for (int j = 0; j < grp::Mat<P>::CC; ++j) d.v[t][j] -= a.v[t][j];
+  grp::store<P>(ln, d, Ri);
+  // b = -f_u R^-1 r (+ d), eta = -(l_x - M' R^-1 r).
+  if (l < P) {
+    float b = -grp::dot_row<P>(FU, l, rir);
+    if (ex.d != nullptr && l < nx) b += ex.d[(size_t)k * nx + l];
+    e[E::B + l] = b;
+  } else if (l < 2 * P) {
+    const int i = l - P;
+    e[E::ETA + i] =
+        i < nx ? -(ex.l_x[(size_t)k * nx + i] - grp::dot_col<P>(Mm, i, rir))
+               : 0.0f;
   }
-  g.sync();
-  wide::inv<P>(g, nu, w.m2, w.m3, w.red);                 // R^-1
-  wide::mm<P>(g, nu, nu, nx, w.m3, w.m1, w.m4);           // R^-1 M
-  wide::mv<P>(g, nu, nu, w.m3, w.v0, w.v1);               // R^-1 r
-  // A = f_x - f_u R^-1 M
-  wide::mm<P>(g, nx, nu, nx, w.m0, w.m4, w.m2);
-  if (r < nx) {
-    for (int j = 0; j < nx; ++j)
-      e[L::A + r * LD + j] = f_x[r * nx + j] - w.m2[r * LD + j];
-  }
-  // b = -f_u R^-1 r (+ d)
-  wide::mv<P>(g, nx, nu, w.m0, w.v1, e + L::B);
-  if (r < nx) {
-    e[L::B + r] = -e[L::B + r];
-    if (ex.d != nullptr) e[L::B + r] += ex.d[(size_t)k * nx + r];
-  }
-  // J = sym(l_xx - M' R^-1 M)
-  wide::mtm<P>(g, nx, nu, nx, w.m1, w.m4, w.m2);
-  if (r < nx) {
-    for (int j = 0; j < nx; ++j)
-      w.m2[r * LD + j] = l_xx[r * nx + j] - w.m2[r * LD + j];
-  }
-  g.sync();
-  wide::sym<P>(g, nx, w.m2, e + L::J);
-  // eta = -(l_x - M' R^-1 r)
-  wide::mtv<P>(g, nx, nu, w.m1, w.v1, e + L::ETA);
-  if (r < nx)
-    e[L::ETA + r] = -(ex.l_x[(size_t)k * nx + r] - e[L::ETA + r]);
-  // C = sym(f_u R^-1 f_u')
-  wide::mmt<P>(g, nu, nu, nx, w.m3, w.m0, w.m1);          // R^-1 f_u'
-  wide::mm<P>(g, nx, nu, nx, w.m0, w.m1, w.m2);
-  wide::sym<P>(g, nx, w.m2, e + L::C);
+  grp::sync();
+  grp::sym<P>(ln, Rm, e + E::C);
+  grp::sym<P>(ln, Ri, e + E::J);
 }
 
-// Step t's gains and dV (on lane 0) from V(t+1) = (J_n, -eta_n).
+// Step t's gains, and dV and the finite flag on lane 0, from V(t+1) =
+// (J_n, -eta_n): the plain version's gains_from_value.  s0, s1 and w are 3
+// P x P matrices and 2 vectors of work space each.  Offsets are ints (t
+// 16^2 < 2^31 for N < kWideMaxN): 64-bit ones spilled registers at P = 16.
 template <int P>
 __device__ __forceinline__ void gains_wide(
-    const wide::Group<P>& g, int nx, int nu, const Expansion& ex, int t,
-    float reg, const float* eta_n, const float* J_n, const wide::Work<P>& w,
-    float* __restrict__ u_ff_out, float* __restrict__ K_out, float& dv1,
-    float& dv2, float& bad) {
-  using L = wide::Layout<P>;
-  constexpr int LD = L::LD;
-  const int r = g.r;
-  load_rows<P>(g, nx, nu, ex.f_u + (size_t)t * nx * nu, w.m0);   // f_u
-  load_rows<P>(g, nx, nx, ex.f_x + (size_t)t * nx * nx, w.m3);   // f_x
-  if (r < nx) {
-    float v = -eta_n[r];
-    if (ex.d != nullptr) {
-      for (int j = 0; j < nx; ++j)
-        v += J_n[r * LD + j] * ex.d[(size_t)t * nx + j];
+    const grp::Lane& ln, int nx, int nu, const Expansion& ex, int t,
+    float reg, const float* eta_n, const float* J_n, float* s0, float* s1,
+    float* w, float* __restrict__ u_ff_out, float* __restrict__ K_out,
+    float& dv1, float& dv2, float& bad) {
+  using M = grp::Mat<P>;
+  constexpr int SZ = M::SIZE, U = kWideU;
+  const int l = ln.l;
+  float* FU = s1;
+  float* FX = s1 + SZ;
+  float* Fm = s1 + 2 * SZ;   // f_u' V_xx
+  float* vx = s1 + 3 * SZ;   // V_x (+ V_xx d)
+  float* Qu = vx + P;
+  float* Qux = w;
+  float* Quu = w + SZ;
+  float* Rm = w + 2 * SZ;    // Q_uu + reg I
+  float* u = w + 3 * SZ;     // u_ff
+  float* Qi = s0;            // (Q_uu + reg I)^-1
+  float* dt = s0 + 3 * SZ;   // d_t
+  grp::Tile<P> a, d;
+  grp::load_raw<P>(ln, ex.f_u + t * nx * nu, nx, nu, a);
+  grp::store<P>(ln, a, FU);
+  grp::load_raw<P>(ln, ex.f_x + t * nx * nx, nx, nx, a);
+  grp::store<P>(ln, a, FX);
+  if (ex.d != nullptr && l < P)
+    dt[l] = l < nx ? ex.d[t * nx + l] : 0.0f;
+  grp::sync();
+  if (l < P) {
+    vx[l] = -eta_n[l];
+    if (ex.d != nullptr) vx[l] += grp::dot_row<P>(J_n, l, dt);
+  }
+  grp::mm<P, true, false, U, P>(ln, FU, J_n, a);
+  grp::store<P>(ln, a, Fm);
+  grp::sync();
+  // Q_u = l_u + f_u' V_x; Q_ux = l_ux + F f_x; Q_uu = l_uu + F f_u.
+  if (l < P)
+    Qu[l] = l < nu ? ex.l_u[t * nu + l] + grp::dot_col<P>(FU, l, vx)
+                   : 0.0f;
+  grp::mm<P, false, false, U, P>(ln, Fm, FX, a);
+  grp::load_raw<P>(ln, ex.l_ux + t * nu * nx, nu, nx, d);
+  grp::add<P>(a, d);
+  grp::store<P>(ln, a, Qux);
+  grp::mm<P, false, false, U, P>(ln, Fm, FU, a);
+  grp::load_raw<P>(ln, ex.l_uu + t * nu * nu, nu, nu, d);
+  grp::add<P>(a, d);
+  grp::store<P>(ln, a, Quu);
+  grp::add_diag<P>(ln, nu, reg, a);
+  grp::store<P>(ln, a, Rm);
+  grp::sync();
+  grp::inv<P>(ln, nu, Rm, Qi);
+  // K = -(Q_uu + reg I)^-1 Q_ux, u_ff = -(Q_uu + reg I)^-1 Q_u.
+  grp::mm<P, false, false, U, U>(ln, Qi, Qux, a);
+  bool b = false;
+#pragma unroll
+  for (int r = 0; r < M::R; ++r)
+#pragma unroll
+    for (int j = 0; j < M::CC; ++j) {
+      const int i = ln.rg + 8 * r, jj = M::CC * ln.cg + j;
+      if (i < nu && jj < nx) {
+        const float kv = -a.v[r][j];
+        K_out[(t * nu + i) * nx + jj] = kv;
+        b |= !isfinite(kv);
+      }
     }
-    w.v0[r] = v;                                          // V_x (+ V_xx d)
-  }
-  g.sync();
-  wide::mtm<P>(g, nu, nx, nx, w.m0, J_n, w.m1);           // f_u' V_xx
-  wide::mtv<P>(g, nu, nx, w.m0, w.v0, w.v1);              // Q_u
-  if (r < nu) w.v1[r] += ex.l_u[(size_t)t * nu + r];
-  wide::mm<P>(g, nu, nx, nx, w.m1, w.m3, w.m2);           // Q_ux
-  if (r < nu) {
-    for (int j = 0; j < nx; ++j)
-      w.m2[r * LD + j] += ex.l_ux[((size_t)t * nu + r) * nx + j];
-  }
-  wide::mm<P>(g, nu, nx, nu, w.m1, w.m0, w.m4);
-  if (r < nu) {
-    for (int j = 0; j < nu; ++j)
-      w.m4[r * LD + j] += ex.l_uu[((size_t)t * nu + r) * nu + j];
-    w.m4[r * LD + r] += reg;
-  }
-  g.sync();
-  wide::sym<P>(g, nu, w.m4, w.m3);                        // Q_uu
-  wide::copy<P>(g, w.m3, w.m4, P * LD);
-  wide::inv<P>(g, nu, w.m4, w.m0, w.red);                 // Q_uu^-1
-  wide::mm<P>(g, nu, nu, nx, w.m0, w.m2, w.m1);           // -K
-  wide::mv<P>(g, nu, nu, w.m0, w.v1, w.v0);               // -u_ff
-  float b = 0.0f;
-  if (r < nu) {
-    for (int j = 0; j < nx; ++j) {
-      const float kv = -w.m1[r * LD + j];
-      K_out[((size_t)t * nu + r) * nx + j] = kv;
-      if (!isfinite(kv)) b = 1.0f;
+  if (l < P) {
+    const float v = -grp::dot_row<P>(Qi, l, Qu);
+    u[l] = v;
+    if (l < nu) {
+      u_ff_out[t * nu + l] = v;
+      b |= !isfinite(v);
     }
-    const float uf = -w.v0[r];
-    u_ff_out[(size_t)t * nu + r] = uf;
-    if (!isfinite(uf)) b = 1.0f;
-    w.red[r] = b;
   }
-  g.sync();
-  if (r == 0) {
-    float uQu = 0.0f, uu = 0.0f;
+  grp::sync();
+  // dV = (u_ff' Q_u, 0.5 u_ff' Q_uu u_ff).
+  if (__ballot_sync(grp::kWarp, b) != 0u) bad = 1.0f;
+  if (l == 0) {
+    float s1v = 0.0f, s2v = 0.0f;
     for (int i = 0; i < nu; ++i) {
-      const float ui = -w.v0[i];
-      float q = 0.0f;
-      for (int j = 0; j < nu; ++j) q += w.m3[i * LD + j] * -w.v0[j];
-      dv1 += ui * w.v1[i];
-      uQu += ui * q;
-      uu += ui * ui;
-      if (w.red[i] != 0.0f) bad = 1.0f;
+      s1v = fmaf(u[i], Qu[i], s1v);
+      s2v = fmaf(u[i], grp::dot_row<P>(Quu, i, u), s2v);
     }
-    dv2 = 0.5f * (uQu - reg * uu);
+    dv1 = s1v;
+    dv2 = 0.5f * s2v;
   }
-  g.sync();
 }
 
 template <int P>
-__global__ void __launch_bounds__(kWideThreads, 1)
-wide_kernel(Expansion ex, int nx, int nu, int N, float reg, int n_tiles,
-            int* __restrict__ counters, float* __restrict__ scratch,
-            float* __restrict__ u_ff_out, float* __restrict__ K_out,
-            float* __restrict__ dV_out, unsigned char* __restrict__ ok_out) {
-  using L = wide::Layout<P>;
+__global__ void __launch_bounds__(32 * kWideTile, 1)
+wide_fused_kernel(Expansion ex, int nx, int nu, int N, float reg,
+                  int n_tiles, int* __restrict__ counters,
+                  float* __restrict__ scratch, float* __restrict__ u_ff_out,
+                  float* __restrict__ K_out, float* __restrict__ dV_out,
+                  unsigned char* __restrict__ ok_out) {
+  using E = grp::Elem<P>;
   using S = WideSmem<P>;
-  constexpr int F = L::F, NV = L::NV, T = S::T;
+  constexpr int F = E::F, NV = S::NV, SZ = S::SZ, T = S::T,
+                kThreads = S::kThreads;
   extern __shared__ __align__(16) float sm[];
   __shared__ lookback::Slots slots;
   int* status = counters + 2;
@@ -600,103 +652,118 @@ wide_kernel(Expansion ex, int nx, int nu, int N, float reg, int n_tiles,
   float* values = aggs + (size_t)n_tiles * F;          // (n_tiles, NV)
   float* partials = values + (size_t)n_tiles * NV;     // (n_tiles, 3)
   float* vals = sm + S::kVals;   // V(c) of the tile's steps, V(T) the edge
-  const int tid = threadIdx.x, q = tid / P;
-  const wide::Group<P> g;
-  const wide::Work<P> w(sm + S::kWork + q * L::W);
+  const int tid = threadIdx.x, q = tid / 32;
+  const grp::Lane ln;
+  float* w = sm + S::kWork + q * E::WORK;
 
   // 1. The tile from the right end; its elements and local suffixes.
   const int p = lookback::take_tile<kFromRight>(counters, n_tiles, &slots);
   const int k = p * T + q;
-  build_wide<P>(g, nx, nu, k, N, ex, reg, sm + S::kBuf0 + q * F, w);
+  build_wide<P>(ln, nx, nu, k, N, ex, reg, sm + S::kBuf0 + q * F,
+                sm + S::kBuf1 + q * F, w);
   __syncthreads();
-  float* buf = wide::tile_suffix_scan<P, T>(g, q, nx, k, N, sm + S::kBuf0,
+  float* buf = grp::tile_suffix_scan<P, T>(ln, q, nx, k, N, sm + S::kBuf0,
                                            sm + S::kBuf1, w);
-  for (int i = tid; i < F; i += kWideThreads) {
+  float* other = buf == sm + S::kBuf0 ? sm + S::kBuf1 : sm + S::kBuf0;
+  for (int i = tid; i < F; i += kThreads) {
     aggs[(size_t)p * F + i] = buf[i];
     __threadfence();
   }
   __syncthreads();
   if (tid == 0) lookback::publish(&status[p], lookback::kAggregate);
 
-  // 2. Look-back: group 0 carries (eta, J) from the nearest inclusive tile
+  // 2. Look-back: warp 0 carries (eta, J) from the nearest inclusive tile
   // q2 through the aggregates of q2-1 .. p (three values in rotation: the
-  // carry, its previous value and the next).
+  // carry, its previous value and the next).  With none (q2 = n_tiles) the
+  // carry starts at the last tile's aggregate, taken as it is.
   const int q2 = lookback::find_inclusive<kFromRight>(counters, p, n_tiles,
                                                       &slots);
+  const bool last = p == n_tiles - 1;
   float* cur = sm + S::kCarry;
   float* prev = cur + NV;
   float* next = prev + NV;
-  if (q == 0) {
-    for (int i = g.r; i < NV; i += P)
-      cur[i] = q2 < n_tiles ? __ldcg(values + (size_t)q2 * NV + i) : 0.0f;
-    g.sync();
+  bool started = q2 < n_tiles;
+  if (q == 0 && started) {
+    for (int i = ln.l; i < NV; i += 32)
+      cur[i] = __ldcg(values + (size_t)q2 * NV + i);
+    grp::sync();
   }
   lookback::fold<kFromRight, kWideStage>(
       aggs, F, p, q2, sm + S::kStage, q == 0, [&](const float* agg) {
-        wide::apply_value<P>(g, nx, agg, cur, cur + P, next, next + P, w);
+        if (!started) {
+          take_value<P>(ln, agg, cur);
+          started = true;
+          return;
+        }
+        grp::apply_value<P>(ln, nx, agg, cur + SZ, cur, next + SZ, next, w);
         float* t = prev;
         prev = cur;
         cur = next;
         next = t;
       });
   if (q == 0) {
-    for (int i = g.r; i < NV; i += P) {
+    for (int i = ln.l; i < NV; i += 32) {
       values[(size_t)p * NV + i] = cur[i];
-      vals[T * NV + i] = prev[i];   // the value at this tile's right edge
+      if (!last) vals[T * NV + i] = prev[i];   // the value at the right edge
     }
     __threadfence();
-    g.sync();
-    if (g.r == 0) lookback::publish(&status[p], lookback::kInclusive);
+    grp::sync();
+    if (ln.l == 0) lookback::publish(&status[p], lookback::kInclusive);
   }
   __syncthreads();
 
-  // 3. V(k) = local suffix at k closed with the edge value; then the gains.
+  // 3. V(k) = local suffix at k closed with the edge value (in the last
+  // tile, the local suffix's own); then the gains.
   if (k <= N) {
-    wide::apply_value<P>(g, nx, buf + q * F, vals + T * NV,
-                         vals + T * NV + P, vals + q * NV,
-                         vals + q * NV + P, w);
+    if (last) {
+      take_value<P>(ln, buf + q * F, vals + q * NV);
+    } else {
+      grp::apply_value<P>(ln, nx, buf + q * F, vals + T * NV + SZ,
+                          vals + T * NV, vals + q * NV + SZ, vals + q * NV,
+                          w);
+    }
   }
   __syncthreads();
   float dv1 = 0.0f, dv2 = 0.0f, bad = 0.0f;
   if (k < N) {
-    gains_wide<P>(g, nx, nu, ex, k, reg, vals + (q + 1) * NV,
-                  vals + (q + 1) * NV + P, w, u_ff_out, K_out, dv1, dv2, bad);
+    gains_wide<P>(ln, nx, nu, ex, k, reg, vals + (q + 1) * NV + SZ,
+                  vals + (q + 1) * NV, buf + q * F, other + q * F, w,
+                  u_ff_out, K_out, dv1, dv2, bad);
   }
 
-  // 4. dV and the finite flag, as the register form sums them.
+  // 4. dV and the finite flag in a fixed tree, as the register form sums
+  // them (lane 0 of each warp holds its step's).
   float* red = sm + S::kBuf0;
-  block_sum3<kWideThreads>(red, tid, dv1, dv2, bad);
+  __syncthreads();   // every warp is done with its work space in buf
+  block_sum3<kThreads>(red, tid, dv1, dv2, bad);
   if (tid == 0) {
     partials[(size_t)p * 3 + 0] = red[0];
-    partials[(size_t)p * 3 + 1] = red[kWideThreads];
-    partials[(size_t)p * 3 + 2] = red[2 * kWideThreads];
+    partials[(size_t)p * 3 + 1] = red[kThreads];
+    partials[(size_t)p * 3 + 2] = red[2 * kThreads];
   }
   if (!lookback::arrive(counters, n_tiles, &slots)) return;
   __threadfence();
   float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-  for (int j = tid; j < n_tiles; j += kWideThreads) {
+  for (int j = tid; j < n_tiles; j += kThreads) {
     s1 += __ldcg(partials + (size_t)j * 3 + 0);
     s2 += __ldcg(partials + (size_t)j * 3 + 1);
     s3 += __ldcg(partials + (size_t)j * 3 + 2);
   }
-  block_sum3<kWideThreads>(red, tid, s1, s2, s3);
+  block_sum3<kThreads>(red, tid, s1, s2, s3);
   if (tid == 0) {
     dV_out[0] = red[0];
-    dV_out[1] = red[kWideThreads];
-    ok_out[0] = red[2 * kWideThreads] == 0.0f;
+    dV_out[1] = red[kThreads];
+    ok_out[0] = red[2 * kThreads] == 0.0f;
   }
   lookback::reset(counters, n_tiles);
 }
 
-// The group width of the wide form at n_x.
-int wide_lanes(int n_x) { return n_x <= 8 ? 8 : 16; }
-int wide_tiles(int n_x, int N) {
-  const int T = kWideThreads / wide_lanes(n_x);
-  return (N + 1 + T - 1) / T;
-}
+// The padded size of the wide form at n_x.
+int wide_pad(int n_x) { return n_x <= 8 ? 8 : 16; }
+int wide_tiles(int N) { return (N + 1 + kWideTile - 1) / kWideTile; }
 template <int P>
 constexpr int wide_scratch_floats(int n_tiles) {
-  return n_tiles * (wide::Layout<P>::F + wide::Layout<P>::NV + 3);
+  return n_tiles * (grp::Elem<P>::F + WideSmem<P>::NV + 3);
 }
 
 template <int P>
@@ -704,11 +771,12 @@ int run_wide(int nx, int nu, int N, float reg, const Expansion& ex,
              int* counters, float* scratch, float* u_ff, float* K, float* dV,
              unsigned char* ok, cudaStream_t stream) {
   using S = WideSmem<P>;
-  const int n_tiles = wide_tiles(nx, N);
+  const int n_tiles = wide_tiles(N);
   cudaError_t err = cudaFuncSetAttribute(
-      wide_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+      wide_fused_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_kernel<P><<<n_tiles, kWideThreads, S::kBytes, stream>>>(
+  wide_fused_kernel<P><<<n_tiles, S::kThreads, S::kBytes, stream>>>(
       ex, nx, nu, N, reg, n_tiles, counters, scratch, u_ff, K, dV, ok);
   return static_cast<int>(cudaGetLastError());
 }
@@ -719,7 +787,7 @@ int run_wide(int nx, int nu, int N, float reg, const Expansion& ex,
 extern "C" int ilqr_riccati_tile_steps(int n_x, int n_u) {
   const bool registers =
       (n_x == 2 && n_u == 1) || (n_x == 4 && (n_u == 1 || n_u == 2));
-  return registers ? kTileSteps : kWideThreads / wide_lanes(n_x);
+  return registers ? kTileSteps : kWideTile;
 }
 
 // Sizes of the kernel's scratch at state size n_x and horizon N: ints
@@ -727,24 +795,22 @@ extern "C" int ilqr_riccati_tile_steps(int n_x, int n_u) {
 // both forms may run (by n_u), and the larger size serves both: a launch
 // resets the counters of its own tiles only, the rest stay zero.
 extern "C" int ilqr_fused_riccati_counters(int n_x, int N) {
-  const int wide_n = lookback::counter_ints(wide_tiles(n_x, N));
-  return n_x == 2 || n_x == 4
-             ? (lookback::counter_ints(tiles(N)) > wide_n
-                    ? lookback::counter_ints(tiles(N))
-                    : wide_n)
-             : wide_n;
+  const int wide_n = lookback::counter_ints(wide_tiles(N));
+  const int reg_n = lookback::counter_ints(tiles(N));
+  return (n_x == 2 || n_x == 4) && reg_n > wide_n ? reg_n : wide_n;
 }
 extern "C" int ilqr_fused_riccati_scratch(int n_x, int N) {
-  const int wide_f = wide_lanes(n_x) == 8
-                         ? wide_scratch_floats<8>(wide_tiles(n_x, N))
-                         : wide_scratch_floats<16>(wide_tiles(n_x, N));
+  const int wide_f = wide_pad(n_x) == 8
+                         ? wide_scratch_floats<8>(wide_tiles(N))
+                         : wide_scratch_floats<16>(wide_tiles(N));
   if (n_x == 2) return scratch_floats<2>(tiles(N)) > wide_f ? scratch_floats<2>(tiles(N)) : wide_f;
   if (n_x == 4) return scratch_floats<4>(tiles(N)) > wide_f ? scratch_floats<4>(tiles(N)) : wide_f;
   return wide_f;
 }
 
 // One launch: the register form at (n_x, n_u) = (2, 1), (4, 1), (4, 2),
-// the wide form at every other n_x <= 16, n_u <= 6.  defects: (N, n_x) or
+// the wide form at every other n_x <= 16, n_u <= 6 (N < 2^23 steps).
+// defects: (N, n_x) or
 // null; counters and scratch as sized above; outputs u_ff (N, n_u), K (N, n_u, n_x), dV (2,) = (sum dV1,
 // sum dV2) and ok (1 byte) = all gains finite.
 extern "C" int ilqr_fused_riccati(
@@ -762,9 +828,9 @@ extern "C" int ilqr_fused_riccati(
     return run<4, 1>(N, reg, ex, counters, scratch, u_ff, K, dV, ok, s);
   if (n_x == 4 && n_u == 2)
     return run<4, 2>(N, reg, ex, counters, scratch, u_ff, K, dV, ok, s);
-  if (n_x < 1 || n_x > 16 || n_u < 1 || n_u > 6)
+  if (n_x < 1 || n_x > 16 || n_u < 1 || n_u > 6 || N >= kWideMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (wide_lanes(n_x) == 8)
+  if (wide_pad(n_x) == 8)
     return run_wide<8>(n_x, n_u, N, reg, ex, counters, scratch, u_ff, K, dV,
                        ok, s);
   return run_wide<16>(n_x, n_u, N, reg, ex, counters, scratch, u_ff, K, dV,

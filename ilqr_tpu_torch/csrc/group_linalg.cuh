@@ -1,9 +1,11 @@
 // Entry-parallel small-matrix math on one warp.
 //
-// The wide suffix scan (suffix_scan.cu, B6w and B7w) and the wide batched
-// backward pass (batched_riccati.cu, B4w) work on matrices of up to 16 x 16
-// that fit no thread's registers.  Here a warp of 32 lanes owns one element
-// or one instance, and every matrix is P x P (P = 8 or 16, a compile-time
+// Every wide form of the port works on matrices of up to 16 x 16 that fit
+// no thread's registers: the fused backward pass (fused_riccati.cu, B1w),
+// the affine prefix scan (affine_scan.cu, B3w), the batched backward pass
+// (batched_riccati.cu, B4w) and the suffix scan (suffix_scan.cu, B6w and
+// B7w).  Here a warp of 32 lanes owns one element, one instance or one
+// product, and every matrix is P x P (P = 8 or 16, a compile-time
 // constant) in shared memory, zero-padded past the run-time size n: exact
 // zeros leave the sums of the real entries unchanged, so one instantiation
 // per P serves every n <= P and every loop is unrolled to P.
@@ -37,10 +39,11 @@
 // of the inverse is I; a zero pivot makes the real block non-finite, which
 // the callers' finite flags report.
 //
-// Every function here is called by the whole warp.  Products, loads and
-// stores touch only this lane's entries and leave the barrier to the
-// caller (a __syncwarp between a store and other lanes' reads of it);
-// inv, sym, copy and identity end with one.
+// Every function here is called by the whole warp (tile_suffix_scan by
+// the whole block).  Products, loads and stores touch only this lane's
+// entries and leave the barrier to the caller (a __syncwarp between a store
+// and other lanes' reads of it); inv, sym, copy, identity, apply_value and
+// combine end with one.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -149,6 +152,25 @@ __device__ __forceinline__ void mm(const Lane& ln, const float* a,
   }
 }
 
+// Row i, column j of an (rows x cols) row-major run at p, or 0 past it.
+__device__ __forceinline__ float raw(const float* p, int i, int j, int rows,
+                                     int cols) {
+  return i < rows && j < cols ? p[i * cols + j] : 0.0f;
+}
+
+// c = this lane's entries of the (rows x cols) run at p (device or shared
+// memory, any alignment), zero-padded to P x P.
+template <int P>
+__device__ __forceinline__ void load_raw(const Lane& ln, const float* p,
+                                         int rows, int cols, Tile<P>& c) {
+  using M = Mat<P>;
+#pragma unroll
+  for (int t = 0; t < M::R; ++t)
+#pragma unroll
+    for (int s = 0; s < M::CC; ++s)
+      c.v[t][s] = raw(p, ln.rg + 8 * t, M::CC * ln.cg + s, rows, cols);
+}
+
 // This lane's entries of m, and of m'.
 template <int P>
 __device__ __forceinline__ void load(const Lane& ln, const float* m,
@@ -177,6 +199,19 @@ __device__ __forceinline__ void store(const Lane& ln, const Tile<P>& c,
 #pragma unroll
   for (int t = 0; t < ROWS / 8; ++t)
     st_row<M::CC>(m + (ln.rg + 8 * t) * M::LD + M::CC * ln.cg, c.v[t]);
+}
+
+// c += v on this lane's diagonal entries of rows and columns below n.
+template <int P>
+__device__ __forceinline__ void add_diag(const Lane& ln, int n, float v,
+                                         Tile<P>& c) {
+#pragma unroll
+  for (int t = 0; t < Mat<P>::R; ++t)
+#pragma unroll
+    for (int s = 0; s < Mat<P>::CC; ++s) {
+      const int i = ln.rg + 8 * t;
+      if (i == Mat<P>::CC * ln.cg + s && i < n) c.v[t][s] += v;
+    }
 }
 
 // c += d, entry by entry.
@@ -360,6 +395,53 @@ __device__ __forceinline__ void identity(const Lane& ln, int n, float* e) {
   sync();
 }
 
+// (eta, J) of e (x) (eta_j, J_j), the register form's apply_value
+// (riccati_scan.cuh) and the first half of `combine` below, the same
+// function with each entry formed by the same fmaf chains, so the two give
+// the same bits:
+//   L = I + C Jj,  T = L^-1 A,
+//   eta = T' (eta_j - Jj b) + eta_e,  J = sym(T' (Jj A) + J_e),
+// in four products and an inverse: C Jj and Z = Jj A, then L^-1, then T,
+// then T' Z.  eta and J alias none of the inputs; J serves as work space
+// until it is written; w is the warp's Elem<P>::WORK floats.
+template <int P>
+__device__ __forceinline__ void apply_value(const Lane& ln, int n,
+                                            const float* e,
+                                            const float* eta_j,
+                                            const float* J_j, float* eta,
+                                            float* J, float* w) {
+  using E = Elem<P>;
+  constexpr int S = E::S;
+  float* W0 = w;
+  float* W1 = w + S;
+  float* W2 = w + 2 * S;
+  float* v0 = w + 3 * S;   // eta_j - Jj b
+  const int l = ln.l;
+  Tile<P> c;
+
+  // W0 = L = I + C Jj; J = Z = Jj A; v0 = eta_j - Jj b.
+  mm<P>(ln, e + E::C, J_j, c);
+  add_diag<P>(ln, P, 1.0f, c);
+  store<P>(ln, c, W0);
+  mm<P>(ln, J_j, e + E::A, c);
+  store<P>(ln, c, J);
+  if (l < P) v0[l] = eta_j[l] - dot_row<P>(J_j, l, e + E::B);
+  sync();
+  inv<P>(ln, n, W0, W1);                                   // W1 = L^-1
+  mm<P>(ln, W1, e + E::A, c);                              // W2 = T
+  store<P>(ln, c, W2);
+  sync();
+  // W0 = T' Z + J_e; eta.
+  mm<P, true>(ln, W2, J, c);
+  Tile<P> d;
+  load<P>(ln, e + E::J, d);
+  add<P>(c, d);
+  store<P>(ln, c, W0);
+  if (l < P) eta[l] = dot_col<P>(W2, l, v0) + e[E::ETA + l];
+  sync();
+  sym<P>(ln, W0, J);
+}
+
 // o = ei (x) ej: ei the earlier element, ej the later (the register form's
 // combine in riccati_scan.cuh, the same function):
 //   L = I + Ci Jj,  eta = Ai' L^-T (eta_j - Jj bi) + eta_i,
@@ -390,11 +472,7 @@ __device__ __forceinline__ void combine(const Lane& ln, int n,
   // W0 = L = I + Ci Jj; o.J = Z = Jj Ai; v0 = eta_j - Jj bi; v2 = Ci eta_j
   // + bi.
   mm<P>(ln, ei + E::C, ej + E::J, c);
-#pragma unroll
-  for (int t = 0; t < Mat<P>::R; ++t)
-#pragma unroll
-    for (int s = 0; s < Mat<P>::CC; ++s)
-      if (ln.rg + 8 * t == Mat<P>::CC * ln.cg + s) c.v[t][s] += 1.0f;
+  add_diag<P>(ln, P, 1.0f, c);
   store<P>(ln, c, W0);
   mm<P>(ln, ej + E::J, ei + E::A, d);
   store<P>(ln, d, o + E::J);
@@ -428,6 +506,31 @@ __device__ __forceinline__ void combine(const Lane& ln, int n,
   sym<P>(ln, W1, o + E::J);
   // C = sym(W2).
   sym<P>(ln, W2, o + E::C);
+}
+
+// Inclusive suffix scan of a tile's T elements, one a warp (warp q holds
+// element k), between two buffers of T elements (F floats apart): the
+// register form's Hillis-Steele (riccati_scan.cuh), out of place; a partner
+// past `last` is the identity and is skipped.  Returns the buffer that
+// holds the result.  Block-wide: every warp calls it.
+template <int P, int T>
+__device__ __forceinline__ float* tile_suffix_scan(const Lane& ln, int q,
+                                                   int n, int k, int last,
+                                                   float* src, float* dst,
+                                                   float* w) {
+  constexpr int F = Elem<P>::F;
+  for (int d = 1; d < T; d <<= 1) {
+    if (q + d < T && k + d <= last) {
+      combine<P>(ln, n, src + q * F, src + (q + d) * F, dst + q * F, w);
+    } else {
+      copy(ln, src + q * F, dst + q * F, F);
+    }
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
 }
 
 }  // namespace grp

@@ -295,31 +295,6 @@ __device__ __forceinline__ void store_wide(const grp::Lane& ln, int n,
   }
 }
 
-// Inclusive suffix scan of a tile's T elements, one a warp (warp q holds
-// element k), between two buffers of T elements (F floats apart): the
-// register form's Hillis-Steele, out of place; a partner past `last` is the
-// identity and is skipped.  Returns the buffer that holds the result.
-// Block-wide: every warp calls it.
-template <int P>
-__device__ __forceinline__ float* wide_tile_scan(const grp::Lane& ln, int q,
-                                                 int n, int k, int last,
-                                                 float* src, float* dst,
-                                                 float* w) {
-  constexpr int F = grp::Elem<P>::F, T = kWideTile;
-  for (int d = 1; d < T; d <<= 1) {
-    if (q + d < T && k + d <= last) {
-      grp::combine<P>(ln, n, src + q * F, src + (q + d) * F, dst + q * F, w);
-    } else {
-      grp::copy(ln, src + q * F, dst + q * F, F);
-    }
-    __syncthreads();
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
-  return src;
-}
-
 template <int P>
 __global__ void __launch_bounds__(32 * kWideTile, 1)
 wide_scan_kernel(Elements in, int n, int M, int n_tiles,
@@ -347,8 +322,9 @@ wide_scan_kernel(Elements in, int n, int M, int n_tiles,
     grp::identity<P>(ln, n, e);
   }
   __syncthreads();
-  float* buf = wide_tile_scan<P>(ln, q, n, k, M - 1, sm + S::kBuf0,
-                                 sm + S::kBuf1, w);
+  float* buf = grp::tile_suffix_scan<P, T>(ln, q, n, k, M - 1,
+                                                sm + S::kBuf0, sm + S::kBuf1,
+                                                w);
   float* other = buf == sm + S::kBuf0 ? sm + S::kBuf1 : sm + S::kBuf0;
   for (int i = tid; i < F; i += S::kThreads) {
     aggs[(size_t)p * F + i] = buf[i];

@@ -12,8 +12,10 @@ in ⌈log₂ N⌉ sweeps.  The plain version, `prefix_scan`, doubles over the
 whole horizon with torch ops; the CUDA kernel, `csrc/affine_scan.cu`, is
 one launch: at n ∈ {2, 4} and up to 16 candidates (the register form)
 256-step tiles scanned by warp shuffles, elsewhere at n ≤ 16 and any
-number of candidates (the wide form) 32-step tiles run by lane groups, a
-state carried across tiles by decoupled look-back either way.  Its
+number of candidates (the wide form) 32-step tiles run by warps (a tree
+of warp products for the tile's transition, a warp a candidate's chain;
+`csrc/group_linalg.cuh`), a state carried across tiles by decoupled
+look-back either way.  Its
 counters and scratch come from `_build.scratch` (once per device, stream
 and shape); per call the wrapper allocates only δ.
 

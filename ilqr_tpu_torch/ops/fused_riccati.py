@@ -16,7 +16,8 @@ function, defects included); on a CUDA tensor it launches the kernel or
 raises.  As in JAX, n_x > 16 or n_u > 6 go to `backward_pass_associative`
 on every device.  The kernel takes every n_x ≤ 16, n_u ≤ 6 on CUDA: in
 its register form (an element a thread) at the (n_x, n_u) of `SHAPES`,
-in its wide form (an element a group of 8 or 16 lanes, B1w) at the rest.
+in its wide form (an element a warp, zero-padded to 8 x 8 or 16 x 16 on
+`csrc/group_linalg.cuh`, 16-step tiles, B1w) at the rest.
 
 The kernel's scratch (tile status words, aggregates, carried values and
 partial sums) comes from `_build.scratch`, allocated once per device,

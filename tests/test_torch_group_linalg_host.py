@@ -4,13 +4,15 @@ GPU.
 The header is compiled with g++ against `test_torch_lookback.MOCK_RUNTIME`
 (a warp of pthreads, shuffles and ballots through a per-warp buffer) into a
 small harness of one-warp kernels: the pivot choice of a Gauss-Jordan
-step, the inverse, the products and the symmetrisation, each at padded
-P = 8 and 16 with the real size n below P.  The pivot rule is held to a
+step, the inverse, the products, the symmetrisation and `apply_value`
+(the value of an element applied to a later value, B1w's look-back and
+closure), each at padded P = 8 and 16 with the real size n below P.  The pivot rule is held to a
 scan of the offers in row order (the rule of the lane-per-row form the
 header replaced: the first largest offer wins, pivoted rows do not offer,
 a NaN offer counts as a row) in every lane; the inverse and the products to numpy in
-f64, with their padding exact.  The tests skip where no g++ is found; the
-card runs the header in B6w and B4w (chip_smoke.py).
+f64, with their padding exact, and `apply_value` to the (eta, J) of the
+header's `combine` bit for bit.  The tests skip where no g++ is found;
+the card runs the header in B1w, B3w, B4w and B6w (chip_smoke.py).
 """
 import ctypes
 import shutil
@@ -80,7 +82,48 @@ __global__ void mm_kernel(int op, const float* a, const float* b, float* c) {
   from_smem<P>(sm + 2 * S, c);
 }
 
+// Element (A, b, C, eta, J) of dense (P, P) and (P,) fields at f (in that
+// order, 3 P^2 + 2 P floats) into e, padded.
+template <int P>
+__device__ void elem_to_smem(const float* f, float* e) {
+  using E = grp::Elem<P>;
+  to_smem<P>(f, e + E::A);
+  to_smem<P>(f + P * P + P, e + E::C);
+  to_smem<P>(f + 2 * P * P + 2 * P, e + E::J);
+  for (int i = threadIdx.x; i < P; i += 32) {
+    e[E::B + i] = f[P * P + i];
+    e[E::ETA + i] = f[2 * P * P + P + i];
+  }
+  grp::sync();
+}
+
+// (eta, J) of ei (x) (eta_j, J_j) by apply_value, and of ei (x) ej by
+// combine: out = [eta (P), J (P, P)] of each, in that order.
+template <int P>
+__global__ void apply_kernel(int n, const float* ei, const float* ej,
+                             float* out) {
+  extern __shared__ __align__(16) float sm[];
+  using E = grp::Elem<P>;
+  const grp::Lane ln;
+  float* a = sm;
+  float* b = a + E::F;
+  float* o = b + E::F;
+  float* v = o + E::F;   // eta, then J
+  float* w = v + E::F;
+  elem_to_smem<P>(ei, a);
+  elem_to_smem<P>(ej, b);
+  grp::apply_value<P>(ln, n, a, b + E::ETA, b + E::J, v, v + P, w);
+  grp::combine<P>(ln, n, a, b, o, w);
+  for (int i = threadIdx.x; i < P; i += 32) {
+    out[i] = v[i];
+    out[P + P * P + i] = o[E::ETA + i];
+  }
+  from_smem<P>(v + P, out + P);
+  from_smem<P>(o + E::J, out + 2 * P + P * P);
+}
+
 constexpr int kSmem = 4 * 3 * grp::Mat<16>::SIZE;
+constexpr int kApplySmem = 4 * 5 * grp::Elem<16>::F;
 
 }  // namespace
 
@@ -94,6 +137,16 @@ extern "C" int grp_inv(int P, int n, const float* m, float* mi) {
     inv_kernel<8><<<1, 32, kSmem, nullptr>>>(n, m, mi);
   } else {
     inv_kernel<16><<<1, 32, kSmem, nullptr>>>(n, m, mi);
+  }
+  return 0;
+}
+
+extern "C" int grp_apply(int P, int n, const float* ei, const float* ej,
+                         float* out) {
+  if (P == 8) {
+    apply_kernel<8><<<1, 32, kApplySmem, nullptr>>>(n, ei, ej, out);
+  } else {
+    apply_kernel<16><<<1, 32, kApplySmem, nullptr>>>(n, ei, ej, out);
   }
   return 0;
 }
@@ -130,6 +183,7 @@ def grp_lib(tmp_path_factory):
     lib.grp_pivot.argtypes = [_FP, _IP, _IP]
     lib.grp_inv.argtypes = [ctypes.c_int, ctypes.c_int, _FP, _FP]
     lib.grp_mm.argtypes = [ctypes.c_int, ctypes.c_int, _FP, _FP, _FP]
+    lib.grp_apply.argtypes = [ctypes.c_int, ctypes.c_int, _FP, _FP, _FP]
     return lib
 
 
@@ -254,3 +308,68 @@ def test_products_and_sym_at_padded_sizes(grp_lib, P, n, op):
     assert not out[n:, :].any() and not out[:, n:].any()
     if op == 3:
         assert np.array_equal(out, out.T)
+
+
+def _element(rng, P, n, pivot=False):
+    """A random element at n zero-padded to P: A, b, eta Gaussian, C and J
+    positive semidefinite; with ``pivot`` C's and J's leading blocks make
+    L = I + C J_later have L_00 = 0 (C = [[1, -2], [-2, 4]], J = ones)."""
+    f = {}
+    for k in "AbCeJ":
+        f[k] = np.zeros((P, P) if k in "ACJ" else P)
+    f["A"][:n, :n] = np.eye(n) + 0.3 * rng.standard_normal((n, n))
+    f["b"][:n] = rng.standard_normal(n)
+    f["e"][:n] = rng.standard_normal(n)
+    for k in "CJ":
+        G = 0.5 * rng.standard_normal((n, n))
+        f[k][:n, :n] = G @ G.T
+    if pivot:
+        f["C"][:n, :n] = 0.0
+        f["C"][:2, :2] = [[1.0, -2.0], [-2.0, 4.0]]
+        f["J"][:n, :n] = 0.0
+        f["J"][:2, :2] = 1.0
+    f = {k: _f32(v) for k, v in f.items()}
+    flat = np.concatenate([f["A"].ravel(), f["b"], f["C"].ravel(), f["e"],
+                           f["J"].ravel()])
+    return f, _f32(flat)
+
+
+@pytest.mark.parametrize("P,n,pivot", [(8, 5, False), (8, 7, True),
+                                       (16, 12, False), (16, 3, False),
+                                       (16, 12, True)])
+def test_apply_value_at_padded_sizes(grp_lib, P, n, pivot):
+    """apply_value's (eta, J) of e (x) (eta_j, J_j) within 1e-5 of numpy's
+    f64 formula (relative to each output's max), the padding exactly zero,
+    J exactly symmetric, and the same bits as the (eta, J) of combine(e,
+    e_j) (the same function, entry by entry the same fmaf chains); also
+    where L = I + C J_j has a zero leading pivot."""
+    rng = np.random.default_rng(1000 * P + 10 * n + pivot)
+    ei, fi = _element(rng, P, n)
+    ej, fj = _element(rng, P, n)
+    if pivot:
+        ei, fi = _element(rng, P, n, pivot=True)
+        ej["J"][:n, :n] = 0.0
+        ej["J"][:2, :2] = 1.0
+        fj = _f32(np.concatenate([ej["A"].ravel(), ej["b"],
+                                  ej["C"].ravel(), ej["e"],
+                                  ej["J"].ravel()]))
+    out = np.full(2 * (P + P * P), -1.0, np.float32)
+    grp_lib.grp_apply(P, n, _ptr(fi), _ptr(fj), _ptr(out))
+    eta, J = out[:P], out[P:P + P * P].reshape(P, P)
+    eta_c = out[P + P * P:2 * P + P * P]
+    J_c = out[2 * P + P * P:].reshape(P, P)
+    assert np.array_equal(eta, eta_c) and np.array_equal(J, J_c)
+    d = {k: v.astype(np.float64)[:n, :n] if v.ndim == 2
+         else v.astype(np.float64)[:n] for k, v in ei.items()}
+    Jj = ej["J"].astype(np.float64)[:n, :n]
+    eta_j = ej["e"].astype(np.float64)[:n]
+    Li = np.linalg.inv(np.eye(n) + d["C"] @ Jj)
+    T = Li @ d["A"]
+    eta_ref = T.T @ (eta_j - Jj @ d["b"]) + d["e"]
+    J_ref = T.T @ Jj @ d["A"] + d["J"]
+    J_ref = 0.5 * (J_ref + J_ref.T)
+    assert np.abs(eta[:n] - eta_ref).max() <= 1e-5 * np.abs(eta_ref).max()
+    assert np.abs(J[:n, :n] - J_ref).max() <= 1e-5 * np.abs(J_ref).max()
+    assert not eta[n:].any()
+    assert not J[n:, :].any() and not J[:, n:].any()
+    assert np.array_equal(J, J.T)

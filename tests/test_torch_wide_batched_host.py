@@ -3,16 +3,17 @@ prefix scan (B3w) without a GPU.
 
 `csrc/batched_riccati.cu` and `csrc/affine_scan.cu` are compiled with g++
 against `test_torch_lookback.MOCK_RUNTIME` (every CUDA thread a pthread,
-`__syncwarp` a barrier of the warp or of a lane group's mask, shuffles and
-ballots through a per-warp buffer) and `test_torch_batched_host.
+`__syncwarp` a barrier of the warp, shuffles and ballots through a
+per-warp buffer) and `test_torch_batched_host.
 MOCK_ASYNC_COPY` (bulk copies as synchronous copies that check their
 alignment, the mbarrier model).  B4w runs a warp an instance
 (group_linalg.cuh), one instance a block; its ring's chunks are cut from
 8 steps to 3, so that a few steps cross chunk edges, and n_x = 6 and 12
-leave padded rows in every matrix.  B3w's tiles are cut from 32 steps to 4 and its
-blocks from 256 threads to 64 (four groups of 16 lanes, eight of 8), so
-that 17 candidates loop over the groups and a few dozen steps cross many
-tiles.  Each result is held to the plain version in f64 within 1e-5 of
+leave padded rows in every matrix.  B3w runs a warp a product or a
+candidate (group_linalg.cuh); its tiles are cut from 32 steps to 4 and so
+its blocks from 16 warps to 2 (the tree of its aggregate from five levels
+to two), so that 17 and 33 candidates loop over the warps and a few dozen
+steps cross many tiles.  Each result is held to the plain version in f64 within 1e-5 of
 each output's max, a repeated call must give the same bits, and the
 look-back counters must be back at zero.  The tests skip where no g++ is
 found; the card runs the same sources in chip_smoke.py.
@@ -36,8 +37,7 @@ torch.set_num_threads(1)
 SOURCES = ("batched_riccati.cu", "affine_scan.cu")
 SMALL = {
     "batched_riccati.cu": [("kWideChunk = 8;", "kWideChunk = 3;")],
-    "affine_scan.cu": [("kWideThreads = 256;", "kWideThreads = 64;"),
-                       ("kWideTile = 32;", "kWideTile = 4;")],
+    "affine_scan.cu": [("kWideTile = 32;", "kWideTile = 4;")],
 }
 RTOL = 1e-5
 
@@ -195,12 +195,15 @@ def test_wide_batched_riccati_flags_a_singular_q_uu(host_lib):
 
 # ---- B3w --------------------------------------------------------------------
 
-# (N, n, A, blocks resident at once): 4-step tiles; four groups of 16 lanes
-# (n > 8) or eight of 8 a block, so 17 candidates loop inside the launch.
+# (N, n, A, blocks resident at once): 4-step tiles (N = 3, 4, 5, 8, 9 at
+# their edges), two warps a block, so 10, 17 and 33 candidates loop inside
+# the launch.
 @pytest.mark.parametrize("N,n,A,resident", [
     (1, 6, 1, 0), (3, 12, 3, 0), (4, 16, 17, 0), (5, 3, 10, 0),
     (23, 6, 17, 0), (23, 12, 10, 0), (21, 2, 17, 0), (81, 16, 3, 2),
-    (45, 4, 33, 3)])
+    (45, 4, 33, 3), (3, 3, 1, 0), (4, 6, 33, 0), (5, 12, 1, 0),
+    (8, 16, 10, 0), (9, 3, 33, 0), (9, 12, 33, 0), (8, 6, 1, 0),
+    (31, 16, 1, 2), (17, 12, 17, 0)])
 def test_wide_affine_scan_on_the_host(host_lib, monkeypatch, N, n, A,
                                       resident):
     """B3w against the f64 plain scan, twice with equal bits, the

@@ -4,11 +4,10 @@ GPU.
 
 `csrc/fused_riccati.cu` and `csrc/suffix_scan.cu` are compiled with g++
 against `test_torch_lookback.MOCK_RUNTIME` (every CUDA thread a pthread,
-`__syncwarp` a barrier of the warp or of a lane group's mask, shuffles and
-ballots through a per-warp buffer).  B1w's blocks are cut from 256 threads
-to 64, so that a group of 16 lanes holds a 4-step tile (8 lanes: 8 steps);
-B6w's tiles (a warp an element, group_linalg.cuh) from 16 elements to 4,
-and the 'lane' entry runs the same kernel.  A few dozen steps then cross
+`__syncwarp` a barrier of the warp, shuffles and ballots through a
+per-warp buffer).  Both wide forms run a warp an element on
+group_linalg.cuh; their tiles are cut from 16 elements (B1w: steps) to 4,
+and the 'lane' entry runs B6w's kernel.  A few dozen steps then cross
 many tile edges and fold several two-aggregate look-back stages.  At n_x =
 3, 5, 6, 12 and 16 (the register form keeps (2, 1), (4, 1), (4, 2)) each
 result is held to the plain version in f64 within 1e-5 of each output's
@@ -35,7 +34,7 @@ torch.set_num_threads(1)
 
 SOURCES = ("fused_riccati.cu", "suffix_scan.cu")
 SMALL = {
-    "fused_riccati.cu": [("kWideThreads = 256;", "kWideThreads = 64;"),
+    "fused_riccati.cu": [("kWideTile = 16;", "kWideTile = 4;"),
                          ("kTileSteps = 256;", "kTileSteps = 32;"),
                          ("kStageTiles = 64;", "kStageTiles = 3;")],
     "suffix_scan.cu": [("kWideTile = 16;", "kWideTile = 4;"),
@@ -75,22 +74,25 @@ def host_lib(tmp_path_factory):
 
 
 def test_wide_tiles_and_scratch_sizes(host_lib):
-    """Tiles of 64 / P steps in the host build (256 / P on the card), and
-    scratch that serves both forms at n_x = 2 and 4."""
+    """Wide tiles of 4 steps at every P in the host build (16 on the card),
+    and scratch that serves both forms at n_x = 2 and 4."""
     assert fused_riccati.tile_steps(host_lib, 2, 1) == 32
-    assert fused_riccati.tile_steps(host_lib, 6, 2) == 8
-    assert fused_riccati.tile_steps(host_lib, 4, 3) == 8
+    assert fused_riccati.tile_steps(host_lib, 6, 2) == 4
+    assert fused_riccati.tile_steps(host_lib, 4, 3) == 4
     assert fused_riccati.tile_steps(host_lib, 12, 4) == 4
     assert suffix_scan.tile_steps(host_lib, "sub", 4) == 64
     assert suffix_scan.tile_steps(host_lib, "sub", 9) == 4
     assert suffix_scan.tile_steps(host_lib, "sub", 6) == 4
     assert suffix_scan.tile_steps(host_lib, "lane", 6) == 4
     assert suffix_scan.tile_steps(host_lib, "lane", 9) == 4
-    # N = 100: 4 register tiles, 13 wide ones (8 steps) at n_x = 4.
-    assert host_lib.ilqr_fused_riccati_counters(4, 100) == 2 + 13
+    # N = 100: 4 register tiles, 26 wide ones (4 steps) at n_x = 4; the
+    # wide scratch holds a padded element, a padded value and 3 partials a
+    # tile (P = 8: 3 * 96 + 16, 96 + 8).
+    assert host_lib.ilqr_fused_riccati_counters(4, 100) == 2 + 26
+    assert host_lib.ilqr_fused_riccati_scratch(6, 100) == 26 * (304 + 104 + 3)
 
 
-# (N, n_x, n_u, defects, resident): tiles of 8 steps (n_x <= 8) or 4.
+# (N, n_x, n_u, defects, resident): tiles of 4 steps.
 @pytest.mark.parametrize("N,n_x,n_u,defects,resident", [
     (1, 6, 2, False, 0), (7, 3, 1, False, 0), (8, 5, 2, True, 0),
     (45, 6, 2, False, 0), (3, 12, 4, False, 0), (30, 12, 4, True, 0),
@@ -121,6 +123,30 @@ def test_wide_fused_riccati_flags_non_finite_gains(host_lib, monkeypatch):
     got = fused_riccati.launch(host_lib, exp, 0.1, 0)
     assert not bool(got[3])
     assert torch.isfinite(got[1][6:]).all()
+
+
+@pytest.mark.parametrize("n_x,n_u", [(6, 2), (12, 4)])
+def test_wide_fused_riccati_pivots_a_zero_leading_entry(host_lib,
+                                                        monkeypatch, n_x,
+                                                        n_u):
+    """l_uu = a reversed identity (symmetric, nonsingular, zero leading
+    entry) with reg = 0 and f_u = 0 at two steps, one each side of a tile
+    edge: l_uu + reg I in the element and Q_uu in the gains both have a
+    zero leading pivot, which the warp's Gauss-Jordan pivots around; every
+    output within 1e-5 of the f64 plain version's."""
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    N = 11
+    exp = _expansion(N, n_x, n_u, 5 * n_x)
+    perm = torch.flip(torch.eye(n_u), [0])
+    for t in (3, 4):
+        exp.l_uu[t] = perm
+        exp.f_u[t] = 0.0
+    got = _twice(lambda: fused_riccati.launch(host_lib, exp, 0.0, 0))
+    exp64 = itt.TrajectoryExpansion(**{
+        k: getattr(exp, k).double() for k in exp.__dataclass_fields__})
+    ref = itt.backward_pass_associative(exp64, 0.0)
+    assert bool(got[3]) and bool(ref[3])
+    _close(got[:3], ref[:3])
 
 
 # (M, n_x, resident): tiles of 4 elements at every n_x: M = T - 1, T,

@@ -1,6 +1,8 @@
 // Cycles per call of csrc/group_linalg.cuh's primitives on one SM: the
-// combine of B6w/B7w, the Gauss-Jordan inverse, the products and sym, each
-// by one warp alone (W = 1) and with W warps of a block at once, and the
+// combine of B6w/B7w and B1w, apply_value (B1w's look-back and closure),
+// one level of B3w's product tree (a product, its store and the block's
+// barrier), the Gauss-Jordan inverse, the products and sym, each by one
+// warp alone (W = 1) and with W warps of a block at once, and the
 // latency of the warp collectives and of a shared-memory round trip that
 // the inverse's steps chain (100 dependent calls each).  Inputs are fixed
 // well-conditioned elements; the times do not depend on the values.
@@ -18,8 +20,8 @@
 
 using namespace ilqr;
 
-enum What { kCombine, kInv, kMm, kMtm, kMmt, kSym, kShfl, kRedux, kVote,
-            kSmem };
+enum What { kCombine, kApply, kTree, kInv, kMm, kMtm, kMmt, kSym, kShfl,
+            kRedux, kVote, kSmem };
 
 template <int P, int WHAT>
 __global__ void bench(int n, int iters, long long* out) {
@@ -27,18 +29,25 @@ __global__ void bench(int n, int iters, long long* out) {
   constexpr int LD = grp::Mat<P>::LD;
   extern __shared__ __align__(16) float sm[];
   const int q = threadIdx.x / 32;
-  float* ei = sm + q * (3 * E::F + E::WORK);
-  float* ej = ei + E::F;
-  float* o = ej + E::F;
+  float* ej = sm;   // the later operand, read by every warp
+  float* ei = sm + E::F + q * (2 * E::F + E::WORK);
+  float* o = ei + E::F;
   float* w = o + E::F;
   const grp::Lane ln;
-  for (int i = ln.l; i < 3 * E::F + E::WORK; i += 32) ei[i] = 0.0f;
-  grp::sync();
+  for (int i = ln.l; i < 2 * E::F + E::WORK; i += 32) ei[i] = 0.0f;
+  if (q == 0)
+    for (int i = ln.l; i < E::F; i += 32) ej[i] = 0.0f;
+  __syncthreads();
   if (ln.l < P) {
     const int d = ln.l * (LD + 1);
-    ei[E::A + d] = ej[E::A + d] = 1.0f;
-    ei[E::C + d] = ej[E::C + d] = 0.1f;
-    ei[E::J + d] = ej[E::J + d] = 0.2f;
+    ei[E::A + d] = 1.0f;
+    ei[E::C + d] = 0.1f;
+    ei[E::J + d] = 0.2f;
+    if (q == 0) {
+      ej[E::A + d] = 1.0f;
+      ej[E::C + d] = 0.1f;
+      ej[E::J + d] = 0.2f;
+    }
     w[d] = 2.0f;
     for (int j = 0; j < P; ++j) ei[E::C + ln.l * LD + j] += 0.01f * j;
   }
@@ -47,6 +56,14 @@ __global__ void bench(int n, int iters, long long* out) {
   const long long t0 = clock64();
   for (int it = 0; it < iters; ++it) {
     if (WHAT == kCombine) grp::combine<P>(ln, n, ei, ej, o, w);
+    if (WHAT == kApply)
+      grp::apply_value<P>(ln, n, ei, ej + E::ETA, ej + E::J, o + E::ETA,
+                          o + E::J, w);
+    if (WHAT == kTree) {
+      grp::mm<P>(ln, ei + E::A, ej + E::A, t);
+      grp::store<P>(ln, t, o + E::A);
+      __syncthreads();
+    }
     if (WHAT == kInv) grp::inv<P>(ln, n, w, o);
     if (WHAT == kMm || WHAT == kMtm || WHAT == kMmt) {
       grp::mm<P, WHAT == kMtm, WHAT == kMmt>(ln, ei + E::C, ej + E::J, t);
@@ -89,7 +106,7 @@ __global__ void bench(int n, int iters, long long* out) {
 template <int P, int WHAT>
 void run(const char* name, int n, int warps) {
   using E = grp::Elem<P>;
-  const int smem = 4 * warps * (3 * E::F + E::WORK);
+  const int smem = 4 * (E::F + warps * (2 * E::F + E::WORK));
   cudaFuncSetAttribute(bench<P, WHAT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   long long* d;
@@ -113,9 +130,13 @@ int main() {
   int khz = 0;
   cudaDeviceGetAttribute(&khz, cudaDevAttrClockRate, 0);
   printf("%s, SM clock %d kHz\n", prop.name, khz);
-  for (int warps : {1, 12}) {
+  for (int warps : {1, 12, 16}) {
     run<16, kCombine>("combine", 12, warps);
     run<8, kCombine>("combine", 6, warps);
+    run<16, kApply>("apply_value", 12, warps);
+    run<8, kApply>("apply_value", 6, warps);
+    run<16, kTree>("tree level", 12, warps);
+    run<8, kTree>("tree level", 6, warps);
   }
   run<16, kInv>("inv", 12, 1);
   run<16, kInv>("inv", 4, 1);
