@@ -240,12 +240,33 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    for bit; B7w (the suffix scan's 'lane' layout at n = 6, 12, 16) at its
    tile edges, past the resident tiles, M = 151 and 32769; the paths P4
    (examples/reference_tracking_mpc.py's tracking MPC through B1w (3, 1)
-   and B2's tracking form, cut to 100 of its 600 steps), P5 (batched
+   and B2's tracking form, cut to 50 of its 600 steps), P5 (batched
    solves of bench.py's cart-pole with a rate penalty, B = 256, N = 100:
    B4w (5, 1), B5 on the rate form) and P6 (examples/linear_lqr.py's
    double integrator under 'discrete': B1 and B2's LTI form), each against
    the JAX package's f32 results; and times each family at its path's
-   shape or alone.
+   shape or alone;
+36. runs the solvers beyond iLQR at their drivers' sizes: P7,
+   examples_torch/inverse_optimal_control.py (pendulum rk4, N = 60, four
+   demonstrations by solve, then the loss and its gradient through
+   solve_implicit, cut to P7_OUTER_STEPS outer steps) through B1 and B2,
+   solve_implicit's forward pass equal to solve's bit for bit, the
+   gradient held to the sequential engines' on the card and to the JAX
+   package's f32 gradient, and run_mpc_implicit (H = 20, 3 steps) held to
+   the sequential engines'; P8, examples_torch/mppi_pendulum.py's MPPI MPC
+   at full size (S = 512, 4 updates, H = 30, 120 steps: B5's open loop
+   exactly 480 times) under tests/test_mppi.py's swing-up gate, one update
+   on fixed noise through B5 and through the plain rollouts, MPPI as an
+   optimizer on tests/test_mppi.py's problem, and the driver's explore
+   (S = 1024, N = 80, 60 updates) polished by iLQR to the JAX package's
+   limited optimum; P9, examples_torch/parallel_estimation.py's record at
+   N = 100000 through run_ekf_parallel and run_eks_parallel (B3 in their
+   defect sweeps, X_lin held to the plain scan's), RMS-to-truth within
+   1.1x of the JAX package's f32, the sequential EKF and smoother on its
+   first P9_SEQ_N steps (each step a replay of one CUDA graph) against
+   JAX's, and the UKF's captured steps against its eager loop; and holds
+   B1, B2, B5 and B3 to their plain versions at these paths' shapes and
+   times them.
 Every phase prints its seconds.
 Each solve phase resets the launch counts just before it and reads them
 just after.  The kernels line gives every kernel's time, its plain
@@ -271,6 +292,7 @@ import time
 import warnings
 from functools import partial
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -291,9 +313,10 @@ UA_GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / \
 # 12.5 s on an H100).
 MPC_STEPS = 20
 # Phase 23 runs the FA and UA double-pendulum MPC drivers for DRIVER_STEPS
-# steps (cut from MPC_STEPS when phases 31-34 came, and from 10 when
-# phases 27-35 checked the entry-parallel forms, for the time limit).
-DRIVER_STEPS = 5
+# steps (cut from MPC_STEPS when phases 31-34 came, from 10 when phases
+# 27-35 checked the entry-parallel forms, and from 5 when phase 36 came,
+# for the time limit).
+DRIVER_STEPS = 3
 # Phases 25 and 29 hold MPC_REF_STEPS of their MPC loops to scan/scan
 # (cut from 3 when phase 35 came, and from 2 with DRIVER_STEPS, for the
 # time limit).
@@ -334,9 +357,10 @@ RTOL_MS = 1e-4
 BENCH_N = 100_000
 # Phase 3 holds B2 to its plain versions in f64 on the host at this N (a
 # child process that took 42 s at BENCH_N on the H100 machine's host, the
-# phase's longest part; cut from BENCH_N when phase 35 came, for the time
-# limit).
-CHAIN_LONG_N = 25_000
+# phase's longest part; cut from BENCH_N when phase 35 came, and from
+# 25000 when phase 36 came, for the time limit; phase 10 runs B2's
+# neighbours B3 and the defect sweeps at BENCH_N).
+CHAIN_LONG_N = 10_000
 # B4 tolerance: max|kernel - plain| <= max(RTOL_B4 * max|plain|,
 # F32_FLOOR * max|plain - plain in f64|).  Both run the same sequential
 # recursion in f32 with other operation orders (closed-form inverse against
@@ -350,8 +374,10 @@ RTOL_B5 = RTOL_B2
 # Phases 15-16: the sizes of bench.py's batched cells (bench.py:700-723).
 BATCH_B, BATCH_N, BATCH_MAXITER = 1024, 128, 10
 # Phase 16 runs the batched-MPC cell for MPC_SIM of its 50 steps (cut
-# from 50 when phases 31-34 came, for the script's time limit).
-MPC_B, MPC_H, MPC_SIM = 512, 64, 25
+# from 50 when phases 31-34 came, and from 25 when phase 36 came, for the
+# script's time limit; each step is also held to single-instance run_mpc
+# for two instances).
+MPC_B, MPC_H, MPC_SIM = 512, 64, 5
 RAGGED_B = 1000   # phases 13-14: a batch that does not fill its last block
 # Phase 16b: the reference's pendulum MPC (examples/pendulum_mpc.py, H = 200)
 # as a batch of PEND_BATCH initial angles, cut to PEND_STEPS steps.
@@ -3046,9 +3072,23 @@ JAX_F32 = {"flight": 3.1779935359954834, "flight_mpc_20": 432.25994873046875,
            "p3_ms": 1.5822679996490479,
            # Phase 35: P4's closed-loop cost and RMS angle error, P5's
            # sampled instances, P6's cost.
-           "p4_cost": 0.2696681618690491, "p4_rms": 0.027135541662573814,
+           "p4_cost": 0.23593653738498688, "p4_rms": 0.03818352892994881,
            "p5_0": 0.003775405464693904, "p5_127": 0.028269486501812935,
-           "p5_255": 0.21071386337280273, "p6": 3.5682594776153564}
+           "p5_255": 0.21071386337280273, "p6": 3.5682594776153564,
+           # Phase 36: P7's loss and gradient at log_w = 0; P9's
+           # RMS-to-truth of the parallel filter and smoother at P9_N and
+           # of the sequential ones at P9_SEQ_N.
+           "p7": [33.15259552001953, -1.869497299194336,
+                  -1.2834796905517578, 0.9669301509857178],
+           "p7_sub": [16.125484466552734, -1.9681757688522339,
+                      0.062303900718688965, -2.4131522178649902],
+           "p9_ekf_par_rms": 0.006261312402784824,
+           "p9_eks_par_rms": 0.003862272948026657,
+           "p9_ekf_seq_rms": 0.02282000333070755,
+           "p9_eks_seq_rms": 0.0043975296430289745,
+           # P8: examples/mppi_pendulum.py's limited iLQR from zeros (N =
+           # 80, |u| <= 8, maxiter 100, tol 1e-8).
+           "p8_limited": 20.524015426635742}
 WIDE_STEPS = 20          # the MPC loops of this slice, cut from 150 / 200
 WIDE_N = 8192            # the bench's backward cells (bench.py:465-535)
 # B1w's shapes: the planar quadrotor (6, 2), the 3-D quadrotor (12, 4),
@@ -4333,7 +4373,11 @@ def wide_batched_phases(itt, dev, smi, launches_per_call) -> list:
 # make_discrete_lti, 'discrete', N = 50) by solve(rollout='pallas').  Their
 # references are the JAX package's f32 results (JAX_F32, recomputed by
 # tests/test_torch_chip_refs.py), gated within RTOL_AL.
-WR_N = 400               # the longest kernel-edge horizon (cut from 500)
+# The longest kernel-edge horizon (cut from 500, and from 400 when phase 36
+# came, for the time limit: the f64 plain references' host time grows with
+# it; at 100 an edge check still crosses three of the ring's 32-step
+# chunks).
+WR_N = 100
 WR_B5 = 3                # instances of the B5 edge checks
 # The plain versions' child processes: the implicit rules' take up to ~50 s
 # each on the host, the rest 2-10 s (324.6 s in all on the H100 machine's
@@ -4341,13 +4385,13 @@ WR_B5 = 3                # instances of the B5 edge checks
 WR_WORKERS = 7
 # The timed-only rows' horizon (the implicit rule's: WR_TIME_N // 2).
 WR_TIME_N = 100
-WR_REF_ROWS = 301        # a tracking reference of 300 steps: N = 400 clamps
+WR_REF_ROWS = 76         # a tracking reference of 75 steps: N = 100 clamps
 WR_MODELS = ("pendulum", "ua_dp", "dp", "cartpole", "quadrotor",
              "quadrotor3d", "car")
 WR_LTI = ((2, 1), (4, 1), (4, 2), (6, 2), (12, 4), (16, 4))
 WR_IMPLICIT = ("cartpole", "quadrotor", "quadrotor3d", "quadrotor3d_rotor",
                "car")
-P4_STEPS = 100
+P4_STEPS = 50            # cut from 100 when phase 36 came (time limit)
 P5_B, P5_N = 256, 100
 P5_SAMPLES = (0, 127, 255)
 P6_N = 50
@@ -5068,6 +5112,448 @@ def wrapper_phases(itt, dev, smi, launches_per_call) -> list:
     return rows
 
 
+# ---- Phase 36: the solvers beyond iLQR (P7-P9) ----------------------------
+# P7: examples/inverse_optimal_control.py (pendulum rk4, N = 60, four
+# demonstrations, maxiter 150, tol 1e-9) through B1 and B2, its descent cut
+# from 60 outer steps to P7_OUTER_STEPS for the time limit (the gradient
+# gates read the first step's gradient, which the cut keeps); its
+# differentiable MPC (run_mpc_implicit, H = P7_MPC_H) for P7_MPC_STEPS.
+# The gradient against the sequential engines is taken over the loss of
+# the demonstrations P7_SEQ_DEMOS alone (the two quickest solves), for the
+# time limit: the sequential solves of all four took 28 s of P7's 58 on
+# the H100 machine; the full gradient is held to JAX's.
+P7_OUTER_STEPS = 2
+P7_SEQ_DEMOS = (2, 3)
+P7_MPC_H, P7_MPC_STEPS = 20, 3
+# P7's gradient gates, of max |g|: the f32 solves stop within their own
+# rounding of each optimum, and the IFT gradient of the loss on U* follows
+# them.  On the CPU the port's f32 gradient under the kernels' plain
+# versions sat 2.3e-3 of max |g| from the sequential engines' and 1.2e-3
+# from JAX's f32 constant, over P7_SEQ_DEMOS 3.5e-3 and 2.7e-3
+# (tests/test_torch_ioc_gradient.py holds both engines to both constants
+# within RTOL_P7); the losses within 1e-4.
+RTOL_P7 = 1e-2
+RTOL_P7_LOSS = 1e-3
+# P8: examples/mppi_pendulum.py at full size (S = 512, 4 updates a step,
+# H = 30, 120 steps, beta 0.8, |u| <= 8; the explore S = 1024, N = 80, 60
+# updates) under tests/test_mppi.py:129-147's swing-up gate; the explore
+# gate of tests/test_mppi.py:41-57 (within 1.2x of iLQR) on that test's
+# own problem, since the driver's explore is a global search that JAX's
+# MPPI leaves 2-3x above the limited optimum too (its polish is gated).
+P8_SEED = 5          # the fixed-noise update's generator seed
+# P9: examples/parallel_estimation.py's record at P9_N steps (the
+# parallel filter and smoother, B3 in their defect sweeps), the sequential
+# EKF and RTS smoother on its first P9_SEQ_N (cut from P9_N for the time
+# limit: each step one replay of a CUDA graph, `estimation._scan`), the
+# UKF's captured steps against its eager loop on the first P9_UKF_N.
+P9_N, P9_SEQ_N, P9_UKF_N = 100_000, 2000, 200
+# P9's gates: the parallel estimators' RMS-to-truth within P9_RMS_FACTOR of
+# JAX's f32 RMS on the same record (the truth of each package is its own
+# f32 rollout); the sequential ones within RTOL_P9_SEQ of JAX's (the same
+# recursion in f32 over P9_SEQ_N steps; on the CPU the port's EKF and
+# EKS sat 2.6e-6 and 1.5e-5 from JAX's, on the H100 machine 2.9e-6 and
+# 3.4e-5); X_lin of the kernel's sweeps against the
+# plain scan's within RTOL_LS of max |X|.
+P9_RMS_FACTOR = 1.1
+RTOL_P9_SEQ = 1e-3
+
+
+def solver_phases(itt, dev, smi, launches_per_call) -> list:
+    """Phase 36: P7 (inverse optimal control through `solve_implicit`),
+    P8 (MPPI MPC and explore, B5's open loop) and P9 (parallel filter and
+    smoother at N = 100000, B3), each with the launch counts reset just
+    before and read just after, and the kernels line's rows at these
+    paths' shapes.  Returns the rows."""
+    from examples_torch import inverse_optimal_control as ioc
+    from examples_torch import mppi_pendulum as mp
+    from examples_torch import parallel_estimation as pe
+    from ilqr_tpu_torch import diff, mppi
+    from ilqr_tpu_torch import estimation, estimation_parallel as ep
+    from ilqr_tpu_torch.estimation import run_ukf
+    from ilqr_tpu_torch.ops.parallel_rollout import open_loop_defect_rollout
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    t0 = t_lap = time.perf_counter()
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    A10 = alphas.numel()
+    rows = []
+
+    def row(name, source, replaces, launches, err, t, plain_ms, b, lpc_key,
+            **more):
+        ms, cols = timing_columns(t, launches_per_call.get(lpc_key))
+        rows.append(dict(
+            name=name, route="cuda", source=f"ilqr_tpu_torch/csrc/{source}",
+            replaces=f"ilqr_tpu/ops/{replaces}", launches=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None, **cols, **more))
+
+    def gate(label, ok, text):
+        print(f"  {label}: {text}")
+        if not ok:
+            raise AssertionError(f"phase 36 {label}: {text}")
+
+    def rel_max(got, ref):
+        return float((got - ref).abs().max()) / float(ref.abs().max())
+
+    # ---- P7: inverse optimal control ----------------------------------
+    cfg = itt.IlqrConfig(maxiter=150, tol=1e-9, backward="pallas",
+                         rollout="pallas")
+    seq = dataclasses.replace(cfg, backward="scan", rollout="scan")
+    res, secs, counts = timed_run(lambda: ioc.main(
+        plot=False, device=dev, config=cfg, outer_steps=P7_OUTER_STEPS))
+    p = ioc.problem(dev, torch.float32, cfg)
+    iters = [int(s.iterations) for s in res.first_sols]
+    print(f"P7 inverse optimal control (pendulum rk4, N = {p.N}, 4 "
+          f"demonstrations, {P7_OUTER_STEPS} of 60 outer steps, "
+          f"backward=pallas, rollout=pallas): {secs:.2f} s, first "
+          f"solves' iterations {iters}, loss {float(res.first_loss):.6f} -> "
+          f"{float(res.loss):.6f}, launches {counts}")
+    need("P7", counts, ("fused_riccati", "linesearch_costs",
+                        "closed_loop_rollout", "open_loop_rollout"))
+    # The four first solves' forward passes against `solve`.
+    sys0 = ioc.make_system(p.log_w0, dev)
+    same, t_f = [], time.perf_counter()
+    for x0i, si in zip(p.x0s, res.first_sols):
+        ref = itt.solve(sys0, x0i, p.U0, cfg)
+        same.append(torch.equal(si.U, ref.U) and torch.equal(si.X, ref.X))
+    gate("P7 forward", all(same),
+         f"solve_implicit's X and U equal solve's bit for bit at log_w = 0, "
+         f"demonstration by demonstration: {same} "
+         f"({time.perf_counter() - t_f:.2f} s)")
+    g_k, g_j = res.first_grad, torch.tensor(JAX_F32["p7"][1:], **f32)
+    loss_j = JAX_F32["p7"][0]
+    e_j = rel_max(g_k, g_j)
+    e_l = abs(float(res.first_loss) - loss_j) / loss_j
+    gate("P7 gradient", bool(torch.isfinite(g_k).all()) and e_j <= RTOL_P7
+         and e_l <= RTOL_P7_LOSS,
+         f"{g_k.tolist()} against JAX f32 {g_j.tolist()} ({e_j:.1e} of max "
+         f"|g|, limit {RTOL_P7}); loss {float(res.first_loss):.6f} against "
+         f"{loss_j:.6f} ({e_l:.1e}, limit {RTOL_P7_LOSS})")
+    sub = SimpleNamespace(**{**vars(p), "x0s": p.x0s[list(P7_SEQ_DEMOS)]})
+    demo_sub = res.demo_U[list(P7_SEQ_DEMOS)]
+    (v_ks, g_ks, _), secs_ks, _ = timed_run(
+        lambda: ioc.loss_and_grad(sub, p.log_w0, demo_sub))
+    (v_s, g_s, _), secs_s, _ = timed_run(
+        lambda: ioc.loss_and_grad(sub, p.log_w0, demo_sub, config=seq))
+    g_js = torch.tensor(JAX_F32["p7_sub"][1:], **f32)
+    e_s, e_sj = rel_max(g_ks, g_s), rel_max(g_ks, g_js)
+    gate("P7 gradient, sequential engines", e_s <= RTOL_P7
+         and e_sj <= RTOL_P7
+         and abs(float(v_ks) - float(v_s)) <= RTOL_P7_LOSS * float(v_s),
+         f"demonstrations {P7_SEQ_DEMOS}: {g_ks.tolist()} against "
+         f"backward='scan', rollout='scan' {g_s.tolist()} ({e_s:.1e} of max "
+         f"|g|) and JAX f32 {g_js.tolist()} ({e_sj:.1e}; limit {RTOL_P7}); "
+         f"loss {float(v_ks):.6f} against {float(v_s):.6f}; {secs_ks:.2f} s "
+         f"against {secs_s:.2f} s")
+
+    def mpc_grad(config):
+        log_w = p.log_w0.clone().requires_grad_(True)
+        solver = ioc.make_system(log_w, dev)
+        plant = ioc.make_system(p.log_w0, dev).with_integrator("midpoint")
+        X, U, cost = diff.run_mpc_implicit(
+            solver, plant, p.x0s[0], torch.zeros((P7_MPC_H, 1), **f32),
+            P7_MPC_STEPS, config)
+        (g,) = torch.autograd.grad(cost, log_w)
+        return cost.detach(), g
+    (c_k, gm_k), secs_m, counts_m = timed_run(lambda: mpc_grad(cfg))
+    (c_s, gm_s), secs_ms, _ = timed_run(lambda: mpc_grad(seq))
+    e_m = rel_max(gm_k, gm_s)
+    print(f"P7 run_mpc_implicit (H = {P7_MPC_H}, {P7_MPC_STEPS} steps, "
+          f"rk4 solver, midpoint plant): {secs_m:.2f} s, launches "
+          f"{counts_m}")
+    need("P7 MPC", counts_m, ("fused_riccati", "linesearch_costs",
+                              "closed_loop_rollout", "open_loop_rollout"))
+    gate("P7 MPC gradient", bool(torch.isfinite(gm_k).all())
+         and e_m <= RTOL_P7,
+         f"cost {float(c_k):.6f} (sequential {float(c_s):.6f}), d/dlog_w "
+         f"{gm_k.tolist()} against the sequential engines' {gm_s.tolist()} "
+         f"({e_m:.1e} of max |g|, limit {RTOL_P7}); sequential "
+         f"{secs_ms:.2f} s")
+    p7_counts = counts
+    now = time.perf_counter()
+    print(f"phase 36 P7: {now - t_lap:.1f} s")
+    t_lap = now
+
+    # ---- P8: MPPI ------------------------------------------------------
+    q = mp.problem(dev)
+    mc = q.mppi_config
+    res8, secs8, counts8 = timed_run(lambda: mp.mppi_mpc(q))
+    theta, omega = float(res8.X[-1, 0]), float(res8.X[-1, 1])
+    u_max = float(res8.U.abs().max())
+    print(f"P8 MPPI MPC (S = {mc.samples}, {mc.iters} updates a step, H = "
+          f"{q.U0.shape[0]}, {q.n_sim} steps): {secs8:.2f} s, "
+          f"{secs8 / q.n_sim * 1e3:.1f} ms a step, cost {float(res8.cost):.3f}"
+          f", launches {counts8}")
+    gate("P8 B5 launches", counts8.get("open_loop_rollout_batched", 0)
+         == q.n_sim * mc.iters,
+         f"{counts8.get('open_loop_rollout_batched', 0)} of B5's open loop, "
+         f"n_sim x iters = {q.n_sim * mc.iters}")
+    gate("P8 swing-up", abs(theta - np.pi) < 0.15 and abs(omega) < 0.5
+         and u_max <= mp.U_LIM + 1e-5 and res8.X.shape == (q.n_sim + 1, 2),
+         f"theta_N {theta:.4f} (|. - pi| < 0.15), thetadot_N {omega:.4f} "
+         f"(< 0.5), max |u| {u_max:.4f} (<= {mp.U_LIM})")
+    # One update on fixed noise (a generator seeded alike), through B5 and
+    # through the plain rollouts on the card (the plain route that MPPI
+    # takes for a system or dtype B5 does not take, patched in).
+    U_fix = res8.U.new_zeros(q.U0.shape)
+    gen = partial(torch.Generator(device=dev).manual_seed, P8_SEED)
+    U_k, ess_k = mppi.mppi_update(q.system, q.x0, U_fix, gen(), mc)
+    sample_costs = mppi._sample_costs
+    mppi._sample_costs = lambda system, x0, U: itt.rollout(
+        system, x0.expand(U.shape[0], x0.shape[0]), U)[1]
+    try:
+        U_p, ess_p = mppi.mppi_update(q.system, q.x0, U_fix, gen(), mc)
+    finally:
+        mppi._sample_costs = sample_costs
+    U_cand = mppi._candidates(U_fix, gen(), mc, 1.0)
+    x0s = q.x0.expand(mc.samples, 2).contiguous()
+    c_b5 = itt.open_loop_rollout_batched(q.system, x0s, U_cand)[1]
+    c_pl = itt.rollout(q.system, x0s, U_cand)[1]
+    e_b5, r_b5 = rel_err(c_b5, c_pl)
+    # A cost error Δ moves each softmax weight by at most a factor
+    # exp(±2Δ/λ), so U_new by ≤ 4Δ/λ · max|U_s − U_new| and the ESS by ≤
+    # 8Δ/λ, beside the f32 rounding of the weighted sum.
+    spread = float((U_cand - U_p[None]).abs().max())
+    lim_u = 4 * e_b5 / mc.temperature * spread + 1e-5 * mp.U_LIM
+    lim_e = 8 * e_b5 / mc.temperature + 1e-5
+    d_u = float((U_k - U_p).abs().max())
+    d_e = abs(float(ess_k) - float(ess_p)) / float(ess_p)
+    gate("P8 fixed-noise update", r_b5 <= RTOL_B5 and d_u <= lim_u
+         and d_e <= lim_e,
+         f"B5 sample costs {e_b5:.2e} from the plain rollouts ({r_b5:.1e} of "
+         f"max, limit {RTOL_B5}); U_new {d_u:.2e} (limit {lim_u:.2e}), ESS "
+         f"{float(ess_k):.5f} against {float(ess_p):.5f} ({d_e:.1e}, limit "
+         f"{lim_e:.1e})")
+    # tests/test_mppi.py:41-57's gate on that test's problem (x0 = (0.3,
+    # 0), N = 40, S = 512, 60 updates against unconstrained iLQR).
+    x0t, U0t = torch.tensor([0.3, 0.0], **f32), torch.zeros((40, 1), **f32)
+    tcfg = mppi.MppiConfig(samples=512, iters=60, temperature=0.05,
+                           sigma=0.6, noise_beta=0.8)
+    sol_t, secs_t, counts_t = timed_run(lambda: mppi.solve_mppi(
+        q.system, x0t, U0t, 1, tcfg))
+    ref_t = itt.solve(q.system, x0t, U0t, itt.IlqrConfig(
+        maxiter=100, tol=1e-8, backward="pallas", rollout="pallas"))
+    gate("P8 MPPI as optimizer", float(sol_t.cost) < 1.2 * float(ref_t.cost)
+         + 1e-3 and float(sol_t.cost_trace[-1]) < float(sol_t.cost_trace[0])
+         and sol_t.X.shape == (41, 2) and sol_t.U.shape == (40, 1)
+         and counts_t.get("open_loop_rollout_batched", 0) == tcfg.iters,
+         f"tests/test_mppi.py's problem: cost {float(sol_t.cost):.4f} "
+         f"against iLQR's {float(ref_t.cost):.4f} (< 1.2x + 1e-3), "
+         f"{secs_t:.2f} s, launches {counts_t}")
+    # The driver's explore (S = 1024, N = 80, 60 updates, |u| <= 8): a
+    # global search, far above the limited optimum (JAX's own reaches
+    # 42.7-58.3 over keys 0-2 against iLQR's 20.52): its trace must fall
+    # and iLQR's polish from it reach JAX's limited optimum.
+    ec = q.explore_config
+    ex, secs_x, counts_x = timed_run(lambda: mp.explore(q))
+    pol = itt.solve(q.system, q.x0, ex.U, dataclasses.replace(
+        q.ol_config, backward="pallas", rollout="scan"))
+    e_pol = abs(float(pol.cost) - JAX_F32["p8_limited"]) / JAX_F32["p8_limited"]
+    print(f"P8 MPPI explore (S = {ec.samples}, N = {q.U0_ol.shape[0]}, "
+          f"{ec.iters} updates): {secs_x:.2f} s, launches {counts_x}")
+    gate("P8 explore", bool(torch.isfinite(ex.X).all())
+         and float(ex.cost_trace[-1]) < float(ex.cost_trace[0])
+         and ex.X.shape == (q.U0_ol.shape[0] + 1, 2)
+         and counts_x.get("open_loop_rollout_batched", 0) == ec.iters
+         and pol.status == itt.CONVERGED and e_pol <= RTOL_AL,
+         f"trace {float(ex.cost_trace[0]):.3f} -> {float(ex.cost):.3f}; "
+         f"iLQR polish from it {float(pol.cost):.5f}, status {pol.status}, "
+         f"against JAX f32's limited optimum {JAX_F32['p8_limited']:.5f} "
+         f"({e_pol:.1e}, limit {RTOL_AL})")
+    now = time.perf_counter()
+    print(f"phase 36 P8: {now - t_lap:.1f} s")
+    t_lap = now
+
+    # ---- P9: parallel estimation --------------------------------------
+    r = pe.problem(P9_N, dev)
+    x0 = r.s0.x_hat
+    est = pe.estimators(r, P9_SEQ_N)
+    runs9 = {}
+    for name in ("EKF  parallel   ", "EKS  parallel(2)"):
+        Xh, s9, c9 = timed_run(est[name])
+        runs9[name.strip()] = (Xh, s9, c9)
+        need(f"P9 {name.strip()}", c9, ("affine_prefix_scan",))
+    X_lin_k = ep._default_x_lin(r.system, x0, r.U)
+    X_pl, _, d_pl = open_loop_defect_rollout(r.system, x0, r.U, iters=8,
+                                             exit_tol=1e-6, engine="xla")
+    ok = bool(torch.isfinite(d_pl)) and float(d_pl) < 1e-3 * (
+        1.0 + float(X_pl.abs().max()))
+    X_lin_p = X_pl if ok else x0.expand(X_pl.shape)
+    e_lin = rel_max(X_lin_k, X_lin_p)
+    gate("P9 X_lin", e_lin <= RTOL_LS,
+         f"the kernel's sweeps against the plain scan's: {e_lin:.1e} of "
+         f"max |X| (limit {RTOL_LS}; plain defect {float(d_pl):.1e}, "
+         f"{'certified' if ok else 'constant fallback'})")
+    for name, key in (("EKF  parallel", "p9_ekf_par_rms"),
+                      ("EKS  parallel(2)", "p9_eks_par_rms")):
+        Xh, s9, c9 = runs9[name]
+        rms = pe.rms(r, Xh)
+        gate(f"P9 {name}", bool(torch.isfinite(Xh).all())
+             and rms <= P9_RMS_FACTOR * JAX_F32[key],
+             f"N = {P9_N}: {s9:.3f} s, RMS-to-truth {rms:.4e} (JAX f32 "
+             f"{JAX_F32[key]:.4e}, limit {P9_RMS_FACTOR}x), launches {c9}")
+    # The sequential estimators, each step a replay of one CUDA graph
+    # (`estimation._scan`).
+    for name, key in (("EKF  sequential ", "p9_ekf_seq_rms"),
+                      ("EKS  sequential ", "p9_eks_seq_rms")):
+        Xh, s9, c9 = timed_run(est[name])
+        rms = pe.rms(r, Xh)
+        e9 = abs(rms - JAX_F32[key]) / JAX_F32[key]
+        gate(f"P9 {name.strip()}", e9 <= RTOL_P9_SEQ,
+             f"N = {P9_SEQ_N}: {s9:.2f} s, RMS-to-truth {rms:.4e} against "
+             f"JAX f32 {JAX_F32[key]:.4e} ({e9:.1e}, limit {RTOL_P9_SEQ})")
+    # The UKF (not in the driver) on P9_UKF_N steps: its captured steps
+    # against the eager loop of the same steps, bit for bit (its f32 sigma
+    # weights cancel, W_0 = -99, so its RMS is no gate against JAX's: on
+    # the CPU the two packages' f32 RMS part by 13 %).
+    def ukf():
+        return run_ukf(r.system, pe.obs, r.s0, r.U[:P9_UKF_N],
+                       r.Y[:P9_UKF_N], r.Q_proc, r.R_obs)[1]
+    Xu, s_u, _ = timed_run(ukf)
+    graphed = estimation._scan
+    estimation._scan = estimation._loop
+    try:
+        Xe, s_e, _ = timed_run(ukf)
+    finally:
+        estimation._scan = graphed
+    gate("P9 UKF  sequential", bool(torch.isfinite(Xu).all())
+         and torch.equal(Xu, Xe),
+         f"N = {P9_UKF_N}: the captured steps {s_u:.2f} s, the eager loop "
+         f"{s_e:.2f} s, equal bit for bit; RMS-to-truth {pe.rms(r, Xu):.4e}")
+    now = time.perf_counter()
+    print(f"phase 36 P9: {now - t_lap:.1f} s")
+    t_lap = now
+
+    # ---- the kernels line: each kernel at its path's shape ------------
+    # B1 at (2, 1), N = 60, and B2's three entries on the pendulum (rk4)
+    # along the first iteration of P7's first demonstration.
+    sys7 = ioc.make_system(p.log_w0, dev)
+    x7 = p.x0s[0]
+    X7 = itt.rollout(sys7, x7, p.U0)[0].contiguous()
+    exp7 = itt.linearize_trajectory(sys7, X7, p.U0)
+    e1 = check_fields_b1(itt, "P7 (2, 1) N=60", exp7)
+    t1 = design_timing(smi, "B1", {"P7 (2, 1) N=60": lambda: (
+        itt.backward_pass_fused(exp7, 0.0))}, turns=3)
+    N7 = p.N
+    row(f"fused_riccati_2x1_n{N7}", "fused_riccati.cu",
+        "pallas_riccati.py:774", p7_counts.get("fused_riccati", 0), e1,
+        t1["P7 (2, 1) N=60"],
+        cuda_ms(lambda: itt.backward_pass_associative(exp7, 0.0), 3, 1),
+        bound(4 * (expansion_floats(N7, 2, 1) + N7 * (1 + 2) + 2),
+              N7 * riccati_step_ops(2, 1)), "fused_riccati")
+    u7, K7, _, _ = itt.backward_pass_fused(exp7, 0.0)
+    cases = {
+        "linesearch_costs": (
+            lambda: (itt.linesearch_costs_fused(sys7, x7, alphas, X7, p.U0,
+                                                u7, K7),),
+            lambda: (itt.linesearch_rollouts(sys7, x7, alphas, X7, p.U0, u7,
+                                             K7)[2],)),
+        "closed_loop_rollout": (
+            lambda: itt.closed_loop_rollout_fused(sys7, x7, 0.5, X7, p.U0,
+                                                  u7, K7),
+            lambda: itt.closed_loop_rollout(sys7, x7, 0.5, X7, p.U0, u7, K7)),
+        "open_loop_rollout": (
+            lambda: itt.open_loop_rollout_fused(sys7, x7, p.U0),
+            lambda: itt.rollout(sys7, x7, p.U0))}
+    t2 = design_timing(smi, "B2 P7", {k: v[0] for k, v in cases.items()},
+                       turns=3)
+    b2 = chain_bounds(2, 1, N7, A10, model="pendulum", integrator="rk4")
+    src2 = {"linesearch_costs": "pallas_rollout.py:92",
+            "closed_loop_rollout": "pallas_rollout.py:132",
+            "open_loop_rollout": "pallas_rollout.py:132"}
+    for k, (kern, plain) in cases.items():
+        worst = 0.0
+        for g, ref in zip(kern(), plain()):
+            err, rr = rel_err(g, ref)
+            gate(f"B2 {k} P7", bool(torch.isfinite(g).all())
+                 and rr <= RTOL_B2, f"{err:.2e} ({rr:.1e} of max, limit "
+                 f"{RTOL_B2})")
+            worst = max(worst, err)
+        row(f"{k}_pendulum_rk4_n{N7}", "chain_rollout.cu", src2[k],
+            p7_counts.get(k, 0), worst, t2[k], cuda_ms(plain, 1, 0), b2[k],
+            None)
+    def held(label, got, ref, rtol):
+        """Gate each output (X, cost) of a rollout kernel against its plain
+        version within rtol of its max; returns the largest error."""
+        worst = 0.0
+        for name, g, r in zip(("X", "cost"), got, ref):
+            err, rr = rel_err(g, r)
+            gate(f"{label} {name}", bool(torch.isfinite(g).all())
+                 and rr <= rtol, f"{err:.2e} ({rr:.1e} of max, limit {rtol})")
+            worst = max(worst, err)
+        return worst
+
+    # B2's open loop at P8's mean rollouts (N = 30, the MPC's final mean
+    # sequence), and B5's open loop at the MPC's (512, 30) and the
+    # explore's (1024, 80), on the samples of seeded draws: each output
+    # held to its plain version before it is timed.
+    H8 = q.U0.shape[0]
+    U_mean = res8.U.new_zeros(q.U0.shape) + 0.1
+    e2m = held(f"B2 open loop P8 N={H8}",
+               itt.open_loop_rollout_fused(q.system, q.x0, U_mean),
+               itt.rollout(q.system, q.x0, U_mean), RTOL_B2)
+    t2m = design_timing(smi, "B2 P8 mean", {"open loop": lambda: (
+        itt.open_loop_rollout_fused(q.system, q.x0, U_mean))}, turns=3)
+    row(f"open_loop_rollout_pendulum_rk4_n{H8}", "chain_rollout.cu",
+        "pallas_rollout.py:132", counts8.get("open_loop_rollout", 0), e2m,
+        t2m["open loop"],
+        cuda_ms(lambda: itt.rollout(q.system, q.x0, U_mean), 1, 0),
+        chain_bounds(2, 1, H8, 1, model="pendulum",
+                     integrator="rk4")["open_loop_rollout"], None)
+    N_ol = q.U0_ol.shape[0]
+    U_x = mppi._candidates(q.U0_ol, gen(), ec, 1.0)
+    x0x = q.x0.expand(ec.samples, 2).contiguous()
+    e_x = held(f"B5 P8 explore ({ec.samples}, {N_ol})",
+               itt.open_loop_rollout_batched(q.system, x0x, U_x),
+               itt.rollout(q.system, x0x, U_x), RTOL_B5)
+    e_b5 = held(f"B5 P8 MPC ({mc.samples}, {H8})",
+                itt.open_loop_rollout_batched(q.system, x0s, U_cand),
+                itt.rollout(q.system, x0s, U_cand), RTOL_B5)
+    t5 = design_timing(smi, "B5 P8", {
+        f"({mc.samples}, {H8})": lambda: itt.open_loop_rollout_batched(
+            q.system, x0s, U_cand),
+        f"({ec.samples}, {N_ol})": lambda: itt.open_loop_rollout_batched(
+            q.system, x0x, U_x)}, turns=3)
+    for (B, N, U_b, x0b, err, launches) in (
+            (mc.samples, H8, U_cand, x0s, e_b5,
+             counts8.get("open_loop_rollout_batched", 0)),
+            (ec.samples, N_ol, U_x, x0x, e_x,
+             counts_x.get("open_loop_rollout_batched", 0))):
+        row(f"open_loop_rollout_batched_pendulum_rk4_b{B}_n{N}",
+            "chain_rollout.cu", "pallas_batched.py:377", launches, err,
+            t5[f"({B}, {N})"],
+            cuda_ms(lambda U_b=U_b, x0b=x0b: itt.rollout(q.system, x0b, U_b),
+                    1, 0),
+            batched_bounds(B, N, 1, 2, 1, model="pendulum",
+                           integrator="rk4")["open_loop_rollout_batched"],
+            "open_loop_rollout_batched")
+    # B3 at n = 2, one candidate, N = 100000: the first sweep of P9's
+    # defect rollout (A_k = ∂f/∂x along the constant trajectory at x0).
+    Xc = x0.expand(P9_N + 1, 2)
+    A9 = torch.func.vmap(torch.func.jacfwd(
+        lambda x, u: itt.step(r.system, x, u), argnums=0))(Xc[:-1], r.U)
+    d9 = (itt.step(r.system, Xc[:-1], r.U) - Xc[1:])[None].contiguous()
+    z9 = torch.zeros((1, 2), **f32)
+    A9 = A9.contiguous()
+    got9 = itt.affine_prefix_scan_multi(A9, d9, z9, engine="pallas")
+    ref9 = itt.affine_prefix_scan_multi(A9, d9, z9, engine="xla")
+    e3, r3 = rel_err(got9, ref9)
+    gate("B3 P9", bool(torch.isfinite(got9).all()) and r3 <= RTOL_LS,
+         f"{e3:.2e} ({r3:.1e} of max, limit {RTOL_LS})")
+    t3 = design_timing(smi, "B3 P9", {f"n=2 A=1 N={P9_N}": lambda: (
+        itt.affine_prefix_scan_multi(A9, d9, z9, engine="pallas"))}, turns=3)
+    launches9 = sum(c.get("affine_prefix_scan", 0)
+                    for _, _, c in runs9.values())
+    row(f"affine_prefix_scan_n2_a1_n{P9_N}", "affine_scan.cu",
+        "pallas_affine.py:137", launches9, e3, t3[f"n=2 A=1 N={P9_N}"],
+        cuda_ms(lambda: itt.affine_prefix_scan_multi(A9, d9, z9,
+                                                     engine="xla"), 3, 1),
+        b3_bound(P9_N, 2, 1), "affine_prefix_scan")
+    print(f"phase 36 kernels: {time.perf_counter() - t_lap:.1f} s")
+    print(f"phase 36: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; "
@@ -5127,6 +5613,10 @@ def main() -> int:
     print(f"SASS report: {time.perf_counter() - t0:.1f} s")
     launches_per_call = one_launch_check(itt, f32)
     tile = fused_riccati.tile_steps(kernels.lib, 4, 2)   # the DP's shape
+    if kernels.lib.ilqr_riccati_wide_max_n() != fused_riccati.WIDE_MAX_N:
+        raise AssertionError(
+            f"B1w takes N < {kernels.lib.ilqr_riccati_wide_max_n()}, "
+            f"fused_riccati.WIDE_MAX_N says {fused_riccati.WIDE_MAX_N}")
 
     # The reference workloads' systems, from the port's drivers (phase 4
     # solves their problems, phases 22-25 run the drivers).
@@ -5922,7 +6412,8 @@ def main() -> int:
     kernels_json += wide_phases(itt, dev, smi, lpc)
     kernels_json += wide_batched_phases(itt, dev, smi, lpc)
     kernels_json += wrapper_phases(itt, dev, smi, lpc)
-    print(f"phases 1-35: {time.perf_counter() - t_run:.1f} s")
+    kernels_json += solver_phases(itt, dev, smi, lpc)
+    print(f"phases 1-36: {time.perf_counter() - t_run:.1f} s")
     for k in kernels_json:
         print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "
@@ -6083,7 +6574,76 @@ def flight_turn(tag: str) -> int:
     return 0
 
 
+def hvp_timing(itt, dev) -> dict:
+    """One Hessian-vector product of P7's rollout cost (the pendulum under
+    rk4, N = 60, at the first demonstration's solution) taken two ways on
+    the card: ``torch.func.jvp`` of ``torch.func.grad`` through the plain
+    rollout (the construction of JAX's diff.py) and `diff._Adjoint.hvp`,
+    the second-order adjoint `solve_implicit`'s CG runs.  Returns and
+    prints the host milliseconds of each (the adjoint's set-up, the
+    expansion and the dynamics' Hessians, apart) and their difference."""
+    from examples_torch import inverse_optimal_control as ioc
+    from ilqr_tpu_torch import diff
+
+    p = ioc.problem(dev)
+    sys0 = ioc.make_system(p.log_w0, dev)
+    sol = itt.solve(sys0, p.x0s[0], p.U0, p.config)
+    X, U = sol.X, sol.U
+    v = torch.randn(U.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(0), device=dev)
+
+    def cost(U):
+        return itt.rollout(sys0, p.x0s[0], U)[1]
+
+    def ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    t_jvp, h_jvp = ms(lambda: torch.func.jvp(torch.func.grad(cost), (U,),
+                                             (v,))[1])
+    t_set, hvp = ms(lambda: diff._Adjoint(sys0, X, U).hvp(0.0))
+    t_adj, h_adj = ms(lambda: hvp(v))
+    _, rr = rel_err(h_adj, h_jvp)
+    out = dict(jvp_of_grad_ms=t_jvp, adjoint_setup_ms=t_set,
+               adjoint_ms=t_adj, rel_diff=rr)
+    print(f"HVP at P7's first solution (N = {p.N}): jvp of grad "
+          f"{t_jvp:.2f} ms a product; the adjoint {t_adj:.2f} ms a product "
+          f"after {t_set:.2f} ms of set-up; {rr:.1e} of max apart")
+    return out
+
+
+def solver_turn() -> int:
+    """``python3 chip_smoke.py --solvers``: build the kernels, run phase
+    36 alone (`solver_phases`, no launches-per-call column) and
+    `hvp_timing`, and print the phase's kernels line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; "
+              "this script runs only on a CUDA GPU", file=sys.stderr)
+        return 1
+    import ilqr_tpu_torch as itt
+    from ilqr_tpu_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi)
+    t0 = time.perf_counter()
+    lib = _build.load()
+    print(f"build {time.perf_counter() - t0:.1f} s (nvcc "
+          f"{lib.build_seconds:.1f} s)")
+    dev = torch.device("cuda", 0)
+    rows = solver_phases(itt, dev, smi, {})
+    hvp_timing(itt, dev)
+    print(json.dumps({"kernels": rows}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--solvers"]:
+        sys.exit(solver_turn())
     if sys.argv[1:2] == ["--turns"]:
         sys.exit(kernel_turns(sys.argv[2] if len(sys.argv) > 2 else "tree"))
     if sys.argv[1:2] == ["--flight"]:

@@ -14,6 +14,9 @@ multiple-shooting `solve_ms`, batched solving (`solve_batch`,
 the sequential and parallel limited backward passes), full DDP
 (`dynamics_hessians`), iLQG (`ilqg`), the augmented-Lagrangian and
 relaxed-barrier constrained solvers (`constrained`, `barrier`), the
+differentiable solve (`diff`: `solve_implicit`, `run_mpc_implicit`),
+sampling MPC (`mppi`), the EKF/UKF/RTS estimators (`estimation`) and
+their parallel-in-time forms (`estimation_parallel`), the
 reference-compatible facade (`compat`), `utils` (timing, guards,
 checkpoints) and `viz` (plots).  Its kernel
 engines are CUDA C++ written for Hopper (sm_90a), built with nvcc at first
@@ -152,6 +155,8 @@ from ilqr_tpu_torch.mpc import (
     run_mpc_rti,
 )
 from ilqr_tpu_torch.tracking import track, track_solution, tvlqr_gains
+from ilqr_tpu_torch.diff import IftConfig, run_mpc_implicit, solve_implicit
+from ilqr_tpu_torch.mppi import MppiConfig, mppi_update, run_mpc_mppi, solve_mppi
 from ilqr_tpu_torch.parallel import (
     run_mpc_sharded,
     solve_batched,
@@ -196,4 +201,6 @@ __all__ = [
     "MpcResult", "run_mpc", "run_mpc_rti", "run_mpc_batched", "run_mpc_ms",
     "ConstrainedMpcResult", "run_mpc_constrained", "run_mpc_barrier",
     "solve_batched", "solve_multistart", "run_mpc_sharded",
+    "solve_implicit", "run_mpc_implicit", "IftConfig",
+    "solve_mppi", "mppi_update", "run_mpc_mppi", "MppiConfig",
 ]

@@ -784,6 +784,10 @@ int run_wide(int nx, int nu, int N, float reg, const Expansion& ex,
 }  // namespace
 
 // Steps per tile at (n_x, n_u): the register form's or the wide form's.
+// The wide form's horizons are N < this (ops/fused_riccati.py's
+// WIDE_MAX_N, which chip_smoke.py holds to it).
+extern "C" int ilqr_riccati_wide_max_n() { return kWideMaxN; }
+
 extern "C" int ilqr_riccati_tile_steps(int n_x, int n_u) {
   const bool registers =
       (n_x == 2 && n_u == 1) || (n_x == 4 && (n_u == 1 || n_u == 2));

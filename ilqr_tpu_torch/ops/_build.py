@@ -52,6 +52,7 @@ SIGNATURES = {
     "ilqr_fused_riccati_counters": [_I, _I],
     "ilqr_fused_riccati_scratch": [_I, _I],
     "ilqr_riccati_tile_steps": [_I, _I],
+    "ilqr_riccati_wide_max_n": [],
     "ilqr_linesearch_costs": [_I, _I, _I, _I, _I, _P, _I, _P, _P, _I,
                               _P, _P, _P, _P, _I, _P, _P],
     "ilqr_closed_loop_rollout": [_I, _I, _I, _I, _I, _P, _I, _P, _F,

@@ -35,6 +35,10 @@ from ilqr_tpu_torch.ops.parallel_riccati import backward_pass_associative
 
 KERNEL = "fused_riccati"
 SHAPES = ((2, 1), (4, 1), (4, 2))
+# The wide form's horizons are N < WIDE_MAX_N (`kWideMaxN` in
+# csrc/fused_riccati.cu, int offsets inside its gains; the library's
+# `ilqr_riccati_wide_max_n`, which chip_smoke.py holds to this).
+WIDE_MAX_N = 1 << 23
 _FIELDS = ("f_x", "f_u", "l_x", "l_u", "l_xx", "l_ux", "l_uu", "v_x", "v_xx")
 
 
@@ -53,6 +57,11 @@ def _check(exp: TrajectoryExpansion, defects=None) -> None:
     n_u = exp.l_u.shape[-1]
     if N < 1:
         raise ValueError("the CUDA backward pass needs a horizon N >= 1")
+    if (n_x, n_u) not in SHAPES and N >= WIDE_MAX_N:
+        # The kernel would answer with a bare launch error.
+        raise NotImplementedError(
+            f"the wide CUDA backward pass (B1w, (n_x, n_u) = {(n_x, n_u)}) "
+            f"takes horizons N < 2^23, got N = {N}: ROADMAP item B1x")
     tensors = (f_x, exp.f_u, exp.l_x, exp.l_u, exp.l_xx, exp.l_ux, exp.l_uu,
                exp.v_x, exp.v_xx)
     shapes = [(N, n_x, n_x), (N, n_x, n_u), (N, n_x), (N, n_u),

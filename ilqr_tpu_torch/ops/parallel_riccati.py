@@ -100,19 +100,36 @@ def combine(ei: RiccatiElement, ej: RiccatiElement) -> RiccatiElement:
     )
 
 
-def suffix_scan(elems: RiccatiElement) -> RiccatiElement:
+def suffix_scan(elems, op=combine):
     """suffix[k] = e_k ⊗ e_{k+1} ⊗ … ⊗ e_{M-1} for all k, by recursive
     doubling: at distance d, E[k] ← E[k] ⊗ E[k+d] wherever k+d exists.  The
     windows joined at each sweep are adjacent and disjoint, as the
-    non-idempotent combine requires."""
-    M = elems.A.shape[0]
+    non-idempotent combine requires.  ``elems`` is a NamedTuple of stacked
+    fields and ``op(earlier, later)`` its combine (`combine` for Riccati
+    elements)."""
+    kind = type(elems)
+    M = elems[0].shape[0]
     E = elems
     d = 1
     while d < M:
-        head = combine(RiccatiElement(*(a[:M - d] for a in E)),
-                       RiccatiElement(*(a[d:] for a in E)))
-        E = RiccatiElement(*(torch.cat([h, a[M - d:]])
-                             for h, a in zip(head, E)))
+        head = op(kind(*(a[:M - d] for a in E)), kind(*(a[d:] for a in E)))
+        E = kind(*(torch.cat([h, a[M - d:]]) for h, a in zip(head, E)))
+        d *= 2
+    return E
+
+
+def prefix_scan(elems, op=combine):
+    """prefix[k] = e_0 ⊗ … ⊗ e_k for all k, by recursive doubling (the
+    mirror of `suffix_scan`): at distance d, E[k] ← E[k−d] ⊗ E[k] wherever
+    k−d exists.  XLA's ``associative_scan`` associates the same products
+    in another order, so f32 results differ from JAX's by rounding."""
+    kind = type(elems)
+    M = elems[0].shape[0]
+    E = elems
+    d = 1
+    while d < M:
+        tail = op(kind(*(a[:M - d] for a in E)), kind(*(a[d:] for a in E)))
+        E = kind(*(torch.cat([a[:d], t]) for t, a in zip(tail, E)))
         d *= 2
     return E
 

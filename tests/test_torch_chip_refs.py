@@ -30,9 +30,13 @@ from ilqr_tpu.mpc import run_mpc
 CHIP_SMOKE = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
 MPC_STEPS = 20   # chip_smoke.py's WIDE_STEPS
 # chip_smoke.py's P4_STEPS, P5_B, P5_N and P6_N (phase 35).
-P4_STEPS = 100
+P4_STEPS = 50
 P5_B, P5_N = 256, 100
 P6_N = 50
+
+# chip_smoke.py's P7_SEQ_DEMOS, P9_N and P9_SEQ_N (phase 36).
+P7_SEQ_DEMOS = (2, 3)
+P9_N, P9_SEQ_N = 100_000, 2000
 
 # Between the f32 result of the host that runs this and the constant (taken
 # on an x86 host): another host's BLAS blocking may move the last digits.
@@ -253,6 +257,89 @@ def p6():
 
 
 # chip_smoke.py's name of each constant, and the function that computes it.
+def p7(demos=(0, 1, 2, 3)):
+    """Phase 36's P7: examples/inverse_optimal_control.py at full size
+    (N = 60, maxiter 150, tol 1e-9, the demonstrations vmapped), the loss
+    and its gradient at log_w = 0, over all four or over P7_SEQ_DEMOS."""
+    from ilqr_tpu.diff import solve_implicit
+
+    def make_system(log_w):
+        w = jnp.exp(log_w)
+        return it.make_pendulum(0.05, [jnp.pi, 0.0],
+                                Q=jnp.diag(jnp.array([w[0], w[1]])),
+                                R=w[2] * jnp.eye(1), Q_f=10.0 * jnp.eye(2),
+                                integrator="rk4")
+    cfg = it.IlqrConfig(maxiter=150, tol=1e-9)
+    U0 = jnp.zeros((60, 1))
+    x0s = jnp.array([[0.2, 0.0], [0.6, 0.0], [-0.4, 0.5],
+                     [1.0, -0.5]])[jnp.array(demos)]
+    expert = make_system(jnp.log(jnp.array([2.0, 0.5, 0.25])))
+    demo = jax.jit(jax.vmap(lambda x0: it.solve(expert, x0, U0, cfg).U))(x0s)
+
+    def loss(log_w):
+        sys_ = make_system(log_w)
+        Us = jax.vmap(lambda x0: solve_implicit(sys_, x0, U0, cfg).U)(x0s)
+        return jnp.mean((Us - demo) ** 2)
+    val, g = jax.jit(jax.value_and_grad(loss))(jnp.zeros(3))
+    return [float(val)] + [float(v) for v in g]
+
+
+def p8_limited():
+    """Phase 36's P8: examples/mppi_pendulum.py's limited iLQR from zeros
+    (N = 80, |u| <= 8, maxiter 100, tol 1e-8), which the polish of the
+    MPPI explore must reach."""
+    sys_ = it.make_pendulum(0.05, [jnp.pi, 0.0],
+                            Q=jnp.diag(jnp.array([5.0, 0.5])),
+                            R=0.1 * jnp.eye(1),
+                            Q_f=jnp.diag(jnp.array([50.0, 5.0])),
+                            integrator="rk4")
+    cfg = it.IlqrConfig(maxiter=100, tol=1e-8, u_min=-8.0, u_max=8.0)
+    return _cost(lambda x, U: it.solve(sys_, x, U, cfg).cost, jnp.zeros(2),
+                 jnp.zeros((80, 1)))
+
+
+_P9 = {}
+
+
+def p9():
+    """Phase 36's P9: examples_torch/parallel_estimation.py's record (numpy
+    seed 0) with JAX's own f32 rollout as the truth; RMS-to-truth of the
+    parallel filter and smoother (iters 2) at P9_N and of the sequential
+    EKF and RTS smoother on its first P9_SEQ_N steps."""
+    if _P9:
+        return _P9
+    from ilqr_tpu.estimation import EkfState, run_ekf, run_eks
+    from ilqr_tpu.estimation_parallel import run_ekf_parallel, run_eks_parallel
+    from examples_torch.parallel_estimation import record_arrays
+
+    sys_ = it.make_pendulum(0.001, [jnp.pi, 0.0], Q=jnp.eye(2), R=jnp.eye(1),
+                            Q_f=jnp.zeros((2, 2)), d=0.05, integrator="rk4")
+    U_np, V_np = record_arrays(P9_N)
+    U = jnp.asarray(U_np, jnp.float32)
+    x0 = jnp.array([0.3, 0.0])
+    X_true = jax.jit(lambda u: it.rollout(sys_, x0, u)[0])(U)
+    Y = X_true[1:, :1] + jnp.asarray(V_np, jnp.float32)
+    s0 = EkfState(x0, 0.1 * jnp.eye(2))
+    Qp, Ro = 1e-6 * jnp.eye(2), 1e-3 * jnp.eye(1)
+
+    def obs(x):
+        return x[:1]
+
+    def rms(Xh):
+        return float(jnp.sqrt(jnp.mean((Xh - X_true[1:Xh.shape[0] + 1]) ** 2)))
+    n = P9_SEQ_N
+    _P9.update(
+        ekf_par=rms(jax.jit(lambda U, Y: run_ekf_parallel(
+            sys_, obs, s0, U, Y, Qp, Ro)[0])(U, Y)),
+        eks_par=rms(jax.jit(lambda U, Y: run_eks_parallel(
+            sys_, obs, s0, U, Y, Qp, Ro, iters=2)[0])(U, Y)),
+        ekf_seq=rms(jax.jit(lambda U, Y: run_ekf(
+            sys_, obs, s0, U, Y, Qp, Ro)[1])(U[:n], Y[:n])),
+        eks_seq=rms(jax.jit(lambda U, Y: run_eks(
+            sys_, obs, s0, U, Y, Qp, Ro)[0])(U[:n], Y[:n])))
+    return _P9
+
+
 REFS = {
     "LIMITED_PEND_SEQ_COST": limited_pendulum,
     "DDP_PEND_SEQ_COST": ddp_pendulum,
@@ -272,6 +359,13 @@ REFS = {
     "JAX_F32['p5_127']": lambda: p5((127,))[0],
     "JAX_F32['p5_255']": lambda: p5((255,))[0],
     "JAX_F32['p6']": p6,
+    "JAX_F32['p7']": p7,
+    "JAX_F32['p7_sub']": lambda: p7(P7_SEQ_DEMOS),
+    "JAX_F32['p8_limited']": p8_limited,
+    "JAX_F32['p9_ekf_par_rms']": lambda: p9()["ekf_par"],
+    "JAX_F32['p9_eks_par_rms']": lambda: p9()["eks_par"],
+    "JAX_F32['p9_ekf_seq_rms']": lambda: p9()["ekf_seq"],
+    "JAX_F32['p9_eks_seq_rms']": lambda: p9()["eks_seq"],
 }
 
 

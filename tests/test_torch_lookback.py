@@ -137,6 +137,36 @@ def test_lookback_scratch_is_zeroed_once_per_device_stream_and_shape(
     assert len(_build._SCRATCH) == 3
 
 
+def test_wide_backward_pass_refuses_horizons_past_its_int_offsets():
+    """B1w takes N < 2^23 (`kWideMaxN`, int offsets in its gains): the
+    wrapper refuses N >= 2^23 at a wide shape with a message that names
+    ROADMAP item B1x, where the kernel would answer with a bare launch
+    error.  The register form takes that horizon.  (The library's own
+    limit is held to WIDE_MAX_N by `test_torch_wide_host.py` on the host
+    build and by chip_smoke.py on the card.)"""
+    N = fused_riccati.WIDE_MAX_N
+    assert N == 1 << 23
+
+    def expansion(n_x, n_u, N):
+        # Stride-0 views: the shapes of a long horizon, no memory.
+        z = lambda *s: torch.zeros((1,) + s).expand((N,) + s)  # noqa: E731
+        return itt.TrajectoryExpansion(
+            f_x=z(n_x, n_x), f_u=z(n_x, n_u), l_x=z(n_x), l_u=z(n_u),
+            l_xx=z(n_x, n_x), l_ux=z(n_u, n_x), l_uu=z(n_u, n_u),
+            v_x=torch.zeros(n_x), v_xx=torch.zeros(n_x, n_x))
+
+    for shape in ((6, 2), (3, 1), (16, 6)):
+        with pytest.raises(NotImplementedError,
+                           match="N < 2\\^23.*ROADMAP item B1x"):
+            fused_riccati._check(expansion(*shape, N))
+    # One step shorter passes the horizon check (then fails on the views'
+    # layout, which the real inputs do not have), and the register form
+    # takes that horizon.
+    for shape, n in (((6, 2), N - 1), ((2, 1), N)):
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_riccati._check(expansion(*shape, n))
+
+
 # ---- the kernels on a host mock of the runtime ---------------------------
 
 # cuda_runtime.h for a host build: each CUDA thread of a launch runs as a

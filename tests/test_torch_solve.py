@@ -365,7 +365,8 @@ def test_solve_validates_shapes_and_stops_on_linesearch_failure():
 
 def test_package_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
-            "import ilqr_tpu_torch, ilqr_tpu_torch.convert; "
+            "import ilqr_tpu_torch, ilqr_tpu_torch.convert, "
+            "ilqr_tpu_torch.estimation, ilqr_tpu_torch.estimation_parallel; "
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
             "if sys.modules[m] is not None]; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

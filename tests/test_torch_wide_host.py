@@ -92,6 +92,12 @@ def test_wide_tiles_and_scratch_sizes(host_lib):
     assert host_lib.ilqr_fused_riccati_scratch(6, 100) == 26 * (304 + 104 + 3)
 
 
+def test_wide_horizon_limit_is_the_wrappers(host_lib):
+    """The wide form's horizon bound (`kWideMaxN`, int offsets in its
+    gains) is the one `fused_riccati._check` refuses past (B1x)."""
+    assert host_lib.ilqr_riccati_wide_max_n() == fused_riccati.WIDE_MAX_N
+
+
 # (N, n_x, n_u, defects, resident): tiles of 4 steps.
 @pytest.mark.parametrize("N,n_x,n_u,defects,resident", [
     (1, 6, 2, False, 0), (7, 3, 1, False, 0), (8, 5, 2, True, 0),
