@@ -266,7 +266,21 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    first P9_SEQ_N steps (each step a replay of one CUDA graph) against
    JAX's, and the UKF's captured steps against its eager loop; and holds
    B1, B2, B5 and B3 to their plain versions at these paths' shapes and
-   times them.
+   times them;
+37. runs batched solves with limits, DDP and adaptive_reg: (a) B6 over
+   the batch (one launch for B sequences) against its plain version in
+   both forms, n = 2, 4, 6, 12, at B = 1, 3, 512 and M = 1, each form's
+   tile edge and edge + 1, 65, 301 and 4097 (B <= 3), every call twice
+   bit for bit, one launch a call, and every instance bit for bit a
+   single-instance B6 call; timed at (b)'s and (c)'s shapes beside B
+   single launches; (b) the batched-MPC cell's DP (B = 512, H = 64,
+   MPC_SIM steps) under box limits at which at least a tenth of the
+   first solve's controls clamp, backward='pallas' and adaptive_reg (B6
+   over the batch once a sweep), two instances held to single-instance
+   run_mpc over the loop's first step; (c) a batched DDP + adaptive_reg pendulum solve (B = 256,
+   N = 300, rk4; B5, B6 over the batch, and B4 with a (B,) reg on its
+   adaptive_reg-only twin), eight instances held to single-instance
+   solves.  `python3 chip_smoke.py --batch-options` runs it alone.
 Every phase prints its seconds.
 Each solve phase resets the launch counts just before it and reads them
 just after.  The kernels line gives every kernel's time, its plain
@@ -386,8 +400,9 @@ PEND_BATCH, PEND_H, PEND_STEPS = 8, 200, 3
 # rollouts) for MPC_SIM_AUTO of its MPC_SIM steps: its single-instance
 # references take ~0.85 s a step with the plain engines on an H100, against
 # ~0.3 s with B2.  The rollout='pallas' run keeps all MPC_SIM steps.  (Cut
-# from 10 to 5 when phases 22-25 came.)
-MPC_SIM_AUTO = 5
+# from 10 to 5 when phases 22-25 came, and to 2 when phase 37 came, whose
+# limited batched MPC of the same cell runs the plain batched rollouts.)
+MPC_SIM_AUTO = 2
 # Phase 15: eight sampled instances of the batched solve against the same
 # problems solved one at a time with the plain engines (B4 against the
 # plain sequential pass, batched against single rollouts: f32 in other
@@ -1901,9 +1916,9 @@ def b3_checks(itt, lib, f32, errors, long_n=BENCH_N):
 
 
 def one_launch_check(itt, f32) -> dict:
-    """Phase 1: B1, B1d, B3, B6, B7, B4, the three B5 entries and the
-    wide forms B1w, B6w, B4w, B3w, B5n and B7w each launch one kernel a
-    call, and no other
+    """Phase 1: B1, B1d, B3, B6, B7, B4, the three B5 entries, B6 over
+    the batch and the wide forms B1w, B6w, B4w, B3w, B5n and B7w each
+    launch one kernel a call, and no other
     device work, by torch.profiler over five calls early in the run: at N =
     M = 600 (a seeded expansion with n_x = 4, n_u = 2, and 10 candidates),
     for B4 and B5 on a batch of 300 such expansions cut to N = 37 with the
@@ -1941,6 +1956,7 @@ def one_launch_check(itt, f32) -> dict:
     U_b = t(0.3 * rng.standard_normal((B, N_b, n_u)))
     X_b = itt.rollout(dp, x0s, U_b)[0].contiguous()
     u_b, K_b, _, _ = itt.backward_pass_batched(exp_b, 1.0)
+    elems_b = parallel_riccati.make_elements(exp_b, 0.0)
     alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
     alpha_b = alphas[torch.arange(B, device=alphas.device) % alphas.numel()]
     cases = {
@@ -1951,6 +1967,8 @@ def one_launch_check(itt, f32) -> dict:
             P, q, d0, engine="pallas"),
         "suffix_scan": lambda: itt.suffix_scan_fused(elems, "sub"),
         "suffix_scan_lane": lambda: itt.suffix_scan_fused(elems, "lane"),
+        # B6 over the batch: B = 300 sequences of N_b + 1 elements.
+        "suffix_scan_batched": lambda: itt.suffix_scan_fused(elems_b),
         "batched_riccati": lambda: itt.backward_pass_batched(exp_b, 0.1),
         "linesearch_costs_batched": lambda: itt.linesearch_costs_batched(
             dp, x0s, alphas, X_b, U_b, u_b, K_b),
@@ -2010,8 +2028,10 @@ RTOL_B6 = 5e-4
 LIMITED_N = 32768            # bench.py:620-642, the limited-backward cell
 SCAN_MS = (1411, 32769, 131073)
 # The sequential limited pass is a host loop of N box QPs (8 projected-Newton
-# iterations each): it runs at this cut horizon.
-SEQ_CUT_N = 1024
+# iterations each): it runs at this cut horizon (1024 until phase 37 came;
+# 9.3 s a pass there on the card, three passes; at 640 steps 171 controls
+# clamp under ±SEQ_TIGHT_LIMIT, the same in f32 and f64 on a CPU).
+SEQ_CUT_N = 640
 # Phase 19/20: the limited passes' outputs, kernel engine against the plain
 # engine, field by field within max(RTOL_LIMITED * max|plain|, F32_FLOOR *
 # max|plain - plain in f64|): the same sweeps on f32 scans in other orders;
@@ -2024,8 +2044,8 @@ RTOL_LIMITED = 5e-4
 TIGHT_LIMIT = 1.0
 # Phase 19: the sequential box-QP pass against the parallel pass's fixed
 # point at the cut horizon (the same KKT point; f32 in other orders), and
-# the sequential pass in f32 against f64 under ±0.5, where about half of
-# the cut's controls clamp (its first 1024 steps barely reach ±1).
+# the sequential pass in f32 against f64 under ±0.5, where about a quarter
+# of the cut's controls clamp (its first steps barely reach ±1).
 RTOL_SEQ = 1e-3
 SEQ_TIGHT_LIMIT = 0.5
 # Phase 21: the limited-DDP double-pendulum swing-up with backward='scan'
@@ -5554,6 +5574,329 @@ def solver_phases(itt, dev, smi, launches_per_call) -> list:
     return rows
 
 
+# ---- Phase 37: batched solves with limits, DDP and adaptive_reg ----------
+
+# (a): B6 over the batch against its plain version: the register form at
+# n = 2, 4 and the wide form at n = 6, 12, at B = 1, 3 and 512 and M = 1,
+# the form's tile edge T and T + 1, 65 (the batched-MPC cell's H + 1), 301
+# and a multi-tile 4097 (B = 1, 3 only: at B = 512 and n = 12 that is
+# 3.8 GB of elements, and the plain f64 scan several times that).  Tolerance
+# RTOL_B6's rule, field by field; every call twice, bit for bit; one
+# launch a call; each instance bit for bit a single-instance B6 call on it.
+B6B_STATES = (2, 4, 6, 12)
+B6B_BATCHES = (1, 3, 512)
+B6B_MS = (1, 65, 301, 4097)
+B6B_LONG_BATCH = 3      # the largest B at M = 4097
+# (b): the batched-MPC cell (phase 16's DP, B = MPC_B, H = MPC_H, maxiter 5,
+# tol 1e-4, MPC_SIM steps) under box limits at the LIMIT_QUANTILE of the
+# unconstrained first solve's |u|, with backward='pallas' and
+# adaptive_reg; the first limited solve must end with at least
+# MIN_CLAMPED of its controls on a bound.  Two instances are held to
+# single-instance run_mpc within ATOL_MPC over the loop's first
+# LIMITED_REF_STEPS steps (a single-instance loop takes 1.1-1.4 s a step
+# on the card, its limited pass sweeping to the budget).
+LIMIT_QUANTILE = 0.7
+MIN_CLAMPED = 0.1
+LIMITED_MPC_REFS = (127, 384)
+LIMITED_REF_STEPS = 1
+# (c): a batched DDP + adaptive_reg pendulum solve (phase 21's DDP
+# pendulum, rk4, N = 300, B = DDP_B from rest with the angle spread over
+# ±0.5, maxiter DDP_MAXITER, tol 1e-4 above the f32 cost's resolution)
+# through B5, B6 over the batch and, on its adaptive_reg-only twin, B4
+# with a (B,) reg; DDP_SAMPLES instances held to single-instance solves
+# under phase 15's rule.
+DDP_B, DDP_N, DDP_MAXITER = 256, 300, 10
+DDP_SAMPLES = (0, 37, 74, 111, 148, 185, 222, 255)
+
+
+def b6b_elements(itt, B, M, n, seed, f32, terminal):
+    """(B, M) seeded Riccati elements at n: make_elements of a random
+    expansion (positive definite l_uu, n_u = max(1, n // 3)) with the
+    terminal element, or the M stage elements alone (windowed products
+    in every field)."""
+    from ilqr_tpu_torch.ops import parallel_riccati
+    from ilqr_tpu_torch.ops.parallel_riccati import RiccatiElement
+
+    g = torch.Generator(device=f32["device"]).manual_seed(seed)
+    N = M - 1 if terminal else M
+    n_u = max(1, n // 3)
+
+    def r(*s):
+        return torch.randn(s, generator=g, **f32)
+
+    def eye(k):
+        return torch.eye(k, **f32)
+
+    W = r(B, N, n_u, n_u)
+    exp = itt.TrajectoryExpansion(
+        f_x=eye(n) + 0.05 * r(B, N, n, n), f_u=0.3 * r(B, N, n, n_u),
+        l_x=r(B, N, n), l_u=r(B, N, n_u),
+        l_xx=eye(n).expand(B, N, n, n).contiguous(),
+        l_ux=0.1 * r(B, N, n_u, n), l_uu=W @ W.mT / n_u + eye(n_u),
+        v_x=r(B, n), v_xx=10.0 * eye(n).expand(B, n, n).contiguous())
+    el = parallel_riccati.make_elements(exp, 0.0)
+    return RiccatiElement(*(t[:, :M].contiguous() for t in el))
+
+
+def b6b_bound(B, M, n):
+    """B6 over the batch: every element read once and every suffix
+    written once (B M F floats each way), B M combines."""
+    F = 3 * n * n + 2 * n
+    return bound(2 * B * M * F * 4, B * M * combine_ops(n))
+
+
+def batch_option_phases(itt, dev, smi, launches_per_call) -> list:
+    """Phase 37: (a) B6 over the batch against its plain version at every
+    edge of B6B_*, (b) the limited batched MPC and (c) the batched DDP +
+    adaptive_reg solve, each path's launch counts reset just before it
+    and read just after, and the kernels line's rows of B6 over the batch
+    at (b)'s and (c)'s shapes.  Returns the rows."""
+    from ilqr_tpu_torch import solver
+    from ilqr_tpu_torch.ops import _build, limited_parallel, parallel_riccati
+    from ilqr_tpu_torch.ops import suffix_scan
+    from ilqr_tpu_torch.ops.parallel_riccati import RiccatiElement
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    t0 = t_lap = time.perf_counter()
+    errors = {"suffix_scan_batched": 0.0}
+
+    def lap(part):
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"phase 37{part}: {now - t_lap:.1f} s")
+        t_lap = now
+
+    def gate(label, ok, text):
+        print(f"  {label}: {text}")
+        if not ok:
+            raise AssertionError(f"phase 37 {label}: {text}")
+
+    # ---- (a) B6 over the batch against its plain version ----------------
+    print(f"phase 37 (a): B6 over the batch, field by field max|kernel - "
+          f"plain| <= max({RTOL_B6} * max|plain|, {F32_FLOOR} * max|plain "
+          f"- plain in f64|); n {B6B_STATES}, B {B6B_BATCHES}")
+    cases = 0
+    for n in B6B_STATES:
+        T = suffix_scan.tile_steps(lib, "sub", n)
+        for B in B6B_BATCHES:
+            Ms = sorted({1, T, T + 1} | {M for M in B6B_MS
+                                         if B <= B6B_LONG_BATCH or M < 4097})
+            for M in Ms:
+                label = f"B6 batched n={n} B={B} M={M}"
+                el = b6b_elements(itt, B, M, n, 1000 * n + 7 * B + M, f32,
+                                  terminal=M % 2 == 1)
+                plain = parallel_riccati.suffix_scan(el, axis=1)
+                ref64 = parallel_riccati.suffix_scan(as_f64(el), axis=1)
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                got = itt.suffix_scan_fused(el)
+                again = itt.suffix_scan_fused(el)
+                torch.cuda.synchronize()
+                launches = _build.launch_counts()
+                if launches != {"suffix_scan_batched": 2}:
+                    raise AssertionError(f"{label}: two calls launched "
+                                         f"{launches}")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{label}: a repeated call gave "
+                                         f"other bits")
+                notes = check_fields(label, got, plain, ref64, RTOL_B6,
+                                     errors, "suffix_scan_batched")
+                singles = [itt.suffix_scan_fused(RiccatiElement(
+                    *(t[i] for t in el))) for i in range(B)]
+                for f, field in enumerate(got):
+                    if not torch.equal(field, torch.stack(
+                            [s[f] for s in singles])):
+                        raise AssertionError(
+                            f"{label}: {RiccatiElement._fields[f]} differs "
+                            f"from single-instance B6 calls")
+                cases += 1
+                if B != 3 or M in (1, 65, 4097):
+                    print(f"{label}: " + "; ".join(notes) + "; one launch a "
+                          "call, repeated call and every instance's single "
+                          "call bit-identical")
+    print(f"phase 37 (a): {cases} cases pass; max abs error "
+          f"{errors['suffix_scan_batched']:.3e}")
+    # Timed at (b)'s shape (the DP, n = 4, B = MPC_B, M = MPC_H + 1) and
+    # (c)'s (the pendulum, n = 2, B = DDP_B, M = DDP_N + 1), with the same
+    # batch as B single-instance launches in the same call.
+    shapes = {"b": (4, MPC_B, MPC_H + 1), "c": (2, DDP_B, DDP_N + 1)}
+    timed = {k: b6b_elements(itt, B, M, n, 5 + n, f32, terminal=True)
+             for k, (n, B, M) in shapes.items()}
+    t_b6b = design_timing(smi, "B6 batched", {
+        k: lambda el=el: itt.suffix_scan_fused(el) for k, el in timed.items()},
+        turns=3)
+    t_single, t_plain = {}, {}
+    for k, el in timed.items():
+        ones = [RiccatiElement(*(t[i] for t in el))
+                for i in range(el.A.shape[0])]
+        t_single[k] = cuda_ms(lambda ones=ones: [itt.suffix_scan_fused(o)
+                                                 for o in ones], 3, 1)
+        t_plain[k] = cuda_ms(lambda el=el: parallel_riccati.suffix_scan(
+            el, axis=1), 3, 1)
+        n, B, M = shapes[k]
+        print(f"B6 batched n={n} B={B} M={M} on {smi}: one launch events "
+              f"{t_b6b[k]['event_ms']:.4f} ms, device "
+              f"{ms_text(t_b6b[k]['device_us'])}; {B} single launches "
+              f"{t_single[k]:.4f} ms; plain {t_plain[k]:.4f} ms; bound "
+              f"{b6b_bound(B, M, n)[0]:.2e} ms")
+    lap(" (a)")
+
+    # ---- (b) the limited batched MPC --------------------------------------
+    dp = dp_system(itt, f32)
+    x0m = torch.zeros((MPC_B, 4), **f32)
+    x0m[:, 1] += torch.linspace(-0.3, 0.3, MPC_B, **f32)
+    Um = torch.zeros((MPC_H, 2), **f32)
+    free = itt.solve_batch(dp, x0m, Um, itt.IlqrConfig(
+        maxiter=5, tol=1e-4, backward="pallas"))
+    lim = float(torch.quantile(free.U.abs().flatten(), LIMIT_QUANTILE))
+    cfg_b = itt.IlqrConfig(maxiter=5, tol=1e-4, backward="pallas",
+                           adaptive_reg=True, u_min=-lim, u_max=lim)
+    with counting(limited_parallel, "_suffix_values") as scans:
+        first, secs, counts = timed_run(
+            lambda: itt.solve_batch(dp, x0m, Um, cfg_b))
+    clamped = float((first.U.abs() >= lim * (1 - 1e-6)).float().mean())
+    gate("limited batched solve", clamped >= MIN_CLAMPED
+         and counts.get("suffix_scan_batched", 0) == scans[0]
+         and counts.get("suffix_scan", 0) == 0
+         and bool(torch.isfinite(first.cost).all()),
+         f"|u| <= {lim:.4f} (the {LIMIT_QUANTILE} quantile of the "
+         f"unconstrained first solve's |u|): {100 * clamped:.1f} % of the "
+         f"controls clamped (at least {100 * MIN_CLAMPED:.0f} %); "
+         f"{scans[0]} sweeps, launches {counts}; {secs:.3f} s, "
+         f"{float(first.iterations.float().mean()):.2f} iterations")
+    res, secs_b, counts_b = timed_run(lambda: itt.run_mpc_batched(
+        dp, dp, x0m, Um, MPC_SIM, cfg_b))
+    need("limited batched MPC", counts_b, ("suffix_scan_batched",))
+    gate("limited batched MPC", bool(torch.isfinite(res.X).all())
+         and res.X.shape == (MPC_B, MPC_SIM + 1, 4)
+         and float(res.U.abs().max()) <= lim * (1 + 1e-6)
+         and counts_b.get("suffix_scan", 0) == 0,
+         f"B={MPC_B} H={MPC_H} n_sim={MPC_SIM}: {secs_b:.3f} s, "
+         f"{MPC_B * MPC_SIM / secs_b:.1f} step-solves/s, "
+         f"{float(res.solve_iters.float().mean()):.2f} iterations a solve, "
+         f"launches {counts_b}")
+    n_ref = min(LIMITED_REF_STEPS, MPC_SIM)
+    for i in LIMITED_MPC_REFS:
+        t_one = time.perf_counter()
+        one = itt.run_mpc(dp, dp, x0m[i], Um, n_ref, cfg_b)
+        dx = float((res.X[i, :n_ref + 1] - one.X).abs().max())
+        gate(f"limited MPC instance {i}", dx <= ATOL_MPC,
+             f"the first {n_ref} closed-loop steps against single-instance "
+             f"run_mpc {dx:.2e} (limit {ATOL_MPC}; "
+             f"{time.perf_counter() - t_one:.2f} s alone); iterations "
+             f"{res.solve_iters[i, :n_ref].tolist()} / "
+             f"{one.solve_iters.tolist()}")
+    lap(" (b)")
+
+    # ---- (c) the batched DDP + adaptive_reg solve -------------------------
+    pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                             Q_f=100.0 * np.eye(2), d=0.1, integrator="rk4",
+                             **f32)
+    x0p = torch.zeros((DDP_B, 2), **f32)
+    x0p[:, 0] += torch.linspace(-0.5, 0.5, DDP_B, **f32)
+    Up = torch.zeros((DDP_N, 1), **f32)
+    cfg_c = itt.IlqrConfig(maxiter=DDP_MAXITER, tol=1e-4, ddp=True,
+                           adaptive_reg=True, reg_init=1e-6, ddp_sweeps=3,
+                           backward="pallas", rollout="pallas")
+    with counting(solver, "_backward_batch") as passes:
+        ddp, secs_c, counts_c = timed_run(
+            lambda: itt.solve_batch(pend, x0p, Up, cfg_c))
+    need("DDP batched solve", counts_c, (
+        "suffix_scan_batched", "linesearch_costs_batched",
+        "closed_loop_rollout_batched", "open_loop_rollout_batched"))
+    gate("DDP batched solve", counts_c["suffix_scan_batched"]
+         == (cfg_c.ddp_sweeps + 1) * passes[0]
+         and counts_c.get("suffix_scan", 0) == 0
+         and bool(torch.isfinite(ddp.cost).all()),
+         f"B={DDP_B} N={DDP_N}: {secs_c:.3f} s, {passes[0]} backward passes "
+         f"(one launch of B6 over the batch a sweep, {cfg_c.ddp_sweeps + 1} "
+         f"a pass), iterations {int(ddp.iterations.min())}-"
+         f"{int(ddp.iterations.max())}, statuses "
+         f"{torch.bincount(ddp.status, minlength=4).tolist()}, launches "
+         f"{counts_c}")
+    twin = dataclasses.replace(cfg_c, ddp=False)
+    tw, secs_t, counts_t = timed_run(
+        lambda: itt.solve_batch(pend, x0p, Up, twin))
+    need("adaptive_reg batched solve", counts_t, ("batched_riccati",))
+    gate("adaptive_reg batched solve (B4 with a (B,) reg)",
+         bool(torch.isfinite(tw.cost).all())
+         and counts_t.get("suffix_scan_batched", 0) == 0,
+         f"{secs_t:.3f} s, iterations {int(tw.iterations.min())}-"
+         f"{int(tw.iterations.max())}, launches {counts_t}")
+    limits = {"cost": RTOL_BATCH, "X": ATOL_BATCH_X, "U": ATOL_BATCH_U}
+    worst = dict.fromkeys(limits, 0.0)
+    flips = 0
+    t_one = time.perf_counter()
+    for i in DDP_SAMPLES:
+        one = itt.solve(pend, x0p[i], Up, cfg_c)
+        c1 = float(one.cost)
+        diffs = {"cost": abs(float(ddp.cost[i]) - c1) / abs(c1),
+                 "X": float((ddp.X[i] - one.X).abs().max()),
+                 "U": float((ddp.U[i] - one.U).abs().max())}
+        flips += int(int(ddp.iterations[i]) != one.iterations)
+        for key, d in diffs.items():
+            worst[key] = max(worst[key], d)
+            if not d <= limits[key]:
+                raise AssertionError(
+                    f"phase 37 DDP batched solve instance {i}: {key} differs "
+                    f"from the instance solved alone by {d:.2e}, limit "
+                    f"{limits[key]}")
+    print(f"  DDP batched solve: instances {list(DDP_SAMPLES)} agree with "
+          f"single-instance solves: cost rel {worst['cost']:.2e}, X "
+          f"{worst['X']:.2e}, U {worst['U']:.2e} (limits {RTOL_BATCH}, "
+          f"{ATOL_BATCH_X}, {ATOL_BATCH_U}); {flips} of "
+          f"{len(DDP_SAMPLES)} ended at another iteration count; the "
+          f"solves alone {time.perf_counter() - t_one:.2f} s")
+    lap(" (c)")
+
+    rows = []
+    for k, launches, path in (
+            ("b", counts_b.get("suffix_scan_batched", 0),
+             f"limited batched MPC, {MPC_SIM} steps"),
+            ("c", counts_c.get("suffix_scan_batched", 0),
+             "DDP batched solve")):
+        n, B, M = shapes[k]
+        ms, cols = timing_columns(t_b6b[k],
+                                  launches_per_call.get("suffix_scan_batched"))
+        b = b6b_bound(B, M, n)
+        rows.append(dict(
+            name=f"suffix_scan_batched_n{n}_b{B}_m{M}", route="cuda",
+            source="ilqr_tpu_torch/csrc/suffix_scan.cu",
+            replaces="ilqr_tpu/ops/pallas_riccati.py:515", launches=launches,
+            max_abs_err=errors["suffix_scan_batched"], ms=ms,
+            plain_ms=t_plain[k], bound_ms=b[0], bound_by=b[1],
+            library_ms=None, single_launches_ms=t_single[k], path=path,
+            **cols))
+    print(f"phase 37: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def batch_option_turn() -> int:
+    """``python3 chip_smoke.py --batch-options``: build the kernels and run
+    phase 37 alone (no launches-per-call column), printing its kernels
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; "
+              "this script runs only on a CUDA GPU", file=sys.stderr)
+        return 1
+    import ilqr_tpu_torch as itt
+    from ilqr_tpu_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi)
+    t0 = time.perf_counter()
+    lib = _build.load()
+    print(f"build {time.perf_counter() - t0:.1f} s (nvcc "
+          f"{lib.build_seconds:.1f} s)")
+    for line in ptxas_summary(lib.ptxas_log):
+        if "scan_kernel" in line:
+            print(line)
+    rows = batch_option_phases(itt, torch.device("cuda", 0), smi, {})
+    print(json.dumps({"kernels": rows}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; "
@@ -6413,7 +6756,8 @@ def main() -> int:
     kernels_json += wide_batched_phases(itt, dev, smi, lpc)
     kernels_json += wrapper_phases(itt, dev, smi, lpc)
     kernels_json += solver_phases(itt, dev, smi, lpc)
-    print(f"phases 1-36: {time.perf_counter() - t_run:.1f} s")
+    kernels_json += batch_option_phases(itt, dev, smi, lpc)
+    print(f"phases 1-37: {time.perf_counter() - t_run:.1f} s")
     for k in kernels_json:
         print(f"  {k['name']}: {k['ms']:.4f} ms on {smi}, bound "
               f"{k['bound_ms']:.5f} ms ({k['bound_by']}), plain "
@@ -6644,6 +6988,8 @@ def solver_turn() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--solvers"]:
         sys.exit(solver_turn())
+    if sys.argv[1:2] == ["--batch-options"]:
+        sys.exit(batch_option_turn())
     if sys.argv[1:2] == ["--turns"]:
         sys.exit(kernel_turns(sys.argv[2] if len(sys.argv) > 2 else "tree"))
     if sys.argv[1:2] == ["--flight"]:

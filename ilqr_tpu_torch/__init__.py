@@ -12,7 +12,8 @@ multiple-shooting `solve_ms`, batched solving (`solve_batch`,
 `run_mpc`, `run_mpc_rti`, `run_mpc_batched`, `run_mpc_ms`,
 `run_mpc_constrained`, `run_mpc_barrier`), control limits (`ops/boxqp.py`,
 the sequential and parallel limited backward passes), full DDP
-(`dynamics_hessians`), iLQG (`ilqg`), the augmented-Lagrangian and
+(`dynamics_hessians`), iLQG (`ilqg`), each of them in batched solves
+too, the augmented-Lagrangian and
 relaxed-barrier constrained solvers (`constrained`, `barrier`), the
 differentiable solve (`diff`: `solve_implicit`, `run_mpc_implicit`),
 sampling MPC (`mppi`), the EKF/UKF/RTS estimators (`estimation`) and
@@ -71,6 +72,7 @@ from ilqr_tpu_torch.ilqg import (
     additive_noise,
     control_multiplicative_noise,
     noise_expansion,
+    noise_expansion_batched,
     simulate_closed_loop,
 )
 from ilqr_tpu_torch.ops.affine_scan import affine_prefix_scan_multi
@@ -94,6 +96,7 @@ from ilqr_tpu_torch.ops.linearize import (
     DynamicsHessians,
     TrajectoryExpansion,
     dynamics_hessians,
+    dynamics_hessians_batched,
     linearize_trajectory,
     linearize_trajectory_batched,
 )
@@ -182,7 +185,8 @@ __all__ = [
     "backward_pass_limited_parallel", "backward_pass_ddp_parallel",
     "backward_pass_suffix_scan", "suffix_scan_fused",
     "boxqp", "boxqp_with_gains", "DynamicsHessians", "dynamics_hessians",
-    "NoiseExpansion", "noise_expansion", "simulate_closed_loop",
+    "dynamics_hessians_batched", "NoiseExpansion", "noise_expansion",
+    "noise_expansion_batched", "simulate_closed_loop",
     "additive_noise", "control_multiplicative_noise",
     "rollout", "closed_loop_rollout", "linesearch_rollouts",
     "linesearch_costs_fused", "closed_loop_rollout_fused",

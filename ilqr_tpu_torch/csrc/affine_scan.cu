@@ -248,8 +248,8 @@ prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
   // 3. Look-back, one lane per candidate: the nearest inclusive state to
   // the left (or delta_0) carried through the aggregates up to this tile's;
   // the state before the last step is the one entering this tile.
-  const int qt = lookback::find_inclusive<kFromLeft>(counters, p, n_tiles,
-                                                     &slots);
+  const int qt = lookback::find_inclusive<kFromLeft>(
+      counters + 2, p, n_tiles, &slots);
   float x[NX], x_in[NX];
   if (tid < A) {
 #pragma unroll
@@ -455,8 +455,8 @@ wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
   // 3. Look-back, a warp a candidate: the nearest inclusive state to the
   // left (or delta_0) through the aggregates up to this tile's own, each
   // read from L2; the state before the last is the one entering the tile.
-  const int qt = lookback::find_inclusive<kFromLeft>(counters, p, n_tiles,
-                                                     &slots);
+  const int qt = lookback::find_inclusive<kFromLeft>(
+      counters + 2, p, n_tiles, &slots);
   for (int c = warp; c < A; c += kWideWarps) {
     float x = 0.0f;
     if (r < n && ln.l < P)

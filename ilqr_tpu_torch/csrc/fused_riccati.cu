@@ -306,8 +306,8 @@ fused_kernel(Expansion ex, int N, float reg, int n_tiles,
   // is out (none: n_tiles; the value beyond the last step is zero).  Thread
   // 0 carries (eta, J) from q leftward through the aggregates of q-1 .. p;
   // the value before the last step is the one at this tile's right edge.
-  const int q = lookback::find_inclusive<kFromRight>(counters, p, n_tiles,
-                                                     &slots);
+  const int q = lookback::find_inclusive<kFromRight>(
+      counters + 2, p, n_tiles, &slots);
   float eta[NX], J[NN], eta_e[NX], J_e[NN];
   if (tid == 0) {
 #pragma unroll
@@ -676,8 +676,8 @@ wide_fused_kernel(Expansion ex, int nx, int nu, int N, float reg,
   // q2 through the aggregates of q2-1 .. p (three values in rotation: the
   // carry, its previous value and the next).  With none (q2 = n_tiles) the
   // carry starts at the last tile's aggregate, taken as it is.
-  const int q2 = lookback::find_inclusive<kFromRight>(counters, p, n_tiles,
-                                                      &slots);
+  const int q2 = lookback::find_inclusive<kFromRight>(
+      counters + 2, p, n_tiles, &slots);
   const bool last = p == n_tiles - 1;
   float* cur = sm + S::kCarry;
   float* prev = cur + NV;

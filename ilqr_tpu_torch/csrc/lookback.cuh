@@ -30,6 +30,11 @@
 //      the next launch needs no memset.
 // Counters: [ticket, done, status (n_tiles)], ints, zeroed once by the
 // wrapper; payloads (aggregates, inclusive values) are the kernel's own.
+// A launch over a batch of independent sequences (the suffix scan's
+// batched entry) takes its tickets by take_batched_tile: instance-major,
+// each instance's tiles from direction D's end, so a tile's predecessors
+// (in its own instance) still hold earlier tickets; the status words are
+// then (instance, tile), and find_inclusive reads an instance's row.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,7 +55,7 @@ struct Slots {
   int tile;      // this block's tile
   int nearest;   // the nearest predecessor with its inclusive value out
   int last;      // this block arrived last
-  int pad;
+  int instance;  // this block's instance (take_batched_tile)
 };
 
 // "No predecessor has its inclusive value out": the value before the end.
@@ -87,13 +92,32 @@ __device__ __forceinline__ int take_tile(int* counters, int n_tiles,
   return s->tile;
 }
 
-// Block-wide: the nearest predecessor of tile p whose inclusive value is
-// out, or none<D>(n_tiles).  Starts with a barrier, so what the block
-// wrote before (its own aggregate) is visible to every thread after it.
+// Block-wide: this block's tile in a launch over sequences of n_tiles
+// tiles each.  Ticket t is instance t / n_tiles (left in s->instance) and
+// that instance's tile t % n_tiles in start order from direction D's end:
+// every predecessor of a tile in its own instance took an earlier ticket.
+// With one instance, take_tile's order.
 template <Direction D>
-__device__ __forceinline__ int find_inclusive(const int* counters, int p,
+__device__ __forceinline__ int take_batched_tile(int* counters, int n_tiles,
+                                                 Slots* s) {
+  if (threadIdx.x == 0) {
+    const int t = atomicAdd(counters, 1);
+    const int r = t % n_tiles;
+    s->instance = t / n_tiles;
+    s->tile = D == kFromRight ? n_tiles - 1 - r : r;
+    s->nearest = none<D>(n_tiles);
+  }
+  __syncthreads();
+  return s->tile;
+}
+
+// Block-wide: the nearest predecessor of tile p whose inclusive value is
+// out, or none<D>(n_tiles), among its sequence's n_tiles status words at
+// `status`.  Starts with a barrier, so what the block wrote before (its
+// own aggregate) is visible to every thread after it.
+template <Direction D>
+__device__ __forceinline__ int find_inclusive(const int* status, int p,
                                               int n_tiles, Slots* s) {
-  const int* status = counters + 2;
   const int n_pred = D == kFromRight ? n_tiles - 1 - p : p;
   __syncthreads();
   for (int base = 0; base < n_pred; base += blockDim.x) {
@@ -149,7 +173,8 @@ __device__ __forceinline__ void fold(const float* aggs, int F, int p, int q,
 }
 
 // Block-wide: count this tile done with the status words (its look-back
-// over); true in the block that arrives last.
+// over); true in the block that arrives last.  n_tiles counts every tile
+// of the launch, over all its instances.
 __device__ __forceinline__ bool arrive(int* counters, int n_tiles,
                                        Slots* s) {
   __syncthreads();
@@ -162,7 +187,8 @@ __device__ __forceinline__ bool arrive(int* counters, int n_tiles,
 }
 
 // Block-wide, in the last block to arrive: zero the ticket, the count and
-// the status words for the next launch (every block has stopped polling).
+// the status words (n_tiles of them: every tile of the launch) for the
+// next launch (every block has stopped polling).
 __device__ __forceinline__ void reset(int* counters, int n_tiles) {
   if (threadIdx.x == 0) {
     counters[0] = 0;

@@ -57,6 +57,21 @@
 // same), warp 0 folds the look-back, a whole element a tile, staged two
 // at a time.  The 'lane' entry (B7) runs the register form at n in
 // {2, 4} and the same wide kernel (B7w) at every other n <= 16.
+//
+// Over a batch (ilqr_suffix_scan_batched; replaces jax.vmap of
+// suffix_scan_pallas, whose pallas_call gains a batch grid axis): B
+// independent sequences of M elements, (B, M, ...) contiguous, in one
+// launch of B x n_tiles blocks, in either form ('sub' tiles).  At MPC
+// shapes (M = H + 1 = 65) one tile holds an instance, so all the
+// parallelism is across instances.  Blocks take their tickets
+// instance-major (lookback.cuh, take_batched_tile), each instance's tiles
+// from the right, so every tile a block waits on holds an earlier ticket:
+// the look-back cannot wait on a tile that was never scheduled.  Status
+// words, aggregates and inclusive elements are per (instance, tile), the
+// counters reset once per launch by its last block.  Each instance runs
+// the tiles and the fold order of a launch on it alone, so its outputs
+// are those of the single-instance entry bit for bit (which is this
+// kernel with B = 1).
 #include <cuda_runtime.h>
 
 #include "group_linalg.cuh"
@@ -87,6 +102,13 @@ struct Outputs {
   float* eta;
   float* J;
 };
+
+// Instance i's rows of a batch of sequences of M elements of n x n.
+template <class S>
+__device__ __forceinline__ S instance_rows(const S& e, int i, int M, int n) {
+  const size_t mm = (size_t)i * M * n * n, mv = (size_t)i * M * n;
+  return S{e.A + mm, e.b + mv, e.C + mm, e.eta + mv, e.J + mm};
+}
 
 template <int NX>
 __device__ __forceinline__ void load_element(const Elements& in, int k,
@@ -127,8 +149,9 @@ constexpr int scan_smem_floats() {
 
 template <int NX, int T>
 __global__ void __launch_bounds__(T)
-scan_kernel(Elements in, int M, int n_tiles, int* __restrict__ counters,
-            float* __restrict__ scratch, Outputs out) {
+scan_kernel(Elements in_all, int M, int n_tiles, int n_inst,
+            int* __restrict__ counters, float* __restrict__ scratch,
+            Outputs out_all) {
   using E = Elem<NX>;
   constexpr int F = E::F;
   extern __shared__ __align__(16) float sm[];
@@ -136,18 +159,21 @@ scan_kernel(Elements in, int M, int n_tiles, int* __restrict__ counters,
   float* buf = sm;                   // F x T
   float* stage = buf + F * T;        // (kStageTiles, F)
   float* edge = stage + kStageTiles * F;   // F
-  int* status = counters + 2;
-  float* aggs = scratch;                       // (n_tiles, F)
-  float* incl = aggs + (size_t)n_tiles * F;    // (n_tiles, F)
   const int tid = threadIdx.x;
 
-  // 1. The tile in start order from the right end; its local suffixes.
-  const int p = lookback::take_tile<kFromRight>(counters, n_tiles, &slots);
+  // 1. The tile in start order from the right end of its instance; its
+  // local suffixes.
+  const int p = lookback::take_batched_tile<kFromRight>(counters, n_tiles,
+                                                        &slots);
+  const int i = slots.instance;
+  int* status = counters + 2 + (size_t)i * n_tiles;
+  float* aggs = scratch + (size_t)i * 2 * n_tiles * F;   // (n_tiles, F)
+  float* incl = aggs + (size_t)n_tiles * F;              // (n_tiles, F)
   const int k = p * T + tid;
   {
     float e[F];
     if (k < M) {
-      load_element<NX>(in, k, e);
+      load_element<NX>(instance_rows(in_all, i, M, NX), k, e);
     } else {
       identity<NX>(e);
     }
@@ -166,8 +192,8 @@ scan_kernel(Elements in, int M, int n_tiles, int* __restrict__ counters,
   // right (none: start from the last tile's aggregate) through this tile's
   // aggregate; the element before the last step is the one at this tile's
   // right edge.
-  const int q = lookback::find_inclusive<kFromRight>(counters, p, n_tiles,
-                                                     &slots);
+  const int q = lookback::find_inclusive<kFromRight>(
+      status, p, n_tiles, &slots);
   float run[F], prev[F];
   bool started = false;
   if (tid == 0 && q < n_tiles) {
@@ -201,12 +227,14 @@ scan_kernel(Elements in, int M, int n_tiles, int* __restrict__ counters,
       for (int f = 0; f < F; ++f) edge[f] = prev[f];
     }
   }
-  if (lookback::arrive(counters, n_tiles, &slots)) {
-    lookback::reset(counters, n_tiles);
+  if (lookback::arrive(counters, n_inst * n_tiles, &slots)) {
+    lookback::reset(counters, n_inst * n_tiles);
   }
 
-  // 3. Close each local suffix with the right-edge element and write it.
+  // 3. Close each local suffix with the right-edge element and write it
+  // (the instance's rows found here, not carried over the look-back).
   if (k < M) {
+    const Outputs out = instance_rows(out_all, slots.instance, M, NX);
     float e[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) e[f] = buf[f * T + tid];
@@ -221,15 +249,15 @@ scan_kernel(Elements in, int M, int n_tiles, int* __restrict__ counters,
 }
 
 template <int NX, int T>
-int run(int M, const Elements& in, int* counters, float* scratch,
+int run(int B, int M, const Elements& in, int* counters, float* scratch,
         const Outputs& out, cudaStream_t stream) {
   const int n_tiles = (M + T - 1) / T;
   const int smem = static_cast<int>(sizeof(float) * scan_smem_floats<NX, T>());
   cudaError_t err = cudaFuncSetAttribute(
       scan_kernel<NX, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_kernel<NX, T><<<n_tiles, T, smem, stream>>>(in, M, n_tiles, counters,
-                                                   scratch, out);
+  scan_kernel<NX, T><<<B * n_tiles, T, smem, stream>>>(
+      in, M, n_tiles, B, counters, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,27 +325,29 @@ __device__ __forceinline__ void store_wide(const grp::Lane& ln, int n,
 
 template <int P>
 __global__ void __launch_bounds__(32 * kWideTile, 1)
-wide_scan_kernel(Elements in, int n, int M, int n_tiles,
+wide_scan_kernel(Elements in_all, int n, int M, int n_tiles, int n_inst,
                  int* __restrict__ counters, float* __restrict__ scratch,
-                 Outputs out) {
+                 Outputs out_all) {
   using E = grp::Elem<P>;
   using S = WideSmem<P>;
   constexpr int F = E::F, T = S::T;
   extern __shared__ __align__(16) float sm[];
   __shared__ lookback::Slots slots;
-  int* status = counters + 2;
-  float* aggs = scratch;                       // (n_tiles, F)
-  float* incl = aggs + (size_t)n_tiles * F;    // (n_tiles, F)
   const int tid = threadIdx.x, q = tid / 32;
   const grp::Lane ln;
   float* w = sm + S::kWork + q * E::WORK;
 
-  // 1. The tile from the right end; its local suffixes.
-  const int p = lookback::take_tile<kFromRight>(counters, n_tiles, &slots);
+  // 1. The tile from the right end of its instance; its local suffixes.
+  const int p = lookback::take_batched_tile<kFromRight>(counters, n_tiles,
+                                                        &slots);
+  const int i = slots.instance;
+  int* status = counters + 2 + (size_t)i * n_tiles;
+  float* aggs = scratch + (size_t)i * 2 * n_tiles * F;   // (n_tiles, F)
+  float* incl = aggs + (size_t)n_tiles * F;              // (n_tiles, F)
   const int k = p * T + q;
   float* e = sm + S::kBuf0 + q * F;
   if (k < M) {
-    load_wide<P>(ln, n, in, k, e);
+    load_wide<P>(ln, n, instance_rows(in_all, i, M, n), k, e);
   } else {
     grp::identity<P>(ln, n, e);
   }
@@ -337,8 +367,8 @@ wide_scan_kernel(Elements in, int n, int M, int n_tiles,
   // inclusive element to the right (none: from the last tile's aggregate)
   // through this tile's aggregate; the element before the last fold is the
   // one at this tile's right edge.
-  const int q2 = lookback::find_inclusive<kFromRight>(counters, p, n_tiles,
-                                                      &slots);
+  const int q2 = lookback::find_inclusive<kFromRight>(
+      status, p, n_tiles, &slots);
   float* run = sm + S::kCarry;
   float* prev = run + F;
   float* next = prev + F;
@@ -370,12 +400,14 @@ wide_scan_kernel(Elements in, int n, int M, int n_tiles,
   // Every warp reads the edge element from warp 0's rotation.
   __shared__ int edge_at;
   if (tid == 0) edge_at = static_cast<int>(prev - sm);
-  if (lookback::arrive(counters, n_tiles, &slots)) {
-    lookback::reset(counters, n_tiles);
+  if (lookback::arrive(counters, n_inst * n_tiles, &slots)) {
+    lookback::reset(counters, n_inst * n_tiles);
   }
 
-  // 3. Close each local suffix with the right-edge element and write it.
+  // 3. Close each local suffix with the right-edge element and write it
+  // (the instance's rows found here, not carried over the look-back).
   if (k < M) {
+    const Outputs out = instance_rows(out_all, slots.instance, M, n);
     if (p == n_tiles - 1) {
       store_wide<P>(ln, n, out, k, buf + q * F);
     } else {
@@ -386,16 +418,16 @@ wide_scan_kernel(Elements in, int n, int M, int n_tiles,
 }
 
 template <int P>
-int run_wide(int n, int M, const Elements& in, int* counters, float* scratch,
-             const Outputs& out, cudaStream_t stream) {
+int run_wide(int n, int B, int M, const Elements& in, int* counters,
+             float* scratch, const Outputs& out, cudaStream_t stream) {
   using S = WideSmem<P>;
   const int n_tiles = (M + S::T - 1) / S::T;
   cudaError_t err = cudaFuncSetAttribute(
       wide_scan_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_scan_kernel<P><<<n_tiles, S::kThreads, S::kBytes, stream>>>(
-      in, n, M, n_tiles, counters, scratch, out);
+  wide_scan_kernel<P><<<B * n_tiles, S::kThreads, S::kBytes, stream>>>(
+      in, n, M, n_tiles, B, counters, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,10 +448,10 @@ bool register_form(int n_x) { return n_x == 2 || n_x == 4; }
 int wide_pad(int n_x) { return n_x <= 8 ? 8 : 16; }
 
 template <int T>
-int dispatch(int n_x, int M, const Elements& in, int* counters,
+int dispatch(int n_x, int B, int M, const Elements& in, int* counters,
              float* scratch, const Outputs& out, cudaStream_t stream) {
-  if (n_x == 2) return run<2, T>(M, in, counters, scratch, out, stream);
-  if (n_x == 4) return run<4, T>(M, in, counters, scratch, out, stream);
+  if (n_x == 2) return run<2, T>(B, M, in, counters, scratch, out, stream);
+  if (n_x == 4) return run<4, T>(B, M, in, counters, scratch, out, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -473,26 +505,63 @@ extern "C" int ilqr_suffix_scan_occupancy(int lane, int n_x) {
   return wide_pad(n_x) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
 }
 
-// One launch: the register form at n_x = 2, 4 (either layout), the wide
-// form at every other n_x <= 16 (both layouts, one kernel).  Inputs: the
-// five element fields, (M, n_x, n_x) / (M, n_x);
-// counters and scratch as sized above.  Outputs: the five fields of every
-// suffix, shaped as the inputs.
+// The launches of both entries: B sequences of M elements, in the register
+// form at n_x = 2, 4 (either layout) or the wide form at every other
+// n_x <= 16 (both layouts, one kernel).
+static int scan(int lane, int n_x, int B, int M, const Elements& in,
+                int* counters, float* scratch, const Outputs& out,
+                cudaStream_t s) {
+  if (B < 1 || M < 1 || (long long)B * tiles(lane, n_x, M) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (register_form(n_x)) {
+    return lane ? dispatch<kLaneTile>(n_x, B, M, in, counters, scratch, out, s)
+                : dispatch<kSubTile>(n_x, B, M, in, counters, scratch, out, s);
+  }
+  if (n_x < 1 || n_x > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (wide_pad(n_x) == 8)
+    return run_wide<8>(n_x, B, M, in, counters, scratch, out, s);
+  return run_wide<16>(n_x, B, M, in, counters, scratch, out, s);
+}
+
+// One launch over one sequence.  Inputs: the five element fields,
+// (M, n_x, n_x) / (M, n_x); counters and scratch as sized above.
+// Outputs: the five fields of every suffix, shaped as the inputs.
 extern "C" int ilqr_suffix_scan(int lane, int n_x, int M, const float* A,
                                 const float* b, const float* C,
                                 const float* eta, const float* J,
                                 int* counters, float* scratch, float* A_out,
                                 float* b_out, float* C_out, float* eta_out,
                                 float* J_out, void* stream) {
-  const Elements in{A, b, C, eta, J};
-  const Outputs out{A_out, b_out, C_out, eta_out, J_out};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (register_form(n_x)) {
-    return lane ? dispatch<kLaneTile>(n_x, M, in, counters, scratch, out, s)
-                : dispatch<kSubTile>(n_x, M, in, counters, scratch, out, s);
-  }
-  if (n_x < 1 || n_x > 16) return static_cast<int>(cudaErrorInvalidValue);
-  if (wide_pad(n_x) == 8)
-    return run_wide<8>(n_x, M, in, counters, scratch, out, s);
-  return run_wide<16>(n_x, M, in, counters, scratch, out, s);
+  return scan(lane, n_x, 1, M, Elements{A, b, C, eta, J}, counters, scratch,
+              Outputs{A_out, b_out, C_out, eta_out, J_out},
+              static_cast<cudaStream_t>(stream));
+}
+
+// The batch's scratch: ints (zeroed once, left zeroed by every call) and
+// floats, for B sequences of M elements ('sub' tiles); -1 where a count
+// does not fit an int.
+static int fits(long long count) {
+  return count > 0x7fffffffLL ? -1 : static_cast<int>(count);
+}
+extern "C" int ilqr_suffix_scan_batched_counters(int n_x, int B, int M) {
+  return fits(2 + (long long)B * tiles(0, n_x, M));
+}
+extern "C" int ilqr_suffix_scan_batched_scratch(int n_x, int B, int M) {
+  return fits(2LL * B * tiles(0, n_x, M) * element_floats(n_x));
+}
+
+// One launch over B sequences ('sub' tiles): the fields (B, M, n_x, n_x) /
+// (B, M, n_x), contiguous; outputs shaped as the inputs, instance i's
+// those of ilqr_suffix_scan on instance i alone.
+extern "C" int ilqr_suffix_scan_batched(int n_x, int B, int M,
+                                        const float* A, const float* b,
+                                        const float* C, const float* eta,
+                                        const float* J, int* counters,
+                                        float* scratch, float* A_out,
+                                        float* b_out, float* C_out,
+                                        float* eta_out, float* J_out,
+                                        void* stream) {
+  return scan(0, n_x, B, M, Elements{A, b, C, eta, J}, counters, scratch,
+              Outputs{A_out, b_out, C_out, eta_out, J_out},
+              static_cast<cudaStream_t>(stream));
 }

@@ -38,12 +38,29 @@ def noise_expansion(noise_fn: Callable, X: torch.Tensor,
     vmapped over time like `linearize_trajectory`.  The fields take X's
     dtype: a Python float times a tangent-carrying 0-d tensor can give a
     float64 tangent under vmap(jacfwd)."""
+    return _noise_points(noise_fn, X[:-1], U)
+
+
+def _noise_points(noise_fn: Callable, X: torch.Tensor,
+                  U: torch.Tensor) -> NoiseExpansion:
+    """C and its Jacobians at the points (X[k], U[k])."""
     def one(x, u):
         return (noise_fn(x, u),
                 *torch.func.jacfwd(noise_fn, argnums=(0, 1))(x, u))
 
     return NoiseExpansion(*(t.to(X.dtype).contiguous() for t in
-                            torch.func.vmap(one)(X[:-1], U)))
+                            torch.func.vmap(one)(X, U)))
+
+
+def noise_expansion_batched(noise_fn: Callable, X: torch.Tensor,
+                            U: torch.Tensor) -> NoiseExpansion:
+    """`noise_expansion` of B trajectories, X (B, N+1, n_x) and U
+    (B, N, n_u): the B·N stage points through one call; every field leads
+    with B."""
+    B, N = U.shape[:2]
+    flat = _noise_points(noise_fn, X[:, :-1].reshape(B * N, -1),
+                         U.reshape(B * N, -1))
+    return NoiseExpansion(*(t.reshape((B, N) + t.shape[1:]) for t in flat))
 
 
 @full_f32_matmuls()

@@ -174,8 +174,10 @@ def run_mpc_batched(
     start U_init (N, n_u) shared or (B, N, n_u).  Every field of the result
     gains a leading B axis.
 
-    Each simulated step is one `solve_batch` of all B problems; the batched
-    solve has no parallel line search or latch."""
+    Each simulated step is one `solve_batch` of all B problems, under
+    every option it takes (limits, DDP, iLQG, adaptive_reg, each instance
+    on its own); the batched solve has no parallel line search or latch
+    (ROADMAP item A12b)."""
     x0_batch, U_init = solver_system.inputs(x0_batch, U_init)
     x = x0_batch
     U_warm = U_init.expand((x.shape[0],) + tuple(U_init.shape[-2:]))

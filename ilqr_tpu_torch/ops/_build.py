@@ -17,8 +17,9 @@ Every C entry returns ``cudaGetLastError()`` after its launches; `check`
 turns a non-zero code into an exception.  Each kernel wrapper adds one to
 its entry in the launch counts where it launches its kernel, and nowhere
 else, so a run can show which kernels its main path went through.  The
-look-back kernels (B1, B3, B6/B7: ``csrc/lookback.cuh``) take their
-counters and scratch from `scratch`, one set per device, stream and shape.
+look-back kernels (B1, B3, B6/B7 and B6 over a batch:
+``csrc/lookback.cuh``) take their counters and scratch from `scratch`, one
+set per device, stream and shape (the batch size included).
 """
 from __future__ import annotations
 
@@ -87,6 +88,10 @@ SIGNATURES = {
     "ilqr_suffix_scan_scratch": [_I, _I, _I],
     "ilqr_suffix_scan_occupancy": [_I, _I],
     "ilqr_suffix_tile_steps": [_I, _I],
+    "ilqr_suffix_scan_batched": [_I, _I, _I] + [_P] * 5 + [_P] * 2
+                                + [_P] * 5 + [_P],
+    "ilqr_suffix_scan_batched_counters": [_I, _I, _I],
+    "ilqr_suffix_scan_batched_scratch": [_I, _I, _I],
     "ilqr_cuda_error_string": [_I],
 }
 

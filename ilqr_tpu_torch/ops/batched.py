@@ -73,15 +73,19 @@ def _reg_vector(reg, B: int, like: torch.Tensor):
     return reg.contiguous()
 
 
-def vmap_backward(backward, exp: TrajectoryExpansion, reg):
+def vmap_backward(backward, exp: TrajectoryExpansion, reg, **batched):
     """A single-instance backward pass over the leading batch axis of every
-    field of ``exp``; ``reg`` is a number or (B,).  Returns (u_ff (B, N,
-    n_u), K (B, N, n_u, n_x), dV (B, 2), ok (B,))."""
+    field of ``exp``; ``reg`` is a number or (B,).  ``batched`` holds more
+    per-instance inputs (tensors or NamedTuples of them leading with B,
+    such as the controls of a limited pass or DDP Hessians, or None),
+    which reach ``backward(exp, reg, **batched)`` one instance at a time.
+    Returns (u_ff (B, N, n_u), K (B, N, n_u, n_x), dV (B, 2), ok (B,))."""
     reg = torch.as_tensor(reg, dtype=exp.f_x.dtype, device=exp.f_x.device)
     fields = tuple(getattr(exp, f) for f in _FIELDS)
+    batched = {k: v for k, v in batched.items() if v is not None}
     out = torch.func.vmap(
-        lambda fs, r: backward(TrajectoryExpansion(*fs), r),
-        in_dims=(0, 0 if reg.ndim else None))(fields, reg)
+        lambda fs, r, kw: backward(TrajectoryExpansion(*fs), r, **kw),
+        in_dims=(0, 0 if reg.ndim else None, 0))(fields, reg, batched)
     # Contiguous, as the batched CUDA rollouts read the gains as they are.
     return tuple(t.contiguous() for t in out)
 

@@ -7,11 +7,13 @@ surface along (X, U) in one `torch.func.vmap` over time of
 Layout (time-major, as in JAX):
     X: (N+1, n_x)    U: (N, n_u)
 All stacked derivative tensors lead with the time axis.  `dynamics_hessians`
-gives the second derivatives of the step for full DDP.
+gives the second derivatives of the step for full DDP; the ``_batched``
+forms take B trajectories, (B, N+1, n_x) and (B, N, n_u).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -41,9 +43,10 @@ class TrajectoryExpansion:
     v_xx: torch.Tensor
 
 
-@dataclasses.dataclass(frozen=True)
-class DynamicsHessians:
-    """Second-order dynamics terms for full DDP.
+class DynamicsHessians(NamedTuple):
+    """Second-order dynamics terms for full DDP (a NamedTuple, so that
+    `torch.func.vmap` maps over its fields as it does over
+    `ilqg.NoiseExpansion`'s).
 
     Index convention (JAX's): ``f_xx[k, i, a, b] = ∂²f_i/∂x_a∂x_b`` at step
     k, ``f_ux[k, i, u, x] = ∂²f_i/∂u∂x``.  Shapes: f_xx (N, n_x, n_x, n_x),
@@ -63,8 +66,28 @@ def dynamics_hessians(system: System, X: torch.Tensor,
     differentiated map is `integrators.newton_polish` from the converged
     step (JAX differentiates its custom_jvp tangent rule instead; both give
     the second derivatives of the implicit solution)."""
+    return _stage_hessians(system, X[:-1], U)
+
+
+@full_f32_matmuls()
+def dynamics_hessians_batched(system: System, X: torch.Tensor,
+                              U: torch.Tensor) -> DynamicsHessians:
+    """`dynamics_hessians` of B trajectories, X (B, N+1, n_x) and U
+    (B, N, n_u): the B·N stage points through one vmap, as
+    `linearize_trajectory_batched` takes them (the implicit rules still
+    differentiate `newton_polish`).  Every field leads with B."""
+    B, N = U.shape[:2]
+    h = _stage_hessians(system, X[:, :-1].reshape(B * N, -1),
+                        U.reshape(B * N, -1))
+    return DynamicsHessians(*(t.reshape((B, N) + t.shape[1:]) for t in h))
+
+
+def _stage_hessians(system: System, X: torch.Tensor,
+                    U: torch.Tensor) -> DynamicsHessians:
+    """The step's second derivatives at the stage points (X[k], U[k]),
+    X (P, n_x) and U (P, n_u)."""
     implicit = system.integrator in IMPLICIT
-    X1 = step(system, X[:-1], U) if implicit else U
+    X1 = step(system, X, U) if implicit else U
 
     def f(x, u, x1):
         if implicit:
@@ -77,7 +100,7 @@ def dynamics_hessians(system: System, X: torch.Tensor,
         return f_xx, f_ux, f_uu
 
     return DynamicsHessians(*(t.contiguous() for t in
-                              torch.func.vmap(stage)(X[:-1], U, X1)))
+                              torch.func.vmap(stage)(X, U, X1)))
 
 
 def _stage_expansion(system: System, x, u):

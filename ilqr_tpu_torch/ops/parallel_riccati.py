@@ -24,10 +24,17 @@ whose (J, η) are V_xx(k) and −V_x(k) — come from ⌈log₂(N+1)⌉ sweeps o
 recursive doubling.  This module is the plain version of the fused CUDA
 backward pass (`ilqr_tpu_torch.ops.fused_riccati`) and the engine of
 ``backward='pscan'``.
+
+`make_elements`, `gains_from_value`, `fold_second_order` and
+`backward_pass_ddp_parallel` also take B instances at once: every field
+of the expansion (and of the Hessians and noise terms) then leads with B,
+time is the axis after it, ``reg`` may be a (B,) tensor, and ``ok`` is
+(B,).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -53,13 +60,26 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
+def reg_eye(reg, n: int, like: torch.Tensor) -> torch.Tensor:
+    """reg·I (n × n) to add to (..., N, n, n) stage matrices: ``reg`` a
+    number, a 0-d tensor or one per instance, (B,)."""
+    eye = torch.eye(n, dtype=like.dtype, device=like.device)
+    if isinstance(reg, torch.Tensor) and reg.ndim:
+        return reg[..., None, None, None] * eye
+    return reg * eye
+
+
+# The time axis of each element field, counted from the end.
+_TIME_AXIS = RiccatiElement(-3, -2, -3, -2, -3)
+
+
 def make_elements(exp: TrajectoryExpansion, reg, defects=None) -> RiccatiElement:
     """The N+1 stacked scan elements (N stage leaves + terminal);
-    ``defects`` (N, n_x) enter the leaves' affine offsets, b ← b + d."""
+    ``defects`` (N, n_x) enter the leaves' affine offsets, b ← b + d.
+    Leading axes of the fields batch instances."""
     n_u = exp.l_u.shape[-1]
-    n_x = exp.v_x.shape[0]
-    eye_u = torch.eye(n_u, dtype=exp.l_u.dtype, device=exp.l_u.device)
-    R = exp.l_uu + reg * eye_u
+    n_x = exp.v_x.shape[-1]
+    R = exp.l_uu + reg_eye(reg, n_u, exp.l_u)
     # One factorization for all three R-solves.
     rhs = torch.cat([exp.l_ux, exp.f_u.transpose(-1, -2), exp.l_u[..., None]],
                     dim=-1)
@@ -74,12 +94,14 @@ def make_elements(exp: TrajectoryExpansion, reg, defects=None) -> RiccatiElement
         eta=-(exp.l_x - _mv(MT, Rinv_r)),
         J=_sym(exp.l_xx - MT @ Rinv_M),
     )
-    zero_m = torch.zeros((1, n_x, n_x), dtype=exp.v_x.dtype,
-                         device=exp.v_x.device)
-    zero_v = torch.zeros((1, n_x), dtype=exp.v_x.dtype, device=exp.v_x.device)
-    term = RiccatiElement(zero_m, zero_v, zero_m, -exp.v_x[None],
-                          exp.v_xx[None])
-    return RiccatiElement(*(torch.cat([a, t]) for a, t in zip(leaves, term)))
+    lead = tuple(exp.v_x.shape[:-1])
+    opts = dict(dtype=exp.v_x.dtype, device=exp.v_x.device)
+    zero_m = torch.zeros(lead + (1, n_x, n_x), **opts)
+    zero_v = torch.zeros(lead + (1, n_x), **opts)
+    term = RiccatiElement(zero_m, zero_v, zero_m, -exp.v_x[..., None, :],
+                          exp.v_xx[..., None, :, :])
+    return RiccatiElement(*(torch.cat([a, t], dim=ax) for a, t, ax in
+                            zip(leaves, term, _TIME_AXIS)))
 
 
 def combine(ei: RiccatiElement, ej: RiccatiElement) -> RiccatiElement:
@@ -100,20 +122,23 @@ def combine(ei: RiccatiElement, ej: RiccatiElement) -> RiccatiElement:
     )
 
 
-def suffix_scan(elems, op=combine):
+def suffix_scan(elems, op=combine, axis: int = 0):
     """suffix[k] = e_k ⊗ e_{k+1} ⊗ … ⊗ e_{M-1} for all k, by recursive
     doubling: at distance d, E[k] ← E[k] ⊗ E[k+d] wherever k+d exists.  The
     windows joined at each sweep are adjacent and disjoint, as the
     non-idempotent combine requires.  ``elems`` is a NamedTuple of stacked
     fields and ``op(earlier, later)`` its combine (`combine` for Riccati
-    elements)."""
+    elements).  The sequence runs along ``axis`` of every field (1 for B
+    sequences stacked along axis 0)."""
     kind = type(elems)
-    M = elems[0].shape[0]
+    M = elems[0].shape[axis]
     E = elems
     d = 1
     while d < M:
-        head = op(kind(*(a[:M - d] for a in E)), kind(*(a[d:] for a in E)))
-        E = kind(*(torch.cat([h, a[M - d:]]) for h, a in zip(head, E)))
+        head = op(kind(*(a.narrow(axis, 0, M - d) for a in E)),
+                  kind(*(a.narrow(axis, d, M - d) for a in E)))
+        E = kind(*(torch.cat([h, a.narrow(axis, M - d, d)], dim=axis)
+                   for h, a in zip(head, E)))
         d *= 2
     return E
 
@@ -135,16 +160,16 @@ def prefix_scan(elems, op=combine):
 
 
 def gains_from_value(exp: TrajectoryExpansion, V_x, V_xx, reg):
-    """Per-step gains from the cost-to-go at k+1, parallel over time."""
+    """Per-step gains from the cost-to-go at k+1, parallel over time (and
+    over leading instance axes)."""
     n_u = exp.l_u.shape[-1]
-    eye_u = torch.eye(n_u, dtype=exp.l_u.dtype, device=exp.l_u.device)
     fuT = exp.f_u.transpose(-1, -2)
     fuT_Vxx = fuT @ V_xx
     Q_u = exp.l_u + _mv(fuT, V_x)
     Q_ux = exp.l_ux + fuT_Vxx @ exp.f_x
     Q_uu = exp.l_uu + fuT_Vxx @ exp.f_u
     rhs = torch.cat([Q_ux, Q_u[..., None]], dim=-1)
-    sol = -lin_solve(Q_uu + reg * eye_u, rhs)
+    sol = -lin_solve(Q_uu + reg_eye(reg, n_u, exp.l_u), rhs)
     K, u_ff = sol[..., :-1], sol[..., -1]
     dV = torch.stack([(u_ff * Q_u).sum(-1),
                       0.5 * (u_ff * _mv(Q_uu, u_ff)).sum(-1)], dim=-1)
@@ -154,18 +179,19 @@ def gains_from_value(exp: TrajectoryExpansion, V_x, V_xx, reg):
 def fold_second_order(exp: TrajectoryExpansion, V_x_next, V_xx_next,
                       hess=None, noise=None) -> TrajectoryExpansion:
     """``exp`` with the second-order terms folded into its stage costs at a
-    frozen value trace (V_x, V_xx at k+1, (N, n_x) and (N, n_x, n_x)):
+    frozen value trace (V_x, V_xx at k+1, (..., N, n_x) and (..., N, n_x,
+    n_x)):
     the DDP terms V_x·f_xx, V_x·f_ux, V_x·f_uu of ``hess`` (a
     `DynamicsHessians`, summed by broadcasting as JAX does) into l_xx,
     l_ux, l_uu, and the iLQG terms of ``noise`` ((C, C_x, C_u)) into all
     five.  With neither, ``exp`` itself."""
     e = exp
     if hess is not None:
-        vx = V_x_next[:, :, None, None]
+        vx = V_x_next[..., None, None]
         e = dataclasses.replace(
-            e, l_xx=e.l_xx + (vx * hess.f_xx).sum(1),
-            l_ux=e.l_ux + (vx * hess.f_ux).sum(1),
-            l_uu=e.l_uu + (vx * hess.f_uu).sum(1))
+            e, l_xx=e.l_xx + (vx * hess.f_xx).sum(-3),
+            l_ux=e.l_ux + (vx * hess.f_ux).sum(-3),
+            l_uu=e.l_uu + (vx * hess.f_uu).sum(-3))
     if noise is not None:
         q_x, q_u, q_xx, q_ux, q_uu = _noise_q_terms(V_xx_next, *noise)
         e = dataclasses.replace(
@@ -188,19 +214,21 @@ def backward_pass_ddp_parallel(
     refreshed ``sweeps`` times from the expansion folded with the last one;
     its fixed point is the sequential recursion.  The gains come from the
     expansion folded with the same trace that drives them.  ``engine``
-    'pallas' scans through `suffix_scan_fused` (kernel B6 on CUDA tensors),
-    'xla' through the plain `suffix_scan`.
+    'pallas' scans through `suffix_scan_fused` (kernel B6 on CUDA tensors;
+    over a batch its batched entry, one launch a sweep), 'xla' through the
+    plain `suffix_scan`.  Fields leading with B solve B instances, ``reg``
+    a number or (B,); dV is then (B, 2) and ok (B,).
     """
     if engine == "pallas":
         from ilqr_tpu_torch.ops.suffix_scan import suffix_scan_fused as scan
     elif engine == "xla":
-        scan = suffix_scan
+        # Time is the axis after the instance axes, if any.
+        scan = functools.partial(suffix_scan, axis=exp.v_x.ndim - 1)
     else:
         raise ValueError(f"engine must be 'pallas'|'xla', got {engine!r}")
 
     def traces(e):
-        suffix = scan(make_elements(e, reg))
-        return -suffix.eta[1:], suffix.J[1:]
+        return value_trace(scan(make_elements(e, reg)))
 
     V_x, V_xx = traces(exp)
     for _ in range(sweeps):
@@ -208,7 +236,20 @@ def backward_pass_ddp_parallel(
     u_ff, K, dVs = gains_from_value(
         fold_second_order(exp, V_x, V_xx, hess, noise), V_x, V_xx, reg)
     u_ff, K = u_ff.contiguous(), K.contiguous()
-    return u_ff, K, dVs.sum(0), all_finite(u_ff, K)
+    return u_ff, K, dVs.sum(-2), finite_gains(u_ff, K)
+
+
+def value_trace(suffix: RiccatiElement):
+    """(V_x, V_xx) at k+1 for every stage k from the suffix products of
+    the N+1 elements: −η and J past the first, along the time axis."""
+    return -suffix.eta[..., 1:, :], suffix.J[..., 1:, :, :]
+
+
+def finite_gains(u_ff, K):
+    """Whether every gain is finite, per instance: u_ff (..., N, n_u), K
+    (..., N, n_u, n_x); a 0-d bool tensor for one instance."""
+    return (torch.isfinite(u_ff).flatten(-2).all(-1)
+            & torch.isfinite(K).flatten(-3).all(-1))
 
 
 @full_f32_matmuls()
@@ -217,9 +258,9 @@ def backward_pass_associative(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Drop-in replacement for `ilqr_tpu_torch.ops.riccati.backward_pass`,
     ``defects`` included (the GNMS variant)."""
-    suffix = suffix_scan(make_elements(exp, reg, defects=defects))
     # Cost-to-go at k+1 drives the gains at k.
-    V_x, V_xx = -suffix.eta[1:], suffix.J[1:]
+    V_x, V_xx = value_trace(suffix_scan(make_elements(exp, reg,
+                                                      defects=defects)))
     if defects is not None:
         V_x = V_x + _mv(V_xx, defects)
     u_ff, K, dVs = gains_from_value(exp, V_x, V_xx, reg)

@@ -38,7 +38,8 @@ through kernel B6 under 'pallas'.  Limits also clip every rollout.
 accepted step and, after a failed line search, multiplies it and retries.
 
 `solve_batch` is the port's ``jax.vmap(solve)``: B independent problems in
-one host loop, with per-instance masks (see its docstring).
+one host loop, with per-instance masks (see its docstring), under every
+option above but the parallel-in-time line searches.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from ilqr_tpu_torch.ilqg import noise_expansion
+from ilqr_tpu_torch.ilqg import noise_expansion, noise_expansion_batched
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops.batched import (
     backward_pass_batched,
@@ -71,6 +72,7 @@ from ilqr_tpu_torch.ops.fused_rollout import (
 from ilqr_tpu_torch.ops.limited_parallel import backward_pass_limited_parallel
 from ilqr_tpu_torch.ops.linearize import (
     dynamics_hessians,
+    dynamics_hessians_batched,
     linearize_trajectory,
     linearize_trajectory_batched,
 )
@@ -96,8 +98,8 @@ class IlqrConfig:
     """Solver configuration: the fields, defaults, accepted strings and
     validation of `ilqr_tpu.solver.IlqrConfig`.
 
-    `solve_batch` raises `NotImplementedError` (ROADMAP item A12c) for
-    control limits, ddp, noise and adaptive_reg, which `solve` runs.
+    `solve_batch` raises `NotImplementedError` (ROADMAP item A12b) for the
+    rollout='defect'|'chunked' line searches, which `solve` runs.
     """
 
     maxiter: int = 100
@@ -210,10 +212,6 @@ class IlqrSolution:
 
 def _batch_unsupported(config: IlqrConfig) -> str | None:
     """Why `solve_batch` refuses ``config``, or None."""
-    if (config.u_min is not None or config.ddp or config.noise is not None
-            or config.adaptive_reg):
-        return ("control limits, ddp, noise and adaptive_reg run in `solve`; "
-                "in `solve_batch` they are ROADMAP item A12c")
     if config.resolved_rollout() in ("defect", "chunked"):
         return (f"the batched rollout={config.rollout!r} line search is "
                 f"ROADMAP item A12b")
@@ -450,15 +448,40 @@ def solve(
     )
 
 
-def _backward_batch(exp, reg: float, config: IlqrConfig):
-    """'scan', 'pallas' and 'auto' run the batched sequential recursion
-    (kernel B4 on CUDA tensors where it takes the shape and dtype; there
-    'pallas' raises and the others run the plain version); 'pscan' the
-    associative scan per instance."""
-    engine = config.resolved_backward()
-    if engine == "pscan":
+def _backward_batch(exp, reg, config: IlqrConfig, U=None, limits=None,
+                    hess=None, noise=None):
+    """`_backward` over a batch: ``exp``, U (B, N, n_u; read under limits
+    only), ``hess`` and ``noise`` lead with B, ``reg`` is a number or
+    (B,).  Limits, DDP Hessians or noise
+    terms: 'scan'/'auto' run the sequential box-QP or second-order
+    recursion per instance (`vmap_backward`), 'pscan'/'pallas' the parallel
+    passes on the whole batch, whose suffix scans under 'pallas' are one
+    launch of kernel B6's batched entry each.  Without them 'scan',
+    'pallas' and 'auto' run the batched sequential recursion (kernel B4 on
+    CUDA tensors where it takes the shape and dtype; there 'pallas' raises
+    and the others run the plain version), 'pscan' the associative scan
+    per instance."""
+    backward = config.resolved_backward()
+    parallel = backward in ("pscan", "pallas")
+    engine = "pallas" if backward == "pallas" else "xla"
+    if limits is not None:
+        if parallel:
+            return backward_pass_limited_parallel(
+                exp, U, *limits, reg, sweeps=config.active_set_sweeps,
+                engine=engine, hess=hess, noise=noise)
+        return vmap_backward(
+            lambda e, r, U, **terms: backward_pass_limited(
+                e, U, *limits, r, qp_iters=config.boxqp_iters, **terms),
+            exp, reg, U=U, hess=hess, noise=noise)
+    if hess is not None or noise is not None:
+        if parallel:
+            return backward_pass_ddp_parallel(
+                exp, reg, hess=hess, noise=noise, sweeps=config.ddp_sweeps,
+                engine=engine)
+        return vmap_backward(backward_pass, exp, reg, hess=hess, noise=noise)
+    if backward == "pscan":
         return vmap_backward(backward_pass_associative, exp, reg)
-    return backward_pass_batched(exp, reg, engine)
+    return backward_pass_batched(exp, reg, backward)
 
 
 def _initial_rollout_batch(system: System, x0s, U, config: IlqrConfig):
@@ -488,24 +511,29 @@ def solve_batch(
     * each instance tests |Δcost| ≤ tol at the top of every iteration but
       its first, accepts the first α whose cost is finite and not above its
       own, stops with LINESEARCH_FAILED when none is (or its gains are not
-      finite) and with MAXITER after ``maxiter`` accepted iterations;
-    * a stopped instance's X, U, cost, gains and traces never change again
-      (the loop still computes them; `torch.where` keeps the old values);
-    * every running instance has accepted every iteration so far, so one
-      iteration counter serves them all.
+      finite) and with MAXITER after ``maxiter`` iterations;
+    * under ``adaptive_reg`` each instance carries its own regularization:
+      an instance that accepts nothing multiplies it and retries, which
+      counts as an iteration with NaN trace slots and resets its previous
+      cost to inf (past ``reg_max`` it stops with LINESEARCH_FAILED); one
+      that accepts divides it;
+    * a stopped instance's X, U, cost, gains, reg and traces never change
+      again (the loop still computes them; `torch.where` keeps the old
+      values);
+    * every running instance moves its iteration count by one in every
+      pass of the loop, accepted or retried, so one loop counter serves
+      them all.
 
     The accept decision stays on the device; the one host read per
-    iteration is whether any instance still runs.  Engines: ``backward``
-    'scan'/'pallas'/'auto' → `ops.batched.backward_pass_batched` (B4;
-    outside its float32 n_x, n_u <= 16 'pallas' raises, the others run
-    its plain version),
-    'pscan' → the associative scan per instance; ``rollout`` 'pallas' → B5
-    (costs of every (instance, α), then one trajectory at each instance's
-    α, and the open-loop initial rollout), 'scan'/'auto' → the plain
-    batched rollouts.  The parallel-in-time line searches ('defect',
-    'chunked') raise (ROADMAP item A12b), and so do control limits, ddp,
-    noise and adaptive_reg (A12c).  x0s and U_init move to the system's
-    device and dtype.
+    iteration is whether any instance still runs.  Engines and options:
+    `_backward_batch` (limits, DDP and noise included; ``backward``
+    'scan'/'pallas'/'auto' without them → `ops.batched.backward_pass_batched`,
+    B4, fed the (B,) regularization), ``rollout`` 'pallas' → B5 (costs of
+    every (instance, α), then one trajectory at each instance's α, and the
+    open-loop initial rollout), 'scan'/'auto' → the plain batched rollouts,
+    which clip every control to the limits (U_init is clipped first).  The
+    parallel-in-time line searches ('defect', 'chunked') raise (ROADMAP
+    item A12b).  x0s and U_init move to the system's device and dtype.
     """
     x0s, U_init = system.inputs(x0s, U_init)
     if x0s.ndim != 2 or x0s.shape[1] != system.n_x:
@@ -528,9 +556,13 @@ def solve_batch(
     alphas = torch.tensor(alpha_list, dtype=dtype, device=device)
     _, N, n_u = U.shape
     n_x = system.n_x
-    reg = config.reg_init
+    reg = torch.full((B,), config.reg_init, dtype=dtype, device=device)
     pallas_rollout = config.resolved_rollout() == "pallas"
     rows = torch.arange(B, device=device)
+    limits = config.limit_arrays(n_u, dtype, device)
+    if limits is not None:
+        # A feasible initial guess: the initial rollout applies it as is.
+        U = torch.clamp(U, *limits).contiguous()
 
     X, cost = _initial_rollout_batch(system, x0s, U, config)
     u_ff = U.new_zeros((B, N, n_u))
@@ -544,7 +576,7 @@ def solve_batch(
     for k in range(config.maxiter):
         running = status == RUNNING
         # Convergence test at the top of the iteration, skipped on the
-        # first: every running instance has accepted all k iterations.
+        # first: every running instance has made k iterations.
         if k > 0:
             converged = running & ((cost - prev_cost).abs() <= config.tol)
             status = torch.where(converged, CONVERGED, status)
@@ -552,17 +584,34 @@ def solve_batch(
         if not bool(running.any()):  # the iteration's one host read
             break
         exp = linearize_trajectory_batched(system, X, U)
-        u_ff_k, K_k, _, ok = _backward_batch(exp, reg, config)
+        hess = dynamics_hessians_batched(system, X, U) if config.ddp else None
+        noise = (None if config.noise is None
+                 else noise_expansion_batched(config.noise, X, U))
+        u_ff_k, K_k, _, ok = _backward_batch(exp, reg, config, U, limits,
+                                             hess, noise)
         if pallas_rollout:
             costs = linesearch_costs_batched(system, x0s, alphas, X, U,
                                              u_ff_k, K_k)
         else:
             X_c, U_c, costs = linesearch_rollouts(system, x0s, alphas, X, U,
-                                                  u_ff_k, K_k)
+                                                  u_ff_k, K_k, limits)
         accept = (costs <= cost[:, None]) & torch.isfinite(costs) & ok[:, None]
         found = accept.any(dim=1)
-        status = torch.where(running & ~found, LINESEARCH_FAILED, status)
         take = running & found
+        failed = running & ~found
+        if config.adaptive_reg:
+            # A rejected instance escalates its regularization and retries
+            # (an iteration, with prev_cost = inf so that the retry cannot
+            # read as convergence), and gives up past reg_max; an accepted
+            # one relaxes it.
+            raised = torch.clamp(reg, min=1e-6) * config.reg_factor
+            prev_cost = torch.where(failed, torch.inf, prev_cost)
+            status = torch.where(failed & (raised > config.reg_max),
+                                 LINESEARCH_FAILED, status)
+            reg = torch.where(failed, raised, torch.where(
+                take, torch.clamp(reg / config.reg_factor, min=0.0), reg))
+        else:
+            status = torch.where(failed, LINESEARCH_FAILED, status)
         idx = accept.to(torch.uint8).argmax(dim=1)  # the first accepted α
         alpha_b = alphas[idx]
         if pallas_rollout:
@@ -583,7 +632,8 @@ def solve_batch(
             take, torch.stack([new_cost, alpha_b,
                                u_ff_k.abs().amax(dim=(1, 2))]),
             traces[:, :, k])
-        iterations = iterations + take.to(torch.int64)
+        moved = running if config.adaptive_reg else take
+        iterations = iterations + moved.to(torch.int64)
 
     status = torch.where(status == RUNNING, MAXITER, status)
     return IlqrSolution(

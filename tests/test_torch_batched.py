@@ -450,11 +450,13 @@ def test_mesh_and_batched_parallel_linesearches_raise():
     for rollout in ("defect", "chunked"):
         with pytest.raises(NotImplementedError, match="A12b"):
             itt.solve_batch(sys_, x0s, U0, itt.IlqrConfig(rollout=rollout))
-    # Limits, ddp, noise and adaptive_reg run in `solve`, not yet batched.
+    # Limits, ddp, noise and adaptive_reg run batched too (A12c, done;
+    # tests/test_torch_batch_options.py holds them to JAX).
     for kw in (dict(u_min=-1.0, u_max=1.0), dict(ddp=True),
-               dict(noise=lambda x, u: x[:, None]), dict(adaptive_reg=True)):
-        with pytest.raises(NotImplementedError, match="A12c"):
-            itt.solve_batch(sys_, x0s, U0, itt.IlqrConfig(**kw))
+               dict(noise=lambda x, u: 0.1 * x[:, None]),
+               dict(adaptive_reg=True)):
+        sol = itt.solve_batch(sys_, x0s, U0, itt.IlqrConfig(maxiter=3, **kw))
+        assert bool(torch.isfinite(sol.cost).all()), kw
     with pytest.raises(ValueError, match="x0s"):
         itt.solve_batch(sys_, torch.zeros(2), U0)
     with pytest.raises(ValueError, match="U_init"):

@@ -32,16 +32,18 @@ RTOL = 1e-4
 
 def test_driver_inventory():
     # The five reference workloads, the two constrained drivers, the six
-    # drivers of the other model families (test_torch_examples_models.py)
-    # and the three of the solvers beyond iLQR
-    # (test_torch_examples_solvers.py).
+    # drivers of the other model families (test_torch_examples_models.py),
+    # the three of the solvers beyond iLQR
+    # (test_torch_examples_solvers.py) and the batched surface's
+    # (test_torch_batch_options.py).
     assert DRIVERS == sorted([
         "pendulum_open_loop", "double_pendulum_open_loop",
         "ua_double_pendulum_open_loop", "pendulum_mpc",
         "double_pendulum_mpc", "constrained_pendulum", "constrained_mpc",
         "quadrotor3d_flight", "quadrotor_dash", "car_obstacles",
         "linear_lqr", "tvlqr_tracking", "reference_tracking_mpc",
-        "inverse_optimal_control", "mppi_pendulum", "parallel_estimation"])
+        "inverse_optimal_control", "mppi_pendulum", "parallel_estimation",
+        "batched_mpc"])
 
 
 @pytest.fixture

@@ -596,3 +596,39 @@ def test_fused_riccati_kernel_on_the_host(host_lib, monkeypatch, N, n_x, n_u,
                                         None if d is None else d.double())
     assert bool(got[3]) and bool(ref[3])
     _close(got[:3], ref[:3])
+
+
+def _batched_elements(B, M, n_x, seed):
+    """B sequences of M elements (seeded, one expansion each), stacked."""
+    seqs = []
+    for i in range(B):
+        el = parallel_riccati.make_elements(
+            _expansion(M, n_x, 1, seed + 17 * i), 0.1 * i)
+        seqs.append(RiccatiElement(*(t[:M] for t in el)))
+    return RiccatiElement(*(torch.stack(f).contiguous() for f in zip(*seqs)))
+
+
+# (B, M, n_x, resident): 64-element 'sub' tiles, B x n_tiles blocks by
+# instance-major tickets; with 2-3 resident a block that polls waits on
+# earlier tickets only.
+@pytest.mark.parametrize("B,M,n_x,resident", [
+    (1, 65, 2, 0), (3, 1, 4, 0), (3, 64, 2, 0), (2, 5 * 64 + 35, 4, 0),
+    (5, 130, 2, 3), (4, 64 * 3 + 1, 4, 2), (2, 64 * 65 + 1, 2, 0)])
+def test_batched_suffix_scan_kernel_on_the_host(host_lib, monkeypatch, B, M,
+                                                n_x, resident):
+    """B6's batched entry: one launch for B sequences, each instance's
+    outputs equal bit for bit to a single-instance launch on it (the same
+    tiles and fold order), held to the plain scan in f64, a repeated
+    call bit for bit and the counters back at zero."""
+    if resident:
+        monkeypatch.setenv("MOCK_RESIDENT", str(resident))
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    elems = _batched_elements(B, M, n_x, M + B)
+    got = _twice(lambda: suffix_scan.launch_batched(host_lib, elems, 0))
+    ref = parallel_riccati.suffix_scan(
+        RiccatiElement(*(t.double() for t in elems)), axis=1)
+    _close(got, ref)
+    for i in range(B):
+        one = suffix_scan.launch(host_lib, RiccatiElement(
+            *(t[i].contiguous() for t in elems)), "sub", 0)
+        assert all(torch.equal(a[i], b) for a, b in zip(got, one)), i

@@ -226,3 +226,28 @@ def test_wide_combine_pivots(host_lib, monkeypatch, n_x):
         RiccatiElement(*(t.double() for t in elems)))
     assert all(bool(torch.isfinite(g).all()) for g in got)
     _close(got, ref)
+
+
+# (B, M, n_x, resident): the wide form's 4-element tiles over B instances.
+@pytest.mark.parametrize("B,M,n_x,resident", [
+    (1, 9, 6, 0), (3, 1, 12, 0), (3, 8, 6, 0), (4, 13, 12, 3),
+    (2, 23, 16, 0), (5, 5, 3, 2)])
+def test_wide_batched_suffix_scan_on_the_host(host_lib, monkeypatch, B, M,
+                                              n_x, resident):
+    """B6w over a batch: one launch, each instance bit for bit a
+    single-instance launch, the plain scan in f64 within 1e-5 of each
+    output's max, counters back at zero."""
+    from test_torch_lookback import _batched_elements
+
+    if resident:
+        monkeypatch.setenv("MOCK_RESIDENT", str(resident))
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    elems = _batched_elements(B, M, n_x, M + n_x)
+    got = _twice(lambda: suffix_scan.launch_batched(host_lib, elems, 0))
+    ref = parallel_riccati.suffix_scan(
+        RiccatiElement(*(t.double() for t in elems)), axis=1)
+    _close(got, ref)
+    for i in range(B):
+        one = suffix_scan.launch(host_lib, RiccatiElement(
+            *(t[i].contiguous() for t in elems)), "sub", 0)
+        assert all(torch.equal(a[i], b) for a, b in zip(got, one)), i
