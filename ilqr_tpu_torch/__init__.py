@@ -75,7 +75,10 @@ from ilqr_tpu_torch.ilqg import (
     noise_expansion_batched,
     simulate_closed_loop,
 )
-from ilqr_tpu_torch.ops.affine_scan import affine_prefix_scan_multi
+from ilqr_tpu_torch.ops.affine_scan import (
+    affine_prefix_scan_batched,
+    affine_prefix_scan_multi,
+)
 from ilqr_tpu_torch.ops.batched import (
     backward_pass_batched,
     closed_loop_rollout_batched,
@@ -193,6 +196,7 @@ __all__ = [
     "open_loop_rollout_fused",
     "linesearch_costs_batched", "closed_loop_rollout_batched",
     "open_loop_rollout_batched",
+    "affine_prefix_scan_batched",
     "affine_prefix_scan_multi",
     "solve", "solve_batch", "IlqrConfig", "IlqrSolution",
     "CONVERGED", "LINESEARCH_FAILED", "MAXITER",

@@ -75,6 +75,18 @@
 // Scratch floats: [aggregates (n_tiles, n^2 + A n), inclusive states
 // (n_tiles, A n), entering states (n_tiles, A n)].  Shared memory does not
 // depend on A.
+//
+// Over a batch (ilqr_affine_prefix_scan_batched; replaces jax.vmap of
+// affine_prefix_scan_multi, whose pallas_call gains a batch grid axis): B
+// independent chains, P (B, N, n, n), q (B, A, N, n), delta0 (B, A, n),
+// in one launch of B x n_tiles blocks, in either form.  Blocks take their
+// tickets instance-major (lookback.cuh, take_batched_tile), each
+// instance's tiles from the left, so every tile a block waits on holds an
+// earlier ticket.  Status words and the scratch are per (instance, tile),
+// the counters reset once per launch by its last block, and instance
+// offsets are 64-bit.  Each instance runs the tiles and the fold order of
+// a launch on it alone, so its deltas are those of the single-instance
+// entry bit for bit (which is this kernel with B = 1).
 #include <cuda_runtime.h>
 
 #include "group_linalg.cuh"
@@ -158,12 +170,18 @@ constexpr int prefix_smem_floats(int NX, int A) {
          + kStageTiles * (NX * NX + A * NX);   // staged tile aggregates
 }
 
+// Instance i's rows of a batch whose instances hold `per` floats each.
+template <class T>
+__device__ __forceinline__ T* instance_rows(T* base, int i, size_t per) {
+  return base + (size_t)i * per;
+}
+
 template <int NX, int C>
 __global__ void __launch_bounds__(kTileSteps)
-prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
-              const float* __restrict__ delta0, int N, int A, int n_tiles,
-              int* __restrict__ counters, float* __restrict__ scratch,
-              float* __restrict__ out) {
+prefix_kernel(const float* __restrict__ P_all, const float* __restrict__ q_all,
+              const float* __restrict__ d0_all, int N, int A, int n_tiles,
+              int n_inst, int* __restrict__ counters,
+              float* __restrict__ scratch, float* __restrict__ out_all) {
   constexpr int NN = NX * NX;
   const int F = NN + A * NX;   // an element or aggregate: P, then q^1..A
   const int S = A * NX;        // a state of every candidate
@@ -172,17 +190,18 @@ prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
   float* wagg = sm;                  // (kWarps, F)
   float* win = wagg + kWarps * F;    // (kWarps, S)
   float* stage = win + kWarps * S;   // (kStageTiles, F)
-  int* status = counters + 2;
-  float* aggs = scratch;                        // (n_tiles, F)
-  float* incl = aggs + (size_t)n_tiles * F;     // (n_tiles, S)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // 1. The tile in start order from the left; its elements, scanned by
-  // warps.
-  const int p = lookback::take_tile<kFromLeft>(counters, n_tiles, &slots);
+  // 1. The tile in start order from the left of its instance; its
+  // elements, scanned by warps.
+  const int p = lookback::take_batched_tile<kFromLeft>(counters, n_tiles,
+                                                       &slots);
   const int k = p * kTileSteps + tid;
   float pm[NN], v[C][NX];
   if (k < N) {
+    const float* P = instance_rows(P_all, slots.instance, (size_t)N * NN);
+    const float* q = instance_rows(q_all, slots.instance,
+                                   (size_t)A * N * NX);
 #pragma unroll
     for (int f = 0; f < NN; ++f) pm[f] = P[(size_t)k * NN + f];
 #pragma unroll
@@ -214,11 +233,20 @@ prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
       }
     }
   }
-  if (p == 0 && tid < S) out[(size_t)(tid / NX) * (N + 1) * NX + tid % NX] =
-      delta0[tid];
+  if (p == 0 && tid < S) {
+    instance_rows(out_all, slots.instance, (size_t)S * (N + 1))
+        [(size_t)(tid / NX) * (N + 1) * NX + tid % NX] =
+        instance_rows(d0_all, slots.instance, S)[tid];
+  }
   __syncthreads();
 
-  // 2. The tile aggregate: the chain of the warp aggregates.
+  // 2. The tile aggregate: the chain of the warp aggregates (the
+  // instance's status words and scratch found here, after the warp scan,
+  // whose elements fill the registers).
+  int* status = counters + 2 + (size_t)slots.instance * n_tiles;
+  float* aggs = instance_rows(scratch, slots.instance,
+                              (size_t)n_tiles * (F + S));   // (n_tiles, F)
+  float* incl = aggs + (size_t)n_tiles * F;                 // (n_tiles, S)
   float* agg = aggs + (size_t)p * F;
   if (warp == 0 && lane < A) {
     float x[NX];
@@ -249,9 +277,10 @@ prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
   // the left (or delta_0) carried through the aggregates up to this tile's;
   // the state before the last step is the one entering this tile.
   const int qt = lookback::find_inclusive<kFromLeft>(
-      counters + 2, p, n_tiles, &slots);
+      status, p, n_tiles, &slots);
   float x[NX], x_in[NX];
   if (tid < A) {
+    const float* delta0 = instance_rows(d0_all, slots.instance, S);
 #pragma unroll
     for (int i = 0; i < NX; ++i)
       x[i] = qt >= 0 ? __ldcg(incl + (size_t)qt * S + tid * NX + i)
@@ -274,11 +303,12 @@ prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
     __syncwarp();
     if (lane == 0) lookback::publish(&status[p], lookback::kInclusive);
   }
-  if (lookback::arrive(counters, n_tiles, &slots)) {
-    lookback::reset(counters, n_tiles);
+  if (lookback::arrive(counters, n_inst * n_tiles, &slots)) {
+    lookback::reset(counters, n_inst * n_tiles);
   }
 
-  // 4. The state entering each warp, then every step's delta.
+  // 4. The state entering each warp, then every step's delta (the
+  // instance's rows found here, not carried over the look-back).
   if (tid < A) {
     float y[NX];
 #pragma unroll
@@ -293,6 +323,7 @@ prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
   __syncthreads();
   if (k < N) {
     const float* d_in = win + warp * S;
+    float* out = instance_rows(out_all, slots.instance, (size_t)S * (N + 1));
 #pragma unroll
     for (int a = 0; a < C; ++a) {
       if (a < A) {
@@ -309,15 +340,16 @@ prefix_kernel(const float* __restrict__ P, const float* __restrict__ q,
 }
 
 template <int NX, int C>
-int run(int A, int N, const float* P, const float* q, const float* delta0,
-        int* counters, float* scratch, float* out, cudaStream_t stream) {
+int run(int A, int B, int N, const float* P, const float* q,
+        const float* delta0, int* counters, float* scratch, float* out,
+        cudaStream_t stream) {
   const int n_tiles = (N + kTileSteps - 1) / kTileSteps;
   const int smem = static_cast<int>(sizeof(float) * prefix_smem_floats(NX, A));
   cudaError_t err = cudaFuncSetAttribute(
       prefix_kernel<NX, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  prefix_kernel<NX, C><<<n_tiles, kTileSteps, smem, stream>>>(
-      P, q, delta0, N, A, n_tiles, counters, scratch, out);
+  prefix_kernel<NX, C><<<B * n_tiles, kTileSteps, smem, stream>>>(
+      P, q, delta0, N, A, n_tiles, B, counters, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,10 +413,12 @@ __device__ __forceinline__ void load_drives(const float* q, int c, int N,
 
 template <int P>
 __global__ void __launch_bounds__(32 * kWideWarps)
-wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
-                   const float* __restrict__ delta0, int n, int A, int N,
-                   int n_tiles, int* __restrict__ counters,
-                   float* __restrict__ scratch, float* __restrict__ out) {
+wide_prefix_kernel(const float* __restrict__ P_all,
+                   const float* __restrict__ q_all,
+                   const float* __restrict__ d0_all, int n, int A, int N,
+                   int n_tiles, int n_inst, int* __restrict__ counters,
+                   float* __restrict__ scratch,
+                   float* __restrict__ out_all) {
   using W = WideSmem<P>;
   using M = grp::Mat<P>;
   constexpr int LD = M::LD, SZ = W::SZ, kThreads = W::kThreads;
@@ -394,25 +428,33 @@ wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
   const grp::Lane ln;
   const int r = ln.l % P;
   const int NN = n * n, F = NN + A * n, SA = A * n;
-  int* status = counters + 2;
-  float* aggs = scratch;                          // (n_tiles, F)
-  float* incl = aggs + (size_t)n_tiles * F;       // (n_tiles, SA)
-  float* entering = incl + (size_t)n_tiles * SA;  // (n_tiles, SA)
   float* Ps = smw + W::kP;
 
-  // 1. The tile from the left; its transition matrices, zero-padded, the
-  // identity past N.
-  const int p = lookback::take_tile<kFromLeft>(counters, n_tiles, &slots);
+  // 1. The tile from the left of its instance; its transition matrices,
+  // zero-padded, the identity past N.
+  const int p = lookback::take_batched_tile<kFromLeft>(counters, n_tiles,
+                                                       &slots);
+  const int inst = slots.instance;
+  int* status = counters + 2 + (size_t)inst * n_tiles;
+  float* aggs = instance_rows(scratch, inst,
+                              (size_t)n_tiles * (F + 2 * SA));  // (n_tiles, F)
+  float* incl = aggs + (size_t)n_tiles * F;       // (n_tiles, SA)
+  float* entering = incl + (size_t)n_tiles * SA;  // (n_tiles, SA)
   const int k0 = p * kWideTile, steps = min(kWideTile, N - k0);
-  for (int i = tid; i < kWideTile * P * P; i += kThreads) {
-    const int k = i / (P * P), e = i % (P * P), row = e / P, col = e % P;
-    float v = 0.0f;
-    if (row < n && col < n)
-      v = k < steps ? Pm[(size_t)(k0 + k) * NN + row * n + col]
-                    : (row == col ? 1.0f : 0.0f);
-    Ps[k * SZ + row * LD + col] = v;
+  {
+    const float* Pm = instance_rows(P_all, inst, (size_t)N * NN);
+    for (int i = tid; i < kWideTile * P * P; i += kThreads) {
+      const int k = i / (P * P), e = i % (P * P), row = e / P, col = e % P;
+      float v = 0.0f;
+      if (row < n && col < n)
+        v = k < steps ? Pm[(size_t)(k0 + k) * NN + row * n + col]
+                      : (row == col ? 1.0f : 0.0f);
+      Ps[k * SZ + row * LD + col] = v;
+    }
   }
   if (p == 0) {
+    float* out = instance_rows(out_all, inst, (size_t)SA * (N + 1));
+    const float* delta0 = instance_rows(d0_all, inst, SA);
     for (int i = tid; i < SA; i += kThreads)
       out[(size_t)(i / n) * (N + 1) * n + i % n] = delta0[i];
   }
@@ -441,7 +483,8 @@ wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
   }
   for (int c = warp; c < A; c += kWideWarps) {
     float qv[kWideTile];
-    load_drives(q, c, N, n, k0, steps, r, qv);
+    load_drives(instance_rows(q_all, inst, (size_t)SA * N), c, N, n, k0,
+                steps, r, qv);
     float x = 0.0f;
 #pragma unroll
     for (int k = 0; k < kWideTile; ++k)
@@ -456,12 +499,12 @@ wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
   // left (or delta_0) through the aggregates up to this tile's own, each
   // read from L2; the state before the last is the one entering the tile.
   const int qt = lookback::find_inclusive<kFromLeft>(
-      counters + 2, p, n_tiles, &slots);
+      status, p, n_tiles, &slots);
   for (int c = warp; c < A; c += kWideWarps) {
     float x = 0.0f;
     if (r < n && ln.l < P)
       x = qt >= 0 ? __ldcg(incl + (size_t)qt * SA + c * n + r)
-                  : delta0[c * n + r];
+                  : instance_rows(d0_all, slots.instance, SA)[c * n + r];
     for (int j = qt + 1; j <= p; ++j) {
       const float* aj = aggs + (size_t)j * F;
       if (j == p && ln.l < n) entering[(size_t)p * SA + c * n + ln.l] = x;
@@ -478,11 +521,15 @@ wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
   }
   __syncthreads();
   if (tid == 0) lookback::publish(&status[p], lookback::kInclusive);
-  if (lookback::arrive(counters, n_tiles, &slots)) {
-    lookback::reset(counters, n_tiles);
+  if (lookback::arrive(counters, n_inst * n_tiles, &slots)) {
+    lookback::reset(counters, n_inst * n_tiles);
   }
 
-  // 4. Every step's delta, from the state entering the tile.
+  // 4. Every step's delta, from the state entering the tile (the
+  // instance's rows found here, not carried over the look-back).
+  const int i4 = slots.instance;
+  const float* q = instance_rows(q_all, i4, (size_t)SA * N);
+  float* out = instance_rows(out_all, i4, (size_t)SA * (N + 1));
   for (int c = warp; c < A; c += kWideWarps) {
     float qv[kWideTile];
     load_drives(q, c, N, n, k0, steps, r, qv);
@@ -499,7 +546,7 @@ wide_prefix_kernel(const float* __restrict__ Pm, const float* __restrict__ q,
 }
 
 template <int P>
-int run_wide(int n, int A, int N, const float* Pm, const float* q,
+int run_wide(int n, int A, int B, int N, const float* Pm, const float* q,
              const float* delta0, int* counters, float* scratch, float* out,
              cudaStream_t stream) {
   using S = WideSmem<P>;
@@ -508,8 +555,8 @@ int run_wide(int n, int A, int N, const float* Pm, const float* q,
       wide_prefix_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  wide_prefix_kernel<P><<<n_tiles, S::kThreads, S::kBytes, stream>>>(
-      Pm, q, delta0, n, A, N, n_tiles, counters, scratch, out);
+  wide_prefix_kernel<P><<<B * n_tiles, S::kThreads, S::kBytes, stream>>>(
+      Pm, q, delta0, n, A, N, n_tiles, B, counters, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -543,12 +590,27 @@ int tiles(int n, int A, int N) {
 extern "C" int ilqr_affine_tile_steps(int n, int A) { return tile_steps(n, A); }
 
 // Sizes of the kernel's scratch: ints (zeroed once, left zeroed by every
-// call) and floats.
+// call) and floats; -1 where a count does not fit an int.
+static int fits(long long count) {
+  return count > 0x7fffffffLL ? -1 : static_cast<int>(count);
+}
+static long long scratch_floats(int n, int A, int N) {
+  return (long long)tiles(n, A, N) *
+         (n * n + (register_form(n, A) ? 2 : 3) * A * n);
+}
 extern "C" int ilqr_affine_prefix_scan_counters(int n, int A, int N) {
   return lookback::counter_ints(tiles(n, A, N));
 }
 extern "C" int ilqr_affine_prefix_scan_scratch(int n, int A, int N) {
-  return tiles(n, A, N) * (n * n + (register_form(n, A) ? 2 : 3) * A * n);
+  return fits(scratch_floats(n, A, N));
+}
+extern "C" int ilqr_affine_prefix_scan_batched_counters(int n, int A, int B,
+                                                        int N) {
+  return fits(2 + (long long)B * tiles(n, A, N));
+}
+extern "C" int ilqr_affine_prefix_scan_batched_scratch(int n, int A, int B,
+                                                       int N) {
+  return fits(B * scratch_floats(n, A, N));
 }
 
 // Blocks of the kernel resident on one SM at n and A candidates (a
@@ -562,26 +624,47 @@ extern "C" int ilqr_affine_prefix_scan_occupancy(int n, int A) {
   return wide_pad(n) == 8 ? wide_occupancy<8>() : wide_occupancy<16>();
 }
 
+// The launches of both entries: B chains of N steps with A candidates,
+// the register form at n in {2, 4} with A <= 16, the wide form at every
+// other n <= 16.
+static int scan(int n, int A, int B, int N, const float* P, const float* q,
+                const float* delta0, int* counters, float* scratch,
+                float* out, cudaStream_t s) {
+  if (A < 1 || B < 1 || N < 1 || n < 1 || n > 16 ||
+      (long long)B * tiles(n, A, N) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (register_form(n, A)) {
+    if (n == 2 && A == 1)
+      return run<2, 1>(A, B, N, P, q, delta0, counters, scratch, out, s);
+    if (n == 2)
+      return run<2, kMaxCand>(A, B, N, P, q, delta0, counters, scratch, out,
+                              s);
+    if (A == 1)
+      return run<4, 1>(A, B, N, P, q, delta0, counters, scratch, out, s);
+    return run<4, kMaxCand>(A, B, N, P, q, delta0, counters, scratch, out, s);
+  }
+  if (wide_pad(n) == 8)
+    return run_wide<8>(n, A, B, N, P, q, delta0, counters, scratch, out, s);
+  return run_wide<16>(n, A, B, N, P, q, delta0, counters, scratch, out, s);
+}
+
 // One launch.  Inputs P (N, n, n), q (A, N, n), delta0 (A, n); counters
-// and scratch as sized above; output out (A, N+1, n).  The register form
-// at n in {2, 4} with A <= 16, the wide form at every other n <= 16.
+// and scratch as sized above; output out (A, N+1, n).
 extern "C" int ilqr_affine_prefix_scan(int n, int A, int N, const float* P,
                                        const float* q, const float* delta0,
                                        int* counters, float* scratch,
                                        float* out, void* stream) {
-  if (A < 1 || N < 1 || n < 1 || n > 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (register_form(n, A)) {
-    if (n == 2 && A == 1)
-      return run<2, 1>(A, N, P, q, delta0, counters, scratch, out, s);
-    if (n == 2)
-      return run<2, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
-    if (A == 1)
-      return run<4, 1>(A, N, P, q, delta0, counters, scratch, out, s);
-    return run<4, kMaxCand>(A, N, P, q, delta0, counters, scratch, out, s);
-  }
-  if (wide_pad(n) == 8)
-    return run_wide<8>(n, A, N, P, q, delta0, counters, scratch, out, s);
-  return run_wide<16>(n, A, N, P, q, delta0, counters, scratch, out, s);
+  return scan(n, A, 1, N, P, q, delta0, counters, scratch, out,
+              static_cast<cudaStream_t>(stream));
+}
+
+// One launch over B chains: P (B, N, n, n), q (B, A, N, n), delta0
+// (B, A, n), contiguous; out (B, A, N+1, n), instance i's that of
+// ilqr_affine_prefix_scan on instance i alone.
+extern "C" int ilqr_affine_prefix_scan_batched(
+    int n, int A, int B, int N, const float* P, const float* q,
+    const float* delta0, int* counters, float* scratch, float* out,
+    void* stream) {
+  return scan(n, A, B, N, P, q, delta0, counters, scratch, out,
+              static_cast<cudaStream_t>(stream));
 }

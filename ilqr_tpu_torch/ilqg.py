@@ -22,6 +22,7 @@ import torch
 
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
 from ilqr_tpu_torch.ops.integrators import step
+from ilqr_tpu_torch.utils import random
 
 
 class NoiseExpansion(NamedTuple):
@@ -77,15 +78,14 @@ def simulate_closed_loop(
     """Monte-Carlo cost of tracking (X_ref, U_ref) with feedback K under
     x⁺ = f(x, u) + C(x, u)·ξ, u_k = U_ref_k + α·K_k (x_k − X_ref_k).
 
-    The noise ξ is drawn from ``generator`` (JAX takes a key), on the
-    generator's device, and the ``n_rollouts`` realizations run as one
-    batch.  Returns (mean, std) of the cost (population std, as jnp.std).
+    The noise ξ is drawn from ``generator`` (JAX takes a key) by
+    `utils.random.normal`, on the generator's device, and the
+    ``n_rollouts`` realizations run as one batch.  Returns (mean, std) of the cost (population std, as jnp.std).
     """
     N = U_ref.shape[0]
     n_w = noise_fn(X_ref[0], U_ref[0]).shape[-1]
-    xis = torch.randn((N, n_rollouts, n_w), generator=generator,
-                      dtype=X_ref.dtype, device=generator.device)
-    xis = xis.to(X_ref.device)
+    xis = random.normal(generator, (N, n_rollouts, n_w), X_ref.dtype,
+                        generator.device).to(X_ref.device)
     batch_noise = torch.func.vmap(noise_fn)
     p = system.params
     x = X_ref[0].expand(n_rollouts, X_ref.shape[-1])

@@ -12,7 +12,8 @@ and the solution is shifted and held as the next warm start
 * `run_mpc_rti`: re-solve every ``resolve_every`` steps and track the plan
   with its own gains in between, ``u = U[j] + K[j] (x − X[j])``.
 * `run_mpc_batched`: B closed loops in step, one `solver.solve_batch` per
-  simulated step — what ``jax.vmap(run_mpc)`` returns per instance.
+  simulated step, each instance with its own latch cooldown — what
+  ``jax.vmap(run_mpc)`` returns per instance.
 * `run_mpc_ms`: the loop on the multiple-shooting solver, with the states
   shifted and held as well.
 * `run_mpc_constrained`: the loop on the augmented-Lagrangian solver, with
@@ -62,7 +63,12 @@ class MpcResult:
     solve_status: Any  # (n_solves,) status of each solve
 
 
-def _next_cooldown(latch: bool, cooldown: int) -> int:
+def _next_cooldown(latch, cooldown):
+    """The cooldown after a solve that ended with ``latch``: bools and
+    ints, or per instance (B,) tensors."""
+    if torch.is_tensor(latch):
+        return torch.where(latch, 0, torch.where(
+            cooldown == 0, _LATCH_COOLDOWN, cooldown - 1))
     if latch:
         return 0
     return _LATCH_COOLDOWN if cooldown == 0 else cooldown - 1
@@ -175,15 +181,17 @@ def run_mpc_batched(
     gains a leading B axis.
 
     Each simulated step is one `solve_batch` of all B problems, under
-    every option it takes (limits, DDP, iLQG, adaptive_reg, each instance
-    on its own); the batched solve has no parallel line search or latch
-    (ROADMAP item A12b)."""
+    every option it takes (limits, DDP, iLQG, adaptive_reg, the parallel
+    line searches, each instance on its own); each instance carries its
+    own latch cooldown across steps, as `run_mpc` does."""
     x0_batch, U_init = solver_system.inputs(x0_batch, U_init)
     x = x0_batch
     U_warm = U_init.expand((x.shape[0],) + tuple(U_init.shape[-2:]))
+    cooldown = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
     xs, us, costs, iters, status = [], [], [], [], []
     for _ in range(n_sim):
-        sol = solve_batch(solver_system, x, U_warm, config)
+        sol = solve_batch(solver_system, x, U_warm, config,
+                          defect_latch=cooldown == 0)
         u0 = sol.U[:, 0]
         xs.append(x)
         us.append(u0)
@@ -192,6 +200,7 @@ def run_mpc_batched(
         status.append(sol.status)
         x = step(plant_system, x, u0)
         U_warm = _shift(sol.U)
+        cooldown = _next_cooldown(sol.defect_latch, cooldown)
     return _result(plant_system, xs, us, costs, x, iters, status)
 
 

@@ -17,7 +17,7 @@ Every C entry returns ``cudaGetLastError()`` after its launches; `check`
 turns a non-zero code into an exception.  Each kernel wrapper adds one to
 its entry in the launch counts where it launches its kernel, and nowhere
 else, so a run can show which kernels its main path went through.  The
-look-back kernels (B1, B3, B6/B7 and B6 over a batch:
+look-back kernels (B1, B3, B6/B7 and B3 and B6 over a batch:
 ``csrc/lookback.cuh``) take their counters and scratch from `scratch`, one
 set per device, stream and shape (the batch size included).
 """
@@ -70,6 +70,9 @@ SIGNATURES = {
     "ilqr_affine_prefix_scan_scratch": [_I, _I, _I],
     "ilqr_affine_prefix_scan_occupancy": [_I, _I],
     "ilqr_affine_tile_steps": [_I, _I],
+    "ilqr_affine_prefix_scan_batched": [_I] * 4 + [_P] * 6 + [_P],
+    "ilqr_affine_prefix_scan_batched_counters": [_I] * 4,
+    "ilqr_affine_prefix_scan_batched_scratch": [_I] * 4,
     "ilqr_batched_riccati": [_I, _I, _I, _I, _F] + [_P] * 10 + [_P] * 4
                             + [_P],
     "ilqr_batched_riccati_chunk_steps": [],

@@ -21,6 +21,12 @@ batched call is the vmap over time) and the open-loop Jacobians with
 `torch.func.vmap` of `jacfwd` over time, as in `ops/linearize.py`.  The
 returned max defect certifies the result; callers fall back to the
 sequential rollout when it is not small.
+
+`linesearch_defect_rollouts_batched` is the line search over a batch of B
+instances (JAX's ``jax.vmap`` of `defect_rollout` and
+`linesearch_defect_rollouts`): one launch of B3's batched entry a sweep,
+and each instance stops sweeping on its own, as vmap of JAX's
+``while_loop`` stops it.
 """
 from __future__ import annotations
 
@@ -29,7 +35,10 @@ from typing import Tuple
 import torch
 
 from ilqr_tpu_torch.models.base import System, full_f32_matmuls
-from ilqr_tpu_torch.ops.affine_scan import affine_prefix_scan_multi
+from ilqr_tpu_torch.ops.affine_scan import (
+    affine_prefix_scan_batched,
+    affine_prefix_scan_multi,
+)
 from ilqr_tpu_torch.ops.integrators import step
 
 
@@ -103,7 +112,10 @@ def open_loop_defect_rollout(
     defect.  Returns (X (N+1, n_x), cost, max defect).
     """
     N = U.shape[0]
-    X = x0.expand(N + 1, x0.shape[0]) if X_guess is None else X_guess
+    # The constant guess is materialized: forward-mode duals of a view that
+    # repeats the row of a larger tensor (x0 = x0s[i]) raise.
+    X = (x0.expand(N + 1, x0.shape[0]).contiguous() if X_guess is None
+         else X_guess)
     jac_x = torch.func.vmap(torch.func.jacfwd(
         lambda x, u: step(system, x, u), argnums=0))
     F = step(system, X[:-1], U)
@@ -153,4 +165,57 @@ def linesearch_defect_rollouts(system: System, x0, alphas, X_old, U_old,
         U = controls(X)
         F = step(system, X[:, :-1], U)
         defects = _guarded_max_defect(F - X[:, 1:], (1, 2))
+    return X, U, trajectory_cost(system, X, U), defects
+
+
+@full_f32_matmuls()
+def linesearch_defect_rollouts_batched(
+    system: System, x0s, alphas, X_old, U_old, u_ff, K, A_cl,
+    iters: int = 6, engine: str = "auto", exit_tol=0.0, u_limits=None,
+    active=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`linesearch_defect_rollouts` over B instances: x0s (B, n_x), X_old
+    (B, N+1, n_x), U_old and u_ff (B, N, n_u), K (B, N, n_u, n_x), the
+    closed-loop transitions A_cl (B, N, n_x, n_x); ``alphas`` (A,) shared.
+
+    An instance sweeps while it is ``active`` ((B,) bool, default all),
+    any of its candidates' defects exceeds its ``exit_tol`` (a number or
+    (B,)) and it has sweeps left; an instance that stopped keeps its
+    iterate bit for bit (`torch.where` on every carry) and the loop ends
+    when none sweeps: one host read and one launch of B3's batched entry
+    (`affine_prefix_scan_batched` under ``engine``) a sweep.  Returns (X
+    (B, A, N+1, n_x), U (B, A, N, n_u), costs (B, A), defects (B, A)).
+    """
+    B = x0s.shape[0]
+    alphas = torch.as_tensor(alphas, dtype=x0s.dtype, device=x0s.device)
+    exit_tol = torch.as_tensor(exit_tol, dtype=x0s.dtype,
+                               device=x0s.device).expand(B)
+    if active is None:
+        active = torch.ones(B, dtype=torch.bool, device=x0s.device)
+
+    def controls(X):
+        dx = X[:, :, :-1] - X_old[:, None, :-1]
+        u = (U_old[:, None] + alphas[:, None, None] * u_ff[:, None]
+             + torch.einsum("bkij,bakj->baki", K, dx))
+        return u if u_limits is None else torch.clamp(u, *u_limits)
+
+    X = X_old[:, None].expand((B, alphas.shape[0]) + X_old.shape[1:])
+    U = controls(X)
+    F = step(system, X[:, :, :-1], U)
+    defects = _guarded_max_defect(F - X[:, :, 1:], (2, 3))
+    for _ in range(iters):
+        sweeping = active & (defects.amax(dim=1) > exit_tol)
+        if not bool(sweeping.any()):
+            break
+        deltas = affine_prefix_scan_batched(
+            A_cl, F - X[:, :, 1:], x0s[:, None] - X[:, :, 0], engine=engine)
+        X_new = X + deltas
+        U_new = controls(X_new)
+        F_new = step(system, X_new[:, :, :-1], U_new)
+        s = sweeping[:, None, None, None]
+        X = torch.where(s, X_new, X)
+        U = torch.where(s, U_new, U)
+        F = torch.where(s, F_new, F)
+        defects = torch.where(sweeping[:, None], _guarded_max_defect(
+            F_new - X_new[:, :, 1:], (2, 3)), defects)
     return X, U, trajectory_cost(system, X, U), defects

@@ -3,11 +3,13 @@
 PyTorch counterpart of `ilqr_tpu/parallel/batch.py`.  JAX batches with
 ``jit(vmap(solve))`` and shards the batch axis over a device mesh; the port
 batches with `solver.solve_batch` (B problems in one host loop, through the
-batched kernels B4 and B5, and B6 over the batch for the limited and
-DDP/iLQG parallel passes) on one GPU, with every option of `solve` but
-the parallel-in-time line searches (ROADMAP item A12b): control limits,
-DDP, iLQG noise and adaptive regularization per instance.  A ``mesh``
-other than None raises: sharding over several GPUs is ROADMAP item A19.
+batched kernels B4 and B5, B6 over the batch for the limited and DDP/iLQG
+parallel passes, and B3 over the batch for the defect line search) on one
+GPU, with every option of `solve` per instance: control limits, DDP, iLQG
+noise, adaptive regularization and the parallel-in-time line searches
+('defect', 'chunked', each instance with its own latch); 'auto' stays the
+sequential engine.  A ``mesh`` other than None raises: sharding over
+several GPUs is ROADMAP item A19.
 """
 from __future__ import annotations
 

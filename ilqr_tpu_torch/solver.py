@@ -39,7 +39,8 @@ accepted step and, after a failed line search, multiplies it and retries.
 
 `solve_batch` is the port's ``jax.vmap(solve)``: B independent problems in
 one host loop, with per-instance masks (see its docstring), under every
-option above but the parallel-in-time line searches.
+option above, the parallel-in-time line searches and their latch
+included.
 """
 from __future__ import annotations
 
@@ -62,6 +63,7 @@ from ilqr_tpu_torch.ops.chunked_rollout import (
     chunked_rollout,
     coarse_chunk_len,
     linesearch_chunked_rollouts,
+    linesearch_chunked_rollouts_batched,
 )
 from ilqr_tpu_torch.ops.fused_riccati import backward_pass_fused
 from ilqr_tpu_torch.ops.fused_rollout import (
@@ -83,6 +85,7 @@ from ilqr_tpu_torch.ops.parallel_riccati import (
 from ilqr_tpu_torch.ops.parallel_rollout import (
     defect_rollout,
     linesearch_defect_rollouts,
+    linesearch_defect_rollouts_batched,
     open_loop_defect_rollout,
 )
 from ilqr_tpu_torch.ops.riccati import backward_pass, backward_pass_limited
@@ -96,11 +99,7 @@ RUNNING, CONVERGED, LINESEARCH_FAILED, MAXITER = 0, 1, 2, 3
 @dataclasses.dataclass(frozen=True)
 class IlqrConfig:
     """Solver configuration: the fields, defaults, accepted strings and
-    validation of `ilqr_tpu.solver.IlqrConfig`.
-
-    `solve_batch` raises `NotImplementedError` (ROADMAP item A12b) for the
-    rollout='defect'|'chunked' line searches, which `solve` runs.
-    """
+    validation of `ilqr_tpu.solver.IlqrConfig`."""
 
     maxiter: int = 100
     tol: float = 1e-5
@@ -208,14 +207,6 @@ class IlqrSolution:
     # ended.  Feed it back as `solve(..., defect_latch=...)` to warm-start a
     # related solve; always False for the other line-search engines.
     defect_latch: bool = False
-
-
-def _batch_unsupported(config: IlqrConfig) -> str | None:
-    """Why `solve_batch` refuses ``config``, or None."""
-    if config.resolved_rollout() in ("defect", "chunked"):
-        return (f"the batched rollout={config.rollout!r} line search is "
-                f"ROADMAP item A12b")
-    return None
 
 
 def _backward(exp, U, reg: float, config: IlqrConfig, limits=None,
@@ -494,12 +485,86 @@ def _initial_rollout_batch(system: System, x0s, U, config: IlqrConfig):
     return rollout(system, x0s, U)
 
 
+def _parallel_linesearch_batch(system: System, x0s, alphas, X, U, cost, u_ff,
+                               K, exp, config: IlqrConfig, limits, par,
+                               exact):
+    """`_parallel_linesearch` over a batch, per instance as
+    ``jax.vmap(solve)`` runs it, with masks in place of vmap's selects.
+
+    ``par`` (B,) marks the instances that run the two-phase search (running,
+    latch set), ``exact`` those that go straight to the exact rollouts
+    (running, latch clear).  Phase 1 sweeps α0 for ``par``; an instance
+    whose α0 certifies below its cert_tol[b] = defect_tol·(1 + max|X_b|),
+    is finite and does not raise its cost takes it.  Phase 2 sweeps the
+    whole schedule for the rest of ``par`` (one shared scan a sweep); an
+    instance keeps its answer if some certified candidate improves and no
+    uncertified one precedes the first of them, and else joins ``exact``.
+    Sweeps stop per instance at exit_tol[b] = 1e-3·cert_tol[b].  The host
+    reads whether any instance needs phase 2, then the exact rollouts, so
+    a batch that certifies in phase 1 skips both.
+
+    Returns (X_c (B, A, N+1, n_x), U_c (B, A, N, n_u), costs (B, A),
+    certified (B, A), par_success (B,)), as `_parallel_linesearch` per
+    instance; rows of instances in neither mask are not meaningful.
+    """
+    B, N = U.shape[:2]
+    n_alpha = alphas.shape[0]
+    cert_tol = config.defect_tol * (1.0 + X.abs().amax(dim=(1, 2)))
+    A_cl = exp.f_x + exp.f_u @ K
+    if config.resolved_rollout() == "chunked":
+        def sweep(alphas_, active, chunk_len):
+            return linesearch_chunked_rollouts_batched(
+                system, x0s, alphas_, X, U, u_ff, K, A_cl,
+                sweeps=config.defect_iters, chunk_len=chunk_len,
+                exit_tol=1e-3 * cert_tol, u_limits=limits, active=active)
+    else:
+        def sweep(alphas_, active, chunk_len):
+            return linesearch_defect_rollouts_batched(
+                system, x0s, alphas_, X, U, u_ff, K, A_cl,
+                iters=config.defect_iters, engine=config.defect_engine,
+                exit_tol=1e-3 * cert_tol, u_limits=limits, active=active)
+
+    X1, U1, c1, d1 = sweep(alphas[:1], par, config.chunk_len)
+    c1, d1 = c1[:, 0], d1[:, 0]
+    took1 = par & (d1 < cert_tol) & torch.isfinite(c1) & (c1 <= cost)
+    X_c = X1.expand((B, n_alpha) + X1.shape[2:])
+    U_c = U1.expand((B, n_alpha) + U1.shape[2:])
+    costs = torch.cat([c1[:, None], c1.new_full((B, n_alpha - 1), torch.inf)],
+                      dim=1)
+    certified = (torch.arange(n_alpha, device=X.device) == 0).expand(
+        B, n_alpha)
+    phase2 = par & ~took1
+    if bool(phase2.any()):
+        X2, U2, c2, d2 = sweep(alphas, phase2, config.chunk_len
+                               or coarse_chunk_len(N))
+        cert2 = d2 < cert_tol[:, None]
+        acc = (c2 <= cost[:, None]) & torch.isfinite(c2) & cert2
+        first = acc.to(torch.uint8).argmax(dim=1)
+        preceding = (~cert2 & (torch.arange(n_alpha, device=X.device)
+                               < first[:, None])).any(dim=1)
+        keep = phase2 & acc.any(dim=1) & ~preceding
+        exact = exact | (phase2 & ~keep)
+        X_c = torch.where(phase2[:, None, None, None], X2, X_c)
+        U_c = torch.where(phase2[:, None, None, None], U2, U_c)
+        costs = torch.where(phase2[:, None], c2, costs)
+        certified = torch.where(phase2[:, None], cert2, certified)
+    if bool(exact.any()):
+        X_e, U_e, c_e = linesearch_rollouts(system, x0s, alphas, X, U, u_ff,
+                                            K, limits)
+        X_c = torch.where(exact[:, None, None, None], X_e, X_c)
+        U_c = torch.where(exact[:, None, None, None], U_e, U_c)
+        costs = torch.where(exact[:, None], c_e, costs)
+        certified = certified | exact[:, None]
+    return X_c, U_c, costs, certified, ~exact
+
+
 @full_f32_matmuls()
 def solve_batch(
     system: System,
     x0s: torch.Tensor,
     U_init: torch.Tensor,
     config: IlqrConfig = IlqrConfig(),
+    defect_latch: Any = None,
 ) -> IlqrSolution:
     """Solve B independent problems at once: what ``jax.vmap(solve)``
     returns, per instance.
@@ -525,15 +590,22 @@ def solve_batch(
       them all.
 
     The accept decision stays on the device; the one host read per
-    iteration is whether any instance still runs.  Engines and options:
+    iteration is whether any instance still runs (the parallel line
+    searches add theirs: one a sweep, and whether any instance needs phase
+    2 or the exact rollouts).  Engines and options:
     `_backward_batch` (limits, DDP and noise included; ``backward``
     'scan'/'pallas'/'auto' without them → `ops.batched.backward_pass_batched`,
     B4, fed the (B,) regularization), ``rollout`` 'pallas' → B5 (costs of
     every (instance, α), then one trajectory at each instance's α, and the
     open-loop initial rollout), 'scan'/'auto' → the plain batched rollouts,
-    which clip every control to the limits (U_init is clipped first).  The
-    parallel-in-time line searches ('defect', 'chunked') raise (ROADMAP
-    item A12b).  x0s and U_init move to the system's device and dtype.
+    which clip every control to the limits (U_init is clipped first),
+    'defect'/'chunked' → the two-phase parallel line search per instance
+    (`_parallel_linesearch_batch`: the defect sweeps through one launch of
+    B3's batched entry a sweep, the chunked ones through the plain
+    boundary scan), each instance with its own latch.  ``defect_latch``
+    ((B,) bool, or one bool for all; None sets them all) warm-starts the
+    latches, and `IlqrSolution.defect_latch` returns them.  x0s and U_init
+    move to the system's device and dtype.
     """
     x0s, U_init = system.inputs(x0s, U_init)
     if x0s.ndim != 2 or x0s.shape[1] != system.n_x:
@@ -546,9 +618,6 @@ def solve_batch(
         raise ValueError(
             f"U_init must have shape ({B}, N, n_u={system.n_u}) or "
             f"(N, {system.n_u}), got {tuple(U_init.shape)}")
-    missing = _batch_unsupported(config)
-    if missing is not None:
-        raise NotImplementedError(missing)
 
     x0s, U = x0s.contiguous(), U_init.contiguous()
     device, dtype = U.device, U.dtype
@@ -558,6 +627,11 @@ def solve_batch(
     n_x = system.n_x
     reg = torch.full((B,), config.reg_init, dtype=dtype, device=device)
     pallas_rollout = config.resolved_rollout() == "pallas"
+    parallel = config.resolved_rollout() in ("defect", "chunked")
+    use_defect = torch.full((B,), parallel, dtype=torch.bool, device=device)
+    if parallel and defect_latch is not None:
+        use_defect = torch.as_tensor(defect_latch, device=device).to(
+            torch.bool).expand(B).clone()
     rows = torch.arange(B, device=device)
     limits = config.limit_arrays(n_u, dtype, device)
     if limits is not None:
@@ -581,7 +655,11 @@ def solve_batch(
             converged = running & ((cost - prev_cost).abs() <= config.tol)
             status = torch.where(converged, CONVERGED, status)
             running = running & ~converged
-        if not bool(running.any()):  # the iteration's one host read
+        # The iteration's host read: whether any instance runs (and any
+        # runs the parallel search).
+        any_running, any_par = torch.stack(
+            [running.any(), (running & use_defect).any()]).tolist()
+        if not any_running:
             break
         exp = linearize_trajectory_batched(system, X, U)
         hess = dynamics_hessians_batched(system, X, U) if config.ddp else None
@@ -589,13 +667,20 @@ def solve_batch(
                  else noise_expansion_batched(config.noise, X, U))
         u_ff_k, K_k, _, ok = _backward_batch(exp, reg, config, U, limits,
                                              hess, noise)
+        certified, par_success = True, None
         if pallas_rollout:
             costs = linesearch_costs_batched(system, x0s, alphas, X, U,
                                              u_ff_k, K_k)
+        elif parallel and any_par:
+            X_c, U_c, costs, certified, par_success = (
+                _parallel_linesearch_batch(
+                    system, x0s, alphas, X, U, cost, u_ff_k, K_k, exp, config,
+                    limits, running & use_defect, running & ~use_defect))
         else:
             X_c, U_c, costs = linesearch_rollouts(system, x0s, alphas, X, U,
                                                   u_ff_k, K_k, limits)
-        accept = (costs <= cost[:, None]) & torch.isfinite(costs) & ok[:, None]
+        accept = ((costs <= cost[:, None]) & torch.isfinite(costs)
+                  & ok[:, None] & certified)
         found = accept.any(dim=1)
         take = running & found
         failed = running & ~found
@@ -634,11 +719,16 @@ def solve_batch(
             traces[:, :, k])
         moved = running if config.adaptive_reg else take
         iterations = iterations + moved.to(torch.int64)
+        if par_success is not None:
+            # The latch drops once the exact rollouts decided; a stopped
+            # instance's latch, and that of one that failed without
+            # adaptive_reg, stays as it was.
+            use_defect = torch.where(moved, use_defect & par_success,
+                                     use_defect)
 
     status = torch.where(status == RUNNING, MAXITER, status)
     return IlqrSolution(
         X=X, U=U, cost=cost, iterations=iterations, status=status, u_ff=u_ff,
         K=K, cost_trace=traces[0], alpha_trace=traces[1],
-        grad_trace=traces[2],
-        defect_latch=torch.zeros((B,), dtype=torch.bool, device=device),
+        grad_trace=traces[2], defect_latch=use_defect,
     )

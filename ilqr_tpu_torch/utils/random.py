@@ -1,4 +1,5 @@
-"""Normal draws for the sampling modules (`mppi`, `estimation`).
+"""Normal draws for the sampling modules (`mppi`, `estimation`) and
+`ilqg.simulate_closed_loop`.
 
 JAX draws from explicit keys; the port draws from explicit
 `torch.Generator`s, in the order JAX splits its keys.  Every draw goes

@@ -447,14 +447,13 @@ def test_mesh_and_batched_parallel_linesearches_raise():
         itt.solve_multistart(sys_, x0s[0], U0.expand(2, 5, 1), mesh=object())
     with pytest.raises(NotImplementedError, match="A19"):
         itt.run_mpc_sharded(sys_, sys_, x0s, U0, 2, mesh=object())
-    for rollout in ("defect", "chunked"):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            itt.solve_batch(sys_, x0s, U0, itt.IlqrConfig(rollout=rollout))
-    # Limits, ddp, noise and adaptive_reg run batched too (A12c, done;
-    # tests/test_torch_batch_options.py holds them to JAX).
+    # Limits, ddp, noise, adaptive_reg (A12c) and the parallel line
+    # searches (A12b) run batched (tests/test_torch_batch_options.py and
+    # tests/test_torch_batch_parallel.py hold them to JAX).
     for kw in (dict(u_min=-1.0, u_max=1.0), dict(ddp=True),
                dict(noise=lambda x, u: 0.1 * x[:, None]),
-               dict(adaptive_reg=True)):
+               dict(adaptive_reg=True), dict(rollout="defect"),
+               dict(rollout="chunked")):
         sol = itt.solve_batch(sys_, x0s, U0, itt.IlqrConfig(maxiter=3, **kw))
         assert bool(torch.isfinite(sol.cost).all()), kw
     with pytest.raises(ValueError, match="x0s"):

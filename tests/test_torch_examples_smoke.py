@@ -34,8 +34,9 @@ def test_driver_inventory():
     # The five reference workloads, the two constrained drivers, the six
     # drivers of the other model families (test_torch_examples_models.py),
     # the three of the solvers beyond iLQR
-    # (test_torch_examples_solvers.py) and the batched surface's
-    # (test_torch_batch_options.py).
+    # (test_torch_examples_solvers.py), the batched surface's
+    # (test_torch_batch_options.py) and the long-horizon and iLQG drivers
+    # (test_torch_examples_parallel.py).
     assert DRIVERS == sorted([
         "pendulum_open_loop", "double_pendulum_open_loop",
         "ua_double_pendulum_open_loop", "pendulum_mpc",
@@ -43,7 +44,7 @@ def test_driver_inventory():
         "quadrotor3d_flight", "quadrotor_dash", "car_obstacles",
         "linear_lqr", "tvlqr_tracking", "reference_tracking_mpc",
         "inverse_optimal_control", "mppi_pendulum", "parallel_estimation",
-        "batched_mpc"])
+        "batched_mpc", "long_horizon", "ilqg_pendulum"])
 
 
 @pytest.fixture

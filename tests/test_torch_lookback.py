@@ -69,6 +69,8 @@ class StandInLib:
 
     ilqr_fused_riccati_counters = ilqr_fused_riccati_scratch = _size
     ilqr_affine_prefix_scan_counters = ilqr_affine_prefix_scan_scratch = _size
+    ilqr_affine_prefix_scan_batched_counters = _size
+    ilqr_affine_prefix_scan_batched_scratch = _size
     ilqr_suffix_scan_counters = ilqr_suffix_scan_scratch = _size
 
     def _launch(self, counters, scratch, dims, stream):
@@ -83,6 +85,9 @@ class StandInLib:
 
     def ilqr_affine_prefix_scan(self, n, A, N, *ptrs):
         return self._launch(ptrs[3], ptrs[4], (n, A, N), ptrs[-1])
+
+    def ilqr_affine_prefix_scan_batched(self, n, A, B, N, *ptrs):
+        return self._launch(ptrs[3], ptrs[4], (n, A, B, N), ptrs[-1])
 
     def ilqr_suffix_scan(self, lane, n_x, M, *ptrs):
         return self._launch(ptrs[5], ptrs[6], (lane, n_x, M), ptrs[-1])
@@ -101,6 +106,10 @@ def _call(kernel, lib, size, stream):
     if kernel == "affine_prefix_scan":
         return affine_scan.launch(lib, zeros(size, 2, 2), zeros(3, size, 2),
                                   zeros(3, 2), stream)
+    if kernel == "affine_prefix_scan_batched":
+        return affine_scan.launch_batched(lib, zeros(2, size, 2, 2),
+                                          zeros(2, 3, size, 2),
+                                          zeros(2, 3, 2), stream)
     elems = RiccatiElement(zeros(size, 2, 2), zeros(size, 2),
                            zeros(size, 2, 2), zeros(size, 2),
                            zeros(size, 2, 2))
@@ -108,6 +117,7 @@ def _call(kernel, lib, size, stream):
 
 
 @pytest.mark.parametrize("kernel", ["fused_riccati", "affine_prefix_scan",
+                                    "affine_prefix_scan_batched",
                                     "suffix_scan"])
 def test_lookback_scratch_is_zeroed_once_per_device_stream_and_shape(
         kernel, monkeypatch):
@@ -120,9 +130,9 @@ def test_lookback_scratch_is_zeroed_once_per_device_stream_and_shape(
     _call(kernel, lib, 9, stream=11)
     c0, s0, words, stream = lib.launches[-1]
     assert lib.sized == 2 and stream == 11
-    assert len(words) == _sizes(*((4, 9) if kernel == "fused_riccati" else
-                                  (2, 3, 9) if kernel == "affine_prefix_scan"
-                                  else (0, 2, 9)))
+    assert len(words) == _sizes(*{
+        "fused_riccati": (4, 9), "affine_prefix_scan": (2, 3, 9),
+        "affine_prefix_scan_batched": (2, 3, 2, 9)}.get(kernel, (0, 2, 9)))
     assert words == [0] * len(words)
     _call(kernel, lib, 9, stream=11)
     c1, s1, words, _ = lib.launches[-1]
@@ -632,3 +642,35 @@ def test_batched_suffix_scan_kernel_on_the_host(host_lib, monkeypatch, B, M,
         one = suffix_scan.launch(host_lib, RiccatiElement(
             *(t[i].contiguous() for t in elems)), "sub", 0)
         assert all(torch.equal(a[i], b) for a, b in zip(got, one)), i
+
+
+# (B, N, n, A, resident): 64-step tiles, B x n_tiles blocks by
+# instance-major tickets; with 2-3 resident a block that polls waits on
+# earlier tickets only.
+@pytest.mark.parametrize("B,N,n,A,resident", [
+    (1, 65, 4, 10, 0), (3, 1, 2, 1, 0), (3, 64, 4, 16, 0),
+    (2, 5 * 64 + 35, 2, 10, 0), (5, 130, 4, 1, 3), (4, 64 * 3 + 1, 2, 16, 2),
+    (2, 64 * 65 + 1, 4, 1, 0)])
+def test_batched_affine_scan_kernel_on_the_host(host_lib, monkeypatch, B, N,
+                                                n, A, resident):
+    """B3's batched entry (register form): one launch for B chains, each
+    instance's deltas equal bit for bit to a single-instance launch on it,
+    held to the plain scan in f64, a repeated call bit for bit and the
+    counters back at zero."""
+    if resident:
+        monkeypatch.setenv("MOCK_RESIDENT", str(resident))
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    rng = np.random.default_rng(B + N + n + A)
+    P = torch.tensor(0.9 * np.eye(n)
+                     + 0.05 * rng.standard_normal((B, N, n, n)),
+                     dtype=torch.float32)
+    q = torch.tensor(rng.standard_normal((B, A, N, n)), dtype=torch.float32)
+    d0 = torch.tensor(rng.standard_normal((B, A, n)), dtype=torch.float32)
+    got = _twice(lambda: (affine_scan.launch_batched(host_lib, P, q, d0, 0),))
+    ref = affine_scan.affine_prefix_scan_batched(P.double(), q.double(),
+                                                 d0.double())
+    _close(got, (ref,))
+    for i in range(B):
+        one = affine_scan.launch(host_lib, P[i].contiguous(),
+                                 q[i].contiguous(), d0[i].contiguous(), 0)
+        assert torch.equal(got[0][i], one), i

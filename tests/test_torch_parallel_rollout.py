@@ -168,6 +168,23 @@ def test_open_loop_defect_rollout_matches_jax(name, dtype):
         _defects_close(got[2], ref[2], dtype)
 
 
+def test_open_loop_defect_rollout_from_a_row_of_a_batch():
+    """The default constant guess from an x0 that is a row of a batch of
+    initial states (``solve(system, x0s[i], ...)`` with
+    init_rollout='defect'): the sweeps' Jacobians used to raise on the
+    repeated row; now the rollout is JAX's from the same x0."""
+    jsys, sys_, c = _case("dp", torch.float64)
+    x0s = np.stack([np.zeros(4), [0.3, -0.2, 0.0, 0.0]])
+    U = np.zeros((40, 2))
+    ref = _jax(lambda s, x0, U: jax_parallel.open_loop_defect_rollout(
+        s, x0, U, iters=8, engine="xla"), jsys, torch.float64, x0s[1], U)
+    got = parallel_rollout.open_loop_defect_rollout(
+        sys_, torch.tensor(x0s, dtype=torch.float64)[1],
+        torch.tensor(U, dtype=torch.float64), iters=8)
+    _close(got[0], ref[0], torch.float64, "X from a row of x0s")
+    _defects_close(got[2], ref[2], torch.float64)
+
+
 @pytest.mark.parametrize("name,dtype", CASES)
 def test_chunked_rollouts_match_jax(name, dtype):
     jsys, sys_, c = _case(name, dtype)

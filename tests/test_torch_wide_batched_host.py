@@ -225,6 +225,39 @@ def test_wide_affine_scan_on_the_host(host_lib, monkeypatch, N, n, A,
     assert int(counters.abs().sum()) == 0
 
 
+# (B, N, n, A, resident): the batched entry's wide form, B x n_tiles blocks
+# by instance-major tickets, 4-step tiles.
+@pytest.mark.parametrize("B,N,n,A,resident", [
+    (1, 9, 12, 10, 0), (3, 1, 6, 1, 0), (3, 4, 16, 17, 0),
+    (2, 23, 12, 33, 0), (4, 17, 6, 3, 2), (3, 21, 2, 17, 3)])
+def test_wide_batched_affine_scan_on_the_host(host_lib, monkeypatch, B, N,
+                                              n, A, resident):
+    """B3w over a batch: one launch for B chains, each instance bit for bit
+    a single-instance launch, against the f64 plain scan, twice with equal
+    bits, the counters back at zero."""
+    if resident:
+        monkeypatch.setenv("MOCK_RESIDENT", str(resident))
+    monkeypatch.setattr(_build, "_SCRATCH", {})
+    rng = np.random.default_rng(B + N + n + A)
+    P = torch.tensor(0.9 * np.eye(n)
+                     + 0.05 * rng.standard_normal((B, N, n, n)),
+                     dtype=torch.float32)
+    q = torch.tensor(rng.standard_normal((B, A, N, n)), dtype=torch.float32)
+    d0 = torch.tensor(rng.standard_normal((B, A, n)), dtype=torch.float32)
+    got = _twice(lambda: (affine_scan.launch_batched(host_lib, P, q, d0, 0),))
+    ref = affine_scan.affine_prefix_scan_batched(P.double(), q.double(),
+                                                 d0.double())
+    _close(got, (ref,))
+    for i in range(B):
+        one = affine_scan.launch(host_lib, P[i].contiguous(),
+                                 q[i].contiguous(), d0[i].contiguous(), 0)
+        assert torch.equal(got[0][i], one), i
+    assert host_lib.ilqr_affine_prefix_scan_batched_scratch(n, A, B, N) == \
+        B * host_lib.ilqr_affine_prefix_scan_scratch(n, A, N)
+    assert host_lib.ilqr_affine_prefix_scan_batched_counters(n, A, B, N) == \
+        2 + B * (-(-N // affine_scan.tile_steps(host_lib, n, A)))
+
+
 def test_wide_affine_scan_sizes(host_lib):
     """The register form keeps n in {2, 4} with at most 16 candidates;
     the wide form's scratch adds the states entering each tile."""
