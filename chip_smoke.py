@@ -296,9 +296,27 @@ It builds the port's CUDA kernels from ``ilqr_tpu_torch/csrc`` with nvcc
    held to single-instance run_mpc; examples_torch/long_horizon.py's main
    at a cut horizon (B1, B1d, B3); and times B3 over the batch at (b)'s
    and (c)'s shapes beside B single launches.  `python3 chip_smoke.py
-   --batch-parallel` runs it alone.
-Phases 13-37 run in three child processes (`PHASE_GROUPS`) beside the
-main process's phases 2-12 and 38, started after phase 1's build; each
+   --batch-parallel` runs it alone;
+39. runs learned dynamics (models/neural.py) and the collocation oracle:
+   (c) examples_torch/neural_sysid.py at full size in f32 (1000 Adam steps
+   on B = 32, N = 60, horizon 10, the loss below a hundredth of its start;
+   closed-loop MPC on the true plant, H = 40, 80 steps, maxiter 8, with
+   the nominal, learned and true models through B1 and B2 on the neural
+   form, under tests/test_neural.py's gates; the learned model's first
+   LEARNED_SCAN_STEPS steps again under 'scan'); (b) B5's three entries on
+   the fitted model at (512, 30) and (64, 40) against the f64 plain
+   rollouts, one mppi_update through B5 (and through the plain rollouts),
+   and a batched solve of 64 (B4, B5) held to a single solve; (a) B2's
+   three entries on the neural form at the fitted pendulum and a 3-D
+   quadrotor with a (64, 64, 64) residual, N = 1, the ring's chunk and
+   ring edges +- 1, 40 and 500, against the f64 plain rollouts, every
+   call twice, bit for bit, and a zero output layer giving the base
+   form's bits; (d) solve_collocation on the card against the card's
+   solve (tests/test_cross_validation.py:117-131's pendulum); and times
+   the neural form's entries at the paths' shapes.  `python3
+   chip_smoke.py --learned` runs it alone.
+Phases 13-37 and 39 run in three child processes (`PHASE_GROUPS`) beside
+the main process's phases 2-12 and 38, started after phase 1's build; each
 group's output is printed when it ends.  Every phase prints its seconds.
 Each solve phase resets the launch counts just before it and reads them
 just after.  The kernels line gives every kernel's time, its plain
@@ -1286,11 +1304,17 @@ def fcont_ops(model: str, n_u: int, dual: bool = False, n_x: int = 0
               ) -> int:
     """One evaluation of a model's f (FCONT_OPS); the LTI systems' two
     products (2 n_x^2 + 2 n_x n_u - n_x) and the spring chain's 10 an
-    oscillator (S u is formed once a step) from their shapes."""
+    oscillator (S u is formed once a step) from their shapes; a neural
+    residual "neural:<base>:<widths>" (`neural_name`) its base's and its
+    MLP's (`mlp_ops`, explicit rules only)."""
     if model == "lti":
         return 2 * n_x * n_x + 2 * n_x * n_u - n_x
     if model == "spring_chain":
         return 10 * (n_x // 2)
+    if model.startswith("neural:"):
+        _, base, widths = model.split(":")
+        return (fcont_ops(base, n_u, dual, n_x)
+                + mlp_ops([int(w) for w in widths.split("-")]))
     torque = 4 * n_u if model == "double_pendulum" else 0
     return FCONT_OPS[model][dual] + torque
 
@@ -4578,10 +4602,14 @@ def wr_alphas(kw):
     return torch.tensor([0.5 ** i for i in range(33)], **kw)
 
 
-def params_f64(params: dict) -> dict:
-    """A system's parameters (a wrapper's nested ones too) in float64."""
-    return {k: params_f64(v) if isinstance(v, dict) else v.double()
-            for k, v in params.items()}
+def params_f64(params):
+    """A system's parameters (a wrapper's nested ones and a neural
+    residual's layers too) in float64."""
+    if isinstance(params, dict):
+        return {k: params_f64(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_f64(v) for v in params)
+    return params.double()
 
 
 def wr_plain(case, seed: int, Ns) -> dict:
@@ -6352,10 +6380,470 @@ def batch_parallel_turn() -> int:
     return 0
 
 
+# ---- Phase 39: learned dynamics (the neural residual) and collocation -----
+
+# (a): B2's three entries on the neural form (csrc/forms.cuh, NeuralForm) at
+# neural_sysid.py's fitted pendulum ((32, 32), rk4, dt 0.05) and the 3-D
+# quadrotor with a (64, 64, 64) residual (rk4 at dt 0.005, phase 28's
+# nominal draws), 10 alphas at N = 1, the ring's chunk edge +- 1, its ring
+# edge +- 1, its H = 40 (also with 33 alphas) and 500; each against
+# the plain rollouts in f64 on the card under phase 35's rule, every call
+# twice, bit for bit.  A zero output layer gives the base form's bits.
+LEARNED_H = 40
+LEARNED_N = 500
+LEARNED_WIDE = ("quadrotor3d", (64, 64, 64))
+# (b): B5's three entries at MPPI's (512, 30) and a batched solve's
+# (64, 40), one mppi_update and the batched solve on the fitted model.
+LEARNED_B5 = ((512, 30), (64, LEARNED_H))
+# (c): the example's gates (tests/test_neural.py:61-91): the 10-step loss
+# below FIT_RATIO of its start after 1000 Adam steps; MPC with the learned
+# model LEARNED_MARGIN below the nominal's cost and within LEARNED_ORACLE of
+# the true model's; its first LEARNED_SCAN_STEPS steps again under 'scan'
+# within RTOL_LEARNED_SCAN of the kernels' closed-loop cost.
+FIT_RATIO = 0.01
+LEARNED_MARGIN = 1.0
+LEARNED_ORACLE = 0.5
+LEARNED_SCAN_STEPS = 5
+RTOL_LEARNED_SCAN = 1e-3
+# (d): tests/test_cross_validation.py:117-131's pendulum (euler, N = 100)
+# by solve_collocation on the card against the card's solve.
+COLLOC_N = 100
+
+
+def mlp_ops(widths) -> int:
+    """One evaluation of a neural residual's MLP of layer widths w_0 ...
+    w_L, a multiply-add counting two: each layer's products and sums
+    (2 w_l w_{l+1}) and biases, a tanh (one) a hidden unit, and the sum
+    with the base's f (w_L)."""
+    ops = sum(2 * a * b + b for a, b in zip(widths, widths[1:]))
+    return ops + sum(widths[1:-1]) + widths[-1]
+
+
+def mlp_floats(widths) -> int:
+    """Floats of an MLP's parameter block: the layer count and widths,
+    then each layer's W and b."""
+    return len(widths) + 1 + sum((a + 1) * b for a, b in zip(widths,
+                                                            widths[1:]))
+
+
+def neural_name(base: str, widths) -> str:
+    """The `rollout_step_ops` model name of a neural residual."""
+    return f"neural:{base}:{'-'.join(map(str, widths))}"
+
+
+def learned_wide_system(itt, f32, seed=39):
+    """The 3-D quadrotor (phase 28's, rk4 at dt 0.005) with a seeded
+    (64, 64, 64) residual whose output layer is drawn too (scale 0.05)."""
+    name, hidden = LEARNED_WIDE
+    base = wide_model_systems(itt, f32, "rk4")[name]
+    return drawn_output(itt.make_neural_residual(
+        base, hidden=hidden, generator=torch.Generator().manual_seed(seed)),
+        seed)
+
+
+def drawn_output(net, seed, scale=0.05):
+    """``net`` with its output layer drawn from a seeded generator."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    layers = [dict(layer) for layer in net.params["mlp"]]
+    for k in ("W", "b"):
+        t = layers[-1][k]
+        layers[-1][k] = (scale * torch.randn(t.shape, generator=gen,
+                                             dtype=t.dtype)).to(t.device)
+    return net.replace(params={**net.params, "mlp": layers})
+
+
+def learned_phases(itt, dev, smi, launches_per_call) -> list:
+    """Phase 39: (c) examples_torch/neural_sysid.py's story at full size
+    (the fit, MPC on the true plant with the nominal, learned and true
+    models through B1 and B2, the learned model's first steps under
+    'scan'), (b) B5 on the fitted model (one mppi_update, a batched solve),
+    (a) B2 on the neural form against its plain versions, (d) the
+    collocation oracle against the card's solve; each path's launch
+    counts reset just before it and read just after.  Returns the kernels
+    line's rows of the neural form."""
+    from examples_torch import mppi_pendulum as mp
+    from examples_torch import neural_sysid as ns
+    from ilqr_tpu_torch import mppi
+    from ilqr_tpu_torch.collocation import solve_collocation
+    from ilqr_tpu_torch.models.neural import prediction_loss
+    from ilqr_tpu_torch.mpc import run_mpc
+    from ilqr_tpu_torch.ops import _build, fused_rollout
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load().lib
+    t0 = t_lap = time.perf_counter()
+    alphas = torch.tensor(itt.IlqrConfig().alpha_schedule(), **f32)
+    A10 = alphas.numel()
+    rows = []
+
+    def lap(part):
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"phase 39{part}: {now - t_lap:.1f} s")
+        t_lap = now
+
+    def gate(label, ok, text):
+        print(f"  {label}: {text}")
+        if not ok:
+            raise AssertionError(f"phase 39 {label}: {text}")
+
+    # ---- (c) neural_sysid.py's story --------------------------------------
+    p = ns.problem(dev)
+    loss0 = float(prediction_loss(p.net, p.X, p.U, horizon=p.horizon))
+    (net, losses), secs_fit, _ = timed_run(
+        lambda: itt.fit_dynamics(p.net, p.X, p.U, **p.fit))
+    loss1 = float(prediction_loss(net, p.X, p.U, horizon=p.horizon))
+    B_fit, N_fit = p.U.shape[:2]
+    gate("fit", loss1 < FIT_RATIO * loss0 and losses.shape ==
+         (p.fit["steps"],) and bool(torch.isfinite(losses).all()),
+         f"{p.fit['steps']} Adam steps on B = {B_fit}, N = {N_fit}, horizon "
+         f"{p.horizon}: 10-step loss {loss0:.4e} -> {loss1:.4e} "
+         f"({loss1 / loss0:.4f} of its start, limit {FIT_RATIO}); "
+         f"{secs_fit:.2f} s, {secs_fit / p.fit['steps'] * 1e3:.1f} ms a step")
+    mpc, mpc_counts = {}, {}
+    for name, model in (("nominal", p.nominal), ("learned", net),
+                        ("oracle", p.plant)):
+        res, secs, counts = timed_run(lambda model=model: run_mpc(
+            model, p.plant, p.x0, p.U0, p.n_sim, p.config))
+        mpc[name], mpc_counts[name] = res, counts
+        x = res.X[-1].cpu().numpy()
+        print(f"  MPC with the {name} model (H = {p.U0.shape[0]}, "
+              f"{p.n_sim} steps, maxiter {p.config.maxiter}, pallas): cost "
+              f"{float(res.cost):.4f}, final state [{x[0]:+.4f} "
+              f"{x[1]:+.4f}], {secs:.2f} s ({secs / p.n_sim * 1e3:.1f} ms a "
+              f"step), launches {counts}")
+        need(f"MPC with the {name} model", counts,
+             ("fused_riccati", "linesearch_costs", "closed_loop_rollout",
+              "open_loop_rollout"))
+    c = {k: float(v.cost) for k, v in mpc.items()}
+    gate("learned MPC", c["learned"] < c["nominal"] - LEARNED_MARGIN
+         and abs(c["learned"] - c["oracle"]) < LEARNED_ORACLE,
+         f"learned {c['learned']:.4f} < nominal {c['nominal']:.4f} - "
+         f"{LEARNED_MARGIN}, |learned - oracle {c['oracle']:.4f}| < "
+         f"{LEARNED_ORACLE}")
+    cfg_scan = dataclasses.replace(p.config, backward="scan", rollout="scan")
+    short = {cfg.rollout: run_mpc(net, p.plant, p.x0, p.U0,
+                                  LEARNED_SCAN_STEPS, cfg)
+             for cfg in (p.config, cfg_scan)}
+    d = abs(float(short["pallas"].cost) - float(short["scan"].cost)) / abs(
+        float(short["scan"].cost))
+    gate("learned MPC under 'scan'", d <= RTOL_LEARNED_SCAN,
+         f"first {LEARNED_SCAN_STEPS} steps: pallas "
+         f"{float(short['pallas'].cost):.6f}, scan "
+         f"{float(short['scan'].cost):.6f} ({d:.2e} relative, limit "
+         f"{RTOL_LEARNED_SCAN})")
+    lap(" (c)")
+
+    # ---- (b) B5 on the fitted model ---------------------------------------
+    widths = fused_rollout.mlp_widths(net.params["mlp"])
+    model = neural_name("pendulum", widths)
+    extra = mlp_floats(widths)
+    sys64 = net.replace(params=params_f64(net.params))
+
+    def held(label, got, plain, ref64, rtol):
+        """Gate each output (X, U, cost, as many as there are) against the
+        f64 plain version within rtol of its max, or F32_FLOOR times the
+        f32 plain version's own error (phase 35's rule); returns the
+        largest error."""
+        worst = 0.0
+        names = {1: ("cost",), 2: ("X", "cost"), 3: ("X", "U", "cost")}
+        for out, g, r32, r in zip(names[len(got)], got, plain, ref64):
+            err, rr = rel_err(g, r)
+            floor = rel_err(r32, r)[0]
+            ok = err <= max(rtol * float(r.abs().max()), F32_FLOOR * floor)
+            gate(f"{label} {out}", bool(torch.isfinite(g).all()) and ok,
+                 f"{err:.2e} ({rr:.1e} of max; f32 plain {floor:.2e}; limit "
+                 f"max({rtol} of max, {F32_FLOOR} x f32 plain))")
+            worst = max(worst, err)
+        return worst
+
+    def twice(fn):
+        got, again = fn(), fn()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("phase 39: a repeated call gave other bits")
+        return got
+
+    def batch_inputs(system, B, N, seed):
+        rng = np.random.default_rng(seed)
+        x0s, U, u_ff = (torch.tensor(0.3 * rng.standard_normal(s), **f32)
+                        for s in ((B, 2), (B, N, 1), (B, N, 1)))
+        K = torch.tensor(-0.05 * rng.standard_normal((B, N, 1, 2)), **f32)
+        X, _ = itt.rollout(system, x0s, U)
+        return x0s, X.contiguous(), U, u_ff, K
+
+    def b5_check(B, N):
+        x0s, X, U, u_ff, K = batch_inputs(net, B, N, 1000 + B + N)
+        args = (x0s, alphas, X, U, u_ff, K)
+        ref = itt.linesearch_rollouts(sys64, *(t.double() for t in args))
+        r32 = itt.linesearch_rollouts(net, *args)
+        ref_o = itt.rollout(sys64, x0s.double(), U.double())
+        r32_o = itt.rollout(net, x0s, U)
+        a = torch.arange(B, device=dev) % A10
+        b = torch.arange(B, device=dev)
+        lab = f"B5 neural ({B}, {N})"
+        err = {
+            "linesearch_costs_batched": held(
+                f"{lab} costs", twice(lambda: itt.linesearch_costs_batched(
+                    net, *args)), (r32[2],), (ref[2],), RTOL_B5),
+            "closed_loop_rollout_batched": held(
+                f"{lab} trajectory", twice(
+                    lambda: itt.closed_loop_rollout_batched(
+                        net, x0s, alphas[a].contiguous(), X, U, u_ff, K)),
+                tuple(t[b, a] for t in r32), tuple(t[b, a] for t in ref),
+                RTOL_B5),
+            "open_loop_rollout_batched": held(
+                f"{lab} open loop", twice(
+                    lambda: itt.open_loop_rollout_batched(net, x0s, U)),
+                r32_o, ref_o, RTOL_B5)}
+        plain = {
+            "linesearch_costs_batched": lambda: itt.linesearch_rollouts(
+                net, *args),
+            "closed_loop_rollout_batched": lambda: itt.linesearch_rollouts(
+                net, x0s, alphas[a][:, None], X, U, u_ff, K),
+            "open_loop_rollout_batched": lambda: itt.rollout(net, x0s, U)}
+        kern = {
+            "linesearch_costs_batched": lambda: itt.linesearch_costs_batched(
+                net, *args),
+            "closed_loop_rollout_batched":
+                lambda: itt.closed_loop_rollout_batched(
+                    net, x0s, alphas[a].contiguous(), X, U, u_ff, K),
+            "open_loop_rollout_batched": lambda: itt.open_loop_rollout_batched(
+                net, x0s, U)}
+        return err, kern, plain
+
+    b5 = {shape: b5_check(*shape) for shape in LEARNED_B5}
+    # One MPPI update on the fitted model: its samples through B5's open
+    # loop (`mppi._takes`), and through the plain rollouts (patched in).
+    mc = mp.problem(dev).mppi_config
+    S, H8 = mc.samples, LEARNED_B5[0][1]
+    U_fix = torch.zeros((H8, 1), **f32)
+    gen = partial(torch.Generator(device=dev).manual_seed, P8_SEED)
+    (U_k, ess_k), _, counts_m = timed_run(
+        lambda: mppi.mppi_update(net, p.x0, U_fix, gen(), mc))
+    gate("MPPI update launches", counts_m == {
+        "open_loop_rollout_batched": 1}, f"{counts_m} (one of B5's open loop "
+         f"for {S} samples)")
+    sample_costs = mppi._sample_costs
+    mppi._sample_costs = lambda system, x0, U: itt.rollout(
+        system, x0.expand(U.shape[0], x0.shape[0]), U)[1]
+    try:
+        U_p, ess_p = mppi.mppi_update(net, p.x0, U_fix, gen(), mc)
+    finally:
+        mppi._sample_costs = sample_costs
+    U_cand = mppi._candidates(U_fix, gen(), mc, 1.0)
+    x0m = p.x0.expand(S, 2).contiguous()
+    e_m, r_m = rel_err(itt.open_loop_rollout_batched(net, x0m, U_cand)[1],
+                       itt.rollout(net, x0m, U_cand)[1])
+    # As phase 36's P8: a cost error moves the update and the ESS by at
+    # most these bounds, beside the f32 rounding of the weighted sum.
+    spread = float((U_cand - U_p[None]).abs().max())
+    lim_u = 4 * e_m / mc.temperature * spread + 1e-5 * mp.U_LIM
+    lim_e = 8 * e_m / mc.temperature + 1e-5
+    d_u = float((U_k - U_p).abs().max())
+    d_e = abs(float(ess_k) - float(ess_p)) / float(ess_p)
+    gate("MPPI update", r_m <= RTOL_B5 and d_u <= lim_u and d_e <= lim_e,
+         f"B5 sample costs {e_m:.2e} ({r_m:.1e} of max, limit {RTOL_B5}); "
+         f"U_new {d_u:.2e} (limit {lim_u:.2e}); ESS {float(ess_k):.5f} "
+         f"against {float(ess_p):.5f} ({d_e:.1e}, limit {lim_e:.1e})")
+    # A batched solve of the fitted model from 64 seeded states: B4 and B5
+    # (the example's MPC config), instance 0 against a single solve.
+    Bb, Hb = LEARNED_B5[1]
+    rng = np.random.default_rng(64)
+    x0b = torch.tensor(np.stack([rng.uniform(-0.5, 0.5, Bb),
+                                 rng.uniform(-0.5, 0.5, Bb)], 1), **f32)
+    Ub = torch.zeros((Bb, Hb, 1), **f32)
+    solb, secs_b, counts_b = timed_run(lambda: itt.solve_batch(
+        net, x0b, Ub, p.config))
+    need("learned batched solve", counts_b, (
+        "batched_riccati", "linesearch_costs_batched",
+        "closed_loop_rollout_batched", "open_loop_rollout_batched"))
+    one = itt.solve(net, x0b[0], Ub[0], p.config)
+    d_b = abs(float(solb.cost[0]) - float(one.cost)) / abs(float(one.cost))
+    gate("learned batched solve", bool(torch.isfinite(solb.cost).all())
+         and d_b <= 1e-3,
+         f"B = {Bb}, H = {Hb}: {secs_b:.2f} s, launches {counts_b}; "
+         f"instance 0 cost {float(solb.cost[0]):.6f} against a single "
+         f"solve's {float(one.cost):.6f} ({d_b:.1e}, limit 1e-3)")
+    lap(" (b)")
+
+    # ---- (a) B2 on the neural form ----------------------------------------
+    chunk = lib.ilqr_chain_chunk_steps_at(2, 1)
+    ring = chunk * lib.ilqr_chain_ring_stages()
+    Ns = (1, chunk - 1, chunk + 1, LEARNED_H, ring - 1, ring + 1, LEARNED_N)
+    wide = learned_wide_system(itt, f32)
+    systems = {"pendulum": (net, "pendulum"),
+               LEARNED_WIDE[0]: (wide, LEARNED_WIDE[0])}
+    print(f"phase 39 (a): B2a, B2b and the open loop on the neural form, "
+          f"N {Ns}, {A10} alphas (33 at N = {LEARNED_H}), against the f64 "
+          f"plain rollouts")
+    b2 = {}
+    for label, (system, base) in systems.items():
+        s64 = system.replace(params=params_f64(system.params))
+        for N in Ns:
+            for A in ((A10, 33) if N == LEARNED_H else (A10,)):
+                al = torch.tensor([0.5 ** i for i in range(A)], **f32)
+                x0, U, u_ff, K = nominal_draws(system, base, N, 39 + N, f32)
+                X = itt.rollout(system, x0, U)[0].contiguous()
+                args = (x0, al, X, U, u_ff, K)
+                ref = itt.linesearch_rollouts(s64, *(t.double()
+                                                     for t in args))
+                r32 = itt.linesearch_rollouts(system, *args)
+                ref_o = itt.rollout(s64, x0.double(), U.double())
+                r32_o = itt.rollout(system, x0, U)
+                lab = f"B2 neural {label} N={N} A={A}"
+                a = A // 2
+                e = max(
+                    held(f"{lab} costs", twice(
+                        lambda: itt.linesearch_costs_fused(system, *args)),
+                        (r32[2],), (ref[2],), RTOL_B2),
+                    held(f"{lab} trajectory", twice(
+                        lambda: itt.closed_loop_rollout_fused(
+                            system, x0, float(al[a]), X, U, u_ff, K)),
+                        tuple(t[a] for t in r32), tuple(t[a] for t in ref),
+                        RTOL_B2),
+                    held(f"{lab} open loop", twice(
+                        lambda: itt.open_loop_rollout_fused(system, x0, U)),
+                        r32_o, ref_o, RTOL_B2))
+                b2[label, N] = max(b2.get((label, N), 0.0), e)
+    # A zero output layer: the base form's bits.
+    for label, base in (("pendulum", p.nominal),
+                        (LEARNED_WIDE[0], wide_model_systems(
+                            itt, f32, "rk4")[LEARNED_WIDE[0]])):
+        zero = itt.make_neural_residual(base, hidden=(32, 32))
+        x0, U, u_ff, K = nominal_draws(base, label, LEARNED_N, 7, f32)
+        X = itt.rollout(base, x0, U)[0].contiguous()
+        outs = [(itt.linesearch_costs_fused(s, x0, alphas, X, U, u_ff, K),
+                 *itt.closed_loop_rollout_fused(s, x0, 0.5, X, U, u_ff, K),
+                 *itt.open_loop_rollout_fused(s, x0, U),
+                 itt.linesearch_costs_batched(s, x0[None], alphas, X[None],
+                                              U[None], u_ff[None], K[None]))
+                for s in (base, zero)]
+        gate(f"zero residual {label}", all(
+            torch.equal(a, b) for a, b in zip(*outs)),
+             f"B2's three entries and B5's costs at N = {LEARNED_N} equal "
+             f"the base form's bit for bit")
+    lap(" (a)")
+
+    # ---- (d) the collocation oracle against the card's solve --------------
+    pend = itt.make_pendulum(0.01, [np.pi, 0.0], Q=np.eye(2), R=np.eye(1),
+                             Q_f=np.zeros((2, 2)), d=0.0, integrator="euler",
+                             **f32)
+    x0c, U0c = torch.tensor([1.0, 0.0], **f32), torch.zeros((COLLOC_N, 1),
+                                                            **f32)
+    sol_i, secs_i, counts_i = timed_run(lambda: itt.solve(
+        pend, x0c, U0c, itt.IlqrConfig(maxiter=200, tol=1e-9,
+                                       backward="pallas", rollout="pallas")))
+    need("collocation's iLQR solve", counts_i,
+         ("fused_riccati", "linesearch_costs"))
+    sol_c, secs_c, _ = timed_run(lambda: solve_collocation(
+        pend, x0c, U0c, defect="step", tol=1e-6))
+    dc = abs(float(sol_c.cost) - float(sol_i.cost))
+    dX = float((sol_c.X - sol_i.X.double()).abs().max())
+    dU = float((sol_c.U - sol_i.U.double()).abs().max())
+    gate("collocation", float(sol_c.kkt_residual) < 1e-4
+         and dc < 1e-4 * max(1.0, abs(float(sol_i.cost)))
+         and dX < 1e-3 and dU < 1e-3 and sol_c.X.device == dev,
+         f"N = {COLLOC_N}: {int(sol_c.iterations)} Newton steps in "
+         f"{secs_c:.2f} s on {sol_c.X.device} (f64), kkt "
+         f"{float(sol_c.kkt_residual):.2e} (< 1e-4); cost "
+         f"{float(sol_c.cost):.6f} against the card's iLQR "
+         f"{float(sol_i.cost):.6f} ({int(sol_i.iterations)} iterations, "
+         f"{secs_i:.2f} s): {dc:.2e}; X {dX:.2e}, U {dU:.2e} (< 1e-3)")
+    lap(" (d)")
+
+    # ---- the kernels line: the neural form at the paths' shapes ------------
+    src2 = {"linesearch_costs": "pallas_rollout.py:92",
+            "closed_loop_rollout": "pallas_rollout.py:132",
+            "open_loop_rollout": "pallas_rollout.py:132"}
+
+    def row(name, replaces, launches, err, t, plain_ms, b, lpc_key):
+        ms, cols = timing_columns(t, launches_per_call.get(lpc_key))
+        rows.append(dict(
+            name=name, route="cuda", source="ilqr_tpu_torch/csrc/"
+            "neural_models.cu", replaces=f"ilqr_tpu/ops/{replaces}",
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1], library_ms=None, **cols))
+
+    # The wide residual is timed only, at the example's horizon and in one
+    # turn: its steps are the form's slowest (PERF.md, section 6), and a
+    # turn of `design_timing` makes 174 calls an entry.
+    learned = mpc_counts["learned"]
+    for label, (system, base), N, launches, turns in (
+            ("pendulum", systems["pendulum"], LEARNED_H, learned, 3),
+            (LEARNED_WIDE[0], systems[LEARNED_WIDE[0]], LEARNED_H, {}, 1)):
+        x0, U, u_ff, K = nominal_draws(system, base, N, 39 + N, f32)
+        X = itt.rollout(system, x0, U)[0].contiguous()
+        kern = {
+            "linesearch_costs": lambda: itt.linesearch_costs_fused(
+                system, x0, alphas, X, U, u_ff, K),
+            "closed_loop_rollout": lambda: itt.closed_loop_rollout_fused(
+                system, x0, 1.0, X, U, u_ff, K),
+            "open_loop_rollout": lambda: itt.open_loop_rollout_fused(
+                system, x0, U)}
+        plain = {
+            "linesearch_costs": lambda: itt.linesearch_rollouts(
+                system, x0, alphas, X, U, u_ff, K),
+            "closed_loop_rollout": lambda: itt.closed_loop_rollout(
+                system, x0, 1.0, X, U, u_ff, K),
+            "open_loop_rollout": lambda: itt.rollout(system, x0, U)}
+        t2 = design_timing(smi, f"B2 neural {label} N={N}", kern,
+                           turns=turns)
+        ws = fused_rollout.mlp_widths(system.params["mlp"])
+        bnd = chain_bounds(system.n_x, system.n_u, N, A10,
+                           model=neural_name(base, ws), integrator="rk4",
+                           extra_floats=mlp_floats(ws))
+        tag = f"neural_{base}_rk4_{'x'.join(map(str, ws[1:-1]))}_n{N}"
+        for k in kern:
+            row(f"{k}_{tag}", src2[k], launches.get(k, 0), b2[label, N],
+                t2[k], cuda_ms(plain[k], 1, 0), bnd[k], None)
+    for (B, N), (err, kern, plain) in b5.items():
+        t5 = design_timing(smi, f"B5 neural ({B}, {N})", kern, turns=3)
+        bnd = batched_bounds(B, N, A10, 2, 1, model=model, integrator="rk4",
+                             extra_floats=extra)
+        counts = counts_m if (B, N) == LEARNED_B5[0] else counts_b
+        for k in kern:
+            row(f"{k}_neural_pendulum_rk4_32x32_b{B}_n{N}",
+                "pallas_batched.py:377", counts.get(k, 0), err[k], t5[k],
+                cuda_ms(plain[k], 1, 0), bnd[k], k)
+    lap(" kernels")
+    print(f"phase 39: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def learned_turn() -> int:
+    """``python3 chip_smoke.py --learned``: build the kernels and run phase
+    39 alone (no launches-per-call column), printing its kernels line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; "
+              "this script runs only on a CUDA GPU", file=sys.stderr)
+        return 1
+    import ilqr_tpu_torch as itt
+    from ilqr_tpu_torch.ops import _build
+
+    smi = nvidia_smi()
+    print(smi)
+    t0 = time.perf_counter()
+    lib = _build.load()
+    print(f"build {time.perf_counter() - t0:.1f} s (nvcc "
+          f"{lib.build_seconds:.1f} s)")
+    neural = [line for line in ptxas_summary(lib.ptxas_log)
+              if "NeuralForm" in line]
+    print(f"{len(neural)} neural-form kernels:")
+    print("\n".join(neural))
+    spilled = [line for line in neural if " 0 bytes spill stores" not in line]
+    if spilled:
+        raise AssertionError("kernels spill registers:\n" + "\n".join(spilled))
+    rows = learned_phases(itt, torch.device("cuda", 0), smi, {})
+    print(json.dumps({"kernels": rows}))
+    return 0
+
+
 # ---- Phase groups beside the main process --------------------------------
 
-# Phases 13-37 depend on nothing that phases 2-12 and 38 compute but phase
-# 1's launches per call, and they spend most of their time on the host
+# Phases 13-37 and 39 depend on nothing that phases 2-12 and 38 compute but
+# phase 1's launches per call, and they spend most of their time on the host
 # (eager host loops, plain versions in child processes), with the card
 # mostly idle.  So after phase 1's build the main process starts one child
 # process a group (``python3 chip_smoke.py --group NAME``; the processes
@@ -6365,10 +6853,10 @@ def batch_parallel_turn() -> int:
 # paths, as the phases did in one process.  The groups are balanced by
 # their phases' seconds on an H100 run in one process (PERF.md, section 5).
 # Kernel times taken beside other groups may hold other processes' time
-# slices; `--turns`, `--batch-options`, `--batch-parallel` and `--solvers`
-# time kernels alone.
+# slices; `--turns`, `--batch-options`, `--batch-parallel`, `--solvers` and
+# `--learned` time kernels alone.
 PHASE_GROUPS = {
-    "batched": "13-22",      # batched_phases, suffix_phases, facade_phase
+    "batched": "13-22, 39",  # batched, suffix, facade and learned phases
     "wide": "23-30, 37",     # driver, constrained, wide, batch_option
     "wrappers": "31-36",     # wide_batched, wrapper, solver phases
 }
@@ -6389,6 +6877,7 @@ def run_group(name: str, itt, dev, smi, launches_per_call) -> list:
         rows += batched_phases(itt, dev, smi, lpc)
         rows += suffix_phases(itt, dev, smi, lpc)
         facade_phase(itt, dev)
+        rows += learned_phases(itt, dev, smi, lpc)
     elif name == "wide":
         driver_phase(itt, dev)
         rows += constrained_phases(itt, dev, smi)
@@ -6600,7 +7089,8 @@ def main() -> int:
               + "; ".join(notes) + "; repeated call bit-identical")
 
     lap("1")
-    # Phases 13-37 run beside phases 2-12 and 38, one child process a group.
+    # Phases 13-37 and 39 run beside phases 2-12 and 38, one child process a
+    # group.
     groups = start_groups(launches_per_call)
     torch.set_num_threads(GROUP_THREADS)
     print(f"phases {', '.join(PHASE_GROUPS.values())}: started in "
@@ -7579,6 +8069,8 @@ if __name__ == "__main__":
         sys.exit(batch_option_turn())
     if sys.argv[1:2] == ["--batch-parallel"]:
         sys.exit(batch_parallel_turn())
+    if sys.argv[1:2] == ["--learned"]:
+        sys.exit(learned_turn())
     if sys.argv[1:2] == ["--sass"]:
         sys.exit(sass_turn())
     if sys.argv[1:2] == ["--turns"]:

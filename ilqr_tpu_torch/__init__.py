@@ -3,7 +3,9 @@
 Counterpart of `ilqr_tpu/__init__.py`.  The JAX package `ilqr_tpu` is the
 reference; this package carries its main path to PyTorch: the models
 (pendulum, double pendulum, cart-pole, planar and 3-D quadrotors, car,
-LTI, spring chain, and the tracking and control-rate wrappers), one-shot
+LTI, spring chain, the tracking and control-rate wrappers, and learned
+dynamics: an MLP residual on any of them, `make_neural_residual` and
+`fit_dynamics`), the collocation oracle (`collocation`), one-shot
 LQR and TVLQR tracking, the integrators, trajectory linearization, the
 sequential and associative Riccati backward passes, the rollouts, the
 parallel-in-time (defect and chunked) rollouts, the iLQR `solve` and the
@@ -51,6 +53,7 @@ from ilqr_tpu_torch.models.linear import (
     make_discrete_lti,
     make_lti,
 )
+from ilqr_tpu_torch.models.neural import fit_dynamics, make_neural_residual
 from ilqr_tpu_torch.models.pendulum import make_pendulum
 from ilqr_tpu_torch.models.quadrotor import make_quadrotor
 from ilqr_tpu_torch.models.quadrotor3d import (
@@ -179,7 +182,8 @@ __all__ = [
     "make_car", "obstacle_constraints", "make_lti", "make_discrete_lti",
     "cont2disc", "make_spring_chain", "make_tracking_system", "augment_x0",
     "strip_clock", "make_rate_penalized_system", "rate_augment_x0",
-    "strip_rate", "lqr_backward", "lqr_solve", "LqrSolution",
+    "strip_rate", "make_neural_residual", "fit_dynamics", "lqr_backward",
+    "lqr_solve", "LqrSolution",
     "tvlqr_gains", "track", "track_solution", "step",
     "TrajectoryExpansion", "linearize_trajectory",
     "linearize_trajectory_batched",

@@ -22,6 +22,7 @@ from ilqr_tpu_torch.models import (
     chain,
     double_pendulum,
     linear,
+    neural,
     pendulum,
     quadrotor,
     quadrotor3d,
@@ -109,6 +110,25 @@ def system_from_numpy(kind, params_np: Mapping[str, np.ndarray],
         stage_cost=stage, terminal_cost=terminal,
         integrator=integrator, newton_iters=newton_iters,
     )
+
+
+def neural_from_numpy(base: System, layers_np) -> System:
+    """A neural residual (`models/neural.py`) over the converted ``base``
+    with the layers of a JAX one: ``layers_np`` is the numpy copy of JAX's
+    ``net.params["mlp"]``, a list of ``{"W": (fan_in, fan_out), "b":
+    (fan_out,)}``.  The layers land on the base's device and dtype; the
+    result's integrator and ``newton_iters`` are the base's, as JAX's
+    `make_neural_residual` takes them."""
+    net = neural.make_neural_residual(
+        base, hidden=[np.shape(layer["b"])[0] for layer in layers_np[:-1]])
+    device, dtype = base.device, base.dtype
+    mlp = [{k: torch.tensor(np.asarray(layer[k]), dtype=dtype, device=device)
+            for k in ("W", "b")} for layer in layers_np]
+    for got, want in zip(mlp, net.params["mlp"]):
+        if got["W"].shape != want["W"].shape:
+            raise ValueError(f"a layer of shape {tuple(got['W'].shape)} where "
+                             f"the base takes {tuple(want['W'].shape)}")
+    return net.replace(params={**net.params, "mlp": mlp})
 
 
 def expansion_from_numpy(exp: Any, device=DEFAULT_DEVICE,

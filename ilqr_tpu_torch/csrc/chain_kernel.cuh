@@ -4,9 +4,10 @@
 // (the pendulum and the double pendulum, and the library's entries),
 // chain_models.cu (the cart-pole, the quadrotors and the car under the
 // explicit rules), implicit_models.cu (their implicit rules), lti_rollout.cu
-// (the LTI systems), tracking_*.cu and rate_*.cu (the wrappers over those)
-// and spring_chain.cu.  The design is described in chain_rollout.cu; the
-// systems are the forms of forms.cuh.
+// (the LTI systems), tracking_*.cu and rate_*.cu (the wrappers over those),
+// spring_chain.cu and neural_*.cu (the neural residual over those bases).
+// The design is described in chain_rollout.cu; the systems are the forms
+// of forms.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,8 +35,8 @@ constexpr int kSmemBudget = 200 * 1024;
 static_assert(kChunk % 4 == 0, "a chunk keeps each run's 16-byte phase");
 
 // Model ids of the entries (ops/fused_rollout.py): the register models
-// 0-6 and LtiRegs, the spring chain, and the wrappers, whose id is their
-// offset plus the base's.
+// 0-6 and LtiRegs, the spring chain, and the wrappers and the neural
+// residual, whose id is their offset plus the base's.
 enum ModelId {
   kPendulum = 0,
   kDoublePendulum = 1,
@@ -48,6 +49,7 @@ enum ModelId {
   kSpringChain = 8,
   kTracking = 16,
   kRate = 32,
+  kNeural = 64,
 };
 
 // Steps per ring stage at (NX, NU): kChunk, or a quarter of it (at least 4)
@@ -484,6 +486,11 @@ int dispatch_rate_lti(int mode, int integrator, int n_x, int n_u,
 // spring_chain.cu: kSpringChain.
 int dispatch_spring_chain(int mode, int integrator, int n_x, int n_u,
                           const ChainArgs& r);
+// neural_models.cu, neural_lti.cu: kNeural + the base's id.
+int dispatch_neural_models(int mode, int base, int integrator, int n_x,
+                           int n_u, const ChainArgs& r);
+int dispatch_neural_lti(int mode, int integrator, int n_x, int n_u,
+                        const ChainArgs& r);
 
 // The three modes of a dispatch template D<MODE>(args...).
 #define ILQR_CHAIN_MODES(D, mode, ...)                                   \

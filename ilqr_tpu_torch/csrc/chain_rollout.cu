@@ -12,9 +12,10 @@
 // (solver.py:389-395).  The systems are the forms of forms.cuh: the
 // register models of models.cuh (instantiated here for the pendulum and the
 // double pendulum, the rest in the translation units that `dispatch`
-// names), the LTI systems, the tracking and rate wrappers and the spring
-// chain; JAX's kernels trace any system's Python, so each system the
-// port's kernels take has a device form.
+// names), the LTI systems, the tracking and rate wrappers, the spring
+// chain and the neural residual (an MLP on a register model's dynamics);
+// JAX's kernels trace any system's Python, so each system the port's
+// kernels take has a device form.
 //
 // What bounds it on an H100: the latency of one dependent chain.  The
 // recursion
@@ -86,8 +87,9 @@ using namespace ilqr::chain;
 // n_u 1|2), 2 = cart-pole (4, 1), 3 = planar quadrotor (6, 2), 4 = 3-D
 // quadrotor (12, 4), 5 = its rotor-lag variant (16, 4), 6 = car (4, 2),
 // 7 = LTI (lti_rollout.cu), 8 = the spring chain (32, 16); 16 + b and
-// 32 + b the tracking and rate wrappers over model b.  The translation
-// units of the other systems answer for their shapes.
+// 32 + b the tracking and rate wrappers over model b, 64 + b the neural
+// residual over it.  The translation units of the other systems answer for
+// their shapes.
 template <int MODE>
 int dispatch(int model, int integrator, int n_x, int n_u, const ChainArgs& r) {
   if (model == kPendulum && n_x == 2 && n_u == 1)
@@ -113,6 +115,11 @@ int dispatch(int model, int integrator, int n_x, int n_u, const ChainArgs& r) {
     return dispatch_rate_lti(MODE, integrator, n_x, n_u, r);
   if (model >= kRate && model <= kRate + kCar)
     return dispatch_rate_models(MODE, model - kRate, integrator, n_x, n_u, r);
+  if (model == kNeural + kLti)
+    return dispatch_neural_lti(MODE, integrator, n_x, n_u, r);
+  if (model >= kNeural && model <= kNeural + kCar)
+    return dispatch_neural_models(MODE, model - kNeural, integrator, n_x,
+                                  n_u, r);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

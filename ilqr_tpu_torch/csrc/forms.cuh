@@ -13,7 +13,11 @@
 //       [x; u_prev] under the discrete map [step(base, x, u); u], the base's
 //       costs plus 0.5 (u - u_prev)' S (u - u_prev) dt;
 //   ChainForm<M, NU, INTEG>              <-> models/chain.py: M masses,
-//       their diagonal costs.
+//       their diagonal costs;
+//   NeuralForm<Base, NX, NU, INTEG>      <-> models/neural.py: a register
+//       model plus an MLP residual with tanh hidden layers, under the
+//       explicit rules ('discrete' too over LTI), the base's quadratic
+//       costs.
 //
 // A form provides
 //   kForm = true; kSmem: floats it keeps in shared memory; kWork: floats of
@@ -354,6 +358,154 @@ struct ChainForm {
       v += x[M + i] * x[M + i];
     }
     return 0.5f * (wqf * dq + wvf * v);
+  }
+};
+
+// The caps of NeuralForm's MLP (ops/fused_rollout.py, NEURAL_MAX_HIDDEN
+// and NEURAL_MAX_WIDTH; the inputs are n_x + n_u <= 20 by the register
+// models).
+constexpr int kNeuralMaxHidden = 4;
+constexpr int kNeuralMaxWidth = 64;
+
+// A register model Base plus an MLP residual on its continuous dynamics,
+//   xdot = f_base(x, u) + W_L' tanh(... tanh(W_0' [x; u] + b_0) ...) + b_L,
+// under INTEG (explicit, or 'discrete' where the map is f itself), the
+// base's quadratic costs.  Buffer: the base's [dt, x_target, Q, R, Q_f,
+// model block], then [L (layers, the output's included), widths w_0 =
+// NX + NU, w_1 ... w_L = NX, then W_l (w_l x w_{l+1}, row-major) and b_l
+// (w_{l+1}) of each layer], the counts as floats.  The header and the
+// weights sit in the block's shared memory (kSmem covers the caps: at most
+// kNeuralMaxHidden hidden layers of at most kNeuralMaxWidth units), read by
+// every lane at one address; a lane keeps the hidden activations in its
+// shared work, two buffers of kNeuralMaxWidth entries kWorkStride apart
+// (at width 64 they would spill from registers).  Each neuron sums its
+// inputs in order, then adds its bias; tanhf is the accurate one.
+template <class Base, int NX, int NU, int INTEG>
+struct NeuralForm {
+  using B = QuadraticForm<Base, NX, NU, INTEG>;
+  static constexpr bool kForm = true;
+  static constexpr int NI = NX + NU;
+  static constexpr int H = kNeuralMaxHidden;
+  static constexpr int W = kNeuralMaxWidth;
+  static constexpr int kMlp = B::L::kModel + Base::kParams;
+  static constexpr int kHdr = H + 3;  // L, w_0 ... w_{H+1}
+  static constexpr int kWeights =
+      (NI + 1) * W + (H - 1) * (W + 1) * W + (W + 1) * NX;
+  static constexpr int kSmem = B::kSmem + kHdr + kWeights;
+  static constexpr int kWork = 2 * W;
+  static_assert(INTEG != kBackwardEuler && INTEG != kTrapezoidal,
+                "the neural form runs the explicit rules and 'discrete'");
+  static_assert(NI <= 20, "the inputs of the neural form's MLP");
+  static bool params_ok(int n) {
+    return n >= kMlp + 3 + (NI + 1) * NX && n <= kMlp + kHdr + kWeights;
+  }
+
+  B base;
+  int n_layers;
+  const float* hdr;  // the shared copy of the header, then the weights
+
+  // The header's layer count and hidden widths, clamped to the caps (the
+  // host refuses larger MLPs; a clamped read stays inside kSmem).
+  static __device__ __forceinline__ int layers_of(float l) {
+    return min(max(static_cast<int>(l), 1), H + 1);
+  }
+  static __device__ __forceinline__ int width_of(float w) {
+    return min(max(static_cast<int>(w), 1), W);
+  }
+  static __device__ __forceinline__ void fill(const float* p, float* sm) {
+    B::fill(p, sm);
+    const float* m = p + kMlp;
+    const int L = layers_of(m[0]);
+    int n = 0, fi = NI;  // the weights' floats
+    for (int l = 0; l < L; ++l) {
+      const int fo = l == L - 1 ? NX : width_of(m[2 + l]);
+      n += (fi + 1) * fo;
+      fi = fo;
+    }
+    float* s = sm + B::kSmem;
+    for (int i = threadIdx.x; i < L + 2; i += blockDim.x) s[i] = m[i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      s[kHdr + i] = m[L + 2 + i];
+  }
+  __device__ __forceinline__ void load(const float* p, const float* sm) {
+    base.load(p, sm);
+    hdr = sm + B::kSmem;
+    n_layers = layers_of(hdr[0]);
+  }
+  __device__ __forceinline__ int width(int l) const {
+    return l == 0 ? NI : l == n_layers ? NX : width_of(hdr[1 + l]);
+  }
+  // out = MLP([x; u]); work: the lane's two activation buffers.
+  __device__ __forceinline__ void mlp(const float* x, const float* u,
+                                      float* out, float* work) const {
+    const float* w = hdr + kHdr;
+    float z[NI];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) z[i] = x[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) z[NX + i] = u[i];
+    const int L = n_layers;
+    int off = 0;
+#pragma unroll 1
+    for (int l = 0; l < L - 1; ++l) {
+      const int fi = width(l), fo = width(l + 1);
+      const float* src = work + ((l + 1) & 1) * W * kWorkStride;
+      float* dst = work + (l & 1) * W * kWorkStride;
+#pragma unroll 1
+      for (int j = 0; j < fo; ++j) {
+        float a = 0.0f;
+        if (l == 0) {
+#pragma unroll
+          for (int i = 0; i < NI; ++i) a += z[i] * w[off + i * fo + j];
+        } else {
+#pragma unroll 4
+          for (int i = 0; i < fi; ++i)
+            a += src[i * kWorkStride] * w[off + i * fo + j];
+        }
+        dst[j * kWorkStride] = tanhf(a + w[off + fi * fo + j]);
+      }
+      off += (fi + 1) * fo;
+    }
+    float o[NX];
+#pragma unroll
+    for (int k = 0; k < NX; ++k) o[k] = 0.0f;
+    const int fi = width(L - 1);
+    if (L == 1) {
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int k = 0; k < NX; ++k) o[k] += z[i] * w[i * NX + k];
+    } else {
+      const float* src = work + (L & 1) * W * kWorkStride;
+#pragma unroll 1
+      for (int i = 0; i < fi; ++i) {
+        const float a = src[i * kWorkStride];
+#pragma unroll
+        for (int k = 0; k < NX; ++k) o[k] += a * w[off + i * NX + k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NX; ++k) out[k] = o[k] + w[off + fi * NX + k];
+  }
+  __device__ __forceinline__ void step(const float* x, const float* u,
+                                       float* xn, int newton_iters,
+                                       float* work) const {
+    integrate<NX, INTEG>(
+        [&](const float* xs, float* xdot) {
+          float r[NX];
+          base.model.f(xs, u, xdot);
+          mlp(xs, u, r, work);
+#pragma unroll
+          for (int i = 0; i < NX; ++i) xdot[i] = xdot[i] + r[i];
+        },
+        base.cost.dt, x, xn, newton_iters, nullptr);
+  }
+  __device__ __forceinline__ float stage(const float* x,
+                                         const float* u) const {
+    return base.stage(x, u);
+  }
+  __device__ __forceinline__ float terminal(const float* x) const {
+    return base.terminal(x);
   }
 };
 

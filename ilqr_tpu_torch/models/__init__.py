@@ -18,6 +18,9 @@ from ilqr_tpu_torch.models.linear import (
 from ilqr_tpu_torch.models.tracking import (
     make_tracking_system, augment_x0, strip_clock,
 )
+from ilqr_tpu_torch.models.neural import (
+    fit_dynamics, make_neural_residual, prediction_loss,
+)
 from ilqr_tpu_torch.models.rate import (
     make_rate_penalized_system, rate_augment_x0, strip_rate,
 )

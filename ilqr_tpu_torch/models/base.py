@@ -9,7 +9,8 @@ dataclass holding a dict of parameter tensors and three pure functions
 
 Every function here is written over the trailing axis, so it accepts one
 state (n_x,) or a batch (..., n_x) alike; `torch.func` derives the rest
-(`ilqr_tpu_torch.ops`).  Nothing is trained, so there is no `nn.Module`.
+(`ilqr_tpu_torch.ops`).  There is no `nn.Module`: the learned residual
+(`models/neural.py`) trains its parameter tensors with `torch.optim`.
 
 `full_f32_matmuls` is the counterpart of `f32_matmuls`: on the GPU it keeps
 float32 matrix products and convolutions out of TF32, under which long
@@ -74,8 +75,9 @@ class System:
     """A controlled dynamical system with costs.
 
     ``params`` maps names to tensors (or, for a wrapped system, to the
-    base's dict) that all live on one device with one floating dtype; the
-    other fields are static metadata.
+    base's dict; for a neural residual, to its list of layers) that all
+    live on one device with one floating dtype; the other fields are
+    static metadata.
     """
 
     params: Dict[str, torch.Tensor]
@@ -90,14 +92,16 @@ class System:
     newton_iters: int = 10
 
     def tensors(self):
-        """The parameter tensors, those of nested dicts (a wrapped system's
-        base) included."""
+        """The parameter tensors, those of nested dicts and lists included:
+        a wrapped system's base, and a neural residual's layers, which are
+        a list of ``{W, b}`` dicts as JAX's MLP is (`models/neural.py`)."""
         stack = [self.params]
         while stack:
-            for v in stack.pop().values():
-                if isinstance(v, dict):
+            node = stack.pop()
+            for v in node.values() if isinstance(node, dict) else node:
+                if isinstance(v, (dict, list, tuple)):
                     stack.append(v)
-                else:
+                elif v is not None:
                     yield v
 
     @property

@@ -37,11 +37,16 @@ device form (`csrc/models.cuh`, `csrc/forms.cuh`), picked by its functions
   (16, 4)), the base under the explicit three ('discrete' too for LTI
   bases);
 * the spring chain (`models/chain.py`) at 16 masses and 16 controls
-  (n_x = 32) under the explicit three.
+  (n_x = 32) under the explicit three;
+* the neural residual (`models/neural.py`) over each register model and
+  LTI shape above under the quadratic costs, its MLP of at most
+  `NEURAL_MAX_HIDDEN` tanh hidden layers of at most `NEURAL_MAX_WIDTH`
+  units, under the explicit three ('discrete' too over LTI bases).
 
-Anything else (physical models under 'discrete', wrappers over implicit
-rules or over other wrappers, other costs, shapes or integrators) raises
-`NotImplementedError` on CUDA, naming ROADMAP item B2x.
+Anything else (physical models under 'discrete', wrappers or neural
+residuals over implicit rules, over other wrappers or residuals, wider
+MLPs, other costs, shapes or integrators) raises `NotImplementedError` on
+CUDA, naming ROADMAP item B2x.
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ from ilqr_tpu_torch.models import (
     chain,
     double_pendulum,
     linear,
+    neural,
     pendulum,
     quadrotor,
     quadrotor3d,
@@ -98,11 +104,16 @@ LTI = 7
 SPRING_CHAIN = 8
 TRACKING = 16
 RATE = 32
+NEURAL = 64
 # The (n_x, n_u) of the LTI instantiations, and the spring chain's.
 LTI_SHAPES = ((2, 1), (4, 1), (4, 2), (6, 2), (12, 4), (16, 4))
 CHAIN_SHAPE = (32, 16)
 # The largest state a wrapper's instantiation holds.
 MAX_WRAPPED = 16
+# The caps of the neural residual's MLP in its device form (csrc/forms.cuh,
+# kNeuralMaxHidden, kNeuralMaxWidth): hidden tanh layers and their units.
+NEURAL_MAX_HIDDEN = 4
+NEURAL_MAX_WIDTH = 64
 # integrator -> id of csrc/models.cuh's Integrator.
 _INTEGRATORS = {"euler": 0, "midpoint": 1, "rk4": 2, "backward_euler": 3,
                 "trapezoidal": 4, "discrete": 5}
@@ -154,9 +165,10 @@ def _quadratic(system: System) -> bool:
 
 
 def _wrapper(system: System):
-    """('tracking' | 'rate', base) of a wrapped system, else None: the
-    tracking wrapper's base is its f_cont's bound function, the rate
-    wrapper's the System bound into its functions."""
+    """('tracking' | 'rate' | 'neural', base) of a wrapped system, else
+    None: the tracking wrapper's base is its f_cont's bound function, the
+    rate wrapper's and the neural residual's the System bound into their
+    functions."""
     f = system.f_cont
     if not isinstance(f, functools.partial):
         return None
@@ -164,7 +176,40 @@ def _wrapper(system: System):
         return "tracking", f.args[0]
     if f.func is rate._f_disc:
         return "rate", f.args[0]
+    if f.func is neural.f_cont:
+        return "neural", f.args[0]
     return None
+
+
+def mlp_widths(layers) -> list:
+    """[w_0, w_1, ..., w_L] of a neural residual's layers: its inputs, the
+    hidden widths, its outputs."""
+    return [layers[0]["W"].shape[0]] + [layer["W"].shape[1]
+                                        for layer in layers]
+
+
+def _neural_model(system: System, base: System) -> int:
+    """The model id of a neural residual's device form, after checking
+    that an instantiation takes it."""
+    if base.f_cont not in _MODELS:
+        _refuse("a neural residual over a wrapper, another neural residual "
+                "or a model without a register form")
+    costs = (system.stage_cost, system.terminal_cost)
+    if not (all(isinstance(c, functools.partial) for c in costs)
+            and costs[0].func is neural.stage_cost
+            and costs[1].func is neural.terminal_cost
+            and _quadratic(base)):
+        _refuse("a neural residual with other costs than its base's "
+                "quadratic ones")
+    if system.integrator not in _EXPLICIT + ("discrete",):
+        _refuse(f"a neural residual under {system.integrator!r}")
+    hidden = mlp_widths(system.params["mlp"])[1:-1]
+    if (len(hidden) > NEURAL_MAX_HIDDEN
+            or any(w > NEURAL_MAX_WIDTH for w in hidden)):
+        _refuse(f"a neural residual with hidden widths {hidden} (at most "
+                f"{NEURAL_MAX_HIDDEN} layers of at most {NEURAL_MAX_WIDTH})")
+    return NEURAL + _register_model(base.f_cont, system.n_x, system.n_u,
+                                    system.integrator)
 
 
 def device_model(system: System) -> Tuple[int, int]:
@@ -173,6 +218,9 @@ def device_model(system: System) -> Tuple[int, int]:
     'discrete').  Raises `NotImplementedError` for what no instantiation
     takes."""
     wrapped = _wrapper(system)
+    if wrapped is not None and wrapped[0] == "neural":
+        return (_neural_model(system, wrapped[1]),
+                _INTEGRATORS[system.integrator])
     if wrapped is not None and wrapped[0] == "tracking":
         if (system.stage_cost is not tracking.stage_cost
                 or system.terminal_cost is not tracking.terminal_cost):
@@ -229,10 +277,23 @@ def params_buffer(system: System) -> torch.Tensor:
     * the tracking wrapper: [dt, rows of X_ref, rows of U_ref, Q, R, Q_f,
       the base's model block, X_ref, U_ref];
     * the rate wrapper: the base's buffer, then S (n_u²);
-    * the spring chain: [dt, k, c, s, wq, wv, wu, wqf, wvf, q_target, S].
+    * the spring chain: [dt, k, c, s, wq, wv, wu, wqf, wvf, q_target, S];
+    * the neural residual: the base's buffer, then [L (the layer count,
+      the output layer's included), the widths w_0 = n_x + n_u, w_1, ...,
+      w_L = n_x, then W_0 (w_0 × w_1), b_0 (w_1), W_1, b_1, ... of each
+      layer in turn], W as JAX's layers hold it (z @ W + b), the counts as
+      floats.
     """
     model = device_model(system)[0]
     p = system.params
+    if model >= NEURAL:
+        base = _wrapper(system)[1]
+        layers = p["mlp"]
+        head = torch.tensor([len(layers)] + mlp_widths(layers),
+                            dtype=torch.float32, device=p["base"]["dt"].device)
+        return torch.cat([
+            _quadratic_buffer(p["base"], base.f_cont), head,
+            _flat(*(t for layer in layers for t in (layer["W"], layer["b"])))])
     if model >= RATE:
         base = _wrapper(system)[1]
         return torch.cat([_quadratic_buffer(p["base"], base.f_cont),

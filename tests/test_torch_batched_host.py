@@ -46,7 +46,7 @@ torch.set_num_threads(1)
 SOURCES = ("batched_riccati.cu", "chain_rollout.cu", "chain_models.cu",
            "implicit_models.cu", "lti_rollout.cu", "tracking_models.cu",
            "tracking_lti.cu", "rate_models.cu", "rate_lti.cu",
-           "spring_chain.cu")
+           "spring_chain.cu", "neural_models.cu", "neural_lti.cu")
 # Cuts of the sources and of chain_kernel.cuh, the chain kernels' header.
 SMALL = {
     "batched_riccati.cu": [("kChunk = 16;", "kChunk = 4;")],

@@ -35,8 +35,9 @@ def test_driver_inventory():
     # drivers of the other model families (test_torch_examples_models.py),
     # the three of the solvers beyond iLQR
     # (test_torch_examples_solvers.py), the batched surface's
-    # (test_torch_batch_options.py) and the long-horizon and iLQG drivers
-    # (test_torch_examples_parallel.py).
+    # (test_torch_batch_options.py), the long-horizon and iLQG drivers
+    # (test_torch_examples_parallel.py) and the learned-dynamics driver
+    # (test_torch_examples_learned.py).
     assert DRIVERS == sorted([
         "pendulum_open_loop", "double_pendulum_open_loop",
         "ua_double_pendulum_open_loop", "pendulum_mpc",
@@ -44,7 +45,7 @@ def test_driver_inventory():
         "quadrotor3d_flight", "quadrotor_dash", "car_obstacles",
         "linear_lqr", "tvlqr_tracking", "reference_tracking_mpc",
         "inverse_optimal_control", "mppi_pendulum", "parallel_estimation",
-        "batched_mpc", "long_horizon", "ilqg_pendulum"])
+        "batched_mpc", "long_horizon", "ilqg_pendulum", "neural_sysid"])
 
 
 @pytest.fixture
